@@ -8,22 +8,34 @@ Phases (any failure exits non-zero before the final line):
    every CUDA kernel of the main path from csrc/ (one nvcc per source,
    all started at once).
 2. Main path: Engine() on the card loads TPC-H SF1 lineitem
-   (6,001,215 rows, padded on the device to 8,388,608) through
-   CREATE TABLE / bulk ingest / ANALYZE, then runs Q1 and Q6 through
-   Engine.execute with every kernel launch count set to 0 just before
-   and read just after. Q1 and Q6 are held to the numpy oracles at
-   tests/test_tpch.py's tolerances (Q6 rel 1e-9, Q1 rel 1e-6), and Q1
-   must have launched the large-G kernel.
+   (6,001,215 rows, padded on the device to 8,388,608) and part
+   (200,000 rows) through CREATE TABLE / bulk ingest / ANALYZE, then
+   runs through Engine.execute, each with every kernel launch count
+   set to 0 just before it and read just after: Q1 and Q6 (default
+   `auto`), Q14 (lineitem x part, a direct-addressed hash join), and
+   under SET pallas_groupagg = on the FLOAT8 variants Q1F and Q6F. Q1
+   and Q6 are held to the numpy oracles at tests/test_tpch.py's
+   tolerances (Q6 rel 1e-9, Q1 rel 1e-6), Q14 to ref_q14 at rel 1e-9,
+   Q1F and Q6F to the float64 oracles with counts exact and sums and
+   averages within rel 1e-5 (the small-G kernel adds in f32). Q1 must
+   launch the large-G kernel once, Q1F and Q6F the small-G kernel once
+   each, and Q1 under `on` must equal Q1 under `auto` bit for bit.
 3. Q1 under SET pallas_groupagg = off must give the same DECIMAL sums
-   and counts as through the kernel; medians of 5 warm runs of Q1 and
-   Q6 are timed.
-4. Each kernel against its plain PyTorch version on the card: at the
-   exact inputs Q1 handed the kernel in phase 2, and at G = 4096 with
+   and counts as through the kernel; medians of 5 warm runs of Q1, Q6,
+   Q1 `off`, Q14, Q1F and Q6F are timed.
+4. Each kernel against its plain PyTorch version on the card. Large-G:
+   at the exact inputs Q1 handed it in phase 2, and at G = 4096 with
    MIN/MAX/REPMIN (shared-memory accumulators), G = 200,000 (global
-   atomics) and an all-masked input with out-of-range group ids.
-   i32 rows, MIN/MAX rows and REPMIN must match exactly; f32 sums
-   within rtol 1e-5 (atomic order). Kernel, plain and library-call
-   times use CUDA events after warm-up.
+   atomics) and an all-masked input with out-of-range group ids; i32
+   rows, MIN/MAX rows and REPMIN must match exactly, f32 sums within
+   rtol 1e-5 (atomic order). Small-G: at the exact inputs Q1F handed
+   it, G = 64 with all four ops, G = 1 at n = 2^23, an all-masked input
+   with out-of-range ids, and NaN values in some groups; counts and
+   MIN/MAX exact (NaN where NaN), f32 sums within rtol 1e-5. Kernel,
+   plain and library-call times use CUDA events after warm-up.
+5. The join's hash-table path: ops.join.hash_join on Q14's scanned
+   batches with direct=None must give the direct path's selection and
+   payload; prints its build and probe round counts and its time.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 last line {"ok": true, "device": {...}}.
 """
@@ -105,7 +117,7 @@ def compare_kernel(tgl, args, label: str) -> dict:
     n_f = sum(not b for b in mat_int)
     if not np.array_equal(ki, pi):
         raise AssertionError(f"{label}: i32 rows differ")
-    if not np.array_equal(kf[n_f:], pf[n_f:]):
+    if not np.array_equal(kf[n_f:], pf[n_f:], equal_nan=True):
         raise AssertionError(f"{label}: MIN/MAX rows differ")
     err = np.abs(kf[:n_f].astype(np.float64) - pf[:n_f])
     rel = err / np.maximum(np.abs(pf[:n_f].astype(np.float64)), 1e-30)
@@ -147,6 +159,93 @@ def synthetic(n, G, n_f, n_i, mm_ops, seed, gid_lo=0, gid_hi=None,
             True)
 
 
+def check_float(label, got, want, rel=1e-5) -> float:
+    """Rows of Q1F/Q6F against the float64 oracle: strings and counts
+    exact, floats within `rel`. Returns the largest relative error."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} rows, oracle {len(want)}")
+    worst = 0.0
+    for g_row, w_row in zip(got, want):
+        for g, w in zip(g_row, w_row):
+            if not isinstance(w, float):   # group keys and counts
+                if g != w:
+                    raise AssertionError(f"{label} {g_row} != {w_row}")
+                continue
+            err = abs(g - w) / max(abs(w), 1e-300)
+            worst = max(worst, err)
+            if err > rel:
+                raise AssertionError(f"{label} {g_row} != oracle {w_row} "
+                                     f"(rel {err})")
+    return worst
+
+
+def compare_small(tg, args, label: str) -> dict:
+    """Small-G kernel vs plain version on the same card inputs; raises
+    on a mismatch. Returns the largest f32 sum errors."""
+    import numpy as np
+    import torch
+    gid, sel, vals, masks, G, ops = args
+    ka, kc = tg.dense_group_aggregate(*args)
+    torch.cuda.synchronize()
+    pa, pc = tg.dense_group_aggregate_plain(*args)
+    ka, kc, pa, pc = (t.cpu().numpy() for t in (ka, kc, pa, pc))
+    if not np.array_equal(kc, pc):
+        raise AssertionError(f"{label}: counts differ")
+    sums = [a for a, op in enumerate(ops) if op == tg.SUM]
+    exact = [a for a in range(len(ops)) if a not in sums]
+    if not np.array_equal(ka[:, exact], pa[:, exact], equal_nan=True):
+        raise AssertionError(f"{label}: MIN/MAX columns differ")
+    k64, p64 = ka[:, sums].astype(np.float64), pa[:, sums].astype(np.float64)
+    if not np.array_equal(np.isnan(k64), np.isnan(p64)):
+        raise AssertionError(f"{label}: NaN sums differ")
+    fin = ~np.isnan(p64)
+    err = np.abs(k64 - p64)[fin]
+    rel = err / np.maximum(np.abs(p64[fin]), 1e-30)
+    if not np.all(err <= 1e-5 * np.abs(p64[fin])):
+        raise AssertionError(f"{label}: f32 sums beyond rtol 1e-5: "
+                             f"max rel {float(rel.max())}")
+    out = {"max_abs_err": float(err.max()) if err.size else 0.0,
+           "max_rel_err": float(rel.max()) if rel.size else 0.0,
+           "nan_cells": int(np.isnan(ka).sum())}
+    print(f"small kernel vs plain [{label}]: n={gid.shape[0]} G={G} "
+          f"A={len(ops)} ok {out}", flush=True)
+    return out
+
+
+def small_synthetic(n, G, ops, seed, gid_lo=0, gid_hi=None, sel_frac=0.8,
+                    nan_groups=()):
+    """Seeded small-G kernel inputs on the card: float64 value columns
+    (as the engine hands them over) and bool masks. Values are
+    non-negative, so no cancellation inflates the f32 sums' relative
+    error."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    hi = G if gid_hi is None else gid_hi
+    gid = torch.randint(gid_lo, hi, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    sel = torch.rand(n, generator=g, device=dev) < sel_frac
+    vals, masks = [], []
+    for _ in ops:
+        v = torch.rand(n, generator=g, device=dev,
+                       dtype=torch.float64) * 1000
+        if nan_groups:
+            hit = torch.isin(gid, torch.tensor(nan_groups, device=dev)) \
+                & (torch.rand(n, generator=g, device=dev) < 1e-3)
+            v = torch.where(hit, float("nan"), v)
+        vals.append(v)
+        masks.append(torch.rand(n, generator=g, device=dev) < 0.9)
+    return gid, sel, tuple(vals), tuple(masks), G, tuple(ops)
+
+
+def _distinct_bytes(cols) -> int:
+    """Bytes per row of the distinct columns among `cols` (by storage)."""
+    seen = {}
+    for c in cols:
+        seen[c.data_ptr()] = c.element_size()
+    return sum(seen.values())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -154,9 +253,12 @@ def main() -> int:
         return 1
     import numpy as np
 
+    from cockroach_tpu_torch.exec import compile as C
     from cockroach_tpu_torch.exec.engine import Engine
     from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops import hashtable, join
     from cockroach_tpu_torch.ops.cuda import build
+    from cockroach_tpu_torch.ops.cuda import groupagg as tg
     from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
 
     smi = _smi()
@@ -166,7 +268,7 @@ def main() -> int:
 
     # -- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
-    logs = build.compile_all(["groupagg_large"])
+    logs = build.compile_all(["groupagg_large", "groupagg"])
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for src, log in logs.items():
         for line in log.splitlines():
@@ -176,67 +278,108 @@ def main() -> int:
     # -- 2. main path ---------------------------------------------------
     t0 = time.perf_counter()
     eng = Engine()
-    tpch.load(eng, sf=SF, tables=("lineitem",), encoded=True)
+    tpch.load(eng, sf=SF, tables=("lineitem", "part"), encoded=True)
     n_rows = eng.store.table("lineitem").row_count
     li = tpch.gen_lineitem(SF, encoded=True)
     li["l_returnflag"] = np.asarray(tpch.RF_VALUES)[li["l_returnflag"]]
     li["l_linestatus"] = np.asarray(tpch.LS_VALUES)[li["l_linestatus"]]
+    part = tpch.gen_part(SF)
     want_q1, want_q6 = tpch.ref_q1(li), tpch.ref_q6(li)
+    want_q14 = tpch.ref_q14(li, part)
     print(f"load SF{SF}: {n_rows} lineitem rows, "
+          f"{eng.store.table('part').row_count} part rows, "
           f"{time.perf_counter() - t0:.1f} s (host generate + ingest + "
           "ANALYZE + oracle)", flush=True)
+    s_on = eng.session()
+    eng.execute("SET pallas_groupagg = on", s_on)
 
     captured = {}
-    recorded = tgl.large_group_aggregate
+    recorded = (tgl.large_group_aggregate, tg.dense_group_aggregate,
+                C.hash_join)
 
-    def recording(*args, **kw):
-        captured.setdefault("q1", (args, kw))
-        return recorded(*args, **kw)
+    def recorder(key, fn):
+        def recording(*args, **kw):
+            captured.setdefault(key, (args, kw))
+            return fn(*args, **kw)
+        return recording
 
-    tgl.large_group_aggregate = recording
+    main_path = [("q1", tpch.Q1, None), ("q6", tpch.Q6, None),
+                 ("q14", tpch.Q14, None), ("q1f", tpch.Q1F, s_on),
+                 ("q6f", tpch.Q6F, s_on)]
+    tgl.large_group_aggregate = recorder("q1", recorded[0])
+    C.hash_join = recorder("q14", recorded[2])
+    rows, per_query = {}, {}
+    launches = {"groupagg_large": 0, "groupagg": 0}
     try:
-        tgl.LAUNCHES = 0
-        q1 = eng.execute(tpch.Q1).rows
-        q1_launches = tgl.LAUNCHES
-        q6 = eng.execute(tpch.Q6).rows
-        torch.cuda.synchronize()
-        launches = {"groupagg_large": tgl.LAUNCHES}
+        for q, sql, sess in main_path:
+            tg.dense_group_aggregate = recorder(q, recorded[1])
+            tgl.LAUNCHES = tg.LAUNCHES = 0
+            rows[q] = eng.execute(sql, sess).rows
+            torch.cuda.synchronize()
+            per_query[q] = {"groupagg_large": tgl.LAUNCHES,
+                            "groupagg": tg.LAUNCHES}
+            for k, v in per_query[q].items():
+                launches[k] += v
     finally:
-        tgl.large_group_aggregate = recorded
-    print(f"main path launches: {launches} (Q1 alone: {q1_launches})",
+        tgl.large_group_aggregate, tg.dense_group_aggregate, \
+            C.hash_join = recorded
+    print(f"main path launches: {launches} (per query: {per_query})",
           flush=True)
-    if q1_launches < 1 or launches["groupagg_large"] < 1:
-        raise AssertionError("Q1 did not launch the large-G kernel")
-    check_q1(q1, want_q1)
-    if not _close(q6[0][0], want_q6, 1e-9):
-        raise AssertionError(f"Q6 {q6[0][0]} != oracle {want_q6}")
-    print(f"Q1 ok ({len(q1)} groups), Q6 ok ({q6[0][0]})", flush=True)
+    if per_query["q1"]["groupagg_large"] != 1:
+        raise AssertionError("Q1 did not launch the large-G kernel once")
+    for q in ("q1f", "q6f"):
+        if per_query[q] != {"groupagg_large": 0, "groupagg": 1}:
+            raise AssertionError(f"{q} did not launch the small-G kernel "
+                                 f"once: {per_query[q]}")
+    check_q1(rows["q1"], want_q1)
+    if not _close(rows["q6"][0][0], want_q6, 1e-9):
+        raise AssertionError(f"Q6 {rows['q6'][0][0]} != oracle {want_q6}")
+    if not _close(rows["q14"][0][0], want_q14, 1e-9):
+        raise AssertionError(f"Q14 {rows['q14'][0][0]} != oracle "
+                             f"{want_q14}")
+    jargs, jkw = captured["q14"]
+    if not jkw.get("direct") or jkw["direct"][0] == "packed":
+        raise AssertionError(f"Q14 did not direct-address its join: "
+                             f"{jkw.get('direct')}")
+    q1f_err = check_float("Q1F", rows["q1f"], want_q1)
+    q6f_err = check_float("Q6F", rows["q6f"], [(want_q6,)])
+    q1_on = eng.execute(tpch.Q1, s_on).rows
+    if q1_on != rows["q1"]:
+        raise AssertionError(f"Q1 under on {q1_on} != auto {rows['q1']}")
+    print(f"Q1 ok ({len(rows['q1'])} groups), Q6 ok ({rows['q6'][0][0]}), "
+          f"Q14 ok ({rows['q14'][0][0]}, direct {jkw['direct']}), "
+          f"Q1F ok (max rel err {q1f_err}), Q6F ok ({rows['q6f'][0][0]}, "
+          f"rel err {q6f_err}), Q1 on == auto", flush=True)
 
     # -- 3. off path, end-to-end times ------------------------------------
     s_off = eng.session()
     eng.execute("SET pallas_groupagg = off", s_off)
     q1_off = eng.execute(tpch.Q1, s_off).rows
-    for a, o in zip(q1, q1_off):
+    for a, o in zip(rows["q1"], q1_off):
         if tuple(a[:6]) != tuple(o[:6]) or a[9] != o[9]:
             raise AssertionError(f"Q1 off {o} != kernel path {a}")
     print("Q1 off: DECIMAL sums and counts equal the kernel path",
           flush=True)
     torch.cuda.reset_peak_memory_stats()
-    before = tgl.LAUNCHES
+    before = (tgl.LAUNCHES, tg.LAUNCHES)
     e2e = {
         "q1_ms": _median_ms(lambda: eng.execute(tpch.Q1)),
         "q6_ms": _median_ms(lambda: eng.execute(tpch.Q6)),
         "q1_off_ms": _median_ms(lambda: eng.execute(tpch.Q1, s_off)),
+        "q14_ms": _median_ms(lambda: eng.execute(tpch.Q14)),
+        "q1f_ms": _median_ms(lambda: eng.execute(tpch.Q1F, s_on)),
+        "q6f_ms": _median_ms(lambda: eng.execute(tpch.Q6F, s_on)),
     }
-    if tgl.LAUNCHES - before != 5:
-        raise AssertionError("each timed Q1 must launch the kernel once")
-    for q in ("q1", "q6", "q1_off"):
+    if (tgl.LAUNCHES - before[0], tg.LAUNCHES - before[1]) != (5, 10):
+        raise AssertionError("each timed Q1, Q1F and Q6F must launch its "
+                             "kernel once")
+    for q in ("q1", "q6", "q1_off", "q14", "q1f", "q6f"):
         e2e[f"{q}_rows_per_s"] = n_rows / (e2e[f"{q}_ms"] / 1e3)
     e2e["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     print("end-to-end (median of 5 warm runs): "
           + json.dumps(e2e), flush=True)
 
-    # -- 4. kernel vs plain ------------------------------------------------
+    # -- 4. kernels vs plain ----------------------------------------------
     args, kw = captured["q1"]
     q1_args = (args[0], args[1], tuple(args[2]), tuple(args[3]),
                kw["num_groups"], tuple(kw["mat_int"]),
@@ -249,6 +392,12 @@ def main() -> int:
     compare_kernel(tgl, synthetic(1 << 20, 300, 1, 2, (tgl.MIN,), 3,
                                   gid_lo=-64, gid_hi=364, sel_frac=0.0),
                    "all masked, gid out of range")
+    nz = synthetic(1 << 20, 4096, 1, 1, (tgl.MIN, tgl.MAX), 4)
+    r = torch.arange(1 << 20, device="cuda")
+    nz_mm = tuple(torch.where(r % 7 == 0, -0.0, torch.where(
+        (nz[0] % 97 == 5) & (r % 11 == 0), float("nan"), c)) for c in nz[3])
+    compare_kernel(tgl, nz[:3] + (nz_mm,) + nz[4:],
+                   "MIN/MAX with -0.0 and NaN")
 
     gid, sel, mat, mm, G, mat_int, mm_ops, want_rep = q1_args
     n = gid.shape[0]
@@ -259,6 +408,7 @@ def main() -> int:
     gid64 = gid.long()
     library_ms = _cuda_ms(lambda: torch.zeros(
         G, len(mat), device="cuda").index_add_(0, gid64, rowmajor))
+    del rowmajor
     nf = max(1, sum(not b for b in mat_int) + len(mm))
     ni = max(1, sum(bool(b) for b in mat_int) + int(want_rep))
     nbytes = n * (4 * len(mat) + 4 * len(mm) + 4 + 1) + (nf + ni) * G * 4
@@ -274,6 +424,81 @@ def main() -> int:
         "shape": {"n": n, "G": G, "n_mat": len(mat), "n_mm": len(mm)},
         "max_rel_err": errs["max_rel_err"],
     }]
+
+    args, _ = captured["q1f"]
+    q1f_args = (args[0], args[1], tuple(args[2]), tuple(args[3]), args[4],
+                tuple(args[5]))
+    serr = compare_small(tg, q1f_args, "Q1F SF1")
+    allops = (tg.COUNT, tg.SUM, tg.MIN, tg.MAX)
+    compare_small(tg, small_synthetic(1 << 23, 64, allops, 11), "G=64")
+    compare_small(tg, small_synthetic(1 << 23, 1, (tg.SUM, tg.COUNT,
+                                                   tg.MIN, tg.MAX), 12),
+                  "G=1 n=2^23")
+    compare_small(tg, small_synthetic(1 << 20, 16, allops, 13, gid_lo=-40,
+                                      gid_hi=56, sel_frac=0.0),
+                  "all masked, gid out of range")
+    nan_args = small_synthetic(1 << 20, 8, allops, 14, nan_groups=(2, 5))
+    if compare_small(tg, nan_args, "NaN in groups 2 and 5")[
+            "nan_cells"] == 0:
+        raise AssertionError("the NaN input produced no NaN")
+
+    gid, sel, vals, masks, G, ops = q1f_args
+    n, A = gid.shape[0], len(ops)
+    s_ms = _cuda_ms(lambda: tg.dense_group_aggregate(*q1f_args))
+    s_plain_ms = _cuda_ms(lambda: tg.dense_group_aggregate_plain(*q1f_args),
+                          reps=3, warm=1)
+    sel_b = sel.to(torch.bool)
+    cols = []
+    for v, m, op in zip(vals, masks, ops):
+        mk = sel_b & m.to(torch.bool)
+        cols.append(mk.float() if op == tg.COUNT
+                    else torch.where(mk, v.float(), 0.0))
+    matrix = torch.stack(cols, dim=1)
+    gid64 = gid.long()
+    s_library_ms = _cuda_ms(lambda: torch.zeros(
+        G, A, device="cuda").index_add_(0, gid64, matrix))
+    del matrix
+    read = [v for v, op in zip(vals, ops) if op != tg.COUNT]
+    s_bytes = n * (gid.element_size() + 1 + _distinct_bytes(read)
+                   + _distinct_bytes(masks)) + G * A * 8
+    kernels.append({
+        "name": "groupagg", "route": "cuda",
+        "source": "cockroach_tpu_torch/csrc/groupagg.cu",
+        "replaces": "cockroach_tpu/ops/pallas/groupagg.py:136",
+        "launches": launches["groupagg"],
+        "max_abs_err": serr["max_abs_err"], "ms": s_ms,
+        "plain_ms": s_plain_ms,
+        "bound_ms": s_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": s_library_ms, "ok": True,
+        "shape": {"n": n, "G": G, "A": A, "bytes": s_bytes,
+                  "value_bytes_per_row": _distinct_bytes(read),
+                  "mask_bytes_per_row": _distinct_bytes(masks)},
+        "max_rel_err": serr["max_rel_err"],
+    })
+
+    # -- 5. the join's hash-table path --------------------------------------
+    jargs, jkw = captured["q14"]
+    probe, bside = jargs[0], jargs[1]
+    direct = join.hash_join(*jargs, **jkw)
+    hkw = dict(jkw, direct=None)
+    hashed = join.hash_join(*jargs, **hkw)
+    torch.cuda.synchronize()
+    if not torch.equal(direct.sel, hashed.sel):
+        raise AssertionError("Q14 hash-table join selection != direct")
+    for col in jargs[4]:
+        v = direct.col_valid(col)
+        if not torch.equal(v, hashed.col_valid(col)) or not torch.equal(
+                direct.col(col)[v], hashed.col(col)[v]):
+            raise AssertionError(f"Q14 hash-table payload {col} != direct")
+    rounds = dict(hashtable.ROUNDS)
+    hash_ms = _median_ms(lambda: join.hash_join(*jargs, **hkw), reps=3)
+    direct_ms = _median_ms(lambda: join.hash_join(*jargs, **jkw), reps=3)
+    print("Q14 join, hash-table path equals direct: " + json.dumps({
+        "probe_rows": probe.n, "build_rows": bside.n,
+        "matched": int(direct.sel.sum()), "build_rounds": rounds["build"],
+        "probe_rounds": rounds["probe"], "hash_join_ms": hash_ms,
+        "direct_join_ms": direct_ms}), flush=True)
+
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -35,8 +35,9 @@
 //   order-independent and bit-exact (wrapping like the caller's i32);
 // - f32 columns use atomicAdd (their order varies run to run);
 // - MIN/MAX use the ordered-int view of the float: atomicMin/atomicMax
-//   on the int bits for non-negative values and the reversed unsigned
-//   order for negative ones;
+//   on the int bits when the sign bit is clear and the reversed unsigned
+//   order when it is set; a NaN is written as a canonical NaN that both
+//   orders keep (see atomic_min_f32);
 // - REPMIN is atomicMin on the row id;
 // - zero addends and identity MIN/MAX values are skipped, which takes
 //   the pre-masked rows out of the atomic traffic.
@@ -79,15 +80,26 @@ __device__ __forceinline__ const float* column(const Args& a, int c) {
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
+// Ordered-int float MIN/MAX. A float whose sign bit is clear orders like
+// its bits as a signed int, one whose sign bit is set (-0.0 included)
+// reversed as unsigned. A NaN is written as a canonical NaN that both
+// orders keep: 0xffc00000 under MIN (a negative int, and above -inf's
+// bits as unsigned), 0x7fc00000 under MAX (above +inf's bits as int, and
+// below every sign-set bit pattern as unsigned). So a group with a NaN
+// ends NaN, as jnp.min / jnp.max give.
 __device__ __forceinline__ void atomic_min_f32(float* addr, float v) {
-  if (v >= 0.0f)
+  if (v != v)
+    atomicExch(reinterpret_cast<unsigned int*>(addr), 0xffc00000u);
+  else if (__float_as_int(v) >= 0)
     atomicMin(reinterpret_cast<int*>(addr), __float_as_int(v));
   else
     atomicMax(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
 }
 
 __device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
-  if (v >= 0.0f)
+  if (v != v)
+    atomicExch(reinterpret_cast<unsigned int*>(addr), 0x7fc00000u);
+  else if (__float_as_int(v) >= 0)
     atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
   else
     atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));

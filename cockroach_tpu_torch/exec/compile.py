@@ -1,22 +1,29 @@
 """Compile logical plans into functions over device-resident tensors.
 
 The counterpart of cockroach_tpu/exec/compile.py for the plans TPC-H
-Q1 and Q6 produce: scans with the MVCC visibility mask, filters,
-projections, ungrouped and dense (mixed-radix) GROUP BY aggregation,
-ORDER BY and LIMIT. ``compile_plan(node, params)`` returns
-``fn(RunContext) -> ColumnBatch``; PyTorch runs it eagerly on the
-batches' device, so there is no jit and no executable cache.
+Q1, Q6 and Q14 produce: scans with the MVCC visibility mask, filters,
+projections, hash joins with unique build keys, ungrouped and dense
+(mixed-radix) GROUP BY aggregation, ORDER BY and LIMIT.
+``compile_plan(node, params)`` returns ``fn(RunContext) ->
+ColumnBatch``; PyTorch runs it eagerly on the batches' device, so there
+is no jit and no executable cache.
 
-Under the default ``pallas_groupagg = auto``, a dense GROUP BY whose
-aggregates all have an exact-result envelope (counts, `any`, and int64
-limb sums / averages over INT/DECIMAL) runs in ONE pass of the large-G
-kernel (ops/cuda/groupagg_large.py), routed by the reference's own
-conditions. Hash-strategy GROUP BY, joins, windows, selection
-compaction and streaming are not ported yet and raise ExecError.
+Aggregation routes as the reference's does. Under the default
+``pallas_groupagg = auto``, a dense GROUP BY whose aggregates all have
+an exact-result envelope (counts, `any`, and int64 limb sums / averages
+over INT/DECIMAL) runs in ONE pass of the large-G kernel
+(ops/cuda/groupagg_large.py). Under ``on``, an ungrouped or dense
+aggregation over at most 64 groups whose value aggregates all take
+FLOAT arguments runs in the small-G kernel (ops/cuda/groupagg.py, f32
+accumulation), and the large-G kernel also takes f32 float sums and
+MIN/MAX. Hash-strategy GROUP BY, joins with duplicate build keys,
+windows, selection compaction and streaming are not ported yet and
+raise ExecError.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable
 
@@ -25,7 +32,9 @@ import torch
 
 from ..ops import agg as aggops
 from ..ops.batch import ColumnBatch
+from ..ops.cuda import groupagg as pg
 from ..ops.cuda import groupagg_large as pgl
+from ..ops.join import hash_join
 from ..sql import plan as P
 from ..sql.bound import BoundAgg
 from ..sql.types import Family
@@ -40,7 +49,8 @@ class ExecError(Exception):
 class ExecParams:
     """Static execution parameters (session-var controlled)."""
     # Session var pallas_groupagg: "auto" routes eligible dense GROUP
-    # BYs through the large-G kernel, "off" never does.
+    # BYs through the large-G kernel, "on" also through the small-G
+    # kernel and the f32 float envelope, "off" through neither.
     pallas_groupagg: str = "auto"
 
 
@@ -89,6 +99,20 @@ def compile_plan(node: P.PlanNode, params: ExecParams,
                 valid[name] = v
             return ColumnBatch.from_dict(cols, valid, sel=b.sel)
         return run_project
+    if isinstance(node, P.HashJoin):
+        if node.expand > 1:
+            raise ExecError("hash joins with duplicate build keys "
+                            "(expand > 1) are not yet ported")
+        leftf = compile_plan(node.left, params)
+        rightf = compile_plan(node.right, params)
+        jn = node
+
+        def run_join(rc):
+            return hash_join(leftf(rc), rightf(rc), jn.left_keys,
+                             jn.right_keys, jn.payload, jn.join_type,
+                             expand=jn.expand, direct=jn.direct,
+                             pack_payload=jn.pack_payload)
+        return run_join
     if isinstance(node, P.Aggregate):
         return _compile_aggregate(node, params)
     if isinstance(node, P.Sort):
@@ -242,21 +266,93 @@ def _agg_partials(a: BoundAgg, argf, batch, ctx, gid, num_groups,
 # to 2^19, and under `auto` inputs of at least 4096 rows.
 LARGE_G_MAX = 1 << 19
 AUTO_MIN_ROWS = 4096
+# Arithmetic right shift that puts an int64's order-preserving high limb
+# into f32-exact range (64 - 40 = 24 magnitude bits, |limb| <= 2^23): a
+# copy of cockroach_tpu/ops/pallas/paritygate.py MM_HI_SHIFT.
+MM_HI_SHIFT = 40
 
 
-def _pallas_large_ok(aggs) -> bool:
-    """Static (SQL-type) envelope check for the large-G kernel under
-    `auto`: only aggregates whose kernel results are exact — counts,
+def _pallas_agg_slots(aggs) -> list | None:
+    """Slot layout for the small-G kernel (ops/cuda/groupagg.py), or
+    None if any aggregate falls outside its f32 envelope: counts are
+    exact; value aggregates must take FLOAT arguments."""
+    kinds = {"sum": pg.SUM, "avg": pg.SUM, "min": pg.MIN, "max": pg.MAX}
+    slots = []  # (kernel op, agg index, role: "main" | "cnt")
+    for i, a in enumerate(aggs):
+        if a.distinct:
+            return None
+        if a.func in ("count_rows", "count"):
+            slots.append((pg.COUNT, i, "main"))
+        elif a.func in kinds:
+            if a.arg is None or a.arg.type.family != Family.FLOAT:
+                return None
+            slots.append((kinds[a.func], i, "main"))
+            # paired count: per-group validity + avg divisor
+            slots.append((pg.COUNT, i, "cnt"))
+        else:
+            return None
+    return slots
+
+
+def _pallas_dense_partials(slots, aggfs, b, ctx, gid,
+                           num_groups: int) -> list:
+    """Every aggregate's (data, valid) from ONE small-G kernel pass.
+    Returns aggs_out in aggfs order."""
+    ones = torch.ones(b.n, dtype=torch.bool, device=b.device)
+    zerov = torch.zeros(b.n, dtype=torch.float32, device=b.device)
+    argdata = {i: argf(ctx) for i, (a, argf) in enumerate(aggfs)
+               if argf is not None}
+    values, masks, ops = [], [], []
+    for op, i, role in slots:
+        if i in argdata:
+            d0, v0 = argdata[i]
+            values.append(zerov if op == pg.COUNT else d0)
+            masks.append(v0)
+        else:  # count_rows: every selected row participates
+            values.append(zerov)
+            masks.append(ones)
+        ops.append(op)
+    acc, cnt = pg.dense_group_aggregate(gid, b.sel, tuple(values),
+                                        tuple(masks), num_groups,
+                                        tuple(ops))
+    col_of = {(i, role): j for j, (op, i, role) in enumerate(slots)}
+    aggs_out = []
+    for i, (a, argf) in enumerate(aggfs):
+        if a.func in ("count_rows", "count"):
+            d = cnt[:, col_of[(i, "main")]].to(torch.int64)
+            aggs_out.append((d, torch.ones_like(d, dtype=torch.bool)))
+            continue
+        d = acc[:, col_of[(i, "main")]].to(torch.float64)
+        n_valid = cnt[:, col_of[(i, "cnt")]]
+        if a.func == "avg":
+            d = d / torch.clamp(n_valid, min=1).to(torch.float64)
+        aggs_out.append((d, n_valid > 0))
+    return aggs_out
+
+
+def _pallas_large_ok(aggs, mode: str) -> bool:
+    """Static (SQL-type) envelope check for the large-G kernel. `auto`
+    admits only aggregates whose kernel results are exact: counts,
     `any` (representative-row gather), and int64-limb sums/avgs over
-    INT/DECIMAL args."""
+    INT/DECIMAL args. `on` also admits INT/DECIMAL MIN/MAX (exact
+    through the high-limb refine) and FLOAT sum/avg/min/max, which
+    accumulate in f32 (approximate, as in the small-G kernel). The
+    reference's parity gate can promote paths under `auto`; it is not
+    ported, so no path is promoted here."""
     for a in aggs:
         if a.distinct:
             return False
         if a.func in ("count_rows", "count", "any"):
             continue
         fam = a.arg.type.family if a.arg is not None else None
-        if a.func in ("sum", "sum_int", "avg") \
-                and fam in (Family.INT, Family.DECIMAL):
+        if a.func in ("sum", "sum_int", "avg"):
+            if fam in (Family.INT, Family.DECIMAL):
+                continue
+            if fam == Family.FLOAT and mode == "on":
+                continue
+            return False
+        if a.func in ("min", "max") and mode == "on" \
+                and fam in (Family.INT, Family.DECIMAL, Family.FLOAT):
             continue
         return False
     return True
@@ -272,17 +368,25 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
     Exact int64 sums split each value into w-bit limbs (logical
     shifts), sum each limb column in int32, and recombine with
     wrapping int64 shifts/adds: int64 modular arithmetic, bit-identical
-    to the plain path's _group_sum_i64_limbs."""
+    to the plain path's _group_sum_i64_limbs. FLOAT sums add in f32.
+    MIN/MAX of FLOAT reduce the f32 value; of INT/DECIMAL, the
+    arithmetic high limb (order-preserving, f32-exact), refined to the
+    full-width winner by a plain fold over the rows holding it."""
     n = b.n
     sel = b.sel
     argdata = {i: argf(ctx) for i, (a, argf) in enumerate(aggfs)
                if argf is not None}
     for i, (a, _) in enumerate(aggfs):
-        if a.func in ("sum", "sum_int", "avg") \
+        if a.func in ("sum", "sum_int", "avg", "min", "max") \
+                and a.arg is not None \
+                and a.arg.type.family in (Family.INT, Family.DECIMAL) \
                 and argdata[i][0].dtype not in (torch.int64, torch.int32):
+            # the static check ran on SQL types; limb sums and the
+            # MIN/MAX high limb need real integers
             return None
-    f_cols, f_tags = [], []     # f32-accumulated columns (shadow sums)
+    f_cols, f_tags = [], []     # f32-accumulated columns
     i_cols, i_tags = [], []     # i32-accumulated (limb/count) columns
+    mm_cols, mm_ops, mm_tags = [], [], []
     want_rep = False
     exact = {}  # agg index -> (limb width w, limb count k)
     for i, (a, _) in enumerate(aggfs):
@@ -298,6 +402,20 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
         i_cols.append(m.to(torch.float32))  # validity + avg divisor
         i_tags.append(("cnt", i))
         if a.func == "count":
+            continue
+        if a.func in ("min", "max"):
+            ident = math.inf if a.func == "min" else -math.inf
+            if a.arg.type.family in (Family.INT, Family.DECIMAL):
+                hi = d0.to(torch.int64) >> MM_HI_SHIFT
+                mm_cols.append(torch.where(m, hi.to(torch.float32), ident))
+            else:
+                mm_cols.append(torch.where(m, d0.to(torch.float32), ident))
+            mm_ops.append(pgl.MIN if a.func == "min" else pgl.MAX)
+            mm_tags.append(("mm", i))
+            continue
+        if a.arg.type.family == Family.FLOAT:
+            f_cols.append(torch.where(m, d0, 0).to(torch.float32))
+            f_tags.append(("fsum", i))
             continue
         # the reference's default tile point, so the limb layout is its
         w = pgl.limb_width(n, max_group_rows)
@@ -319,11 +437,12 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
     mat = tuple(f_cols) + tuple(i_cols)
     mat_int = (False,) * len(f_cols) + (True,) * len(i_cols)
     acc_f, acc_i = pgl.large_group_aggregate(
-        gid, sel, mat, (), num_groups=num_groups, mat_int=mat_int,
-        want_rep=want_rep)
+        gid, sel, mat, tuple(mm_cols), num_groups=num_groups,
+        mat_int=mat_int, mm_ops=tuple(mm_ops), want_rep=want_rep)
 
     frow = {t: r for r, t in enumerate(f_tags)}
     irow = {t: r for r, t in enumerate(i_tags)}
+    mmrow = {t: len(f_cols) + r for r, t in enumerate(mm_tags)}
     live = acc_i[irow[("live",)]] > 0
     rep = rep_live = None
     if want_rep:
@@ -345,6 +464,35 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
             continue
         cnt = acc_i[irow[("cnt", i)]]
         nonempty = cnt > 0
+        if a.func in ("min", "max"):
+            d = acc_f[mmrow[("mm", i)]]
+            if a.arg.type.family in (Family.INT, Family.DECIMAL):
+                # refine the winning high limb to the full-width value
+                # with the dtype-preserving plain fold over only the
+                # rows that hold it: every survivor is an input value,
+                # so the result is bit-equal to the plain path's
+                d0, v0 = argdata[i]
+                m = torch.logical_and(sel, v0)
+                rowhi = d0.to(torch.int64) >> MM_HI_SHIFT
+                # an empty group's +/-inf has no int64 value: park it
+                # at 0 (no row of that group is in `m`)
+                win = torch.where(torch.isfinite(d), d, 0.0) \
+                    .to(torch.int64)
+                g = torch.clamp(gid.to(torch.int64), 0, num_groups - 1)
+                refine = torch.logical_and(m, rowhi == win[g])
+                fold = aggops.group_min if a.func == "min" \
+                    else aggops.group_max
+                aggs_out.append((fold(d0, gid, refine, num_groups),
+                                 nonempty))
+                continue
+            aggs_out.append((d.to(torch.float64), nonempty))
+            continue
+        if i not in exact:  # float sum/avg (`on`)
+            d = acc_f[frow[("fsum", i)]].to(torch.float64)
+            if a.func == "avg":
+                d = d / torch.clamp(cnt, min=1).to(torch.float64)
+            aggs_out.append((d, nonempty))
+            continue
         w, k = exact[i]
         total = torch.zeros(num_groups, dtype=torch.int64,
                             device=b.device)
@@ -391,8 +539,9 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
     dims = list(node.group_dims)
     los = list(node.group_lo) or [0] * len(dims)
     mode = params.pallas_groupagg
-    if mode not in ("auto", "off"):
-        raise ExecError(f"pallas_groupagg = {mode} is not yet ported")
+    if mode not in ("auto", "on", "off"):
+        raise ExecError(f"pallas_groupagg = {mode} is not a mode "
+                        "(auto, on, off)")
 
     def run_agg(rc: RunContext) -> ColumnBatch:
         b = childf(rc)
@@ -427,21 +576,34 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
                 val = code if lo == 0 else code.to(torch.int64) + lo
                 group_cols[name] = (val, code < dim)
 
-        # the large-G kernel: dense grouped plans with an exact
-        # aggregate envelope under `auto` (the reference's conditions)
-        large = (mode == "auto" and groupfs and b.n % 128 == 0
-                 and num_groups <= LARGE_G_MAX and b.n >= AUTO_MIN_ROWS
-                 and _pallas_large_ok([a for a, _ in aggfs]))
+        # the small-G kernel serves dense GROUP BY and ungrouped
+        # aggregation alike (Q6 is the num_groups == 1 case); explicit
+        # `on` only, since its f32 accumulation is approximate
+        pslots = None
+        if mode == "on" and num_groups <= pg.MAX_GROUPS \
+                and b.n % pg.LANES == 0:
+            pslots = _pallas_agg_slots([a for a, _ in aggfs])
+        # the large-G kernel: dense grouped plans with a kernel envelope
+        # for the mode (the reference's conditions)
+        large = (pslots is None and mode in ("on", "auto") and groupfs
+                 and b.n % 128 == 0 and num_groups <= LARGE_G_MAX
+                 and not (mode == "auto" and b.n < AUTO_MIN_ROWS)
+                 and _pallas_large_ok([a for a, _ in aggfs], mode))
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
         rep_state = None
         large_live = None
         res = None
-        if large:
+        if pslots is not None:
+            pgid = gid if gid is not None \
+                else torch.zeros(b.n, dtype=torch.int32, device=dev)
+            aggs_out = _pallas_dense_partials(pslots, aggfs, b, ctx, pgid,
+                                              num_groups)
+        elif large:
             res = _pallas_large_partials(aggfs, b, ctx, gid, num_groups,
                                          node.max_group_rows, params)
         if res is not None:
             aggs_out, large_live, overflow = res
-        else:
+        elif pslots is None:
             if gid is not None and any(
                     a.func == "any" and not a.distinct for a, _ in aggfs):
                 rep_state = aggops.group_rep_index(gid, b.sel, num_groups)

@@ -1,16 +1,18 @@
 """The query engine: statement dispatch, device upload, result decode.
 
 The counterpart of cockroach_tpu/exec/engine.py, slimmed to what TPC-H
-Q1 and Q6 need: ``Engine.execute`` runs CREATE TABLE, ANALYZE, SET and
-single-table SELECTs. A SELECT goes parse -> bind/plan (sql/, host) ->
+Q1, Q6 and Q14 need: ``Engine.execute`` runs CREATE TABLE, ANALYZE, SET
+and SELECTs over one table or over hash joins with unique build keys.
+A SELECT goes parse -> bind/plan (sql/, host) -> join build checks ->
 compile_plan (exec/compile.py) -> one eager run over device-resident
 tables -> host decode. Tables upload once per (table, generation),
 padded to a power of two of at least 128 rows with never-visible
 padding rows, and are reused across statements.
 
 Everything else the reference engine does (DML and transactions,
-joins, views, CTEs, subqueries, distribution, streaming and spill,
-plan caches) is not ported yet and raises EngineError.
+joins with duplicate build keys, selection compaction, views, CTEs,
+subqueries, distribution, streaming and spill, plan caches) is not
+ported yet and raises EngineError.
 """
 
 from __future__ import annotations
@@ -70,10 +72,10 @@ class Engine:
             value = stmt.value
             if stmt.name == "pallas_groupagg":
                 value = str(value).lower()
-                if value not in ("auto", "off"):
+                if value not in ("auto", "on", "off"):
                     raise EngineError(
-                        f"pallas_groupagg = {value} is not yet ported "
-                        "(auto and off are)")
+                        f"invalid value for pallas_groupagg: {value!r} "
+                        "(auto, on or off)")
             session.vars.set(stmt.name, value)
             return Result(tag="SET")
         raise EngineError(
@@ -252,6 +254,106 @@ class Engine:
                 a.arg_nonneg = True
                 a.arg_max_abs = int(hi)
 
+    # -- join build checks ---------------------------------------------------
+    def _check_join_builds(self, node, read_ts: Timestamp) -> None:
+        """The device hash join gathers ONE build row per probe key
+        (ops/join.py: exact for unique build keys). Verify build-side
+        key uniqueness on the host over the rows visible at the query's
+        read timestamp before running, and pick direct addressing where
+        the keys allow it. A duplicate-keyed build side sets the join's
+        expansion factor, which the plan compiler refuses cleanly (row
+        expansion is not ported yet): never a silently dropped match.
+        The port has no transactions, so no buffered writes widen the
+        bound."""
+
+        def walk(n):
+            if isinstance(n, P.HashJoin):
+                if n.join_type in ("inner", "left"):
+                    self._check_one_build(n, read_ts)
+                walk(n.left)
+                walk(n.right)
+                return
+            c = getattr(n, "child", None)
+            if c is not None:
+                walk(c)
+
+        walk(node)
+
+    def _check_one_build(self, join, read_ts: Timestamp) -> None:
+        from ..sql.stats import _underlying_col
+        b = join.right
+        if not isinstance(b, P.Scan):
+            return
+        stored = []
+        all_plain = True  # every key is a stored column, not computed
+        computed = dict(b.computed)
+        for rk in join.right_keys:
+            sname = b.columns.get(rk)
+            if sname is None:
+                all_plain = False
+                # computed key: a dictionary-code remap of a column is
+                # injective, so check the underlying column instead
+                inner = _underlying_col(computed.get(rk))
+                if inner is not None:
+                    sname = b.columns.get(inner.name)
+            if sname is None:
+                return  # cannot map back to storage; accept
+            stored.append(sname)
+        # direct addressing needs the RUNTIME key values' range, so
+        # only plain stored keys qualify
+        if all_plain:
+            self._maybe_direct_join(join, b, stored)
+        if self.store.keys_unique_for_read(b.table, tuple(stored),
+                                           read_ts.to_int()):
+            join.expand = 1
+            return
+        k = self.store.key_max_multiplicity(b.table, tuple(stored),
+                                            read_ts.to_int())
+        join.expand = max(k, 1)
+
+    MAX_DIRECT_JOIN_SLOTS = 1 << 22
+    # packed composite keys size the table by the SPAN PRODUCT
+    MAX_PACKED_JOIN_SLOTS = 1 << 27
+
+    def _maybe_direct_join(self, join, b, stored) -> None:
+        """Direct-address the join when the build key is int-family
+        with a dense enough value range (dimension pks, dict codes): one
+        scatter + one gather instead of the hash table's rounds. A
+        single key sizes the table by its span; composite keys pack
+        mixed-radix and size it by the span product."""
+        join.direct = None
+        ranges = []
+        n_all = 0
+        for s in stored:
+            col = self.store.table(b.table).schema.column(s)
+            if col.type.family == Family.FLOAT:
+                return
+            r = self.store.key_int_range(b.table, s)
+            if r is None:
+                return
+            lo, hi, n_all = r
+            ranges.append((lo, hi - lo + 1))
+        if len(ranges) == 1:
+            lo, span = ranges[0]
+            # density is a memory question: a sparse table is still one
+            # scatter and one gather
+            if span <= max(256 * n_all, 4096) \
+                    and span + 1 <= self.MAX_DIRECT_JOIN_SLOTS:
+                join.direct = (lo, span + 1)
+            return
+        total = 1
+        for _, span in ranges:
+            total *= span
+            if total > self.MAX_PACKED_JOIN_SLOTS:
+                return
+        # payload folding allocates ~one size-length table per carried
+        # payload column on top of the slot table: budget all of them
+        if total * (2 + len(join.payload)) > 1 << 29:
+            return
+        if total <= max(2048 * n_all, 4096):
+            join.direct = ("packed", tuple(lo for lo, _ in ranges),
+                           tuple(span for _, span in ranges))
+
     # -- SELECT --------------------------------------------------------------
     def _exec_select(self, sel: ast.Select, session: Session) -> Result:
         if sel.ctes or sel.table is None \
@@ -260,6 +362,7 @@ class Engine:
                               "TIME are not yet ported")
         read_ts = self.clock.now()
         node, meta = self._plan(sel, session, read_ts)
+        self._check_join_builds(node, read_ts)
         self._bound_agg_group_rows(node, read_ts)
         scans = {}
         for alias, tname, cols in _collect_scans(node):

@@ -240,6 +240,49 @@ WHERE l_shipdate >= date '1994-01-01'
   AND l_quantity < 24
 """
 
+Q14 = """
+SELECT 100.00 * sum(CASE WHEN p_type LIKE 'PROMO%%'
+                         THEN l_extendedprice * (1 - l_discount)
+                         ELSE 0 END)
+       / sum(l_extendedprice * (1 - l_discount)) AS promo_revenue
+FROM lineitem, part
+WHERE l_partkey = p_partkey
+  AND l_shipdate >= date '1995-09-01'
+  AND l_shipdate < date '1995-09-01' + interval '1 month'
+""".replace("%%", "%")
+
+# Q1 and Q6 with every aggregate argument cast to FLOAT8: the shapes
+# that reach the small-G kernel under SET pallas_groupagg = on (its f32
+# envelope admits FLOAT value aggregates only). They keep Q1's and Q6's
+# answers, so ref_q1 and ref_q6 are their oracles.
+Q1F = """
+SELECT
+    l_returnflag,
+    l_linestatus,
+    sum(l_quantity::FLOAT8) AS sum_qty,
+    sum(l_extendedprice::FLOAT8) AS sum_base_price,
+    sum((l_extendedprice * (1 - l_discount))::FLOAT8) AS sum_disc_price,
+    sum((l_extendedprice * (1 - l_discount) * (1 + l_tax))::FLOAT8)
+        AS sum_charge,
+    avg(l_quantity::FLOAT8) AS avg_qty,
+    avg(l_extendedprice::FLOAT8) AS avg_price,
+    avg(l_discount::FLOAT8) AS avg_disc,
+    count(*) AS count_order
+FROM lineitem
+WHERE l_shipdate <= date '1998-12-01' - interval '90 day'
+GROUP BY l_returnflag, l_linestatus
+ORDER BY l_returnflag, l_linestatus
+"""
+
+Q6F = """
+SELECT sum((l_extendedprice * l_discount)::FLOAT8) AS revenue
+FROM lineitem
+WHERE l_shipdate >= date '1994-01-01'
+  AND l_shipdate < date '1994-01-01' + interval '1 year'
+  AND l_discount BETWEEN 0.06 - 0.01 AND 0.06 + 0.01
+  AND l_quantity < 24
+"""
+
 
 # ---------------------------------------------------------------------------
 # numpy oracle (row-engine stand-in for cross-checking, cf. §4.6)
@@ -269,3 +312,15 @@ def ref_q6(li: dict) -> float:
          & (li["l_discount"] >= 0.05) & (li["l_discount"] <= 0.07)
          & (li["l_quantity"] < 24))
     return float((li["l_extendedprice"][m] * li["l_discount"][m]).sum())
+
+
+def ref_q14(li: dict, part: dict) -> float:
+    d0, d1 = _days("1995-09-01"), _days("1995-10-01")
+    m = (li["l_shipdate"] >= d0) & (li["l_shipdate"] < d1)
+    ptype = np.empty(int(part["p_partkey"].max()) + 1, dtype=object)
+    ptype[part["p_partkey"]] = part["p_type"]
+    types = ptype[li["l_partkey"][m]]
+    promo = np.array([t is not None and t.startswith("PROMO")
+                      for t in types])
+    rev = (li["l_extendedprice"][m] * (1 - li["l_discount"][m]))
+    return float(100.0 * rev[promo].sum() / rev.sum())

@@ -186,7 +186,8 @@ def large_group_aggregate_plain(gid, sel, mat_values: tuple,
     """The same function in plain PyTorch scatters, on any device.
     Float sums accumulate in float64 and round to f32 once (so they sit
     within f32 rounding of the exact sum); integer sums accumulate in
-    int64 and wrap to int32 like the kernel's atomics."""
+    int64 and wrap to int32 like the kernel's atomics; a NaN in a
+    MIN/MAX column makes its group's result NaN."""
     n = gid.shape[0]
     dev = gid.device
     n_mat_f, n_mat_i, nf, ni = _layout(mat_values, mat_int, mm_ops,
@@ -204,9 +205,15 @@ def large_group_aggregate_plain(gid, sel, mat_values: tuple,
         v = torch.round(mat_values[n_mat_f + c].to(torch.float32))
         acc_i[c].index_add_(0, slot, v.to(torch.int64))
     for r, op in enumerate(mm_ops):
+        v = mm_values[r].to(torch.float32)
         acc_f[n_mat_f + r].scatter_reduce_(
-            0, slot, mm_values[r].to(torch.float32),
-            reduce="amin" if op == MIN else "amax", include_self=True)
+            0, slot, v, reduce="amin" if op == MIN else "amax",
+            include_self=True)
+        # a NaN makes its group's result NaN on every device
+        nans = torch.zeros(G + 1, dtype=torch.int64, device=dev)
+        nans.index_add_(0, slot, torch.isnan(v).to(torch.int64))
+        acc_f[n_mat_f + r] = torch.where(nans > 0, math.nan,
+                                         acc_f[n_mat_f + r])
     if want_rep:
         rslot = torch.where(ok & sel.to(torch.bool), slot, G)
         rid = torch.arange(n, dtype=torch.int64, device=dev)

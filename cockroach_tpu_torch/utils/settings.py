@@ -10,12 +10,15 @@ from dataclasses import dataclass, field
 class SessionVars:
     """Session variables with reference-compatible names."""
     values: dict = field(default_factory=lambda: {
-        # one-pass GROUP BY kernel: auto (default) routes eligible dense
-        # GROUP BYs with an exact-result envelope to the large-G kernel
-        # (ops/cuda/groupagg_large.py); off keeps every aggregation on
-        # the plain scatter path. `on` (the small-G f32 kernel and the
-        # approximate float aggregates) is not ported yet.
-        "pallas_groupagg": "auto",   # auto | off
+        # one-pass GROUP BY kernels: auto (default) routes eligible
+        # dense GROUP BYs with an exact-result envelope to the large-G
+        # kernel (ops/cuda/groupagg_large.py); on also routes ungrouped
+        # and <= 64-group aggregations over FLOAT arguments to the
+        # small-G kernel (ops/cuda/groupagg.py) and lets the large-G
+        # kernel take f32 float sums and MIN/MAX (approximate against
+        # the plain path's float64); off keeps every aggregation on the
+        # plain scatter path. Engine.execute rejects any other value.
+        "pallas_groupagg": "auto",   # auto | on | off
         # memo-based join ordering / rule pipeline / sketch-fed costing
         "optimizer": "on",           # on | off
         "optimizer_rules": "on",     # on | off

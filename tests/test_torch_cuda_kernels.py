@@ -59,8 +59,20 @@ def _check(gid, sel, mat, mm, G, mat_int, mm_ops, want_rep):
     kf, ki, pf, pi = (t.cpu().numpy() for t in (kf, ki, pf, pi))
     n_f = sum(not b for b in mat_int)
     np.testing.assert_array_equal(ki, pi)
-    np.testing.assert_array_equal(kf[n_f:], pf[n_f:])
+    np.testing.assert_array_equal(kf[n_f:], pf[n_f:])  # NaN where NaN
     np.testing.assert_allclose(kf[:n_f], pf[:n_f], rtol=1e-5)
+
+
+def test_minmax_nan_and_negative_zero(cuda):
+    # -0.0 orders below +0.0 and above every negative value; a NaN makes
+    # its group NaN (the plain version's and jnp's semantics)
+    n, G = 1 << 16, 64
+    gid, sel, mat, mm, mat_int = _inputs(n, G, 1, 1, (tgl.MIN, tgl.MAX), 21,
+                                         cuda)
+    r = torch.arange(n, device=cuda)
+    mm = tuple(torch.where(r % 7 == 0, -0.0, torch.where(
+        (gid == 9) & (r % 11 == 0), float("nan"), c)) for c in mm)
+    _check(gid, sel, mat, mm, G, mat_int, (tgl.MIN, tgl.MAX), False)
 
 
 CASES = [
@@ -102,3 +114,82 @@ def test_engine_q1_q6_on_card_match_cpu(cuda):
         for g_row, w_row in zip(got, want):
             for g, w in zip(g_row, w_row):
                 assert g == pytest.approx(w, rel=1e-12)
+
+
+# -- the small-G kernel (ops/cuda/groupagg.py) --------------------------------
+
+def _small_inputs(n, G, ops, seed, device, gid_lo=0, gid_hi=None,
+                  sel_frac=0.8, nan_groups=(), f64=False):
+    rng = np.random.default_rng(seed)
+    gid = rng.integers(gid_lo, G if gid_hi is None else gid_hi,
+                       size=n).astype(np.int32)
+    sel = rng.random(n) < sel_frac
+    vals, masks = [], []
+    for _ in ops:
+        # non-negative: no cancellation inflates the f32 sums' error
+        v = (rng.random(n) * 100).astype(np.float64 if f64
+                                         else np.float32)
+        v[np.isin(gid, nan_groups) & (rng.random(n) < 0.01)] = np.nan
+        vals.append(torch.from_numpy(v).to(device))
+        masks.append(torch.from_numpy(rng.random(n) < 0.9).to(device))
+    return (torch.from_numpy(gid).to(device),
+            torch.from_numpy(sel).to(device), tuple(vals), tuple(masks))
+
+
+def _check_small(gid, sel, vals, masks, G, ops):
+    from cockroach_tpu_torch.ops.cuda import groupagg as tg
+    before = tg.LAUNCHES
+    ka, kc = tg.dense_group_aggregate(gid, sel, vals, masks, G, ops)
+    torch.cuda.synchronize()
+    assert tg.LAUNCHES == before + 1
+    pa, pc = tg.dense_group_aggregate_plain(gid, sel, vals, masks, G, ops)
+    ka, kc, pa, pc = (t.cpu().numpy() for t in (ka, kc, pa, pc))
+    np.testing.assert_array_equal(kc, pc)
+    for a, op in enumerate(ops):
+        if op in (tg.MIN, tg.MAX, tg.COUNT):
+            np.testing.assert_array_equal(ka[:, a], pa[:, a])
+        else:
+            np.testing.assert_allclose(ka[:, a], pa[:, a], rtol=1e-5,
+                                       atol=1e-2)
+
+
+SMALL_CASES = [
+    # (n, G, ops, f64)
+    (1 << 16, 12, (0, 1, 0, 1, 0, 2, 3), True),
+    (1 << 16, 64, (0, 1, 2, 3), False),
+    (1 << 20, 1, (1, 0, 2, 3), True),
+    (128, 2, (0, 1), False),
+]
+
+
+@pytest.mark.parametrize("n,G,ops,f64", SMALL_CASES)
+def test_small_kernel_matches_plain(cuda, n, G, ops, f64):
+    _check_small(*_small_inputs(n, G, ops, n + G, cuda, f64=f64), G, ops)
+
+
+def test_small_kernel_masked_out_of_range_and_nan(cuda):
+    ops = (0, 1, 2, 3)
+    gid, sel, vals, masks = _small_inputs(1 << 14, 20, ops, 3, cuda,
+                                          gid_lo=-30, gid_hi=60,
+                                          sel_frac=0.0)
+    _check_small(gid, sel, vals, masks, 20, ops)
+    _check_small(*_small_inputs(1 << 16, 8, ops, 4, cuda,
+                                nan_groups=(1, 5)), 8, ops)
+
+
+def test_engine_q14_q1f_q6f_on_card_match_cpu(cuda):
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        e = Engine(device=dev)
+        tpch.load(e, sf=0.01, rows=50_000)
+        s = e.session()
+        e.execute("SET pallas_groupagg = on", s)
+        rows[dev] = (e.execute(tpch.Q14).rows, e.execute(tpch.Q1F, s).rows,
+                     e.execute(tpch.Q6F, s).rows)
+    for got, want in zip(rows["cuda"], rows["cpu"]):
+        assert len(got) == len(want)
+        for g_row, w_row in zip(got, want):
+            for g, w in zip(g_row, w_row):
+                assert g == pytest.approx(w, rel=1e-5)

@@ -1,14 +1,19 @@
-"""TPC-H Q1 and Q6 through the PyTorch port's Engine against the JAX Engine.
+"""TPC-H Q1, Q6 and Q14 through the port's Engine against the JAX Engine.
 
-The reference Engine (cockroach_tpu) loads a 50K-row TPC-H slice and
-runs Q1 and Q6 under ``pallas_groupagg = auto`` and ``off``. Its store
-is then read out into numpy arrays (schema DDL, physical columns,
-validity, MVCC bounds, dictionaries) and carried into the port's
-``Engine(device="cpu")`` through ``store_from_arrays``, so both engines
-scan the same row versions. Rows must be equal, floats within rel 1e-12
-(the averages' float64 sums run in different orders). Under ``auto``
-the port's Q1 must reach ``large_group_aggregate`` (its plain version
-on the CPU) and the reference must build its large-G Pallas kernel.
+The reference Engine (cockroach_tpu) loads a 50K-row TPC-H slice
+(lineitem and part) and a small ``px`` table of STRING, FLOAT, DECIMAL
+and INT columns, and runs Q1, Q6 and Q14 under ``pallas_groupagg =
+auto`` and ``off``, Q1 and the FLOAT8 variants Q1F and Q6F under
+``on``, and the ``px`` queries of tests/test_pallas_kernels.py under
+``on`` and ``off``. Its store is then read out into numpy arrays
+(schema DDL, physical columns, validity, MVCC bounds, dictionaries) and
+carried into the port's ``Engine(device="cpu")`` through
+``store_from_arrays``, so both engines scan the same row versions. Rows
+must be equal, floats within rel 1e-12 (float64 sums in different
+orders), except where a kernel accumulates in f32 (``on`` over FLOAT
+arguments): there within rel 1e-5, counts exact. Each test also checks
+that both engines routed the query to the kernel it names (the port's
+kernel wrappers take their plain versions on the CPU and count them).
 
 The reference runs inside ``reference_modules`` (from
 test_torch_groupagg_large), which lets its Pallas modules import under
@@ -21,6 +26,7 @@ import pytest
 from cockroach_tpu_torch.exec.engine import Engine
 from cockroach_tpu_torch.exec.session import EngineError
 from cockroach_tpu_torch.models import tpch
+from cockroach_tpu_torch.ops.cuda import groupagg as tg
 from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
 from cockroach_tpu_torch.storage.transfer import store_from_arrays
 from tests.test_torch_groupagg_large import reference_modules
@@ -50,10 +56,40 @@ def _store_arrays(store, ddl: dict) -> dict:
     return out
 
 
+PX_DDL = "CREATE TABLE px (g STRING, f FLOAT, d DECIMAL(10,2), i INT)"
+
+# the px queries of tests/test_pallas_kernels.py, plus INT and DECIMAL
+# MIN/MAX (the large-G kernel's high-limb path under `on`)
+PX = {
+    # small-G kernel under `on`
+    "float": ("SELECT g, count(*) AS c, sum(f) AS s, avg(f) AS a, "
+              "min(f) AS lo, max(f) AS hi FROM px GROUP BY g ORDER BY g"),
+    "ungrouped": ("SELECT count(*) AS c, avg(f) AS a, min(f) AS lo, "
+                  "max(f) AS hi FROM px WHERE i >= 0"),
+    # large-G kernel under `on`: exact, equal to `off`
+    "decimal": "SELECT g, sum(d) AS s FROM px GROUP BY g ORDER BY g",
+    "int_minmax": ("SELECT g, min(i) AS lo, max(i) AS hi, min(d) AS dlo, "
+                   "max(d) AS dhi FROM px GROUP BY g ORDER BY g"),
+}
+PX_SMALL = ("float", "ungrouped")
+
+
+def _px_insert(rng) -> str:
+    vals = []
+    for _ in range(200):
+        f = "NULL" if rng.random() < 0.05 else \
+            f"{float(rng.normal() * 10):.6f}"
+        i = "NULL" if rng.random() < 0.05 else \
+            str(int(rng.integers(-(1 << 50), 1 << 50)))
+        vals.append(f"('k{int(rng.integers(0, 3))}', {f}, "
+                    f"{float(rng.random() * 100):.2f}, {i})")
+    return "INSERT INTO px VALUES " + ", ".join(vals)
+
+
 @pytest.fixture(scope="module")
 def reference():
-    """The reference's Q1/Q6 rows per mode, its large-kernel builds per
-    mode, and its store as arrays."""
+    """The reference's rows per (query, mode), its kernel builds per
+    (query, mode), and its store as arrays."""
     with reference_modules("cockroach_tpu.exec.engine",
                            "cockroach_tpu.models.tpch",
                            "cockroach_tpu.ops.pallas.groupagg") as (
@@ -61,17 +97,27 @@ def reference():
         e = jeng.Engine()
         try:
             jtpch.load(e, sf=0.01, rows=ROWS)
+            e.execute(PX_DDL)
+            e.execute(_px_insert(np.random.default_rng(3)))
+            runs = [(q, m, sql) for q, sql in
+                    (("q1", jtpch.Q1), ("q6", jtpch.Q6),
+                     ("q14", jtpch.Q14)) for m in MODES]
+            runs += [("q1", "on", jtpch.Q1), ("q1f", "on", tpch.Q1F),
+                     ("q6f", "on", tpch.Q6F)]
+            runs += [(f"px_{q}", m, sql) for q, sql in PX.items()
+                     for m in ("on", "off")]
             out = {}
-            for mode in MODES:
+            for q, mode, sql in runs:
                 s = e.session()
                 s.vars.set("distsql", "off")
                 s.vars.set("pallas_groupagg", mode)
-                b0 = jpg.BUILDS.value("large")
-                q1 = e.execute(jtpch.Q1, session=s).rows
-                q6 = e.execute(jtpch.Q6, session=s).rows
-                out[mode] = {"q1": q1, "q6": q6,
-                             "large_builds": jpg.BUILDS.value("large") - b0}
-            arrays = _store_arrays(e.store, jtpch.DDL)
+                b0 = {k: jpg.BUILDS.value(k) for k in ("small", "large")}
+                rows = e.execute(sql, session=s).rows
+                out[q, mode] = {
+                    "rows": rows,
+                    **{f"{k}_builds": jpg.BUILDS.value(k) - b0[k]
+                       for k in b0}}
+            arrays = _store_arrays(e.store, {**jtpch.DDL, "px": PX_DDL})
         finally:
             e.close()
     return out, arrays
@@ -89,13 +135,13 @@ def _run(eng, sql, mode):
     return eng.execute(sql, s).rows
 
 
-def _assert_rows_equal(got, want):
+def _assert_rows_equal(got, want, rel=1e-12):
     assert len(got) == len(want)
     for g_row, w_row in zip(got, want):
         assert len(g_row) == len(w_row)
         for g, w in zip(g_row, w_row):
             if isinstance(w, float):
-                assert g == pytest.approx(w, rel=1e-12), (g_row, w_row)
+                assert g == pytest.approx(w, rel=rel), (g_row, w_row)
             else:
                 assert g == w, (g_row, w_row)
 
@@ -112,7 +158,7 @@ def test_carried_store_matches(reference, port):
 @pytest.mark.parametrize("mode", MODES)
 def test_q6_matches_reference(reference, port, mode):
     ref, _ = reference
-    _assert_rows_equal(_run(port, tpch.Q6, mode), ref[mode]["q6"])
+    _assert_rows_equal(_run(port, tpch.Q6, mode), ref["q6", mode]["rows"])
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -120,15 +166,15 @@ def test_q1_matches_reference(reference, port, mode):
     ref, _ = reference
     before = tgl.PLAIN_CALLS
     got = _run(port, tpch.Q1, mode)
-    _assert_rows_equal(got, ref[mode]["q1"])
+    _assert_rows_equal(got, ref["q1", mode]["rows"])
     assert len(got) == 4
     if mode == "auto":
         # both engines routed Q1's dense GROUP BY to their kernel
         assert tgl.PLAIN_CALLS == before + 1
-        assert ref[mode]["large_builds"] >= 1
+        assert ref["q1", mode]["large_builds"] >= 1
     else:
         assert tgl.PLAIN_CALLS == before
-        assert ref[mode]["large_builds"] == 0
+        assert ref["q1", mode]["large_builds"] == 0
 
 
 def test_q1_off_keeps_exact_sums_and_counts(port):
@@ -153,8 +199,104 @@ def test_q1_q6_match_numpy_oracle(port):
 
 
 def test_set_pallas_groupagg_on_is_not_ported(port):
+    # `on` is ported now: SET accepts it, and only the three modes
+    with pytest.raises(EngineError, match="auto, on or off"):
+        port.execute("SET pallas_groupagg = always")
+    s = port.session()
+    port.execute("SET pallas_groupagg = on", s)
+    assert s.vars.get("pallas_groupagg") == "on"
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_q14_matches_reference(reference, port, mode):
+    ref, _ = reference
+    got = _run(port, tpch.Q14, mode)
+    _assert_rows_equal(got, ref["q14", mode]["rows"])
+    li = tpch.gen_lineitem(0.01, rows=ROWS)
+    assert got[0][0] == pytest.approx(
+        tpch.ref_q14(li, tpch.gen_part(0.01)), rel=1e-9)
+
+
+def test_q14_direct_and_hash_paths_agree(port):
+    # the engine direct-addresses Q14's join on p_partkey; with that
+    # decision taken away the hash-table path must give the same answer
+    from cockroach_tpu_torch.exec import engine as E
+    from cockroach_tpu_torch.ops import hashtable
+    want = _run(port, tpch.Q14, "auto")
+    orig = E.Engine._maybe_direct_join
+    E.Engine._maybe_direct_join = lambda self, join, b, stored: None
+    try:
+        hashtable.ROUNDS["build"] = 0
+        got = _run(port, tpch.Q14, "auto")
+    finally:
+        E.Engine._maybe_direct_join = orig
+    assert hashtable.ROUNDS["build"] >= 1
+    _assert_rows_equal(got, want)
+
+
+@pytest.mark.parametrize("query", ["q1f", "q6f"])
+def test_float_queries_on_small_kernel(reference, port, query):
+    ref, _ = reference
+    sql = tpch.Q1F if query == "q1f" else tpch.Q6F
+    before = tg.PLAIN_CALLS
+    got = _run(port, sql, "on")
+    assert tg.PLAIN_CALLS == before + 1
+    assert ref[query, "on"]["small_builds"] >= 1
+    # f32 accumulation: counts exact, sums and averages within rel 1e-5
+    _assert_rows_equal(got, ref[query, "on"]["rows"], rel=1e-5)
+    li = tpch.gen_lineitem(0.01, rows=ROWS)
+    if query == "q6f":
+        assert got[0][0] == pytest.approx(tpch.ref_q6(li), rel=1e-5)
+    else:
+        _assert_rows_equal(got, tpch.ref_q1(li), rel=1e-5)
+
+
+def test_q1_on_equals_auto(reference, port):
+    ref, _ = reference
+    before = (tg.PLAIN_CALLS, tgl.PLAIN_CALLS)
+    on = _run(port, tpch.Q1, "on")
+    # DECIMAL aggregates stay off the small kernel, on the large one
+    assert (tg.PLAIN_CALLS, tgl.PLAIN_CALLS) == (before[0], before[1] + 1)
+    assert on == _run(port, tpch.Q1, "auto")
+    _assert_rows_equal(on, ref["q1", "on"]["rows"])
+    assert ref["q1", "on"]["small_builds"] == 0
+
+
+@pytest.mark.parametrize("query", list(PX))
+def test_px_queries(reference, port, query):
+    ref, _ = reference
+    sql = PX[query]
+    before = (tg.PLAIN_CALLS, tgl.PLAIN_CALLS)
+    on = _run(port, sql, "on")
+    small = query in PX_SMALL
+    assert (tg.PLAIN_CALLS - before[0], tgl.PLAIN_CALLS - before[1]) == \
+        ((1, 0) if small else (0, 1))
+    assert ref[f"px_{query}", "on"]["small_builds" if small
+                                    else "large_builds"] >= 1
+    off = _run(port, sql, "off")
+    _assert_rows_equal(off, ref[f"px_{query}", "off"]["rows"])
+    if small:
+        _assert_rows_equal(on, ref[f"px_{query}", "on"]["rows"], rel=1e-5)
+        _assert_rows_equal(on, off, rel=1e-5)
+    else:
+        # exact paths: bit-equal to `off`, and equal to the reference
+        assert on == off
+        _assert_rows_equal(on, ref[f"px_{query}", "on"]["rows"])
+
+
+def test_duplicate_build_keys_raise_cleanly():
+    e = Engine(device="cpu")
+    e.execute("CREATE TABLE a (x INT8 NOT NULL, y INT8 NOT NULL)")
+    e.execute("CREATE TABLE b (x INT8 NOT NULL, z INT8 NOT NULL)")
+    ts = e.clock.now()
+    # duplicate keys on both sides, whichever the planner builds on
+    e.store.insert_columns("a", {"x": np.arange(10) % 5,
+                                 "y": np.arange(10)}, ts)
+    e.store.insert_columns("b", {"x": np.array([1, 1, 2]),
+                                 "z": np.array([5, 6, 7])}, ts)
     with pytest.raises(EngineError, match="not yet ported"):
-        port.execute("SET pallas_groupagg = on")
+        e.execute("SELECT sum(y) AS s, sum(z) AS t FROM a, b "
+                  "WHERE a.x = b.x")
 
 
 def test_engine_roundtrip_from_sql():

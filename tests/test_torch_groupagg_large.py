@@ -181,3 +181,18 @@ def test_row_block_and_limb_width_match_reference(n, block_rows):
         for cap in (22, 9):
             assert tgl.limb_width(n, maxg, block_rows, cap) == \
                 jgl.limb_width(n, maxg, block_rows, cap)
+
+
+def test_nan_in_minmax_propagates():
+    # a NaN among a group's MIN/MAX values makes that group's result NaN
+    # (jnp.min / jnp.max), and only that group's
+    n, G = 2048, 40
+    gid, sel, mat, mat_int, mm = _inputs(n, G, "i_only", ("min", "max"), 13)
+    hit = np.isin(gid, (3, 17)) & np.isfinite(mm[0])
+    mm = tuple(np.where(hit & (np.arange(n) % 5 == 0), np.nan, c)
+               .astype(np.float32) for c in mm)
+    jf, ji, tf, ti = _run_both(gid, sel, mat, mat_int, mm, ("min", "max"),
+                               G, False)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(tf[1:], jf[1:])  # NaN where NaN
+    assert set(np.flatnonzero(np.isnan(tf[1]))) == {3, 17}

@@ -35,8 +35,8 @@ def _imported_roots(path: Path):
 
 def test_port_scan_covers_the_package():
     names = {p.name for p in _port_files()}
-    assert {"engine.py", "compile.py", "groupagg_large.py",
-            "chip_smoke.py"} <= names
+    assert {"engine.py", "compile.py", "groupagg_large.py", "groupagg.py",
+            "hashtable.py", "join.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -70,3 +70,19 @@ def test_wrapper_uses_plain_version_only_for_cpu_tensors():
     meta = torch.zeros(n, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tgl.large_group_aggregate(meta, sel, (col,), (), 1, (True,))
+
+
+def test_small_wrapper_uses_plain_version_only_for_cpu_tensors():
+    from cockroach_tpu_torch.ops.cuda import groupagg as tg
+    n = 256
+    gid = torch.zeros(n, dtype=torch.int32)
+    sel = torch.ones(n, dtype=torch.bool)
+    col = torch.ones(n)
+    launches, plain = tg.LAUNCHES, tg.PLAIN_CALLS
+    _, cnt = tg.dense_group_aggregate(gid, sel, (col,), (sel,), 1,
+                                      (tg.COUNT,))
+    assert int(cnt[0, 0]) == n
+    assert (tg.LAUNCHES, tg.PLAIN_CALLS) == (launches, plain + 1)
+    meta = torch.zeros(n, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tg.dense_group_aggregate(meta, sel, (col,), (sel,), 1, (tg.COUNT,))
