@@ -19,7 +19,9 @@ Phases (any failure exits non-zero before the final line):
    Q1F and Q6F to the float64 oracles with counts exact and sums and
    averages within rel 1e-5 (the small-G kernel adds in f32). Q1 must
    launch the large-G kernel once, Q1F and Q6F the small-G kernel once
-   each, and Q1 under `on` must equal Q1 under `auto` bit for bit.
+   each, with no separate group-liveness count (ops.agg.group_count is
+   counted per query: Q1F reads liveness from its kernel launch), and
+   Q1 under `on` must equal Q1 under `auto` bit for bit.
 3. Q1 under SET pallas_groupagg = off must give the same DECIMAL sums
    and counts as through the kernel; medians of 5 warm runs of Q1, Q6,
    Q1 `off`, Q14, Q1F and Q6F are timed.
@@ -28,11 +30,17 @@ Phases (any failure exits non-zero before the final line):
    MIN/MAX/REPMIN (shared-memory accumulators), G = 200,000 (global
    atomics) and an all-masked input with out-of-range group ids; i32
    rows, MIN/MAX rows and REPMIN must match exactly, f32 sums within
-   rtol 1e-5 (atomic order). Small-G: at the exact inputs Q1F handed
-   it, G = 64 with all four ops, G = 1 at n = 2^23, an all-masked input
-   with out-of-range ids, and NaN values in some groups; counts and
-   MIN/MAX exact (NaN where NaN), f32 sums within rtol 1e-5. Kernel,
-   plain and library-call times use CUDA events after warm-up.
+   rtol 1e-5 (atomic order). Small-G: at the exact inputs Q1F and Q6F
+   handed it, G = 64 with all four ops, G = 1 at n = 2^23, an all-masked
+   input with out-of-range ids, NaN values in some groups, and G = 64
+   with 16 and with 300 slots (the per-block accumulator strategy,
+   which Q1F's shape does not reach; 300 slots read 48 masks, past the
+   kernel's 31 mask bits) with NaN groups and -0.0 in MIN/MAX columns;
+   counts exact, MIN/MAX bit for bit (-0.0 is not +0.0; NaN where
+   NaN), f32 sums within rtol 1e-5. Wrapper, plain
+   and library-call times use CUDA events after warm-up; the small-G
+   kernel's time alone at Q1F and Q6F uses CUDA events around bare
+   launches (bench_groupagg.kernel_ms).
 5. The join's hash-table path: ops.join.hash_join on Q14's scanned
    batches with direct=None must give the direct path's selection and
    payload; prints its build and probe round counts and its time.
@@ -49,6 +57,7 @@ import sys
 import time
 
 SF = 1
+ZERO_GROUP = 6              # small_synthetic: a group of -0.0 values
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 
 
@@ -179,9 +188,20 @@ def check_float(label, got, want, rel=1e-5) -> float:
     return worst
 
 
+def _same_bits(got, want) -> bool:
+    """NaN in the same cells, and bit-equal elsewhere (so -0.0 is not
+    +0.0)."""
+    import numpy as np
+    gn, wn = np.isnan(got), np.isnan(want)
+    return np.array_equal(gn, wn) and np.array_equal(
+        np.ascontiguousarray(got).view(np.int32)[~gn],
+        np.ascontiguousarray(want).view(np.int32)[~wn])
+
+
 def compare_small(tg, args, label: str) -> dict:
     """Small-G kernel vs plain version on the same card inputs; raises
-    on a mismatch. Returns the largest f32 sum errors."""
+    on a mismatch. Returns the largest f32 sum errors and how many NaN
+    and -0.0 cells the result holds."""
     import numpy as np
     import torch
     gid, sel, vals, masks, G, ops = args
@@ -193,7 +213,7 @@ def compare_small(tg, args, label: str) -> dict:
         raise AssertionError(f"{label}: counts differ")
     sums = [a for a, op in enumerate(ops) if op == tg.SUM]
     exact = [a for a in range(len(ops)) if a not in sums]
-    if not np.array_equal(ka[:, exact], pa[:, exact], equal_nan=True):
+    if not _same_bits(ka[:, exact], pa[:, exact]):
         raise AssertionError(f"{label}: MIN/MAX columns differ")
     k64, p64 = ka[:, sums].astype(np.float64), pa[:, sums].astype(np.float64)
     if not np.array_equal(np.isnan(k64), np.isnan(p64)):
@@ -206,18 +226,23 @@ def compare_small(tg, args, label: str) -> dict:
                              f"max rel {float(rel.max())}")
     out = {"max_abs_err": float(err.max()) if err.size else 0.0,
            "max_rel_err": float(rel.max()) if rel.size else 0.0,
-           "nan_cells": int(np.isnan(ka).sum())}
+           "nan_cells": int(np.isnan(ka).sum()),
+           "neg_zero_cells": int(((ka == 0) & np.signbit(ka)).sum())}
     print(f"small kernel vs plain [{label}]: n={gid.shape[0]} G={G} "
           f"A={len(ops)} ok {out}", flush=True)
     return out
 
 
 def small_synthetic(n, G, ops, seed, gid_lo=0, gid_hi=None, sel_frac=0.8,
-                    nan_groups=()):
+                    nan_groups=(), cols=None, neg_zero=False):
     """Seeded small-G kernel inputs on the card: float64 value columns
     (as the engine hands them over) and bool masks. Values are
     non-negative, so no cancellation inflates the f32 sums' relative
-    error."""
+    error. cols: distinct value and mask columns, shared by the slots
+    in turn (default one each per slot); neg_zero: zeros in 4% of the
+    rows, -0.0 in even groups and +0.0 in odd ones, and -0.0 in every row
+    of group ZERO_GROUP, so a MIN or MAX that is a zero has one right
+    sign whatever order the rows fold in."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
@@ -225,17 +250,24 @@ def small_synthetic(n, G, ops, seed, gid_lo=0, gid_hi=None, sel_frac=0.8,
     gid = torch.randint(gid_lo, hi, (n,), generator=g, device=dev,
                         dtype=torch.int32)
     sel = torch.rand(n, generator=g, device=dev) < sel_frac
+    k = len(ops) if cols is None else cols
     vals, masks = [], []
-    for _ in ops:
+    for _ in range(k):
         v = torch.rand(n, generator=g, device=dev,
                        dtype=torch.float64) * 1000
+        if neg_zero:
+            u = torch.rand(n, generator=g, device=dev)
+            zero = torch.where(gid % 2 == 0, -0.0, 0.0).to(v.dtype)
+            v = torch.where((u < 0.04) | (gid == ZERO_GROUP), zero, v)
         if nan_groups:
             hit = torch.isin(gid, torch.tensor(nan_groups, device=dev)) \
                 & (torch.rand(n, generator=g, device=dev) < 1e-3)
             v = torch.where(hit, float("nan"), v)
         vals.append(v)
         masks.append(torch.rand(n, generator=g, device=dev) < 0.9)
-    return gid, sel, tuple(vals), tuple(masks), G, tuple(ops)
+    return (gid, sel, tuple(vals[a % k] for a in range(len(ops))),
+            tuple(masks[(a + a // k) % k] for a in range(len(ops))), G,
+            tuple(ops))
 
 
 def _distinct_bytes(cols) -> int:
@@ -244,6 +276,66 @@ def _distinct_bytes(cols) -> int:
     for c in cols:
         seen[c.data_ptr()] = c.element_size()
     return sum(seen.values())
+
+
+def _distinct_content_bytes(cols) -> int:
+    """Bytes per row of the columns among `cols` that differ in content:
+    what the function needs when equal columns are read once."""
+    import torch
+    kept = []
+    for c in cols:
+        if not any(c.dtype == k.dtype and torch.equal(c, k) for k in kept):
+            kept.append(c)
+    return sum(c.element_size() for c in kept)
+
+
+def small_numbers(tg, args, label: str) -> dict:
+    """The small-G kernel's times at one shape: through its wrapper, alone
+    (CUDA events around bare launches), its plain version, one
+    index_add_ of the masked [n, A] f32 matrix into G rows (the library
+    yardstick), and its byte bound: gid, sel with the distinct masks,
+    the distinct value columns (each read once, float64 in place) and
+    the [G, A] outputs. Columns are distinct by storage, as the kernel
+    reads them; content_bound_ms counts columns equal in content once,
+    as a plan that shared equal arguments would hand them over."""
+    import torch
+
+    from cockroach_tpu_torch.bench_groupagg import kernel_ms
+    gid, sel, vals, masks, G, ops = args
+    n, A = gid.shape[0], len(ops)
+    out = {"strategy": tg.choose_strategy(G, A),
+           "ms": _cuda_ms(lambda: tg.dense_group_aggregate(*args)),
+           "kernel_ms": kernel_ms(args),
+           "plain_ms": _cuda_ms(
+               lambda: tg.dense_group_aggregate_plain(*args), reps=3,
+               warm=1)}
+    sel_b = sel.to(torch.bool)
+    cols = []
+    for v, m, op in zip(vals, masks, ops):
+        mk = sel_b & m.to(torch.bool)
+        cols.append(mk.float() if op == tg.COUNT
+                    else torch.where(mk, v.float(), 0.0))
+    matrix = torch.stack(cols, dim=1)
+    gid64 = gid.long()
+    out["library_ms"] = _cuda_ms(lambda: torch.zeros(
+        G, A, device="cuda").index_add_(0, gid64, matrix))
+    del matrix, cols
+    read = [v for v, op in zip(vals, ops) if op != tg.COUNT]
+    nbytes = n * (gid.element_size() + _distinct_bytes((sel,) + masks)
+                  + _distinct_bytes(read)) + G * A * 8
+    content = n * (gid.element_size()
+                   + _distinct_content_bytes((sel,) + masks)
+                   + _distinct_content_bytes(read)) + G * A * 8
+    out.update({"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+                "content_bound_ms": content / HBM_BYTES_PER_S * 1e3,
+                "shape": {"n": n, "G": G, "A": A, "bytes": nbytes,
+                          "content_bytes": content,
+                          "value_bytes_per_row": _distinct_bytes(read),
+                          "mask_bytes_per_row":
+                              _distinct_bytes((sel,) + masks) - 1}})
+    print(f"small kernel numbers [{label}]: {json.dumps(out)}", flush=True)
+    return out
 
 
 def main() -> int:
@@ -256,6 +348,7 @@ def main() -> int:
     from cockroach_tpu_torch.exec import compile as C
     from cockroach_tpu_torch.exec.engine import Engine
     from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops import agg as aggops
     from cockroach_tpu_torch.ops import hashtable, join
     from cockroach_tpu_torch.ops.cuda import build
     from cockroach_tpu_torch.ops.cuda import groupagg as tg
@@ -295,7 +388,12 @@ def main() -> int:
 
     captured = {}
     recorded = (tgl.large_group_aggregate, tg.dense_group_aggregate,
-                C.hash_join)
+                C.hash_join, aggops.group_count)
+    liveness_counts = {}
+
+    def counting_group_count(*args, **kw):
+        liveness_counts[q] = liveness_counts.get(q, 0) + 1
+        return recorded[3](*args, **kw)
 
     def recorder(key, fn):
         def recording(*args, **kw):
@@ -308,6 +406,7 @@ def main() -> int:
                  ("q6f", tpch.Q6F, s_on)]
     tgl.large_group_aggregate = recorder("q1", recorded[0])
     C.hash_join = recorder("q14", recorded[2])
+    aggops.group_count = counting_group_count
     rows, per_query = {}, {}
     launches = {"groupagg_large": 0, "groupagg": 0}
     try:
@@ -322,15 +421,18 @@ def main() -> int:
                 launches[k] += v
     finally:
         tgl.large_group_aggregate, tg.dense_group_aggregate, \
-            C.hash_join = recorded
-    print(f"main path launches: {launches} (per query: {per_query})",
-          flush=True)
+            C.hash_join, aggops.group_count = recorded
+    print(f"main path launches: {launches} (per query: {per_query}); "
+          f"plain group-liveness counts: {liveness_counts}", flush=True)
     if per_query["q1"]["groupagg_large"] != 1:
         raise AssertionError("Q1 did not launch the large-G kernel once")
     for q in ("q1f", "q6f"):
         if per_query[q] != {"groupagg_large": 0, "groupagg": 1}:
             raise AssertionError(f"{q} did not launch the small-G kernel "
                                  f"once: {per_query[q]}")
+        if liveness_counts.get(q):
+            raise AssertionError(f"{q} counted group liveness beside the "
+                                 "kernel")
     check_q1(rows["q1"], want_q1)
     if not _close(rows["q6"][0][0], want_q6, 1e-9):
         raise AssertionError(f"Q6 {rows['q6'][0][0]} != oracle {want_q6}")
@@ -425,10 +527,14 @@ def main() -> int:
         "max_rel_err": errs["max_rel_err"],
     }]
 
-    args, _ = captured["q1f"]
-    q1f_args = (args[0], args[1], tuple(args[2]), tuple(args[3]), args[4],
+    def small_args(q):
+        args, _ = captured[q]
+        return (args[0], args[1], tuple(args[2]), tuple(args[3]), args[4],
                 tuple(args[5]))
+
+    q1f_args, q6f_args = small_args("q1f"), small_args("q6f")
     serr = compare_small(tg, q1f_args, "Q1F SF1")
+    compare_small(tg, q6f_args, "Q6F SF1")
     allops = (tg.COUNT, tg.SUM, tg.MIN, tg.MAX)
     compare_small(tg, small_synthetic(1 << 23, 64, allops, 11), "G=64")
     compare_small(tg, small_synthetic(1 << 23, 1, (tg.SUM, tg.COUNT,
@@ -441,39 +547,29 @@ def main() -> int:
     if compare_small(tg, nan_args, "NaN in groups 2 and 5")[
             "nan_cells"] == 0:
         raise AssertionError("the NaN input produced no NaN")
-
-    gid, sel, vals, masks, G, ops = q1f_args
-    n, A = gid.shape[0], len(ops)
-    s_ms = _cuda_ms(lambda: tg.dense_group_aggregate(*q1f_args))
-    s_plain_ms = _cuda_ms(lambda: tg.dense_group_aggregate_plain(*q1f_args),
-                          reps=3, warm=1)
-    sel_b = sel.to(torch.bool)
-    cols = []
-    for v, m, op in zip(vals, masks, ops):
-        mk = sel_b & m.to(torch.bool)
-        cols.append(mk.float() if op == tg.COUNT
-                    else torch.where(mk, v.float(), 0.0))
-    matrix = torch.stack(cols, dim=1)
-    gid64 = gid.long()
-    s_library_ms = _cuda_ms(lambda: torch.zeros(
-        G, A, device="cuda").index_add_(0, gid64, matrix))
-    del matrix
-    read = [v for v, op in zip(vals, ops) if op != tg.COUNT]
-    s_bytes = n * (gid.element_size() + 1 + _distinct_bytes(read)
-                   + _distinct_bytes(masks)) + G * A * 8
+    for A, cols, seed in ((16, 5, 15), (300, 48, 16)):
+        sargs = small_synthetic(1 << 20, 64, allops * (A // 4), seed,
+                                nan_groups=(3, 40), cols=cols,
+                                neg_zero=True)
+        label = f"G=64 A={A} {tg.choose_strategy(64, A)}, NaN and -0.0"
+        got = compare_small(tg, sargs, label)
+        if got["nan_cells"] == 0 or got["neg_zero_cells"] == 0:
+            raise AssertionError(f"{label}: the input produced no NaN or "
+                                 "no -0.0")
+    small = small_numbers(tg, q1f_args, "Q1F SF1")
+    small_q6f = small_numbers(tg, q6f_args, "Q6F SF1")
     kernels.append({
         "name": "groupagg", "route": "cuda",
         "source": "cockroach_tpu_torch/csrc/groupagg.cu",
         "replaces": "cockroach_tpu/ops/pallas/groupagg.py:136",
         "launches": launches["groupagg"],
-        "max_abs_err": serr["max_abs_err"], "ms": s_ms,
-        "plain_ms": s_plain_ms,
-        "bound_ms": s_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": s_library_ms, "ok": True,
-        "shape": {"n": n, "G": G, "A": A, "bytes": s_bytes,
-                  "value_bytes_per_row": _distinct_bytes(read),
-                  "mask_bytes_per_row": _distinct_bytes(masks)},
+        "max_abs_err": serr["max_abs_err"], "ms": small["ms"],
+        "kernel_ms": small["kernel_ms"], "plain_ms": small["plain_ms"],
+        "bound_ms": small["bound_ms"], "bound_by": "bytes",
+        "library_ms": small["library_ms"], "ok": True,
+        "strategy": small["strategy"], "shape": small["shape"],
         "max_rel_err": serr["max_rel_err"],
+        "q6f": small_q6f,
     })
 
     # -- 5. the join's hash-table path --------------------------------------

@@ -294,23 +294,34 @@ def _pallas_agg_slots(aggs) -> list | None:
     return slots
 
 
-def _pallas_dense_partials(slots, aggfs, b, ctx, gid,
-                           num_groups: int) -> list:
-    """Every aggregate's (data, valid) from ONE small-G kernel pass.
-    Returns aggs_out in aggfs order."""
-    ones = torch.ones(b.n, dtype=torch.bool, device=b.device)
-    zerov = torch.zeros(b.n, dtype=torch.float32, device=b.device)
+def _pallas_dense_partials(slots, aggfs, b, ctx, gid, num_groups: int,
+                           grouped: bool):
+    """Every aggregate's (data, valid) from ONE small-G kernel pass, in
+    aggfs order, and for a grouped plan the groups' liveness from the
+    same pass (else None): a group is live when it holds a selected
+    row, which `count(*)`'s slot counts; without one, one more COUNT
+    slot does. Never a SUM's paired count: a group whose arguments are
+    all NULL is live and returns a NULL sum."""
     argdata = {i: argf(ctx) for i, (a, argf) in enumerate(aggfs)
                if argf is not None}
+    slots = list(slots)
+    rows_slot = [(i, role) for _, i, role in slots
+                 if aggfs[i][0].func == "count_rows"]
+    if grouped and not rows_slot:
+        slots.append((pg.COUNT, -1, "live"))
+        rows_slot = [(-1, "live")]
     values, masks, ops = [], [], []
     for op, i, role in slots:
+        # a COUNT slot's value is never read: it gets sel
         if i in argdata:
             d0, v0 = argdata[i]
-            values.append(zerov if op == pg.COUNT else d0)
+            values.append(b.sel if op == pg.COUNT else d0)
             masks.append(v0)
-        else:  # count_rows: every selected row participates
-            values.append(zerov)
-            masks.append(ones)
+        else:
+            # count(*) and liveness: every selected row; the mask is
+            # sel itself, which the kernel does not read again
+            values.append(b.sel)
+            masks.append(b.sel)
         ops.append(op)
     acc, cnt = pg.dense_group_aggregate(gid, b.sel, tuple(values),
                                         tuple(masks), num_groups,
@@ -327,7 +338,8 @@ def _pallas_dense_partials(slots, aggfs, b, ctx, gid,
         if a.func == "avg":
             d = d / torch.clamp(n_valid, min=1).to(torch.float64)
         aggs_out.append((d, n_valid > 0))
-    return aggs_out
+    live = cnt[:, col_of[rows_slot[0]]] > 0 if grouped else None
+    return aggs_out, live
 
 
 def _pallas_large_ok(aggs, mode: str) -> bool:
@@ -591,18 +603,18 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
                  and _pallas_large_ok([a for a, _ in aggfs], mode))
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
         rep_state = None
-        large_live = None
+        kernel_live = None   # liveness from a kernel's own launch
         res = None
         if pslots is not None:
             pgid = gid if gid is not None \
                 else torch.zeros(b.n, dtype=torch.int32, device=dev)
-            aggs_out = _pallas_dense_partials(pslots, aggfs, b, ctx, pgid,
-                                              num_groups)
+            aggs_out, kernel_live = _pallas_dense_partials(
+                pslots, aggfs, b, ctx, pgid, num_groups, gid is not None)
         elif large:
             res = _pallas_large_partials(aggfs, b, ctx, gid, num_groups,
                                          node.max_group_rows, params)
         if res is not None:
-            aggs_out, large_live, overflow = res
+            aggs_out, kernel_live, overflow = res
         elif pslots is None:
             if gid is not None and any(
                     a.func == "any" and not a.distinct for a, _ in aggfs):
@@ -619,8 +631,8 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
         # group liveness
         if not groupfs:
             live = torch.ones(1, dtype=torch.bool, device=dev)
-        elif large_live is not None:
-            live = large_live
+        elif kernel_live is not None:
+            live = kernel_live
         elif rep_state is not None:
             live = rep_state[1]
         else:

@@ -6,7 +6,8 @@ seconds), loaded with ctypes. Libraries land in ``_build/`` beside the
 package, named by a hash of their source, so an edited source never
 loads a stale build. Nothing is compiled when a module is imported:
 the first launch builds (``load``), and ``compile_all`` starts every
-nvcc at once for a caller that wants all kernels ready up front.
+nvcc at once for a caller that wants all kernels ready up front (also
+for variants of a source kept elsewhere, to time them side by side).
 """
 
 from __future__ import annotations
@@ -39,15 +40,22 @@ def nvcc_path() -> str:
     raise BuildError("nvcc not found (set CUDA_HOME)")
 
 
-def lib_path(name: str) -> Path:
-    """Where the build of csrc/<name>.cu goes (content-addressed)."""
-    tag = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"{name}-{tag[:16]}.so"
+def _source(name: str | Path) -> Path:
+    """csrc/<name>.cu for a name, or the given path to a source."""
+    return name if isinstance(name, Path) else CSRC / f"{name}.cu"
 
 
-def _start(name: str):
-    """Start nvcc for csrc/<name>.cu; returns (Popen, tmp, out) or None
-    when the library is already built."""
+def lib_path(name: str | Path) -> Path:
+    """Where the build of csrc/<name>.cu (or of the source at a path)
+    goes (content-addressed)."""
+    src = _source(name)
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()
+    return BUILD_DIR / f"{src.stem}-{tag[:16]}.so"
+
+
+def _start(name: str | Path):
+    """Start nvcc for csrc/<name>.cu (or a source path); returns
+    (Popen, tmp, out) or None when the library is already built."""
     out = lib_path(name)
     if out.exists():
         return None
@@ -56,13 +64,13 @@ def _start(name: str):
     os.close(fd)
     cmd = [nvcc_path(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-           str(CSRC / f"{name}.cu")]
+           str(_source(name))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def _finish(name: str, started) -> str:
+def _finish(name: str | Path, started) -> str:
     """Wait for one started build; returns nvcc's output."""
     if started is None:
         return ""
@@ -70,20 +78,22 @@ def _finish(name: str, started) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise BuildError(f"nvcc failed for {name}.cu:\n{log}")
+        raise BuildError(f"nvcc failed for {_source(name)}:\n{log}")
     os.replace(tmp, out)
     return log
 
 
-def compile_all(names: list[str]) -> dict[str, str]:
-    """Build every named source, all nvcc processes running at once.
-    Returns {name: nvcc output (register/shared-memory report)}."""
+def compile_all(names: list) -> dict:
+    """Build every named source (csrc/<name>.cu, or a source path), all
+    nvcc processes running at once. Returns {name: nvcc output
+    (register/shared-memory report)}."""
     started = {n: _start(n) for n in names}
     return {n: _finish(n, s) for n, s in started.items()}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
+def load(name: str | Path) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu (or of a source path), built
+    first if needed."""
     lib = _loaded.get(name)
     if lib is None:
         _finish(name, _start(name))

@@ -118,22 +118,46 @@ def test_engine_q1_q6_on_card_match_cpu(cuda):
 
 # -- the small-G kernel (ops/cuda/groupagg.py) --------------------------------
 
+ZERO_GROUP = 6   # _small_inputs: a group of -0.0 values
+
+
 def _small_inputs(n, G, ops, seed, device, gid_lo=0, gid_hi=None,
-                  sel_frac=0.8, nan_groups=(), f64=False):
+                  sel_frac=0.8, nan_groups=(), f64=False, cols=None,
+                  neg_zero=False, misalign=False, sel_mask=False):
+    """Seeded inputs for the small-G kernel. cols: distinct value and
+    mask columns, shared by the slots in turn (default one each per
+    slot); neg_zero: zeros in 4% of the rows, -0.0 in even groups and
+    +0.0 in odd ones, and -0.0 in every row of group ZERO_GROUP (a MIN
+    or MAX that is a zero has one right sign); misalign: every column
+    a view one element into its storage, so no pointer is aligned for
+    the vector loads; sel_mask: every third slot's mask is sel itself."""
     rng = np.random.default_rng(seed)
+    m = n + 1
     gid = rng.integers(gid_lo, G if gid_hi is None else gid_hi,
-                       size=n).astype(np.int32)
-    sel = rng.random(n) < sel_frac
+                       size=m).astype(np.int32)
+    sel = rng.random(m) < sel_frac
+    k = len(ops) if cols is None else cols
+    off = 1 if misalign else 0
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)[off:off + n]
+
     vals, masks = [], []
-    for _ in ops:
+    for _ in range(k):
         # non-negative: no cancellation inflates the f32 sums' error
-        v = (rng.random(n) * 100).astype(np.float64 if f64
+        v = (rng.random(m) * 100).astype(np.float64 if f64
                                          else np.float32)
-        v[np.isin(gid, nan_groups) & (rng.random(n) < 0.01)] = np.nan
-        vals.append(torch.from_numpy(v).to(device))
-        masks.append(torch.from_numpy(rng.random(n) < 0.9).to(device))
-    return (torch.from_numpy(gid).to(device),
-            torch.from_numpy(sel).to(device), tuple(vals), tuple(masks))
+        if neg_zero:
+            zero = (rng.random(m) < 0.04) | (gid == ZERO_GROUP)
+            v[zero] = np.where(gid[zero] % 2 == 0, -0.0, 0.0)
+        v[np.isin(gid, nan_groups) & (rng.random(m) < 0.01)] = np.nan
+        vals.append(dev(v))
+        masks.append(dev(rng.random(m) < 0.9))
+    sel_t = dev(sel)
+    values = tuple(vals[a % k] for a in range(len(ops)))
+    mask_of = tuple(sel_t if sel_mask and a % 3 == 0
+                    else masks[(a + a // k) % k] for a in range(len(ops)))
+    return dev(gid), sel_t, values, mask_of
 
 
 def _check_small(gid, sel, vals, masks, G, ops):
@@ -147,24 +171,49 @@ def _check_small(gid, sel, vals, masks, G, ops):
     np.testing.assert_array_equal(kc, pc)
     for a, op in enumerate(ops):
         if op in (tg.MIN, tg.MAX, tg.COUNT):
-            np.testing.assert_array_equal(ka[:, a], pa[:, a])
+            # NaN in the same cells, bit-equal elsewhere: -0.0 != +0.0
+            nan = np.isnan(pa[:, a])
+            np.testing.assert_array_equal(np.isnan(ka[:, a]), nan)
+            np.testing.assert_array_equal(ka[~nan, a].view(np.int32),
+                                          pa[~nan, a].view(np.int32))
         else:
             np.testing.assert_allclose(ka[:, a], pa[:, a], rtol=1e-5,
                                        atol=1e-2)
 
 
+Q1F_OPS = (1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 0)
 SMALL_CASES = [
-    # (n, G, ops, f64)
-    (1 << 16, 12, (0, 1, 0, 1, 0, 2, 3), True),
-    (1 << 16, 64, (0, 1, 2, 3), False),
-    (1 << 20, 1, (1, 0, 2, 3), True),
-    (128, 2, (0, 1), False),
+    # (n, G, ops, f64, strategy, options)
+    (1 << 16, 12, (0, 1, 0, 1, 0, 2, 3), True, "thread", {}),
+    (1 << 16, 64, (0, 1, 2, 3), False, "thread", {}),
+    (1 << 20, 1, (1, 0, 2, 3), True, "thread", {}),
+    (128, 2, (0, 1), False, "thread", {}),
+    # Q1F's slots: mixed-group warps, shared masks, sel as a mask
+    (1 << 18, 12, Q1F_OPS, True, "thread", {"cols": 7, "sel_mask": True}),
+    # per-block copies at G * A = 1024, NaN groups, -0.0 in MIN/MAX
+    (1 << 16, 64, (0, 1, 2, 3) * 4, True, "cta",
+     {"cols": 5, "nan_groups": (3, 40), "neg_zero": True}),
+    # per-block copies (G * A = 19,200); 48 masks and 36 value columns,
+    # past the kernel's first load batches and its 32 mask bits
+    (1 << 14, 64, (0, 1, 2, 3) * 75, True, "cta",
+     {"cols": 48, "nan_groups": (3,), "neg_zero": True}),
+    # G = 1 with NaN and -0.0
+    (1 << 16, 1, (1, 2, 3, 0), True, "thread",
+     {"nan_groups": (0,), "neg_zero": True}),
+    # misaligned float64 views: the scalar-load instantiation
+    (1 << 16, 12, (0, 1, 2, 3), True, "thread",
+     {"misalign": True, "nan_groups": (2,), "neg_zero": True}),
+    (1 << 16, 64, (0, 1, 2, 3) * 4, True, "cta", {"misalign": True}),
 ]
 
 
-@pytest.mark.parametrize("n,G,ops,f64", SMALL_CASES)
-def test_small_kernel_matches_plain(cuda, n, G, ops, f64):
-    _check_small(*_small_inputs(n, G, ops, n + G, cuda, f64=f64), G, ops)
+@pytest.mark.parametrize("n,G,ops,f64,strategy,options", SMALL_CASES)
+def test_small_kernel_matches_plain(cuda, n, G, ops, f64, strategy,
+                                    options):
+    from cockroach_tpu_torch.ops.cuda import groupagg as tg
+    assert tg.choose_strategy(G, len(ops)) == strategy
+    _check_small(*_small_inputs(n, G, ops, n + G, cuda, f64=f64,
+                                **options), G, ops)
 
 
 def test_small_kernel_masked_out_of_range_and_nan(cuda):

@@ -64,6 +64,9 @@ PX = {
     # small-G kernel under `on`
     "float": ("SELECT g, count(*) AS c, sum(f) AS s, avg(f) AS a, "
               "min(f) AS lo, max(f) AS hi FROM px GROUP BY g ORDER BY g"),
+    # no count(*): liveness needs a COUNT slot of its own (group k9's
+    # every f is NULL, so its sum's paired count is 0)
+    "null_group": "SELECT g, sum(f) AS s FROM px GROUP BY g ORDER BY g",
     "ungrouped": ("SELECT count(*) AS c, avg(f) AS a, min(f) AS lo, "
                   "max(f) AS hi FROM px WHERE i >= 0"),
     # large-G kernel under `on`: exact, equal to `off`
@@ -71,7 +74,10 @@ PX = {
     "int_minmax": ("SELECT g, min(i) AS lo, max(i) AS hi, min(d) AS dlo, "
                    "max(d) AS dhi FROM px GROUP BY g ORDER BY g"),
 }
-PX_SMALL = ("float", "ungrouped")
+PX_SMALL = ("float", "null_group", "ungrouped")
+# a group whose FLOAT argument is NULL in every row
+PX_NULL_GROUP = ("INSERT INTO px VALUES ('k9', NULL, 1.00, 5), "
+                 "('k9', NULL, 2.50, NULL), ('k9', NULL, 4.00, 7)")
 
 
 def _px_insert(rng) -> str:
@@ -99,6 +105,7 @@ def reference():
             jtpch.load(e, sf=0.01, rows=ROWS)
             e.execute(PX_DDL)
             e.execute(_px_insert(np.random.default_rng(3)))
+            e.execute(PX_NULL_GROUP)
             runs = [(q, m, sql) for q, sql in
                     (("q1", jtpch.Q1), ("q6", jtpch.Q6),
                      ("q14", jtpch.Q14)) for m in MODES]
@@ -325,3 +332,40 @@ def test_engine_roundtrip_from_sql():
         assert sv == pytest.approx(int(cents[mv].sum()) / 100, abs=1e-9)
         assert sq == int(q[m].sum())
         assert c == int(mv.sum()) and cnt == int(m.sum())
+
+
+def test_group_of_null_arguments_is_live(reference, port, monkeypatch):
+    # the small kernel's launch says which groups are live: with no
+    # count(*) in the plan it counts one more slot, whose mask is sel
+    # itself, and never a SUM's paired count
+    ref, _ = reference
+    calls = []
+
+    def recording(gid, sel, values, masks, num_groups, ops):
+        calls.append((sel, masks, ops))
+        return kernel(gid, sel, values, masks, num_groups, ops)
+
+    kernel = tg.dense_group_aggregate
+    monkeypatch.setattr(tg, "dense_group_aggregate", recording)
+    got = _run(port, PX["null_group"], "on")
+    (sel, masks, ops), = calls
+    assert ops == (tg.SUM, tg.COUNT, tg.COUNT) and masks[2] is sel
+    assert ("k9", None) in got
+    _assert_rows_equal(got, ref["px_null_group", "on"]["rows"], rel=1e-5)
+
+
+def test_q1f_reads_liveness_from_its_kernel(reference, port, monkeypatch):
+    # Q1F's count(*) slot gives its groups' liveness: no separate
+    # group_count scatter on the small-G path (the plain path has one)
+    from cockroach_tpu_torch.ops import agg as aggops
+    counted = []
+    group_count = aggops.group_count
+    monkeypatch.setattr(aggops, "group_count",
+                        lambda *a: counted.append(1) or group_count(*a))
+    before = tg.PLAIN_CALLS
+    on = _run(port, tpch.Q1F, "on")
+    assert tg.PLAIN_CALLS == before + 1 and counted == []
+    ref, _ = reference
+    _assert_rows_equal(on, ref["q1f", "on"]["rows"], rel=1e-5)
+    _run(port, tpch.Q1F, "off")
+    assert counted

@@ -124,6 +124,25 @@ def test_nan_values_propagate():
         assert np.all(np.isnan(ta[g])) == (g in (1, 3))
 
 
+def test_signed_zero_min_max_match_reference():
+    # zeros are -0.0 in even groups and +0.0 in odd ones, and group 2
+    # holds only -0.0: a MIN or MAX that is a zero has one right sign
+    gid, sel, v, m = _data(n=4096, groups=6, seed=13)
+    v = np.abs(v)
+    zero = (np.random.default_rng(13).random(4096) < 0.05) | (gid == 2)
+    v[zero] = np.where(gid[zero] % 2 == 0, -0.0, 0.0)
+    ta, _ = _run_both(gid, sel, (v,) * 3, (m,) * 3, 6,
+                      (tg.MIN, tg.MAX, tg.SUM))
+    ja, _ = jpg.dense_group_aggregate(gid, sel, (v,) * 3, (m,) * 3, 6,
+                                      (tg.MIN, tg.MAX, tg.SUM),
+                                      interpret=True)
+    np.testing.assert_array_equal(ta[:, :2].view(np.int32),
+                                  np.asarray(ja)[:, :2].view(np.int32))
+    assert np.signbit(ta[[0, 2, 4], 0]).all()
+    assert not np.signbit(ta[[1, 3, 5], 0]).any()
+    assert ta[2, 1] == 0.0 and np.signbit(ta[2, 1])
+
+
 def test_out_of_range_ids_and_masked_rows_contribute_nothing():
     n, G = 2048, 8
     gid, sel, v, m = _data(n=n, groups=G, seed=5, gid_lo=-10, gid_hi=20)
@@ -142,3 +161,72 @@ def test_contract_checks():
     one = torch.ones(128, dtype=torch.bool)
     with pytest.raises(ValueError, match="num_groups"):
         tg.dense_group_aggregate(gid, one, (one,), (one,), 65, (tg.COUNT,))
+
+
+# (G, A, strategy): the edges of each accumulator layout, where its
+# copies (G * A 32-bit words each: 128 a block, or 1) and the plan's
+# 32 * A + 16 descriptor bytes still fit in 227 KB of shared memory
+STRATEGY_EDGES = [
+    (12, 15, "thread"),   # TPC-H Q1F
+    (1, 2, "thread"),     # TPC-H Q6F
+    (32, 15, "cta"),      # TPC-H Q1F by return flag and ship mode
+    (1, 427, "thread"), (1, 428, "cta"),
+    (64, 7, "thread"), (64, 8, "cta"),
+    (64, 220, "cta"), (64, 221, "cta"),
+    (64, 807, "cta"),
+]
+
+
+@pytest.mark.parametrize("G,A,strategy", STRATEGY_EDGES)
+def test_strategy_choice(G, A, strategy):
+    assert tg.choose_strategy(G, A) == strategy
+
+
+@pytest.mark.parametrize("G,A,strategy", STRATEGY_EDGES)
+def test_fitting_strategies_start_with_the_choice(G, A, strategy):
+    # the per-block layout fits wherever any does; the chosen one first
+    fit = tg.fitting_strategies(G, A)
+    assert fit[0] == strategy and fit[-1] == "cta"
+    assert fit == [s for s in tg.STRATEGIES if s in fit]
+
+
+def test_strategy_choice_refuses_past_the_block_layout():
+    with pytest.raises(ValueError, match="do not fit"):
+        tg.choose_strategy(64, 808)
+
+
+def test_columns_deduplicated_by_storage():
+    # two slots share one mask tensor, one slot's mask is sel itself, and
+    # two value slots share one column: the kernel reads one mask and one
+    # value column besides gid and sel
+    gid, sel, v, m = _data(n=4096, groups=5, seed=21)
+    ts, tm, tv = (torch.from_numpy(a) for a in (sel, m, v))
+    ops = (tg.COUNT, tg.SUM, tg.COUNT, tg.MAX)
+    plan = tg.column_plan(ts, (tv, tv, tv, tv), (tm, tm, ts, tm), ops)
+    assert len(plan.masks) == 1 and len(plan.values) == 1
+    assert plan.sel.data_ptr() == ts.data_ptr()
+    # (value column, mask + 1, op, output column), in slot order
+    assert plan.slots == [(-1, 1, tg.COUNT, 0), (0, 1, tg.SUM, 1),
+                          (-1, 0, tg.COUNT, 2), (0, 1, tg.MAX, 3)]
+    # the plain version gives the reference's counts for the same call
+    _, tc = _run_both(gid, sel, (v, v, v, v), (m, m, sel, m), 5, ops)
+    ok = sel & (gid >= 0) & (gid < 5)
+    np.testing.assert_array_equal(tc[:, 0], np.bincount(gid[ok & m],
+                                                        minlength=5))
+    np.testing.assert_array_equal(tc[:, 2], np.bincount(gid[ok],
+                                                        minlength=5))
+
+
+def test_builds_are_named_by_source_and_content(tmp_path):
+    # a variant of a kernel source, timed beside the checkout's own
+    # (bench_groupagg --source), builds apart from it: by its file's
+    # stem and a hash of its text, so an edit never loads a stale build
+    from cockroach_tpu_torch.ops.cuda import build
+    variant = tmp_path / "groupagg_variant.cu"
+    variant.write_text("// a variant\n")
+    own = build.lib_path("groupagg")
+    assert own.parent == build.BUILD_DIR and own.name.startswith("groupagg-")
+    first = build.lib_path(variant)
+    assert first.name.startswith("groupagg_variant-") and first != own
+    variant.write_text("// another variant\n")
+    assert build.lib_path(variant) != first
