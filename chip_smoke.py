@@ -44,8 +44,35 @@ Phases (any failure exits non-zero before the final line):
 5. The join's hash-table path: ops.join.hash_join on Q14's scanned
    batches with direct=None must give the direct path's selection and
    payload; prints its build and probe round counts and its time.
-Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
-last line {"ok": true, "device": {...}}.
+6. The multi-table suite: loads orders, customer, supplier, partsupp,
+   nation and region at SF1 beside lineitem and part (prints the load
+   seconds), then runs TPC-H Q3, Q5, Q10, Q12, QPS (lineitem x partsupp
+   on the part key alone, 4 partsupp rows a key) and QH (returned-item
+   revenue per customer and ship mode) through Engine.execute, each
+   with every count set to 0 just before it and read just after,
+   against the numpy oracles: DECIMAL values within rel 1e-9, keys,
+   counts and dates exactly, rows in the oracle's order. Routes from
+   the counts: Q5, Q10 (its keys reduced to the dense c_custkey) and
+   Q12 launch the large-G kernel once each, Q3 (1,499,977 dense codes)
+   none; QH, and only QH, numbers its groups with hashtable.group_ids
+   (its build rounds are printed); Q3, Q10 and QH cut with the fused
+   top-k and need no TopKInexact replan; every sort goes through packed
+   sort-key lanes (no fallback); QPS expands its join 4 ways; the
+   Compact nodes applied and the replans of each query are printed. Q3,
+   Q10 and QH under SET sort_normalized = off must give the same rows.
+   The packed lanes built on the card equal those built on the CPU, bit
+   for bit. Medians of 5 warm runs and the peak device memory are
+   printed, and the large-G kernel is held against its plain version at
+   the exact inputs Q5, Q10 and Q12 handed it (integer rows exactly,
+   f32 within rtol 1e-5), with its times there.
+Then one JSON line of per-kernel numbers (the large-G kernel's
+launches count Q1, Q5, Q10 and Q12), the nvidia-smi line, and the last
+line {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --profile DIR
+
+also profiles the phase 6 queries with torch.profiler after the last
+check (profile_tpch.profile_queries; traces and numbers into DIR).
 """
 
 from __future__ import annotations
@@ -59,6 +86,31 @@ import time
 SF = 1
 ZERO_GROUP = 6              # small_synthetic: a group of -0.0 values
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+
+# the lineitem x partsupp half of TPC-H Q9 without its supplier key: a
+# duplicate-keyed build side (4 partsupp rows per part key)
+QPS = """
+SELECT count(*) AS n, sum(ps_supplycost * l_quantity) AS cost
+FROM lineitem, partsupp
+WHERE l_partkey = ps_partkey
+  AND l_shipdate >= date '1995-01-01' AND l_shipdate < date '1995-02-01'
+"""
+# returned-item revenue per customer and ship mode (Q10's filters): at
+# SF1 o_custkey spans 150,000 values, past the 4,096 a dense code of two
+# keys may take, so it groups by hash (hashtable.group_ids). Q10 itself
+# does not: the planner reduces its keys by functional dependency to the
+# one dense key c_custkey (150,001 groups, the large-G kernel).
+QH = """
+SELECT o_custkey, l_shipmode, count(*) AS n,
+       sum(l_extendedprice * (1 - l_discount)) AS revenue
+FROM orders, lineitem
+WHERE l_orderkey = o_orderkey
+  AND o_orderdate >= date '1993-10-01' AND o_orderdate < date '1994-01-01'
+  AND l_returnflag = 'R'
+GROUP BY o_custkey, l_shipmode
+ORDER BY revenue DESC, o_custkey, l_shipmode
+LIMIT 20
+"""
 
 
 def _smi() -> str:
@@ -84,14 +136,20 @@ def _cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _median_ms(fn, reps: int = 5) -> float:
+def _sync() -> None:
+    """Wait for the card (the CPU has nothing to wait for)."""
     import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _median_ms(fn, reps: int = 5) -> float:
     times = []
     for _ in range(reps):
-        torch.cuda.synchronize()
+        _sync()
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        _sync()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
@@ -338,6 +396,265 @@ def small_numbers(tg, args, label: str) -> dict:
     return out
 
 
+def large_numbers(tgl, args) -> dict:
+    """The large-G kernel's times at one shape: through its wrapper, its
+    plain version, and one index_add_ of the [n, n_mat] f32 matrix into
+    G rows (the library yardstick); and its byte bound: each input
+    column read once, each output row written once."""
+    import torch
+    gid, sel, mat, mm, G, mat_int, mm_ops, want_rep = args
+    n = gid.shape[0]
+    out = {"ms": _cuda_ms(lambda: tgl.large_group_aggregate(*args)),
+           "plain_ms": _cuda_ms(
+               lambda: tgl.large_group_aggregate_plain(*args), reps=3,
+               warm=1)}
+    rowmajor = torch.stack([c.float() for c in mat], dim=1)
+    gid64 = gid.long()
+    out["library_ms"] = _cuda_ms(lambda: torch.zeros(
+        G, len(mat), device="cuda").index_add_(0, gid64, rowmajor))
+    del rowmajor
+    nf = max(1, sum(not b for b in mat_int) + len(mm))
+    ni = max(1, sum(bool(b) for b in mat_int) + int(want_rep))
+    nbytes = n * (4 * len(mat) + 4 * len(mm) + 4 + 1) + (nf + ni) * G * 4
+    out.update({"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes",
+                "shape": {"n": n, "G": G, "n_mat": len(mat),
+                          "n_mm": len(mm), "bytes": nbytes}})
+    return out
+
+
+def large_args(captured, key) -> tuple:
+    """The large-G kernel's positional arguments as a query passed them."""
+    args, kw = captured[key]
+    return (args[0], args[1], tuple(args[2]), tuple(args[3]),
+            kw["num_groups"], tuple(kw["mat_int"]),
+            tuple(kw.get("mm_ops", ())), bool(kw.get("want_rep")))
+
+
+def check_rows(label, got, want, rel=1e-9) -> float:
+    """Rows against an oracle's, in order: floats within `rel`, every
+    other value exactly. Returns the largest relative float error."""
+    if len(got) != len(want) or not want:
+        raise AssertionError(f"{label}: {len(got)} rows, oracle "
+                             f"{len(want)}")
+    worst = 0.0
+    for g_row, w_row in zip(got, want):
+        if len(g_row) != len(w_row):
+            raise AssertionError(f"{label}: {g_row} != oracle {w_row}")
+        for g, w in zip(g_row, w_row):
+            if isinstance(w, float):
+                err = abs(g - w) / max(abs(w), 1e-300)
+                worst = max(worst, err)
+                if err > rel:
+                    raise AssertionError(f"{label}: {g_row} != oracle "
+                                         f"{w_row} (rel {err})")
+            elif g != w:
+                raise AssertionError(f"{label}: {g_row} != oracle {w_row}")
+    return worst
+
+
+def ref_qps(li, ps) -> list[tuple]:
+    """QPS over numpy arrays: every partsupp row of a lineitem row's part
+    key matches it."""
+    import numpy as np
+
+    from cockroach_tpu_torch.models import tpch
+    d0, d1 = tpch._days("1995-01-01"), tpch._days("1995-02-01")
+    m = (li["l_shipdate"] >= d0) & (li["l_shipdate"] < d1)
+    per_key = np.bincount(ps["ps_partkey"])
+    cost_of_key = np.bincount(ps["ps_partkey"], weights=ps["ps_supplycost"])
+    pk = li["l_partkey"][m]
+    return [(int(per_key[pk].sum()),
+             float((li["l_quantity"][m] * cost_of_key[pk]).sum()))]
+
+
+def ref_qh(li, orders) -> list[tuple]:
+    """QH over numpy arrays (l_shipmode as strings)."""
+    import numpy as np
+
+    from cockroach_tpu_torch.models import tpch
+    d0, d1 = tpch._days("1993-10-01"), tpch._days("1994-01-01")
+    od = orders["o_orderdate"]
+    osel = (od >= d0) & (od < d1)
+    o_cust = np.full(int(orders["o_orderkey"].max()) + 1, -1, np.int64)
+    o_cust[orders["o_orderkey"][osel]] = orders["o_custkey"][osel]
+    rows_r = np.nonzero(li["l_returnflag"] == "R")[0]
+    ck = o_cust[li["l_orderkey"][rows_r]]
+    hit = rows_r[ck >= 0]
+    code = {m: i for i, m in enumerate(tpch.SHIPMODES)}
+    nm = len(tpch.SHIPMODES)
+    key = ck[ck >= 0] * nm + np.fromiter(
+        (code[m] for m in li["l_shipmode"][hit]), np.int64, len(hit))
+    uniq, inv = np.unique(key, return_inverse=True)
+    rev = np.bincount(inv, weights=li["l_extendedprice"][hit]
+                      * (1 - li["l_discount"][hit]))
+    rows = [(int(k // nm), tpch.SHIPMODES[k % nm], int(c), float(r))
+            for k, c, r in zip(uniq, np.bincount(inv), rev)]
+    rows.sort(key=lambda t: (-t[3], t[0], t[1]))
+    return rows[:20]
+
+
+def check_lanes_on_card() -> dict:
+    """Packed sort-key lanes and their permutation built on the card
+    equal those built on the CPU, bit for bit: int64 extremes, float64
+    with -0.0, NaN and +-inf, dictionary ranks, bools, with NULLs, dead
+    rows, ASC/DESC and NULLS FIRST/LAST (three lanes, fields straddling
+    lane boundaries)."""
+    import numpy as np
+    import torch
+
+    from cockroach_tpu_torch.ops import sortkey
+    rng = np.random.default_rng(21)
+    n = 1 << 20
+    i64 = rng.integers(-(1 << 63), (1 << 63) - 1, size=n, dtype=np.int64)
+    i64[:4] = [np.iinfo(np.int64).min, np.iinfo(np.int64).max, -1, 0]
+    f64 = rng.normal(size=n)
+    f64[:6] = [-0.0, 0.0, np.nan, -np.inf, np.inf, 5e-324]
+    codes = rng.integers(0, 40, size=n).astype(np.int32)
+    lut = rng.permutation(40).astype(np.int32)
+    flags = rng.random(n) < 0.5
+    cols = [(i64, False, True, None), (f64, True, False, None),
+            (codes, True, True, lut), (flags, False, False, None),
+            (i64[::-1].copy(), True, False, None)]
+    valid = [rng.random(n) < 0.9 for _ in cols]
+    sel = rng.random(n) < 0.8
+    out = {}
+    for dev in ("cpu", "cuda"):
+        specs = [(torch.tensor(d, device=dev), torch.tensor(v, device=dev),
+                  desc, nf, lu, None)
+                 for (d, desc, nf, lu), v in zip(cols, valid)]
+        lanes = sortkey.mask_dead(
+            sortkey.pack_lanes(sortkey.encode_keys(specs), n, dev),
+            torch.tensor(sel, device=dev))
+        out[dev] = ([lane.cpu() for lane in lanes],
+                    sortkey.sort_perm(lanes).cpu())
+    if len(out["cpu"][0]) != len(out["cuda"][0]) or not all(
+            torch.equal(a, b) for a, b in zip(out["cpu"][0],
+                                              out["cuda"][0])):
+        raise AssertionError("packed lanes on the card != on the CPU")
+    if not torch.equal(out["cpu"][1], out["cuda"][1]):
+        raise AssertionError("sort_perm on the card != on the CPU")
+    return {"rows": n, "lanes": len(out["cuda"][0])}
+
+
+# large-G kernel launches per suite query at SF1; Q3 groups by
+# l_orderkey densely over 1,499,977 codes, past the kernel's 2^19, so it
+# takes the plain scatters
+SF1_KERNEL_LAUNCHES = {"q3": 0, "q5": 1, "q10": 1, "q12": 1, "qps": 0,
+                       "qh": 0}
+
+
+def suite_phase(eng, li, sf, captured, recorder,
+                kernel_launches=SF1_KERNEL_LAUNCHES) -> tuple:
+    """Phase 6 on a loaded engine (lineitem from `li`, part): loads the
+    other tables at `sf`, runs the suite with its counts and route
+    checks against the oracles (`kernel_launches`: the large-G kernel's
+    launches each query must make), Q3, Q10 and QH under
+    sort_normalized = off, and the medians. Returns (routes, medians);
+    the large-G kernel's inputs at Q5, Q10 and Q12 land in `captured`.
+    On a CPU engine (a rehearsal) the kernel wrappers' plain-version
+    calls stand in for their launches."""
+    import numpy as np
+    import torch
+
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops import sortkey
+    from cockroach_tpu_torch.ops.cuda import groupagg as tg
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+
+    on_card = eng.device.type == "cuda"
+    rows = {}
+    kernel = tgl.large_group_aggregate
+    t0 = time.perf_counter()
+    tpch.load(eng, sf=sf, tables=("orders", "customer", "supplier",
+                                  "partsupp", "nation", "region"))
+    load_s = time.perf_counter() - t0
+    li["l_shipmode"] = np.asarray(tpch.SHIPMODES, dtype=object)[
+        li["l_shipmode"]]
+    orders, cust = tpch.gen_orders(sf), tpch.gen_customer(sf)
+    supp, ps = tpch.gen_supplier(sf), tpch.gen_partsupp(sf)
+    want = {"q3": tpch.ref_q3(li, orders, cust),
+            "q5": tpch.ref_q5(li, orders, cust, supp),
+            "q10": tpch.ref_q10(li, orders, cust, tpch.gen_nation()),
+            "q12": tpch.ref_q12(li, orders), "qps": ref_qps(li, ps),
+            "qh": ref_qh(li, orders)}
+    print(f"load SF{sf} orders, customer, supplier, partsupp, nation, "
+          f"region: {load_s:.1f} s (host generate + ingest + ANALYZE; "
+          f"{time.perf_counter() - t0 - load_s:.1f} s more for the "
+          "oracles)", flush=True)
+    suite = {"q3": tpch.Q3, "q5": tpch.Q5, "q10": tpch.Q10,
+             "q12": tpch.Q12, "qps": QPS, "qh": QH}
+    routes = {}
+    tgl.large_group_aggregate = recorder("suite", kernel)
+    try:
+        for q, sql in suite.items():
+            captured.pop("suite", None)
+            tgl.LAUNCHES = tg.LAUNCHES = 0
+            tgl.PLAIN_CALLS = tg.PLAIN_CALLS = 0
+            for tally in (sortkey.NORMALIZED, sortkey.LANES,
+                          sortkey.FALLBACKS):
+                tally.reset()
+            t1 = time.perf_counter()
+            rows[q] = eng.execute(sql).rows
+            _sync()
+            routes[q] = {
+                "first_run_s": time.perf_counter() - t1,
+                "groupagg_large": (tgl.LAUNCHES if on_card
+                                   else tgl.PLAIN_CALLS),
+                "groupagg": tg.LAUNCHES if on_card else tg.PLAIN_CALLS,
+                "normalized_sorts": {k: sortkey.NORMALIZED.value(k)
+                                     for k in ("sort", "topk", "join")},
+                "lanes": sortkey.LANES.value(),
+                "sort_fallbacks": sortkey.FALLBACKS.value(),
+                **eng.last_exec,
+            }
+            if "suite" in captured:
+                captured[q] = captured.pop("suite")
+            print(f"{q} route: " + json.dumps(routes[q]), flush=True)
+    finally:
+        tgl.large_group_aggregate = kernel
+    for q, n_kernel in kernel_launches.items():
+        if routes[q]["groupagg_large"] != n_kernel:
+            raise AssertionError(f"{q} launched the large-G kernel "
+                                 f"{routes[q]['groupagg_large']} times, "
+                                 f"not {n_kernel}")
+    if routes["qh"]["group_ids"] != 1 or sum(
+            r["group_ids"] for q, r in routes.items() if q != "qh"):
+        raise AssertionError("QH, and only QH, groups through group_ids")
+    for q in ("q3", "q10", "qh"):
+        if routes[q]["topk_cuts"] != 1 or "no_topk" in routes[q]["replans"]:
+            raise AssertionError(f"{q} did not cut with the top-k alone")
+    for q, r in routes.items():
+        if r["sort_fallbacks"] or not sum(r["normalized_sorts"].values()):
+            raise AssertionError(f"{q} sorted off the packed lanes: {r}")
+    if routes["qps"]["expansions"] != [4]:
+        raise AssertionError(f"QPS did not expand its join 4 ways: "
+                             f"{routes['qps']['expansions']}")
+    errs_suite = {q: check_rows(q.upper(), rows[q], want[q])
+                  for q in suite}
+    s_off = eng.session()
+    eng.execute("SET sort_normalized = off", s_off)
+    for q in ("q3", "q10", "qh"):
+        if eng.execute(suite[q], s_off).rows != rows[q]:
+            raise AssertionError(f"{q} under sort_normalized = off gave "
+                                 "other rows")
+    print(f"Q3, Q5, Q10, Q12, QPS, QH ok (max rel err {errs_suite}); Q3, "
+          "Q10 and QH equal under sort_normalized = off", flush=True)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    e2e_suite = {f"{q}_ms": _median_ms(lambda: eng.execute(sql))
+                 for q, sql in suite.items()}
+    if on_card:
+        # the resident tables and what earlier phases hold, and the peak
+        e2e_suite["memory_allocated_before"] = before
+        e2e_suite["max_memory_allocated"] = \
+            torch.cuda.max_memory_allocated()
+    print("end-to-end, suite (median of 5 warm runs): "
+          + json.dumps(e2e_suite), flush=True)
+    return routes, e2e_suite
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -345,11 +662,18 @@ def main() -> int:
         return 1
     import numpy as np
 
+    import argparse
+    ap = argparse.ArgumentParser(description="Build and drive the port "
+                                 "on one card.")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="also profile the phase 6 queries into DIR")
+    opts = ap.parse_args()
+
     from cockroach_tpu_torch.exec import compile as C
     from cockroach_tpu_torch.exec.engine import Engine
     from cockroach_tpu_torch.models import tpch
     from cockroach_tpu_torch.ops import agg as aggops
-    from cockroach_tpu_torch.ops import hashtable, join
+    from cockroach_tpu_torch.ops import hashtable, join, sortkey
     from cockroach_tpu_torch.ops.cuda import build
     from cockroach_tpu_torch.ops.cuda import groupagg as tg
     from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
@@ -482,10 +806,7 @@ def main() -> int:
           + json.dumps(e2e), flush=True)
 
     # -- 4. kernels vs plain ----------------------------------------------
-    args, kw = captured["q1"]
-    q1_args = (args[0], args[1], tuple(args[2]), tuple(args[3]),
-               kw["num_groups"], tuple(kw["mat_int"]),
-               tuple(kw.get("mm_ops", ())), bool(kw.get("want_rep")))
+    q1_args = large_args(captured, "q1")
     errs = compare_kernel(tgl, q1_args, "Q1 SF1")
     compare_kernel(tgl, synthetic(1 << 23, 4096, 1, 3, (tgl.MIN, tgl.MAX),
                                   1), "G=4096 shared memory")
@@ -501,29 +822,17 @@ def main() -> int:
     compare_kernel(tgl, nz[:3] + (nz_mm,) + nz[4:],
                    "MIN/MAX with -0.0 and NaN")
 
-    gid, sel, mat, mm, G, mat_int, mm_ops, want_rep = q1_args
-    n = gid.shape[0]
-    ms = _cuda_ms(lambda: tgl.large_group_aggregate(*q1_args))
-    plain_ms = _cuda_ms(lambda: tgl.large_group_aggregate_plain(*q1_args),
-                        reps=3, warm=1)
-    rowmajor = torch.stack([c.float() for c in mat], dim=1)
-    gid64 = gid.long()
-    library_ms = _cuda_ms(lambda: torch.zeros(
-        G, len(mat), device="cuda").index_add_(0, gid64, rowmajor))
-    del rowmajor
-    nf = max(1, sum(not b for b in mat_int) + len(mm))
-    ni = max(1, sum(bool(b) for b in mat_int) + int(want_rep))
-    nbytes = n * (4 * len(mat) + 4 * len(mm) + 4 + 1) + (nf + ni) * G * 4
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    q1_numbers = large_numbers(tgl, q1_args)
     kernels = [{
         "name": "groupagg_large", "route": "cuda",
         "source": "cockroach_tpu_torch/csrc/groupagg_large.cu",
         "replaces": "cockroach_tpu/ops/pallas/groupagg_large.py:149",
         "launches": launches["groupagg_large"],
-        "max_abs_err": errs["max_abs_err"], "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-        "library_ms": library_ms, "ok": True,
-        "shape": {"n": n, "G": G, "n_mat": len(mat), "n_mm": len(mm)},
+        "max_abs_err": errs["max_abs_err"], "ms": q1_numbers["ms"],
+        "plain_ms": q1_numbers["plain_ms"],
+        "bound_ms": q1_numbers["bound_ms"], "bound_by": "bytes",
+        "library_ms": q1_numbers["library_ms"], "ok": True,
+        "shape": q1_numbers["shape"],
         "max_rel_err": errs["max_rel_err"],
     }]
 
@@ -594,6 +903,24 @@ def main() -> int:
         "matched": int(direct.sel.sum()), "build_rounds": rounds["build"],
         "probe_rounds": rounds["probe"], "hash_join_ms": hash_ms,
         "direct_join_ms": direct_ms}), flush=True)
+
+    # -- 6. the multi-table suite -------------------------------------------
+    routes, _ = suite_phase(eng, li, SF, captured, recorder)
+    lanes_ok = check_lanes_on_card()
+    print(f"packed lanes on the card equal the CPU's ({lanes_ok})",
+          flush=True)
+    large = kernels[0]
+    large["launches"] += sum(r["groupagg_large"] for r in routes.values())
+    for q in ("q5", "q10", "q12"):
+        qargs = large_args(captured, q)
+        got = compare_kernel(tgl, qargs, f"{q.upper()} SF1")
+        large[q] = dict(large_numbers(tgl, qargs), **got)
+    if opts.profile:
+        from cockroach_tpu_torch.profile_tpch import profile_queries
+        profile_queries(eng, {"q3": (tpch.Q3, None), "q5": (tpch.Q5, None),
+                              "q10": (tpch.Q10, None),
+                              "q12": (tpch.Q12, None), "qps": (QPS, None),
+                              "qh": (QH, None)}, 3, opts.profile)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

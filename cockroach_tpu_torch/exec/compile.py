@@ -1,9 +1,11 @@
 """Compile logical plans into functions over device-resident tensors.
 
-The counterpart of cockroach_tpu/exec/compile.py for the plans TPC-H
-Q1, Q6 and Q14 produce: scans with the MVCC visibility mask, filters,
-projections, hash joins with unique build keys, ungrouped and dense
-(mixed-radix) GROUP BY aggregation, ORDER BY and LIMIT.
+The counterpart of cockroach_tpu/exec/compile.py for the plans the
+ported TPC-H queries (Q1, Q3, Q5, Q6, Q10, Q12, Q14) produce: scans
+with the MVCC visibility mask, filters, projections, hash joins (unique
+build keys, or duplicate keys expanded K ways), selection compaction,
+ungrouped, dense (mixed-radix) and hash-strategy GROUP BY aggregation,
+ORDER BY, the fused top-k ORDER BY ... LIMIT, and LIMIT.
 ``compile_plan(node, params)`` returns ``fn(RunContext) ->
 ColumnBatch``; PyTorch runs it eagerly on the batches' device, so there
 is no jit and no executable cache.
@@ -16,9 +18,16 @@ over INT/DECIMAL) runs in ONE pass of the large-G kernel
 aggregation over at most 64 groups whose value aggregates all take
 FLOAT arguments runs in the small-G kernel (ops/cuda/groupagg.py, f32
 accumulation), and the large-G kernel also takes f32 float sums and
-MIN/MAX. Hash-strategy GROUP BY, joins with duplicate build keys,
-windows, selection compaction and streaming are not ported yet and
-raise ExecError.
+MIN/MAX. Hash-strategy GROUP BY numbers its groups through the device
+hash table (ops/hashtable.py group_ids) and aggregates with the plain
+scatters. Sorts go through packed sort-key lanes (ops/sortkey.py)
+under ``sort_normalized = auto|on``.
+
+Result batches carry error sentinels the engine checks when it
+materializes them (exec/session.py SENTINEL_COLUMNS): an int64 SUM
+that wrapped, a hash table that overflowed, a top-k cut that crossed
+a tie, a compaction block that overflowed. Windows, DISTINCT
+aggregates and streaming are not ported yet and raise ExecError.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import numpy as np
 import torch
 
 from ..ops import agg as aggops
+from ..ops import hashtable, sortkey
 from ..ops.batch import ColumnBatch
 from ..ops.cuda import groupagg as pg
 from ..ops.cuda import groupagg_large as pgl
@@ -52,15 +62,27 @@ class ExecParams:
     # BYs through the large-G kernel, "on" also through the small-G
     # kernel and the f32 float envelope, "off" through neither.
     pallas_groupagg: str = "auto"
+    # slots for hash-strategy GROUP BY (session var hash_group_capacity)
+    hash_group_capacity: int = 1 << 17
+    # fuse ORDER BY ... LIMIT into a top-k cut (off after a TopKInexact)
+    topk_sort: bool = True
+    # session var sort_normalized: auto | on | off
+    sort_normalized: str = "auto"
 
 
 class RunContext:
     """Per-execution inputs: alias -> uploaded table batch, and the MVCC
-    read timestamp as an int (Timestamp.to_int)."""
+    read timestamp as an int (Timestamp.to_int). ``route`` records what
+    the run did: Compact nodes that packed their batch, top-k cuts,
+    hash GROUP BYs (group_ids calls, and the build rounds of the last,
+    one host sync each) and the K of each expanding join."""
 
     def __init__(self, scans: dict[str, ColumnBatch], read_ts: int):
         self.scans = scans
         self.read_ts = read_ts
+        self.route = {"compacts_applied": 0, "topk_cuts": 0,
+                      "group_ids": 0, "group_ids_rounds": 0,
+                      "expansions": []}
 
 
 CompiledNode = Callable[[RunContext], ColumnBatch]
@@ -97,27 +119,42 @@ def compile_plan(node: P.PlanNode, params: ExecParams,
                 d, v = f(ctx)
                 cols[name] = d
                 valid[name] = v
-            return ColumnBatch.from_dict(cols, valid, sel=b.sel)
+            out = ColumnBatch.from_dict(cols, valid, sel=b.sel)
+            return _bubble_compact_overflow(b, out)
         return run_project
     if isinstance(node, P.HashJoin):
-        if node.expand > 1:
-            raise ExecError("hash joins with duplicate build keys "
-                            "(expand > 1) are not yet ported")
         leftf = compile_plan(node.left, params)
         rightf = compile_plan(node.right, params)
         jn = node
 
         def run_join(rc):
+            if jn.expand > 1 and jn.join_type in ("inner", "left"):
+                rc.route["expansions"].append(jn.expand)
             return hash_join(leftf(rc), rightf(rc), jn.left_keys,
                              jn.right_keys, jn.payload, jn.join_type,
                              expand=jn.expand, direct=jn.direct,
-                             pack_payload=jn.pack_payload)
+                             pack_payload=jn.pack_payload,
+                             sort_normalized=params.sort_normalized)
         return run_join
+    if isinstance(node, P.Compact):
+        childf = compile_plan(node.child, params)
+        frac, block = node.frac, node.block
+
+        def run_compact(rc):
+            b = childf(rc)
+            out = compact_batch(b, frac, block)
+            rc.route["compacts_applied"] += out is not b
+            return out
+        return run_compact
     if isinstance(node, P.Aggregate):
         return _compile_aggregate(node, params)
     if isinstance(node, P.Sort):
         return _compile_sort(node, params, meta)
     if isinstance(node, P.Limit):
+        if isinstance(node.child, P.Sort) and params.topk_sort \
+                and node.limit is not None \
+                and 0 < node.limit + node.offset <= TOPK_MAX:
+            return _compile_topk_sort_limit(node, params, meta)
         childf = compile_plan(node.child, params, meta)
         lim, off = node.limit, node.offset
 
@@ -160,11 +197,70 @@ def _compile_scan(node: P.Scan) -> CompiledNode:
 # aggregation
 # ---------------------------------------------------------------------------
 
+def compact_batch(b: ColumnBatch, frac: float,
+                  block: int = 32768) -> ColumnBatch:
+    """Pack selected rows to the front of a batch `frac` the size.
+
+    Blocked: each `block`-row segment keeps its first kb = block * frac
+    selected rows (kb rounded up to a multiple of 128, so the packed
+    batch still suits the kernels' row tiling), and every downstream
+    per-row op (join probe gathers, CASE math, aggregate partials) then
+    runs at that width. The pack is the reference's non-TPU strategy: a
+    cumulative-sum rank per block and one scatter of row ids into a
+    (kb + 1)-slot frame per block, whose extra slot takes the unselected
+    and beyond-capacity rows; it keeps the selected rows in order. A
+    block with more selected rows than kb sets the __compact_overflow
+    sentinel: the engine sees it at materialize time and replans
+    without compaction. Batches under two blocks, or not a multiple of
+    one, pass through unchanged."""
+    n = int(b.sel.shape[0])
+    if n < 2 * block or n % block:
+        return b
+    nb = n // block
+    kb = max(128, int(block * frac))
+    kb = ((kb + 127) // 128) * 128
+    if kb >= block:
+        return b
+    dev = b.device
+    s = b.sel.reshape(nb, block)
+    pos = torch.cumsum(s.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    overflow = torch.any(pos[:, -1] + 1 > kb)
+    base = (torch.arange(nb, dtype=torch.int32, device=dev)
+            * (kb + 1))[:, None]
+    dst = (torch.where(s & (pos < kb), pos, kb) + base).reshape(-1)
+    scat = torch.full((nb * (kb + 1),), -1, dtype=torch.int32, device=dev)
+    scat[dst.to(torch.int64)] = torch.arange(n, dtype=torch.int32,
+                                             device=dev)
+    flat = scat.reshape(nb, kb + 1)[:, :kb].reshape(-1)
+    live = flat >= 0
+    flat = torch.clamp(flat, min=0).to(torch.int64)
+    cols, valid = {}, {}
+    for name in b.names:
+        cols[name] = b.col(name).index_select(0, flat)
+        valid[name] = b.col_valid(name).index_select(0, flat)
+    out = ColumnBatch.from_dict(cols, valid, sel=live)
+    return out.with_column("__compact_overflow",
+                           overflow.reshape(1).expand(out.n))
+
+
+def _bubble_compact_overflow(child: ColumnBatch,
+                             out: ColumnBatch) -> ColumnBatch:
+    """Carry a child Compact's capacity sentinel into a fresh output
+    batch (projection and aggregation drop the child's columns)."""
+    if not child.has("__compact_overflow"):
+        return out
+    flag = torch.any(child.col("__compact_overflow"))
+    return out.with_column("__compact_overflow",
+                           flag.reshape(1).expand(out.n))
+
+
 def _agg_output(group_cols, aggs_out, live, itemfs, havingf,
-                num_groups: int, sum_ovf, device) -> ColumnBatch:
+                num_groups: int, sum_ovf, device,
+                ht_ovf=None) -> ColumnBatch:
     """Shared tail of every aggregation strategy: evaluate the output
     items over (group cols, agg results), apply HAVING, and attach the
-    overflow sentinel column the engine checks at materialize time."""
+    sentinel columns the engine checks at materialize time (the int64
+    SUM overflow and, for hash-strategy plans, the hash table's)."""
     out_ctx = ExprContext(group_cols, num_groups, device, aggs_out)
     cols, valid = {}, {}
     for name, f in itemfs:
@@ -175,8 +271,12 @@ def _agg_output(group_cols, aggs_out, live, itemfs, havingf,
         hv, hm = havingf(out_ctx)
         live = torch.logical_and(live, torch.logical_and(hv, hm))
     out = ColumnBatch.from_dict(cols, valid, sel=live)
-    return out.with_column("__sum_overflow",
-                           sum_ovf.reshape(1).expand(num_groups))
+    out = out.with_column("__sum_overflow",
+                          sum_ovf.reshape(1).expand(num_groups))
+    if ht_ovf is not None:
+        out = out.with_column("__ht_overflow",
+                              ht_ovf.reshape(1).expand(num_groups))
+    return out
 
 
 def _agg_partials(a: BoundAgg, argf, batch, ctx, gid, num_groups,
@@ -546,8 +646,6 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
     itemfs = [(name, compile_expr(e)) for name, e in node.items]
     havingf = compile_expr(node.having) if node.having is not None else None
     dense = node.max_groups > 0
-    if groupfs and not dense:
-        raise ExecError("hash-strategy GROUP BY is not yet ported")
     dims = list(node.group_dims)
     los = list(node.group_lo) or [0] * len(dims)
     mode = params.pallas_groupagg
@@ -561,8 +659,29 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
         dev = b.device
         group_cols = {}  # name -> ([G] data, [G] valid)
 
+        ng = None
         if not groupfs:
             gid, num_groups = None, 1
+        elif not dense:
+            # hash strategy: key columns -> dense ids through the
+            # device hash table, numbered in slot order
+            keycols = []
+            gvals = []
+            for name, gf in groupfs:
+                d, v = gf(ctx)
+                gvals.append((name, d, v))
+                kd, kv = _key_encode(d, v)
+                # NULLs group together: zero data + validity as a key
+                keycols.append(kd)
+                keycols.append(kv)
+            cap = params.hash_group_capacity
+            gid, ng, rep = hashtable.group_ids(tuple(keycols), b.sel, cap)
+            rc.route["group_ids"] += 1
+            rc.route["group_ids_rounds"] = hashtable.ROUNDS["build"]
+            num_groups = cap  # static bound; ng is the dynamic count
+            rep = rep.to(torch.int64)
+            for name, d, v in gvals:
+                group_cols[name] = (d[rep], v[rep])
         else:
             # mixed-radix dense code; code dim_i == NULL
             gid = torch.zeros(b.n, dtype=torch.int32, device=dev)
@@ -592,13 +711,13 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
         # aggregation alike (Q6 is the num_groups == 1 case); explicit
         # `on` only, since its f32 accumulation is approximate
         pslots = None
-        if mode == "on" and num_groups <= pg.MAX_GROUPS \
-                and b.n % pg.LANES == 0:
+        if mode == "on" and (dense or not groupfs) \
+                and num_groups <= pg.MAX_GROUPS and b.n % pg.LANES == 0:
             pslots = _pallas_agg_slots([a for a, _ in aggfs])
         # the large-G kernel: dense grouped plans with a kernel envelope
         # for the mode (the reference's conditions)
         large = (pslots is None and mode in ("on", "auto") and groupfs
-                 and b.n % 128 == 0 and num_groups <= LARGE_G_MAX
+                 and dense and b.n % 128 == 0 and num_groups <= LARGE_G_MAX
                  and not (mode == "auto" and b.n < AUTO_MIN_ROWS)
                  and _pallas_large_ok([a for a, _ in aggfs], mode))
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
@@ -631,6 +750,9 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
         # group liveness
         if not groupfs:
             live = torch.ones(1, dtype=torch.bool, device=dev)
+        elif not dense:
+            live = torch.arange(num_groups, dtype=torch.int32,
+                                device=dev) < ng
         elif kernel_live is not None:
             live = kernel_live
         elif rep_state is not None:
@@ -638,9 +760,23 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
         else:
             live = aggops.group_count(gid, b.sel, num_groups) > 0
 
-        return _agg_output(group_cols, aggs_out, live, itemfs, havingf,
-                           num_groups, overflow, dev)
+        out = _agg_output(group_cols, aggs_out, live, itemfs, havingf,
+                          num_groups, overflow, dev,
+                          ht_ovf=None if ng is None else ng < 0)
+        return _bubble_compact_overflow(b, out)
     return run_agg
+
+
+def _key_encode(d, v):
+    """One group-key column as (masked int payload, validity): the two
+    int columns the device hash table keys on. Floats key on their
+    float64 bit pattern."""
+    kd = d
+    if kd.dtype == torch.bool:
+        kd = kd.to(torch.int32)
+    elif kd.is_floating_point():
+        kd = kd.to(torch.float64).view(torch.int64)
+    return torch.where(v, kd, torch.zeros_like(kd)), v.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -673,39 +809,173 @@ def _sort_rank_tables(keys, meta: P.OutputMeta | None) -> dict:
     return rank_tables
 
 
-def sort_batch(b: ColumnBatch, keys, rank_tables: dict) -> ColumnBatch:
-    """ORDER BY as successive stable argsorts, least significant key
-    first (the reference's jnp.lexsort, whose LAST key is primary):
-    each key sorts by value, then by its NULL flag (pg default: NULLS
-    LAST for asc, NULLS FIRST for desc; explicit override), and dead
-    rows always sort last."""
-    sort_keys = []  # least significant first
-    for key in reversed(keys):
+def _key_specs(b: ColumnBatch, keys, rank_tables: dict):
+    """sort_batch's key list as ops/sortkey encode specs (pg default:
+    NULLS LAST for asc, NULLS FIRST for desc; explicit override)."""
+    specs = []
+    for key in keys:
         name, desc = key[0], key[1]
         nf = key[2] if len(key) > 2 else None
-        d = b.col(name)
-        v = b.col_valid(name)
-        if name in rank_tables:
-            lut = torch.tensor(rank_tables[name], device=b.device)
-            d = lut[torch.clamp(d.to(torch.int64), 0, lut.shape[0] - 1)]
-        if d.dtype == torch.bool:
-            d = d.to(torch.int32)
-        if desc:
-            # ints reverse via bitwise NOT: arithmetic negation wraps
-            # at INT64_MIN
-            d = -d.to(torch.float64) if d.is_floating_point() \
-                else ~d.to(torch.int64)
         null_first = nf if nf is not None else desc
-        nullkey = v if null_first else torch.logical_not(v)
-        sort_keys.append(d)
-        sort_keys.append(nullkey.to(torch.int8))
-    sort_keys.append(torch.logical_not(b.sel).to(torch.int8))
-    perm = torch.arange(b.n, device=b.device)
-    for k in sort_keys:
-        perm = perm[torch.argsort(k[perm], stable=True)]
+        specs.append((b.col(name), b.col_valid(name), desc, null_first,
+                      rank_tables.get(name), None))
+    return specs
+
+
+def _normalized_lanes(b: ColumnBatch, keys, rank_tables: dict, kind: str):
+    """Packed sort-key lanes for the batch with dead rows demoted, or
+    None (the successive-argsort path) when a key dtype has no
+    encoding; the fallback is tallied."""
+    fields = sortkey.encode_keys(_key_specs(b, keys, rank_tables))
+    if fields is None:
+        sortkey.FALLBACKS.bump(kind)
+        return None
+    return sortkey.mask_dead(sortkey.pack_lanes(fields, b.n, b.device),
+                             b.sel)
+
+
+def sort_batch(b: ColumnBatch, keys, rank_tables: dict,
+               mode: str = "off") -> ColumnBatch:
+    """ORDER BY. Under auto/on: one stable argsort per packed sort-key
+    lane (ops/sortkey.py). Under off, or for a key with no encoding:
+    successive stable argsorts, least significant key first (the
+    reference's jnp.lexsort, whose LAST key is primary): each key sorts
+    by value, then by its NULL flag (pg default: NULLS LAST for asc,
+    NULLS FIRST for desc; explicit override), and dead rows always sort
+    last. The two orders differ only where floats do: the lanes put
+    -0.0 before +0.0 and order NaNs by their sign bit, as the
+    reference's lanes do."""
+    perm = None
+    if mode in ("auto", "on") and keys:
+        lanes = _normalized_lanes(b, keys, rank_tables, "sort")
+        if lanes is not None:
+            perm = sortkey.sort_perm(lanes, kind="sort")
+    if perm is None:
+        sort_keys = []  # least significant first
+        for key in reversed(keys):
+            name, desc = key[0], key[1]
+            nf = key[2] if len(key) > 2 else None
+            d = b.col(name)
+            v = b.col_valid(name)
+            if name in rank_tables:
+                lut = torch.tensor(rank_tables[name], device=b.device)
+                d = lut[torch.clamp(d.to(torch.int64), 0, lut.shape[0] - 1)]
+            if d.dtype == torch.bool:
+                d = d.to(torch.int32)
+            if desc:
+                # ints reverse via bitwise NOT: arithmetic negation
+                # wraps at INT64_MIN
+                d = -d.to(torch.float64) if d.is_floating_point() \
+                    else ~d.to(torch.int64)
+            null_first = nf if nf is not None else desc
+            nullkey = v if null_first else torch.logical_not(v)
+            sort_keys.append(d)
+            sort_keys.append(nullkey.to(torch.int8))
+        sort_keys.append(torch.logical_not(b.sel).to(torch.int8))
+        perm = sortkey.lexsort(sort_keys)
     data = tuple(d[perm] for d in b.data)
     valid = tuple(v[perm] for v in b.valid)
     return ColumnBatch(data, valid, b.sel[perm], b.names)
+
+
+# the largest LIMIT + OFFSET the fused top-k takes
+TOPK_MAX = 1024
+
+
+def _primary_rank_word(b: ColumnBatch, keys, rank_tables,
+                       mode: str = "off") -> torch.Tensor:
+    """One ascending-sorts-first rank word for the top-k cut.
+
+    Normalized (auto/on): lane 0 of the full packed key word as its
+    order-preserving int64 image; where the key list fits one lane the
+    word breaks every comparator tie. Off: the FIRST key only, in value
+    order (desc via bitwise NOT), NULLS LAST for asc and FIRST for desc,
+    dead rows strictly last, real values clipped to +-(2^62 - 1) so
+    they never meet the 2^62-family NULL and dead words. Ties on the
+    word are resolved by the refining full-key sort; the cut needs only
+    the word and the tie count in topk_sort_limit_batch."""
+    if mode in ("auto", "on"):
+        lanes = _normalized_lanes(b, keys, rank_tables, "topk")
+        if lanes is not None:
+            sortkey.NORMALIZED.bump("topk")
+            sortkey.LANES.bump("topk")
+            return sortkey.ordered(lanes[0])
+    name, desc = keys[0][0], keys[0][1]
+    nf = keys[0][2] if len(keys[0]) > 2 else None
+    null_first = nf if nf is not None else desc
+    d = b.col(name)
+    v = b.col_valid(name)
+    if name in rank_tables:
+        lut = torch.tensor(rank_tables[name], device=b.device)
+        d = lut[torch.clamp(d.to(torch.int64), 0, lut.shape[0] - 1)]
+    if d.dtype == torch.bool:
+        d = d.to(torch.int32)
+    if d.is_floating_point():
+        w = d.to(torch.float64)
+        if desc:
+            w = -w
+        null_w = -1e308 if null_first else 1e308
+        dead_w = math.inf
+    else:
+        w = d.to(torch.int64)
+        if desc:
+            w = ~w
+        lim = (1 << 62) - 1
+        w = torch.clamp(w, -lim, lim)
+        null_w = -(1 << 62) if null_first else (1 << 62)
+        dead_w = (1 << 62) + (1 << 61)
+    w = torch.where(v, w, null_w)
+    return torch.where(b.sel, w, dead_w)
+
+
+def topk_sort_limit_batch(b: ColumnBatch, keys, rank_tables, limit: int,
+                          offset: int, mode: str = "off") -> ColumnBatch:
+    """ORDER BY ... LIMIT as a top-k cut and a refining sort: the full
+    sort runs only over the m = max(4 k, 128) candidate rows of the
+    smallest rank words. The candidates keep row order (their indices
+    are sorted before the stable refine), so rows tied on every key
+    come out in row order, as from the full sort. The __topk_inexact
+    sentinel flags the case where rows tied with the k-th on the rank
+    word did not all make the cut; the engine then replans with the
+    full sort."""
+    n = int(b.sel.shape[0])
+    k_eff = limit + offset
+    m = min(n, max(4 * k_eff, 128))
+    w = _primary_rank_word(b, keys, rank_tables, mode)
+    _, idx = torch.topk(w, m, largest=False, sorted=False)
+    idx = torch.sort(idx).values
+    ones = torch.ones(m, dtype=torch.bool, device=b.device)
+    data = tuple(d[idx] for d in b.data)
+    valid = tuple(v[idx] for v in b.valid)
+    bm = ColumnBatch(data + (w[idx],), valid + (ones,), b.sel[idx],
+                     tuple(b.names) + ("__topk_w",))
+    bs = sort_batch(bm, keys, rank_tables, mode)
+    # exact when every row whose word could place at or before the
+    # k-th selected row is a candidate
+    kth = min(k_eff, m) - 1
+    boundary = bs.col("__topk_w")[kth]
+    live = b.sel.sum()
+    exact = (live <= m) | ((w <= boundary).sum() <= m)
+    flag = torch.logical_not(exact).reshape(1).expand(m)
+    out = ColumnBatch(bs.data + (flag,), bs.valid + (ones,), bs.sel,
+                      tuple(bs.names) + ("__topk_inexact",))
+    return limit_batch(out, limit, offset)
+
+
+def _compile_topk_sort_limit(node: P.Limit, params: ExecParams,
+                             meta: P.OutputMeta | None) -> CompiledNode:
+    sortnode: P.Sort = node.child
+    childf = compile_plan(sortnode.child, params, meta)
+    rank_tables = _sort_rank_tables(sortnode.keys, meta)
+    keys = list(sortnode.keys)
+    lim, off = node.limit, node.offset
+    mode = params.sort_normalized
+
+    def run_topk(rc: RunContext) -> ColumnBatch:
+        rc.route["topk_cuts"] += 1
+        return topk_sort_limit_batch(childf(rc), keys, rank_tables, lim,
+                                     off, mode)
+    return run_topk
 
 
 def limit_batch(b: ColumnBatch, limit, offset) -> ColumnBatch:
@@ -723,7 +993,8 @@ def _compile_sort(node: P.Sort, params: ExecParams,
     childf = compile_plan(node.child, params, meta)
     rank_tables = _sort_rank_tables(node.keys, meta)
     keys = list(node.keys)
+    mode = params.sort_normalized
 
     def run_sort(rc: RunContext) -> ColumnBatch:
-        return sort_batch(childf(rc), keys, rank_tables)
+        return sort_batch(childf(rc), keys, rank_tables, mode)
     return run_sort

@@ -28,6 +28,20 @@ def _days(iso: str) -> int:
     return (datetime.date.fromisoformat(iso) - EPOCH).days
 
 
+NATIONS = ["ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT",
+           "ETHIOPIA", "FRANCE", "GERMANY", "INDIA", "INDONESIA",
+           "IRAN", "IRAQ", "JAPAN", "JORDAN", "KENYA", "MOROCCO",
+           "MOZAMBIQUE", "PERU", "CHINA", "ROMANIA", "SAUDI ARABIA",
+           "VIETNAM", "RUSSIA", "UNITED KINGDOM", "UNITED STATES"]
+REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
+# nation -> region mapping per the TPC-H spec's nation table
+NATION_REGION = [0, 1, 1, 1, 4, 0, 3, 3, 2, 2, 4, 4, 2, 4, 0, 0, 0,
+                 1, 2, 3, 4, 2, 3, 3, 1]
+SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY",
+            "HOUSEHOLD"]
+ORDER_PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM",
+                    "4-NOT SPECIFIED", "5-LOW"]
+
 DDL = {
     "lineitem": """
 CREATE TABLE lineitem (
@@ -57,6 +71,50 @@ CREATE TABLE part (
     p_size        INT8 NOT NULL,
     p_container   STRING NOT NULL,
     p_retailprice DECIMAL(15,2) NOT NULL
+)""",
+    "orders": """
+CREATE TABLE orders (
+    o_orderkey      INT8 NOT NULL,
+    o_custkey       INT8 NOT NULL,
+    o_orderstatus   STRING NOT NULL,
+    o_totalprice    DECIMAL(15,2) NOT NULL,
+    o_orderdate     DATE NOT NULL,
+    o_orderpriority STRING NOT NULL,
+    o_shippriority  INT8 NOT NULL
+)""",
+    "customer": """
+CREATE TABLE customer (
+    c_custkey    INT8 NOT NULL,
+    c_name       STRING NOT NULL,
+    c_nationkey  INT8 NOT NULL,
+    c_phone      STRING NOT NULL,
+    c_acctbal    DECIMAL(15,2) NOT NULL,
+    c_mktsegment STRING NOT NULL
+)""",
+    "supplier": """
+CREATE TABLE supplier (
+    s_suppkey   INT8 NOT NULL,
+    s_name      STRING NOT NULL,
+    s_nationkey INT8 NOT NULL,
+    s_acctbal   DECIMAL(15,2) NOT NULL
+)""",
+    "partsupp": """
+CREATE TABLE partsupp (
+    ps_partkey    INT8 NOT NULL,
+    ps_suppkey    INT8 NOT NULL,
+    ps_availqty   INT8 NOT NULL,
+    ps_supplycost DECIMAL(15,2) NOT NULL
+)""",
+    "nation": """
+CREATE TABLE nation (
+    n_nationkey INT8 NOT NULL,
+    n_name      STRING NOT NULL,
+    n_regionkey INT8 NOT NULL
+)""",
+    "region": """
+CREATE TABLE region (
+    r_regionkey INT8 NOT NULL,
+    r_name      STRING NOT NULL
 )""",
 }
 
@@ -183,17 +241,139 @@ def gen_part(sf: float, seed: int = 1, rows: int | None = None) -> dict:
     }
 
 
+def _n_orders(sf: float) -> int:
+    return int(ORDERS_PER_SF * max(sf, 0.01))
+
+
+def _n_supp(sf: float) -> int:
+    return max(int(SUPP_PER_SF * max(sf, 0.01)), 100)
+
+
+def _n_cust(sf: float) -> int:
+    return max(int(150_000 * max(sf, 0.01)), 500)
+
+
+def gen_orders(sf: float, seed: int = 2) -> dict:
+    n = _n_orders(sf)
+    rng = np.random.default_rng(seed)
+    orderkey = np.arange(1, n + 1, dtype=np.int64)
+    orderdate = rng.integers(_days("1992-01-01"), _days("1998-08-02"),
+                             size=n).astype(np.int32)
+    # F for 'old' orders (the spec derives status from line statuses;
+    # the date split yields the same three populations)
+    cutoff = _days("1995-06-17")
+    status = np.where(orderdate < cutoff - 90, "F",
+                      np.where(orderdate < cutoff, "P", "O")).astype(object)
+    # spec 4.2.3: custkeys divisible by 3 never place orders; draw
+    # uniformly over the valid keys so per-key multiplicity stays flat
+    ncust = _n_cust(sf)
+    m = ncust - ncust // 3  # count of keys in [1, ncust] not % 3 == 0
+    idx = rng.integers(0, m, size=n).astype(np.int64)
+    ck = 3 * (idx // 2) + 1 + (idx % 2)
+    return {
+        "o_orderkey": orderkey,
+        "o_custkey": ck,
+        "o_orderstatus": status,
+        "o_totalprice": np.round(rng.uniform(900, 500000, size=n), 2),
+        "o_orderdate": orderdate,
+        "o_orderpriority": rng.choice(ORDER_PRIORITIES,
+                                      size=n).astype(object),
+        "o_shippriority": np.zeros(n, dtype=np.int64),
+    }
+
+
+def gen_customer(sf: float, seed: int = 3) -> dict:
+    n = _n_cust(sf)
+    rng = np.random.default_rng(seed)
+    custkey = np.arange(1, n + 1, dtype=np.int64)
+    return {
+        "c_custkey": custkey,
+        "c_name": np.array([f"Customer#{k:09d}" for k in custkey],
+                           dtype=object),
+        "c_nationkey": (nat := rng.integers(0, 25, size=n).astype(
+            np.int64)),
+        # spec 4.2.2.9: country code = nationkey + 10
+        "c_phone": np.array(
+            [f"{nk + 10}-{rng.integers(100, 999)}-"
+             f"{rng.integers(100, 999)}-{rng.integers(1000, 9999)}"
+             for nk in nat], dtype=object),
+        "c_acctbal": np.round(rng.uniform(-999, 9999, size=n), 2),
+        "c_mktsegment": rng.choice(SEGMENTS, size=n).astype(object),
+    }
+
+
+def gen_supplier(sf: float, seed: int = 4) -> dict:
+    n = _n_supp(sf)
+    rng = np.random.default_rng(seed)
+    suppkey = np.arange(1, n + 1, dtype=np.int64)
+    return {
+        "s_suppkey": suppkey,
+        "s_name": np.array([f"Supplier#{k:09d}" for k in suppkey],
+                           dtype=object),
+        "s_nationkey": rng.integers(0, 25, size=n).astype(np.int64),
+        "s_acctbal": np.round(rng.uniform(-999, 9999, size=n), 2),
+    }
+
+
+def gen_partsupp(sf: float) -> dict:
+    """4 suppliers per part, chosen by the same deterministic rule
+    gen_lineitem uses, so every lineitem (partkey, suppkey) pair has a
+    partsupp row, as the spec guarantees."""
+    nparts = max(int(PART_PER_SF * max(sf, 0.01)), 1000)
+    nsupp = _n_supp(sf)
+    partkey = np.repeat(np.arange(1, nparts + 1, dtype=np.int64), 4)
+    i = np.tile(np.arange(4, dtype=np.int64), nparts)
+    suppkey = (partkey + i * 7) % nsupp + 1
+    rng = np.random.default_rng(5)
+    return {
+        "ps_partkey": partkey,
+        "ps_suppkey": suppkey,
+        "ps_availqty": rng.integers(1, 10000,
+                                    size=len(partkey)).astype(np.int64),
+        "ps_supplycost": np.round(
+            rng.uniform(1, 1000, size=len(partkey)), 2),
+    }
+
+
+def gen_nation() -> dict:
+    return {
+        "n_nationkey": np.arange(25, dtype=np.int64),
+        "n_name": np.array(NATIONS, dtype=object),
+        "n_regionkey": np.array(NATION_REGION, dtype=np.int64),
+    }
+
+
+def gen_region() -> dict:
+    return {
+        "r_regionkey": np.arange(5, dtype=np.int64),
+        "r_name": np.array(REGIONS, dtype=object),
+    }
+
+
+ALL_TABLES = ("lineitem", "part", "orders", "customer", "supplier",
+              "partsupp", "nation", "region")
+
+
 def load(engine, sf: float, seed: int = 0, tables=("lineitem", "part"),
          rows: int | None = None, encoded: bool = False) -> None:
-    """Create + bulk-ingest TPC-H tables (lineitem, part) into an Engine.
+    """Create + bulk-ingest TPC-H tables into an Engine.
 
     ``rows`` caps the *lineitem* row count only (CI-speed slices);
-    part always gets its full SF-proportional size so the key spaces
-    stay consistent with gen_lineitem's foreign keys.
+    the other tables always get their full SF-proportional size so the
+    key spaces stay consistent with gen_lineitem's foreign keys.
     ``encoded`` uses the pre-encoded string fast path (same numeric
     data and returnflag/linestatus values as the object path for a
     given seed, so the numpy oracles still agree)."""
     ts = engine.clock.now()
+    gens = {
+        "part": lambda: gen_part(sf),
+        "orders": lambda: gen_orders(sf),
+        "customer": lambda: gen_customer(sf),
+        "supplier": lambda: gen_supplier(sf),
+        "partsupp": lambda: gen_partsupp(sf),
+        "nation": gen_nation,
+        "region": gen_region,
+    }
     for t in tables:
         engine.execute(DDL[t])
         if t == "lineitem":
@@ -202,7 +382,7 @@ def load(engine, sf: float, seed: int = 0, tables=("lineitem", "part"),
                     engine.store.set_dictionary(t, cn, vals)
             cols = gen_lineitem(sf, seed=seed, rows=rows, encoded=encoded)
         else:
-            cols = gen_part(sf)
+            cols = gens[t]()
         engine.store.insert_columns(t, cols, ts)
         # column stats feed the planner (sql/stats.py), as after the
         # reference's own loads
@@ -284,6 +464,76 @@ WHERE l_shipdate >= date '1994-01-01'
 """
 
 
+Q3 = """
+SELECT
+    l_orderkey,
+    sum(l_extendedprice * (1 - l_discount)) AS revenue,
+    o_orderdate,
+    o_shippriority
+FROM customer, orders, lineitem
+WHERE c_mktsegment = 'BUILDING'
+  AND c_custkey = o_custkey
+  AND l_orderkey = o_orderkey
+  AND o_orderdate < date '1995-03-15'
+  AND l_shipdate > date '1995-03-15'
+GROUP BY l_orderkey, o_orderdate, o_shippriority
+ORDER BY revenue DESC, o_orderdate, l_orderkey
+LIMIT 10
+"""
+
+Q5 = """
+SELECT n_name, sum(l_extendedprice * (1 - l_discount)) AS revenue
+FROM customer, orders, lineitem, supplier, nation, region
+WHERE c_custkey = o_custkey
+  AND l_orderkey = o_orderkey
+  AND l_suppkey = s_suppkey
+  AND c_nationkey = s_nationkey
+  AND s_nationkey = n_nationkey
+  AND n_regionkey = r_regionkey
+  AND r_name = 'ASIA'
+  AND o_orderdate >= date '1994-01-01'
+  AND o_orderdate < date '1995-01-01'
+GROUP BY n_name
+ORDER BY revenue DESC, n_name
+"""
+
+Q12 = """
+SELECT l_shipmode,
+    sum(CASE WHEN o_orderpriority = '1-URGENT'
+               OR o_orderpriority = '2-HIGH'
+             THEN 1 ELSE 0 END) AS high_line_count,
+    sum(CASE WHEN o_orderpriority <> '1-URGENT'
+              AND o_orderpriority <> '2-HIGH'
+             THEN 1 ELSE 0 END) AS low_line_count
+FROM orders, lineitem
+WHERE o_orderkey = l_orderkey
+  AND l_shipmode IN ('MAIL', 'SHIP')
+  AND l_commitdate < l_receiptdate
+  AND l_shipdate < l_commitdate
+  AND l_receiptdate >= date '1994-01-01'
+  AND l_receiptdate < date '1995-01-01'
+GROUP BY l_shipmode
+ORDER BY l_shipmode
+"""
+
+# Q10 (returned-item reporting)
+Q10 = """
+SELECT c_custkey, c_name,
+       sum(l_extendedprice * (1 - l_discount)) AS revenue,
+       c_acctbal, n_name
+FROM customer, orders, lineitem, nation
+WHERE c_custkey = o_custkey
+  AND l_orderkey = o_orderkey
+  AND o_orderdate >= date '1993-10-01'
+  AND o_orderdate < date '1994-01-01'
+  AND l_returnflag = 'R'
+  AND c_nationkey = n_nationkey
+GROUP BY c_custkey, c_name, c_acctbal, n_name
+ORDER BY revenue DESC
+LIMIT 20
+"""
+
+
 # ---------------------------------------------------------------------------
 # numpy oracle (row-engine stand-in for cross-checking, cf. §4.6)
 # ---------------------------------------------------------------------------
@@ -324,3 +574,113 @@ def ref_q14(li: dict, part: dict) -> float:
                       for t in types])
     rev = (li["l_extendedprice"][m] * (1 - li["l_discount"][m]))
     return float(100.0 * rev[promo].sum() / rev.sum())
+
+
+def _lookup(keys: np.ndarray, values: np.ndarray, fill=-1) -> np.ndarray:
+    """key -> value as an array indexed by key (keys are small ints)."""
+    out = np.full(int(keys.max()) + 1, fill, dtype=values.dtype)
+    out[keys] = values
+    return out
+
+
+def _date(days: int) -> datetime.date:
+    return datetime.date.fromordinal(EPOCH.toordinal() + int(days))
+
+
+def _keyed_sums(keys: np.ndarray, values: np.ndarray):
+    """(distinct keys in first-appearance order, their float sums).
+    np.bincount adds each key's values in row order, as a running
+    Python sum does, so the sums are bit-equal to one."""
+    uniq, first = np.unique(keys, return_index=True)
+    sums = np.bincount(keys, weights=values)[uniq]
+    order = np.argsort(first, kind="stable")
+    return uniq[order], sums[order]
+
+
+def ref_q3(li, orders, cust) -> list[tuple]:
+    """Q3 over numpy arrays: the rows of the reference's ref_q3."""
+    building = cust["c_custkey"][cust["c_mktsegment"] == "BUILDING"]
+    bset = np.zeros(int(cust["c_custkey"].max()) + 1, dtype=bool)
+    bset[building] = True
+    cut = _days("1995-03-15")
+    om = (orders["o_orderdate"] < cut) & bset[orders["o_custkey"]]
+    odate = _lookup(orders["o_orderkey"][om],
+                    orders["o_orderdate"][om].astype(np.int64))
+    lk = li["l_orderkey"]
+    lm = (li["l_shipdate"] > cut) & (lk < odate.shape[0])
+    lm[lm] = odate[lk[lm]] >= 0
+    r = li["l_extendedprice"][lm] * (1 - li["l_discount"][lm])
+    keys, sums = _keyed_sums(lk[lm], r)
+    rows = [(int(k), float(v), _date(odate[k]), 0)
+            for k, v in zip(keys, sums)]
+    rows.sort(key=lambda t: (-t[1], t[2], t[0]))
+    return rows[:10]
+
+
+def ref_q5(li, orders, cust, supp) -> list[tuple]:
+    """Q5 over numpy arrays: the rows of the reference's ref_q5."""
+    asia = np.array(NATION_REGION) == 2
+    d0, d1 = _days("1994-01-01"), _days("1995-01-01")
+    om = (orders["o_orderdate"] >= d0) & (orders["o_orderdate"] < d1)
+    o_cust = _lookup(orders["o_orderkey"][om], orders["o_custkey"][om])
+    c_nat = _lookup(cust["c_custkey"], cust["c_nationkey"])
+    s_nat = _lookup(supp["s_suppkey"], supp["s_nationkey"])
+    lk = li["l_orderkey"]
+    ck = np.full(lk.shape[0], -1, dtype=np.int64)
+    inr = lk < o_cust.shape[0]
+    ck[inr] = o_cust[lk[inr]]
+    sn = s_nat[li["l_suppkey"]]
+    m = (ck >= 0) & asia[sn]
+    m[m] = c_nat[ck[m]] == sn[m]
+    r = li["l_extendedprice"][m] * (1 - li["l_discount"][m])
+    nats, sums = _keyed_sums(sn[m], r)
+    return sorted(((NATIONS[int(n)], float(v)) for n, v in zip(nats, sums)),
+                  key=lambda t: (-t[1], t[0]))
+
+
+def ref_q10(li, orders, cust, nation) -> list[tuple]:
+    """Q10 over numpy arrays: the rows of the reference's ref_q10, whose
+    stable sort on revenue leaves ties in the order each customer's
+    first returned line appears."""
+    d0, d1 = _days("1993-10-01"), _days("1994-01-01")
+    od = orders["o_orderdate"]
+    osel = (od >= d0) & (od < d1)
+    o_cust = _lookup(orders["o_orderkey"][osel], orders["o_custkey"][osel])
+    rows_r = np.nonzero(li["l_returnflag"] == "R")[0]
+    lk = li["l_orderkey"][rows_r]
+    ck = np.full(lk.shape[0], -1, dtype=np.int64)
+    inr = lk < o_cust.shape[0]
+    ck[inr] = o_cust[lk[inr]]
+    hit = rows_r[ck >= 0]
+    r = li["l_extendedprice"][hit] * (1 - li["l_discount"][hit])
+    keys, sums = _keyed_sums(ck[ck >= 0], r)
+    order = np.argsort(-sums, kind="stable")[:20]
+    n_name = dict(zip(nation["n_nationkey"].tolist(), nation["n_name"]))
+    cidx = _lookup(cust["c_custkey"],
+                   np.arange(cust["c_custkey"].shape[0], dtype=np.int64))
+    out = []
+    for j in order:
+        k = int(keys[j])
+        i = cidx[k]
+        out.append((k, cust["c_name"][i], float(sums[j]),
+                    round(float(cust["c_acctbal"][i]), 2),
+                    n_name[int(cust["c_nationkey"][i])]))
+    return out
+
+
+def ref_q12(li, orders) -> list[tuple]:
+    """Q12 over numpy arrays: the rows of the reference's ref_q12."""
+    d0, d1 = _days("1994-01-01"), _days("1995-01-01")
+    m = (np.isin(li["l_shipmode"], ["MAIL", "SHIP"])
+         & (li["l_commitdate"] < li["l_receiptdate"])
+         & (li["l_shipdate"] < li["l_commitdate"])
+         & (li["l_receiptdate"] >= d0) & (li["l_receiptdate"] < d1))
+    prio = _lookup(orders["o_orderkey"], np.isin(
+        orders["o_orderpriority"], ["1-URGENT", "2-HIGH"]), fill=False)
+    hi = prio[li["l_orderkey"][m]]
+    sm = li["l_shipmode"][m]
+    out = []
+    for mode in sorted(set(sm.tolist())):
+        k = sm == mode
+        out.append((mode, int((hi & k).sum()), int((~hi & k).sum())))
+    return out

@@ -1,8 +1,8 @@
-"""Device hash table: vectorized open-addressing build + probe.
+"""Device hash table: vectorized open-addressing build, probe, group ids.
 
 The counterpart of cockroach_tpu/ops/hashtable.py (``_hash_columns``,
-``_keys_equal``, ``build``, ``probe``). Open addressing with linear
-probing keeps all state in flat tensors:
+``_keys_equal``, ``build``, ``group_ids``, ``probe``). Open addressing
+with linear probing keeps all state in flat tensors:
 
   - ``claim``: int32[capacity+1]; claim[s] = row id that owns slot s,
     or N (empty). Slot `capacity` is a trash slot for masked scatters.
@@ -107,6 +107,32 @@ def build(key_cols: tuple, mask: torch.Tensor, capacity: int):
         rounds += 1
     ROUNDS["build"] = rounds
     return claim, slot, bool(done.all())
+
+
+def group_ids(key_cols: tuple, mask: torch.Tensor, capacity: int):
+    """Dense group ids for GROUP BY: (gid[int32 per row], num_groups
+    [0-d int32 tensor], rep_row[int32, capacity]).
+
+    gid is dense in [0, num_groups) in hash-slot order; dead rows get
+    0. rep_row[g] is a representative row of group g (to gather the
+    group-key output columns), valid for g < num_groups. num_groups is
+    -1 when the table overflowed (more distinct keys than capacity):
+    callers must check. num_groups stays on the device; the build's
+    rounds are the only host syncs."""
+    n = key_cols[0].shape[0]
+    claim, slot, converged = build(key_cols, mask, capacity)
+    occupied = claim[:capacity] < n
+    dense = torch.cumsum(occupied.to(torch.int32), 0, dtype=torch.int32) - 1
+    gid = torch.where(mask, dense[slot.to(torch.int64)], 0) \
+        .to(torch.int32)
+    count = occupied.to(torch.int32).sum(dtype=torch.int32)
+    num_groups = count if converged else torch.full_like(count, -1)
+    # rep_row: scatter each owner row into its dense id (the trash
+    # slot `capacity` takes the empty slots)
+    tgt = torch.where(occupied, dense, capacity).to(torch.int64)
+    rep = torch.zeros(capacity + 1, dtype=torch.int32, device=mask.device)
+    rep[tgt] = torch.clamp(claim[:capacity], max=max(n - 1, 0))
+    return gid, num_groups, rep[:capacity]
 
 
 def probe(table_claim: torch.Tensor, build_keys: tuple, probe_keys: tuple,

@@ -1,7 +1,7 @@
-"""Hash join on device: build + probe + gather.
+"""Hash join on device: build + probe + gather, and row expansion.
 
-The counterpart of cockroach_tpu/ops/join.py ``hash_join`` for unique
-build keys (``expand == 1``). The probe side keeps its length: each
+The counterpart of cockroach_tpu/ops/join.py ``hash_join``. For unique
+build keys (``expand == 1``) the probe side keeps its length: each
 probe row gathers its (unique) matching build row's columns, and the
 join verdict lands in the selection mask:
 
@@ -14,9 +14,13 @@ Three ways to find the build row, chosen by the engine as the
 reference's does: direct addressing (one scatter builds key -> row, one
 gather probes) for a dense single int key, the same over a packed
 composite key, and the open-addressing hash table (ops/hashtable.py)
-otherwise. Duplicate-keyed build sides (``expand > 1``: the duplicate
-chains of the reference's ``_dup_chain``/``_expand_join``) are not
-ported yet.
+otherwise.
+
+A duplicate-keyed build side (``expand == K > 1``, the engine's static
+bound on the key multiplicity) gives probe.n * K output rows: copy j of
+probe row p follows the build side's per-key duplicate chain j hops
+(``_dup_chain``: one stable sort makes equal keys adjacent runs;
+``_expand_join``: K gathers, interleaved copy-minor).
 
 Every gather and scatter index is clamped into range explicitly: JAX
 clamps or drops an out-of-range index, torch raises on the CPU and
@@ -28,23 +32,29 @@ from __future__ import annotations
 import torch
 
 from ..utils.num import next_pow2
-from . import hashtable
+from . import hashtable, sortkey
 from .batch import ColumnBatch
+
+# the largest K a duplicate-keyed build side may expand a probe row to
+# (the reference engine's MAX_JOIN_EXPANSION)
+MAX_EXPAND = 32
 
 
 def hash_join(probe: ColumnBatch, build: ColumnBatch,
               probe_keys: list[str], build_keys: list[str],
               build_payload: list[str], join_type: str = "inner",
               suffix: str = "", expand: int = 1,
-              direct=None, pack_payload=()) -> ColumnBatch:
+              direct=None, pack_payload=(),
+              sort_normalized: str = "off") -> ColumnBatch:
     """Join `probe` against `build` and return the probe batch extended
     with `build_payload` columns gathered from matches. `direct` is
     None (hash table), (base, size) for a direct-addressed single key,
-    or ("packed", los, spans) for a mixed-radix packed composite key."""
-    if expand > 1:
-        raise NotImplementedError(
-            "hash_join with duplicate build keys (expand > 1) is not yet "
-            "ported")
+    or ("packed", los, spans) for a mixed-radix packed composite key.
+    expand=K>1: duplicate build keys, probe.n * K output rows;
+    `sort_normalized` picks how the duplicate chains are sorted."""
+    if expand > MAX_EXPAND:
+        raise ValueError(f"join expansion {expand} is past the limit "
+                         f"{MAX_EXPAND}")
     if join_type not in ("inner", "left", "semi", "anti"):
         raise ValueError(f"unsupported join type {join_type!r}")
     bkeys = tuple(build.col(k) for k in build_keys)
@@ -96,7 +106,7 @@ def hash_join(probe: ColumnBatch, build: ColumnBatch,
         pk0 = pkeys[0].to(torch.int64)
         in_range = (pk0 >= base) & (pk0 - base < size - 1)
         pidx = torch.clamp(pk0 - base, 0, size - 1)
-        if size <= 4 * probe.n:
+        if expand <= 1 and size <= 4 * probe.n:
             return _folded_join(probe, build, table, pidx,
                                 pmask & in_range, build_payload,
                                 join_type, suffix, pack_payload)
@@ -116,12 +126,88 @@ def hash_join(probe: ColumnBatch, build: ColumnBatch,
         return probe.and_sel(matched)
     if join_type == "anti":
         return probe.and_sel(torch.logical_not(matched))
-    out = probe
+    if expand <= 1:
+        out = probe
+        for name in build_payload:
+            data = build.col(name)[build_row]
+            valid = build.col_valid(name)[build_row] & matched
+            out = out.with_column(name + suffix, data, valid)
+        return out.and_sel(matched) if join_type == "inner" else out
+    return _expand_join(probe, build, bkeys, bmask, matched, build_row,
+                        build_payload, join_type, suffix, expand,
+                        sort_normalized)
+
+
+def _dup_chain(bkeys: tuple, bmask, n: int, mode: str = "off"):
+    """next_dup[i] = the next live build row with row i's key (or n).
+    One stable sort makes equal live keys adjacent runs in ascending
+    row order, so chaining is a shifted compare; the chain start (the
+    lowest row per key) is the row the build's claim resolves to.
+    Under auto/on the sort goes through packed lanes
+    (ops/sortkey.py), under off through successive argsorts; the run
+    equality below compares the raw keys, so the chains are the same
+    either way."""
+    dev = bmask.device
+    order = None
+    if mode in ("auto", "on"):
+        live = torch.ones(n, dtype=torch.bool, device=dev)
+        specs = [(k, live, False, False, None, None) for k in bkeys]
+        fields = sortkey.encode_keys(specs)
+        if fields is not None:
+            lanes = sortkey.mask_dead(sortkey.pack_lanes(fields, n, dev),
+                                      bmask)
+            order = sortkey.sort_perm(lanes, kind="join")
+        else:
+            sortkey.FALLBACKS.bump("join")
+    if order is None:
+        dead = torch.logical_not(bmask).to(torch.int32)
+        order = sortkey.lexsort(tuple(reversed(bkeys)) + (dead,))
+    same = torch.ones(max(n - 1, 0), dtype=torch.bool, device=dev)
+    for k in bkeys:
+        s = k[order]
+        same = same & (s[1:] == s[:-1])
+    m_s = bmask[order]
+    same = same & m_s[1:] & m_s[:-1]
+    nxt = torch.where(same, order[1:], n)
+    next_dup = torch.full((n,), n, dtype=order.dtype, device=dev)
+    next_dup[order[:-1]] = nxt
+    return next_dup
+
+
+def _expand_join(probe, build, bkeys, bmask, matched, build_row,
+                 build_payload, join_type, suffix, K: int,
+                 sort_normalized: str = "off") -> ColumnBatch:
+    """probe.n * K rows, copy-minor: copy j of probe row p is row
+    p * K + j and carries the build row j hops down p's chain."""
+    n_b = build.n
+    next_dup = _dup_chain(bkeys, bmask, n_b, sort_normalized)
+    rows = [build_row.to(torch.int64)]
+    has = [matched]
+    for _ in range(K - 1):
+        nxt = next_dup[torch.clamp(rows[-1], 0, n_b - 1)]
+        has.append(has[-1] & (nxt < n_b))
+        rows.append(torch.clamp(nxt, max=n_b - 1))
+
+    def interleave(cols):  # K tensors of [n] -> [n * K], copy-minor
+        return torch.stack(cols, dim=1).reshape(-1)
+
+    has_i = interleave(has)
+    cols, valid = {}, {}
+    for i, name in enumerate(probe.names):
+        cols[name] = torch.repeat_interleave(probe.data[i], K)
+        valid[name] = torch.repeat_interleave(probe.valid[i], K)
     for name in build_payload:
-        data = build.col(name)[build_row]
-        valid = build.col_valid(name)[build_row] & matched
-        out = out.with_column(name + suffix, data, valid)
-    return out.and_sel(matched) if join_type == "inner" else out
+        src, srcv = build.col(name), build.col_valid(name)
+        cols[name + suffix] = interleave([src[r] for r in rows])
+        valid[name + suffix] = interleave([srcv[r] for r in rows]) & has_i
+    sel = torch.repeat_interleave(probe.sel, K)
+    if join_type == "inner":
+        sel = sel & has_i
+    else:  # left: unmatched probe rows keep exactly copy 0
+        copy0 = (torch.arange(K, device=probe.device) == 0).repeat(probe.n)
+        keep = torch.where(interleave([matched] * K), has_i, copy0)
+        sel = sel & keep
+    return ColumnBatch.from_dict(cols, valid, sel=sel)
 
 
 def _folded_join(probe, build, table, pidx, base_ok, build_payload,

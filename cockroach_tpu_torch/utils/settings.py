@@ -19,6 +19,14 @@ class SessionVars:
         # the plain path's float64); off keeps every aggregation on the
         # plain scatter path. Engine.execute rejects any other value.
         "pallas_groupagg": "auto",   # auto | on | off
+        # slots of the device hash table behind hash-strategy GROUP BY
+        # (a power of two); more distinct keys raise
+        # HashCapacityExceeded
+        "hash_group_capacity": 1 << 17,
+        # packed-lane sort keys (ops/sortkey.py) for ORDER BY, the
+        # top-k cut and duplicate-key join chains: auto and on use
+        # them, off sorts by successive stable argsorts
+        "sort_normalized": "auto",   # auto | on | off
         # memo-based join ordering / rule pipeline / sketch-fed costing
         "optimizer": "on",           # on | off
         "optimizer_rules": "on",     # on | off

@@ -292,16 +292,21 @@ def test_px_queries(reference, port, query):
 
 
 def test_duplicate_build_keys_raise_cleanly():
+    # duplicate build keys expand the join K ways, up to the reference's
+    # limit of 32; past it the join is refused with the reference's
+    # message, whichever side the planner builds on (both repeat their
+    # keys 33 times or more)
     e = Engine(device="cpu")
     e.execute("CREATE TABLE a (x INT8 NOT NULL, y INT8 NOT NULL)")
     e.execute("CREATE TABLE b (x INT8 NOT NULL, z INT8 NOT NULL)")
     ts = e.clock.now()
-    # duplicate keys on both sides, whichever the planner builds on
-    e.store.insert_columns("a", {"x": np.arange(10) % 5,
-                                 "y": np.arange(10)}, ts)
-    e.store.insert_columns("b", {"x": np.array([1, 1, 2]),
-                                 "z": np.array([5, 6, 7])}, ts)
-    with pytest.raises(EngineError, match="not yet ported"):
+    e.store.insert_columns("a", {"x": np.arange(80) % 2,
+                                 "y": np.arange(80)}, ts)
+    e.store.insert_columns("b", {"x": np.arange(66) % 2,
+                                 "z": np.arange(66)}, ts)
+    with pytest.raises(EngineError, match=r"duplicate rows per key .*"
+                       r"\(limit 32\); make the lower-multiplicity table "
+                       "the build side"):
         e.execute("SELECT sum(y) AS s, sum(z) AS t FROM a, b "
                   "WHERE a.x = b.x")
 

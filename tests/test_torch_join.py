@@ -7,7 +7,10 @@ tensors. The hash, the build's claim and slot arrays, and the probe's
 (matched, build_row) must be bit-equal; every join type over the
 direct-addressed, packed composite-key and hash-table paths must give
 the same selection, the same validity and the same payload values
-wherever a value is valid.
+wherever a value is valid. A duplicate-keyed build side (K = 3 rows a
+key at most) goes through ``_dup_chain`` (bit-equal chains under every
+``sort_normalized`` mode) and the K-way ``_expand_join`` for inner and
+left joins over the direct and hash-table paths, with the same rules.
 """
 
 import jax.numpy as jnp
@@ -178,8 +181,80 @@ def test_hash_join_equal(path, bkeys, pkeys, sparse, pack, join_type):
 
 
 def test_hash_join_refuses_expansion():
+    # the engine bounds K at 32 (MAX_JOIN_EXPANSION); the join refuses
+    # anything past it
     build, probe = _join_inputs(3)
     _, tb = _batches(*build)
     _, tp = _batches(*probe)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tjoin.hash_join(tp, tb, ["p_k1"], ["b_k1"], PAYLOAD, expand=2)
+    with pytest.raises(ValueError, match="past the limit 32"):
+        tjoin.hash_join(tp, tb, ["p_k1"], ["b_k1"], PAYLOAD, expand=33)
+
+
+def _dup_inputs(seed, nkeys=200, npr=1024, K=3):
+    """A build side whose keys repeat up to K times (with dead rows and
+    NULL keys among the duplicates), and a probe side over and past the
+    build's key range."""
+    rng = np.random.default_rng(seed)
+    # key i repeats 1 + i % K times
+    k1 = rng.permutation(np.repeat(np.arange(nkeys),
+                                   1 + np.arange(nkeys) % K))
+    nb = len(k1)
+    bcols = {"b_k1": k1 * 3 + 5,
+             "b_k2": (k1 % 4).astype(np.int32),
+             "b_i64": rng.integers(-(1 << 40), 1 << 40, size=nb),
+             "b_code": rng.integers(0, 25, size=nb).astype(np.int32)}
+    bvalid = {k: rng.random(nb) < 0.95 for k in bcols}
+    bsel = rng.random(nb) < 0.9
+    pcols = {"p_k1": rng.integers(0, nkeys + 8, size=npr) * 3 + 5,
+             "p_x": rng.normal(size=npr)}
+    pcols["p_k2"] = ((pcols["p_k1"] - 5) // 3 % 4).astype(np.int32)
+    pvalid = {k: rng.random(npr) < 0.95 for k in pcols}
+    psel = rng.random(npr) < 0.9
+    return (bcols, bvalid, bsel), (pcols, pvalid, psel)
+
+
+@pytest.mark.parametrize("mode", ["auto", "on", "off"])
+@pytest.mark.parametrize("ncols", [1, 2])
+def test_dup_chain_equal(mode, ncols):
+    (bcols, bvalid, bsel), _ = _dup_inputs(ncols)
+    keys = ["b_k1", "b_k2"][:ncols]
+    mask = bsel & bvalid["b_k1"]
+    want = jjoin._dup_chain(tuple(jnp.asarray(bcols[k]) for k in keys),
+                            jnp.asarray(mask), len(mask), mode)
+    got = tjoin._dup_chain(tuple(torch.from_numpy(bcols[k]) for k in keys),
+                           torch.from_numpy(mask), len(mask), mode)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got.numpy() < len(mask)).sum() > 50
+
+
+DUP_PATHS = [("direct", ["b_k1"], ["p_k1"]),
+             ("hash", ["b_k1"], ["p_k1"]),
+             ("hash_two_keys", ["b_k1", "b_k2"], ["p_k1", "p_k2"])]
+
+
+@pytest.mark.parametrize("mode", ["auto", "off"])
+@pytest.mark.parametrize("join_type", ["inner", "left"])
+@pytest.mark.parametrize("path,bkeys,pkeys", DUP_PATHS)
+def test_expand_join_equal(path, bkeys, pkeys, join_type, mode):
+    build, probe = _dup_inputs(len(path) + len(join_type))
+    jb, tb = _batches(*build)
+    jp, tp = _batches(*probe)
+    direct = _direct_for(build, bkeys) if path == "direct" else None
+    payload = ["b_i64", "b_code"]
+    want = jjoin.hash_join(jp, jb, pkeys, bkeys, payload, join_type,
+                           expand=3, direct=direct, sort_normalized=mode)
+    got = tjoin.hash_join(tp, tb, pkeys, bkeys, payload, join_type,
+                          expand=3, direct=direct, sort_normalized=mode)
+    assert got.n == 3 * tp.n and got.names == want.names
+    sel = np.asarray(want.sel)
+    np.testing.assert_array_equal(got.sel.numpy(), sel)
+    # every copy count 0..3 occurs among the probe rows
+    copies = sel.reshape(-1, 3).sum(axis=1)
+    assert set(copies.tolist()) >= {0, 1, 2, 3}
+    for name in got.names:
+        v = np.asarray(want.col_valid(name))
+        np.testing.assert_array_equal(got.col_valid(name).numpy(), v,
+                                      err_msg=name)
+        np.testing.assert_array_equal(got.col(name).numpy()[v],
+                                      np.asarray(want.col(name))[v],
+                                      err_msg=name)
