@@ -25,14 +25,24 @@ Phases (any failure exits non-zero before the final line):
 3. Q1 under SET pallas_groupagg = off must give the same DECIMAL sums
    and counts as through the kernel; medians of 5 warm runs of Q1, Q6,
    Q1 `off`, Q14, Q1F and Q6F are timed.
-4. Each kernel against its plain PyTorch version on the card. Large-G:
-   at the exact inputs Q1 handed it in phase 2, and at G = 4096 with
-   MIN/MAX/REPMIN (shared-memory accumulators), G = 200,000 (global
-   atomics) and an all-masked input with out-of-range group ids; i32
-   rows, MIN/MAX rows and REPMIN must match exactly, f32 sums within
-   rtol 1e-5 (atomic order). Small-G: at the exact inputs Q1F and Q6F
-   handed it, G = 64 with all four ops, G = 1 at n = 2^23, an all-masked
-   input with out-of-range ids, NaN values in some groups, and G = 64
+4. Each kernel against its plain PyTorch version on the card. Large-G,
+   through its slot interface (int64 values, limbs cut in the kernel):
+   at the exact slots Q1 handed it in phase 2, and at seeded slots with
+   negative int64 values, INT64_MIN and INT64_MAX at G = 12 (few groups
+   a warp: warp-aggregated adds) and G = 200,000 (global atomics), and
+   all masked with out-of-range group ids; through its pre-built-column
+   interface at G = 4096 with MIN/MAX/REPMIN (shared-memory
+   accumulators), G = 200,000 (global atomics), an all-masked input
+   with out-of-range group ids and MIN/MAX with -0.0 and NaN. i32 rows,
+   max-|value| words, MIN/MAX rows and REPMIN must match exactly, f32
+   sums within rtol 1e-5 (atomic order), or within 1e-5 of the group's
+   sum of |value| where the values have both signs. Kernel 1's time
+   alone (CUDA events around bare launches) and through its wrapper,
+   its host time per call, and both byte bounds (the slots' columns,
+   and the pre-built columns) are measured at Q1, Q5, Q10 and Q12.
+   Small-G: at the exact inputs Q1F and Q6F handed it, G = 64 with all
+   four ops, G = 1 at n = 2^23, an all-masked input with out-of-range
+   ids, NaN values in some groups, and G = 64
    with 16 and with 300 slots (the per-block accumulator strategy,
    which Q1F's shape does not reach; 300 slots read 48 masks, past the
    kernel's 31 mask bits) with NaN groups and -0.0 in MIN/MAX columns;
@@ -63,8 +73,8 @@ Phases (any failure exits non-zero before the final line):
    The packed lanes built on the card equal those built on the CPU, bit
    for bit. Medians of 5 warm runs and the peak device memory are
    printed, and the large-G kernel is held against its plain version at
-   the exact inputs Q5, Q10 and Q12 handed it (integer rows exactly,
-   f32 within rtol 1e-5), with its times there.
+   the exact slots Q5, Q10 and Q12 handed it (integer rows exactly,
+   f32 within rtol 1e-5), with its times and bounds there.
 Then one JSON line of per-kernel numbers (the large-G kernel's
 launches count Q1, Q5, Q10 and Q12), the nvidia-smi line, and the last
 line {"ok": true, "device": {...}}.
@@ -196,6 +206,26 @@ def compare_kernel(tgl, args, label: str) -> dict:
     print(f"kernel vs plain [{label}]: n={gid.shape[0]} G={G} "
           f"n_mat={len(mat)} n_mm={len(mm)} rep={want_rep} ok {out}",
           flush=True)
+    return out
+
+
+def compare_slots(tgl, args, label: str) -> dict:
+    """The wrapper aggregate_slots against aggregate_slots_plain on the
+    same card inputs, per caller slot through the rows each reads;
+    raises on a mismatch. Returns the largest f32 errors (relative to
+    the group's sum of |value|)."""
+    from cockroach_tpu_torch.ops.cuda.groupagg_large_check import (
+        compare_plain)
+    before = tgl.LAUNCHES
+    out = compare_plain(args, tgl.aggregate_slots(*args))
+    if tgl.LAUNCHES != before + 1:
+        raise AssertionError(f"{label}: the wrapper did not launch once")
+    plan = tgl.plan_slots(*args)
+    layout = tgl.choose_layout(plan)
+    print(f"kernel vs plain [{label}]: n={plan.gid.shape[0]} "
+          f"G={plan.num_groups} slots={len(args[2])} "
+          f"kernel_slots={len(plan.kslots)} columns={len(plan.cols)} "
+          f"masks={len(plan.masks)} layout={layout} ok {out}", flush=True)
     return out
 
 
@@ -396,39 +426,51 @@ def small_numbers(tg, args, label: str) -> dict:
     return out
 
 
-def large_numbers(tgl, args) -> dict:
-    """The large-G kernel's times at one shape: through its wrapper, its
-    plain version, and one index_add_ of the [n, n_mat] f32 matrix into
-    G rows (the library yardstick); and its byte bound: each input
-    column read once, each output row written once."""
+def slot_numbers(tgl, args) -> dict:
+    """The large-G kernel's numbers at one query's slots: its time
+    through the wrapper, alone (CUDA events around bare launches of a
+    prepared plan), its plain version's, one index_add_ of the
+    pre-built [n, n_mat] f32 matrix into G rows (the library
+    yardstick), the wrapper's host time per call, the layout, and the
+    byte bounds: the slots' distinct columns each read once
+    (``bound_ms``), the columns distinct in content, a mask that
+    leaves sel as it is not read (``content_bound_ms``), and the
+    pre-built columns (``prebuilt_bound_ms``), outputs written once."""
     import torch
-    gid, sel, mat, mm, G, mat_int, mm_ops, want_rep = args
-    n = gid.shape[0]
-    out = {"ms": _cuda_ms(lambda: tgl.large_group_aggregate(*args)),
-           "plain_ms": _cuda_ms(
-               lambda: tgl.large_group_aggregate_plain(*args), reps=3,
-               warm=1)}
-    rowmajor = torch.stack([c.float() for c in mat], dim=1)
+
+    from cockroach_tpu_torch.bench_groupagg_large import (
+        host_us, kernel_ms, prebuilt_columns, shape)
+    shp = shape(args)
+    plan = tgl.plan_slots(*args)
+    out = {"ms": _cuda_ms(lambda: tgl.aggregate_slots(*args)),
+           "kernel_ms": kernel_ms(plan),
+           "plain_ms": _cuda_ms(lambda: tgl.aggregate_slots_plain(*args),
+                                reps=3, warm=1),
+           "host_us": host_us(lambda: tgl.aggregate_slots(*args))}
+    (gid, _, mat, _, _, _, _), _ = prebuilt_columns(args[0], args[1], args[2],
+                                               args[4])
+    rowmajor = torch.stack(mat, dim=1)
+    del mat
     gid64 = gid.long()
     out["library_ms"] = _cuda_ms(lambda: torch.zeros(
-        G, len(mat), device="cuda").index_add_(0, gid64, rowmajor))
+        args[3], rowmajor.shape[1], device="cuda").index_add_(
+            0, gid64, rowmajor))
     del rowmajor
-    nf = max(1, sum(not b for b in mat_int) + len(mm))
-    ni = max(1, sum(bool(b) for b in mat_int) + int(want_rep))
-    nbytes = n * (4 * len(mat) + 4 * len(mm) + 4 + 1) + (nf + ni) * G * 4
-    out.update({"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                "bound_by": "bytes",
-                "shape": {"n": n, "G": G, "n_mat": len(mat),
-                          "n_mm": len(mm), "bytes": nbytes}})
+    out.update({"bound_ms": shp["bound_ms"], "bound_by": "bytes",
+                "content_bound_ms": shp["content_bound_ms"],
+                "prebuilt_bound_ms": shp["prebuilt_bound_ms"],
+                "layout": shp["layout"], "shape": shp})
     return out
 
 
-def large_args(captured, key) -> tuple:
-    """The large-G kernel's positional arguments as a query passed them."""
+def slot_args(captured, key) -> tuple:
+    """The large-G kernel's slot-interface arguments as a query passed
+    them: (gid, sel, slots, G, want_rep)."""
     args, kw = captured[key]
-    return (args[0], args[1], tuple(args[2]), tuple(args[3]),
-            kw["num_groups"], tuple(kw["mat_int"]),
-            tuple(kw.get("mm_ops", ())), bool(kw.get("want_rep")))
+    full = dict(zip(("gid", "sel", "slots", "num_groups", "want_rep"),
+                    args), **kw)
+    return (full["gid"], full["sel"], tuple(full["slots"]),
+            full["num_groups"], bool(full.get("want_rep", False)))
 
 
 def check_rows(label, got, want, rel=1e-9) -> float:
@@ -564,7 +606,7 @@ def suite_phase(eng, li, sf, captured, recorder,
 
     on_card = eng.device.type == "cuda"
     rows = {}
-    kernel = tgl.large_group_aggregate
+    kernel = tgl.aggregate_slots
     t0 = time.perf_counter()
     tpch.load(eng, sf=sf, tables=("orders", "customer", "supplier",
                                   "partsupp", "nation", "region"))
@@ -585,7 +627,7 @@ def suite_phase(eng, li, sf, captured, recorder,
     suite = {"q3": tpch.Q3, "q5": tpch.Q5, "q10": tpch.Q10,
              "q12": tpch.Q12, "qps": QPS, "qh": QH}
     routes = {}
-    tgl.large_group_aggregate = recorder("suite", kernel)
+    tgl.aggregate_slots = recorder("suite", kernel)
     try:
         for q, sql in suite.items():
             captured.pop("suite", None)
@@ -612,7 +654,7 @@ def suite_phase(eng, li, sf, captured, recorder,
                 captured[q] = captured.pop("suite")
             print(f"{q} route: " + json.dumps(routes[q]), flush=True)
     finally:
-        tgl.large_group_aggregate = kernel
+        tgl.aggregate_slots = kernel
     for q, n_kernel in kernel_launches.items():
         if routes[q]["groupagg_large"] != n_kernel:
             raise AssertionError(f"{q} launched the large-G kernel "
@@ -677,6 +719,8 @@ def main() -> int:
     from cockroach_tpu_torch.ops.cuda import build
     from cockroach_tpu_torch.ops.cuda import groupagg as tg
     from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    from cockroach_tpu_torch.ops.cuda.groupagg_large_check import (
+        synthetic_slots)
 
     smi = _smi()
     name = torch.cuda.get_device_name(0)
@@ -711,7 +755,7 @@ def main() -> int:
     eng.execute("SET pallas_groupagg = on", s_on)
 
     captured = {}
-    recorded = (tgl.large_group_aggregate, tg.dense_group_aggregate,
+    recorded = (tgl.aggregate_slots, tg.dense_group_aggregate,
                 C.hash_join, aggops.group_count)
     liveness_counts = {}
 
@@ -728,7 +772,7 @@ def main() -> int:
     main_path = [("q1", tpch.Q1, None), ("q6", tpch.Q6, None),
                  ("q14", tpch.Q14, None), ("q1f", tpch.Q1F, s_on),
                  ("q6f", tpch.Q6F, s_on)]
-    tgl.large_group_aggregate = recorder("q1", recorded[0])
+    tgl.aggregate_slots = recorder("q1", recorded[0])
     C.hash_join = recorder("q14", recorded[2])
     aggops.group_count = counting_group_count
     rows, per_query = {}, {}
@@ -744,7 +788,7 @@ def main() -> int:
             for k, v in per_query[q].items():
                 launches[k] += v
     finally:
-        tgl.large_group_aggregate, tg.dense_group_aggregate, \
+        tgl.aggregate_slots, tg.dense_group_aggregate, \
             C.hash_join, aggops.group_count = recorded
     print(f"main path launches: {launches} (per query: {per_query}); "
           f"plain group-liveness counts: {liveness_counts}", flush=True)
@@ -806,8 +850,15 @@ def main() -> int:
           + json.dumps(e2e), flush=True)
 
     # -- 4. kernels vs plain ----------------------------------------------
-    q1_args = large_args(captured, "q1")
-    errs = compare_kernel(tgl, q1_args, "Q1 SF1")
+    q1_args = slot_args(captured, "q1")
+    errs = compare_slots(tgl, q1_args, "Q1 SF1")
+    compare_slots(tgl, synthetic_slots(1 << 23, 12, 9, 5),
+                  "slots G=12, negative int64, INT64_MIN/MAX")
+    compare_slots(tgl, synthetic_slots(1 << 22, 200_000, 14, 6),
+                  "slots G=200000 global atomics, negative int64")
+    compare_slots(tgl, synthetic_slots(1 << 20, 300, 9, 7, gid_lo=-64,
+                                       gid_hi=364, sel_frac=0.0),
+                  "slots all masked, gid out of range")
     compare_kernel(tgl, synthetic(1 << 23, 4096, 1, 3, (tgl.MIN, tgl.MAX),
                                   1), "G=4096 shared memory")
     compare_kernel(tgl, synthetic(1 << 23, 200_000, 1, 2, (tgl.MAX,), 2),
@@ -822,16 +873,22 @@ def main() -> int:
     compare_kernel(tgl, nz[:3] + (nz_mm,) + nz[4:],
                    "MIN/MAX with -0.0 and NaN")
 
-    q1_numbers = large_numbers(tgl, q1_args)
+    q1_numbers = slot_numbers(tgl, q1_args)
+    print("large kernel numbers [Q1 SF1]: " + json.dumps(q1_numbers),
+          flush=True)
     kernels = [{
         "name": "groupagg_large", "route": "cuda",
         "source": "cockroach_tpu_torch/csrc/groupagg_large.cu",
         "replaces": "cockroach_tpu/ops/pallas/groupagg_large.py:149",
         "launches": launches["groupagg_large"],
         "max_abs_err": errs["max_abs_err"], "ms": q1_numbers["ms"],
+        "kernel_ms": q1_numbers["kernel_ms"],
         "plain_ms": q1_numbers["plain_ms"],
         "bound_ms": q1_numbers["bound_ms"], "bound_by": "bytes",
+        "content_bound_ms": q1_numbers["content_bound_ms"],
+        "prebuilt_bound_ms": q1_numbers["prebuilt_bound_ms"],
         "library_ms": q1_numbers["library_ms"], "ok": True,
+        "layout": q1_numbers["layout"], "host_us": q1_numbers["host_us"],
         "shape": q1_numbers["shape"],
         "max_rel_err": errs["max_rel_err"],
     }]
@@ -912,9 +969,11 @@ def main() -> int:
     large = kernels[0]
     large["launches"] += sum(r["groupagg_large"] for r in routes.values())
     for q in ("q5", "q10", "q12"):
-        qargs = large_args(captured, q)
-        got = compare_kernel(tgl, qargs, f"{q.upper()} SF1")
-        large[q] = dict(large_numbers(tgl, qargs), **got)
+        qargs = slot_args(captured, q)
+        got = compare_slots(tgl, qargs, f"{q.upper()} SF1")
+        large[q] = dict(slot_numbers(tgl, qargs), **got)
+        print(f"large kernel numbers [{q.upper()} SF1]: "
+              + json.dumps(large[q]), flush=True)
     if opts.profile:
         from cockroach_tpu_torch.profile_tpch import profile_queries
         profile_queries(eng, {"q3": (tpch.Q3, None), "q5": (tpch.Q5, None),

@@ -47,6 +47,7 @@ from ..ops.cuda import groupagg_large as pgl
 from ..ops.join import hash_join
 from ..sql import plan as P
 from ..sql.bound import BoundAgg
+from ..sql.pushdown import _expr_key
 from ..sql.types import Family
 from .expr import ExprContext, compile_expr
 
@@ -366,10 +367,6 @@ def _agg_partials(a: BoundAgg, argf, batch, ctx, gid, num_groups,
 # to 2^19, and under `auto` inputs of at least 4096 rows.
 LARGE_G_MAX = 1 << 19
 AUTO_MIN_ROWS = 4096
-# Arithmetic right shift that puts an int64's order-preserving high limb
-# into f32-exact range (64 - 40 = 24 magnitude bits, |limb| <= 2^23): a
-# copy of cockroach_tpu/ops/pallas/paritygate.py MM_HI_SHIFT.
-MM_HI_SHIFT = 40
 
 
 def _pallas_agg_slots(aggs) -> list | None:
@@ -470,6 +467,24 @@ def _pallas_large_ok(aggs, mode: str) -> bool:
     return True
 
 
+def _agg_args(aggfs, ctx) -> dict:
+    """Each aggregate's evaluated (data, valid) argument, by index. Equal
+    bound argument expressions are evaluated once and share tensors, so
+    the large-G kernel's wrapper folds sum(x) and avg(x) by storage even
+    where x is an expression. Arguments are matched by the structural
+    key (repr plus a digest of every dictionary table), not by the
+    dataclasses' ==, which compares numpy tables elementwise."""
+    out, done = {}, {}
+    for i, (a, argf) in enumerate(aggfs):
+        if argf is None:
+            continue
+        key = _expr_key(a.arg)
+        if key not in done:
+            done[key] = argf(ctx)
+        out[i] = done[key]
+    return out
+
+
 def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
                            max_group_rows: int, params: ExecParams):
     """Every aggregate's per-group (data, valid) from ONE large-G
@@ -477,17 +492,17 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
     argument's dtype falls outside the envelope (the caller then takes
     the plain scatter path).
 
-    Exact int64 sums split each value into w-bit limbs (logical
-    shifts), sum each limb column in int32, and recombine with
-    wrapping int64 shifts/adds: int64 modular arithmetic, bit-identical
-    to the plain path's _group_sum_i64_limbs. FLOAT sums add in f32.
-    MIN/MAX of FLOAT reduce the f32 value; of INT/DECIMAL, the
-    arithmetic high limb (order-preserving, f32-exact), refined to the
-    full-width winner by a plain fold over the rows holding it."""
+    The kernel reads the arguments in place. Exact int64 sums come back
+    as w-bit limb sums (logical shifts, cut in the kernel) in int32,
+    recombined with wrapping int64 shifts/adds: int64 modular
+    arithmetic, bit-identical to the plain path's _group_sum_i64_limbs.
+    FLOAT sums add in f32. MIN/MAX of FLOAT reduce the f32 value; of
+    INT/DECIMAL, the arithmetic high limb (order-preserving, f32-exact),
+    refined to the full-width winner by a plain fold over the rows
+    holding it."""
     n = b.n
     sel = b.sel
-    argdata = {i: argf(ctx) for i, (a, argf) in enumerate(aggfs)
-               if argf is not None}
+    argdata = _agg_args(aggfs, ctx)
     for i, (a, _) in enumerate(aggfs):
         if a.func in ("sum", "sum_int", "avg", "min", "max") \
                 and a.arg is not None \
@@ -496,77 +511,62 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
             # the static check ran on SQL types; limb sums and the
             # MIN/MAX high limb need real integers
             return None
-    f_cols, f_tags = [], []     # f32-accumulated columns
-    i_cols, i_tags = [], []     # i32-accumulated (limb/count) columns
-    mm_cols, mm_ops, mm_tags = [], [], []
+    # the reference's default tile point, so the limb layout is its
+    w = pgl.limb_width(n, max_group_rows)
+    slots, tags = [], []
     want_rep = False
-    exact = {}  # agg index -> (limb width w, limb count k)
+    exact = {}  # agg index -> limb count k
     for i, (a, _) in enumerate(aggfs):
         if a.func == "count_rows":
-            i_cols.append(sel.to(torch.float32))
-            i_tags.append(("cnt", i))
+            slots.append(pgl.count())
+            tags.append(("cnt", i))
             continue
         if a.func == "any":
             want_rep = True  # rides the REPMIN row + a gather
             continue
         d0, v0 = argdata[i]
-        m = torch.logical_and(sel, v0)
-        i_cols.append(m.to(torch.float32))  # validity + avg divisor
-        i_tags.append(("cnt", i))
+        slots.append(pgl.count(v0))  # validity + avg divisor
+        tags.append(("cnt", i))
         if a.func == "count":
             continue
         if a.func in ("min", "max"):
-            ident = math.inf if a.func == "min" else -math.inf
-            if a.arg.type.family in (Family.INT, Family.DECIMAL):
-                hi = d0.to(torch.int64) >> MM_HI_SHIFT
-                mm_cols.append(torch.where(m, hi.to(torch.float32), ident))
-            else:
-                mm_cols.append(torch.where(m, d0.to(torch.float32), ident))
-            mm_ops.append(pgl.MIN if a.func == "min" else pgl.MAX)
-            mm_tags.append(("mm", i))
+            slots.append(pgl.minmax(d0, v0, pgl.MIN if a.func == "min"
+                                    else pgl.MAX))
+            tags.append(("mm", i))
             continue
         if a.arg.type.family == Family.FLOAT:
-            f_cols.append(torch.where(m, d0, 0).to(torch.float32))
-            f_tags.append(("fsum", i))
+            slots.append(pgl.f32sum(d0, v0))
+            tags.append(("fsum", i))
             continue
-        # the reference's default tile point, so the limb layout is its
-        w = pgl.limb_width(n, max_group_rows)
         bits = 64
         if a.arg_nonneg and a.arg_max_abs:
             bits = max(1, int(a.arg_max_abs).bit_length())
-        k = -(-bits // w)
-        exact[i] = (w, k)
-        dz = torch.where(m, d0.to(torch.int64), 0)
-        for jl in range(k):
-            i_cols.append(aggops.limb(dz, jl, w).to(torch.float32))
-            i_tags.append(("limb", i, jl))
-        # f32 shadow sum feeds the overflow sentinel
-        f_cols.append(dz.to(torch.float32))
-        f_tags.append(("shadow", i))
-    i_cols.append(sel.to(torch.float32))  # group liveness
-    i_tags.append(("live",))
+        exact[i] = -(-bits // w)
+        slots.append(pgl.i64sum(d0, v0, w, exact[i]))
+        tags.append(("sum", i))
+    slots.append(pgl.count())  # group liveness: count(*)'s row if any
+    tags.append(("live",))
 
-    mat = tuple(f_cols) + tuple(i_cols)
-    mat_int = (False,) * len(f_cols) + (True,) * len(i_cols)
-    acc_f, acc_i = pgl.large_group_aggregate(
-        gid, sel, mat, tuple(mm_cols), num_groups=num_groups,
-        mat_int=mat_int, mm_ops=tuple(mm_ops), want_rep=want_rep)
-
-    frow = {t: r for r, t in enumerate(f_tags)}
-    irow = {t: r for r, t in enumerate(i_tags)}
-    mmrow = {t: len(f_cols) + r for r, t in enumerate(mm_tags)}
-    live = acc_i[irow[("live",)]] > 0
+    res = pgl.aggregate_slots(gid, sel, tuple(slots), num_groups,
+                              want_rep)
+    acc_f, acc_i = res.acc_f, res.acc_i
+    row = dict(zip(tags, res.rows))
+    live = acc_i[row[("live",)]] > 0
     rep = rep_live = None
     if want_rep:
-        racc = acc_i[len(i_cols)]  # REPMIN row (n = empty group)
+        racc = acc_i[res.rep_row]  # REPMIN row (n = empty group)
         rep_live = racc < n
         rep = torch.clamp(racc, max=n - 1)
+    # |value| bounds as float64: the uint64 pattern of 2^63 reads as
+    # INT64_MIN
+    maxabs = torch.where(res.maxabs < 0, 2.0 ** 63,
+                         res.maxabs.to(torch.float64))
 
     overflow = torch.zeros((), dtype=torch.bool, device=b.device)
     aggs_out = []
     for i, (a, _) in enumerate(aggfs):
         if a.func in ("count_rows", "count"):
-            d = acc_i[irow[("cnt", i)]].to(torch.int64)
+            d = acc_i[row[("cnt", i)]].to(torch.int64)
             aggs_out.append((d, torch.ones_like(d, dtype=torch.bool)))
             continue
         if a.func == "any":
@@ -574,10 +574,10 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
             aggs_out.append(aggops.group_any_via_rep(d0, v0, rep,
                                                      rep_live))
             continue
-        cnt = acc_i[irow[("cnt", i)]]
+        cnt = acc_i[row[("cnt", i)]]
         nonempty = cnt > 0
         if a.func in ("min", "max"):
-            d = acc_f[mmrow[("mm", i)]]
+            d = acc_f[row[("mm", i)]]
             if a.arg.type.family in (Family.INT, Family.DECIMAL):
                 # refine the winning high limb to the full-width value
                 # with the dtype-preserving plain fold over only the
@@ -585,7 +585,7 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
                 # so the result is bit-equal to the plain path's
                 d0, v0 = argdata[i]
                 m = torch.logical_and(sel, v0)
-                rowhi = d0.to(torch.int64) >> MM_HI_SHIFT
+                rowhi = d0.to(torch.int64) >> pgl.MM_HI_SHIFT
                 # an empty group's +/-inf has no int64 value: park it
                 # at 0 (no row of that group is in `m`)
                 win = torch.where(torch.isfinite(d), d, 0.0) \
@@ -600,27 +600,25 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
             aggs_out.append((d.to(torch.float64), nonempty))
             continue
         if i not in exact:  # float sum/avg (`on`)
-            d = acc_f[frow[("fsum", i)]].to(torch.float64)
+            d = acc_f[row[("fsum", i)]].to(torch.float64)
             if a.func == "avg":
                 d = d / torch.clamp(cnt, min=1).to(torch.float64)
             aggs_out.append((d, nonempty))
             continue
-        w, k = exact[i]
-        total = torch.zeros(num_groups, dtype=torch.int64,
-                            device=b.device)
-        for jl in range(k):
-            s = acc_i[irow[("limb", i, jl)]]
-            # wrapping IS int64 modular arithmetic
-            total = total + (s.to(torch.int64) << (jl * w))
+        k = exact[i]
+        r0, frow, mx = row[("sum", i)]
+        # sum(x) and avg(x) share limb rows; each reads its own k.
+        # Wrapping IS int64 modular arithmetic, in any order.
+        shifts = torch.arange(0, k * w, w, dtype=torch.int64,
+                              device=b.device)
+        total = (acc_i[r0:r0 + k].to(torch.int64) << shifts[:, None]) \
+            .sum(dim=0)
         # overflow sentinel: a cheap global bound proves most scans
         # cannot wrap, else compare the f32 shadow. Tolerance 1e-2
         # absorbs f32 accumulation noise; a real int64 wrap is ~2^64
         # off, far beyond it.
-        d0, v0 = argdata[i]
-        m = torch.logical_and(sel, v0)
-        dz64 = torch.where(m, d0, torch.zeros_like(d0)).to(torch.float64)
-        cannot = float(n) * torch.amax(torch.abs(dz64)) < float(2 ** 62)
-        sh = acc_f[frow[("shadow", i)]].to(torch.float64)
+        cannot = float(n) * maxabs[mx] < float(2 ** 62)
+        sh = acc_f[frow].to(torch.float64)
         err = torch.abs(total.to(torch.float64) - sh)
         tol = torch.clamp(torch.abs(sh) * 1e-2, min=1e12)
         overflow = torch.logical_or(

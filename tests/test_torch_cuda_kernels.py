@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+from cockroach_tpu_torch.ops.cuda.groupagg_large_check import (
+    compare_plain, synthetic_slots)
 
 pytestmark = pytest.mark.gpu
 
@@ -99,6 +101,49 @@ def test_masked_and_out_of_range(cuda, G):
         n, G, 1, 2, (tgl.MIN,), 5, cuda, gid_lo=-50, gid_hi=G + 50,
         sel_frac=0.0)
     _check(gid, sel, mat, mm, G, mat_int, (tgl.MIN,), True)
+
+
+# -- the slot interface: int64 values, limbs cut in the kernel --------------
+
+def _check_slots(args, layout):
+    """The kernel in `layout` against the plain version on the same
+    tensors, per caller slot (groupagg_large_check.compare_plain: integer
+    rows, max-|value| and MIN/MAX bit for bit, f32 sums within 1e-5 of
+    the group's sum of |f32(value)|, since the values have both
+    signs)."""
+    plan = tgl.plan_slots(*args)
+    if not tgl.fits(plan, layout):
+        pytest.skip(f"{layout} does not fit G = {plan.num_groups}")
+    before = tgl.LAUNCHES
+    got = tgl.launch(plan, layout, tgl._lib())
+    assert tgl.LAUNCHES == before + 1
+    compare_plain(args, tgl.SlotResult(*got, plan.rows, plan.rep_row))
+
+
+SLOT_CASES = [
+    # (n, G, w): few groups (warp-aggregated adds), many groups in shared
+    # memory, and G past shared memory (global atomics)
+    (1 << 16, 12, 9),
+    (1 << 16, 4, 14),
+    (1 << 16, 1024, 17),
+    (1 << 16, 200_000, 5),
+]
+
+
+@pytest.mark.parametrize("n,G,w", SLOT_CASES)
+@pytest.mark.parametrize("layout", tgl.LAYOUTS)
+def test_slots_match_plain(cuda, n, G, w, layout):
+    _check_slots(synthetic_slots(n, G, w, n + G + w), layout)
+
+
+@pytest.mark.parametrize("G", [100, 100_000])
+def test_slots_masked_and_out_of_range(cuda, G):
+    # through the wrapper, in the layout it chooses
+    args = synthetic_slots(1 << 14, G, 9, 7, gid_lo=-50, gid_hi=G + 50,
+                           sel_frac=0.0)
+    before = tgl.LAUNCHES
+    compare_plain(args, tgl.aggregate_slots(*args))
+    assert tgl.LAUNCHES == before + 1
 
 
 def test_engine_q1_q6_on_card_match_cpu(cuda):

@@ -75,6 +75,14 @@ PX = {
                    "max(d) AS dhi FROM px GROUP BY g ORDER BY g"),
 }
 PX_SMALL = ("float", "null_group", "ungrouped")
+# two aggregate arguments that reach distinct LIKE tables over the same
+# dictionary column: INT sums, so `auto` takes the large-G kernel
+LIKE_CASE = ("SELECT l_returnflag, "
+             "sum(CASE WHEN l_shipmode LIKE '%AIR%' THEN 1 ELSE 0 END) AS a, "
+             "sum(CASE WHEN l_shipmode LIKE 'TRUCK%' THEN 1 ELSE 0 END) "
+             "AS t, sum(CASE WHEN l_shipmode LIKE '%AIR%' THEN 1 ELSE 0 "
+             "END) AS a2 FROM lineitem GROUP BY l_returnflag "
+             "ORDER BY l_returnflag")
 # a group whose FLOAT argument is NULL in every row
 PX_NULL_GROUP = ("INSERT INTO px VALUES ('k9', NULL, 1.00, 5), "
                  "('k9', NULL, 2.50, NULL), ('k9', NULL, 4.00, 7)")
@@ -110,7 +118,8 @@ def reference():
                     (("q1", jtpch.Q1), ("q6", jtpch.Q6),
                      ("q14", jtpch.Q14)) for m in MODES]
             runs += [("q1", "on", jtpch.Q1), ("q1f", "on", tpch.Q1F),
-                     ("q6f", "on", tpch.Q6F)]
+                     ("q6f", "on", tpch.Q6F), ("like_case", "auto",
+                                               LIKE_CASE)]
             runs += [(f"px_{q}", m, sql) for q, sql in PX.items()
                      for m in ("on", "off")]
             out = {}
@@ -289,6 +298,19 @@ def test_px_queries(reference, port, query):
         # exact paths: bit-equal to `off`, and equal to the reference
         assert on == off
         _assert_rows_equal(on, ref[f"px_{query}", "on"]["rows"])
+
+
+def test_like_case_sums_on_one_dictionary_column(reference, port):
+    # distinct LIKE tables over l_shipmode side by side reach the
+    # large-G kernel under `auto`; the repeated argument is folded
+    ref, _ = reference
+    before = tgl.PLAIN_CALLS
+    got = _run(port, LIKE_CASE, "auto")
+    assert tgl.PLAIN_CALLS == before + 1
+    assert ref["like_case", "auto"]["large_builds"] >= 1
+    _assert_rows_equal(got, ref["like_case", "auto"]["rows"])
+    assert all(r[1] == r[3] and r[1] > 0 and r[2] > 0 for r in got)
+    assert got == _run(port, LIKE_CASE, "off")
 
 
 def test_duplicate_build_keys_raise_cleanly():
