@@ -75,9 +75,44 @@ Phases (any failure exits non-zero before the final line):
    printed, and the large-G kernel is held against its plain version at
    the exact slots Q5, Q10 and Q12 handed it (integer rows exactly,
    f32 within rtol 1e-5), with its times and bounds there.
-Then one JSON line of per-kernel numbers (the large-G kernel's
-launches count Q1, Q5, Q10 and Q12), the nvidia-smi line, and the last
-line {"ok": true, "device": {...}}.
+7. Subqueries, derived tables and CTEs: TPC-H Q2, Q4, Q7, Q8, Q9, Q11,
+   Q13, Q15, Q16, Q17, Q18, Q19, Q20, Q21 and Q22 through
+   Engine.execute on the SF1 tables, each with every count set to 0
+   just before it and read just after, against the numpy oracles
+   (models/tpch.py): DECIMAL values within rel 1e-9, FLOAT8 values
+   (Q8's share, Q17's average) within rel 1e-6, keys, counts, strings
+   and dates exactly, rows in the oracle's order (Q11 orders by value
+   alone, so rows of equal value compare in one canonical order). One
+   route line per query: kernel launches, and over every plan run the
+   statement made, group_ids calls, partitioned re-runs and their
+   partition counts, temps and their rows, subqueries evaluated,
+   Compact nodes and replans. At SF1 the large-G kernel's launches per
+   query (SF1_PHASE7_LAUNCHES) and Q20's partition count (16: its
+   decorrelated GROUP BY overflows the default hash table) are
+   checked. Every temp of Q2, Q4, Q7, Q8, Q9, Q13, Q15, Q17, Q20, Q21
+   and Q22 must take the columnar path (Engine.last_exec["temps"]), not
+   the decoded rows. No sort may leave the packed lanes, and no temp
+   may outlive its statement. Every call of the large-G kernel these
+   queries make is held against its plain version at the exact slots
+   the query handed it, as in phase 4 (compare_slots). Medians of 3
+   warm runs and the peak device memory.
+8. SSB: a second Engine loads lineorder (6,000,000 rows) and the
+   dimensions at the generator's SF1 sizes and runs the five flights
+   against the numpy oracles (models/ssb.py), integers exactly, with
+   routes (the large-G kernel once each in q2.1, q3.1, q4.1, checked,
+   and held against its plain version at each call's slots) and
+   medians of 3 warm runs.
+9. Prepared statements: Q1, Q6, Q3 and Q15 through Engine.prepare and 5
+   runs each, every run equal to execute's rows; a second prepare of
+   the same text hits the exec cache (Q15's re-execute handle hits it
+   on its runs), with the counters; the host ms per run both ways, the
+   median wall time minus torch.profiler's device busy time.
+Each phase's seconds are printed. Then one JSON line of per-kernel
+numbers (the large-G kernel's launches count Q1, Q5, Q10, Q12 and
+those of phases 7 and 8; `path_checks` holds each of its calls in
+phases 7 and 8 held against the plain version), the nvidia-smi line,
+and the last line
+{"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile DIR
 
@@ -87,6 +122,7 @@ check (profile_tpch.profile_queries; traces and numbers into DIR).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -209,11 +245,12 @@ def compare_kernel(tgl, args, label: str) -> dict:
     return out
 
 
-def compare_slots(tgl, args, label: str) -> dict:
+def compare_slots(tgl, args, label: str) -> tuple:
     """The wrapper aggregate_slots against aggregate_slots_plain on the
     same card inputs, per caller slot through the rows each reads;
     raises on a mismatch. Returns the largest f32 errors (relative to
-    the group's sum of |value|)."""
+    the group's sum of |value|), and the shape: rows, groups, slots and
+    the kernel's layout."""
     from cockroach_tpu_torch.ops.cuda.groupagg_large_check import (
         compare_plain)
     before = tgl.LAUNCHES
@@ -226,6 +263,45 @@ def compare_slots(tgl, args, label: str) -> dict:
           f"G={plan.num_groups} slots={len(args[2])} "
           f"kernel_slots={len(plan.kslots)} columns={len(plan.cols)} "
           f"masks={len(plan.masks)} layout={layout} ok {out}", flush=True)
+    return out, {"n": int(plan.gid.shape[0]), "G": plan.num_groups,
+                 "slots": len(args[2]), "layout": layout}
+
+
+@contextlib.contextmanager
+def recording_slots():
+    """Record every call of the large-G kernel's wrapper while the block
+    runs: yields a list that gets each call's arguments in slot_args'
+    form, for the kernel-vs-plain checks at the shapes the queries gave
+    it."""
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    kernel = tgl.aggregate_slots
+    calls: list = []
+
+    def recording(*args, **kw):
+        calls.append(_slot_call(args, kw))
+        return kernel(*args, **kw)
+
+    tgl.aggregate_slots = recording
+    try:
+        yield calls
+    finally:
+        tgl.aggregate_slots = kernel
+
+
+def check_calls(label, calls, launches) -> list:
+    """The large-G kernel against its plain version at each recorded
+    call of one query (compare_slots: the same tolerances as phase 4);
+    every launch the query made must have been recorded. Returns one
+    record a call: its shape and errors."""
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    if len(calls) != launches:
+        raise AssertionError(f"{label}: {len(calls)} recorded calls of the "
+                             f"large-G kernel, {launches} launches")
+    out = []
+    for i, args in enumerate(calls):
+        errs, shape = compare_slots(tgl, args, f"{label} call {i + 1}")
+        out.append(dict(shape, **errs))
+    calls.clear()
     return out
 
 
@@ -463,14 +539,17 @@ def slot_numbers(tgl, args) -> dict:
     return out
 
 
-def slot_args(captured, key) -> tuple:
-    """The large-G kernel's slot-interface arguments as a query passed
-    them: (gid, sel, slots, G, want_rep)."""
-    args, kw = captured[key]
+def _slot_call(args, kw) -> tuple:
     full = dict(zip(("gid", "sel", "slots", "num_groups", "want_rep"),
                     args), **kw)
     return (full["gid"], full["sel"], tuple(full["slots"]),
             full["num_groups"], bool(full.get("want_rep", False)))
+
+
+def slot_args(captured, key) -> tuple:
+    """The large-G kernel's slot-interface arguments as a query passed
+    them: (gid, sel, slots, G, want_rep)."""
+    return _slot_call(*captured[key])
 
 
 def check_rows(label, got, want, rel=1e-9) -> float:
@@ -697,6 +776,313 @@ def suite_phase(eng, li, sf, captured, recorder,
     return routes, e2e_suite
 
 
+# the subquery, derived-table and CTE queries of phase 7
+SUBQUERY_QUERIES = ("q2", "q4", "q7", "q8", "q9", "q11", "q13", "q15",
+                    "q16", "q17", "q18", "q19", "q20", "q21", "q22")
+DECIMAL_REL = 1e-9          # exact DECIMAL sums against float64 oracles
+FLOAT_REL = 1e-6            # FLOAT8 results (shares, averages)
+
+
+def _counts_zero() -> None:
+    from cockroach_tpu_torch.ops import sortkey
+    from cockroach_tpu_torch.ops.cuda import groupagg as tg
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    tgl.LAUNCHES = tg.LAUNCHES = 0
+    tgl.PLAIN_CALLS = tg.PLAIN_CALLS = 0
+    for tally in (sortkey.NORMALIZED, sortkey.LANES, sortkey.FALLBACKS):
+        tally.reset()
+
+
+def _route(eng, on_card: bool, first_run_s: float) -> dict:
+    """One statement's route from the counts and Engine.last_exec: its
+    kernel launches (plain-version calls on a CPU engine), and over
+    every plan run it made: group_ids calls, partitioned re-runs and
+    their partition counts, temps and their rows, subqueries, Compact
+    nodes, top-k cuts and replans."""
+    from cockroach_tpu_torch.ops import sortkey
+    from cockroach_tpu_torch.ops.cuda import groupagg as tg
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    le = eng.last_exec
+    tot = le["all"]
+    return {
+        "first_run_s": first_run_s,
+        "groupagg_large": tgl.LAUNCHES if on_card else tgl.PLAIN_CALLS,
+        "groupagg": tg.LAUNCHES if on_card else tg.PLAIN_CALLS,
+        "plan_runs": tot["runs"], "group_ids": tot["group_ids"],
+        "partitioned": tot["partitioned"],
+        "temps": [[t.split("_", 5)[-1], n, path]
+                  for t, n, path in le["temps"]],
+        "subqueries": le["subqueries"],
+        "compact_nodes": tot["compact_nodes"],
+        "compacts_applied": tot["compacts_applied"],
+        "topk_cuts": tot["topk_cuts"], "expansions": tot["expansions"],
+        "replans": tot["replans"],
+        "sort_fallbacks": sortkey.FALLBACKS.value(),
+    }
+
+
+def _tie_canon(rows: list, col: int, rel: float) -> list:
+    """Rows with every run of (within `rel`) equal values in column
+    `col` put in one canonical order: an ORDER BY on that column alone
+    leaves such rows in any order."""
+    out, i = [], 0
+    while i < len(rows):
+        j = i + 1
+        while j < len(rows) and abs(rows[j][col] - rows[i][col]) <= \
+                rel * max(abs(rows[i][col]), 1e-300):
+            j += 1
+        out.extend(sorted(rows[i:j], key=repr))
+        i = j
+    return out
+
+
+def check_result(label, res, want) -> float:
+    """A Result against its oracle's rows, in order: FLOAT8 columns
+    within FLOAT_REL, DECIMAL within DECIMAL_REL, keys, counts, strings
+    and dates exactly. Returns the largest relative error."""
+    from cockroach_tpu_torch.sql.types import Family
+    got = res.rows
+    if len(got) != len(want) or not want:
+        raise AssertionError(f"{label}: {len(got)} rows, oracle "
+                             f"{len(want)}")
+    rels = [FLOAT_REL if t.family == Family.FLOAT else DECIMAL_REL
+            for t in res.types]
+    worst = 0.0
+    for g_row, w_row in zip(got, want):
+        if len(g_row) != len(w_row):
+            raise AssertionError(f"{label}: {g_row} != oracle {w_row}")
+        for g, w, rel in zip(g_row, w_row, rels):
+            if isinstance(w, float):
+                err = abs(g - w) / max(abs(w), 1e-300)
+                worst = max(worst, err)
+                if err > rel:
+                    raise AssertionError(f"{label}: {g_row} != oracle "
+                                         f"{w_row} (rel {err})")
+            elif g != w:
+                raise AssertionError(f"{label}: {g_row} != oracle {w_row}")
+    return worst
+
+
+# large-G kernel launches per phase 7 query at SF1 (the dense
+# groupings of at most 2^19 codes whose aggregates have an exact
+# envelope; Q2 groups by MIN, Q16 by DISTINCT, Q18 by 1.5M order keys,
+# Q19 is ungrouped and Q20 groups by hash), and the partition count of
+# Q20's decorrelated GROUP BY (about 530K groups, past half of 2^17
+# slots)
+SF1_PHASE7_LAUNCHES = {"q2": 0, "q4": 1, "q7": 1, "q8": 1, "q9": 1,
+                       "q11": 1, "q13": 2, "q15": 1, "q16": 0, "q17": 1,
+                       "q18": 0, "q19": 0, "q20": 0, "q21": 1, "q22": 2}
+SF1_Q20_PARTITIONS = [16]
+SF1_SSB_LAUNCHES = {"q1.1": 0, "q1.2": 0, "q2.1": 1, "q3.1": 1, "q4.1": 1}
+
+
+def _check_launches(label, routes, want) -> None:
+    for q, n in (want or {}).items():
+        if routes[q]["groupagg_large"] != n:
+            raise AssertionError(f"{label} {q} launched the large-G kernel "
+                                 f"{routes[q]['groupagg_large']} times, "
+                                 f"not {n}")
+
+
+def subquery_phase(eng, li, sf, reps: int = 3,
+                   kernel_launches=SF1_PHASE7_LAUNCHES,
+                   q20_partitions=SF1_Q20_PARTITIONS) -> dict:
+    """Phase 7 on an engine holding every TPC-H table at `sf` (lineitem
+    from `li`, strings decoded): Q2 ... Q22 through Engine.execute, each
+    with every count set to 0 just before it and read just after,
+    against the numpy oracles and the expected routes
+    (`kernel_launches`, Q20's `q20_partitions`; None skips a check),
+    then the medians of `reps` warm runs and the peak device memory.
+    Returns {query: route}."""
+    import numpy as np
+    import torch
+
+    from cockroach_tpu_torch.models import tpch
+    on_card = eng.device.type == "cuda"
+    for col, vals in (("l_shipinstruct", tpch.SHIPINSTRUCT),
+                      ("l_shipmode", tpch.SHIPMODES),
+                      ("l_returnflag", tpch.RF_VALUES),
+                      ("l_linestatus", tpch.LS_VALUES)):
+        if li[col].dtype.kind in "iu":   # dictionary codes
+            li[col] = np.asarray(vals, dtype=object)[li[col]]
+    t0 = time.perf_counter()
+    tables = {"lineitem": li, "orders": tpch.gen_orders(sf),
+              "customer": tpch.gen_customer(sf),
+              "supplier": tpch.gen_supplier(sf), "part": tpch.gen_part(sf),
+              "partsupp": tpch.gen_partsupp(sf),
+              "nation": tpch.gen_nation(), "region": tpch.gen_region()}
+    want = {q: tpch.oracle_rows(q, tables) for q in SUBQUERY_QUERIES}
+    print(f"phase 7 oracles: {time.perf_counter() - t0:.1f} s", flush=True)
+    s = eng.session()
+    routes, errs = {}, {}
+    for q in SUBQUERY_QUERIES:
+        _counts_zero()
+        t1 = time.perf_counter()
+        with recording_slots() as calls:
+            res = eng.execute(tpch.QUERIES[q], s)
+            _sync()
+        routes[q] = _route(eng, on_card, time.perf_counter() - t1)
+        print(f"{q} route: " + json.dumps(routes[q]), flush=True)
+        if on_card:
+            routes[q]["kernel_checks"] = check_calls(
+                f"{q.upper()} SF{sf}", calls, routes[q]["groupagg_large"])
+        rows_path = [t for t in routes[q]["temps"] if t[2] != "columnar"]
+        if rows_path:
+            raise AssertionError(f"{q}: temps took the decoded-row path: "
+                                 f"{rows_path}")
+        rows = res.rows
+        if q == "q11":
+            # ORDER BY value alone: equal values come in any order
+            res.rows = _tie_canon(rows, 1, DECIMAL_REL)
+            want[q] = _tie_canon(want[q], 1, DECIMAL_REL)
+        errs[q] = check_result(q.upper(), res, want[q])
+        if routes[q]["sort_fallbacks"]:
+            raise AssertionError(f"{q} sorted off the packed lanes")
+    _check_launches("phase 7", routes, kernel_launches)
+    if q20_partitions is not None and \
+            routes["q20"]["partitioned"] != q20_partitions:
+        raise AssertionError(f"Q20 partitioned {routes['q20']['partitioned']}"
+                             f", not {q20_partitions}")
+    if any(r["groupagg"] for r in routes.values()):
+        raise AssertionError("a phase 7 query launched the small-G kernel "
+                             "under auto")
+    print(f"Q2 ... Q22 ok at SF{sf} (max rel err {errs})", flush=True)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    med = {f"{q}_ms": _median_ms(lambda q=q: eng.execute(tpch.QUERIES[q], s),
+                                 reps=reps)
+           for q in SUBQUERY_QUERIES}
+    if on_card:
+        med["memory_allocated_before"] = before
+        med["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    leaked = [t for t in eng.store.tables if t.startswith("__cte_")] + \
+        [k for k in eng._device_tables if k[0].startswith("__cte_")]
+    if leaked:
+        raise AssertionError(f"temps left behind: {leaked}")
+    print(f"end-to-end, phase 7 (median of {reps} warm runs): "
+          + json.dumps(med), flush=True)
+    return routes
+
+
+def ssb_phase(device, sf, reps: int = 3,
+              kernel_launches=SF1_SSB_LAUNCHES) -> dict:
+    """Phase 8: SSB in an Engine of its own (its supplier and customer
+    clash with TPC-H's): lineorder at LINEORDER_PER_SF * sf rows, the
+    dimensions at the generator's sizes, the five flights against the
+    numpy oracles, the large-G kernel's launches against
+    `kernel_launches`, with routes and medians. Returns {flight:
+    route}."""
+    import torch
+
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import ssb
+    t0 = time.perf_counter()
+    eng = Engine(device=device)
+    data = ssb.load(eng, sf=sf)
+    lo, dims = data["lineorder"], data["dims"]
+    want = {}
+    for q in ssb.QUERIES:
+        w = getattr(ssb, "ref_" + q.replace(".", "_"))(lo, dims)
+        want[q] = [(w,)] if isinstance(w, int) else w
+    print(f"load SSB SF{sf}: {eng.store.table('lineorder').row_count} "
+          f"lineorder rows, {time.perf_counter() - t0:.1f} s (generate + "
+          "ingest + oracles)", flush=True)
+    on_card = eng.device.type == "cuda"
+    s = eng.session()
+    routes = {}
+    for q, sql in ssb.QUERIES.items():
+        _counts_zero()
+        t1 = time.perf_counter()
+        with recording_slots() as calls:
+            res = eng.execute(sql, s)
+            _sync()
+        routes[q] = _route(eng, on_card, time.perf_counter() - t1)
+        print(f"ssb {q} route: " + json.dumps(routes[q]), flush=True)
+        if on_card:
+            routes[q]["kernel_checks"] = check_calls(
+                f"SSB {q} SF{sf}", calls, routes[q]["groupagg_large"])
+        check_result(f"SSB {q}", res, want[q])
+    _check_launches("SSB", routes, kernel_launches)
+    print(f"SSB q1.1 ... q4.1 ok at SF{sf}", flush=True)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    med = {f"{q}_ms": _median_ms(lambda sql=sql: eng.execute(sql, s),
+                                 reps=reps)
+           for q, sql in ssb.QUERIES.items()}
+    if on_card:
+        med["memory_allocated_before"] = before
+        med["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(f"end-to-end, SSB (median of {reps} warm runs): "
+          + json.dumps(med), flush=True)
+    return routes
+
+
+def _device_busy_ms(fn, runs: int) -> float:
+    """Kernel time per call of `fn` from torch.profiler (one stream, so
+    kernels do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        _sync()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type.name == "CUDA") / 1e3 / runs
+
+
+def prepared_phase(eng, runs: int = 5) -> dict:
+    """Phase 9: Q1, Q6, Q3 and Q15 through Engine.prepare and `runs`
+    runs of the handle, each equal to execute's rows; a second prepare
+    of the same text hits the exec cache (Q15, a CTE statement, gets a
+    re-execute handle whose runs hit it). On the card, the host ms per
+    run both ways: the median wall time minus the device busy time
+    (torch.profiler's kernel time per run), beside the CUDA-event span
+    of a run."""
+    from cockroach_tpu_torch.exec.session import Prepared
+    from cockroach_tpu_torch.models import tpch
+    on_card = eng.device.type == "cuda"
+    out = {}
+    for q in ("q1", "q6", "q3", "q15"):
+        sql = tpch.QUERIES[q]
+        s = eng.session()
+        want = eng.execute(sql, s).rows
+        p = eng.prepare(sql, s)
+        for i in range(runs):
+            if p.run().rows != want:
+                raise AssertionError(f"{q}: prepared run {i} != execute")
+        cache0 = dict(eng.plan_cache)
+        p2 = eng.prepare(sql, s)
+        if isinstance(p, Prepared):
+            hits = eng.plan_cache["hit"] - cache0["hit"]
+            if hits != 1 or eng.plan_cache["miss"] != cache0["miss"]:
+                raise AssertionError(f"{q}: second prepare missed the "
+                                     f"exec cache: {eng.plan_cache}")
+        else:
+            p2.run()
+            hits = eng.plan_cache["hit"] - cache0["hit"]
+            if hits < 2 or eng.plan_cache["miss"] != cache0["miss"]:
+                raise AssertionError(f"{q}: re-run missed the exec cache: "
+                                     f"{eng.plan_cache}")
+        rec = {"handle": type(p).__name__, "cache_hits": hits,
+               "plan_cache": dict(eng.plan_cache),
+               "execute_ms": _median_ms(lambda: eng.execute(sql, s),
+                                        reps=runs),
+               "prepared_ms": _median_ms(p.run, reps=runs)}
+        if on_card:
+            for way, fn in (("execute", lambda: eng.execute(sql, s)),
+                            ("prepared", p.run)):
+                busy = _device_busy_ms(fn, runs)
+                rec[f"{way}_device_ms"] = busy
+                rec[f"{way}_host_ms"] = rec[f"{way}_ms"] - busy
+                # CUDA events around a run span the device's idle gaps
+                # too, so they bound the wall time, not the busy time
+                rec[f"{way}_event_ms"] = _cuda_ms(fn, reps=runs, warm=1)
+        out[q] = rec
+        print(f"{q} prepared: " + json.dumps(rec), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -722,6 +1108,7 @@ def main() -> int:
     from cockroach_tpu_torch.ops.cuda.groupagg_large_check import (
         synthetic_slots)
 
+    t_start = time.perf_counter()
     smi = _smi()
     name = torch.cuda.get_device_name(0)
     print(f"card: {smi} | torch {torch.__version__} cuda "
@@ -851,7 +1238,7 @@ def main() -> int:
 
     # -- 4. kernels vs plain ----------------------------------------------
     q1_args = slot_args(captured, "q1")
-    errs = compare_slots(tgl, q1_args, "Q1 SF1")
+    errs, _ = compare_slots(tgl, q1_args, "Q1 SF1")
     compare_slots(tgl, synthetic_slots(1 << 23, 12, 9, 5),
                   "slots G=12, negative int64, INT64_MIN/MAX")
     compare_slots(tgl, synthetic_slots(1 << 22, 200_000, 14, 6),
@@ -970,10 +1357,44 @@ def main() -> int:
     large["launches"] += sum(r["groupagg_large"] for r in routes.values())
     for q in ("q5", "q10", "q12"):
         qargs = slot_args(captured, q)
-        got = compare_slots(tgl, qargs, f"{q.upper()} SF1")
+        got, _ = compare_slots(tgl, qargs, f"{q.upper()} SF1")
         large[q] = dict(slot_numbers(tgl, qargs), **got)
         print(f"large kernel numbers [{q.upper()} SF1]: "
               + json.dumps(large[q]), flush=True)
+    print(f"phases 1-6: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # -- 7. subqueries, derived tables and CTEs at SF1 -----------------------
+    t0 = time.perf_counter()
+    sub_routes = subquery_phase(eng, li, SF)
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 8. SSB at SF1, in an Engine of its own --------------------------------
+    t0 = time.perf_counter()
+    ssb_routes = ssb_phase("cuda", SF)
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 9. prepared statements and the exec cache -----------------------------
+    t0 = time.perf_counter()
+    prepared_phase(eng)
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+    for routes_n in (sub_routes, ssb_routes):
+        large["launches"] += sum(r["groupagg_large"]
+                                 for r in routes_n.values())
+        kernels[1]["launches"] += sum(r["groupagg"]
+                                      for r in routes_n.values())
+    large["phase7_launches"] = {q: r["groupagg_large"]
+                                for q, r in sub_routes.items()
+                                if r["groupagg_large"]}
+    large["phase8_launches"] = {q: r["groupagg_large"]
+                                for q, r in ssb_routes.items()
+                                if r["groupagg_large"]}
+    # each phase 7 and 8 launch, held against the plain version at the
+    # slots its query handed it
+    large["path_checks"] = {
+        q: r["kernel_checks"] for q, r in [*sub_routes.items(),
+                                           *(("ssb " + k, v) for k, v in
+                                             ssb_routes.items())]
+        if r.get("kernel_checks")}
     if opts.profile:
         from cockroach_tpu_torch.profile_tpch import profile_queries
         profile_queries(eng, {"q3": (tpch.Q3, None), "q5": (tpch.Q5, None),

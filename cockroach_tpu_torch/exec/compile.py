@@ -1,14 +1,14 @@
 """Compile logical plans into functions over device-resident tensors.
 
 The counterpart of cockroach_tpu/exec/compile.py for the plans the
-ported TPC-H queries (Q1, Q3, Q5, Q6, Q10, Q12, Q14) produce: scans
-with the MVCC visibility mask, filters, projections, hash joins (unique
-build keys, or duplicate keys expanded K ways), selection compaction,
-ungrouped, dense (mixed-radix) and hash-strategy GROUP BY aggregation,
-ORDER BY, the fused top-k ORDER BY ... LIMIT, and LIMIT.
-``compile_plan(node, params)`` returns ``fn(RunContext) ->
-ColumnBatch``; PyTorch runs it eagerly on the batches' device, so there
-is no jit and no executable cache.
+ported TPC-H and SSB queries produce: scans with the MVCC visibility
+mask, filters, projections, hash joins (unique build keys, or duplicate
+keys expanded K ways), selection compaction, ungrouped, dense
+(mixed-radix) and hash-strategy GROUP BY aggregation, ORDER BY, the
+fused top-k ORDER BY ... LIMIT, and LIMIT. ``compile_plan(node,
+params)`` returns ``fn(RunContext) -> ColumnBatch``; PyTorch runs it
+eagerly on the batches' device, so there is no jit (the engine keeps
+the closures in its exec cache).
 
 Aggregation routes as the reference's does. Under the default
 ``pallas_groupagg = auto``, a dense GROUP BY whose aggregates all have
@@ -26,8 +26,11 @@ under ``sort_normalized = auto|on``.
 Result batches carry error sentinels the engine checks when it
 materializes them (exec/session.py SENTINEL_COLUMNS): an int64 SUM
 that wrapped, a hash table that overflowed, a top-k cut that crossed
-a tie, a compaction block that overflowed. Windows, DISTINCT
-aggregates and streaming are not ported yet and raise ExecError.
+a tie, a compaction block that overflowed. A DISTINCT aggregate keeps
+the first row of each (group, value) (ops/agg.py distinct_first_mask)
+and aggregates as usual. A RunContext with ``nparts`` > 1 keeps only
+its partition's rows of a hash GROUP BY. Windows and streaming are not
+ported yet and raise ExecError.
 """
 
 from __future__ import annotations
@@ -76,11 +79,19 @@ class RunContext:
     read timestamp as an int (Timestamp.to_int). ``route`` records what
     the run did: Compact nodes that packed their batch, top-k cuts,
     hash GROUP BYs (group_ids calls, and the build rounds of the last,
-    one host sync each) and the K of each expanding join."""
+    one host sync each) and the K of each expanding join.
 
-    def __init__(self, scans: dict[str, ColumnBatch], read_ts: int):
+    ``nparts``/``pid`` drive the partitioned re-run of a hash GROUP BY
+    that overflowed its table: the run keeps only the rows whose salted
+    key hash lands in partition ``pid`` of ``nparts``
+    (ops/hashtable.py partition_mask). nparts = 1 keeps every row."""
+
+    def __init__(self, scans: dict[str, ColumnBatch], read_ts: int,
+                 nparts: int = 1, pid: int = 0):
         self.scans = scans
         self.read_ts = read_ts
+        self.nparts = nparts
+        self.pid = pid
         self.route = {"compacts_applied": 0, "topk_cuts": 0,
                       "group_ids": 0, "group_ids_rounds": 0,
                       "expansions": []}
@@ -281,7 +292,7 @@ def _agg_output(group_cols, aggs_out, live, itemfs, havingf,
 
 
 def _agg_partials(a: BoundAgg, argf, batch, ctx, gid, num_groups,
-                  max_group_rows=0, rep_state=None):
+                  max_group_rows=0, rep_state=None, sort_mode="off"):
     """One aggregate's per-group arrays on the plain scatter path:
     (data, valid, overflow or None)."""
     grouped = gid is not None
@@ -293,14 +304,20 @@ def _agg_partials(a: BoundAgg, argf, batch, ctx, gid, num_groups,
         else:
             d = aggops.masked_count(mask).reshape(1)
         return d, torch.ones_like(d, dtype=torch.bool), None
-    if a.distinct:
-        raise ExecError("DISTINCT aggregates are not yet ported")
     d0, v0 = argf(ctx)
-    if a.func == "any" and grouped and rep_state is not None:
+    if a.func == "any" and grouped and rep_state is not None \
+            and not a.distinct:
         rep, nonempty = rep_state
         d, v = aggops.group_any_via_rep(d0, v0, rep, nonempty)
         return d, v, None
     mask = torch.logical_and(batch.sel, v0)
+    if a.distinct:
+        # DISTINCT x: only the first occurrence of each (group, value)
+        # counts; the aggregate itself is then unchanged
+        gid_d = gid if grouped else torch.zeros(d0.shape, dtype=torch.int32,
+                                                device=dev)
+        mask = torch.logical_and(mask, aggops.distinct_first_mask(
+            d0, mask, gid_d, num_groups if grouped else 1, sort_mode))
     if grouped:
         cnt = aggops.group_count(gid, mask, num_groups)
     else:
@@ -672,7 +689,13 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
                 # NULLs group together: zero data + validity as a key
                 keycols.append(kd)
                 keycols.append(kv)
+            if rc.nparts > 1:
+                # partitioned re-run: this partition's rows only
+                b = b.and_sel(hashtable.partition_mask(
+                    tuple(keycols), rc.nparts, rc.pid))
             cap = params.hash_group_capacity
+            # an overflow ends the build at once: the engine re-runs
+            # the plan partitioned
             gid, ng, rep = hashtable.group_ids(tuple(keycols), b.sel, cap)
             rc.route["group_ids"] += 1
             rc.route["group_ids_rounds"] = hashtable.ROUNDS["build"]
@@ -686,7 +709,9 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
             num_groups = 1
             for (name, gf), dim, lo in zip(groupfs, dims, los):
                 d, v = gf(ctx)
-                code = torch.where(v, (d - lo).to(torch.int32), dim)
+                # int64 first: a BOOL key does not subtract
+                code = torch.where(v, (d.to(torch.int64) - lo)
+                                   .to(torch.int32), dim)
                 gid = gid * (dim + 1) + code
                 num_groups *= dim + 1
             # decode per-group key values from the group index itself
@@ -740,7 +765,8 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
             for a, argf in aggfs:
                 d, v, ovf = _agg_partials(a, argf, b, ctx, gid,
                                           num_groups, node.max_group_rows,
-                                          rep_state)
+                                          rep_state,
+                                          params.sort_normalized)
                 aggs_out.append((d, v))
                 if ovf is not None:
                     overflow = torch.logical_or(overflow, ovf)

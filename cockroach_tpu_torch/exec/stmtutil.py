@@ -1,0 +1,128 @@
+"""Statement helpers of the engine (the subset of
+cockroach_tpu/exec/stmtutil.py that this package uses): CTE and
+derived-table name rewriting, the re-execute handle for statements
+that materialize temps, and the host-side ORDER BY of a partitioned
+GROUP BY."""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+
+from ..sql import ast
+from ..sql import plan as P
+from .session import EngineError, Result
+
+
+def host_sort(rows: list, meta: P.OutputMeta, keys) -> list:
+    """ORDER BY over decoded result rows (the partitioned GROUP BY's
+    merge). Matches the device order: ascending puts NULLs last,
+    descending puts NULLs first, unless the key says otherwise; strings
+    compare lexicographically, as dictionary ranks do."""
+    out = list(rows)
+    for key in reversed(list(keys)):
+        name, desc = key[0], key[1]
+        nf = key[2] if len(key) > 2 else None
+        null_first = nf if nf is not None else desc
+        try:
+            i = meta.names.index(name)
+        except ValueError:
+            raise EngineError(
+                f"cannot host-sort a partitioned result by {name!r}") \
+                from None
+        # the NULL flag is chosen before the reversal so the presented
+        # order puts NULLs where null_first says
+        out = sorted(out,
+                     key=lambda r, i=i: (
+                         (r[i] is None) if desc == null_first
+                         else (r[i] is not None),
+                         0 if r[i] is None else r[i]),
+                     reverse=desc)
+    return out
+
+
+@dataclass(eq=False)
+class RerunPrepared:
+    """Prepared handle for statements that cannot pin one compiled plan:
+    CTEs and derived tables materialize fresh temps per execution, so
+    each run() re-executes the statement through the engine (whose
+    stable temp names keep the main query's exec-cache entry hitting).
+    The reference composes steady-state re-runs on the device
+    (exec/ctecompose.py); that composition is not ported."""
+    engine: object
+    session: object
+    stmt: object
+    sql_text: str
+
+    def run(self, read_ts=None) -> Result:
+        with self.engine._statement():
+            return self.engine._exec_select(self.stmt, self.session,
+                                            self.sql_text)
+
+
+def rewrite_table_names(sel, mapping: dict):
+    """Deep-copy a Select with CTE names replaced by their materialized
+    temp-table names, in FROM/JOIN refs and inside expression
+    subqueries (which execute while the temps are live)."""
+    if not mapping:
+        return sel
+    sel = copy.deepcopy(sel)
+
+    def fix_ref(ref):
+        if ref is None:
+            return
+        if ref.subquery is not None:
+            fix_select(ref.subquery)
+            return
+        if ref.name in mapping:
+            ref.alias = ref.alias or ref.name
+            ref.name = mapping[ref.name]
+
+    def fix_expr(e):
+        if e is None:
+            return
+        if isinstance(e, (ast.Subquery, ast.Exists)):
+            fix_select(e.select)
+            return
+        if isinstance(e, ast.InSubquery):
+            fix_expr(e.expr)
+            fix_select(e.select)
+            return
+        for attr in ("left", "right", "operand", "expr", "lo", "hi",
+                     "start", "length", "else_"):
+            fix_expr(getattr(e, attr, None))
+        for a in getattr(e, "args", None) or []:
+            fix_expr(a)
+        for a in getattr(e, "items", None) or []:
+            fix_expr(a)
+        for c, v in getattr(e, "whens", None) or []:
+            fix_expr(c)
+            fix_expr(v)
+
+    def fix_select(s):
+        if not isinstance(s, ast.Select):
+            raise EngineError("set operations are not yet ported")
+        # a CTE of the same name in an inner scope shadows the outer
+        shadowed = {name for name, _, _ in s.ctes}
+        inner = {k: v for k, v in mapping.items() if k not in shadowed}
+        if s is not sel and inner != mapping:
+            rewritten = rewrite_table_names(s, inner)
+            s.__dict__.update(rewritten.__dict__)
+            return
+        fix_ref(s.table)
+        for j in s.joins:
+            fix_ref(j.table)
+            fix_expr(j.on)
+        fix_expr(s.where)
+        fix_expr(s.having)
+        for it in s.items:
+            fix_expr(it.expr)
+        for g in s.group_by:
+            fix_expr(g)
+        for ob in s.order_by:
+            fix_expr(ob.expr)
+        for _, _, sub in s.ctes:
+            fix_select(sub)
+
+    fix_select(sel)
+    return sel

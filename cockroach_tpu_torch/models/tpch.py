@@ -535,6 +535,303 @@ LIMIT 20
 
 
 # ---------------------------------------------------------------------------
+# queries with subqueries, derived tables and CTEs (the reference's texts)
+# ---------------------------------------------------------------------------
+
+Q9 = """
+SELECT nation, o_year, sum(amount) AS sum_profit
+FROM (
+    SELECT n_name AS nation,
+           extract(year FROM o_orderdate) AS o_year,
+           l_extendedprice * (1 - l_discount)
+               - ps_supplycost * l_quantity AS amount
+    FROM part, supplier, lineitem, partsupp, orders, nation
+    WHERE s_suppkey = l_suppkey
+      AND ps_suppkey = l_suppkey
+      AND ps_partkey = l_partkey
+      AND p_partkey = l_partkey
+      AND o_orderkey = l_orderkey
+      AND s_nationkey = n_nationkey
+      AND p_name LIKE '%%green%%'
+) AS profit
+GROUP BY nation, o_year
+ORDER BY nation, o_year DESC
+""".replace("%%", "%")
+# threshold parameterized: the spec's 300 is near-empty at tiny SFs
+Q18_TEMPLATE = """
+SELECT c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice,
+       sum(l_quantity) AS total_qty
+FROM customer, orders, lineitem
+WHERE o_orderkey IN (
+        SELECT l_orderkey FROM lineitem
+        GROUP BY l_orderkey HAVING sum(l_quantity) > {threshold})
+  AND c_custkey = o_custkey
+  AND o_orderkey = l_orderkey
+GROUP BY c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
+ORDER BY o_totalprice DESC, o_orderdate, o_orderkey
+LIMIT 100
+"""
+Q18 = Q18_TEMPLATE.format(threshold=300)
+
+# the join equality is factored out of the OR groups (semantically
+# identical to the spec text; lets the equi-join planner see it).
+# Containers/shipmodes use this generator's domains ('REG AIR').
+Q19 = """
+SELECT sum(l_extendedprice * (1 - l_discount)) AS revenue
+FROM lineitem, part
+WHERE p_partkey = l_partkey
+  AND l_shipinstruct = 'DELIVER IN PERSON'
+  AND l_shipmode IN ('AIR', 'REG AIR')
+  AND (
+      (p_brand = 'Brand#12'
+       AND p_container IN ('SM CASE', 'SM BOX')
+       AND l_quantity >= 1 AND l_quantity <= 11
+       AND p_size BETWEEN 1 AND 5)
+   OR (p_brand = 'Brand#23'
+       AND p_container IN ('MED BAG', 'MED BOX')
+       AND l_quantity >= 10 AND l_quantity <= 20
+       AND p_size BETWEEN 1 AND 10)
+   OR (p_brand = 'Brand#34'
+       AND p_container IN ('LG CASE', 'LG BOX')
+       AND l_quantity >= 20 AND l_quantity <= 30
+       AND p_size BETWEEN 1 AND 15)
+  )
+"""
+
+#  lineitem leads the FROM list so the fact table is the probe spine
+#  (build sides stay small: supplier/orders/nation + the grouped
+#  EXISTS tables) — semantically identical to the spec order
+Q21 = """
+SELECT s_name, count(*) AS numwait
+FROM lineitem l1, supplier, orders, nation
+WHERE s_suppkey = l1.l_suppkey
+  AND o_orderkey = l1.l_orderkey
+  AND o_orderstatus = 'F'
+  AND l1.l_receiptdate > l1.l_commitdate
+  AND EXISTS (
+      SELECT * FROM lineitem l2
+      WHERE l2.l_orderkey = l1.l_orderkey
+        AND l2.l_suppkey <> l1.l_suppkey)
+  AND NOT EXISTS (
+      SELECT * FROM lineitem l3
+      WHERE l3.l_orderkey = l1.l_orderkey
+        AND l3.l_suppkey <> l1.l_suppkey
+        AND l3.l_receiptdate > l3.l_commitdate)
+  AND s_nationkey = n_nationkey
+  AND n_name = 'SAUDI ARABIA'
+GROUP BY s_name
+ORDER BY numwait DESC, s_name
+LIMIT 100
+"""
+
+# Q17 (queries.go's small-quantity-order revenue): the correlated
+# scalar avg decorrelates into a grouped LEFT JOIN
+# (sql/decorrelate.py decorrelate_scalar)
+Q17 = """
+SELECT sum(l_extendedprice) / 7.0 AS avg_yearly
+FROM lineitem, part
+WHERE p_partkey = l_partkey
+  AND p_brand = 'Brand#23'
+  AND p_container = 'MED BOX'
+  AND l_quantity < (
+      SELECT 0.2 * avg(l2.l_quantity)
+      FROM lineitem AS l2
+      WHERE l2.l_partkey = p_partkey)
+"""
+
+# Q22 (global sales opportunity): uncorrelated scalar avg +
+# NOT EXISTS anti-join + substring country codes
+Q22 = """
+SELECT cntrycode, count(*) AS numcust, sum(c_acctbal) AS totacctbal
+FROM (
+  SELECT substring(c_phone, 1, 2) AS cntrycode, c_acctbal, c_custkey
+  FROM customer
+  WHERE substring(c_phone, 1, 2) IN ('13', '31', '23', '29', '30', '18', '17')
+) AS custsale
+WHERE c_acctbal > (
+      SELECT avg(c_acctbal) FROM customer
+      WHERE c_acctbal > 0.00
+        AND substring(c_phone, 1, 2)
+            IN ('13', '31', '23', '29', '30', '18', '17'))
+  AND NOT EXISTS (
+      SELECT * FROM orders WHERE o_custkey = c_custkey)
+GROUP BY cntrycode
+ORDER BY cntrycode
+"""
+
+# Q2 (minimum-cost supplier): the correlated min over a four-table
+# subquery decorrelates into a grouped LEFT JOIN whose derived table
+# carries the joins (decorrelate_scalar's multi-table shape); the
+# outer five-table graph reorders around the pinned left join
+Q2 = """
+SELECT s_acctbal, s_name, n_name, p_partkey, p_mfgr
+FROM part, supplier, partsupp, nation, region
+WHERE p_partkey = ps_partkey
+  AND s_suppkey = ps_suppkey
+  AND p_size = 15
+  AND p_type LIKE '%BRASS'
+  AND s_nationkey = n_nationkey
+  AND n_regionkey = r_regionkey
+  AND r_name = 'EUROPE'
+  AND ps_supplycost = (
+      SELECT min(ps2.ps_supplycost)
+      FROM partsupp AS ps2, supplier AS s2, nation AS n2, region AS r2
+      WHERE ps2.ps_partkey = p_partkey
+        AND s2.s_suppkey = ps2.ps_suppkey
+        AND s2.s_nationkey = n2.n_nationkey
+        AND n2.n_regionkey = r2.r_regionkey
+        AND r2.r_name = 'EUROPE')
+ORDER BY s_acctbal DESC, n_name, s_name, p_partkey
+LIMIT 100
+"""
+
+# Q4 (order priority checking): EXISTS semi-join
+Q4 = """
+SELECT o_orderpriority, count(*) AS order_count
+FROM orders
+WHERE o_orderdate >= date '1993-07-01'
+  AND o_orderdate < date '1993-10-01'
+  AND EXISTS (
+      SELECT * FROM lineitem
+      WHERE l_orderkey = o_orderkey AND l_commitdate < l_receiptdate)
+GROUP BY o_orderpriority
+ORDER BY o_orderpriority
+"""
+
+# Q7 (volume shipping): six-table join + year extraction + the
+# symmetric two-nation OR predicate
+Q7 = """
+SELECT supp_nation, cust_nation, l_year, sum(volume) AS revenue
+FROM (
+  SELECT n1.n_name AS supp_nation, n2.n_name AS cust_nation,
+         extract(year FROM l_shipdate) AS l_year,
+         l_extendedprice * (1 - l_discount) AS volume
+  FROM supplier, lineitem, orders, customer, nation AS n1, nation AS n2
+  WHERE s_suppkey = l_suppkey
+    AND o_orderkey = l_orderkey
+    AND c_custkey = o_custkey
+    AND s_nationkey = n1.n_nationkey
+    AND c_nationkey = n2.n_nationkey
+    AND ((n1.n_name = 'FRANCE' AND n2.n_name = 'GERMANY')
+      OR (n1.n_name = 'GERMANY' AND n2.n_name = 'FRANCE'))
+    AND l_shipdate BETWEEN date '1995-01-01' AND date '1996-12-31'
+) AS shipping
+GROUP BY supp_nation, cust_nation, l_year
+ORDER BY supp_nation, cust_nation, l_year
+"""
+
+# Q8 (national market share): eight tables, conditional share ratio
+Q8 = """
+SELECT o_year,
+       sum(CASE WHEN nation = 'BRAZIL' THEN volume ELSE 0 END)
+           / sum(volume) AS mkt_share
+FROM (
+  SELECT extract(year FROM o_orderdate) AS o_year,
+         l_extendedprice * (1 - l_discount) AS volume,
+         n2.n_name AS nation
+  FROM part, supplier, lineitem, orders, customer,
+       nation AS n1, nation AS n2, region
+  WHERE p_partkey = l_partkey
+    AND s_suppkey = l_suppkey
+    AND l_orderkey = o_orderkey
+    AND o_custkey = c_custkey
+    AND c_nationkey = n1.n_nationkey
+    AND n1.n_regionkey = r_regionkey
+    AND r_name = 'AMERICA'
+    AND s_nationkey = n2.n_nationkey
+    AND o_orderdate BETWEEN date '1995-01-01' AND date '1996-12-31'
+    AND p_type = 'ECONOMY ANODIZED STEEL'
+) AS all_nations
+GROUP BY o_year
+ORDER BY o_year
+"""
+
+# Q11 (important stock): grouped HAVING against an uncorrelated
+# scalar threshold over the same join
+Q11 = """
+SELECT ps_partkey, sum(ps_supplycost * ps_availqty) AS value
+FROM partsupp, supplier, nation
+WHERE ps_suppkey = s_suppkey
+  AND s_nationkey = n_nationkey
+  AND n_name = 'GERMANY'
+GROUP BY ps_partkey
+HAVING sum(ps_supplycost * ps_availqty) > (
+    SELECT sum(ps_supplycost * ps_availqty) * 0.0001
+    FROM partsupp, supplier, nation
+    WHERE ps_suppkey = s_suppkey
+      AND s_nationkey = n_nationkey
+      AND n_name = 'GERMANY')
+ORDER BY value DESC
+"""
+
+# Q13 (customer distribution): LEFT JOIN + two-level grouping
+Q13 = """
+SELECT c_count, count(*) AS custdist
+FROM (
+  SELECT c_custkey, count(o_orderkey) AS c_count
+  FROM customer LEFT JOIN orders ON c_custkey = o_custkey
+  GROUP BY c_custkey
+) AS c_orders
+GROUP BY c_count
+ORDER BY custdist DESC, c_count DESC
+"""
+
+# Q15 (top supplier): CTE revenue view + uncorrelated max
+Q15 = """
+WITH revenue AS (
+  SELECT l_suppkey AS supplier_no,
+         sum(l_extendedprice * (1 - l_discount)) AS total_revenue
+  FROM lineitem
+  WHERE l_shipdate >= date '1996-01-01'
+    AND l_shipdate < date '1996-04-01'
+  GROUP BY l_suppkey)
+SELECT s_suppkey, s_name, total_revenue
+FROM supplier, revenue
+WHERE s_suppkey = supplier_no
+  AND total_revenue = (SELECT max(total_revenue) FROM revenue)
+ORDER BY s_suppkey
+"""
+
+# Q16 (parts/supplier relationship): NOT IN subquery + count distinct
+Q16 = """
+SELECT p_brand, p_type, p_size, count(DISTINCT ps_suppkey) AS supplier_cnt
+FROM partsupp, part
+WHERE p_partkey = ps_partkey
+  AND p_brand <> 'Brand#45'
+  AND p_size IN (49, 14, 23, 45, 19, 3, 36, 9)
+  AND ps_suppkey NOT IN (
+      SELECT s_suppkey FROM supplier WHERE s_acctbal < 0)
+GROUP BY p_brand, p_type, p_size
+ORDER BY supplier_cnt DESC, p_brand, p_type, p_size
+"""
+
+# Q20 (potential part promotion): nested IN subqueries + a
+# two-key-correlated scalar half-sum threshold
+Q20 = """
+SELECT s_name
+FROM supplier, nation
+WHERE s_suppkey IN (
+    SELECT ps_suppkey FROM partsupp
+    WHERE ps_partkey IN (
+        SELECT p_partkey FROM part WHERE p_name LIKE 'forest%')
+      AND ps_availqty > (
+          SELECT 0.5 * sum(l_quantity) FROM lineitem
+          WHERE l_partkey = ps_partkey AND l_suppkey = ps_suppkey
+            AND l_shipdate >= date '1994-01-01'
+            AND l_shipdate < date '1995-01-01'))
+  AND s_nationkey = n_nationkey
+  AND n_name = 'CANADA'
+ORDER BY s_name
+"""
+
+QUERIES = {"q1": Q1, "q2": Q2, "q3": Q3, "q4": Q4, "q5": Q5, "q6": Q6,
+           "q7": Q7, "q8": Q8, "q9": Q9, "q10": Q10, "q11": Q11,
+           "q12": Q12, "q13": Q13, "q14": Q14, "q15": Q15, "q16": Q16,
+           "q17": Q17, "q18": Q18, "q19": Q19, "q20": Q20, "q21": Q21,
+           "q22": Q22}
+
+
+# ---------------------------------------------------------------------------
 # numpy oracle (row-engine stand-in for cross-checking, cf. §4.6)
 # ---------------------------------------------------------------------------
 
@@ -684,3 +981,354 @@ def ref_q12(li, orders) -> list[tuple]:
         k = sm == mode
         out.append((mode, int((hi & k).sum()), int((~hi & k).sum())))
     return out
+
+
+# ---------------------------------------------------------------------------
+# numpy oracles of the subquery, derived-table and CTE queries: the rows
+# of the reference's loop oracles (models/tpch.py ref_q2 ... ref_q22),
+# vectorized. Float sums add each key's values in row order
+# (np.bincount), as the loops' running sums do.
+# ---------------------------------------------------------------------------
+
+def _years(days: np.ndarray) -> np.ndarray:
+    """Calendar year of each day number."""
+    return np.asarray(days, dtype="datetime64[D]").astype(
+        "datetime64[Y]").astype(np.int64) + 1970
+
+
+def _pair_keys(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """One int64 key per (a, b) pair of non-negative ints."""
+    return a.astype(np.int64) * (int(b.max(initial=0)) + 1) + b
+
+
+def _seq_sum(values: np.ndarray) -> float:
+    """A running sum in row order (np.sum adds pairwise)."""
+    return float(np.bincount(np.zeros(len(values), dtype=np.int64),
+                             weights=values, minlength=1)[0])
+
+
+def _strings_where(arr: np.ndarray, fn) -> np.ndarray:
+    return np.fromiter((fn(x) for x in arr), dtype=bool, count=len(arr))
+
+
+def ref_q2(part, supp, ps, nation, region) -> list[tuple]:
+    eur = region["r_regionkey"][region["r_name"] == "EUROPE"][0]
+    nat_eur = _lookup(nation["n_nationkey"], nation["n_regionkey"] == eur,
+                      fill=False)
+    s_nat = _lookup(supp["s_suppkey"], supp["s_nationkey"])
+    pk, sk = ps["ps_partkey"], ps["ps_suppkey"]
+    cost = ps["ps_supplycost"]
+    in_eur = nat_eur[s_nat[sk]]
+    min_cost = np.full(int(pk.max()) + 1, np.inf)
+    np.minimum.at(min_cost, pk[in_eur], cost[in_eur])
+    pm = (part["p_size"] == 15) & _strings_where(
+        part["p_type"], lambda t: t.endswith("BRASS"))
+    psel = _lookup(part["p_partkey"], pm, fill=False)
+    pidx = _lookup(part["p_partkey"],
+                   np.arange(len(part["p_partkey"]), dtype=np.int64))
+    sidx = _lookup(supp["s_suppkey"],
+                   np.arange(len(supp["s_suppkey"]), dtype=np.int64))
+    hit = np.nonzero(psel[pk] & in_eur & (cost == min_cost[pk]))[0]
+    out = [(round(float(supp["s_acctbal"][sidx[s]]), 2),
+            supp["s_name"][sidx[s]], NATIONS[int(s_nat[s])], int(p),
+            part["p_mfgr"][pidx[p]])
+           for p, s in zip(pk[hit], sk[hit])]
+    out.sort(key=lambda t: (-t[0], t[2], t[1], t[3]))
+    return out[:100]
+
+
+def ref_q4(li, orders) -> list[tuple]:
+    d0, d1 = _days("1993-07-01"), _days("1993-10-01")
+    ok_max = int(max(li["l_orderkey"].max(), orders["o_orderkey"].max()))
+    late = np.zeros(ok_max + 1, dtype=bool)
+    late[li["l_orderkey"][li["l_commitdate"] < li["l_receiptdate"]]] = True
+    od = orders["o_orderdate"]
+    m = (od >= d0) & (od < d1) & late[orders["o_orderkey"]]
+    pri, cnt = np.unique(orders["o_orderpriority"][m].astype(str),
+                         return_counts=True)
+    return [(str(p), int(c)) for p, c in zip(pri, cnt)]
+
+
+def ref_q7(li, orders, cust, supp, nation) -> list[tuple]:
+    d0, d1 = _days("1995-01-01"), _days("1996-12-31")
+    names = _lookup(nation["n_nationkey"],
+                    np.asarray(nation["n_name"], dtype=object), fill=None)
+    s_nat = _lookup(supp["s_suppkey"], supp["s_nationkey"])
+    c_nat = _lookup(cust["c_custkey"], cust["c_nationkey"])
+    o_cust = _lookup(orders["o_orderkey"], orders["o_custkey"])
+    m = (li["l_shipdate"] >= d0) & (li["l_shipdate"] <= d1)
+    rows = np.nonzero(m)[0]
+    sn = s_nat[li["l_suppkey"][rows]]
+    cn = c_nat[o_cust[li["l_orderkey"][rows]]]
+    fr = list(nation["n_name"]).index("FRANCE")
+    de = list(nation["n_name"]).index("GERMANY")
+    keep = ((sn == fr) & (cn == de)) | ((sn == de) & (cn == fr))
+    rows, sn, cn = rows[keep], sn[keep], cn[keep]
+    yr = _years(li["l_shipdate"][rows])
+    vol = li["l_extendedprice"][rows] * (1 - li["l_discount"][rows])
+    keys, sums = _keyed_sums((sn * 25 + cn) * 10000 + yr, vol)
+    return sorted((names[k // 10000 // 25], names[k // 10000 % 25],
+                   int(k % 10000), float(v)) for k, v in zip(keys, sums))
+
+
+def ref_q8(li, orders, cust, supp, part, nation, region) -> list[tuple]:
+    d0, d1 = _days("1995-01-01"), _days("1996-12-31")
+    amer = region["r_regionkey"][region["r_name"] == "AMERICA"][0]
+    nat_amer = _lookup(nation["n_nationkey"],
+                       nation["n_regionkey"] == amer, fill=False)
+    p_sel = _lookup(part["p_partkey"],
+                    part["p_type"] == "ECONOMY ANODIZED STEEL", fill=False)
+    s_nat = _lookup(supp["s_suppkey"], supp["s_nationkey"])
+    c_nat = _lookup(cust["c_custkey"], cust["c_nationkey"])
+    o_cust = _lookup(orders["o_orderkey"], orders["o_custkey"])
+    o_date = _lookup(orders["o_orderkey"],
+                     orders["o_orderdate"].astype(np.int64))
+    rows = np.nonzero(p_sel[li["l_partkey"]])[0]
+    ok = li["l_orderkey"][rows]
+    od = o_date[ok]
+    keep = (od >= d0) & (od <= d1)
+    keep[keep] = nat_amer[c_nat[o_cust[ok[keep]]]]
+    rows, od = rows[keep], od[keep]
+    yr = _years(od)
+    vol = li["l_extendedprice"][rows] * (1 - li["l_discount"][rows])
+    brazil = s_nat[li["l_suppkey"][rows]] == NATIONS.index("BRAZIL")
+    years, den = _keyed_sums(yr, vol)
+    num = dict(zip(*(a.tolist() for a in _keyed_sums(yr[brazil],
+                                                     vol[brazil]))))
+    return sorted((int(y), num.get(int(y), 0.0) / float(d))
+                  for y, d in zip(years, den))
+
+
+def ref_q9(li, orders, supp, part, ps) -> list[tuple]:
+    green = _lookup(part["p_partkey"], _strings_where(
+        part["p_name"], lambda n: "green" in n), fill=False)
+    rows = np.nonzero(green[li["l_partkey"]])[0]
+    pk, sk = li["l_partkey"][rows], li["l_suppkey"][rows]
+    ps_key = _pair_keys(ps["ps_partkey"], ps["ps_suppkey"])
+    order = np.argsort(ps_key, kind="stable")
+    kmax = int(ps["ps_suppkey"].max(initial=0)) + 1
+    at = order[np.searchsorted(ps_key[order], pk * kmax + sk)]
+    cost = ps["ps_supplycost"][at]
+    s_nat = _lookup(supp["s_suppkey"], supp["s_nationkey"])
+    o_year = _lookup(orders["o_orderkey"], _years(orders["o_orderdate"]))
+    amount = li["l_extendedprice"] * (1 - li["l_discount"])
+    amt = amount[rows] - cost * li["l_quantity"][rows]
+    keys, sums = _keyed_sums(
+        s_nat[sk] * 10000 + o_year[li["l_orderkey"][rows]], amt)
+    out = [(NATIONS[int(k // 10000)], int(k % 10000), float(v))
+           for k, v in zip(keys, sums)]
+    return sorted(out, key=lambda t: (t[0], -t[1]))
+
+
+def ref_q11(ps, supp, nation) -> list[tuple]:
+    ger = nation["n_nationkey"][nation["n_name"] == "GERMANY"][0]
+    s_sel = _lookup(supp["s_suppkey"], supp["s_nationkey"] == ger,
+                    fill=False)
+    m = s_sel[ps["ps_suppkey"]]
+    v = ps["ps_supplycost"][m] * ps["ps_availqty"][m]
+    keys, sums = _keyed_sums(ps["ps_partkey"][m], v)
+    thr = _seq_sum(v) * 0.0001
+    rows = [(int(k), float(s)) for k, s in zip(keys, sums) if s > thr]
+    rows.sort(key=lambda t: -t[1])
+    return rows
+
+
+def ref_q13(orders, cust) -> list[tuple]:
+    ck = cust["c_custkey"]
+    per_cust = np.bincount(orders["o_custkey"],
+                           minlength=int(ck.max()) + 1)[ck]
+    counts, dist = np.unique(per_cust, return_counts=True)
+    return sorted(((int(c), int(d)) for c, d in zip(counts, dist)),
+                  key=lambda t: (-t[1], -t[0]))
+
+
+def ref_q15(li, supp) -> list[tuple]:
+    d0, d1 = _days("1996-01-01"), _days("1996-04-01")
+    m = (li["l_shipdate"] >= d0) & (li["l_shipdate"] < d1)
+    if not m.any():
+        return []
+    keys, sums = _keyed_sums(li["l_suppkey"][m], li["l_extendedprice"][m]
+                             * (1 - li["l_discount"][m]))
+    mx = sums.max()
+    s_name = _lookup(supp["s_suppkey"],
+                     np.asarray(supp["s_name"], dtype=object), fill=None)
+    return sorted((int(k), s_name[k], float(r))
+                  for k, r in zip(keys, sums) if r == mx)
+
+
+def ref_q16(part, ps, supp) -> list[tuple]:
+    bad = _lookup(supp["s_suppkey"], supp["s_acctbal"] < 0, fill=False)
+    pm = (part["p_brand"] != "Brand#45") & np.isin(
+        part["p_size"], [49, 14, 23, 45, 19, 3, 36, 9])
+    pidx = _lookup(part["p_partkey"][pm], np.nonzero(pm)[0])
+    pk, sk = ps["ps_partkey"], ps["ps_suppkey"]
+    inr = pk < pidx.shape[0]
+    idx = np.full(len(pk), -1, dtype=np.int64)
+    idx[inr] = pidx[pk[inr]]
+    keep = (idx >= 0) & ~bad[sk]
+    idx, sk = idx[keep], sk[keep]
+    brands, bcode = np.unique(part["p_brand"][idx].astype(str),
+                              return_inverse=True)
+    types, tcode = np.unique(part["p_type"][idx].astype(str),
+                             return_inverse=True)
+    size = part["p_size"][idx]
+    group = (bcode.astype(np.int64) * len(types) + tcode) * 51 + size
+    pairs = np.unique(_pair_keys(group, sk))
+    g, n = np.unique(pairs // (int(sk.max(initial=0)) + 1),
+                     return_counts=True)
+    rows = [(str(brands[k // 51 // len(types)]),
+             str(types[k // 51 % len(types)]), int(k % 51), int(c))
+            for k, c in zip(g, n)]
+    rows.sort(key=lambda r: (-r[3], r[0], r[1], r[2]))
+    return rows
+
+
+def ref_q17(li, part) -> float:
+    keys = li["l_partkey"]
+    qty = li["l_quantity"]
+    size = int(keys.max()) + 1
+    sums = np.bincount(keys, weights=qty, minlength=size)
+    counts = np.bincount(keys, minlength=size)
+    avg = sums / np.maximum(counts, 1)
+    pm = (part["p_brand"] == "Brand#23") & \
+        (part["p_container"] == "MED BOX")
+    sel = np.zeros(size, dtype=bool)
+    sel[part["p_partkey"][pm]] = True
+    m = sel[keys] & (qty < 0.2 * avg[keys])
+    return float(li["l_extendedprice"][m].sum() / 7.0)
+
+
+def ref_q18(li, orders, cust, threshold=300) -> list[tuple]:
+    ok_max = int(max(li["l_orderkey"].max(), orders["o_orderkey"].max()))
+    qty = np.bincount(li["l_orderkey"], weights=li["l_quantity"],
+                      minlength=ok_max + 1)
+    big = np.zeros(ok_max + 1, dtype=bool)
+    big[li["l_orderkey"]] = True
+    big &= qty > threshold
+    c_name = _lookup(cust["c_custkey"],
+                     np.asarray(cust["c_name"], dtype=object), fill=None)
+    rows = []
+    for i in np.nonzero(big[orders["o_orderkey"]])[0]:
+        ok = int(orders["o_orderkey"][i])
+        ck = int(orders["o_custkey"][i])
+        rows.append((c_name[ck], ck, ok, _date(orders["o_orderdate"][i]),
+                     float(orders["o_totalprice"][i]), float(qty[ok])))
+    rows.sort(key=lambda t: (-t[4], t[3], t[2]))
+    return rows[:100]
+
+
+def ref_q19(li, part) -> float:
+    b, c, s = part["p_brand"], part["p_container"], part["p_size"]
+    groups = (("Brand#12", ["SM CASE", "SM BOX"], 1, 11, 5),
+              ("Brand#23", ["MED BAG", "MED BOX"], 10, 20, 10),
+              ("Brand#34", ["LG CASE", "LG BOX"], 20, 30, 15))
+    q = li["l_quantity"]
+    m = np.zeros(len(q), dtype=bool)
+    for brand, conts, qlo, qhi, smax in groups:
+        pm = _lookup(part["p_partkey"], (b == brand) & np.isin(c, conts)
+                     & (s >= 1) & (s <= smax), fill=False)
+        m |= pm[li["l_partkey"]] & (q >= qlo) & (q <= qhi)
+    m &= (np.isin(li["l_shipmode"], ["AIR", "REG AIR"])
+          & (li["l_shipinstruct"] == "DELIVER IN PERSON"))
+    return float((li["l_extendedprice"][m]
+                  * (1 - li["l_discount"][m])).sum())
+
+
+def ref_q20(li, supp, part, ps, nation) -> list[tuple]:
+    can = nation["n_nationkey"][nation["n_name"] == "CANADA"][0]
+    forest = _lookup(part["p_partkey"], _strings_where(
+        part["p_name"], lambda n: n.startswith("forest")), fill=False)
+    d0, d1 = _days("1994-01-01"), _days("1995-01-01")
+    m = (li["l_shipdate"] >= d0) & (li["l_shipdate"] < d1)
+    kmax = int(max(li["l_suppkey"].max(), ps["ps_suppkey"].max())) + 1
+    keys, sums = _keyed_sums(
+        li["l_partkey"][m].astype(np.int64) * kmax + li["l_suppkey"][m],
+        li["l_quantity"][m])
+    order = np.argsort(keys)
+    keys, sums = keys[order], sums[order]
+    pk, sk = ps["ps_partkey"], ps["ps_suppkey"]
+    want = pk.astype(np.int64) * kmax + sk
+    at = np.clip(np.searchsorted(keys, want), 0, max(len(keys) - 1, 0))
+    has = (keys[at] == want) if len(keys) else np.zeros(len(pk), bool)
+    # an empty scalar subquery is NULL: avail > NULL never passes
+    ok = forest[pk] & has
+    ok[ok] = ps["ps_availqty"][ok] > 0.5 * sums[at[ok]]
+    s_nat = _lookup(supp["s_suppkey"], supp["s_nationkey"])
+    s_name = _lookup(supp["s_suppkey"],
+                     np.asarray(supp["s_name"], dtype=object), fill=None)
+    return sorted((s_name[k],) for k in np.unique(sk[ok])
+                  if s_nat[k] == can)
+
+
+def ref_q21(li, orders, supp) -> list[tuple]:
+    saudi = NATIONS.index("SAUDI ARABIA")
+    ok, sk = li["l_orderkey"], li["l_suppkey"]
+    size = int(max(ok.max(), orders["o_orderkey"].max())) + 1
+    f_orders = _lookup(orders["o_orderkey"], orders["o_orderstatus"] == "F",
+                       fill=False)
+    late = li["l_receiptdate"] > li["l_commitdate"]
+    # per order: the least and greatest supplier, of all lines and of
+    # the late ones; another supplier exists iff one differs from sk
+    big = np.iinfo(np.int64).max
+    lo, hi = np.full(size, big), np.full(size, -1)
+    np.minimum.at(lo, ok, sk)
+    np.maximum.at(hi, ok, sk)
+    llo, lhi = np.full(size, big), np.full(size, -1)
+    np.minimum.at(llo, ok[late], sk[late])
+    np.maximum.at(lhi, ok[late], sk[late])
+    s_nat = _lookup(supp["s_suppkey"], supp["s_nationkey"])
+    m = late & f_orders[ok] & (s_nat[sk] == saudi)
+    m &= (lo[ok] != sk) | (hi[ok] != sk)                   # EXISTS
+    m &= ~(((llo[ok] != sk) & (llo[ok] != big))
+           | ((lhi[ok] != sk) & (lhi[ok] != -1)))           # NOT EXISTS
+    s_name = _lookup(supp["s_suppkey"],
+                     np.asarray(supp["s_name"], dtype=object), fill=None)
+    names, counts = np.unique(s_name[sk[m]].astype(str), return_counts=True)
+    out = sorted(((str(n), int(c)) for n, c in zip(names, counts)),
+                 key=lambda t: (-t[1], t[0]))
+    return out[:100]
+
+
+def ref_q22(cust, orders) -> list[tuple]:
+    codes = np.array([p[:2] for p in cust["c_phone"]], dtype=object)
+    in_list = np.isin(codes, ["13", "31", "23", "29", "30", "18", "17"])
+    pos = in_list & (cust["c_acctbal"] > 0.0)
+    avg_bal = float(cust["c_acctbal"][pos].mean())
+    ck = cust["c_custkey"]
+    has_orders = np.zeros(int(max(ck.max(), orders["o_custkey"].max())) + 1,
+                          dtype=bool)
+    has_orders[orders["o_custkey"]] = True
+    m = in_list & (cust["c_acctbal"] > avg_bal) & ~has_orders[ck]
+    cc, inv = np.unique(codes[m].astype(str), return_inverse=True)
+    n = np.bincount(inv, minlength=len(cc))
+    s = np.bincount(inv, weights=cust["c_acctbal"][m], minlength=len(cc))
+    return sorted((str(c), int(k), round(float(v), 2))
+                  for c, k, v in zip(cc, n, s))
+
+
+# the oracles' table arguments, by query (keys of oracle_rows' `tables`)
+ORACLE_ARGS = {
+    "q2": ("part", "supplier", "partsupp", "nation", "region"),
+    "q4": ("lineitem", "orders"),
+    "q7": ("lineitem", "orders", "customer", "supplier", "nation"),
+    "q8": ("lineitem", "orders", "customer", "supplier", "part", "nation",
+           "region"),
+    "q9": ("lineitem", "orders", "supplier", "part", "partsupp"),
+    "q11": ("partsupp", "supplier", "nation"),
+    "q13": ("orders", "customer"),
+    "q15": ("lineitem", "supplier"),
+    "q16": ("part", "partsupp", "supplier"),
+    "q17": ("lineitem", "part"),
+    "q18": ("lineitem", "orders", "customer"),
+    "q19": ("lineitem", "part"),
+    "q20": ("lineitem", "supplier", "part", "partsupp", "nation"),
+    "q21": ("lineitem", "orders", "supplier"),
+    "q22": ("customer", "orders"),
+}
+
+
+def oracle_rows(q: str, tables: dict) -> list[tuple]:
+    """Query ``q``'s oracle as the query's result rows. ``tables`` maps
+    table name -> generator columns, strings as Python strings."""
+    out = globals()[f"ref_{q}"](*(tables[t] for t in ORACLE_ARGS[q]))
+    return [(out,)] if isinstance(out, float) else out

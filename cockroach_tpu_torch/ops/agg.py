@@ -158,3 +158,41 @@ def group_min(data, group_ids, mask, num_groups: int):
 def group_max(data, group_ids, mask, num_groups: int):
     return _scatter_reduce(data, _slot(group_ids, mask, num_groups),
                            num_groups, "amax", _maxident(data.dtype))
+
+
+def distinct_first_mask(data, mask, group_ids, num_groups: int,
+                        sort_normalized: str = "off"):
+    """True at the FIRST masked occurrence of each (group, value) pair.
+
+    DISTINCT aggregates become ordinary aggregates with this extra mask:
+    sort the rows by (group, value), flag where either changes, scatter
+    the flags back, one sort and no per-group work. Under
+    ``sort_normalized`` auto/on the pair packs into sort-key lanes (the
+    group field sized to bit_length(num_groups), masked-out rows riding
+    as code num_groups) and each lane sorts once (ops/sortkey.py);
+    under off, or for a dtype with no encoding, successive stable
+    argsorts take the reference's lexsort order."""
+    from . import sortkey
+    n = data.shape[0]
+    g = torch.where(mask, group_ids.to(torch.int64), num_groups)
+    if data.dtype == torch.bool:
+        data = data.to(torch.int32)
+    order = None
+    if sort_normalized in ("auto", "on"):
+        enc = sortkey.encode_value(data)
+        if enc is not None:
+            gw = max(1, int(num_groups).bit_length())
+            order = sortkey.sort_perm(
+                sortkey.pack_lanes([(g, gw), enc], n, data.device),
+                kind="distinct")
+        else:
+            sortkey.FALLBACKS.bump("distinct")
+    if order is None:
+        order = sortkey.lexsort((data, g))
+    gs, ds = g[order], data[order]
+    first = torch.ones(n, dtype=torch.bool, device=data.device)
+    first[1:] = torch.logical_or(gs[1:] != gs[:-1], ds[1:] != ds[:-1])
+    first = torch.logical_and(first, gs < num_groups)
+    out = torch.zeros(n, dtype=torch.bool, device=data.device)
+    out[order] = first
+    return out

@@ -36,6 +36,8 @@ _MUL_HI = 2246822519
 
 # round counts of the last build and probe (host syncs paid)
 ROUNDS = {"build": 0, "probe": 0}
+# the share of its slots past which a build with rows left overflows
+MAX_LOAD = 0.5
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -74,8 +76,16 @@ def build(key_cols: tuple, mask: torch.Tensor, capacity: int):
 
     slot_of_row[i] = the slot whose owner has row i's key (the owner may
     be an earlier duplicate). capacity must be a power of two, >= 2N to
-    keep probe chains short; if the distinct-key count exceeds capacity
-    the loop hits its round bound and `converged` is False."""
+    keep probe chains short. Where the build converges, its slots and
+    claims match the reference's bit for bit.
+
+    The build ends unconverged as soon as it holds more than MAX_LOAD x
+    capacity keys with rows left over, where the reference probes on to
+    its round bound (capacity + 2 rounds, a host sync each): linear
+    probing's chains, one round a slot, grow without bound as a table
+    fills. A GROUP BY over more than half its slots thus reads as an
+    overflow, and the engine's partitioned re-run gives the same rows; a
+    join's table (>= 2N slots) never passes half."""
     n = key_cols[0].shape[0]
     if capacity & (capacity - 1):
         raise ValueError("capacity must be a power of two")
@@ -88,7 +98,16 @@ def build(key_cols: tuple, mask: torch.Tensor, capacity: int):
         return claim, slot, True
     done = torch.logical_not(mask)
     rounds = 0
-    while rounds < capacity + 2 and not bool(done.all()):
+    while rounds < capacity + 2:
+        # one host sync a round, for both flags
+        all_done, occupied = torch.stack(
+            [done.all().to(torch.int64),
+             (claim[:capacity] < n).sum()]).tolist()
+        if all_done:
+            break
+        if occupied > MAX_LOAD * capacity:
+            ROUNDS["build"] = rounds
+            return claim, slot, False
         active = torch.logical_not(done)
         empty = claim[slot] == n
         attempt = torch.logical_and(active, empty)
@@ -116,8 +135,8 @@ def group_ids(key_cols: tuple, mask: torch.Tensor, capacity: int):
     gid is dense in [0, num_groups) in hash-slot order; dead rows get
     0. rep_row[g] is a representative row of group g (to gather the
     group-key output columns), valid for g < num_groups. num_groups is
-    -1 when the table overflowed (more distinct keys than capacity):
-    callers must check. num_groups stays on the device; the build's
+    -1 when the table overflowed (its build passed half of capacity with
+    rows left to place): callers must check. num_groups stays on the device; the build's
     rounds are the only host syncs."""
     n = key_cols[0].shape[0]
     claim, slot, converged = build(key_cols, mask, capacity)
@@ -173,3 +192,37 @@ def probe(table_claim: torch.Tensor, build_keys: tuple, probe_keys: tuple,
         rounds += 1
     ROUNDS["probe"] = rounds
     return matched, build_row
+
+
+# level-1 fan-out ceiling of the two-level partition encoding below
+# (Engine.MAX_SPILL_PARTITIONS)
+PARTITION_L1 = 256
+
+
+def partition_mask(key_cols: tuple, nparts: int, pid: int) -> torch.Tensor:
+    """Row mask for the partitioned re-run of an overflowed hash GROUP
+    BY: True where salted_hash(keys) & (nparts - 1) == pid. The salt
+    column decorrelates the partition hash from the group table's hash,
+    so one partition's groups spread over all table slots. nparts must
+    be a power of two; nparts == 1 keeps every row.
+
+    Past the level-1 ceiling (PARTITION_L1), ``nparts = l1 * l2``
+    encodes a second level under a rotated salt, and
+    ``pid = pid2 * l1 + pid1`` selects level-1 bucket pid1 and level-2
+    bucket pid2: keys that collide under the first salt spread again
+    under the second. Bit-identical to the reference's masks."""
+    l1 = min(nparts, PARTITION_L1)
+    l2 = nparts // l1
+    pid1 = pid & (l1 - 1)
+    pid2 = pid // l1
+    shape, dev = key_cols[0].shape, key_cols[0].device
+    salt = torch.full(shape, 0x85EBCA6B - (1 << 32), dtype=torch.int32,
+                      device=dev)
+    h = _hash_columns(tuple(key_cols) + (salt,), 1 << 16)
+    m = (h & (l1 - 1)) == pid1
+    if l2 == 1:
+        return m
+    # the rotated-salt level: murmur3's other mixing constant
+    salt2 = torch.full(shape, 0x5C2B2AE3, dtype=torch.int32, device=dev)
+    h2 = _hash_columns(tuple(key_cols) + (salt2,), 1 << 16)
+    return m & ((h2 & (l2 - 1)) == pid2)

@@ -35,9 +35,11 @@ from ..utils.num import next_pow2
 from . import hashtable, sortkey
 from .batch import ColumnBatch
 
-# the largest K a duplicate-keyed build side may expand a probe row to
-# (the reference engine's MAX_JOIN_EXPANSION)
-MAX_EXPAND = 32
+# the largest K a duplicate-keyed build side may expand a probe row to:
+# twice the reference engine's MAX_JOIN_EXPANSION of 32, which a
+# customer's orders pass at SF 0.1 and up (TPC-H Q13); the engine takes
+# K past 32 only for small probe sides (Engine.MAX_WIDE_EXPANDED_ROWS)
+MAX_EXPAND = 64
 
 
 def hash_join(probe: ColumnBatch, build: ColumnBatch,

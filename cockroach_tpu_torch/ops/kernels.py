@@ -95,11 +95,25 @@ def between(x: SV, lo: SV, hi: SV) -> SV:
     return v, _both(x[1], _both(lo[1], hi[1]))
 
 
+# past this many values an IN list is one membership test, not an OR
+# of equals (a subquery's inlined result can hold thousands)
+IN_LIST_ISIN = 16
+
+
 def in_list(x: SV, values) -> SV:
-    """x IN (v1, v2, ...) with a constant list: OR of equals."""
-    acc = torch.zeros_like(x[0], dtype=torch.bool)
+    """x IN (v1, v2, ...) with a constant list: OR of equals, or one
+    torch.isin for a long list (the same equalities)."""
+    d = x[0]
+    if len(values) > IN_LIST_ISIN:
+        if d.dtype == torch.bool:
+            d = d.to(torch.int32)
+        test = torch.tensor(list(values), device=d.device)
+        if test.is_floating_point() != d.is_floating_point():
+            test, d = test.to(torch.float64), d.to(torch.float64)
+        return torch.isin(d, test.to(d.dtype)), x[1]
+    acc = torch.zeros_like(d, dtype=torch.bool)
     for v in values:
-        acc = torch.logical_or(acc, x[0] == v)
+        acc = torch.logical_or(acc, d == v)
     return acc, x[1]
 
 

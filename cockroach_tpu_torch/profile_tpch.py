@@ -5,8 +5,12 @@
 Loads every TPC-H table at the given scale into the port's Engine on
 the current CUDA card, warms Q1 (large-G kernel path), Q1 under
 ``pallas_groupagg = off``, Q6, Q14 (hash join), under ``pallas_groupagg
-= on`` Q1F and Q6F (small-G kernel path), and Q3, Q5, Q10 and Q12
-(multi-way joins, compaction, hash GROUP BY, top-k), then profiles
+= on`` Q1F and Q6F (small-G kernel path), Q3, Q5, Q10 and Q12
+(multi-way joins, compaction, hash GROUP BY, top-k) and the subquery,
+derived-table and CTE queries Q2, Q4, Q7, Q8, Q9, Q11, Q13, Q15, Q16,
+Q17, Q18, Q19, Q20, Q21 and Q22; then loads SSB at the same scale into
+a second Engine (its supplier and customer clash with TPC-H's) for the
+five flights (``ssb_q1.1`` ...); then profiles
 ``--runs`` executions of each with torch.profiler (CPU + CUDA
 activity). Prints, per query: the wall time per run (host clock around
 work that ends in a synchronize), the device busy time (sum of kernel
@@ -72,6 +76,11 @@ def profile_queries(eng, queries: dict, runs: int, out: str) -> dict:
             "groupagg_large_per_run": groupagg_large.LAUNCHES / runs,
             "groupagg_per_run": groupagg.LAUNCHES / runs,
             "group_ids_rounds": eng.last_exec.get("group_ids_rounds", 0),
+            # the last run's plan runs, partitioned re-runs and temps
+            "plan_runs": eng.last_exec["all"]["runs"],
+            "partitioned": eng.last_exec["all"]["partitioned"],
+            "temp_rows": [n for _, n, _ in eng.last_exec["temps"]],
+            "temp_paths": [p for _, _, p in eng.last_exec["temps"]],
             # allocated when the runs began (resident tables and what
             # the caller holds), and the peak above it during the runs
             "memory_allocated_before": resident,
@@ -95,7 +104,7 @@ def main() -> int:
         print("profile_tpch: no CUDA device available", file=sys.stderr)
         return 1
     from .exec.engine import Engine
-    from .models import tpch
+    from .models import ssb, tpch
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -111,11 +120,17 @@ def main() -> int:
     queries = {"q1": (tpch.Q1, None), "q1_off": (tpch.Q1, off),
                "q6": (tpch.Q6, None), "q14": (tpch.Q14, None),
                "q1f_on": (tpch.Q1F, on), "q6f_on": (tpch.Q6F, on)}
-    queries.update({q: (getattr(tpch, q.upper()), None)
-                    for q in ("q3", "q5", "q10", "q12")})
+    queries.update({q: (tpch.QUERIES[q], None)
+                    for q in ("q3", "q5", "q10", "q12")
+                    + tuple(tpch.ORACLE_ARGS)})
     summary = {"card": smi, "sf": a.sf,
                "rows": eng.store.table("lineitem").row_count}
     summary.update(profile_queries(eng, queries, a.runs, a.out))
+    s_eng = Engine()
+    ssb.load(s_eng, sf=a.sf)
+    summary.update(profile_queries(
+        s_eng, {f"ssb_{q}": (sql, None) for q, sql in ssb.QUERIES.items()},
+        a.runs, a.out))
     with open(os.path.join(a.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     return 0

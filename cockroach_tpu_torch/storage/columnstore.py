@@ -198,6 +198,10 @@ class ColumnStore:
             self.tables[schema.name] = td
             return td
 
+    def drop_table(self, name: str) -> None:
+        with self._lock:
+            del self.tables[name]
+
     def table(self, name: str) -> TableData:
         td = self.tables.get(name)
         if td is None:
@@ -336,7 +340,10 @@ class ColumnStore:
                          if arrs else np.zeros((0, 0)))
         if parts and sum(p.shape[0] for p in parts):
             allk = np.concatenate(parts, axis=0)
-            distinct = int(len(np.unique(allk, axis=0)))
+            # one key column: a plain sort, several times faster than
+            # np.unique over rows (a structured view)
+            distinct = int(len(np.unique(allk[:, 0]) if allk.shape[1] == 1
+                               else np.unique(allk, axis=0)))
         else:
             distinct = 0
         return distinct, nonnull_rows

@@ -20,8 +20,9 @@ class SessionVars:
         # plain scatter path. Engine.execute rejects any other value.
         "pallas_groupagg": "auto",   # auto | on | off
         # slots of the device hash table behind hash-strategy GROUP BY
-        # (a power of two); more distinct keys raise
-        # HashCapacityExceeded
+        # (a power of two). Half of them are usable: a GROUP BY whose
+        # build passes half with rows left to place overflows, and the
+        # engine re-runs the plan partition by partition
         "hash_group_capacity": 1 << 17,
         # packed-lane sort keys (ops/sortkey.py) for ORDER BY, the
         # top-k cut and duplicate-key join chains: auto and on use

@@ -315,22 +315,52 @@ def test_like_case_sums_on_one_dictionary_column(reference, port):
 
 def test_duplicate_build_keys_raise_cleanly():
     # duplicate build keys expand the join K ways, up to the reference's
-    # limit of 32; past it the join is refused with the reference's
-    # message, whichever side the planner builds on (both repeat their
-    # keys 33 times or more)
+    # limit of 32, and up to 64 for a small probe side (TPC-H Q13 at
+    # SF1 needs about 36); past that the join is refused with the
+    # reference's message, whichever side the planner builds on (both
+    # repeat their keys 65 times or more)
     e = Engine(device="cpu")
     e.execute("CREATE TABLE a (x INT8 NOT NULL, y INT8 NOT NULL)")
     e.execute("CREATE TABLE b (x INT8 NOT NULL, z INT8 NOT NULL)")
     ts = e.clock.now()
-    e.store.insert_columns("a", {"x": np.arange(80) % 2,
-                                 "y": np.arange(80)}, ts)
-    e.store.insert_columns("b", {"x": np.arange(66) % 2,
-                                 "z": np.arange(66)}, ts)
+    e.store.insert_columns("a", {"x": np.arange(160) % 2,
+                                 "y": np.arange(160)}, ts)
+    e.store.insert_columns("b", {"x": np.arange(130) % 2,
+                                 "z": np.arange(130)}, ts)
     with pytest.raises(EngineError, match=r"duplicate rows per key .*"
-                       r"\(limit 32\); make the lower-multiplicity table "
-                       "the build side"):
+                       r"\(limit 32, or 64 .*\); make the lower-"
+                       "multiplicity table the build side"):
         e.execute("SELECT sum(y) AS s, sum(z) AS t FROM a, b "
                   "WHERE a.x = b.x")
+
+
+def test_wide_expansion_refused_past_the_row_bound(monkeypatch):
+    # K between 33 and 64 is accepted only while the probe side's padded
+    # rows times K stay within MAX_WIDE_EXPANDED_ROWS (8192 here): 40
+    # orders per customer over 100 customers (128 padded rows, 5,120
+    # expanded) run, over 300 customers (512 padded, 20,480) are refused
+    monkeypatch.setattr(Engine, "MAX_WIDE_EXPANDED_ROWS", 1 << 13)
+    e = Engine(device="cpu")
+    e.execute("CREATE TABLE small (ck INT8 NOT NULL)")
+    e.execute("CREATE TABLE big (ck INT8 NOT NULL)")
+    e.execute("CREATE TABLE o (ok INT8 NOT NULL, ock INT8 NOT NULL)")
+    ts = e.clock.now()
+    e.store.insert_columns("small", {"ck": np.arange(1, 101)}, ts)
+    e.store.insert_columns("big", {"ck": np.arange(1, 301)}, ts)
+    ock = np.repeat(np.arange(1, 41), 40)
+    e.store.insert_columns("o", {"ok": np.arange(len(ock)), "ock": ock}, ts)
+    for t in ("small", "big", "o"):
+        e.execute(f"ANALYZE {t}")
+    sql = ("SELECT count(*) AS n, count(ok) AS m FROM {} "
+           "LEFT JOIN o ON ck = ock")
+    assert e.execute(sql.format("small")).rows == [(40 * 40 + 60,
+                                                    40 * 40)]
+    assert e.last_exec["all"]["expansions"] == [40]
+    with pytest.raises(EngineError, match=r"has up to 40 duplicate rows "
+                       r"per key .*\(limit 32, or 64 while the expanded "
+                       r"rows stay within 8192\); make the lower-"
+                       "multiplicity table the build side"):
+        e.execute(sql.format("big"))
 
 
 def test_engine_roundtrip_from_sql():

@@ -181,13 +181,13 @@ def test_hash_join_equal(path, bkeys, pkeys, sparse, pack, join_type):
 
 
 def test_hash_join_refuses_expansion():
-    # the engine bounds K at 32 (MAX_JOIN_EXPANSION); the join refuses
-    # anything past it
+    # the engine bounds K at 64 (ops/join.py MAX_EXPAND); the join
+    # refuses anything past it
     build, probe = _join_inputs(3)
     _, tb = _batches(*build)
     _, tp = _batches(*probe)
-    with pytest.raises(ValueError, match="past the limit 32"):
-        tjoin.hash_join(tp, tb, ["p_k1"], ["b_k1"], PAYLOAD, expand=33)
+    with pytest.raises(ValueError, match="past the limit 64"):
+        tjoin.hash_join(tp, tb, ["p_k1"], ["b_k1"], PAYLOAD, expand=65)
 
 
 def _dup_inputs(seed, nkeys=200, npr=1024, K=3):
