@@ -107,11 +107,36 @@ Phases (any failure exits non-zero before the final line):
    the same text hits the exec cache (Q15's re-execute handle hits it
    on its runs), with the counters; the host ms per run both ways, the
    median wall time minus torch.profiler's device busy time.
+10. Beyond memory at TPC-H SF10, in an Engine of its own (the SF1
+   engines are freed first): prints the host's MemTotal/MemAvailable and
+   the card's free and total memory, loads lineitem (60,012,150 rows),
+   part (2,000,000) and orders (15,000,000) with the generators' seeds
+   and prints the load seconds. At sql.exec.hbm_budget_bytes = 1 GiB
+   and pages of 2^21 rows Q1, Q6 and Q14 must stream (29 pages
+   uploaded or skipped, kernel 1 never launched, peak
+   max_memory_allocated() under 2 GiB) and equal the numpy oracles;
+   SET streaming_pipeline = off must give identical rows. Both ways:
+   medians of 3 warm runs, rows/s, H2D GB/s over the wall time, the
+   consumer's stall and the worker's overlap seconds; and Q14's
+   per-page direct-join table rebuild alone. At 64 GiB the same
+   queries run resident (Q1 launches kernel 1 once) and must equal the
+   streamed rows (INT, DECIMAL, STRING, DATE exactly, FLOAT8 within rel
+   1e-9), with the placement rules' working-set estimate
+   (Engine.working_set) printed beside the measured peak. A lineitem x
+   orders aggregate on the order key must spill into at least 4
+   partitions at a budget sized from that same reckoning and equal its
+   resident run and a numpy oracle; a sort of a one-week l_shipdate
+   slice under SET spill = on must equal its resident run and a numpy
+   lexsort oracle, in order; a streamed Q6 through Engine.prepare runs
+   3 times, equal each time. Every kernel-1 call of these path runs
+   (resident Q1 over 2^26 padded rows, the resident join) is held
+   against the plain version at its own slots. One JSON `stream` line
+   holds these numbers.
 Each phase's seconds are printed. Then one JSON line of per-kernel
 numbers (the large-G kernel's launches count Q1, Q5, Q10, Q12 and
-those of phases 7 and 8; `path_checks` holds each of its calls in
-phases 7 and 8 held against the plain version), the nvidia-smi line,
-and the last line
+the path runs of phases 7, 8 and 10; `path_checks` holds each of its
+calls in phases 7, 8 and 10 held against the plain version), the
+nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile DIR
@@ -123,6 +148,7 @@ check (profile_tpch.profile_queries; traces and numbers into DIR).
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -1083,12 +1109,361 @@ def prepared_phase(eng, runs: int = 5) -> dict:
     return out
 
 
+# -- phase 10: beyond memory at SF10 ------------------------------------------
+
+SF10 = 10
+LINEITEM_SF10 = 60_012_150      # the generator's int(6,001,215 x 10)
+STREAM_BUDGET = 1 << 30
+RESIDENT_BUDGET = 1 << 36
+PAGE_ROWS = 1 << 21             # the default streaming_page_rows
+PEAK_LIMIT = 2 << 30            # budget + page window + page temporaries
+# a lineitem x orders aggregate on the order key: orders is the build
+# side the spill tier partitions
+SPILL_JOIN_Q = """
+SELECT o_orderpriority, count(*) AS n, sum(l_extendedprice) AS revenue
+FROM lineitem, orders
+WHERE l_orderkey = o_orderkey
+GROUP BY o_orderpriority
+ORDER BY o_orderpriority
+"""
+# a one-week l_shipdate slice of lineitem, sorted
+SPILL_SORT_Q = """
+SELECT l_orderkey, l_linenumber, l_shipdate, l_extendedprice
+FROM lineitem
+WHERE l_shipdate >= date '1995-03-01' AND l_shipdate < date '1995-03-08'
+ORDER BY l_extendedprice DESC, l_orderkey, l_linenumber
+"""
+
+
+def _meminfo() -> dict:
+    """MemTotal and MemAvailable of the host, in bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(val.split()[0]) * 1024
+    return out
+
+
+def same_result(label, got, want, rel=1e-9) -> float:
+    """Two Results row for row, in order: FLOAT values within `rel`,
+    every other value (INT, DECIMAL, STRING, DATE) exactly. Returns the
+    largest relative FLOAT error."""
+    from cockroach_tpu_torch.sql.types import Family
+    if len(got.rows) != len(want.rows) or not want.rows:
+        raise AssertionError(f"{label}: {len(got.rows)} rows, want "
+                             f"{len(want.rows)}")
+    floats = [t.family == Family.FLOAT for t in want.types]
+    worst = 0.0
+    for g_row, w_row in zip(got.rows, want.rows):
+        for g, w, fl in zip(g_row, w_row, floats):
+            if fl and g is not None and w is not None:
+                err = abs(g - w) / max(abs(w), 1e-300)
+                worst = max(worst, err)
+                if err > rel:
+                    raise AssertionError(f"{label}: {g_row} != {w_row}")
+            elif g != w:
+                raise AssertionError(f"{label}: {g_row} != {w_row}")
+    return worst
+
+
+def _measured(eng, run) -> tuple:
+    """(Result, wall ms, peak bytes allocated, kernel-1 launches) of
+    `run()`, with every count set to 0 just before it (plain-version
+    calls on a CPU engine)."""
+    import torch
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    _counts_zero()
+    torch.cuda.synchronize()
+    eng.devstats.reset_peak()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    k1 = tgl.LAUNCHES if eng.device.type == "cuda" else tgl.PLAIN_CALLS
+    return res, ms, eng.devstats.hbm_watermark(), k1
+
+
+def _timed(eng, sql, session) -> tuple:
+    """_measured of one Engine.execute."""
+    return _measured(eng, lambda: eng.execute(sql, session))
+
+
+class PathRuns:
+    """Phase 10's path runs: each is measured (_measured) with every
+    kernel-1 call recorded, its launches are added to `launches` under
+    the run's kind, and on the card each call is held against the plain
+    version at the slots it was given (check_calls, phase 4's
+    tolerances), the records under `checks` by label. Warm runs that
+    only time a statement go through _timed and are not counted."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.launches: dict = {}
+        self.checks: dict = {}
+
+    def run(self, kind: str, label: str, run) -> tuple:
+        with recording_slots() as calls:
+            res, ms, peak, k1 = _measured(self.eng, run)
+        self.launches[kind] = self.launches.get(kind, 0) + k1
+        if self.eng.device.type == "cuda":
+            got = check_calls(label, calls, k1)
+            if got:
+                self.checks[label] = got
+        return res, ms, peak, k1
+
+    def execute(self, kind: str, label: str, sql, session) -> tuple:
+        return self.run(kind, label, lambda: self.eng.execute(sql, session))
+
+
+def beyond_memory_phase(reps: int = 3) -> dict:
+    """Phase 10: TPC-H Q1, Q6 and Q14 streamed at SF10 under a 1 GiB
+    device budget, then resident; a spilled lineitem x orders join and
+    a spilled sort; a streamed prepared statement."""
+    import numpy as np
+    import torch
+
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops import join
+    from cockroach_tpu_torch.ops.batch import ColumnBatch
+
+    host = _meminfo()
+    eng = Engine()
+    free, total = eng.devstats.free_total() or (0, 0)
+    print(f"phase 10 host memory: {json.dumps(host)}; card free {free} "
+          f"of {total} bytes", flush=True)
+    # lineitem is generated once: ingested as tpch.load ingests it
+    # (pre-encoded strings), and read by the oracles. No ANALYZE: the
+    # planner reads the chunks' seal-time sketches (a minute saved)
+    t0 = time.perf_counter()
+    li = tpch.gen_lineitem(SF10, encoded=True)
+    eng.execute(tpch.DDL["lineitem"])
+    for cn, vals in tpch.LINEITEM_DICTS.items():
+        eng.store.set_dictionary("lineitem", cn, vals)
+    eng.store.insert_columns("lineitem", li, eng.clock.now())
+    tpch.load(eng, sf=SF10, tables=("part", "orders"), analyze=False)
+    load_s = time.perf_counter() - t0
+    n_rows = eng.store.table("lineitem").row_count
+    if n_rows != LINEITEM_SF10:
+        raise AssertionError(f"SF10 lineitem has {n_rows} rows")
+    print(f"load SF10: {n_rows} lineitem, "
+          f"{eng.store.table('orders').row_count} orders, "
+          f"{eng.store.table('part').row_count} part rows in "
+          f"{load_s:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    li = dict(li)
+    li["l_returnflag"] = np.asarray(tpch.RF_VALUES)[li["l_returnflag"]]
+    li["l_linestatus"] = np.asarray(tpch.LS_VALUES)[li["l_linestatus"]]
+    want = {"q1": tpch.ref_q1(li), "q6": tpch.ref_q6(li),
+            "q14": tpch.ref_q14(li, tpch.gen_part(SF10))}
+    print(f"SF10 oracles: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    page_rows = PAGE_ROWS
+    n_pages = -(-n_rows // page_rows)
+    out = {"sf": SF10, "lineitem_rows": n_rows, "load_s": load_s,
+           "host": host, "card_free": free, "card_total": total,
+           "stream_budget": STREAM_BUDGET, "page_rows": page_rows,
+           "queries": {}}
+    paths = PathRuns(eng)
+    streamed = {}
+    s = eng.session()
+    s_sync = eng.session()
+    eng.execute("SET streaming_pipeline = off", s_sync)
+    for sess in (s, s_sync):
+        eng.execute(f"SET streaming_page_rows = {page_rows}", sess)
+    sqls = {"q1": tpch.Q1, "q6": tpch.Q6, "q14": tpch.Q14}
+    eng.settings.set("sql.exec.hbm_budget_bytes", STREAM_BUDGET)
+    for q, sql in sqls.items():
+        verdict = eng.stream_verdict(sql, s)
+        if verdict != "stream-scan":
+            raise AssertionError(f"{q} at 1 GiB: {verdict}, not streamed")
+        res, first_ms, peak, k1 = paths.execute(
+            "streamed", f"sf10 {q} streamed", sql, s)
+        pg = dict(eng.last_exec["paging"])
+        if k1:
+            raise AssertionError(f"streamed {q} launched kernel 1 {k1} "
+                                 "times (its page state takes the plain "
+                                 "reductions)")
+        if pg["route"] != "stream" or pg["pages"] + pg["skipped"] != n_pages:
+            raise AssertionError(f"{q}: {pg}, not {n_pages} pages")
+        if peak >= PEAK_LIMIT:
+            raise AssertionError(f"streamed {q} peaked at {peak} bytes")
+        if q == "q1":
+            check_q1(res.rows, want["q1"])
+        elif not _close(res.rows[0][0], want[q], 1e-9):
+            raise AssertionError(f"{q} {res.rows[0][0]} != oracle {want[q]}")
+        entry = {"verdict": verdict, "first_ms": first_ms,
+                 "pages": pg["pages"], "skipped": pg["skipped"]}
+        # FLOAT8 sums add by atomics, in no fixed order: later runs
+        # agree within rel 1e-9, everything else exactly
+        for mode, sess in (("pipeline_on", s), ("pipeline_off", s_sync)):
+            runs = []
+            for _ in range(reps):
+                r, ms, pk, k1 = _timed(eng, sql, sess)
+                if k1:
+                    raise AssertionError(f"streamed {q} {mode} launched "
+                                         f"kernel 1 {k1} times")
+                same_result(f"{q} {mode}", r, res)
+                runs.append((ms, pk, dict(eng.last_exec["paging"])))
+            med = statistics.median(m for m, _, _ in runs)
+            peak = max(pk for _, pk, _ in runs)
+            if peak >= PEAK_LIMIT:
+                raise AssertionError(f"streamed {q} {mode} peaked at "
+                                     f"{peak} bytes")
+            entry[mode] = {
+                "ms": med, "rows_per_s": n_rows / (med / 1e3),
+                "h2d_gbps": statistics.median(
+                    p["bytes"] / (m / 1e3) / 1e9 for m, _, p in runs),
+                "h2d_bytes": runs[-1][2]["bytes"],
+                "stall_s": statistics.median(p["stall_s"]
+                                             for _, _, p in runs),
+                "overlap_s": statistics.median(p["overlap_s"]
+                                               for _, _, p in runs),
+                "peak_bytes": peak}
+        streamed[q] = res
+        out["queries"][q] = entry
+        print(f"{q} streamed: " + json.dumps(entry), flush=True)
+
+    # Q14's direct-join table is rebuilt on every page, as the
+    # reference's per-page program does: the rebuild alone, against a
+    # 128-row probe
+    part_b = eng._device_table("part", frozenset({"p_partkey", "p_type"}))
+    lo, hi, _ = eng.store.key_int_range("part", "p_partkey")
+    probe = ColumnBatch.from_dict({"l_partkey": torch.arange(
+        1, 129, dtype=torch.int64, device=part_b.device)})
+    rebuild_ms = _cuda_ms(lambda: join.hash_join(
+        probe, part_b, ["l_partkey"], ["p_partkey"], ["p_type"], "inner",
+        direct=(lo, hi - lo + 2)))
+    out["queries"]["q14"]["join_rebuild_ms_per_page"] = rebuild_ms
+    print(f"q14 direct-join table rebuild: {rebuild_ms:.3f} ms a page, "
+          f"{rebuild_ms * n_pages:.1f} ms over {n_pages} pages", flush=True)
+
+    # the same queries resident
+    eng.settings.set("sql.exec.hbm_budget_bytes", RESIDENT_BUDGET)
+    resident = {}
+    for q, sql in sqls.items():
+        verdict = eng.stream_verdict(sql, s)
+        if verdict != "resident":
+            raise AssertionError(f"{q} at 64 GiB: {verdict}")
+        res, first_ms, peak, k1 = paths.execute(
+            "resident", f"sf10 {q} resident", sql, s)
+        if q == "q1" and k1 != 1:
+            raise AssertionError(f"resident Q1 launched kernel 1 {k1} times")
+        worst = same_result(f"{q} resident vs streamed", res, streamed[q])
+        warm = []
+        for _ in range(reps):
+            _, ms, _, k1_warm = _timed(eng, sql, s)
+            if k1_warm != k1:
+                raise AssertionError(f"a warm resident {q} launched kernel "
+                                     f"1 {k1_warm} times, not {k1}")
+            warm.append(ms)
+        resident[q] = res
+        entry = {"verdict": verdict, "first_ms": first_ms,
+                 "ms": statistics.median(warm),
+                 "rows_per_s": n_rows / (statistics.median(warm) / 1e3),
+                 "peak_bytes": peak, "kernel1": k1,
+                 "estimate_bytes": eng.working_set(sql, s)["resident"],
+                 "float_rel_err_vs_streamed": worst}
+        out["queries"][q]["resident"] = entry
+        print(f"{q} resident: " + json.dumps(entry), flush=True)
+
+    # spill join: the placement rules' own reckoning sizes a budget
+    # that leaves, beside the page window, room for 3/8 of the orders
+    # build: partitions double until one fits, so 4
+    ws = eng.working_set(SPILL_JOIN_Q, s)
+    budget = ws["page_window"] + ws["builds"] * 3 // 8
+    res_join, join_first_ms, join_peak, _ = paths.execute(
+        "spill_join_resident", "sf10 spill_join resident", SPILL_JOIN_Q, s)
+    eng.drop_device_cache()
+    eng.settings.set("sql.exec.hbm_budget_bytes", budget)
+    p = eng.prepare(SPILL_JOIN_Q, s)
+    if p.spill is None or p.spill.kind != "join" or p.spill.nparts < 4:
+        raise AssertionError(f"spill join at {budget}: {p.spill}")
+    spilled, spill_ms, spill_peak, _ = paths.run(
+        "spill_join", "sf10 spill_join", p.run)
+    pg = dict(eng.last_exec["paging"])
+    same_result("spill join vs resident", spilled, res_join)
+    # the oracle: each order's priority as a code in sorted order (the
+    # keys are dense 1..n), counted and summed over lineitem's rows
+    prios = sorted(tpch.ORDER_PRIORITIES)
+    lut = {v: i for i, v in enumerate(prios)}
+    opri = tpch.gen_orders(SF10)["o_orderpriority"]
+    code = np.fromiter((lut[v] for v in opri), dtype=np.int64,
+                       count=len(opri))[li["l_orderkey"] - 1]
+    want_join = [(k, int(c), float(r)) for k, c, r in zip(
+        prios, np.bincount(code, minlength=len(prios)),
+        np.bincount(code, li["l_extendedprice"], minlength=len(prios)))]
+    check_rows("spill join vs oracle", spilled.rows, want_join)
+    out["spill_join"] = {
+        "budget": budget, "partitions": p.spill.nparts,
+        "seconds": spill_ms / 1e3, "peak_bytes": spill_peak,
+        "h2d_bytes": pg["bytes"], "stall_s": pg["stall_s"],
+        "overlap_s": pg["overlap_s"], "resident_ms": join_first_ms,
+        "resident_peak_bytes": join_peak, "working_set": ws}
+    print("spill join: " + json.dumps(out["spill_join"]), flush=True)
+    del opri, code
+
+    # spill sort under SET spill = on
+    eng.settings.set("sql.exec.hbm_budget_bytes", RESIDENT_BUDGET)
+    s_spill = eng.session()
+    eng.execute("SET spill = on", s_spill)
+    eng.execute(f"SET streaming_page_rows = {page_rows}", s_spill)
+    if eng.stream_verdict(SPILL_SORT_Q, s_spill) != "spill-sort":
+        raise AssertionError("the shipdate slice sort did not spill")
+    res_sort, sort_ms, sort_peak, _ = paths.execute(
+        "spill_sort", "sf10 spill_sort", SPILL_SORT_Q, s_spill)
+    pg = dict(eng.last_exec["paging"])
+    res_sort_res, sort_res_ms, sort_res_peak, _ = paths.execute(
+        "spill_sort_resident", "sf10 spill_sort resident", SPILL_SORT_Q, s)
+    same_result("spill sort vs resident", res_sort, res_sort_res)
+    d0, d1 = tpch._days("1995-03-01"), tpch._days("1995-03-08")
+    m = (li["l_shipdate"] >= d0) & (li["l_shipdate"] < d1)
+    order = np.lexsort((li["l_linenumber"][m], li["l_orderkey"][m],
+                        -li["l_extendedprice"][m]))
+    epoch = __import__("datetime").date(1970, 1, 1)
+    delta = __import__("datetime").timedelta
+    want_sort = [(int(k), int(n), epoch + delta(days=int(d)), float(p_))
+                 for k, n, d, p_ in zip(li["l_orderkey"][m][order],
+                                        li["l_linenumber"][m][order],
+                                        li["l_shipdate"][m][order],
+                                        li["l_extendedprice"][m][order])]
+    check_rows("spill sort vs oracle", res_sort.rows, want_sort)
+    out["spill_sort"] = {
+        "rows": len(res_sort.rows), "pages": pg["pages"], "ms": sort_ms,
+        "peak_bytes": sort_peak, "resident_ms": sort_res_ms,
+        "resident_peak_bytes": sort_res_peak,
+        "resident_estimate_bytes": eng.working_set(
+            SPILL_SORT_Q, s)["resident"]}
+    print("spill sort: " + json.dumps(out["spill_sort"]), flush=True)
+
+    # a streamed prepared statement, run 3 times
+    eng.drop_device_cache()
+    eng.settings.set("sql.exec.hbm_budget_bytes", STREAM_BUDGET)
+    p = eng.prepare(tpch.Q6, s)
+    if p.stream is None:
+        raise AssertionError("prepared Q6 did not stream at 1 GiB")
+    runs = [paths.run("prepared", f"sf10 prepared q6 run {i + 1}",
+                      p.run)[0] for i in range(3)]
+    for r in runs:
+        same_result("prepared streamed Q6", r, streamed["q6"])
+    out["prepared_q6_runs"] = len(runs)
+    # every path run's kernel-1 launches by kind, and each call held
+    # against the plain version
+    out["kernel1_launches"] = paths.launches
+    out["path_checks"] = paths.checks
+    del eng, li
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    import numpy as np
 
     import argparse
     ap = argparse.ArgumentParser(description="Build and drive the port "
@@ -1096,6 +1471,38 @@ def main() -> int:
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="also profile the phase 6 queries into DIR")
     opts = ap.parse_args()
+
+    t_start = time.perf_counter()
+    kernels, smi, name = sf1_phases(opts)
+    # the SF1 engines and tables went with sf1_phases' frame: free what
+    # the allocator still caches before SF10 loads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 10. beyond memory at SF10 ---------------------------------------------
+    t0 = time.perf_counter()
+    stream = beyond_memory_phase()
+    kernels[0]["launches"] += sum(stream["kernel1_launches"].values())
+    kernels[0]["phase10_launches"] = stream["kernel1_launches"]
+    kernels[0]["path_checks"].update(stream.pop("path_checks"))
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s; all phases "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"stream": stream}), flush=True)
+
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def sf1_phases(opts) -> tuple:
+    """Phases 1-9 at SF1; returns (kernels, nvidia-smi line, card
+    name). Every engine and table of these phases lives in this frame
+    only, so they are freed when it returns."""
+    import numpy as np
+    import torch
 
     from cockroach_tpu_torch.exec import compile as C
     from cockroach_tpu_torch.exec.engine import Engine
@@ -1402,12 +1809,7 @@ def main() -> int:
                               "q12": (tpch.Q12, None), "qps": (QPS, None),
                               "qh": (QH, None)}, 3, opts.profile)
 
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return kernels, smi, name
 
 
 if __name__ == "__main__":

@@ -13,7 +13,8 @@ path is CUDA C++ for Hopper (``csrc/groupagg_large.cu``).
     ops/        ColumnBatch, SQL kernels, aggregation
     ops/cuda/   wrappers of the hand-written CUDA kernels
     csrc/       CUDA C++ sources (built with nvcc at first use)
-    exec/       plan compiler and the Engine
+    exec/       plan compiler, the Engine, streamed pages and spill
+    utils/      settings, memory budget, device memory, metrics
 
 Device policy: every entry point runs on ``cuda`` unless the caller
 passes ``device="cpu"``; with no card and no explicit device it raises

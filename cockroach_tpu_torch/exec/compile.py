@@ -29,8 +29,10 @@ that wrapped, a hash table that overflowed, a top-k cut that crossed
 a tie, a compaction block that overflowed. A DISTINCT aggregate keeps
 the first row of each (group, value) (ops/agg.py distinct_first_mask)
 and aggregates as usual. A RunContext with ``nparts`` > 1 keeps only
-its partition's rows of a hash GROUP BY. Windows and streaming are not
-ported yet and raise ExecError.
+its partition's rows of a hash GROUP BY. ``compile_streaming`` splits
+an aggregate-rooted plan into page partials, their combine and a
+finalize for the streamed and spilled paths. Windows are not ported
+yet and raise ExecError.
 """
 
 from __future__ import annotations
@@ -87,14 +89,18 @@ class RunContext:
     (ops/hashtable.py partition_mask). nparts = 1 keeps every row."""
 
     def __init__(self, scans: dict[str, ColumnBatch], read_ts: int,
-                 nparts: int = 1, pid: int = 0):
+                 nparts: int = 1, pid: int = 0, route: dict | None = None):
         self.scans = scans
         self.read_ts = read_ts
         self.nparts = nparts
         self.pid = pid
-        self.route = {"compacts_applied": 0, "topk_cuts": 0,
-                      "group_ids": 0, "group_ids_rounds": 0,
-                      "expansions": []}
+        # a paged run shares one route over its pages
+        self.route = route if route is not None else self.new_route()
+
+    @staticmethod
+    def new_route() -> dict:
+        return {"compacts_applied": 0, "topk_cuts": 0, "group_ids": 0,
+                "group_ids_rounds": 0, "expansions": []}
 
 
 CompiledNode = Callable[[RunContext], ColumnBatch]
@@ -1022,3 +1028,272 @@ def _compile_sort(node: P.Sort, params: ExecParams,
     def run_sort(rc: RunContext) -> ColumnBatch:
         return sort_batch(childf(rc), keys, rank_tables, mode)
     return run_sort
+
+
+# ---------------------------------------------------------------------------
+# streaming: per-page partial aggregate state
+# ---------------------------------------------------------------------------
+# A table past the device budget runs page by page (exec/stream.py) and
+# keeps only the per-group partial state on the device between pages.
+# The page-partial / combine / finalize split is the reference's
+# (cockroach_tpu/exec/compile.py compile_streaming): SUM -> add, MIN ->
+# min, AVG -> (sum, count) + divide. The page state takes the plain
+# scatters, as the reference's takes its XLA reductions: no kernel.
+
+_COMBINE_OPS = {
+    "add": torch.add,
+    "min": torch.minimum,
+    "max": torch.maximum,
+}
+
+
+def _is_float_agg_arg(a: BoundAgg) -> bool:
+    return a.arg is not None and a.arg.type.family == Family.FLOAT
+
+
+def _agg_state_ops(a: BoundAgg) -> tuple:
+    """Static combine-op layout of one aggregate's partial state."""
+    if a.func in ("count_rows", "count"):
+        return ("add",)
+    if a.func in ("sum", "sum_int"):
+        # int64-accumulated sums carry a float64 shadow for the
+        # overflow sentinel
+        return ("add", "add") if _is_float_agg_arg(a) \
+            else ("add", "add", "add")
+    if a.func == "avg":
+        return ("add", "add")
+    if a.func == "min":
+        return ("min", "add")
+    if a.func in ("max", "any"):
+        # `any` is a per-group-constant value: max-combining page
+        # partials (empty groups hold the very negative identity)
+        # picks the one real value
+        return ("max", "add")
+    raise ExecError(f"aggregate {a.func} cannot stream")
+
+
+def _agg_page_state(a: BoundAgg, argf, batch, ctx, gid, num_groups,
+                    max_group_rows=0) -> tuple:
+    """One page's partial-state tensors for one aggregate (the layout
+    of _agg_state_ops). Nothing here reads a device value back to the
+    host."""
+    grouped = gid is not None
+    if a.func == "count_rows":
+        mask = batch.sel
+        d = (aggops.group_count(gid, mask, num_groups) if grouped
+             else aggops.masked_count(mask).reshape(1))
+        return (d,)
+    d0, v0 = argf(ctx)
+    mask = torch.logical_and(batch.sel, v0)
+    cnt = (aggops.group_count(gid, mask, num_groups) if grouped
+           else aggops.masked_count(mask).reshape(1))
+    if a.func == "count":
+        return (cnt,)
+    if a.func in ("sum", "sum_int"):
+        acc = torch.float64 if _is_float_agg_arg(a) else torch.int64
+        d = (aggops.group_sum(d0, gid, mask, num_groups, acc_dtype=acc,
+                              max_group_rows=max_group_rows,
+                              arg_max_abs=a.arg_max_abs,
+                              arg_nonneg=a.arg_nonneg)
+             if grouped else
+             aggops.masked_sum(d0, mask, acc_dtype=acc).reshape(1))
+        if acc == torch.int64:
+            # the reference picks between the int64 sum cast to f64 and
+            # an f64 shadow scatter per page with lax.cond on the
+            # page's rows x max|value|. Here the choice is made on the
+            # host from the page's row count and the binder's static
+            # bound (Engine._bound_agg_value_ranges): when it proves
+            # the page partial cannot wrap, the cast IS the shadow
+            # (within f64 rounding, inside the finalize tolerance);
+            # else the shadow is summed
+            if a.arg_max_abs and d0.shape[0] * a.arg_max_abs < 2 ** 62:
+                sh = d.to(torch.float64)
+            elif grouped:
+                sh = aggops.group_sum(d0.to(torch.float64), gid, mask,
+                                      num_groups)
+            else:
+                sh = aggops.masked_sum(d0.to(torch.float64), mask) \
+                    .reshape(1)
+            return (d, cnt, sh)
+        return (d, cnt)
+    if a.func == "avg":
+        scale = (10.0 ** a.arg.type.scale
+                 if a.arg.type.family == Family.DECIMAL else 1.0)
+        df = d0.to(torch.float64) / scale
+        s = (aggops.group_sum(df, gid, mask, num_groups) if grouped
+             else aggops.masked_sum(df, mask).reshape(1))
+        return (s, cnt)
+    if a.func == "min":
+        m = (aggops.group_min(d0, gid, mask, num_groups) if grouped
+             else aggops.masked_min(d0, mask).reshape(1))
+        return (m, cnt)
+    if a.func == "max":
+        m = (aggops.group_max(d0, gid, mask, num_groups) if grouped
+             else aggops.masked_max(d0, mask).reshape(1))
+        return (m, cnt)
+    if a.func == "any":
+        m = (aggops.group_any(d0, gid, mask, num_groups) if grouped
+             else aggops.masked_max(d0, mask).reshape(1))
+        return (m, cnt)
+    raise ExecError(f"aggregate {a.func} cannot stream")
+
+
+def _agg_finalize(a: BoundAgg, arrs: tuple):
+    """Combined state -> (data, valid, overflow or None)."""
+    if a.func in ("count_rows", "count"):
+        d = arrs[0]
+        return d, torch.ones_like(d, dtype=torch.bool), None
+    if a.func in ("sum", "sum_int"):
+        if _is_float_agg_arg(a):
+            d, cnt = arrs
+            return d, cnt > 0, None
+        d, cnt, sh = arrs
+        err = torch.abs(d.to(torch.float64) - sh)
+        tol = torch.clamp(torch.abs(sh) * 1e-3, min=1e12)
+        return d, cnt > 0, torch.any(err > tol)
+    if a.func == "avg":
+        s, cnt = arrs
+        return s / torch.clamp(cnt, min=1).to(torch.float64), cnt > 0, None
+    if a.func in ("min", "max", "any"):
+        m, cnt = arrs
+        return m, cnt > 0, None
+    raise ExecError(f"aggregate {a.func} cannot stream")
+
+
+@dataclass
+class StreamingPlan:
+    """A plan compiled for paged execution over one streamed scan."""
+    page_fn: Callable      # RunContext -> flat state tuple
+    combine: Callable      # (state, state) -> state
+    final_fn: Callable     # state -> ColumnBatch
+
+
+def can_stream(node: P.PlanNode) -> bool:
+    """compile_streaming's eligibility: the engine never picks a plan
+    it would refuse (hash-strategy GROUP BY and DISTINCT do not page)."""
+    n = node
+    if isinstance(n, P.Limit):
+        n = n.child
+    if isinstance(n, P.Sort):
+        n = n.child
+    if not isinstance(n, P.Aggregate):
+        return False
+    if n.group_by and n.max_groups <= 0:
+        return False
+    return not any(a.distinct for a in n.aggs)
+
+
+def can_spill_sort(node: P.PlanNode) -> bool:
+    """exec/spill.compile_spill_sort's eligibility: Limit?/Sort over a
+    join-free single-scan spine."""
+    n = node
+    if isinstance(n, P.Limit):
+        n = n.child
+    if not isinstance(n, P.Sort) or not n.keys:
+        return False
+    n = n.child
+    while isinstance(n, (P.Filter, P.Project, P.Compact)):
+        n = n.child
+    return isinstance(n, P.Scan)
+
+
+def compile_streaming(node: P.PlanNode, params: ExecParams,
+                      meta: P.OutputMeta | None = None) -> StreamingPlan:
+    """Compile Limit?/Sort?/Aggregate(dense | ungrouped) for paging.
+
+    The child subtree (scan, filter, project, joins against resident
+    builds) compiles unchanged and runs once per page; only the
+    aggregate splits into page partials, combine and finalize."""
+    limit_node = sort_node = None
+    n = node
+    if isinstance(n, P.Limit):
+        limit_node, n = n, n.child
+    if isinstance(n, P.Sort):
+        sort_node, n = n, n.child
+    if not isinstance(n, P.Aggregate):
+        raise ExecError("streaming requires an aggregate-rooted plan")
+    agg = n
+    if agg.group_by and agg.max_groups <= 0:
+        raise ExecError("hash-strategy GROUP BY cannot stream yet")
+    if any(a.distinct for a in agg.aggs):
+        raise ExecError("DISTINCT aggregates cannot stream")
+    childf = compile_plan(agg.child, params)
+    groupfs = [(name, compile_expr(e)) for name, e in agg.group_by]
+    aggfs = [(a, compile_expr(a.arg) if a.arg is not None else None)
+             for a in agg.aggs]
+    itemfs = [(name, compile_expr(e)) for name, e in agg.items]
+    havingf = compile_expr(agg.having) if agg.having is not None else None
+    dims = list(agg.group_dims)
+    slos = list(agg.group_lo) or [0] * len(dims)
+    num_groups = 1
+    for dim in dims:
+        num_groups *= dim + 1
+    ops_layout = [_agg_state_ops(a) for a, _ in aggfs]
+    flat_ops = tuple(op for ops in ops_layout for op in ops) + ("add",)
+
+    def page_fn(rc: RunContext) -> tuple:
+        b = childf(rc)
+        ctx = _ctx_of(b)
+        gid = None
+        if groupfs:
+            gid = torch.zeros(b.n, dtype=torch.int32, device=b.device)
+            for (name, gf), dim, lo in zip(groupfs, dims, slos):
+                d, v = gf(ctx)
+                # int64 first: a BOOL key does not subtract
+                code = torch.where(v, (d.to(torch.int64) - lo)
+                                   .to(torch.int32), dim)
+                gid = gid * (dim + 1) + code
+        state = []
+        for a, argf in aggfs:
+            state.extend(_agg_page_state(a, argf, b, ctx, gid, num_groups,
+                                         agg.max_group_rows))
+        # the group liveness count rides last
+        state.append(aggops.group_count(gid, b.sel, num_groups) if groupfs
+                     else aggops.masked_count(b.sel).reshape(1))
+        return tuple(state)
+
+    def combine(sa: tuple, sb: tuple) -> tuple:
+        return tuple(_COMBINE_OPS[op](x, y)
+                     for op, x, y in zip(flat_ops, sa, sb))
+
+    rank_tables = (_sort_rank_tables(sort_node.keys, meta)
+                   if sort_node is not None else {})
+
+    def final_fn(state: tuple) -> ColumnBatch:
+        dev = state[-1].device
+        group_cols = {}
+        if groupfs:
+            garange = torch.arange(num_groups, dtype=torch.int32,
+                                   device=dev)
+            strides = []
+            s = 1
+            for dim in reversed(dims):
+                strides.append(s)
+                s *= dim + 1
+            strides.reverse()
+            for (name, _), dim, st, lo in zip(groupfs, dims, strides,
+                                              slos):
+                code = (garange // st) % (dim + 1)
+                val = code if lo == 0 else code.to(torch.int64) + lo
+                group_cols[name] = (val, code < dim)
+        i = 0
+        aggs_out = []
+        overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        for (a, _), ops in zip(aggfs, ops_layout):
+            d, v, ovf = _agg_finalize(a, state[i:i + len(ops)])
+            i += len(ops)
+            aggs_out.append((d, v))
+            if ovf is not None:
+                overflow = torch.logical_or(overflow, ovf)
+        live = (state[i] > 0 if groupfs
+                else torch.ones(1, dtype=torch.bool, device=dev))
+        out = _agg_output(group_cols, aggs_out, live, itemfs, havingf,
+                          num_groups, overflow, dev)
+        if sort_node is not None:
+            out = sort_batch(out, list(sort_node.keys), rank_tables,
+                             params.sort_normalized)
+        if limit_node is not None:
+            out = limit_batch(out, limit_node.limit, limit_node.offset)
+        return out
+
+    return StreamingPlan(page_fn, combine, final_fn)

@@ -16,11 +16,19 @@ sentinels are checked: a top-k cut that crossed a tie replans with the
 full sort, an overflowed compaction block replans uncompacted, a hash
 GROUP BY past its table re-runs partition by partition. Tables upload
 once per (table, generation), padded to a power of two of at least 128
-rows with never-visible padding rows, and are reused across statements.
+rows with never-visible padding rows, reserved against the device
+budget ``sql.exec.hbm_budget_bytes`` (``Engine.settings``), and are
+reused across statements.
+
+Beyond the budget the reference's placement rules decide the route
+(exec/scanplane.py): an aggregate-rooted plan streams its fact table
+page by page (exec/stream.py, exec/compile.py compile_streaming), an
+over-budget join build spills into a partitioned external hash join
+and an over-budget sort into an external merge sort (exec/spill.py).
 
 Everything else the reference engine does (DML and transactions,
-views, set operations, distribution, streaming and spill) is not
-ported yet and raises EngineError.
+views, set operations, distribution, distributed spill) is not ported
+yet and raises EngineError.
 """
 
 from __future__ import annotations
@@ -47,10 +55,20 @@ from ..storage.columnstore import ColumnStore
 from ..storage.hlc import Clock, Timestamp
 from ..storage.transfer import schema_from_create
 from ..utils.num import next_pow2
-from .compile import ExecError, ExecParams, RunContext, compile_plan
+from ..utils.devstats import DeviceStats
+from ..utils.metric import MetricRegistry
+from ..utils.mon import BytesMonitor
+from ..utils.settings import SettingError, Settings
+from .compile import (ExecError, ExecParams, RunContext, compile_plan,
+                      compile_streaming)
+from .joinfilter import find_specs
+from .movement import TransferScheduler
+from .scanplane import ScanPlaneMixin, scan_maps
 from .session import (SENTINEL_COLUMNS, CompactOverflow, EngineError,
                       HashCapacityExceeded, Prepared, Result, Session,
                       TopKInexact)
+from .spill import compile_spill_sort
+from .stream import extract_zone_preds
 from .stmtutil import RerunPrepared, host_sort, rewrite_table_names
 
 EPOCH_DATE = datetime.date(1970, 1, 1)
@@ -87,14 +105,28 @@ _SENTINEL_EXCS = {
         "replanning uncompacted"),
 }
 _MODES = ("auto", "on", "off")
+# the values each enumerated session variable takes
+_VAR_VALUES = {"pallas_groupagg": _MODES, "sort_normalized": _MODES,
+               "streaming": ("auto", "off"),
+               "streaming_pipeline": ("on", "off"),
+               "spill": _MODES}
 
 
-class Engine:
+class Engine(ScanPlaneMixin):
     def __init__(self, device=None, store: ColumnStore | None = None):
         self.device = resolve_device(device)
         self.store = store or ColumnStore()
         self.clock = Clock()
-        # (table, generation) -> (uploaded column set, ColumnBatch)
+        self.settings = Settings()
+        self.metrics = MetricRegistry()
+        # the device-byte pool: resident uploads reserve against it,
+        # streamed and spill windows lease from it
+        self.hbm = BytesMonitor("hbm", lambda: self.settings.get(
+            "sql.exec.hbm_budget_bytes"))
+        self.movement = TransferScheduler(self.hbm, self.metrics)
+        self.devstats = DeviceStats(self.device, self.hbm)
+        # (table, generation) -> (uploaded column set, ColumnBatch);
+        # each entry holds a reservation under the same key
         self._device_tables: dict[tuple, tuple] = {}
         # the last statement's route (_fresh_route): its main query's
         # Compact nodes, replans ("no_topk", "no_compact", in order) and
@@ -130,16 +162,32 @@ class Engine:
         if isinstance(stmt, ast.Analyze):
             self.store.analyze(stmt.table)
             return Result(tag="ANALYZE")
-        if isinstance(stmt, ast.SetVar) and not stmt.cluster:
+        if isinstance(stmt, ast.SetVar) and stmt.cluster:
+            try:
+                self.settings.set(stmt.name, stmt.value)
+            except SettingError as e:
+                raise EngineError(str(e)) from e
+            return Result(tag="SET CLUSTER SETTING")
+        if isinstance(stmt, ast.SetVar):
             value = stmt.value
-            if stmt.name in ("pallas_groupagg", "sort_normalized"):
+            if stmt.name in _VAR_VALUES:
                 value = str(value).lower()
-                if value not in _MODES:
+                if value not in _VAR_VALUES[stmt.name]:
+                    *head, last = _VAR_VALUES[stmt.name]
                     raise EngineError(
                         f"invalid value for {stmt.name}: {value!r} "
-                        "(auto, on or off)")
+                        f"({', '.join(head)} or {last})")
             elif stmt.name == "hash_group_capacity":
                 value = _capacity(value)
+            elif stmt.name == "streaming_page_rows":
+                try:
+                    value = int(value)
+                except (TypeError, ValueError):
+                    value = 0
+                if value <= 0:
+                    raise EngineError("invalid value for "
+                                      "streaming_page_rows: a positive "
+                                      "row count")
             session.vars.set(stmt.name, value)
             return Result(tag="SET")
         raise EngineError(
@@ -796,15 +844,21 @@ class Engine:
                         sql_text: str, no_topk: bool = False,
                         no_compact: bool = False,
                         no_memo: bool = False) -> Prepared:
-        """Plan, check, upload and compile one SELECT into a Prepared.
+        """Plan, place, check, upload and compile one SELECT into a
+        Prepared.
 
         Uncorrelated subqueries run while the binder plans (their rows
         become constants), and the tables they read join this plan's
-        generation set. The compiled plan comes from the exec cache,
-        keyed as the reference keys it: the statement text, the scans'
-        padded row counts and dictionary sizes, the session variables
-        that change the compiled plan, the plan fingerprint (a
-        subquery's inlined constant changes it) and the replan flags."""
+        generation set. The placement verdict follows the reference's
+        order: spill (join, then sort) before stream before resident
+        (exec/scanplane.py). A streamed or spilled table is not
+        uploaded whole, and its cached resident copy is released. The
+        compiled plan comes from the exec cache, keyed as the
+        reference keys it: the statement text, the scans' padded row
+        counts (a streamed scan's page rows) and dictionary sizes, the
+        verdict, the session variables that change the compiled plan,
+        the plan fingerprint (a subquery's inlined constant changes
+        it) and the replan flags."""
         read_ts = self.clock.now()
         sink: set = set()
         self._gen_sinks.append(sink)
@@ -813,6 +867,15 @@ class Engine:
                                     no_memo=no_memo)
         finally:
             self._gen_sinks.pop()
+        scan_aliases, scan_cols = scan_maps(node)
+        spill = self._spill_decision(node, scan_aliases, scan_cols,
+                                     session, meta)
+        stream = (None if spill is not None else
+                  self._stream_decision(node, scan_aliases, scan_cols,
+                                        session))
+        paged = {stream[0]} if stream is not None else set()
+        if spill is not None:
+            paged = {spill.alias, spill.build_alias} - {""}
         try:
             self._check_join_builds(node, read_ts)
         except EngineError:
@@ -825,35 +888,84 @@ class Engine:
                                             no_memo=True)
             raise
         self._bound_agg_group_rows(node, read_ts)
-        if not no_compact:
+        if not no_compact and not paged:
+            # selection compaction is gated off under paging: its
+            # sentinel cannot ride the page state
             node = self._insert_compaction(node)
         scans, gens, shapes = {}, sink, []
-        for alias, tname, cols in _collect_scans(node):
-            b = self._device_table(tname, cols)
-            scans[alias] = b
+        resident = {t for a, t in scan_aliases.items() if a not in paged}
+        for alias, tname in scan_aliases.items():
+            cols = scan_cols[alias]
             td = self.store.table(tname)
+            dl = tuple(sorted((cn, len(d))
+                              for cn, d in td.dictionaries.items()))
             gens.add((tname, td.generation))
-            shapes.append((tname, b.n, tuple(sorted(
-                (cn, len(d)) for cn, d in td.dictionaries.items()))))
+            if alias in paged:
+                # never uploaded whole, and its resident copy goes (so
+                # streaming saves the memory); the shape is the page
+                # size (0 for a spill, whose verdict is in the key)
+                if tname not in resident:
+                    self._evict_device(tname)
+                shapes.append((tname, stream[2] if stream is not None
+                               else 0, dl))
+                continue
+            b = self._maybe_pruned_upload(node, alias, tname, cols)
+            if b is None:
+                b = self._device_table(tname, cols)
+            scans[alias] = b
+            shapes.append((tname, b.n, dl))
         # a subquery's temps are dropped when it returns: the base
         # tables behind them joined the sets when the temps were built
         for outer in self._gen_sinks:
             outer.update(g for g in gens if not g[0].startswith(TEMP_PREFIX))
         params = self._exec_params(session, no_topk)
-        key = (sql_text, tuple(sorted(shapes)),
+        key = (sql_text, tuple(sorted(shapes)), stream, spill,
                params.hash_group_capacity, params.pallas_groupagg,
                params.sort_normalized, hash(repr(node)), no_topk,
                no_compact)
-        runf, meta = self._compiled(key, node, params, meta)
-        return Prepared(self, session, sel, sql_text, runf, scans, meta,
-                        tuple(sorted(gens)), node, no_topk=no_topk,
-                        no_compact=no_compact)
+        if spill is not None and spill.kind == "sort":
+            compile_fn = compile_spill_sort
+        elif stream is not None or spill is not None:
+            # the spill join probes with the unchanged streaming page
+            # program: each probe row lands in exactly one (partition,
+            # page), so the page-partial algebra is exact over the sweep
+            compile_fn = compile_streaming
+        else:
+            compile_fn = compile_plan
+        runf, meta = self._compiled(key, node, params, meta, compile_fn)
+        p_alias = spill.alias if spill is not None else (
+            stream[0] if stream is not None else None)
+        # zone checks of the paged scan's pushed-down predicates (the
+        # spill join's probe skips none: every probe row belongs to
+        # one partition whatever the predicate says); join-filter specs
+        # over this plan, summarized per dispatch
+        stream_zone = ()
+        if stream is not None or (spill is not None
+                                  and spill.kind == "sort"):
+            stream_zone = extract_zone_preds(node, p_alias)
+        jf_specs = ()
+        if stream is not None or (spill is not None
+                                  and spill.kind == "join"):
+            jf_specs = find_specs(node, p_alias, self.store)
+        return Prepared(
+            self, session, sel, sql_text, runf, scans, meta,
+            tuple(sorted(gens)), node, no_topk=no_topk,
+            no_compact=no_compact, stream=stream,
+            stream_cols=scan_cols.get(p_alias) if p_alias else None,
+            stream_zone=stream_zone, spill=spill,
+            spill_cols=(scan_cols.get(spill.build_alias)
+                        if spill is not None and spill.build_alias
+                        else None),
+            joinfilter=jf_specs, placement=self._placement_key(session))
 
     # compiled plans kept (an LRU, as the reference bounds its cache)
     EXEC_CACHE_MAX = 512
 
-    def _compiled(self, key, node, params: ExecParams, meta):
-        """(compiled plan, meta) from the exec cache, or compiled now."""
+    def _compiled(self, key, node, params: ExecParams, meta,
+                  compile_fn=compile_plan):
+        """(compiled plan, meta) from the exec cache, or compiled now
+        with ``compile_fn`` (compile_plan, compile_streaming or
+        compile_spill_sort)."""
         hit = self._exec_cache.get(key)
         if hit is not None:
             self.plan_cache["hit"] += 1
@@ -861,7 +973,7 @@ class Engine:
             return hit
         self.plan_cache["miss"] += 1
         try:
-            runf = compile_plan(node, params, meta)
+            runf = compile_fn(node, params, meta)
         except ExecError as e:
             raise EngineError(str(e)) from e
         self._exec_cache[key] = (runf, meta)
@@ -992,6 +1104,8 @@ class Engine:
                 raise _RowPath("derived tables take the row path")
             with self._inner():
                 prep = self._prepare_select(sub, session, sql_text)
+                if prep.spill is not None and prep.spill.kind == "sort":
+                    raise _RowPath("a spilled sort merges on the host")
                 try:
                     pulled = pull_batch_columns(prep.checked(),
                                                 list(prep.meta.names))
@@ -1188,7 +1302,9 @@ class Engine:
     # -- device upload -------------------------------------------------------
     def _device_table(self, name: str, cols: frozenset) -> ColumnBatch:
         """Resident device copy of ``name`` holding at least ``cols``:
-        cached per table generation, or uploaded now."""
+        cached per table generation, or uploaded now. The upload's
+        bytes are reserved against the budget before it moves
+        (MemoryQuotaError past it) and released with the copy."""
         td = self.store.table(name)
         key = (name, td.generation)
         hit = self._device_tables.get(key)
@@ -1197,21 +1313,28 @@ class Engine:
         self._evict_device(name)
         if hit is not None:
             cols = cols | hit[0]
-        b = self._device_upload(td, cols)
+        self.movement.reserve_resident(key,
+                                       self._table_device_bytes(td, cols))
+        try:
+            b = self._batch_from_chunks(td, td.chunks, cols)
+        except BaseException:
+            self.movement.release_resident(key)
+            raise
         self._device_tables[key] = (cols, b)
         return b
 
     def _evict_device(self, name: str) -> None:
-        """Drop every resident device copy of table ``name``."""
+        """Drop every resident device copy of table ``name`` and its
+        reservation."""
         for k in [k for k in self._device_tables if k[0] == name]:
             del self._device_tables[k]
+            self.movement.release_resident(k)
 
-    def _device_upload(self, td, cols: frozenset) -> ColumnBatch:
+    def _batch_from_chunks(self, td, chunks, cols: frozenset) -> ColumnBatch:
         """Concatenate chunks, pad to a power-of-two row count of at
         least 128 (sel False, MVCC never-visible), and copy to the
         device with the MVCC columns. torch.tensor copies, so the
         device batch never aliases the store's arrays."""
-        chunks = td.chunks
         n = sum(c.n for c in chunks)
         padded = next_pow2(max(n, 128))
         data, valid = {}, {}
@@ -1277,10 +1400,10 @@ class Engine:
 
 def _fresh_route() -> dict:
     return {"compact_nodes": 0, "replans": [], "subqueries": 0,
-            "temps": [], "partitioned": [],
+            "temps": [], "partitioned": [], "paging": None,
             "all": {"runs": 0, "compact_nodes": 0, "compacts_applied": 0,
                     "topk_cuts": 0, "group_ids": 0, "expansions": [],
-                    "replans": [], "partitioned": []}}
+                    "replans": [], "partitioned": [], "paging": []}}
 
 
 def _check_select(sel: ast.Select) -> None:
@@ -1299,18 +1422,6 @@ def _temp_names(names, rename, tname: str) -> list:
     if len(set(names)) != len(names):
         raise EngineError(f"duplicate column names in {tname}")
     return names
-
-
-def _collect_scans(node) -> list[tuple[str, str, frozenset]]:
-    """(alias, table, stored columns read) of every scan in the plan."""
-    if isinstance(node, P.Scan):
-        return [(node.alias, node.table, frozenset(node.columns.values()))]
-    out = []
-    for attr in ("child", "left", "right"):
-        c = getattr(node, attr, None)
-        if c is not None:
-            out.extend(_collect_scans(c))
-    return out
 
 
 def _probe_rows_bound(node, store) -> int:

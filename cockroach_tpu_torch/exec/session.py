@@ -4,6 +4,7 @@ cockroach_tpu/exec/session.py that this package's Engine uses)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 from ..utils.settings import SessionVars
 
@@ -68,7 +69,14 @@ class Prepared:
     overflowed compaction block replans uncompacted (``no_compact``),
     and a hash GROUP BY past ``hash_group_capacity`` re-runs this plan
     partition by partition (Engine._run_partitioned). The flags stay
-    set on the handle once a run needed them."""
+    set on the handle once a run needed them.
+
+    A plan placed beyond memory runs page by page on every dispatch:
+    ``stream`` = (alias, table, page_rows) pages the fact table through
+    the card, ``spill`` (exec/spill.py SpillPlan) runs a partitioned
+    external hash join or an external merge sort. The placement is
+    decided again when the budget, the placement session variables or
+    a table's generation moved since the preparation."""
 
     engine: object
     session: Session
@@ -81,30 +89,120 @@ class Prepared:
     node: object                    # the final plan (for partitioning)
     no_topk: bool = False
     no_compact: bool = False
+    # beyond-memory paging: (alias, table, page_rows) of the streamed
+    # fact table, its pruned columns, and the zone checks of its
+    # pushed-down predicates (exec/stream.py extract_zone_preds)
+    stream: Optional[tuple] = None
+    stream_cols: Optional[frozenset] = None
+    stream_zone: tuple = ()
+    # the out-of-core verdict (exec/spill.py SpillPlan) and the spilled
+    # build side's pruned columns (the probe's ride stream_cols)
+    spill: Optional[object] = None
+    spill_cols: Optional[frozenset] = None
+    # join-induced skipping: JoinFilterSpecs over the paged probe,
+    # summarized per dispatch at its read timestamp
+    joinfilter: tuple = ()
+    # Engine._placement_key at preparation
+    placement: tuple = ()
 
     def _refresh(self) -> None:
         eng = self.engine
         cur = tuple((t, eng.store.table(t).generation
                      if t in eng.store.tables else -1)
                     for t, _ in self.gens)
-        if cur != self.gens:
+        if cur != self.gens \
+                or eng._placement_key(self.session) != self.placement:
             self._reprepare()
 
     def _reprepare(self) -> None:
         p = self.engine._prepare_select(
             self.stmt, self.session, self.sql_text,
             no_topk=self.no_topk, no_compact=self.no_compact)
-        self.runf, self.scans, self.meta = p.runf, p.scans, p.meta
-        self.gens, self.node = p.gens, p.node
+        for f in ("runf", "scans", "meta", "gens", "node", "stream",
+                  "stream_cols", "stream_zone", "spill", "spill_cols",
+                  "joinfilter", "placement"):
+            setattr(self, f, getattr(p, f))
+
+    def _join_filters(self, tsv: int) -> tuple:
+        """This dispatch's semi-join filters (exec/joinfilter.py),
+        derived under the reference's default rule (auto: builds up to
+        joinfilter.AUTO_BUILD_CAP rows)."""
+        if not self.joinfilter:
+            return ()
+        from . import joinfilter as jf
+        out = []
+        for spec in self.joinfilter:
+            f = jf.derive(self.engine, spec, tsv)
+            if f is not None:
+                out.append(f)
+        return tuple(out)
 
     def dispatch(self, read_ts=None):
         """Run the compiled plan once; the device result batch."""
         from .compile import RunContext
         self._refresh()
         ts = read_ts or self.engine.clock.now()
-        rc = RunContext(self.scans, ts.to_int())
+        tsv = ts.to_int()
+        if self.spill is not None:
+            if self.spill.kind != "join":
+                raise EngineError("spill-sort statements merge on the "
+                                  "host; use Prepared.run()")
+            from .spill import run_spill_join
+            return run_spill_join(self.engine, self, tsv)
+        if self.stream is not None:
+            return self._dispatch_paged(tsv)
+        rc = RunContext(self.scans, tsv)
         out = self.runf(rc)
         self.engine._note_route(self, rc.route)
+        return out
+
+    def _dispatch_paged(self, tsv: int):
+        """The streamed plan: page partials combined on the card, then
+        finalized. A background worker uploads page i+1 while page i
+        computes (``streaming_pipeline = off`` keeps it synchronous);
+        zone-, MVCC- and join-filter-pruned pages never move. No step
+        reads a device value back to the host."""
+        from .compile import RunContext
+        from .spill import _STALL_HELP, _StallSum
+        eng = self.engine
+        alias, tname, page_rows = self.stream
+        pipeline = str(self.session.vars.get("streaming_pipeline",
+                                             "on")) != "off"
+        zpreds = self.stream_zone
+        filters = self._join_filters(tsv)
+        if filters:
+            from .joinfilter import zone_pred
+            zpreds = zpreds + tuple(zone_pred(f) for f in filters)
+        src = eng._page_source(tname, self.stream_cols, page_rows,
+                               zone_preds=zpreds, read_ts=tsv)
+        stall = _StallSum(eng.metrics.histogram(
+            "exec.stream.prefetch_stall_seconds", _STALL_HELP))
+        skipped0 = eng.metrics.counter("exec.stream.pages_skipped").value()
+        scans = dict(self.scans)
+        route = RunContext.new_route()
+        state = None
+        pages = 0
+        for page in eng._stream_pages(src, pipeline, stall):
+            scans[alias] = page
+            s = self.runf.page_fn(RunContext(scans, tsv, route=route))
+            state = s if state is None else self.runf.combine(state, s)
+            pages += 1
+        if state is None:
+            # every page was skipped: one never-visible padding page
+            # gives the aggregate its empty state (COUNT 0, NULL sums)
+            scans[alias] = src.empty_page()
+            state = self.runf.page_fn(RunContext(scans, tsv, route=route))
+        out = self.runf.final_fn(state)
+        overlap = max(0.0, src.busy_seconds - stall.total) if pipeline \
+            else 0.0
+        eng.movement.note_overlap(overlap)
+        eng._note_route(self, route)
+        eng._note_paging(
+            self, "stream", pages=pages, bytes_moved=src.bytes_moved,
+            stall=stall.total if pipeline else 0.0, overlap=overlap,
+            busy=src.busy_seconds,
+            skipped=eng.metrics.counter("exec.stream.pages_skipped")
+            .value() - skipped0)
         return out
 
     def checked(self, read_ts=None):
@@ -124,6 +222,12 @@ class Prepared:
     def run(self, read_ts=None) -> Result:
         eng = self.engine
         with eng._statement():
+            self._refresh()
+            if self.spill is not None and self.spill.kind == "sort":
+                # the external merge sort's tail runs on the host
+                from .spill import run_spill_sort
+                ts = read_ts or eng.clock.now()
+                return run_spill_sort(eng, self, ts.to_int())
             while True:
                 try:
                     return eng._materialize(self.checked(read_ts),

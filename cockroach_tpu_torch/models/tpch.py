@@ -355,7 +355,8 @@ ALL_TABLES = ("lineitem", "part", "orders", "customer", "supplier",
 
 
 def load(engine, sf: float, seed: int = 0, tables=("lineitem", "part"),
-         rows: int | None = None, encoded: bool = False) -> None:
+         rows: int | None = None, encoded: bool = False,
+         chunk_rows: int | None = None, analyze: bool = True) -> None:
     """Create + bulk-ingest TPC-H tables into an Engine.
 
     ``rows`` caps the *lineitem* row count only (CI-speed slices);
@@ -363,7 +364,13 @@ def load(engine, sf: float, seed: int = 0, tables=("lineitem", "part"),
     key spaces stay consistent with gen_lineitem's foreign keys.
     ``encoded`` uses the pre-encoded string fast path (same numeric
     data and returnflag/linestatus values as the object path for a
-    given seed, so the numpy oracles still agree)."""
+    given seed, so the numpy oracles still agree). ``chunk_rows`` cuts
+    each table into sealed chunks of that many rows (the reference's
+    option): per-chunk zone maps then have ranges narrow enough for
+    streamed pages to skip on. ``analyze=False`` leaves the tables
+    without ANALYZE statistics (the planner then reads the chunks'
+    seal-time sketches): a single-table scan needs none, and ANALYZE
+    over hundreds of millions of rows takes minutes."""
     ts = engine.clock.now()
     gens = {
         "part": lambda: gen_part(sf),
@@ -383,10 +390,18 @@ def load(engine, sf: float, seed: int = 0, tables=("lineitem", "part"),
             cols = gen_lineitem(sf, seed=seed, rows=rows, encoded=encoded)
         else:
             cols = gens[t]()
-        engine.store.insert_columns(t, cols, ts)
+        if chunk_rows:
+            n = len(next(iter(cols.values())))
+            for lo in range(0, n, chunk_rows):
+                engine.store.insert_columns(
+                    t, {k: v[lo:lo + chunk_rows] for k, v in cols.items()},
+                    ts)
+        else:
+            engine.store.insert_columns(t, cols, ts)
         # column stats feed the planner (sql/stats.py), as after the
         # reference's own loads
-        engine.execute(f"ANALYZE {t}")
+        if analyze:
+            engine.execute(f"ANALYZE {t}")
 
 
 # ---------------------------------------------------------------------------

@@ -50,10 +50,22 @@ def masked_count(mask):
     return torch.sum(mask.to(torch.int64))
 
 
+def _bool_fold(fold):
+    """MIN/MAX over BOOL: fold the values as uint8 (False < True), then
+    back to BOOL."""
+    def folded(data, *args):
+        if data.dtype == torch.bool:
+            return fold(data.to(torch.uint8), *args).to(torch.bool)
+        return fold(data, *args)
+    return folded
+
+
+@_bool_fold
 def masked_min(data, mask):
     return torch.amin(torch.where(mask, data, _minident(data.dtype)))
 
 
+@_bool_fold
 def masked_max(data, mask):
     return torch.amax(torch.where(mask, data, _maxident(data.dtype)))
 
@@ -150,14 +162,25 @@ def group_count(group_ids, mask, num_groups: int):
                         num_groups).to(torch.int64)
 
 
+@_bool_fold
 def group_min(data, group_ids, mask, num_groups: int):
     return _scatter_reduce(data, _slot(group_ids, mask, num_groups),
                            num_groups, "amin", _minident(data.dtype))
 
 
+@_bool_fold
 def group_max(data, group_ids, mask, num_groups: int):
     return _scatter_reduce(data, _slot(group_ids, mask, num_groups),
                            num_groups, "amax", _maxident(data.dtype))
+
+
+def group_any(data, group_ids, mask, num_groups: int):
+    """Per-group representative of a value that is constant within
+    each group (the planner's functionally dependent group keys ride
+    as ``any``): a scatter-max, whose empty groups hold the very
+    negative identity (iinfo.min, -inf), so page partials combine by
+    max and pick the one real value."""
+    return group_max(data, group_ids, mask, num_groups)
 
 
 def distinct_first_mask(data, mask, group_ids, num_groups: int,

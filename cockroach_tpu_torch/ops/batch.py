@@ -124,3 +124,32 @@ def pull_batch_columns(batch: ColumnBatch, names: list):
     pulled = pull_arrays(datas + valids)
     k = len(names)
     return {c: (pulled[i], pulled[k + i]) for i, c in enumerate(names)}
+
+
+def concat(batches: list[ColumnBatch]) -> ColumnBatch:
+    """Concatenate batches with identical schemas along rows."""
+    first = batches[0]
+    data = tuple(torch.cat([b.data[i] for b in batches])
+                 for i in range(len(first.names)))
+    valid = tuple(torch.cat([b.valid[i] for b in batches])
+                  for i in range(len(first.names)))
+    sel = torch.cat([b.sel for b in batches])
+    return ColumnBatch(data, valid, sel, first.names)
+
+
+def pad_to(batch: ColumnBatch, n: int) -> ColumnBatch:
+    """Pad a batch to ``n`` rows with dead rows (sel False, zero data,
+    NULL validity)."""
+    cur = batch.n
+    if cur == n:
+        return batch
+    if cur > n:
+        raise ValueError(f"batch of {cur} rows cannot pad to {n}")
+
+    def padarr(a):
+        return torch.cat([a, torch.zeros((n - cur,) + tuple(a.shape[1:]),
+                                         dtype=a.dtype, device=a.device)])
+
+    return ColumnBatch(tuple(padarr(d) for d in batch.data),
+                       tuple(padarr(v) for v in batch.valid),
+                       padarr(batch.sel), batch.names)

@@ -29,6 +29,7 @@ trips a device-side assert on CUDA.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..utils.num import next_pow2
@@ -40,6 +41,48 @@ from .batch import ColumnBatch
 # customer's orders pass at SF 0.1 and up (TPC-H Q13); the engine takes
 # K past 32 only for small probe sides (Engine.MAX_WIDE_EXPANDED_ROWS)
 MAX_EXPAND = 64
+
+# Fibonacci-multiplicative mix of the host-side spill partitioner (the
+# reference's constant, so both engines put a key in the same partition)
+_SPILL_MULT = np.uint64(0x9E3779B97F4A7C15)
+
+
+def radix_partition_ids(cols, valids, nparts: int) -> np.ndarray:
+    """Host partition id per row for the spill-partitioned hash join
+    (exec/spill.py), bit-equal to the reference's.
+
+    ``cols``/``valids`` are ONE side's stored int-family key columns;
+    both sides partition with this function, so every probe/build
+    pair hash_join could match (equal values on every key column)
+    lands in the same partition. NULL keys hash as 0: they match
+    nothing on the card, so any partition is right. ``nparts`` is a
+    power of two; ids take the high bits of the mixed word."""
+    h = np.zeros(len(cols[0]), dtype=np.uint64)
+    for d, v in zip(cols, valids):
+        # an int64 view keeps negative keys equal across the int32 and
+        # int64 widths the two sides may store
+        k = d.astype(np.int64, copy=False).view(np.uint64)
+        k = np.where(v, k, np.uint64(0))
+        h = (h ^ k) * _SPILL_MULT
+    if nparts <= 1:
+        return np.zeros(len(h), dtype=np.int64)
+    shift = np.uint64(64 - (nparts - 1).bit_length())
+    return (h >> shift).astype(np.int64)
+
+
+def summarize_build_keys(keys: np.ndarray, key_cap: int):
+    """Semi-join filter summary of a build side's visible keys
+    (exec/joinfilter.py): (lo, hi, sorted unique keys or None, bloom or
+    None). Up to ``key_cap`` keys stay exact; past it a blocked bloom
+    stands in, which is never false-negative either."""
+    from ..storage.chunkstats import BlockedBloom
+    keys = np.unique(keys.astype(np.int64, copy=False))
+    lo, hi = int(keys[0]), int(keys[-1])
+    if len(keys) <= key_cap:
+        return lo, hi, keys, None
+    bl = BlockedBloom(len(keys))
+    bl.add(keys)
+    return lo, hi, None, bl
 
 
 def hash_join(probe: ColumnBatch, build: ColumnBatch,

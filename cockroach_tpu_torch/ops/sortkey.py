@@ -41,6 +41,7 @@ argsort path (a key dtype with no encoding).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 INT64_MIN = -(1 << 63)
@@ -196,6 +197,22 @@ def mask_dead(lanes, sel):
 def ordered(lane: torch.Tensor) -> torch.Tensor:
     """The int64 word whose signed order is the lane's unsigned order."""
     return lane ^ INT64_MIN
+
+
+def merge_lanes_host(runs) -> np.ndarray:
+    """Host merge of the spill sort's device-sorted runs
+    (exec/spill.py), bit-equal to the reference's.
+
+    ``runs`` holds one ``[L, k_i]`` numpy lane stack per run, all
+    packed by the same key specs, as uint64 or as this module's int64
+    bit patterns. Returns the stable ascending permutation over the
+    runs' concatenation: each run is sorted and runs concatenate in row
+    order, so a stable lexsort over the unsigned lanes gives the
+    permutation one sort_perm over all rows would."""
+    lanes = [np.concatenate([r[i] for r in runs]).view(np.uint64)
+             for i in range(runs[0].shape[0])]
+    # np.lexsort takes its LAST key as primary; lanes are major-first
+    return np.lexsort(tuple(reversed(lanes)))
 
 
 def sort_perm(lanes, *, kind: str | None = None) -> torch.Tensor:

@@ -63,13 +63,17 @@ def profile_queries(eng, queries: dict, runs: int, out: str) -> dict:
                    if e.device_type.name == "CUDA"]
         busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 \
             / runs
+        # copies run on a stream of their own in a streamed scan, so
+        # they may overlap the kernels: busy can then pass the wall
+        memcpy = sum(e.time_range.elapsed_us() for e in kernels
+                     if e.name.startswith("Memcpy")) / 1e3 / runs
         by_name: dict[str, float] = {}
         for e in kernels:
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us()
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
         summary[name] = {
-            "wall_ms": wall, "device_busy_ms": busy,
+            "wall_ms": wall, "device_busy_ms": busy, "memcpy_ms": memcpy,
             "device_idle_share": max(0.0, 1.0 - busy / wall),
             "kernels_per_run": len(kernels) / runs,
             # launches of the hand-written kernels, through their wrappers

@@ -225,6 +225,14 @@ class Binder:
             return BUnary("-", o, o.type)
         if isinstance(e, ast.Between):
             x = self.bind(e.expr)
+            if x.type.family == Family.STRING:
+                # a dictionary column orders through its dictionary:
+                # bind x >= lo AND x <= hi, whose ordered compares
+                # become dictionary lookups
+                rng = self.bind(ast.BinOp("and",
+                                          ast.BinOp(">=", e.expr, e.lo),
+                                          ast.BinOp("<=", e.expr, e.hi)))
+                return BUnary("not", rng, BOOL) if e.negated else rng
             lo = self.coerce(self.bind(e.lo), x.type)
             hi = self.coerce(self.bind(e.hi), x.type)
             x, lo, hi = self._align3(x, lo, hi)

@@ -39,9 +39,6 @@ from dataclasses import replace
 
 from . import ast
 
-_counter = itertools.count()
-
-
 def _conjuncts(e):
     if isinstance(e, ast.BinOp) and e.op == "and":
         return _conjuncts(e.left) + _conjuncts(e.right)
@@ -201,9 +198,12 @@ def decorrelate_scalar(sel: ast.Select, columns_of) -> ast.Select:
 
     sel = copy.deepcopy(sel)
     new_joins = []
+    # derived-table names count per statement, so re-executions of one
+    # statement rewrite to the same text and hit the exec cache
+    seq = itertools.count()
 
     def visit(sub, setter):
-        out = _rewrite_scalar(sub.select, outer_aliases, columns_of)
+        out = _rewrite_scalar(sub.select, outer_aliases, columns_of, seq)
         if out is None:
             return
         join, repl = out
@@ -220,7 +220,8 @@ def decorrelate_scalar(sel: ast.Select, columns_of) -> ast.Select:
     return sel
 
 
-def _rewrite_scalar(sub: ast.Select, outer_aliases: set, columns_of):
+def _rewrite_scalar(sub: ast.Select, outer_aliases: set, columns_of,
+                    seq):
     """One correlated scalar subquery -> (JoinClause, replacement
     expr), or None. The subquery may itself join several tables
     (TPC-H q2's min-supplycost over partsupp x supplier x nation x
@@ -281,7 +282,7 @@ def _rewrite_scalar(sub: ast.Select, outer_aliases: set, columns_of):
     if not eq_corr:
         return None  # uncorrelated: the binder inlines it already
 
-    dn = f"__sc{next(_counter)}"
+    dn = f"__sc{next(seq)}"
     items = []
     group_by = []
     on_parts = []
@@ -339,12 +340,14 @@ def decorrelate_exists(sel: ast.Select, columns_of,
     new_conjs = []
     new_joins = []
     changed = False
+    # derived-table names count per statement (see decorrelate_scalar)
+    seq = itertools.count()
     for c in _conjuncts(sel.where):
         ex, negated = _match_exists(c)
         rewritten = None
         if ex is not None and ex.select is not None:
             rewritten = _rewrite_one(ex.select, negated, outer_aliases,
-                                     columns_of, is_string_col)
+                                     columns_of, seq, is_string_col)
         if rewritten is None:
             new_conjs.append(c)
             continue
@@ -359,7 +362,7 @@ def decorrelate_exists(sel: ast.Select, columns_of,
 
 
 def _rewrite_one(sub: ast.Select, negated: bool, outer_aliases: set,
-                 columns_of, is_string_col=None):
+                 columns_of, seq, is_string_col=None):
     """One EXISTS subquery -> (JoinClause, replacement predicate),
     or None if the shape is not rewritable."""
     if sub.table is None or sub.table.subquery is not None or \
@@ -399,7 +402,7 @@ def _rewrite_one(sub: ast.Select, negated: bool, outer_aliases: set,
             is_string_col(sub.table.name, neq_corr[0][0].name):
         return None
 
-    dn = f"__exists{next(_counter)}"
+    dn = f"__exists{next(seq)}"
     items = []
     group_by = []
     on_parts = []

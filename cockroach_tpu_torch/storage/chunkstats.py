@@ -28,6 +28,8 @@ del_max <= read_ts (everything dead by then).
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -91,6 +93,9 @@ class BlockedBloom:
         block = (h & np.uint64(len(self.words) - 1)).astype(np.int64)
         m = self._masks(h)
         return (self.words[block] & m) == m
+
+    def might_contain_any(self, keys: np.ndarray) -> bool:
+        return bool(self.might_contain(keys).any())
 
     @staticmethod
     def _masks(h: np.ndarray) -> np.ndarray:
@@ -175,29 +180,46 @@ def column_zone(vals: np.ndarray, valid: np.ndarray):
     return (int(lo), int(hi), nulls, nvalid)
 
 
+def _column_stats(vals: np.ndarray, v: np.ndarray):
+    """(zone, bloom or None, sketch or None) of one column."""
+    z = column_zone(vals, v)
+    if not (vals.dtype.kind in "iu" and vals.dtype.itemsize >= 2):
+        return z, None, None
+    # z[3] is the valid count: reuse it to skip the boolean gather on
+    # fully-valid columns, and hash once for both summaries
+    keys = vals if z[3] == len(vals) else vals[v]
+    h = mix64(keys) if len(keys) else keys
+    bl = BlockedBloom(len(keys))
+    bl.add_hashed(h)
+    sk = DistinctSketch()
+    sk.add_hashed(h)
+    return z, bl, sk
+
+
+# chunks of at least this many rows summarize their columns on a pool
+# of threads (the hashing and scatters release the GIL for long spans)
+_PARALLEL_ROWS = 1 << 20
+
+
 def compute(data: dict, valid: dict, mvcc_ts: np.ndarray,
             mvcc_del: np.ndarray) -> ChunkStats:
     """Build the full seal-time summary for one chunk. Blooms and
     sketches cover int-family columns only (ints + dict codes); float
     and object columns still get zones."""
     st = ChunkStats()
-    for col, vals in data.items():
-        v = valid[col]
-        z = column_zone(vals, v)
-        st.zones[col] = z
-        if vals.dtype.kind in "iu" and vals.dtype.itemsize >= 2:
-            # z[3] is the valid count: reuse it to skip the boolean
-            # gather on fully-valid columns, and hash once for both
-            # summaries — this runs on every ingest/compaction seal
-            keys = vals if z[3] == len(vals) else vals[v]
-            h = mix64(keys) if len(keys) else keys
-            bl = BlockedBloom(len(keys))
-            bl.add_hashed(h)
-            st.blooms[col] = bl
-            sk = DistinctSketch()
-            sk.add_hashed(h)
-            st.distinct[col] = sk
     n = len(mvcc_ts)
+    cols = list(data)
+    if n >= _PARALLEL_ROWS and len(cols) > 1:
+        with ThreadPoolExecutor(min(len(cols), os.cpu_count() or 1)) as ex:
+            stats = list(ex.map(lambda c: _column_stats(data[c], valid[c]),
+                                cols))
+    else:
+        stats = [_column_stats(data[c], valid[c]) for c in cols]
+    for col, (z, bl, sk) in zip(cols, stats):
+        st.zones[col] = z
+        if bl is not None:
+            st.blooms[col] = bl
+            st.distinct[col] = sk
     st.ts_min = int(mvcc_ts.min()) if n else 0
     st.del_max = int(mvcc_del.max()) if n else 0
     return st

@@ -115,6 +115,25 @@ class Chunk:
     def stats_ready(self) -> bool:
         return self._stats is not None
 
+    def key_bloom(self, col: str):
+        """Seal-time blocked bloom over ``col``'s valid values (int
+        family and dictionary codes only), or None."""
+        st = self._stats
+        return st.blooms.get(col) if st is not None else None
+
+    def mvcc_window(self) -> tuple[int, int]:
+        """(ts_min, del_max): nothing in this chunk is visible at
+        read_ts when ts_min > read_ts or del_max <= read_ts. ts_min is
+        exact forever (mvcc_ts never changes after seal); del_max is
+        the seal-time max and stays an upper bound because tombstones
+        only ever lower mvcc_del."""
+        st = self._stats
+        if st is not None:
+            return st.ts_min, st.del_max
+        if self.n == 0:
+            return 0, 0
+        return int(self.mvcc_ts.min()), int(self.mvcc_del.max())
+
     def zone(self, col: str):
         """(lo, hi, null_count, valid_count) over this chunk's valid
         lanes of `col`; (None, None, ...) when bounds are unknown

@@ -41,9 +41,13 @@ def store_from_arrays(tables: dict[str, dict]) -> ColumnStore:
         "valid": {column: bool ndarray[n]} (missing = all valid),
         "mvcc_ts": int64 ndarray[n], "mvcc_del": int64 ndarray[n],
         "dictionaries": {string column: list of values in code order},
+        "chunks": [rows of each sealed chunk] (missing = one chunk),
     }
-    Each table becomes one sealed chunk, then is ANALYZEd so the
-    planner sees the same statistics the source had after its ANALYZE.
+    Each table's rows are cut into the source's sealed chunks (each
+    gets its zones, blooms and MVCC window at seal, as the source's
+    did, so both engines skip the same pages), then the table is
+    ANALYZEd so the planner sees the statistics the source had after
+    its ANALYZE.
     """
     store = ColumnStore()
     for name, t in tables.items():
@@ -67,8 +71,18 @@ def store_from_arrays(tables: dict[str, dict]) -> ColumnStore:
             v = t.get("valid", {}).get(cs.name)
             valid[cs.name] = (np.ones(n, dtype=bool) if v is None
                               else np.asarray(v, dtype=bool).copy())
-        store.append_chunk(name, data, valid,
-                           np.asarray(t["mvcc_ts"], dtype=np.int64).copy(),
-                           np.asarray(t["mvcc_del"], dtype=np.int64).copy())
+        mts = np.asarray(t["mvcc_ts"], dtype=np.int64).copy()
+        mdl = np.asarray(t["mvcc_del"], dtype=np.int64).copy()
+        sizes = list(t.get("chunks") or [n])
+        if sum(sizes) != n:
+            raise ValueError(f"{name}: chunks hold {sum(sizes)} rows, "
+                             f"MVCC columns have {n}")
+        lo = 0
+        for k in sizes:
+            hi = lo + k
+            store.append_chunk(name, {c: a[lo:hi] for c, a in data.items()},
+                               {c: a[lo:hi] for c, a in valid.items()},
+                               mts[lo:hi], mdl[lo:hi])
+            lo = hi
         store.analyze(name)
     return store

@@ -1,9 +1,68 @@
-"""Session variables (the subset of cockroach_tpu/utils/settings.py
-SessionVars that this package reads)."""
+"""Cluster settings and session variables (the subset of
+cockroach_tpu/utils/settings.py that this package reads).
+
+``Settings`` is the typed cluster-setting registry
+(``Engine.settings.get/set``, ``SET CLUSTER SETTING``); ``SessionVars``
+holds one connection's variables, with the reference's names."""
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
+
+
+class SettingError(Exception):
+    pass
+
+
+@dataclass
+class _Setting:
+    name: str
+    default: object
+    kind: type
+    description: str = ""
+
+
+class Settings:
+    """Typed cluster-setting registry (cf. pkg/settings)."""
+
+    def __init__(self):
+        self._defs: dict[str, _Setting] = {}
+        self._values: dict[str, object] = {}
+        self._lock = threading.Lock()
+        _register_builtins(self)
+
+    def register(self, name: str, default, kind: type,
+                 description: str = "") -> None:
+        self._defs[name] = _Setting(name, default, kind, description)
+
+    def set(self, name: str, value) -> None:
+        d = self._defs.get(name)
+        if d is None:
+            raise SettingError(f"unknown cluster setting {name!r}")
+        try:
+            value = d.kind(value)
+        except (TypeError, ValueError) as e:
+            raise SettingError(f"bad value for {name}: {value!r}") from e
+        with self._lock:
+            self._values[name] = value
+
+    def get(self, name: str):
+        d = self._defs.get(name)
+        if d is None:
+            raise SettingError(f"unknown cluster setting {name!r}")
+        with self._lock:
+            return self._values.get(name, d.default)
+
+
+def _register_builtins(s: Settings) -> None:
+    # the reference's name, type and default, so both engines take the
+    # same placement routes at the same budget
+    s.register("sql.exec.hbm_budget_bytes", 12 << 30, int,
+               "device-memory budget for resident table uploads; "
+               "aggregate scans over bigger tables stream in pages, "
+               "over-budget join builds and sorts spill (0 = no "
+               "budget)")
 
 
 @dataclass
@@ -32,6 +91,22 @@ class SessionVars:
         "optimizer": "on",           # on | off
         "optimizer_rules": "on",     # on | off
         "optimizer_sketch_stats": "on",   # on | off
+        # beyond-memory paging (exec/stream.py): auto streams an
+        # aggregate-rooted plan's fact table page by page when its
+        # upload would not fit sql.exec.hbm_budget_bytes; off uploads
+        # it whole (a quota error past the budget)
+        "streaming": "auto",         # auto | off
+        # rows per streamed page, rounded up to a power of two (a fixed
+        # default; the reference picks it metamorphically in tests)
+        "streaming_page_rows": 1 << 21,
+        # on: a background worker assembles and uploads page i+1 while
+        # the card computes page i; off: pages assemble synchronously
+        "streaming_pipeline": "on",  # on | off
+        # out-of-core tier (exec/spill.py): partitioned external hash
+        # join and external merge sort. auto spills only when the
+        # resident and streamed paths would pass the budget; on forces
+        # every eligible shape; off never spills
+        "spill": "auto",             # auto | on | off
     })
 
     def set(self, name: str, value) -> None:

@@ -335,3 +335,90 @@ def test_engine_suite_on_card_match_cpu(cuda):
                      for q in ("Q3", "Q5", "Q10", "Q12")]
     # DECIMAL sums are exact on both devices
     assert rows["cuda"] == rows["cpu"]
+
+
+# -- streamed pages and the spill tier on the card -----------------------------
+
+def test_page_source_on_card_pages_taken_before_read(cuda):
+    """Every page uploaded (async copies from the pinned ring) before
+    any is read, over chunks that split pages and columns with NULLs:
+    each page must hold its own rows, validity and padding."""
+    from cockroach_tpu_torch.exec import stream
+    from cockroach_tpu_torch.sql.types import (INT8, ColumnSchema, SQLType,
+                                               TableSchema)
+    from cockroach_tpu_torch.storage.columnstore import ColumnStore
+    from cockroach_tpu_torch.storage.hlc import Timestamp
+    store = ColumnStore()
+    store.create_table(TableSchema(
+        name="t", columns=[ColumnSchema("a", INT8, False),
+                           ColumnSchema("b", SQLType.decimal(12, 2),
+                                        True)],
+        primary_key=[], table_id=100))
+    rng = np.random.default_rng(4)
+    parts = []
+    for n in (3000, 5000, 1234, 7000):
+        a = rng.integers(-(1 << 40), 1 << 40, n)
+        b = rng.integers(0, 1 << 30, n)
+        bv = rng.random(n) > 0.1
+        store.append_chunk("t", {"a": a, "b": b}, {"a": np.ones(n, bool),
+                                                   "b": bv},
+                           np.full(n, Timestamp(1, 0).to_int()),
+                           np.full(n, 2 ** 62, dtype=np.int64))
+        parts.append((a, b, bv))
+    a, b, bv = (np.concatenate(x) for x in zip(*parts))
+    src = stream.PageSource(store.table("t"), None, 4096, device=cuda)
+    for ups in (list(src.pages()),
+                list(stream.prefetch(src.pages()))):
+        assert len(ups) == -(-len(a) // 4096)
+        for i, up in enumerate(ups):
+            batch = up.batch()
+            lo, hi = i * 4096, min((i + 1) * 4096, len(a))
+            k = hi - lo
+            np.testing.assert_array_equal(batch.col("a")[:k].cpu().numpy(),
+                                          a[lo:hi])
+            got_v = batch.col_valid("b")[:k].cpu().numpy()
+            np.testing.assert_array_equal(got_v, bv[lo:hi])
+            np.testing.assert_array_equal(
+                batch.col("b")[:k].cpu().numpy()[got_v], b[lo:hi][got_v])
+            assert (batch.col("_mvcc_ts")[k:].cpu().numpy()
+                    == int(stream.NEVER_TS)).all()
+
+
+def test_streamed_and_spilled_on_card_match_cpu(cuda):
+    """Q1, Q6 and Q14 streamed in 8,192-row pages over 4,096-row chunks,
+    a spilled join and a spilled sort: the card's rows equal the CPU's
+    (FLOAT8 within rel 1e-9, everything else exactly)."""
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.sql.types import Family
+    join_q = ("SELECT o_orderpriority, count(*) AS n, "
+              "sum(l_extendedprice) AS r FROM lineitem, orders "
+              "WHERE l_orderkey = o_orderkey GROUP BY o_orderpriority "
+              "ORDER BY o_orderpriority")
+    sort_q = ("SELECT l_orderkey, l_linenumber, l_extendedprice FROM "
+              "lineitem WHERE l_shipdate < date '1992-03-01' ORDER BY "
+              "l_extendedprice DESC, l_orderkey, l_linenumber LIMIT 100")
+    runs = [("q1", tpch.Q1, "stream-scan"), ("q6", tpch.Q6, "stream-scan"),
+            ("q14", tpch.Q14, "spill-join"),
+            ("join", join_q, "spill-join"), ("sort", sort_q, "spill-sort")]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        e = Engine(device=dev)
+        tpch.load(e, sf=0.01, rows=50_000, chunk_rows=4096,
+                  tables=("lineitem", "part", "orders"))
+        e.settings.set("sql.exec.hbm_budget_bytes", 1 << 20)
+        s = e.session()
+        e.execute("SET streaming_page_rows = 8192", s)
+        for q, sql, route in runs:
+            assert e.stream_verdict(sql, s) == route, q
+            out[dev, q] = e.execute(sql, s)
+    for q, _, _ in runs:
+        got, want = out["cuda", q], out["cpu", q]
+        assert len(got.rows) == len(want.rows) > 0
+        floats = [t.family == Family.FLOAT for t in want.types]
+        for g_row, w_row in zip(got.rows, want.rows):
+            for g, w, fl in zip(g_row, w_row, floats):
+                if fl:
+                    assert g == pytest.approx(w, rel=1e-9)
+                else:
+                    assert g == w

@@ -426,3 +426,77 @@ def test_q1f_reads_liveness_from_its_kernel(reference, port, monkeypatch):
     _assert_rows_equal(on, ref["q1f", "on"]["rows"], rel=1e-5)
     _run(port, tpch.Q1F, "off")
     assert counted
+
+
+# ---------------------------------------------------------------------------
+# faults the port repairs where the reference raises: held to numpy
+# oracles (the reference is no oracle for them)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def sb_engine():
+    """A table of STRING, BOOL and INT columns with NULLs in both."""
+    rng = np.random.default_rng(7)
+    n = 400
+    words = np.array(["apple", "b", "banana", "c", "cherry", "d", "date",
+                      "e", "fig", ""], dtype=object)
+    s = words[rng.integers(0, len(words), n)]
+    sv = rng.random(n) > 0.1
+    b = rng.random(n) > 0.5
+    bv = rng.random(n) > 0.15
+    g = rng.integers(0, 6, n).astype(np.int64)
+    eng = Engine(device="cpu")
+    eng.execute("CREATE TABLE sb (s STRING, b BOOL, g INT)")
+    eng.store.insert_columns("sb", {"s": s, "b": b, "g": g},
+                             eng.clock.now(), valid={"s": sv, "b": bv})
+    return eng, s, sv, b, bv, g
+
+
+@pytest.mark.parametrize("lo,hi,negated", [("b", "d", False),
+                                           ("banana", "cherry", False),
+                                           ("", "c", False),
+                                           ("b", "d", True)])
+def test_string_between_compares_through_dictionary(sb_engine, lo, hi,
+                                                    negated):
+    eng, s, sv, _, _, g = sb_engine
+    op = "NOT BETWEEN" if negated else "BETWEEN"
+    got = eng.execute(f"SELECT g, count(*) AS c FROM sb WHERE s {op} "
+                      f"'{lo}' AND '{hi}' GROUP BY g ORDER BY g").rows
+    inside = np.array([lo <= x <= hi for x in s])
+    keep = sv & (~inside if negated else inside)
+    want = [(int(k), int((g[keep] == k).sum()))
+            for k in np.unique(g[keep])]
+    assert got == want
+
+
+def test_min_max_over_bool(sb_engine):
+    eng, _, _, b, bv, g = sb_engine
+    got = eng.execute("SELECT g, min(b) AS lo, max(b) AS hi, "
+                      "count(b) AS c FROM sb GROUP BY g ORDER BY g").rows
+    want = []
+    for k in range(6):
+        m = (g == k) & bv
+        want.append((k, bool(b[m].min()), bool(b[m].max()), int(m.sum())))
+    assert got == want
+    assert all(isinstance(r[1], bool) for r in got)
+    got = eng.execute("SELECT min(b) AS lo, max(b) AS hi FROM sb "
+                      "WHERE g = 2").rows
+    m = (g == 2) & bv
+    assert got == [(bool(b[m].min()), bool(b[m].max()))]
+
+
+def test_decorrelated_statement_hits_exec_cache():
+    """Decorrelation names its derived tables per statement, so a
+    second execute of Q4 (EXISTS) and Q22 (scalar subquery, NOT EXISTS)
+    compiles nothing: every plan it runs, the main query's included,
+    hits the exec cache, with the same rows."""
+    eng = Engine(device="cpu")
+    tpch.load(eng, sf=0.01, rows=20_000, tables=tpch.ALL_TABLES)
+    s = eng.session()
+    for q in (tpch.Q4, tpch.Q22):
+        first = eng.execute(q, s).rows
+        hits, misses = eng.plan_cache["hit"], eng.plan_cache["miss"]
+        again = eng.execute(q, s).rows
+        assert again == first
+        assert eng.plan_cache["miss"] == misses
+        assert eng.plan_cache["hit"] > hits
