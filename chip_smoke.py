@@ -132,10 +132,47 @@ Phases (any failure exits non-zero before the final line):
    (resident Q1 over 2^26 padded rows, the resident join) is held
    against the plain version at its own slots. One JSON `stream` line
    holds these numbers.
-Each phase's seconds are printed. Then one JSON line of per-kernel
+11. Windows, the write path and YCSB-E, on the SF1 engine of phases
+   6-9 after phase 9 (it changes the tables; phase 10 runs after it).
+   (a) Five window queries over orders (1,500,000 rows, ~100,000
+   customers as partitions): row_number, rank, dense_rank and ntile(4)
+   by o_totalprice DESC; lag, lead, first_value and last_value of
+   o_orderdate; running sum, avg, count, min and max of o_totalprice;
+   a whole-partition sum; two windows over a filtered scan. Each is
+   checked in full against a numpy oracle (integers, DECIMAL and dates
+   exactly, AVG rel 1e-9, rows in o_orderkey order), then timed: one
+   warm full run and the median of 3 warm runs with an outer LIMIT
+   1000 (decoding 1.5M rows to Python is most of a full run). (b)
+   TPC-H's refresh pair through SQL: the pk locators built and timed
+   (the reference's pure-Python row_key loop timed over 1,000,000 rows
+   beside them), RF1 (1,500 orders and their ~6,000 lines, multi-row INSERTs in one
+   transaction) with a Q6 inside it that must read its own writes, RF2
+   (DELETE of 1,500 orders' lines and orders), an UPDATE of one
+   order's l_discount and a rolled-back INSERT; then Q1, Q6, Q14 and Q3
+   against the oracles over arrays changed the same way (phase 2's and
+   6's tolerances). Q1 must launch kernel 1 once, and each kernel-1
+   call is held against the plain version at its slots (`path_checks`
+   "sf1 q1 phase 11"); a second run of each must hit the exec cache.
+   Then a further UPDATE changes l_discount and l_extendedprice of 200
+   orders' lines (Q3's first order among them): each query's next run
+   must miss the exec cache, equal the oracle over arrays changed the
+   same way (Q1 again through kernel 1, checked) and read lineitem's
+   device copy of the new generation, and its run after that must hit.
+   A small table is refilled after TRUNCATE and after DROP + CREATE
+   with the same row count and dictionary size, and must read its own
+   strings through execute() and a Prepared made before the TRUNCATE.
+   (c) YCSB-E (BASELINE.json config 5): 100,000 records loaded by the
+   workload's INSERTs of 10,000 rows, then 10,000 operations (95%
+   scans of 10 through the primary-key range fastpath, 5% inserts,
+   zipfian, seed 1), timed; every scan's rows are then held against a
+   sorted-keys oracle replayed from the run's log, and count/sums of
+   usertable on the card against it.
+Each phase's seconds are printed. After phase 10, one JSON `dml` line
+holds phase 11's numbers with the card's name and power limit; then
+one JSON line of per-kernel
 numbers (the large-G kernel's launches count Q1, Q5, Q10, Q12 and
 the path runs of phases 7, 8 and 10; `path_checks` holds each of its
-calls in phases 7, 8 and 10 held against the plain version), the
+calls in phases 7, 8, 10 and 11 held against the plain version), the
 nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 
@@ -1459,6 +1496,604 @@ def beyond_memory_phase(reps: int = 3) -> dict:
     return out
 
 
+# -- phase 11: windows, the write path and YCSB-E on the SF1 engine ----------
+
+WINDOW_LIMIT = 1000             # the timed runs' outer ORDER BY ... LIMIT
+# window queries over orders: (select list, WHERE), each run with an
+# outer ORDER BY o_orderkey (the oracle's row order)
+_BY_PRICE = "(PARTITION BY o_custkey ORDER BY o_totalprice DESC)"
+_BY_DATE = "(PARTITION BY o_custkey ORDER BY o_orderdate)"
+WINDOW_QUERIES = {
+    "ranking": (f"row_number() OVER {_BY_PRICE}, rank() OVER {_BY_PRICE}, "
+                f"dense_rank() OVER {_BY_PRICE}, ntile(4) OVER {_BY_PRICE}",
+                ""),
+    "navigation": (f"lag(o_orderdate) OVER {_BY_DATE}, lead(o_orderdate) "
+                   f"OVER {_BY_DATE}, first_value(o_orderdate) OVER "
+                   f"{_BY_DATE}, last_value(o_orderdate) OVER {_BY_DATE}",
+                   ""),
+    "running": (f"sum(o_totalprice) OVER {_BY_DATE}, avg(o_totalprice) "
+                f"OVER {_BY_DATE}, count(o_totalprice) OVER {_BY_DATE}, "
+                f"min(o_totalprice) OVER {_BY_DATE}, max(o_totalprice) "
+                f"OVER {_BY_DATE}", ""),
+    "partition_total": ("sum(o_totalprice) OVER (PARTITION BY o_custkey)",
+                        ""),
+    "filtered": (f"row_number() OVER {_BY_PRICE}, sum(o_totalprice) OVER "
+                 f"{_BY_DATE}", "o_orderdate >= DATE '1996-01-01'"),
+}
+
+
+def window_sql(name: str, limit: int | None = None) -> str:
+    items, where = WINDOW_QUERIES[name]
+    sql = f"SELECT o_orderkey, {items} FROM orders"
+    if where:
+        sql += f" WHERE {where}"
+    sql += " ORDER BY o_orderkey"
+    return sql + (f" LIMIT {limit}" if limit else "")
+
+
+def _segments(part, keys):
+    """The window oracle's sorted domain: rows ordered by (part, keys,
+    row index), the row index standing for the stored order that the
+    engine's stable sort keeps among ties. Returns (order, seg_start,
+    peer_start, peer_end, seg_end), all in the sorted domain."""
+    import numpy as np
+    n = len(part)
+    idx = np.arange(n)
+    order = np.lexsort([idx] + list(reversed(keys)) + [part])
+    ps = part[order]
+    ks = [k[order] for k in keys]
+    new_seg = np.ones(n, bool)
+    new_seg[1:] = ps[1:] != ps[:-1]
+    new_peer = new_seg.copy()
+    for k in ks:
+        new_peer[1:] |= k[1:] != k[:-1]
+    seg_start = np.maximum.accumulate(np.where(new_seg, idx, 0))
+    peer_start = np.maximum.accumulate(np.where(new_peer, idx, 0))
+
+    def ends(new):
+        last = np.ones(n, bool)
+        last[:-1] = new[1:]
+        return np.minimum.accumulate(np.where(last, idx, n - 1)[::-1])[::-1]
+    return order, seg_start, peer_start, ends(new_peer), ends(new_seg)
+
+
+def _running(x, seg_start, end):
+    """Per-row sum of x over [seg_start, end] (sorted domain)."""
+    import numpy as np
+    cum = np.cumsum(x)
+    before = np.where(seg_start > 0, cum[np.maximum(seg_start - 1, 0)], 0)
+    return cum[end] - before
+
+
+def _running_extreme(x, seg_start, end, fn):
+    """Running max (fn=np.maximum) or min of non-negative x per
+    partition, read at `end`."""
+    import numpy as np
+    seg_id = np.cumsum(seg_start == np.arange(len(x)))
+    big = int(x.max()) + 1 if len(x) else 1
+    if fn is np.maximum:
+        run = np.maximum.accumulate(x + seg_id * big) - seg_id * big
+    else:
+        run = -(np.maximum.accumulate(-x + seg_id * big) - seg_id * big)
+    return run[end]
+
+
+def window_oracle(name: str, orders: dict) -> list:
+    """Rows of window_sql(name) over the generator's orders, by numpy:
+    integers and dates exactly, DECIMAL as the engine decodes it
+    (cents / 100), AVG as float64."""
+    import datetime
+
+    import numpy as np
+    ok = orders["o_orderkey"]
+    cust = orders["o_custkey"]
+    cents = np.round(orders["o_totalprice"] * 100).astype(np.int64)
+    date = orders["o_orderdate"].astype(np.int64)
+    keep = np.ones(len(ok), bool)
+    if name == "filtered":
+        keep = date >= (datetime.date(1996, 1, 1)
+                        - datetime.date(1970, 1, 1)).days
+    ok, cust, cents, date = ok[keep], cust[keep], cents[keep], date[keep]
+    n = len(ok)
+    cols = []
+
+    def back(sorted_vals, order):
+        out = np.empty_like(sorted_vals)
+        out[order] = sorted_vals
+        return out
+
+    def day(v):
+        return datetime.date(1970, 1, 1) + datetime.timedelta(days=int(v))
+
+    if name in ("ranking", "filtered"):
+        order, ss, pst, pe, se = _segments(cust, [-cents])
+        i = np.arange(n)
+        rn = i - ss + 1
+        if name == "ranking":
+            rk = pst - ss + 1
+            c = np.cumsum(pst == i)
+            dr = c - c[ss] + 1
+            rn0, size = i - ss, se - ss + 1
+            q, rem = size // 4, size % 4
+            big = rem * (q + 1)
+            nt = np.where(rn0 < big, rn0 // (q + 1) + 1,
+                          rem + (rn0 - big) // np.maximum(q, 1) + 1)
+            cols = [back(v, order).tolist() for v in (rn, rk, dr, nt)]
+        else:
+            cols = [back(rn, order).tolist()]
+    if name in ("navigation", "running", "filtered"):
+        order, ss, pst, pe, se = _segments(cust, [date])
+        i = np.arange(n)
+        ds = date[order]
+        if name == "navigation":
+            lag = [None if j - 1 < s else day(ds[j - 1])
+                   for j, s in zip(i, ss)]
+            lead = [None if j + 1 > e else day(ds[j + 1])
+                    for j, e in zip(i, se)]
+            first = [day(v) for v in ds[ss]]
+            last = [day(v) for v in ds[pe]]
+            for vals in (lag, lead, first, last):
+                out = [None] * n
+                for j, v in zip(order, vals):
+                    out[j] = v
+                cols.append(out)
+        else:
+            cs = cents[order]
+            tot = _running(cs, ss, pe)
+            cnt = pe - ss + 1
+            if name == "running":
+                mn = _running_extreme(cs, ss, pe, np.minimum)
+                mx = _running_extreme(cs, ss, pe, np.maximum)
+                cols += [(back(tot, order) / 100).tolist(),
+                         (back(tot, order) / 100 / back(cnt, order)
+                          ).tolist(),
+                         back(cnt, order).tolist(),
+                         (back(mn, order) / 100).tolist(),
+                         (back(mx, order) / 100).tolist()]
+            else:
+                cols.append((back(tot, order) / 100).tolist())
+    if name == "partition_total":
+        order, ss, pst, pe, se = _segments(cust, [])
+        tot = _running(cents[order], ss, se)
+        cols = [(back(tot, order) / 100).tolist()]
+    # ORDER BY o_orderkey: the generator's orders are in key order
+    return list(zip(ok.tolist(), *cols))
+
+
+def check_window(label, got, want) -> float:
+    """Window rows against the oracle's, in order: FLOAT8 (AVG) within
+    rel 1e-9, every other value (integers, DECIMAL, dates) exactly."""
+    if len(got) != len(want) or not want:
+        raise AssertionError(f"{label}: {len(got)} rows, oracle "
+                             f"{len(want)}")
+    worst = 0.0
+    for g_row, w_row in zip(got, want):
+        for k, (g, w) in enumerate(zip(g_row, w_row)):
+            if label.startswith("running") and k == 2:
+                err = abs(g - w) / max(abs(w), 1e-300)
+                worst = max(worst, err)
+                if err > 1e-9:
+                    raise AssertionError(f"{label}: {g_row} != oracle "
+                                         f"{w_row}")
+            elif g != w:
+                raise AssertionError(f"{label}: {g_row} != oracle {w_row}")
+    return worst
+
+
+def window_phase(eng, orders: dict, reps: int = 3) -> dict:
+    """Phase 11a: the window queries at full size, each checked once in
+    full against its oracle, then timed as medians of `reps` warm runs
+    with an outer LIMIT (decoding 1.5M rows to Python objects takes
+    seconds a query and would be most of the time), those rows checked
+    too, and one warm full run timed."""
+    out = {}
+    for name in WINDOW_QUERIES:
+        want = window_oracle(name, orders)
+        t0 = time.perf_counter()
+        res = eng.execute(window_sql(name))
+        first_s = time.perf_counter() - t0
+        err = check_window(name, res.rows, want)
+        lim = window_sql(name, WINDOW_LIMIT)
+        check_window(name + " limit", eng.execute(lim).rows,
+                     want[:WINDOW_LIMIT])
+        out[name] = {
+            "rows": len(res.rows), "first_s": first_s,
+            "full_ms": _median_ms(lambda: eng.execute(window_sql(name)),
+                                  reps=1),
+            "limit_ms": _median_ms(lambda: eng.execute(lim), reps=reps),
+            "max_rel_err": err}
+        print(f"window {name}: " + json.dumps(out[name]), flush=True)
+    return out
+
+
+def _apply_refresh(li, orders, li_new, o_new, rf2, upd_key, upd_disc):
+    """The oracle's tables after RF1, RF2 and the UPDATE: RF1's rows in
+    the forms `li` holds (decoded strings or dictionary codes),
+    RF2's orders and their lines removed, one order's l_discount set."""
+    import numpy as np
+
+    from cockroach_tpu_torch.models import tpch
+    new = {}
+    for c, v in li.items():
+        add = li_new[c]
+        if v.dtype.kind in "iu" and add.dtype == object:
+            vocab = tpch.LINEITEM_DICTS[c]
+            add = np.asarray([vocab.index(x) for x in add], dtype=v.dtype)
+        new[c] = np.concatenate([v, add.astype(v.dtype)])
+    keep = ~np.isin(new["l_orderkey"], rf2)
+    new = {c: v[keep] for c, v in new.items()}
+    new["l_discount"] = np.where(new["l_orderkey"] == upd_key, upd_disc,
+                                 new["l_discount"])
+    o2 = {c: np.concatenate([v, o_new[c].astype(v.dtype)])
+          for c, v in orders.items()}
+    okeep = ~np.isin(o2["o_orderkey"], rf2)
+    return new, {c: v[okeep] for c, v in o2.items()}
+
+
+# rows of lineitem whose keys the pure-Python row_key loop encodes, timed
+PK_LOOP_SAMPLE = 1_000_000
+
+
+def check_refreshed(q, res, want) -> None:
+    """Q1, Q6, Q14 or Q3 after a write, against its oracle at phase 2's
+    and 6's tolerances."""
+    if q == "q1":
+        check_q1(res.rows, want)
+    elif q in ("q6", "q14"):
+        if not _close(res.rows[0][0], want, DECIMAL_REL):
+            raise AssertionError(f"{q} after the write {res.rows[0][0]} "
+                                 f"!= {want}")
+    else:
+        check_result("Q3 after the write", res, want)
+
+
+def recreate_check(eng) -> dict:
+    """TRUNCATE and DROP + CREATE give a table new dictionaries: refilled
+    with the same row count and dictionary size, it reads its own
+    strings, through execute() (a miss) and through a Prepared made
+    before the TRUNCATE."""
+    ddl = "CREATE TABLE recreated (k INT PRIMARY KEY, s STRING, " \
+          "m DECIMAL(6,2))"
+    q = "SELECT s, m FROM recreated ORDER BY k"
+    eng.execute(ddl)
+    eng.execute("INSERT INTO recreated VALUES (1, 'a', 1.10), (2, 'b', 2.20)")
+    s = eng.session()
+    p = eng.prepare(q, s)
+    steps = [([], [("a", 1.1), ("b", 2.2)]),
+             (["TRUNCATE recreated", "INSERT INTO recreated VALUES "
+               "(1, 'b', 3.30), (2, 'a', 4.40)"], [("b", 3.3), ("a", 4.4)]),
+             (["DROP TABLE recreated", ddl, "INSERT INTO recreated VALUES "
+               "(1, 'y', 5.50), (2, 'x', 6.60)"], [("y", 5.5), ("x", 6.6)])]
+    misses = []
+    for writes, want in steps:
+        for w in writes:
+            eng.execute(w, s)
+        miss = eng.plan_cache["miss"]
+        got = eng.execute(q, s).rows
+        misses.append(eng.plan_cache["miss"] - miss)
+        if got != want or p.run().rows != want or \
+                misses[-1] != (1 if writes else 0):
+            raise AssertionError(f"after {writes}: {got} (prepared "
+                                 f"{p.run().rows}), want {want}, "
+                                 f"misses {misses[-1]}")
+    eng.execute("DROP TABLE recreated")
+    return {"steps": len(steps), "misses": misses}
+
+
+def refresh_phase(eng, li, part, orders, cust, sf, reps: int = 3) -> dict:
+    """Phase 11b: TPC-H's refresh pair through SQL, then Q1, Q6, Q14
+    and Q3 against the oracles over arrays changed the same way."""
+    import numpy as np
+
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    on_card = eng.device.type == "cuda"
+    o_new, li_new = tpch.gen_refresh(sf)
+    rf2 = tpch.rf2_orderkeys(sf)
+    keys = ", ".join(str(int(k)) for k in rf2)
+    upd_key = int(next(k for k in li["l_orderkey"] if k not in set(rf2)))
+    out = {"rf1_orders": len(o_new["o_orderkey"]),
+           "rf1_lineitems": len(li_new["l_orderkey"]),
+           "rf2_orders": len(rf2),
+           "lineitem_chunks_before": len(eng.store.table("lineitem").chunks)}
+    # the pk locators the write path needs, built by the bulk encoder
+    # (storage/keys.py encode_int_keys); the reference's pure-Python
+    # path (row_key per row) is timed over a sample of lineitem beside it
+    td = eng.store.table("lineitem")
+    chunk = td.chunks[0]
+    sample = min(PK_LOOP_SAMPLE, chunk.n)
+    t0 = time.perf_counter()
+    for ri in range(sample):
+        eng.store.row_key(td, chunk, ri)
+    out["pk_row_key_loop"] = {"rows": sample,
+                              "s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    for t in ("lineitem", "orders"):
+        eng.store.ensure_pk_index(t)
+    out["pk_index_s"] = time.perf_counter() - t0
+    want_q6_old = tpch.ref_q6(li)
+    li2, orders2 = _apply_refresh(li, orders, li_new, o_new, rf2,
+                                  upd_key, 0.04)
+    rf1_only, _ = _apply_refresh(li, orders, li_new, o_new,
+                                 rf2[:0], -1, 0.0)
+    want = {"q6_rf1": tpch.ref_q6(rf1_only), "q1": tpch.ref_q1(li2),
+            "q6": tpch.ref_q6(li2), "q14": tpch.ref_q14(li2, part),
+            "q3": tpch.ref_q3(li2, orders2, cust)}
+    del rf1_only
+    # RF1 in one transaction, with a Q6 that reads its own writes
+    s = eng.session()
+    t0 = time.perf_counter()
+    eng.execute("BEGIN", s)
+    for st in (tpch.insert_statements("orders", o_new)
+               + tpch.insert_statements("lineitem", li_new)):
+        eng.execute(st, s)
+    t1 = time.perf_counter()
+    q6_txn = eng.execute(tpch.Q6, s).rows[0][0]
+    out["q6_in_txn_s"] = time.perf_counter() - t1
+    q6_out = eng.execute(tpch.Q6).rows[0][0]
+    eng.execute("COMMIT", s)
+    out["rf1_s"] = time.perf_counter() - t0 - out["q6_in_txn_s"]
+    if not _close(q6_txn, want["q6_rf1"], DECIMAL_REL):
+        raise AssertionError(f"Q6 in RF1's txn {q6_txn} != oracle "
+                             f"{want['q6_rf1']}")
+    if not _close(q6_out, want_q6_old, DECIMAL_REL):
+        raise AssertionError(f"Q6 outside RF1's txn saw its writes: {q6_out}")
+    # RF2
+    t0 = time.perf_counter()
+    n_li = eng.execute(
+        f"DELETE FROM lineitem WHERE l_orderkey IN ({keys})").row_count
+    n_o = eng.execute(
+        f"DELETE FROM orders WHERE o_orderkey IN ({keys})").row_count
+    out["rf2_s"] = time.perf_counter() - t0
+    out["rf2_deleted"] = {"lineitem": n_li, "orders": n_o}
+    if n_o != len(rf2):
+        raise AssertionError(f"RF2 deleted {n_o} orders, not {len(rf2)}")
+    t0 = time.perf_counter()
+    n_up = eng.execute("UPDATE lineitem SET l_discount = 0.04 WHERE "
+                       f"l_orderkey = {upd_key}").row_count
+    out["update_s"] = time.perf_counter() - t0
+    out["update_rows"] = n_up
+    # an insert rolled back changes nothing
+    eng.execute("BEGIN", s)
+    eng.execute(tpch.insert_statements("lineitem", li_new)[0], s)
+    eng.execute("ROLLBACK", s)
+    out["lineitem_chunks_after"] = len(eng.store.table("lineitem").chunks)
+    queries = {"q1": tpch.Q1, "q6": tpch.Q6, "q14": tpch.Q14,
+               "q3": tpch.Q3}
+    routes = {}
+    for q, sql in queries.items():
+        _counts_zero()
+        with recording_slots() as calls:
+            res = eng.execute(sql)
+            _sync()
+        k1 = tgl.LAUNCHES if on_card else tgl.PLAIN_CALLS
+        routes[q] = {"groupagg_large": k1}
+        check_refreshed(q, res, want[q])
+        if q == "q1" and k1 != 1:
+            raise AssertionError(f"Q1 after the refresh launched "
+                                 f"kernel 1 {k1} times, not once")
+        if on_card and k1:
+            routes[q]["kernel_checks"] = check_calls(
+                f"sf1 {q} after refresh", calls, k1)
+        if q == "q3":
+            q3_top = int(res.rows[0][0])
+        # the second run hits the exec cache and reads the cached copy
+        cache0 = dict(eng.plan_cache)
+        if eng.execute(sql).rows != res.rows:
+            raise AssertionError(f"{q}: second run gave other rows")
+        if eng.plan_cache["hit"] <= cache0["hit"] or \
+                eng.plan_cache["miss"] != cache0["miss"]:
+            raise AssertionError(f"{q}: second run missed the exec cache")
+        routes[q]["ms"] = _median_ms(lambda: eng.execute(sql), reps=reps)
+    # a further write that changes DECIMAL values of every query's
+    # input (Q3's first order among them): each query's first run after
+    # it misses the exec cache and equals the oracle over the changed
+    # arrays, and its second run hits
+    gen0 = eng.store.table("lineitem").generation
+    more = np.unique(np.concatenate([
+        [q3_top], np.random.default_rng(11).choice(
+            np.setdiff1d(li2["l_orderkey"], [upd_key]), 199,
+            replace=False)])).astype(np.int64)
+    t0 = time.perf_counter()
+    n_more = eng.execute(
+        "UPDATE lineitem SET l_discount = 0.06, l_extendedprice = "
+        "l_extendedprice + 1.00 WHERE l_orderkey IN "
+        f"({', '.join(str(int(k)) for k in more)})").row_count
+    out["further_update"] = {"orders": len(more), "rows": n_more,
+                             "s": time.perf_counter() - t0}
+    hit3 = np.isin(li2["l_orderkey"], more)
+    if n_more != int(hit3.sum()):
+        raise AssertionError(f"the further UPDATE wrote {n_more} rows, "
+                             f"not {int(hit3.sum())}")
+    li2["l_discount"] = np.where(hit3, 0.06, li2["l_discount"])
+    li2["l_extendedprice"] = np.where(hit3, li2["l_extendedprice"] + 1.0,
+                                      li2["l_extendedprice"])
+    want = {"q1": tpch.ref_q1(li2), "q6": tpch.ref_q6(li2),
+            "q14": tpch.ref_q14(li2, part),
+            "q3": tpch.ref_q3(li2, orders2, cust)}
+    for q, sql in queries.items():
+        cache0 = dict(eng.plan_cache)
+        _counts_zero()
+        with recording_slots() as calls:
+            res = eng.execute(sql)
+            _sync()
+        k1 = tgl.LAUNCHES if on_card else tgl.PLAIN_CALLS
+        after = {"groupagg_large": k1, "miss": eng.plan_cache["miss"]
+                 - cache0["miss"]}
+        if after["miss"] < 1:
+            raise AssertionError(f"{q}: the run after the further write "
+                                 "hit the exec cache")
+        check_refreshed(q, res, want[q])
+        if q == "q1" and k1 != 1:
+            raise AssertionError(f"Q1 after the further write launched "
+                                 f"kernel 1 {k1} times, not once")
+        if on_card and k1:
+            after["kernel_checks"] = check_calls(
+                f"sf1 {q} after further write", calls, k1)
+        cache0 = dict(eng.plan_cache)
+        if eng.execute(sql).rows != res.rows or \
+                eng.plan_cache["hit"] <= cache0["hit"] or \
+                eng.plan_cache["miss"] != cache0["miss"]:
+            raise AssertionError(f"{q}: the second run after the further "
+                                 f"write missed or differed")
+        routes[q + " after write"] = after
+    resident = [g for (t, g) in eng._device_tables if t == "lineitem"]
+    if resident != [eng.store.table("lineitem").generation] or \
+            resident[0] == gen0:
+        raise AssertionError(f"lineitem's device copy is not the moved "
+                             f"generation's: {resident}, was {gen0}")
+    out["recreate"] = recreate_check(eng)
+    out["routes"] = routes
+    out["q6_in_txn"], out["q6_outside_txn"] = q6_txn, q6_out
+    print("refresh: " + json.dumps(out), flush=True)
+    return out
+
+
+class _YcsbFront:
+    """The YCSB client's engine: times each statement by operation kind
+    and logs every scan's rows and every insert. ``check`` replays the
+    log against a sorted-keys oracle after the run, so the oracle's work
+    stays out of the timed operations."""
+
+    def __init__(self, eng, records: int):
+        self.eng = eng
+        self.records = records
+        self.log = []           # (sql, rows of a scan | None)
+        self.lat = {"scan": [], "insert": []}
+        self.loading = True     # setup's INSERTs are the records below
+
+    def execute(self, sql, session=None):
+        t0 = time.perf_counter()
+        res = self.eng.execute(sql, session)
+        dt = time.perf_counter() - t0
+        if sql.startswith("SELECT ycsb_key, field0"):
+            self.log.append((sql, res.rows))
+            self.lat["scan"].append(dt)
+        elif sql.startswith("INSERT") and not self.loading:
+            self.log.append((sql, None))
+            self.lat["insert"].append(dt)
+        return res
+
+    def check(self) -> tuple:
+        """Replay the log: every scan's rows equal the oracle's at that
+        point. Returns the oracle's (sorted keys, values by key)."""
+        import bisect
+        values = {i: (i * 7 % 1000, i * 13 % 1000)
+                  for i in range(self.records)}
+        keys = list(range(self.records))    # ascending
+        for sql, rows in self.log:
+            if rows is None:
+                k = int(sql.split("(")[1].split(",")[0])
+                values[k] = (0, 0)
+                bisect.insort(keys, k)
+                continue
+            k = int(sql.split(">=")[1].split()[0])
+            lim = int(sql.rsplit("LIMIT", 1)[1])
+            i = bisect.bisect_left(keys, k)
+            want = [(x, values[x][0]) for x in keys[i:i + lim]]
+            if rows != want:
+                raise AssertionError(f"YCSB scan at {k}: {rows} != {want}")
+        return keys, values
+
+
+def ycsb_phase(eng, records: int, ops: int, seed: int = 1) -> dict:
+    """Phase 11c: YCSB-E (95% scans of 10 through the range fastpath, 5%
+    inserts, zipfian keys) over `records` rows loaded by the workload's
+    own INSERT statements."""
+    from cockroach_tpu_torch.workload.ycsb import YCSB
+    front = _YcsbFront(eng, records)
+    y = YCSB(front, "E", records=records, seed=seed)
+    fast = eng.metrics.counter("sql.select.range_fastpath")
+    t0 = time.perf_counter()
+    y.setup()
+    load_s = time.perf_counter() - t0
+    front.loading = False
+    n_fast = fast.value()
+    res = y.run(ops)
+    if len(front.lat["scan"]) != y.ops["scan"] or \
+            fast.value() - n_fast != y.ops["scan"]:
+        raise AssertionError("a YCSB-E scan left the range fastpath")
+    keys, values = front.check()
+    want = (len(keys), sum(v[0] for v in values.values()),
+            sum(v[1] for v in values.values()))
+    got = eng.execute("SELECT count(*), sum(field0), sum(field1) "
+                      "FROM usertable").rows[0]
+    if tuple(got) != want:
+        raise AssertionError(f"usertable {got} != oracle {want}")
+
+    def pct(xs, p):
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(len(xs) * p))] * 1e3 if xs else None
+    out = {"records": records, "ops": ops, "load_s": load_s,
+           "ops_per_s": res["ops_per_sec"], "mix": res["ops"],
+           "final_rows": want[0]}
+    for kind, xs in front.lat.items():
+        out[f"{kind}_p50_ms"] = pct(xs, 0.5)
+        out[f"{kind}_p99_ms"] = pct(xs, 0.99)
+    print("ycsb-e: " + json.dumps(out), flush=True)
+    return out
+
+
+def dml_phase(eng, li, part, sf, ycsb_records: int = 100_000,
+              ycsb_ops: int = 10_000, reps: int = 3) -> dict:
+    """Phase 11 on a loaded engine (every TPC-H table at `sf`, lineitem
+    from `li`): windows over orders, TPC-H's refresh pair with Q1, Q6,
+    Q14 and Q3 after it, and YCSB-E. Runs last among the SF1 phases: it
+    changes the tables."""
+    import torch
+
+    from cockroach_tpu_torch.models import tpch
+    on_card = eng.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    orders, cust = tpch.gen_orders(sf), tpch.gen_customer(sf)
+    t0 = time.perf_counter()
+    windows = window_phase(eng, orders, reps=reps)
+    win_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refresh = refresh_phase(eng, li, part, orders, cust, sf, reps=reps)
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ycsb = ycsb_phase(eng, ycsb_records, ycsb_ops)
+    out = {"windows": windows, "refresh": refresh, "ycsb_e": ycsb,
+           "seconds": {"windows": win_s, "refresh": ref_s,
+                       "ycsb_e": time.perf_counter() - t0}}
+    if on_card:
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def dml_phase_alone(sf: float = SF, ycsb_records: int = 100_000,
+                    ycsb_ops: int = 10_000) -> dict:
+    """Phase 11 by itself: loads every TPC-H table at `sf` on the card
+    as phases 2 and 6 do, then runs dml_phase and prints its line
+    (``python3 -c "import chip_smoke; chip_smoke.dml_phase_alone()"``).
+    On the card its Q1 call is held against the plain version too."""
+    import numpy as np
+
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    smi = _smi()
+    print(f"card: {smi}", flush=True)
+    t0 = time.perf_counter()
+    eng = Engine()
+    tpch.load(eng, sf=sf, tables=("lineitem", "part"), encoded=True)
+    tpch.load(eng, sf=sf, tables=("orders", "customer", "supplier",
+                                  "partsupp", "nation", "region"))
+    li = tpch.gen_lineitem(sf, encoded=True)
+    li["l_returnflag"] = np.asarray(tpch.RF_VALUES)[li["l_returnflag"]]
+    li["l_linestatus"] = np.asarray(tpch.LS_VALUES)[li["l_linestatus"]]
+    li["l_shipmode"] = np.asarray(tpch.SHIPMODES, dtype=object)[
+        li["l_shipmode"]]
+    print(f"load SF{sf}: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out = dml_phase(eng, li, tpch.gen_part(sf), sf, ycsb_records,
+                    ycsb_ops)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"dml": dict(out, card=smi)}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1473,7 +2108,7 @@ def main() -> int:
     opts = ap.parse_args()
 
     t_start = time.perf_counter()
-    kernels, smi, name = sf1_phases(opts)
+    kernels, smi, name, dml = sf1_phases(opts)
     # the SF1 engines and tables went with sf1_phases' frame: free what
     # the allocator still caches before SF10 loads
     gc.collect()
@@ -1488,6 +2123,7 @@ def main() -> int:
     print(f"phase 10: {time.perf_counter() - t0:.1f} s; all phases "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"stream": stream}), flush=True)
+    print(json.dumps({"dml": dict(dml, card=smi)}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -1498,8 +2134,8 @@ def main() -> int:
 
 
 def sf1_phases(opts) -> tuple:
-    """Phases 1-9 at SF1; returns (kernels, nvidia-smi line, card
-    name). Every engine and table of these phases lives in this frame
+    """Phases 1-9 and 11 at SF1; returns (kernels, nvidia-smi line, card
+    name, phase 11's numbers). Every engine and table of these phases lives in this frame
     only, so they are freed when it returns."""
     import numpy as np
     import torch
@@ -1802,6 +2438,18 @@ def sf1_phases(opts) -> tuple:
                                            *(("ssb " + k, v) for k, v in
                                              ssb_routes.items())]
         if r.get("kernel_checks")}
+
+    # -- 11. windows, the write path and YCSB-E (it changes the tables) ------
+    t0 = time.perf_counter()
+    dml = dml_phase(eng, li, part, SF)
+    routes11 = dml["refresh"]["routes"]
+    large["launches"] += sum(r["groupagg_large"] for r in routes11.values())
+    large["phase11_launches"] = {q: r["groupagg_large"]
+                                 for q, r in routes11.items()}
+    large["path_checks"].update(
+        (f"sf1 {q} phase 11", r["kernel_checks"])
+        for q, r in routes11.items() if r.get("kernel_checks"))
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
     if opts.profile:
         from cockroach_tpu_torch.profile_tpch import profile_queries
         profile_queries(eng, {"q3": (tpch.Q3, None), "q5": (tpch.Q5, None),
@@ -1809,7 +2457,7 @@ def sf1_phases(opts) -> tuple:
                               "q12": (tpch.Q12, None), "qps": (QPS, None),
                               "qh": (QH, None)}, 3, opts.profile)
 
-    return kernels, smi, name
+    return kernels, smi, name, dml
 
 
 if __name__ == "__main__":

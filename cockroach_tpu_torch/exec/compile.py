@@ -31,8 +31,9 @@ the first row of each (group, value) (ops/agg.py distinct_first_mask)
 and aggregates as usual. A RunContext with ``nparts`` > 1 keeps only
 its partition's rows of a hash GROUP BY. ``compile_streaming`` splits
 an aggregate-rooted plan into page partials, their combine and a
-finalize for the streamed and spilled paths. Windows are not ported
-yet and raise ExecError.
+finalize for the streamed and spilled paths. Window functions sort
+once and scan (ops/window.py); a window sees its whole partition, so
+it never streams or spills.
 """
 
 from __future__ import annotations
@@ -166,6 +167,8 @@ def compile_plan(node: P.PlanNode, params: ExecParams,
         return run_compact
     if isinstance(node, P.Aggregate):
         return _compile_aggregate(node, params)
+    if isinstance(node, P.Window):
+        return _compile_window(node, params)
     if isinstance(node, P.Sort):
         return _compile_sort(node, params, meta)
     if isinstance(node, P.Limit):
@@ -1030,6 +1033,75 @@ def _compile_sort(node: P.Sort, params: ExecParams,
     return run_sort
 
 
+def _compile_window(node: P.Window, params: ExecParams) -> CompiledNode:
+    """Window functions: one sort and cumulative scans per spec
+    (ops/window.py), materialized as __win{i} columns. Not streamable:
+    a window sees its whole partition."""
+    from ..ops import window as W
+    childf = compile_plan(node.child, params)
+    specs = []
+    for w in node.windows:
+        specs.append((
+            w,
+            compile_expr(w.arg) if w.arg is not None else None,
+            [compile_expr(p) for p in w.partition_by],
+            [(compile_expr(o), desc) for o, desc in w.order_by],
+        ))
+
+    def run_window(rc: RunContext) -> ColumnBatch:
+        b = childf(rc)
+        ctx = _ctx_of(b)
+        for i, (w, argf, partfs, orderfs) in enumerate(specs):
+            parts = [pf(ctx) for pf in partfs]
+            orders = []
+            for of, desc in orderfs:
+                od, ov = of(ctx)
+                orders.append((od, ov, desc))
+            order, seg_start, peer_start, sel_s = W.order_and_segments(
+                parts, orders, b.sel, params.sort_normalized)
+            framed = bool(orders)
+            if w.func == "row_number":
+                d, v = W.row_number(order, seg_start, sel_s)
+            elif w.func == "rank":
+                d, v = W.rank(order, seg_start, peer_start, sel_s)
+            elif w.func == "dense_rank":
+                d, v = W.dense_rank(order, seg_start, peer_start, sel_s)
+            elif w.func == "ntile":
+                d, v = W.ntile(order, seg_start, sel_s, w.offset)
+            elif w.func in ("lag", "lead"):
+                ad, av = argf(ctx)
+                off = w.offset if w.func == "lag" else -w.offset
+                d, v = W.lag_lead(order, seg_start, sel_s, ad, av, off)
+            elif w.func == "first_value":
+                ad, av = argf(ctx)
+                d, v = W.first_value(order, seg_start, sel_s, ad, av)
+            elif w.func == "last_value":
+                ad, av = argf(ctx)
+                d, v = W.last_value(order, seg_start, peer_start, sel_s,
+                                    ad, av, framed)
+            else:  # sum/sum_int/count/count_rows/min/max/avg
+                ad, av = argf(ctx) if argf is not None else (None, None)
+                d, v = W.window_agg(w.func, order, seg_start, peer_start,
+                                    sel_s, ad, av, framed)
+                if w.func == "avg" and w.arg.type.family == Family.DECIMAL:
+                    # a DECIMAL sums as scaled ints: AVG (FLOAT8) is
+                    # logical. The reference returns the scaled mean
+                    # here (10^scale times too large); the port does not
+                    d = d / 10.0 ** w.arg.type.scale
+            b = b.with_column(f"__win{i}", d, v)
+            ctx = _ctx_of(b)
+        return b
+    return run_window
+
+
+def _has_window(node: P.PlanNode) -> bool:
+    if isinstance(node, P.Window):
+        return True
+    return any(_has_window(c) for c in
+               (getattr(node, a, None) for a in ("child", "left", "right"))
+               if c is not None)
+
+
 # ---------------------------------------------------------------------------
 # streaming: per-page partial aggregate state
 # ---------------------------------------------------------------------------
@@ -1170,7 +1242,10 @@ class StreamingPlan:
 
 def can_stream(node: P.PlanNode) -> bool:
     """compile_streaming's eligibility: the engine never picks a plan
-    it would refuse (hash-strategy GROUP BY and DISTINCT do not page)."""
+    it would refuse (hash-strategy GROUP BY and DISTINCT do not page, a
+    window needs its whole partition)."""
+    if _has_window(node):
+        return False
     n = node
     if isinstance(n, P.Limit):
         n = n.child
@@ -1185,7 +1260,9 @@ def can_stream(node: P.PlanNode) -> bool:
 
 def can_spill_sort(node: P.PlanNode) -> bool:
     """exec/spill.compile_spill_sort's eligibility: Limit?/Sort over a
-    join-free single-scan spine."""
+    join-free single-scan spine (a window in it is not)."""
+    if _has_window(node):
+        return False
     n = node
     if isinstance(n, P.Limit):
         n = n.child

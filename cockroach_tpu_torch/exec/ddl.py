@@ -1,0 +1,184 @@
+"""DDL: CREATE TABLE (with DEFAULT, CHECK and REFERENCES), DROP TABLE
+and TRUNCATE.
+
+The port of the parts of cockroach_tpu/exec/ddl.py that the write path
+reaches: a table's descriptor is written to the catalog (catalog/, a
+transactional record in the KV plane) before its columnstore table is
+created. UNIQUE constraints, secondary indexes, views and sequences are
+not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from ..catalog import CatalogError, TableDescriptor
+from ..sql import ast
+from ..sql.binder import Binder, Scope
+from ..sql.bound import BConst
+from ..sql.types import ColumnSchema, Family, TableSchema
+from ..storage import keys as K
+from .session import EngineError, Result
+
+
+class DDLMixin:
+    """Engine methods of the DDL this package runs; mixed into
+    exec.engine.Engine (all state lives on the Engine instance)."""
+
+    @staticmethod
+    def _eval_column_default(d: ast.ColumnDef):
+        """DEFAULT expr -> physical constant (pg stores the expression;
+        the constant shape is the one supported)."""
+        if d.default is None:
+            return None
+        e = d.default
+        if isinstance(e, ast.FuncCall) and e.name == "nextval":
+            raise EngineError("sequences are not yet ported")
+        binder = Binder(Scope())
+        try:
+            b = binder.bind(e)
+        except Exception as ex:
+            raise EngineError(f"unsupported DEFAULT for column "
+                              f"{d.name!r}: {ex}") from ex
+        if not isinstance(b, BConst):
+            raise EngineError(
+                f"DEFAULT for column {d.name!r} must be a constant "
+                f"or nextval(...)")
+        if b.value is None:
+            return None
+        return binder._const_to(b, d.type).value
+
+    def _exec_create(self, c: ast.CreateTable) -> Result:
+        if c.name in self.store.tables:
+            if c.if_not_exists:
+                return Result(tag="CREATE TABLE")
+            raise EngineError(f"table {c.name!r} already exists")
+        if c.uniques or any(d.unique for d in c.columns):
+            raise EngineError("UNIQUE constraints are not yet ported")
+        schema = TableSchema(
+            name=c.name,
+            columns=[ColumnSchema(d.name, d.type, d.nullable,
+                                  default=self._eval_column_default(d))
+                     for d in c.columns],
+            primary_key=list(c.primary_key))
+        colnames = {d.name for d in c.columns}
+        # FK references resolve now: the target must exist and the
+        # referenced columns must be its primary key
+        fk_records = []
+        for fkname, lcols, rt, rcols in c.foreign_keys:
+            for cn in lcols:
+                if cn not in colnames:
+                    raise EngineError(f"fk column {cn!r} not in table")
+            if rt == c.name:
+                # self-referential: validate against the in-flight
+                # definition (the table does not exist yet)
+                rcols = rcols or list(c.primary_key)
+                unique_sets = [tuple(c.primary_key)]
+            elif rt in self.store.tables:
+                rschema = self.store.table(rt).schema
+                rcols = rcols or list(rschema.primary_key)
+                unique_sets = [tuple(rschema.primary_key)]
+            else:
+                raise EngineError(
+                    f"referenced table {rt!r} does not exist")
+            if tuple(rcols) not in unique_sets:
+                raise EngineError(
+                    f"foreign key must reference a primary key or "
+                    f"unique index of {rt!r} (got {rcols})")
+            if len(rcols) != len(lcols):
+                raise EngineError("foreign key column count mismatch")
+            fk_records.append({"name": fkname, "columns": list(lcols),
+                               "ref_table": rt,
+                               "ref_columns": list(rcols)})
+        desc0 = TableDescriptor.from_schema(schema)
+        desc0.checks = [{"name": n, "expr_sql": text}
+                        for n, _e, text in c.checks]
+        desc0.fks = fk_records
+        # the descriptor (the system of record) is written first,
+        # transactionally; the columnstore table is the scan-plane
+        # materialization keyed by the allocated descriptor id
+        try:
+            desc = self.catalog.create_table(desc0)
+        except CatalogError as e:
+            if c.if_not_exists:
+                return Result(tag="CREATE TABLE")
+            raise EngineError(str(e)) from e
+        schema.table_id = desc.id
+        # the allocated stable column ids tag the row codec's values
+        by_name = {cd.name: cd.col_id for cd in desc.columns}
+        for cs in schema.columns:
+            cs.cid = by_name.get(cs.name, 0)
+        self.store.create_table(schema)
+        self._constraint_defs.pop(c.name, None)
+        self._fk_children = None
+        # CHECK expressions must bind against the new schema (unknown
+        # columns and type errors surface at DDL time)
+        try:
+            scope, _ = self._dml_scope(c.name)
+            for n, e, _text in c.checks:
+                b = Binder(scope).bind(e)
+                if b.type.family != Family.BOOL:
+                    raise EngineError(
+                        f"check constraint {n!r} must be boolean")
+        except Exception:
+            self.store.drop_table(c.name)
+            self.catalog.drop_table(c.name)
+            self._fk_children = None
+            raise
+        return Result(tag="CREATE TABLE")
+
+    def _check_no_open_txn_effects(self, table: str, verb: str) -> None:
+        """Non-transactional DDL (TRUNCATE/DROP) against open txns: a
+        txn holding buffered effects on the table would resurrect rows
+        when it commits after the DDL ran."""
+        for s in list(self._open_sessions):
+            if s.txn is not None and any(
+                    eff[0] == table for eff in s.effects):
+                raise EngineError(
+                    f"cannot {verb} {table!r}: an open "
+                    f"transaction has pending writes on it")
+
+    def _exec_drop(self, d: ast.DropTable) -> Result:
+        fk_deps = sorted({child for child, _fk in
+                          self._fk_children_of(d.name)
+                          if child != d.name})
+        if fk_deps:
+            raise EngineError(
+                f"cannot drop table {d.name!r}: foreign key(s) on "
+                f"{fk_deps} reference it")
+        if d.name not in self.store.tables:
+            if d.if_exists:
+                return Result(tag="DROP TABLE")
+            raise EngineError(f"table {d.name!r} does not exist")
+        self._check_no_open_txn_effects(d.name, "DROP TABLE")
+        try:
+            self.catalog.drop_table(d.name)
+        except CatalogError:
+            pass  # a store-only table (carried in, never CREATEd)
+        self.store.drop_table(d.name)
+        self._constraint_defs.pop(d.name, None)
+        self._fk_children = None
+        self._evict_device(d.name)
+        return Result(tag="DROP TABLE")
+
+    def _exec_truncate(self, tr: ast.Truncate) -> Result:
+        """Clear all rows and KV pairs, keep the schema."""
+        if tr.table not in self.store.tables:
+            raise EngineError(f"table {tr.table!r} does not exist")
+        fk_deps = sorted({child for child, _fk in
+                          self._fk_children_of(tr.table)
+                          if child != tr.table})
+        if fk_deps:
+            raise EngineError(
+                f"cannot truncate {tr.table!r}: foreign key(s) on "
+                f"{fk_deps} reference it")
+        # TRUNCATE rebuilds the store table outside any txn: refuse
+        # while open txns hold effects on the table
+        self._check_no_open_txn_effects(tr.table, "TRUNCATE")
+        schema = self.store.table(tr.table).schema
+        base = bytearray(K.TABLE_PREFIX)
+        K.encode_int(base, schema.table_id)
+        base = bytes(base)
+        self.kv.txn(lambda t: t.delete_range(base, K.prefix_end(base)))
+        self.store.drop_table(tr.table)
+        self.store.create_table(schema)
+        self._evict_device(tr.table)
+        return Result(tag="TRUNCATE")

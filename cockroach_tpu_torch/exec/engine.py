@@ -26,8 +26,17 @@ page by page (exec/stream.py, exec/compile.py compile_streaming), an
 over-budget join build spills into a partitioned external hash join
 and an over-budget sort into an external merge sort (exec/spill.py).
 
-Everything else the reference engine does (DML and transactions,
-views, set operations, distribution, distributed spill) is not ported
+Writes go through the transactional KV plane (kv/, exec/dml.py):
+INSERT, UPSERT, UPDATE and DELETE, in auto-commit or BEGIN ... COMMIT /
+ROLLBACK, under NOT NULL, CHECK, FOREIGN KEY and primary-key
+constraints (exec/constraints.py, with the descriptors of catalog/).
+Committed effects reach the columnstore at the commit timestamp; a
+SELECT inside an open transaction with writes reads an uploaded overlay
+of its own writes, never cached. Point and range reads on the primary
+key take host fast paths (exec/fastpath.py).
+
+Everything else the reference engine does (views, sequences, secondary
+indexes, set operations, distribution, distributed spill) is not ported
 yet and raises EngineError.
 """
 
@@ -36,12 +45,17 @@ from __future__ import annotations
 import contextlib
 import copy
 import datetime
+import weakref
 from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..catalog import Catalog
+from ..kv.txn import DB as KVDB
+from ..kv.txn import KVStore, Txn
+from ..kv.concurrency import TxnAbortedError, TxnRetryError
 from ..ops import hashtable
 from ..ops.batch import ColumnBatch, pull_arrays, pull_batch_columns
 from ..ops.join import MAX_EXPAND
@@ -53,7 +67,6 @@ from ..sql.planner import CatalogView, PlanError, Planner
 from ..sql.types import ColumnSchema, Family, TableSchema
 from ..storage.columnstore import ColumnStore
 from ..storage.hlc import Clock, Timestamp
-from ..storage.transfer import schema_from_create
 from ..utils.num import next_pow2
 from ..utils.devstats import DeviceStats
 from ..utils.metric import MetricRegistry
@@ -61,6 +74,10 @@ from ..utils.mon import BytesMonitor
 from ..utils.settings import SettingError, Settings
 from .compile import (ExecError, ExecParams, RunContext, compile_plan,
                       compile_streaming)
+from .constraints import ConstraintMixin
+from .ddl import DDLMixin
+from .dml import DMLMixin
+from .fastpath import FastpathMixin
 from .joinfilter import find_specs
 from .movement import TransferScheduler
 from .scanplane import ScanPlaneMixin, scan_maps
@@ -69,7 +86,8 @@ from .session import (SENTINEL_COLUMNS, CompactOverflow, EngineError,
                       TopKInexact)
 from .spill import compile_spill_sort
 from .stream import extract_zone_preds
-from .stmtutil import RerunPrepared, host_sort, rewrite_table_names
+from .stmtutil import (RerunPrepared, decode_scalar, host_sort,
+                       rewrite_table_names)
 
 EPOCH_DATE = datetime.date(1970, 1, 1)
 EPOCH_DT = datetime.datetime(1970, 1, 1)
@@ -112,11 +130,25 @@ _VAR_VALUES = {"pallas_groupagg": _MODES, "sort_normalized": _MODES,
                "spill": _MODES}
 
 
-class Engine(ScanPlaneMixin):
+class Engine(DMLMixin, ConstraintMixin, DDLMixin, FastpathMixin,
+             ScanPlaneMixin):
     def __init__(self, device=None, store: ColumnStore | None = None):
         self.device = resolve_device(device)
         self.store = store or ColumnStore()
         self.clock = Clock()
+        # the transactional KV plane on the scans' clock, so commit
+        # timestamps land above bulk-ingested rows' mvcc_ts
+        self.kv = KVDB(KVStore(clock=self.clock))
+        self.catalog = Catalog(self.kv,
+                               id_floor=lambda: self.store._next_table_id)
+        # sessions this engine handed out (non-transactional DDL checks
+        # their open txns' effects)
+        self._open_sessions: weakref.WeakSet = weakref.WeakSet()
+        # per-table (checks, fks) from the catalog, the FK children map
+        # (None = rebuild) and compiled CHECK predicates
+        self._constraint_defs: dict[str, tuple] = {}
+        self._fk_children: dict | None = None
+        self._check_fn_cache: dict = {}
         self.settings = Settings()
         self.metrics = MetricRegistry()
         # the device-byte pool: resident uploads reserve against it,
@@ -149,16 +181,53 @@ class Engine(ScanPlaneMixin):
 
     # -- public API ----------------------------------------------------------
     def session(self) -> Session:
-        return Session()
+        s = Session()
+        self._open_sessions.add(s)
+        return s
 
     def execute(self, sql: str, session: Session | None = None) -> Result:
         session = session or self.session()
-        stmt = parser.parse(sql)
+        self._open_sessions.add(session)
+        try:
+            stmt = parser.parse(sql)
+        except Exception:
+            # a syntax error inside an explicit txn block aborts it,
+            # as any other statement failure does (pg semantics)
+            if session.txn is not None:
+                session.txn_aborted = True
+            raise
+        if session.txn_aborted and not isinstance(
+                stmt, (ast.CommitTxn, ast.RollbackTxn)):
+            raise EngineError(
+                "current transaction is aborted, commands ignored "
+                "until end of transaction block")
+        try:
+            return self._dispatch(stmt, session, sql)
+        except Exception:
+            if session.txn is not None and not isinstance(
+                    stmt, ast.BeginTxn):
+                session.txn_aborted = True
+            raise
+
+    def _dispatch(self, stmt, session: Session, sql: str) -> Result:
         if isinstance(stmt, ast.Select):
             with self._statement():
                 return self._exec_select(stmt, session, sql)
+        if isinstance(stmt, ast.Insert):
+            return self._exec_insert(stmt, session)
+        if isinstance(stmt, ast.Update):
+            return self._exec_update(stmt, session)
+        if isinstance(stmt, ast.Delete):
+            return self._exec_delete(stmt, session)
+        if isinstance(stmt, (ast.BeginTxn, ast.CommitTxn,
+                             ast.RollbackTxn)):
+            return self._txn_control(stmt, session)
         if isinstance(stmt, ast.CreateTable):
             return self._exec_create(stmt)
+        if isinstance(stmt, ast.DropTable):
+            return self._exec_drop(stmt)
+        if isinstance(stmt, ast.Truncate):
+            return self._exec_truncate(stmt)
         if isinstance(stmt, ast.Analyze):
             self.store.analyze(stmt.table)
             return Result(tag="ANALYZE")
@@ -193,26 +262,68 @@ class Engine(ScanPlaneMixin):
         raise EngineError(
             f"statement {type(stmt).__name__} is not yet ported")
 
-    # -- DDL -----------------------------------------------------------------
-    def _exec_create(self, c: ast.CreateTable) -> Result:
-        if c.name in self.store.tables:
-            if c.if_not_exists:
-                return Result(tag="CREATE TABLE")
-            raise EngineError(f"table {c.name!r} already exists")
-        if c.foreign_keys or c.checks or c.uniques or any(
-                d.unique or d.default is not None for d in c.columns):
-            raise EngineError("constraints and column defaults are not "
-                              "yet ported")
-        schema = schema_from_create(c, self.store.alloc_table_id())
-        self.store.create_table(schema)
-        return Result(tag="CREATE TABLE")
+    # -- transaction control -------------------------------------------------
+    def _txn_control(self, stmt, session: Session) -> Result:
+        """BEGIN opens a kv.Txn whose writes buffer their scan-plane
+        effects; COMMIT publishes them at the commit timestamp (the
+        COMMIT of an aborted txn is a ROLLBACK); ROLLBACK discards
+        them."""
+        if isinstance(stmt, ast.BeginTxn):
+            if session.txn is not None:
+                raise EngineError("transaction already open")
+            session.txn = Txn(self.kv.store)
+            session.effects = []
+            session.txn_aborted = False
+            return Result(tag="BEGIN")
+        t = session.txn
+        effects, aborted = session.effects, session.txn_aborted
+        session.txn, session.effects = None, []
+        session.txn_aborted = False
+        if isinstance(stmt, ast.RollbackTxn) or aborted:
+            if t is not None:
+                t.rollback()
+            return Result(tag="ROLLBACK")
+        if t is None:
+            return Result(tag="COMMIT")
+        try:
+            commit_ts = t.commit()
+        except (TxnRetryError, TxnAbortedError) as e:
+            t.rollback()
+            # the "restart transaction" class (40001): the client
+            # retries the whole txn
+            raise EngineError(f"restart transaction: {e}") from e
+        self._publish(effects, commit_ts)
+        return Result(tag="COMMIT")
+
+    def _read_ts(self, session: Session) -> Timestamp:
+        return session.txn_read_ts or self.clock.now()
+
+    @staticmethod
+    def _overlay_puts(session: Session) -> dict:
+        """Tables the session's open txn wrote -> its buffered puts on
+        each (the tables a SELECT reads through the overlay)."""
+        out: dict[str, int] = {}
+        if session.txn is not None:
+            for tb, op in session.effects:
+                out[tb] = out.get(tb, 0) + (op[0] == "put")
+        return out
+
+    @staticmethod
+    def _sequence_ops(session: Session):
+        def no_sequences(fn, name, arg):
+            raise EngineError("sequences are not yet ported")
+        return no_sequences
 
     # -- planning ------------------------------------------------------------
     def catalog_view(self, read_ts: Timestamp | None = None,
-                     sketch: bool = True) -> CatalogView:
+                     sketch: bool = True,
+                     int_ranges: bool = True) -> CatalogView:
         """What the planner sees of the store: schemas, dictionaries,
         table statistics (ANALYZE output while fresh, else write-time
-        sketches when ``sketch``) and the store's key probes."""
+        sketches when ``sketch``) and the store's key probes.
+        ``int_ranges=False`` withholds the int-range probe (inside an
+        explicit txn overlay rows could fall outside a committed range
+        and corrupt a mixed-radix group code)."""
         from ..sql.stats import TableStats
         schemas = {n: td.schema for n, td in self.store.tables.items()}
         dicts = {n: dict(td.dictionaries)
@@ -248,13 +359,16 @@ class Engine(ScanPlaneMixin):
                 return self.store.keys_unique_for_read(t, cols, _rti)
         return CatalogView(schemas, dicts, stats_map,
                            key_distinct_fn=self.store.key_distinct,
-                           int_range_fn=self.store.key_int_range,
+                           int_range_fn=(self.store.key_int_range
+                                         if int_ranges else None),
                            keys_unique_fn=unique_fn)
 
     def _plan(self, stmt: ast.Select, session: Session,
               read_ts: Timestamp, no_memo: bool = False):
+        in_txn = session.txn is not None
         cv = self.catalog_view(
-            read_ts=read_ts,
+            read_ts=None if in_txn else read_ts,
+            int_ranges=not in_txn,
             sketch=(str(session.vars.get("optimizer_sketch_stats",
                                          "on")).lower()
                     not in ("off", "false")))
@@ -269,24 +383,24 @@ class Engine(ScanPlaneMixin):
                 done[key] = self._eval_subquery(sel, session, limit_one)
             return done[key]
 
-        def no_sequences(fn, name, arg):
-            raise EngineError("sequences are not yet ported")
-
         planner = Planner(
             cv, subquery_eval=subquery_eval,
             now_micros=read_ts.wall // 1000,
-            sequence_ops=no_sequences,
+            sequence_ops=self._sequence_ops(session),
             use_memo=(not no_memo
                       and session.vars.get("optimizer", "on") != "off"),
             volatile_fold_ok=False,
             rules=session.vars.get("optimizer_rules", "on") != "off")
         return planner.plan_select(stmt)
 
-    def _bound_agg_group_rows(self, node, read_ts: Timestamp) -> None:
+    def _bound_agg_group_rows(self, node, read_ts: Timestamp,
+                              overlay: dict) -> None:
         """Attach a static rows-per-group upper bound to Aggregate
         nodes whose group keys trace to stored columns of a scan
         (filters only shrink groups). The bound sizes the i32 limb
-        width of exact int64 group sums; 0 = unknown."""
+        width of exact int64 group sums; 0 = unknown. ``overlay``:
+        table -> this txn's buffered puts, invisible to the store's
+        measurement; each can add one row to some group."""
 
         def spine(n, names):
             while True:
@@ -329,9 +443,10 @@ class Engine(ScanPlaneMixin):
                         k = self.store.key_max_multiplicity(
                             table, stored, read_ts.to_int(),
                             include_null_group=True)
+                        k += overlay.get(table, 0)
                         if k > 0:
                             n.max_group_rows = k
-                self._bound_agg_value_ranges(n)
+                self._bound_agg_value_ranges(n, overlay)
             for attr in ("child", "left", "right"):
                 c = getattr(n, attr, None)
                 if c is not None:
@@ -339,7 +454,7 @@ class Engine(ScanPlaneMixin):
 
         walk(node)
 
-    def _bound_agg_value_ranges(self, agg) -> None:
+    def _bound_agg_value_ranges(self, agg, overlay: dict) -> None:
         """Attach stored-column value bounds to plain-column int64 SUM
         aggregates (BoundAgg.arg_max_abs/arg_nonneg): a SUM over a
         proven-non-negative narrow column needs limbs for bits(max)
@@ -364,7 +479,7 @@ class Engine(ScanPlaneMixin):
             if a.arg.type.family not in (Family.INT, Family.DECIMAL):
                 continue
             hit = colmap.get(a.arg.name)
-            if hit is None:
+            if hit is None or overlay.get(hit[0], 0):
                 continue
             rng = self.store.key_int_range(hit[0], hit[1])
             if rng is None:
@@ -375,7 +490,8 @@ class Engine(ScanPlaneMixin):
                 a.arg_max_abs = int(hi)
 
     # -- join build checks ---------------------------------------------------
-    def _check_join_builds(self, node, read_ts: Timestamp) -> None:
+    def _check_join_builds(self, node, read_ts: Timestamp,
+                           overlay: dict) -> None:
         """The device hash join gathers ONE build row per probe key
         (ops/join.py: exact for unique build keys). Verify build-side
         key uniqueness on the host over the rows visible at the query's
@@ -383,8 +499,9 @@ class Engine(ScanPlaneMixin):
         the keys allow it. A duplicate-keyed build side sets the join's
         expansion factor K, measured over the visible rows (a static
         bound: ops/join.py then emits K copies per probe row); past
-        MAX_JOIN_EXPANSION the join is refused. The port has no
-        transactions, so no buffered writes widen the bound."""
+        MAX_JOIN_EXPANSION the join is refused. ``overlay``: table ->
+        this txn's buffered puts, which widen the bound (each can add
+        one more row per key) and forfeit the uniqueness fast path."""
 
         def walk(n):
             if isinstance(n, P.HashJoin):
@@ -393,7 +510,7 @@ class Engine(ScanPlaneMixin):
                 walk(n.left)
                 walk(n.right)
                 if n.join_type in ("inner", "left"):
-                    self._check_one_build(n, read_ts)
+                    self._check_one_build(n, read_ts, overlay)
                 return
             c = getattr(n, "child", None)
             if c is not None:
@@ -401,7 +518,8 @@ class Engine(ScanPlaneMixin):
 
         walk(node)
 
-    def _check_one_build(self, join, read_ts: Timestamp) -> None:
+    def _check_one_build(self, join, read_ts: Timestamp,
+                         overlay: dict) -> None:
         from ..sql.stats import _underlying_col
         b = join.right
         if not isinstance(b, P.Scan):
@@ -423,16 +541,21 @@ class Engine(ScanPlaneMixin):
             stored.append(sname)
         # direct addressing needs the RUNTIME key values' range, so
         # only plain stored keys qualify
-        if all_plain:
+        # a build the txn has written stays off direct addressing:
+        # uncommitted rows could fall outside the measured range
+        join.direct = None
+        if all_plain and b.table not in overlay:
             self._maybe_direct_join(join, b, stored)
-        if self.store.keys_unique_for_read(b.table, tuple(stored),
-                                           read_ts.to_int()):
+        buffered_puts = overlay.get(b.table, 0)
+        if buffered_puts == 0 and self.store.keys_unique_for_read(
+                b.table, tuple(stored), read_ts.to_int()):
             join.expand = 1
             return
         # measured at table granularity: a pushed build filter can only
         # lower the true multiplicity, so K is a safe upper bound
         k = self.store.key_max_multiplicity(b.table, tuple(stored),
-                                            read_ts.to_int())
+                                            read_ts.to_int()) \
+            + buffered_puts
         limit = self.MAX_JOIN_EXPANSION
         if k > limit and k <= MAX_EXPAND and _probe_rows_bound(
                 join.left, self.store) * k <= self.MAX_WIDE_EXPANDED_ROWS:
@@ -828,6 +951,24 @@ class Engine(ScanPlaneMixin):
             return self._exec_with_temps(sel, session, sql_text)
         if sel.table is None:
             raise EngineError("table-free SELECTs are not yet ported")
+        match = self._index_fastpath_match(sel, session)
+        if match is not None:
+            res = self._exec_index_fastpath(sel, session, match)
+            if res is not None:
+                self.metrics.counter(
+                    "sql.select.index_fastpath",
+                    "SELECTs served by the primary-key point-read "
+                    "path").inc()
+                return res
+        rmatch = self._range_fastpath_match(sel, session)
+        if rmatch is not None:
+            res = self._exec_range_fastpath(sel, session, rmatch)
+            if res is not None:
+                self.metrics.counter(
+                    "sql.select.range_fastpath",
+                    "SELECTs served by the ordered primary-key range "
+                    "path").inc()
+                return res
         return self._prepare_select(sel, session, sql_text).run()
 
     def _exec_params(self, session: Session, no_topk: bool) -> ExecParams:
@@ -858,8 +999,14 @@ class Engine(ScanPlaneMixin):
         counts (a streamed scan's page rows) and dictionary sizes, the
         verdict, the session variables that change the compiled plan,
         the plan fingerprint (a subquery's inlined constant changes
-        it) and the replan flags."""
-        read_ts = self.clock.now()
+        it), the replan flags and, unlike the reference's key, the
+        generation of every table read (_cache_gens).
+
+        Inside an open txn with writes, the tables it wrote read an
+        overlay of committed chunks and its buffered effects, uploaded
+        for this statement alone (never cached, never paged), at the
+        txn's read timestamp."""
+        read_ts = self._read_ts(session)
         sink: set = set()
         self._gen_sinks.append(sink)
         try:
@@ -868,16 +1015,19 @@ class Engine(ScanPlaneMixin):
         finally:
             self._gen_sinks.pop()
         scan_aliases, scan_cols = scan_maps(node)
-        spill = self._spill_decision(node, scan_aliases, scan_cols,
-                                     session, meta)
-        stream = (None if spill is not None else
+        overlay = {t: n for t, n in self._overlay_puts(session).items()
+                   if t in scan_aliases.values()}
+        spill = (None if overlay else
+                 self._spill_decision(node, scan_aliases, scan_cols,
+                                      session, meta))
+        stream = (None if spill is not None or overlay else
                   self._stream_decision(node, scan_aliases, scan_cols,
                                         session))
         paged = {stream[0]} if stream is not None else set()
         if spill is not None:
             paged = {spill.alias, spill.build_alias} - {""}
         try:
-            self._check_join_builds(node, read_ts)
+            self._check_join_builds(node, read_ts, overlay)
         except EngineError:
             # the memo's join order may have put the duplicate-heavy
             # side on the build side: the greedy order may not
@@ -887,7 +1037,7 @@ class Engine(ScanPlaneMixin):
                                             no_compact=no_compact,
                                             no_memo=True)
             raise
-        self._bound_agg_group_rows(node, read_ts)
+        self._bound_agg_group_rows(node, read_ts, overlay)
         if not no_compact and not paged:
             # selection compaction is gated off under paging: its
             # sentinel cannot ride the page state
@@ -895,8 +1045,21 @@ class Engine(ScanPlaneMixin):
         scans, gens, shapes = {}, sink, []
         resident = {t for a, t in scan_aliases.items() if a not in paged}
         for alias, tname in scan_aliases.items():
+            # the read enters the timestamp cache (and an open txn's
+            # refresh set): a conflicting writer is pushed above it
+            self._register_table_read(session.txn, tname, read_ts)
             cols = scan_cols[alias]
             td = self.store.table(tname)
+            if tname in overlay:
+                # generation -1: every run re-prepares and re-uploads
+                b = self._batch_from_chunks(
+                    td, self._overlay_chunks(tname, session.effects,
+                                             read_ts), cols)
+                gens.add((tname, -1))
+                scans[alias] = b
+                shapes.append((tname, b.n, tuple(sorted(
+                    (cn, len(d)) for cn, d in td.dictionaries.items()))))
+                continue
             dl = tuple(sorted((cn, len(d))
                               for cn, d in td.dictionaries.items()))
             gens.add((tname, td.generation))
@@ -919,7 +1082,8 @@ class Engine(ScanPlaneMixin):
         for outer in self._gen_sinks:
             outer.update(g for g in gens if not g[0].startswith(TEMP_PREFIX))
         params = self._exec_params(session, no_topk)
-        key = (sql_text, tuple(sorted(shapes)), stream, spill,
+        cgens = self._cache_gens(gens)
+        key = (sql_text, tuple(sorted(shapes)), cgens, stream, spill,
                params.hash_group_capacity, params.pallas_groupagg,
                params.sort_normalized, hash(repr(node)), no_topk,
                no_compact)
@@ -932,7 +1096,8 @@ class Engine(ScanPlaneMixin):
             compile_fn = compile_streaming
         else:
             compile_fn = compile_plan
-        runf, meta = self._compiled(key, node, params, meta, compile_fn)
+        runf, meta = self._compiled(key, cgens, node, params, meta,
+                                    compile_fn)
         p_alias = spill.alias if spill is not None else (
             stream[0] if stream is not None else None)
         # zone checks of the paged scan's pushed-down predicates (the
@@ -961,22 +1126,46 @@ class Engine(ScanPlaneMixin):
     # compiled plans kept (an LRU, as the reference bounds its cache)
     EXEC_CACHE_MAX = 512
 
-    def _compiled(self, key, node, params: ExecParams, meta,
-                  compile_fn=compile_plan):
+    def _cache_gens(self, gens) -> tuple:
+        """The exec-cache key's part for the tables a plan reads:
+        (table, committed generation, read through an overlay) for each,
+        so a run after any write misses. Generations come from the
+        store's one counter, so a hit never returns the plan or the
+        dictionaries (meta) of a dropped or truncated table. A
+        statement's temps are left out: they are made anew by every
+        execution, from the base tables named here."""
+        out = set()
+        for t, g in gens:
+            if t.startswith(TEMP_PREFIX):
+                continue
+            if g < 0:
+                out.add((t, self.store.table(t).generation, True))
+            else:
+                out.add((t, g, False))
+        return tuple(sorted(out))
+
+    def _compiled(self, key, cgens: tuple, node, params: ExecParams,
+                  meta, compile_fn=compile_plan):
         """(compiled plan, meta) from the exec cache, or compiled now
         with ``compile_fn`` (compile_plan, compile_streaming or
-        compile_spill_sort)."""
+        compile_spill_sort). ``key`` holds ``cgens`` (_cache_gens); a
+        miss drops the entries that read one of these tables at an
+        older generation, which no later run can hit."""
         hit = self._exec_cache.get(key)
         if hit is not None:
             self.plan_cache["hit"] += 1
             self._exec_cache.move_to_end(key)
-            return hit
+            return hit[:2]
         self.plan_cache["miss"] += 1
         try:
             runf = compile_fn(node, params, meta)
         except ExecError as e:
             raise EngineError(str(e)) from e
-        self._exec_cache[key] = (runf, meta)
+        now = {t: g for t, g, _ in cgens}
+        for k in [k for k, v in self._exec_cache.items()
+                  if any(now.get(t, g) != g for t, g, _ in v[2])]:
+            del self._exec_cache[k]
+        self._exec_cache[key] = (runf, meta, cgens)
         while len(self._exec_cache) > self.EXEC_CACHE_MAX:
             self._exec_cache.popitem(last=False)
         return runf, meta
@@ -1232,12 +1421,13 @@ class Engine(ScanPlaneMixin):
                 "of two")
         params = self._exec_params(prep.session, prep.no_topk)
         shapes = tuple(sorted((a, b.n) for a, b in prep.scans.items()))
-        key = ("partitioned", prep.sql_text, shapes, prep.gens,
+        cgens = self._cache_gens(prep.gens)
+        key = ("partitioned", prep.sql_text, shapes, cgens,
                params.hash_group_capacity, params.pallas_groupagg,
                params.sort_normalized, hash(repr(node)))
-        runf, meta = self._compiled(key, node, params, prep.meta)
+        runf, meta = self._compiled(key, cgens, node, params, prep.meta)
         names = list(meta.names)
-        ts = (read_ts or self.clock.now()).to_int()
+        ts = (read_ts or self._read_ts(prep.session)).to_int()
 
         def run_pid(nparts: int, pid: int) -> dict:
             rc = RunContext(prep.scans, ts, nparts, pid)
@@ -1462,30 +1652,7 @@ def _pad(a: np.ndarray, n: int, fill=0) -> np.ndarray:
     return out
 
 
-def _decode_scalar(v, valid: bool, ty, dictionary):
-    if not valid:
-        return None
-    f = ty.family
-    if f == Family.DECIMAL:
-        return float(v) / 10 ** ty.scale
-    if f == Family.DATE:
-        return EPOCH_DATE + datetime.timedelta(days=int(v))
-    if f == Family.TIMESTAMP:
-        return EPOCH_DT + datetime.timedelta(microseconds=int(v))
-    if f == Family.STRING:
-        if dictionary is not None:
-            return dictionary.values[int(v)]
-        return int(v)
-    if f == Family.BOOL:
-        return bool(v)
-    if f == Family.INT:
-        return int(v)
-    if f == Family.FLOAT:
-        return float(v)
-    return v.item() if hasattr(v, "item") else v
-
-
 def _decode_column(data: np.ndarray, valid: np.ndarray, ty,
                    dictionary) -> list:
-    return [_decode_scalar(d, bool(m), ty, dictionary)
+    return [decode_scalar(d, bool(m), ty, dictionary)
             for d, m in zip(data, valid)]

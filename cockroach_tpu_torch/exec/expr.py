@@ -21,7 +21,8 @@ import torch
 from ..ops import kernels as K
 from ..sql.bound import (BAggRef, BBetween, BBin, BCase, BCast, BCoalesce,
                          BCol, BConst, BDictGather, BDictLookup, BDictRemap,
-                         BExpr, BExtract, BFunc, BInList, BIsNull, BUnary)
+                         BExpr, BExtract, BFunc, BInList, BIsNull, BUnary,
+                         BWinRef)
 from ..sql.types import Family, SQLType
 
 
@@ -85,6 +86,13 @@ def compile_expr(e: BExpr) -> CompiledExpr:
         def f_col(ctx):
             return ctx.col(name)
         return f_col
+
+    if isinstance(e, BWinRef):
+        wname = f"__win{e.index}"
+
+        def f_win(ctx):
+            return ctx.col(wname)
+        return f_win
 
     if isinstance(e, BAggRef):
         i = e.index

@@ -6,6 +6,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Optional
 
+from ..kv.txn import Txn
+from ..storage.hlc import Timestamp
 from ..utils.settings import SessionVars
 
 
@@ -42,14 +44,28 @@ class Result:
     """Decoded query result."""
     names: list[str] = field(default_factory=list)
     rows: list[tuple] = field(default_factory=list)
+    row_count: int = 0  # for DML
     tag: str = "SELECT"
     types: list = field(default_factory=list)  # SQLTypes (SELECT only)
 
 
-@dataclass(eq=False)
+@dataclass(eq=False)  # identity-hashed: sessions live in a WeakSet
 class Session:
-    """Per-connection state: the session variables."""
+    """Per-connection state: the session variables and an open explicit
+    transaction. The txn is a real kv.Txn: DML writes intents through
+    it and buffers its scan-plane effects; COMMIT publishes them at the
+    commit timestamp, ROLLBACK discards them."""
     vars: SessionVars = field(default_factory=SessionVars)
+    txn: Optional[Txn] = None
+    # ordered (table, op) effects: ("put", key, row) | ("del", key)
+    effects: list = field(default_factory=list)
+    # a failed statement aborts the whole txn (pg: "current transaction
+    # is aborted" until ROLLBACK), which keeps statements atomic
+    txn_aborted: bool = False
+
+    @property
+    def txn_read_ts(self) -> Optional[Timestamp]:
+        return self.txn.meta.read_ts if self.txn is not None else None
 
 
 @dataclass(eq=False)
@@ -110,7 +126,8 @@ class Prepared:
         cur = tuple((t, eng.store.table(t).generation
                      if t in eng.store.tables else -1)
                     for t, _ in self.gens)
-        if cur != self.gens \
+        written = eng._overlay_puts(self.session)
+        if cur != self.gens or any(t in written for t, _ in self.gens) \
                 or eng._placement_key(self.session) != self.placement:
             self._reprepare()
 
@@ -141,7 +158,7 @@ class Prepared:
         """Run the compiled plan once; the device result batch."""
         from .compile import RunContext
         self._refresh()
-        ts = read_ts or self.engine.clock.now()
+        ts = read_ts or self.engine._read_ts(self.session)
         tsv = ts.to_int()
         if self.spill is not None:
             if self.spill.kind != "join":
@@ -226,7 +243,7 @@ class Prepared:
             if self.spill is not None and self.spill.kind == "sort":
                 # the external merge sort's tail runs on the host
                 from .spill import run_spill_sort
-                ts = read_ts or eng.clock.now()
+                ts = read_ts or eng._read_ts(self.session)
                 return run_spill_sort(eng, self, ts.to_int())
             while True:
                 try:

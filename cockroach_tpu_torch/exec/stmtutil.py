@@ -1,17 +1,24 @@
 """Statement helpers of the engine (the subset of
 cockroach_tpu/exec/stmtutil.py that this package uses): CTE and
 derived-table name rewriting, the re-execute handle for statements
-that materialize temps, and the host-side ORDER BY of a partitioned
-GROUP BY."""
+that materialize temps, the host-side ORDER BY of a partitioned
+GROUP BY, AST walks of the write path and the client decode of
+physical values."""
 
 from __future__ import annotations
 
 import copy
+import dataclasses
+import datetime
 from dataclasses import dataclass
 
 from ..sql import ast
 from ..sql import plan as P
+from ..sql.types import Family
 from .session import EngineError, Result
+
+EPOCH_DATE = datetime.date(1970, 1, 1)
+EPOCH_DT = datetime.datetime(1970, 1, 1)
 
 
 def host_sort(rows: list, meta: P.OutputMeta, keys) -> list:
@@ -126,3 +133,72 @@ def rewrite_table_names(sel, mapping: dict):
 
     fix_select(sel)
     return sel
+
+
+def decode_scalar(v, valid: bool, ty, dictionary):
+    if not valid:
+        return None
+    f = ty.family
+    if f == Family.DECIMAL:
+        return float(v) / 10 ** ty.scale
+    if f == Family.DATE:
+        return EPOCH_DATE + datetime.timedelta(days=int(v))
+    if f == Family.TIMESTAMP:
+        return EPOCH_DT + datetime.timedelta(microseconds=int(v))
+    if f == Family.STRING:
+        if dictionary is not None:
+            return dictionary.values[int(v)]
+        return int(v)
+    if f == Family.BOOL:
+        return bool(v)
+    if f == Family.INT:
+        return int(v)
+    if f == Family.FLOAT:
+        return float(v)
+    return v.item() if hasattr(v, "item") else v
+
+
+def decode_storage_value(v, ty):
+    """Storage-logical value (extract_row form: strings decoded,
+    numerics physical) -> client value, as the compiled path decodes."""
+    if v is None or isinstance(v, str):
+        return v
+    return decode_scalar(v, True, ty, None)
+
+
+def contains_func(node, fname: str) -> bool:
+    """Does any expression under `node` call function `fname`?"""
+    found = [False]
+
+    def walk(x):
+        if found[0]:
+            return
+        if isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+            return
+        if not dataclasses.is_dataclass(x) or isinstance(x, type):
+            return
+        if isinstance(x, ast.FuncCall) and x.name == fname:
+            found[0] = True
+            return
+        for f in dataclasses.fields(x):
+            walk(getattr(x, f.name))
+
+    walk(node)
+    return found[0]
+
+
+def split_conjuncts_ast(e: ast.Expr) -> list:
+    """Flatten a WHERE tree into its AND-conjuncts."""
+    out: list = []
+
+    def walk(x):
+        if isinstance(x, ast.BinOp) and x.op == "and":
+            walk(x.left)
+            walk(x.right)
+        else:
+            out.append(x)
+
+    walk(e)
+    return out

@@ -282,6 +282,109 @@ def gen_orders(sf: float, seed: int = 2) -> dict:
     }
 
 
+def gen_refresh(sf: float, seed: int = 7, n_orders: int | None = None
+                ) -> tuple[dict, dict]:
+    """TPC-H RF1's new sales (spec 5.3.7: SF x 1,500 orders of 1 to 7
+    lines each) in this module's generator domains: (orders, lineitem)
+    column dicts with object strings, float decimals and day-number
+    dates. The order keys follow the generated orders' (every key above
+    the current maximum); each line's dates follow its order's date."""
+    n = n_orders or max(int(1500 * sf), 1)
+    rng = np.random.default_rng(seed)
+    first = _n_orders(sf) + 1
+    okey = np.arange(first, first + n, dtype=np.int64)
+    odate = rng.integers(_days("1992-01-01"), _days("1998-08-02"),
+                         size=n).astype(np.int32)
+    cutoff = _days("1995-06-17")
+    ncust = _n_cust(sf)
+    m = ncust - ncust // 3
+    idx = rng.integers(0, m, size=n).astype(np.int64)
+    orders = {
+        "o_orderkey": okey,
+        "o_custkey": 3 * (idx // 2) + 1 + (idx % 2),
+        "o_orderstatus": np.where(odate < cutoff - 90, "F", np.where(
+            odate < cutoff, "P", "O")).astype(object),
+        "o_totalprice": np.round(rng.uniform(900, 500000, size=n), 2),
+        "o_orderdate": odate,
+        "o_orderpriority": rng.choice(ORDER_PRIORITIES,
+                                      size=n).astype(object),
+        "o_shippriority": np.zeros(n, dtype=np.int64),
+    }
+    lines = rng.integers(1, 8, size=n)
+    k = int(lines.sum())
+    lkey = np.repeat(okey, lines)
+    start = np.repeat(np.cumsum(lines) - lines, lines)
+    linenumber = (np.arange(k) - start + 1).astype(np.int64)
+    nparts = max(int(PART_PER_SF * max(sf, 0.01)), 1000)
+    nsupp = max(int(SUPP_PER_SF * max(sf, 0.01)), 100)
+    partkey = rng.integers(1, nparts + 1, size=k).astype(np.int64)
+    quantity = rng.integers(1, 51, size=k).astype(np.float64)
+    pprice = (90000 + (partkey % 200001) / 10 + 100 * (partkey % 1000)) / 100
+    ship = (np.repeat(odate, lines)
+            + rng.integers(1, 122, size=k)).astype(np.int32)
+    receipt = ship + rng.integers(1, 31, size=k).astype(np.int32)
+    coin = rng.random(k) < 0.5
+    lineitem = {
+        "l_orderkey": lkey,
+        "l_partkey": partkey,
+        "l_suppkey": (partkey + rng.integers(0, 4, size=k) * 7) % nsupp + 1,
+        "l_linenumber": linenumber,
+        "l_quantity": quantity,
+        "l_extendedprice": np.round(quantity * pprice, 2),
+        "l_discount": rng.integers(0, 11, size=k) / 100.0,
+        "l_tax": rng.integers(0, 9, size=k) / 100.0,
+        "l_returnflag": np.where(receipt <= cutoff, np.where(
+            coin, "R", "A"), "N").astype(object),
+        "l_linestatus": np.where(ship > cutoff, "O", "F").astype(object),
+        "l_shipdate": ship,
+        "l_commitdate": (np.repeat(odate, lines)
+                         + rng.integers(30, 91, size=k)).astype(np.int32),
+        "l_receiptdate": receipt,
+        "l_shipinstruct": rng.choice(SHIPINSTRUCT, size=k).astype(object),
+        "l_shipmode": rng.choice(SHIPMODES, size=k).astype(object),
+    }
+    return orders, lineitem
+
+
+def rf2_orderkeys(sf: float, seed: int = 8,
+                  n_orders: int | None = None) -> np.ndarray:
+    """TPC-H RF2's old sales: SF x 1,500 distinct keys of the generated
+    orders, ascending."""
+    n = n_orders or max(int(1500 * sf), 1)
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.choice(np.arange(1, _n_orders(sf) + 1), size=n,
+                              replace=False)).astype(np.int64)
+
+
+def insert_statements(table: str, cols: dict, batch: int = 1000) -> list:
+    """Multi-row INSERT texts for generator columns (the DDL's column
+    order; DATE columns as ISO literals, DECIMALs with their two
+    places), at most `batch` rows each."""
+    from ..sql import parser
+    schema = parser.parse(DDL[table])
+    names = [c.name for c in schema.columns]
+    fmts = []
+    for c in schema.columns:
+        fam = c.type.family.value
+        if fam == "date":
+            fmts.append(lambda v: f"'{EPOCH + datetime.timedelta(days=int(v))}'")
+        elif fam == "decimal":
+            fmts.append(lambda v: f"{float(v):.2f}")
+        elif fam == "string":
+            fmts.append(lambda v: "'" + str(v).replace("'", "''") + "'")
+        else:
+            fmts.append(lambda v: str(int(v)))
+    n = len(cols[names[0]])
+    out = []
+    for lo in range(0, n, batch):
+        rows = []
+        for i in range(lo, min(lo + batch, n)):
+            rows.append("(" + ", ".join(f(cols[cn][i]) for f, cn in
+                                        zip(fmts, names)) + ")")
+        out.append(f"INSERT INTO {table} VALUES " + ", ".join(rows))
+    return out
+
+
 def gen_customer(sf: float, seed: int = 3) -> dict:
     n = _n_cust(sf)
     rng = np.random.default_rng(seed)

@@ -21,12 +21,15 @@ Updates/deletes write tombstones (set _mvcc_del) and appended new
 versions; chunks are sealed at `chunk_rows` and never mutated except
 for the deletion column, mirroring LSM immutability. String columns
 are dictionary-encoded at ingest (codes on device, dictionary on
-host). This module is the scan plane; the reference's row-oriented KV
-layer (point reads, the write path) is not part of this package.
+host). This module is the scan plane. Writes go through the row-oriented
+KV layer (kv/txn.py, exec/dml.py) and reach the scan plane only as
+committed effects (``apply_committed``): tombstones on the superseded
+versions and one new sealed chunk of the new versions.
 """
 
 from __future__ import annotations
 
+import bisect
 import threading
 from dataclasses import dataclass, field
 from typing import Optional
@@ -66,6 +69,10 @@ class Dictionary:
             return lut[inv].astype(np.int32)
         return np.fromiter((self.encode(v) for v in arr),
                            dtype=np.int32, count=len(arr))
+
+    def decode_array(self, codes: np.ndarray) -> np.ndarray:
+        arr = np.asarray(self.values, dtype=object)
+        return arr[codes]
 
     def __len__(self):
         return len(self.values)
@@ -166,7 +173,10 @@ class TableData:
     dictionaries: dict[str, Dictionary] = field(default_factory=dict)
     chunks: list[Chunk] = field(default_factory=list)
     chunk_rows: int = 1 << 20
-    # generation bumps on every mutation; device caches key on it
+    # generation moves on every mutation; device caches key on it. It
+    # is drawn from the store's one counter (ColumnStore._bump), so a
+    # re-created table (TRUNCATE, DROP + CREATE) never reuses a value
+    # that keys a dropped table's device copy, plan or dictionaries
     generation: int = 0
     next_rowid: int = 1
     # ANALYZE output (sql/stats.py TableStats) + the generation it was
@@ -177,10 +187,26 @@ class TableData:
     # cached multi-column distinct counts for join-uniqueness checks:
     # (cols tuple) -> (generation, distinct, live_rows)
     key_distinct_cache: dict = field(default_factory=dict)
+    # pk-key bytes -> (chunk_index, row_index) of the LIVE version.
+    # Built lazily on first transactional DML; None = not built.
+    pk_index: Optional[dict] = None
+    # host-side locators over ALL row versions, generation-cached:
+    # (cols tuple) -> (generation, value tuple -> [(chunk, row)]) and
+    # (cols tuple) -> (generation, sorted [(vals, chunk, row)])
+    sec_index_cache: dict = field(default_factory=dict)
+    sorted_index_cache: dict = field(default_factory=dict)
+    _codec: object = field(default=None, repr=False, compare=False)
 
     @property
     def row_count(self) -> int:
         return sum(c.n for c in self.chunks)
+
+    @property
+    def codec(self):
+        from ..sql.rowenc import RowCodec
+        if self._codec is None:
+            self._codec = RowCodec(self.schema)
+        return self._codec
 
 
 class ColumnStore:
@@ -196,12 +222,19 @@ class ColumnStore:
         # orphaned KV rows can never alias a new table's keyspace
         # (the reference keeps descriptor ids monotonic the same way)
         self._next_table_id = 100
+        self._generation = 0
 
     def alloc_table_id(self) -> int:
         with self._lock:
             tid = self._next_table_id
             self._next_table_id += 1
             return tid
+
+    def _bump(self, td: TableData) -> None:
+        """Move ``td`` to a generation no table of this store has held
+        (the caller holds the store lock)."""
+        self._generation += 1
+        td.generation = self._generation
 
     # -- DDL ---------------------------------------------------------------
     def create_table(self, schema: TableSchema) -> TableData:
@@ -211,6 +244,7 @@ class ColumnStore:
             self._next_table_id = max(self._next_table_id,
                                       schema.table_id + 1)
             td = TableData(schema=schema, chunk_rows=self.chunk_rows)
+            self._bump(td)
             for col in schema.columns:
                 if col.type.uses_dictionary:
                     td.dictionaries[col.name] = Dictionary()
@@ -310,7 +344,279 @@ class ColumnStore:
                           rowid=np.arange(rid0, rid0 + n, dtype=np.int64))
             chunk.finalize_stats()
             td.chunks.append(chunk)
-            td.generation += 1
+            td.pk_index = None  # rebuilt lazily if DML touches this table
+            self._bump(td)
+
+    # -- the write path: committed effects, keys, row locators ---------------
+    def alloc_rowids(self, name: str, n: int) -> list[int]:
+        td = self.table(name)
+        with self._lock:
+            r0 = td.next_rowid
+            td.next_rowid += n
+            return list(range(r0, r0 + n))
+
+    def extract_row(self, td: TableData, chunk: Chunk, ri: int) -> dict:
+        """One row in storage-logical form (strings decoded, numerics
+        physical), the inverse of the seal path's encode."""
+        from ..sql.rowenc import ROWID
+        row: dict = {}
+        for col in td.schema.columns:
+            cn = col.name
+            if not chunk.valid[cn][ri]:
+                row[cn] = None
+            elif col.type.uses_dictionary:
+                row[cn] = td.dictionaries[cn].values[int(chunk.data[cn][ri])]
+            else:
+                row[cn] = chunk.data[cn][ri].item()
+        if chunk.rowid is not None:
+            row[ROWID] = int(chunk.rowid[ri])
+        return row
+
+    def row_key(self, td: TableData, chunk: Chunk, ri: int) -> bytes:
+        """The KV key bytes for one stored row version (pk columns
+        decoded and run through the table's order-preserving codec)."""
+        codec = td.codec
+        if codec.synthetic_pk:
+            return codec.key_from_pk((int(chunk.rowid[ri]),))
+        pk = []
+        for cn in codec.pk_cols:
+            col = td.schema.column(cn)
+            v = chunk.data[cn][ri]
+            if col.type.uses_dictionary:
+                pk.append(td.dictionaries[cn].values[int(v)])
+            else:
+                pk.append(v.item())
+        return codec.key_from_pk(tuple(pk))
+
+    def ensure_pk_index(self, name: str) -> dict:
+        """Build (lazily) the pk-key -> (chunk, row) locator for LIVE
+        rows. The DML path needs it to tombstone superseded versions;
+        bulk-ingested tables only pay for it if they are ever DML'd."""
+        td = self.table(name)
+        with self._lock:
+            if td.pk_index is not None:
+                return td.pk_index
+            idx: dict[bytes, tuple[int, int]] = {}
+            for ci, chunk in enumerate(td.chunks):
+                ris = np.nonzero(chunk.mvcc_del == MAX_TS_INT)[0]
+                batch = self._batch_row_keys(td, chunk, ris)
+                if batch is not None:
+                    idx.update(zip(batch, zip([ci] * len(ris),
+                                              ris.tolist())))
+                else:
+                    for ri in ris:
+                        idx[self.row_key(td, chunk, int(ri))] = \
+                            (ci, int(ri))
+            td.pk_index = idx
+            return idx
+
+    def _batch_row_keys(self, td: TableData, chunk: Chunk,
+                        ris: np.ndarray):
+        """Bulk pk-key encode for keys of int-family columns (synthetic
+        rowids, INT/DATE/TIMESTAMP/DECIMAL/BOOL/INTERVAL pks, any
+        count), by storage/keys.py encode_int_keys: the keys equal the
+        row_key loop's byte for byte. None = a string or float pk
+        column: the caller takes the row_key loop."""
+        from . import keys as K
+        codec = td.codec
+        if codec.synthetic_pk:
+            cols = [chunk.rowid[ris]]
+        else:
+            cols = []
+            for cn in codec.pk_cols:
+                col = td.schema.column(cn)
+                if col.type.uses_dictionary or col.type.family not in (
+                        Family.INT, Family.DATE, Family.TIMESTAMP,
+                        Family.DECIMAL, Family.BOOL, Family.INTERVAL):
+                    return None
+                cols.append(chunk.data[cn][ris])
+        return K.encode_int_keys(K.table_prefix(codec.table_id), cols)
+
+    def apply_committed(self, name: str, ops: list, ts: Timestamp) -> None:
+        """Publish one committed txn's effects on this table.
+
+        ops: ordered list of ("put", key_bytes, row_dict) and
+        ("del", key_bytes). A put supersedes (tombstones) the prior
+        live version of the same key; rows carry storage-logical
+        values (see extract_row). The scan plane only ever sees
+        resolved, committed versions."""
+        self.apply_committed_batch(name, [(ops, ts.to_int())])
+
+    def apply_committed_batch(self, name: str, batches: list) -> None:
+        """Publish many committed txns' effects in one sealed chunk.
+
+        batches: [(ops, tsi)] in ascending commit-timestamp order. A row
+        superseded by a later batch still publishes, with its
+        [ts, del_ts) visibility window, so historical reads see it."""
+        td = self.table(name)
+        from ..sql.rowenc import ROWID
+        with self._lock:
+            idx = self.ensure_pk_index(name)
+            new_rows: list = []  # [key, row|None, tsi, del_tsi]
+            new_keys: dict[bytes, int] = {}
+            for ops, tsi in batches:
+                for op in ops:
+                    kind, key = op[0], op[1]
+                    pos = idx.pop(key, None)
+                    if pos is not None:
+                        ci, ri = pos
+                        td.chunks[ci].mvcc_del[ri] = tsi
+                    npos = new_keys.pop(key, None)
+                    if npos is not None:
+                        if new_rows[npos][2] == tsi:
+                            # superseded within one txn: never visible
+                            new_rows[npos][1] = None
+                        else:
+                            new_rows[npos][3] = tsi
+                    if kind == "put":
+                        row = dict(op[2])
+                        if td.codec.synthetic_pk and ROWID not in row:
+                            row[ROWID] = td.next_rowid
+                            td.next_rowid += 1
+                        new_keys[key] = len(new_rows)
+                        new_rows.append([key, row, tsi, MAX_TS_INT])
+            emit = [e for e in new_rows if e[1] is not None]
+            base_ci = len(td.chunks)
+            if emit:
+                rowids = []
+                for _k, row, _t, _d in emit:
+                    rid = int(row.get(ROWID, 0))
+                    if not rid:
+                        rid = td.next_rowid
+                        td.next_rowid += 1
+                    rowids.append(rid)
+                chunk = self.rows_chunk(
+                    td, [r for _, r, _, _ in emit],
+                    np.asarray([t for _, _, t, _ in emit], dtype=np.int64),
+                    np.asarray([d for _, _, _, d in emit], dtype=np.int64),
+                    np.asarray(rowids, dtype=np.int64))
+                chunk.finalize_stats()
+                td.chunks.append(chunk)
+                for i, (k, _row, _tsi, dts) in enumerate(emit):
+                    if dts == MAX_TS_INT:
+                        idx[k] = (base_ci, i)
+            gen = td.generation
+            self._bump(td)
+            self._extend_locators(td, [r for _, r, _, _ in emit], base_ci,
+                                  gen)
+
+    @staticmethod
+    def _extend_locators(td: TableData, rows: list, base_ci: int,
+                         gen: int) -> None:
+        """Keep warm row locators valid across a publish (the new rows
+        sit at (base_ci, i)) instead of forcing an O(table) rebuild per
+        DML statement: the scan-plane analogue of the write path
+        maintaining index entries in place. A sorted locator is copied,
+        never changed in place: a reader may hold the old list. ``gen``
+        is the generation before the publish; the kept locators move to
+        the table's new one."""
+        for cache, sort in ((td.sec_index_cache, False),
+                            (td.sorted_index_cache, True)):
+            for cols, (g, loc) in list(cache.items()):
+                if g != gen:
+                    del cache[cols]
+                    continue
+                if sort:
+                    loc = list(loc)
+                for i, row in enumerate(rows):
+                    vals = tuple(row.get(cn) for cn in cols)
+                    if any(v is None for v in vals):
+                        continue
+                    if sort:
+                        bisect.insort(loc, (vals, base_ci, i),
+                                      key=lambda e: e[0])
+                    else:
+                        loc.setdefault(vals, []).append((base_ci, i))
+                cache[cols] = (td.generation, loc)
+
+    @staticmethod
+    def rows_chunk(td: TableData, rows: list, mvcc_ts, mvcc_del,
+                   rowid) -> Chunk:
+        """Storage-logical row dicts as one chunk (no seal-time stats):
+        strings are dictionary-encoded, DECIMAL ints are already-scaled
+        physical values (floats are logical and get scaled)."""
+        n = len(rows)
+        data, vmap = {}, {}
+        for col in td.schema.columns:
+            vals = [r.get(col.name) for r in rows]
+            vmap[col.name] = np.array([x is not None for x in vals],
+                                      dtype=bool)
+            if col.type.uses_dictionary:
+                d = td.dictionaries[col.name]
+                arr = np.fromiter(
+                    (d.encode(x) if x is not None else 0 for x in vals),
+                    dtype=np.int32, count=n)
+            elif col.type.family == Family.DECIMAL:
+                scale = 10 ** col.type.scale
+                arr = np.fromiter(
+                    (0 if x is None else
+                     x if isinstance(x, (int, np.integer)) else
+                     int(round(float(x) * scale)) for x in vals),
+                    dtype=np.int64, count=n)
+            else:
+                arr = np.array([x if x is not None else 0 for x in vals],
+                               dtype=col.type.np_dtype)
+            data[col.name] = arr
+        return Chunk(data=data, valid=vmap, mvcc_ts=mvcc_ts,
+                     mvcc_del=mvcc_del, n=n, rowid=rowid)
+
+    def ensure_secondary_index(self, name: str, cols: tuple) -> dict:
+        """Build (lazily, generation-cached) the value-tuple ->
+        [(chunk, row), ...] locator over ALL row versions of `cols`.
+        Rows with a NULL in any indexed column are excluded (SQL
+        uniqueness and equality both ignore NULLs). Lookups filter
+        positions by MVCC visibility at their read timestamp."""
+        td = self.table(name)
+        with self._lock:
+            cached = td.sec_index_cache.get(cols)
+            if cached is not None and cached[0] == td.generation:
+                return cached[1]
+            idx: dict[tuple, list] = {}
+            for ci, vals, ri in self._index_rows(td, cols):
+                idx.setdefault(vals, []).append((ci, ri))
+            td.sec_index_cache = {k: v for k, v in
+                                  td.sec_index_cache.items()
+                                  if v[0] == td.generation}
+            td.sec_index_cache[cols] = (td.generation, idx)
+            return idx
+
+    def ensure_sorted_index(self, name: str, cols: tuple) -> list:
+        """Sorted [(vals, chunk, row)] over ALL row versions of `cols`
+        (generation-cached): binary search gives range bounds, ordered
+        iteration gives index order (the host-side analogue of an
+        ordered KV index scan). NULL rows are excluded."""
+        td = self.table(name)
+        with self._lock:
+            cached = td.sorted_index_cache.get(cols)
+            if cached is not None and cached[0] == td.generation:
+                return cached[1]
+            entries = [(vals, ci, ri)
+                       for ci, vals, ri in self._index_rows(td, cols)]
+            entries.sort(key=lambda e: e[0])
+            td.sorted_index_cache = {k: v for k, v in
+                                     td.sorted_index_cache.items()
+                                     if v[0] == td.generation}
+            td.sorted_index_cache[cols] = (td.generation, entries)
+            return entries
+
+    @staticmethod
+    def _index_rows(td: TableData, cols: tuple):
+        """(chunk, value tuple, row) of every row version whose `cols`
+        are all non-NULL, values storage-logical (strings decoded)."""
+        for ci, chunk in enumerate(td.chunks):
+            valid = np.ones(chunk.n, dtype=bool)
+            arrs = []
+            for cn in cols:
+                valid &= chunk.valid[cn]
+                col = td.schema.column(cn)
+                if col.type.uses_dictionary:
+                    arrs.append(td.dictionaries[cn].decode_array(
+                        chunk.data[cn]))
+                else:
+                    arrs.append(chunk.data[cn].tolist())
+            ris = np.nonzero(valid)[0].tolist()
+            for ri in ris:
+                yield ci, tuple(a[ri] for a in arrs), ri
 
     # -- statistics ----------------------------------------------------------
     def analyze(self, name: str):

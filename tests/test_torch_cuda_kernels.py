@@ -422,3 +422,101 @@ def test_streamed_and_spilled_on_card_match_cpu(cuda):
                     assert g == pytest.approx(w, rel=1e-9)
                 else:
                     assert g == w
+
+
+# -- windows, the write path and the txn overlay on the card -------------------
+
+WINDOW_SQL = (
+    "SELECT o_orderkey, row_number() OVER (PARTITION BY o_custkey ORDER BY "
+    "o_totalprice DESC), rank() OVER (PARTITION BY o_custkey ORDER BY "
+    "o_totalprice DESC), ntile(4) OVER (ORDER BY o_orderdate), "
+    "lag(o_orderdate) OVER (PARTITION BY o_custkey ORDER BY o_orderdate), "
+    "sum(o_totalprice) OVER (PARTITION BY o_custkey ORDER BY o_orderdate), "
+    "min(o_totalprice) OVER (PARTITION BY o_orderpriority), "
+    "avg(o_totalprice) OVER (PARTITION BY o_custkey) FROM orders "
+    "ORDER BY o_orderkey")
+
+
+@pytest.mark.parametrize("mode", ["auto", "off"])
+def test_windows_on_card_match_cpu(cuda, mode):
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        e = Engine(device=dev)
+        tpch.load(e, sf=0.01, tables=("orders",))
+        s = e.session()
+        e.execute(f"SET sort_normalized = {mode}", s)
+        rows[dev] = e.execute(WINDOW_SQL, s).rows
+    assert len(rows["cuda"]) == 15_000
+    for g_row, w_row in zip(rows["cuda"], rows["cpu"]):
+        assert g_row[:-1] == w_row[:-1]   # integers, dates, DECIMAL
+        assert g_row[-1] == pytest.approx(w_row[-1], rel=1e-12)
+
+
+def _refresh(e, tpch):
+    """RF1 in a txn, RF2, an UPDATE and a rolled-back INSERT."""
+    o_new, li_new = tpch.gen_refresh(0.01, n_orders=60)
+    keys = ", ".join(str(int(k)) for k in tpch.rf2_orderkeys(0.01,
+                                                             n_orders=60))
+    s = e.session()
+    e.execute("BEGIN", s)
+    for st in (tpch.insert_statements("orders", o_new)
+               + tpch.insert_statements("lineitem", li_new)):
+        e.execute(st, s)
+    e.execute("COMMIT", s)
+    e.execute(f"DELETE FROM lineitem WHERE l_orderkey IN ({keys})")
+    e.execute(f"DELETE FROM orders WHERE o_orderkey IN ({keys})")
+    e.execute("UPDATE lineitem SET l_discount = 0.04 WHERE l_orderkey = 7")
+    e.execute("BEGIN", s)
+    e.execute(tpch.insert_statements("lineitem", li_new)[0], s)
+    e.execute("ROLLBACK", s)
+
+
+def test_refresh_then_q1_on_card_match_cpu(cuda):
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        e = Engine(device=dev)
+        tpch.load(e, sf=0.01, rows=50_000,
+                  tables=("lineitem", "part", "orders"))
+        _refresh(e, tpch)
+        before = tgl.LAUNCHES
+        rows[dev] = [e.execute(q).rows for q in (tpch.Q1, tpch.Q6,
+                                                 tpch.Q14)]
+        if dev == "cuda":
+            assert tgl.LAUNCHES == before + 1   # Q1 through kernel 1
+    for got, want in zip(rows["cuda"], rows["cpu"]):
+        for g_row, w_row in zip(got, want):
+            # Q1's DECIMAL sums and counts bit for bit; its AVGs rel 1e-12
+            assert g_row[:6] == w_row[:6]
+            for g, w in zip(g_row[6:], w_row[6:]):
+                assert g == pytest.approx(w, rel=1e-12)
+
+
+def test_txn_overlay_on_card_leaves_committed_copy(cuda):
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    e = Engine()
+    tpch.load(e, sf=0.01, rows=20_000, tables=("lineitem",))
+    q = "SELECT count(*), sum(l_quantity) FROM lineitem"
+    committed = e.execute(q).rows
+    gen = e.store.table("lineitem").generation
+    (key, (cols, batch)), = [(k, v) for k, v in e._device_tables.items()
+                             if k[0] == "lineitem"]
+    snapshot = [t.clone() for t in batch.data]
+    s = e.session()
+    e.execute("BEGIN", s)
+    e.execute("INSERT INTO lineitem SELECT * FROM lineitem "
+              "WHERE l_orderkey < 100", s)
+    in_txn = e.execute(q, s).rows
+    assert in_txn != committed and in_txn[0][0] > committed[0][0]
+    # the overlay was uploaded for the statement alone: the committed
+    # copy is the one cached, unchanged, under the same generation
+    assert [k for k in e._device_tables if k[0] == "lineitem"] == [key]
+    assert key == ("lineitem", gen)
+    assert all(torch.equal(a, b) for a, b in zip(batch.data, snapshot))
+    assert e.execute(q).rows == committed
+    e.execute("ROLLBACK", s)
+    assert e.execute(q).rows == committed
