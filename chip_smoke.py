@@ -163,17 +163,48 @@ Phases (any failure exits non-zero before the final line):
    strings through execute() and a Prepared made before the TRUNCATE.
    (c) YCSB-E (BASELINE.json config 5): 100,000 records loaded by the
    workload's INSERTs of 10,000 rows, then 10,000 operations (95%
-   scans of 10 through the primary-key range fastpath, 5% inserts,
-   zipfian, seed 1), timed; every scan's rows are then held against a
+   scans of 10, 5% inserts, zipfian, seed 1, every statement served by
+   the OLTP lane), timed; every scan's rows are then held against a
    sorted-keys oracle replayed from the run's log, and count/sums of
    usertable on the card against it.
+12. The OLTP lane beside the card, on the SF1 engine after phase 11
+   (`oltp_phase`; `oltp_phase_alone()` runs it by itself). usertable
+   is dropped and bulk-loaded again with 1,000,000 records (i, i*7 %
+   1000, i*13 % 1000) through the store's ingest path; the native
+   mirror's first rebuild is timed. YCSB A-F run 20,000 operations
+   each in one session (zipfian, seed 1, scans of 10): every statement
+   must be a lane hit; ops/s and p50/p99 per operation kind; A's and
+   E's reads and scans are then replayed against an oracle of every
+   mix's writes. A and E run at 16 workers (32,000 operations each)
+   with oltp_batch auto, then off: ops/s, p50/p99, retries, the batch
+   counters (windows, fused statements, window size p50, wait in the
+   window) and the group commits. A third YCSB-A at 16 workers runs
+   with TPC-H Q1 5 times in a thread of its own: each Q1 equals the
+   oracle over lineitem as phase 11 left it and launches kernel 1 once,
+   lane statements complete while it runs, and no lane write falls to
+   the full path. Then `SELECT field0, count(*), sum(field1),
+   min(field1), max(field1) FROM usertable GROUP BY field0` (under
+   SET pallas_groupagg = on: the port routes INT MIN/MAX to kernel 1
+   only there until the parity gate is ported) flushes the lane's
+   queue as one chunk, misses the exec cache, uploads usertable again
+   and launches kernel 1 once, held against the plain version at its
+   slots and against numpy over the full path's rows (and equal to
+   its `auto` run); its second run hits. Every key's field0 must be
+   its value before the concurrent runs or one some driver wrote, and
+   count(*) and sum(field1) exact. TPC-H Q15 runs as the specification
+   writes it (CREATE VIEW revenue0, the query, DROP VIEW): one temp,
+   kernel 1 once, equal to the Q15 oracle. A DEFAULT nextval column
+   takes 10,000 rows of an INSERT ... SELECT: keys dense and unique,
+   a value drawn in a rolled-back txn never handed out. usertable
+   gains one chunk per flush. The timestamp cache's size and the cost
+   of one add are printed. Phase 12 must take 150 s or less.
 Each phase's seconds are printed. After phase 10, one JSON `dml` line
-holds phase 11's numbers with the card's name and power limit; then
-one JSON line of per-kernel
-numbers (the large-G kernel's launches count Q1, Q5, Q10, Q12 and
-the path runs of phases 7, 8 and 10; `path_checks` holds each of its
-calls in phases 7, 8, 10 and 11 held against the plain version), the
-nvidia-smi line, and the last line
+holds phase 11's numbers and one JSON `oltp` line phase 12's, each
+with the card's name and power limit; then one JSON line of
+per-kernel numbers (the large-G kernel's launches count Q1, Q5, Q10,
+Q12 and the path runs of phases 7, 8, 10, 11 and 12; `path_checks`
+holds each of its calls in phases 7, 8, 10, 11 and 12 held against
+the plain version), the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile DIR
@@ -1946,6 +1977,9 @@ def refresh_phase(eng, li, part, orders, cust, sf, reps: int = 3) -> dict:
     out["routes"] = routes
     out["q6_in_txn"], out["q6_outside_txn"] = q6_txn, q6_out
     print("refresh: " + json.dumps(out), flush=True)
+    # lineitem's arrays as this phase left them, for phase 12's oracles
+    # (taken off before the dml line prints)
+    out["li_after"] = li2
     return out
 
 
@@ -1996,24 +2030,63 @@ class _YcsbFront:
         return keys, values
 
 
+FASTPATH_SAMPLE = 300          # YCSB-E scans re-run inside a txn
+
+
+def _fastpath_sample(eng, log, keys, values) -> dict:
+    """The primary-key range fastpath on the card: a sample of YCSB-E's
+    scans (every n-th) inside BEGIN/COMMIT, where the lane stays out.
+    Each must go through the fastpath once and equal the oracle's final
+    state (``keys`` sorted, ``values`` by key)."""
+    import bisect
+    fast = eng.metrics.counter("sql.select.range_fastpath")
+    scans = [sql for sql, rows in log if rows is not None]
+    sample = scans[::max(1, len(scans) // FASTPATH_SAMPLE)][
+        :FASTPATH_SAMPLE]
+    s = eng.session()
+    lat = []
+    for sql in sample:
+        n0 = fast.value()
+        t0 = time.perf_counter()
+        eng.execute("BEGIN", s)
+        rows = eng.execute(sql, s).rows
+        eng.execute("COMMIT", s)
+        lat.append(time.perf_counter() - t0)
+        if fast.value() != n0 + 1:
+            raise AssertionError(f"{sql!r} in a txn did not go through "
+                                 "the range fastpath once")
+        k = int(sql.split(">=")[1].split()[0])
+        lim = int(sql.rsplit("LIMIT", 1)[1])
+        i = bisect.bisect_left(keys, k)
+        want = [(x, values[x][0]) for x in keys[i:i + lim]]
+        if rows != want:
+            raise AssertionError(f"fastpath scan at {k}: {rows} != {want}")
+    lat.sort()
+    return {"scans": len(sample),
+            "txn_p50_ms": lat[len(lat) // 2] * 1e3 if lat else None,
+            "txn_p99_ms": (lat[min(len(lat) - 1, int(len(lat) * 0.99))]
+                           * 1e3 if lat else None)}
+
+
 def ycsb_phase(eng, records: int, ops: int, seed: int = 1) -> dict:
-    """Phase 11c: YCSB-E (95% scans of 10 through the range fastpath, 5%
-    inserts, zipfian keys) over `records` rows loaded by the workload's
-    own INSERT statements."""
+    """Phase 11c: YCSB-E (95% scans of 10, 5% inserts, zipfian keys,
+    every statement served by the OLTP lane) over `records` rows loaded
+    by the workload's own INSERT statements, then a sample of its scans
+    through the range fastpath (_fastpath_sample)."""
     from cockroach_tpu_torch.workload.ycsb import YCSB
     front = _YcsbFront(eng, records)
     y = YCSB(front, "E", records=records, seed=seed)
-    fast = eng.metrics.counter("sql.select.range_fastpath")
     t0 = time.perf_counter()
     y.setup()
     load_s = time.perf_counter() - t0
     front.loading = False
-    n_fast = fast.value()
+    hits = eng.lane_hits
     res = y.run(ops)
     if len(front.lat["scan"]) != y.ops["scan"] or \
-            fast.value() - n_fast != y.ops["scan"]:
-        raise AssertionError("a YCSB-E scan left the range fastpath")
+            eng.lane_hits - hits != ops:
+        raise AssertionError("a YCSB-E statement left the OLTP lane")
     keys, values = front.check()
+    fastpath = _fastpath_sample(eng, front.log, keys, values)
     want = (len(keys), sum(v[0] for v in values.values()),
             sum(v[1] for v in values.values()))
     got = eng.execute("SELECT count(*), sum(field0), sum(field1) "
@@ -2026,7 +2099,7 @@ def ycsb_phase(eng, records: int, ops: int, seed: int = 1) -> dict:
         return xs[min(len(xs) - 1, int(len(xs) * p))] * 1e3 if xs else None
     out = {"records": records, "ops": ops, "load_s": load_s,
            "ops_per_s": res["ops_per_sec"], "mix": res["ops"],
-           "final_rows": want[0]}
+           "final_rows": want[0], "fastpath": fastpath}
     for kind, xs in front.lat.items():
         out[f"{kind}_p50_ms"] = pct(xs, 0.5)
         out[f"{kind}_p99_ms"] = pct(xs, 0.99)
@@ -2089,8 +2162,540 @@ def dml_phase_alone(sf: float = SF, ycsb_records: int = 100_000,
     t0 = time.perf_counter()
     out = dml_phase(eng, li, tpch.gen_part(sf), sf, ycsb_records,
                     ycsb_ops)
+    out["refresh"].pop("li_after")
     print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"dml": dict(out, card=smi)}), flush=True)
+    return out
+
+
+def oltp_phase_alone(sf: float = SF, **kw) -> dict:
+    """Phase 12 by itself: loads lineitem and supplier at `sf` on the
+    card, builds the kernels, runs oltp_phase over the unchanged
+    lineitem and prints its line (``python3 -c "import chip_smoke;
+    chip_smoke.oltp_phase_alone()"``); `kw` goes to oltp_phase."""
+    import numpy as np
+
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import build
+    smi = _smi()
+    print(f"card: {smi}", flush=True)
+    build.compile_all(["groupagg_large", "groupagg"])
+    t0 = time.perf_counter()
+    eng = Engine()
+    tpch.load(eng, sf=sf, tables=("lineitem", "supplier"), encoded=True)
+    li = tpch.gen_lineitem(sf, encoded=True)
+    li["l_returnflag"] = np.asarray(tpch.RF_VALUES)[li["l_returnflag"]]
+    li["l_linestatus"] = np.asarray(tpch.LS_VALUES)[li["l_linestatus"]]
+    eng.execute(USERTABLE_DDL)       # phase 11's table, which 12 drops
+    print(f"load SF{sf}: {time.perf_counter() - t0:.1f} s", flush=True)
+    out = oltp_phase(eng, li, tpch.gen_supplier(sf), **kw)
+    out.pop("path_checks")
+    print(f"phase 12: {out['seconds']:.1f} s", flush=True)
+    print(json.dumps({"oltp": dict(out, card=smi)}), flush=True)
+    return out
+
+
+# -- 12. the OLTP lane beside the card ---------------------------------------
+OLTP_RECORDS = 1_000_000        # usertable rows, bulk-ingested
+OLTP_OPS = 20_000               # operations per single-session mix
+OLTP_CONC_OPS = 32_000          # operations per concurrent run
+OLTP_WORKERS = 16
+OLTP_GROUP_BY = ("SELECT field0, count(*), sum(field1), min(field1), "
+                 "max(field1) FROM usertable GROUP BY field0")
+USERTABLE_DDL = ("CREATE TABLE usertable (ycsb_key INT8 NOT NULL PRIMARY "
+                 "KEY, field0 INT8, field1 INT8)")
+
+
+class _LaneFront:
+    """The YCSB client's engine for phase 12: logs every statement with
+    its rows (reads and scans) so the oracle replay runs after the timed
+    operations, and counts the statements."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.log = []
+
+    def execute(self, sql, session=None):
+        res = self.eng.execute(sql, session)
+        self.log.append((sql, res.rows))
+        return res
+
+
+class _UsertableOracle:
+    """usertable as the workload's statements leave it: field values by
+    key, the keys in order (for scans), replayed from statement logs."""
+
+    def __init__(self, records: int):
+        import numpy as np
+        i = np.arange(records, dtype=np.int64)
+        self.f0 = dict(zip(range(records), (i * 7 % 1000).tolist()))
+        self.f1 = dict(zip(range(records), (i * 13 % 1000).tolist()))
+        self.keys = list(range(records))
+
+    def replay(self, label, log, check: bool) -> int:
+        """Apply a log in order; with ``check`` every read and scan must
+        equal the oracle at that point. Returns the statements checked."""
+        import bisect
+        checked = 0
+        for sql, rows in log:
+            if sql.startswith("UPDATE"):
+                v = int(sql.split("field0 = ")[1].split()[0])
+                self.f0[int(sql.rsplit("= ", 1)[1])] = v
+            elif sql.startswith("INSERT"):
+                k = int(sql.split("(")[1].split(",")[0])
+                self.f0[k], self.f1[k] = 0, 0
+                bisect.insort(self.keys, k)
+            elif not check:
+                continue
+            elif sql.startswith("SELECT ycsb_key, field0"):
+                k = int(sql.split(">=")[1].split()[0])
+                lim = int(sql.rsplit("LIMIT", 1)[1])
+                i = bisect.bisect_left(self.keys, k)
+                want = [(x, self.f0[x]) for x in self.keys[i:i + lim]]
+                if rows != want:
+                    raise AssertionError(f"{label} scan at {k}: {rows} != "
+                                         f"{want}")
+                checked += 1
+            else:
+                k = int(sql.rsplit("= ", 1)[1])
+                if sql.startswith("SELECT field0, field1"):
+                    want = [(self.f0[k], self.f1[k])] if k in self.f0 else []
+                else:
+                    want = [(self.f0[k],)] if k in self.f0 else []
+                if rows != want:
+                    raise AssertionError(f"{label} read of {k}: {rows} != "
+                                         f"{want}")
+                checked += 1
+        return checked
+
+
+def _tscache_cost(eng, n: int = 20_000) -> dict:
+    """The timestamp cache after the lane's runs: its point and span
+    entries, and the microseconds of one add of a point read's span and
+    of a range scan's (each lane read adds one)."""
+    from cockroach_tpu_torch.kv.concurrency import Span
+    tsc = eng.kv.store.tscache
+    codec = eng.store.table("usertable").codec
+    out = {"points": len(tsc._points), "spans": len(tsc._spans)}
+    keys = [codec.key_from_pk((k,)) for k in range(n)]
+    ts = eng.clock.now()
+    t0 = time.perf_counter()
+    for kb in keys:
+        tsc.add(Span(kb), ts, None)
+    out["point_add_us"] = (time.perf_counter() - t0) / n * 1e6
+    t0 = time.perf_counter()
+    for kb in keys:
+        tsc.add(Span(kb, kb + b"\xff"), ts, None)
+    out["span_add_us"] = (time.perf_counter() - t0) / n * 1e6
+    return out
+
+
+def _lane_counts(eng) -> dict:
+    snap = eng.metrics.snapshot()
+    out = {k: snap.get(k, 0) for k in (
+        "exec.oltp.lane.hits", "exec.oltp.lane.fallbacks",
+        "exec.oltp.lane.flushes", "exec.oltp.lane.published_ops",
+        "exec.oltp.batch.windows", "exec.oltp.batch.fused",
+        "kv.groupcommit.proposals", "kv.groupcommit.commands")}
+    wait = snap.get("exec.oltp.batch.flush_wait_seconds") or {}
+    out["flush_wait_count"] = wait.get("count", 0)
+    out["flush_wait_s"] = wait.get("sum", 0.0)
+    return out
+
+
+def _delta(a: dict, b: dict) -> dict:
+    return {k: b[k] - a[k] for k in a}
+
+
+def _group_by_oracle(rows) -> list:
+    """The usertable GROUP BY from full-path rows, by numpy."""
+    import numpy as np
+    a = np.asarray([r[1:] for r in rows], dtype=np.int64)
+    keys, inv = np.unique(a[:, 0], return_inverse=True)
+    cnt = np.bincount(inv)
+    sums = np.bincount(inv, weights=a[:, 1].astype(np.float64))
+    mins = np.full(len(keys), np.iinfo(np.int64).max)
+    maxs = np.full(len(keys), np.iinfo(np.int64).min)
+    np.minimum.at(mins, inv, a[:, 1])
+    np.maximum.at(maxs, inv, a[:, 1])
+    return sorted(zip(keys.tolist(), cnt.tolist(),
+                      sums.astype(np.int64).tolist(), mins.tolist(),
+                      maxs.tolist()))
+
+
+def _lane_group_by(eng, on_card: bool, label: str) -> tuple:
+    """The usertable GROUP BY with its route: kernel-1 launches (held
+    against the plain version at their slots on the card), exec-cache
+    misses, the lane flushes it made and whether it uploaded usertable.
+
+    It runs under SET pallas_groupagg = on: the port routes INT MIN/MAX
+    to kernel 1 under `auto` only once the reference's parity gate is
+    ported (ROADMAP Queue 1 item 10), and the kernel's INT MIN/MAX path
+    is exact (the high-limb refine). The same statement under `auto`
+    (no kernel) must give the same rows."""
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    s_on = eng.session()
+    s_on.vars.set("pallas_groupagg", "on")
+    c0, miss0 = _lane_counts(eng), eng.plan_cache["miss"]
+    hit0 = eng.plan_cache["hit"]
+    chunks0 = len(eng.store.table("usertable").chunks)
+    resident0 = {k for k in eng._device_tables if k[0] == "usertable"}
+    _counts_zero()
+    t0 = time.perf_counter()
+    with recording_slots() as calls:
+        res = eng.execute(OLTP_GROUP_BY, s_on)
+        _sync()
+    route = {"s": time.perf_counter() - t0,
+             "groupagg_large": tgl.LAUNCHES if on_card else tgl.PLAIN_CALLS,
+             "exec_cache_misses": eng.plan_cache["miss"] - miss0,
+             "exec_cache_hits": eng.plan_cache["hit"] - hit0,
+             "flushes": _delta(c0, _lane_counts(eng))[
+                 "exec.oltp.lane.flushes"],
+             "chunks_added": len(eng.store.table("usertable").chunks)
+             - chunks0,
+             "uploaded": bool({k for k in eng._device_tables
+                               if k[0] == "usertable"} - resident0),
+             "groups": len(res.rows)}
+    if route["groupagg_large"] != 1:
+        raise AssertionError(f"{label}: the usertable GROUP BY launched "
+                             f"kernel 1 {route['groupagg_large']} times")
+    if on_card:
+        route["kernel_checks"] = check_calls(label, calls, 1)
+    if sorted(eng.execute(OLTP_GROUP_BY).rows) != sorted(res.rows):
+        raise AssertionError(f"{label}: auto's rows != the kernel's")
+    print(f"{label} route: " + json.dumps(
+        {k: v for k, v in route.items() if k != "kernel_checks"}),
+        flush=True)
+    return sorted(res.rows), route
+
+
+def _concurrent(eng, workload, mode, records, ops, workers, insert_base,
+                beside=None) -> tuple:
+    """One run_concurrent with its counters; ``beside`` runs in a thread
+    of its own while the drivers run."""
+    import threading
+
+    from cockroach_tpu_torch.workload.ycsb import YCSB
+    y = YCSB(eng, workload, records=records, seed=1)
+    c0 = _lane_counts(eng)
+    result = {}
+    th = None
+    if beside is not None:
+        th = threading.Thread(target=lambda: result.update(beside()),
+                              daemon=True)
+    res = {}
+
+    def drive():
+        res.update(y.run_concurrent(ops, workers=workers,
+                                    session_vars={"oltp_batch": mode},
+                                    record_latency=True, timeout=600.0,
+                                    insert_base=insert_base))
+    dth = threading.Thread(target=drive, daemon=True)
+    dth.start()
+    if th is not None:
+        # start beside the drivers once all of them are issuing
+        # statements (each builds its zipfian sampler first)
+        h0 = eng.lane_hits
+        deadline = time.perf_counter() + 120.0
+        while eng.lane_hits - h0 < 8 * workers and dth.is_alive() and \
+                time.perf_counter() < deadline:
+            time.sleep(0.001)
+        th.start()
+        th.join(600.0)
+        if th.is_alive() or "error" in result:
+            raise AssertionError(f"the statement beside the lane failed: "
+                                 f"{result.get('error')}")
+    dth.join(660.0)
+    if dth.is_alive() or not res:
+        raise AssertionError(f"YCSB-{workload} at {workers} workers did "
+                             "not finish")
+    d = _delta(c0, _lane_counts(eng))
+    stmts = sum(len(dr.latencies) + dr.ops["rmw"] for dr in y.drivers)
+    out = {"ops_per_s": res["ops_per_sec"], "seconds": res["seconds"],
+           "p50_ms": res["p50_ms"], "p99_ms": res["p99_ms"],
+           "retries": res["retries"], "mix": res["ops"],
+           "by_op": {op: res[op] for op in res["ops"] if op in res},
+           "lane_hits": d["exec.oltp.lane.hits"], "statements": stmts,
+           "fallbacks": d["exec.oltp.lane.fallbacks"],
+           "batch_windows": d["exec.oltp.batch.windows"],
+           "batch_fused": d["exec.oltp.batch.fused"],
+           "batch_size_p50": eng.metrics.snapshot()[
+               "exec.oltp.batch.size_p50"],
+           "flush_wait_mean_ms": (d["flush_wait_s"] / d["flush_wait_count"]
+                                  * 1e3 if d["flush_wait_count"] else 0.0),
+           "groupcommit_proposals": d["kv.groupcommit.proposals"],
+           "groupcommit_commands": d["kv.groupcommit.commands"]}
+    if mode == "off" and out["batch_windows"]:
+        raise AssertionError("oltp_batch = off went through batch windows")
+    if out["lane_hits"] + out["fallbacks"] != stmts:
+        raise AssertionError(f"{workload} {mode}: {stmts} statements, "
+                             f"{out['lane_hits']} lane hits, "
+                             f"{out['fallbacks']} fallbacks")
+    return out, y.drivers, result
+
+
+def oltp_phase(eng, li_after, supplier, records: int = OLTP_RECORDS,
+               ops: int = OLTP_OPS, conc_ops: int = OLTP_CONC_OPS,
+               workers: int = OLTP_WORKERS, q1_runs: int = 5) -> dict:
+    """Phase 12 on the SF1 engine after phase 11 (lineitem and supplier
+    resident; ``li_after``: lineitem's arrays as phase 11 left them,
+    strings decoded): the OLTP lane over a bulk-loaded usertable,
+    single-session and concurrent YCSB, Q1 beside the lane, the lane's
+    writes handed to kernel 1, Q15 through a view and a DEFAULT nextval
+    column. Returns the phase's numbers (the `oltp` line)."""
+    import numpy as np
+
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    from cockroach_tpu_torch.workload.ycsb import MIXES, YCSB
+    on_card = eng.device.type == "cuda"
+    t_phase = time.perf_counter()
+    out = {"records": records, "ops": ops, "conc_ops": conc_ops,
+           "workers": workers}
+    # setup: phase 11's usertable goes; 1,000,000 records through the
+    # store's ingest path, as the TPC-H tables are loaded
+    eng.execute("DROP TABLE usertable")
+    eng.execute(USERTABLE_DDL)
+    t0 = time.perf_counter()
+    i = np.arange(records, dtype=np.int64)
+    eng.store.insert_columns("usertable", {
+        "ycsb_key": i, "field0": i * 7 % 1000, "field1": i * 13 % 1000},
+        eng.clock.now())
+    out["load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng._lane_mirror("usertable")
+    out["mirror_rebuild_s"] = time.perf_counter() - t0
+    chunks0 = len(eng.store.table("usertable").chunks)
+    c_start = _lane_counts(eng)
+    oracle = _UsertableOracle(records)
+
+    # single-session mixes, zipfian, seed 1, scans of 10
+    single, logs = {}, {}
+    insert_base = {"D": records, "E": records + 500_000}
+    for w in sorted(MIXES):
+        front = _LaneFront(eng)
+        y = YCSB(front, w, records=records, seed=1, record_latency=True)
+        y.next_key = insert_base.get(w, records)
+        c0 = _lane_counts(eng)
+        res = y.run(ops)
+        d = _delta(c0, _lane_counts(eng))
+        if d["exec.oltp.lane.hits"] != len(front.log):
+            raise AssertionError(f"YCSB-{w}: {len(front.log)} statements, "
+                                 f"{d['exec.oltp.lane.hits']} served by the "
+                                 "lane")
+        lat = {}
+        for op, xs in y.op_latencies.items():
+            if xs:
+                xs = sorted(xs)
+                lat[op] = {"p50_ms": xs[len(xs) // 2] * 1e3,
+                           "p99_ms": xs[min(len(xs) - 1,
+                                            int(len(xs) * 0.99))] * 1e3}
+        single[w] = {"ops_per_s": res["ops_per_sec"],
+                     "seconds": res["seconds"], "mix": res["ops"],
+                     "by_op": lat, "statements": len(front.log),
+                     "lane_hits": d["exec.oltp.lane.hits"],
+                     "lane_misses": eng.lane_misses,
+                     "groupcommit_proposals": d["kv.groupcommit.proposals"]}
+        logs[w] = front.log
+        print(f"ycsb-{w} single session: " + json.dumps(single[w]),
+              flush=True)
+    out["single"] = single
+    # the replay, after the timed runs: every read and scan of A and E
+    # against the oracle at its point (the other mixes' writes applied)
+    t0 = time.perf_counter()
+    out["replayed"] = {w: oracle.replay(f"YCSB-{w}", logs[w],
+                                        check=w in ("A", "E"))
+                       for w in sorted(MIXES)}
+    out["replay_s"] = time.perf_counter() - t0
+    del logs
+    pending = len(eng._lane_pending.get("usertable", ()))
+    got, out["group_by_single"] = _lane_group_by(eng, on_card,
+                                                 "usertable GROUP BY single")
+    if got != _group_by_oracle([(k, oracle.f0[k], oracle.f1[k])
+                                for k in oracle.keys]):
+        raise AssertionError("the usertable GROUP BY after the single-"
+                             "session mixes != the oracle")
+    out["group_by_single"]["pending_published"] = pending
+
+    # concurrent: A and E at 16 workers, oltp_batch auto then off
+    conc, drivers = {}, []
+    bases = iter(range(records + 1_000_000, records + 9_000_000, 1_000_000))
+    for w in ("A", "E"):
+        for mode in ("auto", "off"):
+            r, ds, _ = _concurrent(eng, w, mode, records, conc_ops, workers,
+                                   next(bases))
+            drivers += ds
+            conc[f"{w}_{mode}"] = r
+            print(f"ycsb-{w} {workers} workers oltp_batch={mode}: "
+                  + json.dumps(r), flush=True)
+    out["concurrent"] = conc
+
+    # Q1 in a thread of its own while YCSB-A runs at 16 workers
+    want_q1 = tpch.ref_q1(li_after)
+
+    def q1_beside():
+        import torch
+        runs = []
+        try:
+            if on_card:
+                torch.cuda.set_device(eng.device)
+            for _ in range(q1_runs):
+                h0 = eng.lane_hits
+                k0 = tgl.LAUNCHES if on_card else tgl.PLAIN_CALLS
+                t1, c1 = time.perf_counter(), time.thread_time()
+                with recording_slots() as calls:
+                    res = eng.execute(tpch.Q1)
+                    _sync()
+                k1 = (tgl.LAUNCHES if on_card else tgl.PLAIN_CALLS) - k0
+                # the scope's waits (fence, flush, gate) and this
+                # thread's CPU seconds: the rest of "s" is spent waiting
+                # inside the statement (the interpreter lock, the card)
+                run = {"s": time.perf_counter() - t1, "groupagg_large": k1,
+                       "lane_hits_during": eng.lane_hits - h0,
+                       "thread_cpu_s": time.thread_time() - c1,
+                       **eng.last_exec["waits"]}
+                check_q1(res.rows, want_q1)
+                if k1 != 1:
+                    raise AssertionError(f"Q1 beside the lane launched "
+                                         f"kernel 1 {k1} times")
+                if on_card:
+                    run["kernel_checks"] = check_calls(
+                        "sf1 q1 beside the lane", calls, k1)
+                runs.append(run)
+        except BaseException as e:
+            return {"error": repr(e), "runs": runs}
+        return {"runs": runs}
+
+    r, ds, q1 = _concurrent(eng, "A", "auto", records, conc_ops, workers,
+                            next(bases), beside=q1_beside)
+    drivers += ds
+    if r["fallbacks"]:
+        raise AssertionError(f"{r['fallbacks']} lane writes took the full "
+                             "path beside Q1")
+    if not sum(x["lane_hits_during"] for x in q1["runs"]):
+        raise AssertionError("no lane statement completed while Q1 ran")
+    out["beside_q1"] = {"ycsb_a": r, "q1": q1["runs"]}
+    print("ycsb-A beside Q1: " + json.dumps(out["beside_q1"]), flush=True)
+
+    # the lane hands over to the card: the GROUP BY flushes the queue,
+    # misses the exec cache, uploads usertable again and runs kernel 1
+    pending = len(eng._lane_pending.get("usertable", ()))
+    if not pending:
+        raise AssertionError("the concurrent runs left nothing queued")
+    got, route = _lane_group_by(eng, on_card, "usertable GROUP BY")
+    route["pending_published"] = pending
+    if route["exec_cache_misses"] < 1 or route["flushes"] != 1 or \
+            route["chunks_added"] != 1 or not route["uploaded"]:
+        raise AssertionError(f"the GROUP BY after the lane's writes: "
+                             f"{route}")
+    # the full path's rows: the concurrent invariants and the GROUP BY's
+    # numpy oracle
+    t0 = time.perf_counter()
+    rows = eng.execute("SELECT ycsb_key, field0, field1 FROM usertable"
+                       ).rows
+    out["full_read_s"] = time.perf_counter() - t0
+    written: dict = {}
+    inserted = set()
+    for dr in drivers:
+        for k, v in dr.writes:
+            written.setdefault(k, set()).add(v)
+            if k >= records + 1_000_000:
+                inserted.add(k)
+    want_n = len(oracle.keys) + len(inserted)
+    if len(rows) != want_n:
+        raise AssertionError(f"usertable has {len(rows)} rows, not {want_n}")
+    bad = [(k, f0) for k, f0, f1 in rows
+           if not (f0 == oracle.f0.get(k) or f0 in written.get(k, ()))
+           or f1 != oracle.f1.get(k, 0)]
+    if bad:
+        raise AssertionError(f"keys off their written values: {bad[:5]}")
+    agg = eng.execute("SELECT count(*), sum(field1) FROM usertable").rows[0]
+    if tuple(agg) != (want_n, sum(oracle.f1.values())):
+        raise AssertionError(f"count/sum(field1) {agg} != "
+                             f"{(want_n, sum(oracle.f1.values()))}")
+    if got != _group_by_oracle(rows):
+        raise AssertionError("the usertable GROUP BY != numpy over the full "
+                             "path's rows")
+    got2, again = _lane_group_by(eng, on_card, "usertable GROUP BY again")
+    if got2 != got or again["exec_cache_misses"] or \
+            not again["exec_cache_hits"] or again["flushes"] or \
+            again["uploaded"]:
+        raise AssertionError(f"the second GROUP BY missed or differed: "
+                             f"{again}")
+    route["second_run"] = again
+    out["group_by"] = route
+    del rows
+
+    # Q15 through a view, as the TPC-H specification writes it
+    create, query, drop = tpch.Q15_VIEW
+    eng.execute(create)
+    _counts_zero()
+    t0 = time.perf_counter()
+    with recording_slots() as calls:
+        res = eng.execute(query)
+        _sync()
+    q15 = {"s": time.perf_counter() - t0,
+           "groupagg_large": tgl.LAUNCHES if on_card else tgl.PLAIN_CALLS,
+           "temps": len(eng.last_exec["temps"])}
+    eng.execute(drop)
+    check_result("Q15 view", res, tpch.oracle_rows(
+        "q15", {"lineitem": li_after, "supplier": supplier}))
+    if q15["groupagg_large"] != SF1_PHASE7_LAUNCHES["q15"] or \
+            q15["temps"] != 1:
+        raise AssertionError(f"Q15's view form: {q15}")
+    if on_card:
+        q15["kernel_checks"] = check_calls("sf1 q15 view", calls, 1)
+    out["q15_view"] = q15
+
+    # a DEFAULT nextval column over INSERT ... SELECT of 10,000 rows
+    eng.execute("CREATE SEQUENCE useq")
+    eng.execute("CREATE TABLE seqt (k INT8 PRIMARY KEY DEFAULT "
+                "nextval('useq'), v INT8)")
+    s = eng.session()
+    eng.execute("BEGIN", s)
+    rolled = eng.execute("SELECT nextval('useq')", s).rows[0][0]
+    eng.execute("ROLLBACK", s)
+    seq_n = min(10_000, records)
+    t0 = time.perf_counter()
+    n = eng.execute("INSERT INTO seqt (v) SELECT ycsb_key FROM usertable "
+                    f"WHERE ycsb_key < {seq_n}").row_count
+    seq_s = time.perf_counter() - t0
+    keys = sorted(r[0] for r in eng.execute("SELECT k FROM seqt").rows)
+    if n != seq_n or keys != list(range(rolled + 1, rolled + 1 + n)):
+        raise AssertionError(f"nextval keys: {n} rows, {keys[:3]} ... "
+                             f"{keys[-3:]}, rolled back {rolled}")
+    out["sequence"] = {"rows": n, "s": seq_s, "rolled_back": rolled,
+                       "first": keys[0], "last": keys[-1]}
+    eng.execute("DROP TABLE seqt")
+    eng.execute("DROP SEQUENCE useq")
+
+    out["tscache"] = _tscache_cost(eng)
+    c_end = _lane_counts(eng)
+    d = _delta(c_start, c_end)
+    out["chunks"] = {"before": chunks0,
+                     "after": len(eng.store.table("usertable").chunks),
+                     "flushes": d["exec.oltp.lane.flushes"],
+                     "published_ops": d["exec.oltp.lane.published_ops"]}
+    if out["chunks"]["after"] - chunks0 != out["chunks"]["flushes"]:
+        raise AssertionError(f"usertable chunks {out['chunks']}: not one "
+                             "chunk per flush")
+    out["kernel1_launches"] = {
+        "group_by_single": out["group_by_single"]["groupagg_large"],
+        "group_by": route["groupagg_large"],
+        "group_by_again": again["groupagg_large"],
+        "q1_beside": sum(x["groupagg_large"] for x in q1["runs"]),
+        "q15_view": q15["groupagg_large"]}
+    out["path_checks"] = {} if not on_card else {
+        "sf1 usertable group by single phase 12":
+            out["group_by_single"].pop("kernel_checks"),
+        "sf1 usertable group by phase 12": route.pop("kernel_checks"),
+        "sf1 usertable group by again phase 12":
+            again.pop("kernel_checks"),
+        "sf1 q1 beside the lane phase 12": [
+            c for x in q1["runs"] for c in x.pop("kernel_checks")],
+        "sf1 q15 view phase 12": q15.pop("kernel_checks")}
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2123,7 +2728,9 @@ def main() -> int:
     print(f"phase 10: {time.perf_counter() - t0:.1f} s; all phases "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"stream": stream}), flush=True)
+    oltp = dml.pop("oltp")
     print(json.dumps({"dml": dict(dml, card=smi)}), flush=True)
+    print(json.dumps({"oltp": dict(oltp, card=smi)}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -2134,8 +2741,8 @@ def main() -> int:
 
 
 def sf1_phases(opts) -> tuple:
-    """Phases 1-9 and 11 at SF1; returns (kernels, nvidia-smi line, card
-    name, phase 11's numbers). Every engine and table of these phases lives in this frame
+    """Phases 1-9, 11 and 12 at SF1; returns (kernels, nvidia-smi line,
+    card name, phase 11's numbers with phase 12's under "oltp"). Every engine and table of these phases lives in this frame
     only, so they are freed when it returns."""
     import numpy as np
     import torch
@@ -2450,6 +3057,19 @@ def sf1_phases(opts) -> tuple:
         (f"sf1 {q} phase 11", r["kernel_checks"])
         for q, r in routes11.items() if r.get("kernel_checks"))
     print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 12. the OLTP lane beside the card ---------------------------------
+    t0 = time.perf_counter()
+    oltp = oltp_phase(eng, dml["refresh"].pop("li_after"),
+                      tpch.gen_supplier(SF))
+    large["launches"] += sum(oltp["kernel1_launches"].values())
+    large["phase12_launches"] = oltp["kernel1_launches"]
+    large["path_checks"].update(oltp.pop("path_checks"))
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+    if oltp["seconds"] > 150:
+        raise AssertionError(f"phase 12 took {oltp['seconds']:.1f} s, past "
+                             "its 150 s")
+    dml["oltp"] = oltp
     if opts.profile:
         from cockroach_tpu_torch.profile_tpch import profile_queries
         profile_queries(eng, {"q3": (tpch.Q3, None), "q5": (tpch.Q5, None),

@@ -1,22 +1,27 @@
-"""DDL: CREATE TABLE (with DEFAULT, CHECK and REFERENCES), DROP TABLE
-and TRUNCATE.
+"""DDL: CREATE TABLE (with DEFAULT, CHECK and REFERENCES), DROP TABLE,
+TRUNCATE, CREATE/DROP VIEW and CREATE/DROP SEQUENCE.
 
 The port of the parts of cockroach_tpu/exec/ddl.py that the write path
 reaches: a table's descriptor is written to the catalog (catalog/, a
 transactional record in the KV plane) before its columnstore table is
-created. UNIQUE constraints, secondary indexes, views and sequences are
-not ported yet and raise.
+created. A view is a descriptor carrying SQL text, re-planned at every
+use (``_expand_views``); a sequence is a KV record. UNIQUE constraints
+and secondary indexes are not ported yet and raise.
 """
 
 from __future__ import annotations
 
+import copy
+import json
+
 from ..catalog import CatalogError, TableDescriptor
-from ..sql import ast
+from ..sql import ast, parser
 from ..sql.binder import Binder, Scope
 from ..sql.bound import BConst
 from ..sql.types import ColumnSchema, Family, TableSchema
 from ..storage import keys as K
 from .session import EngineError, Result
+from .stmtutil import collect_tables
 
 
 class DDLMixin:
@@ -25,13 +30,15 @@ class DDLMixin:
 
     @staticmethod
     def _eval_column_default(d: ast.ColumnDef):
-        """DEFAULT expr -> physical constant (pg stores the expression;
-        the constant shape is the one supported)."""
+        """DEFAULT expr -> physical constant, or {"__seq__": name} for
+        nextval('name'), drawn per row at INSERT (pg stores the
+        expression; the constant and sequence shapes are supported)."""
         if d.default is None:
             return None
         e = d.default
-        if isinstance(e, ast.FuncCall) and e.name == "nextval":
-            raise EngineError("sequences are not yet ported")
+        if isinstance(e, ast.FuncCall) and e.name == "nextval" \
+                and len(e.args) == 1 and isinstance(e.args[0], ast.Literal):
+            return {"__seq__": str(e.args[0].value)}
         binder = Binder(Scope())
         try:
             b = binder.bind(e)
@@ -47,7 +54,7 @@ class DDLMixin:
         return binder._const_to(b, d.type).value
 
     def _exec_create(self, c: ast.CreateTable) -> Result:
-        if c.name in self.store.tables:
+        if c.name in self.store.tables or c.name in self._view_map():
             if c.if_not_exists:
                 return Result(tag="CREATE TABLE")
             raise EngineError(f"table {c.name!r} already exists")
@@ -129,7 +136,9 @@ class DDLMixin:
         """Non-transactional DDL (TRUNCATE/DROP) against open txns: a
         txn holding buffered effects on the table would resurrect rows
         when it commits after the DDL ran."""
-        for s in list(self._open_sessions):
+        with self._sessions_lock:
+            sessions = list(self._open_sessions)
+        for s in sessions:
             if s.txn is not None and any(
                     eff[0] == table for eff in s.effects):
                 raise EngineError(
@@ -137,6 +146,12 @@ class DDLMixin:
                     f"transaction has pending writes on it")
 
     def _exec_drop(self, d: ast.DropTable) -> Result:
+        if d.name in self._view_map():
+            raise EngineError(f"{d.name!r} is a view; use DROP VIEW")
+        deps = self._view_dependents(d.name)
+        if deps:
+            raise EngineError(f"cannot drop table {d.name!r}: view(s) "
+                              f"{deps} depend on it")
         fk_deps = sorted({child for child, _fk in
                           self._fk_children_of(d.name)
                           if child != d.name})
@@ -182,3 +197,139 @@ class DDLMixin:
         self.store.create_table(schema)
         self._evict_device(tr.table)
         return Result(tag="TRUNCATE")
+
+    # -- views ----------------------------------------------------------------
+    # A view is a descriptor carrying SQL text; every use re-plans it
+    # (pkg/sql/create_view.go + the optimizer's view expansion).
+
+    def _view_map(self) -> dict:
+        views = self._view_defs
+        if views is None:
+            views = {d.name: d for d in self.catalog.list_tables()
+                     if d.view_sql}
+            self._view_defs = views
+        return views
+
+    def _view_dependents(self, name: str) -> list:
+        """The views whose bodies name ``name``."""
+        return sorted(v for v, vd in self._view_map().items()
+                      if v != name and name in _table_refs(vd.view_sql))
+
+    def _expand_views(self, sel: ast.Select) -> ast.Select:
+        """Every view the statement names (in FROM and JOIN, in
+        subqueries, in CTE bodies) becomes a CTE of the statement, ahead
+        of its own CTEs and after the views it reads: the temp path
+        then materializes each view once per statement, however often
+        the statement names it, and rewrites every reference. A CTE of
+        the statement with the same name shadows the view."""
+        views = self._view_map()
+        if not views:
+            return sel
+        shadow = {name for name, _c, _s in sel.ctes}
+        refs: set = set()
+        collect_tables(sel, refs)
+        wanted = sorted((refs & views.keys()) - shadow)
+        if not wanted:
+            return sel
+        ctes: list = []
+        done: set = set()
+
+        def add(name: str, depth: int) -> None:
+            if name in done:
+                return
+            if depth > 16:
+                raise EngineError("view nesting too deep (cycle?)")
+            d = views[name]
+            body = parser.parse(d.view_sql)
+            if not isinstance(body, ast.Select):
+                raise EngineError(
+                    f"view {d.name!r} body is not a plain SELECT")
+            inner: set = set()
+            collect_tables(body, inner)
+            for dep in sorted(inner & views.keys()):
+                add(dep, depth + 1)
+            ctes.append((name, list(d.view_columns) or None, body))
+            done.add(name)
+
+        for name in wanted:
+            add(name, 0)
+        sel = copy.copy(sel)
+        sel.ctes = ctes + list(sel.ctes)
+        return sel
+
+    def _exec_create_view(self, c: ast.CreateView, session) -> Result:
+        if c.name in self.store.tables or c.name in self._view_map():
+            if c.if_not_exists:
+                return Result(tag="CREATE VIEW")
+            raise EngineError(f"relation {c.name!r} already exists")
+        if not isinstance(c.select, ast.Select):
+            raise EngineError("CREATE VIEW body must be a plain SELECT")
+        if c.columns is not None and any(it.star for it in c.select.items):
+            raise EngineError(
+                "view column list requires explicit select items")
+        # validate by running the body with LIMIT 0: unknown tables,
+        # columns and type errors surface at DDL time
+        probe = copy.deepcopy(c.select)
+        probe.limit = 0
+        with self._statement():
+            res = self._exec_select(probe, session,
+                                    f"(create-view {c.name})")
+        if c.columns is not None and len(c.columns) != len(res.names):
+            raise EngineError(
+                f"view column list has {len(c.columns)} names, SELECT "
+                f"produces {len(res.names)}")
+        try:
+            self.catalog.create_table(TableDescriptor(
+                id=0, name=c.name, view_sql=c.sql,
+                view_columns=list(c.columns or [])))
+        except CatalogError as e:
+            raise EngineError(str(e)) from e
+        self._view_defs = None
+        return Result(tag="CREATE VIEW")
+
+    def _exec_drop_view(self, d: ast.DropView) -> Result:
+        if d.name not in self._view_map():
+            if d.if_exists:
+                return Result(tag="DROP VIEW")
+            raise EngineError(f"view {d.name!r} does not exist")
+        deps = self._view_dependents(d.name)
+        if deps:
+            raise EngineError(f"cannot drop view {d.name!r}: view(s) "
+                              f"{deps} depend on it")
+        self.catalog.drop_table(d.name)
+        self._view_defs = None
+        return Result(tag="DROP VIEW")
+
+    # -- sequences --------------------------------------------------------------
+    def _exec_create_sequence(self, c: ast.CreateSequence) -> Result:
+        key = self.SEQ_PREFIX + c.name.encode()
+
+        def fn(t):
+            if t.get(key) is not None:
+                if c.if_not_exists:
+                    return
+                raise EngineError(f"sequence {c.name!r} already exists")
+            t.put(key, json.dumps({"start": c.start,
+                                   "increment": c.increment,
+                                   "value": None}).encode())
+        self.kv.txn(fn)
+        return Result(tag="CREATE SEQUENCE")
+
+    def _exec_drop_sequence(self, d: ast.DropSequence) -> Result:
+        key = self.SEQ_PREFIX + d.name.encode()
+
+        def fn(t):
+            if t.get(key) is None:
+                if d.if_exists:
+                    return
+                raise EngineError(f"sequence {d.name!r} does not exist")
+            t.delete(key)
+        self.kv.txn(fn)
+        return Result(tag="DROP SEQUENCE")
+
+
+def _table_refs(sql: str) -> set:
+    """Every table a statement text names."""
+    out: set = set()
+    collect_tables(parser.parse(sql), out)
+    return out

@@ -176,29 +176,38 @@ class DMLMixin:
             np.asarray([int(r.get(ROWID, 0)) for r in rows],
                        dtype=np.int64))
 
-    @staticmethod
-    def _apply_column_defaults(schema, provided_cols, rows) -> None:
-        """Fill DEFAULT constants for columns absent from the INSERT
-        column list."""
+    def _apply_column_defaults(self, schema, provided_cols, rows,
+                               session: Session) -> None:
+        """Fill DEFAULT values for columns absent from the INSERT column
+        list; a {"__seq__": name} default draws nextval per row (pg
+        evaluates defaults row at a time)."""
         defaulted = [c for c in schema.columns
                      if c.name not in provided_cols
                      and c.default is not None]
         for row in rows:
             for c in defaulted:
-                if row.get(c.name) is None:
-                    row[c.name] = c.default
+                if row.get(c.name) is not None:
+                    continue
+                d = c.default
+                if isinstance(d, dict) and "__seq__" in d:
+                    row[c.name] = int(self._sequence_op(
+                        session, "nextval", d["__seq__"], None))
+                else:
+                    row[c.name] = d
 
     def _exec_insert(self, ins: ast.Insert, session: Session) -> Result:
         td = self.store.table(ins.table)
         schema = td.schema
         cols = ins.columns or schema.column_names
         if ins.select is not None:
-            if contains_func(ins.select, "gen_random_uuid"):
-                # the select binds the volatile fn once, handing every
-                # produced row the same value (pg evaluates per row)
-                raise EngineError(
-                    "gen_random_uuid inside INSERT ... SELECT is not "
-                    "supported; insert explicit VALUES instead")
+            for vol in ("nextval", "gen_random_uuid"):
+                if contains_func(ins.select, vol):
+                    # the select binds the volatile fn once, handing
+                    # every produced row the same value (pg evaluates
+                    # per row): refuse rather than corrupt keys
+                    raise EngineError(
+                        f"{vol} inside INSERT ... SELECT is not "
+                        "supported; insert explicit VALUES instead")
             with self._statement():
                 src = self._exec_select(
                     ins.select, session,
@@ -227,7 +236,7 @@ class DMLMixin:
                     else:
                         row[cname] = binder._const_to(b, col.type).value
                 rows.append(row)
-        self._apply_column_defaults(schema, set(cols), rows)
+        self._apply_column_defaults(schema, set(cols), rows, session)
         for row in rows:
             for col in schema.columns:
                 if not col.nullable and row.get(col.name) is None:
@@ -394,6 +403,21 @@ class DMLMixin:
         assigned = {}
         for cname, e in u.assignments:
             col = schema.column(cname)
+            # nextval allocates per row (pg semantics): a bare
+            # nextval('s') assignment draws in the row loop below;
+            # nextval inside a larger expression would fold to one
+            # shared value, so it is refused
+            if isinstance(e, ast.FuncCall) and e.name == "nextval" \
+                    and len(e.args) == 1 \
+                    and isinstance(e.args[0], ast.Literal):
+                self._seq_desc(e.args[0].value)  # must exist
+                assigned[cname] = ("seq", e.args[0].value)
+                continue
+            if contains_func(e, "nextval"):
+                raise EngineError(
+                    "nextval may only be the entire SET expression "
+                    "(per-row allocation); fold it into a bare "
+                    "nextval('seq') assignment")
             if contains_func(e, "gen_random_uuid"):
                 raise EngineError(
                     "gen_random_uuid in UPDATE SET would give every "
@@ -428,6 +452,11 @@ class DMLMixin:
                     valid[cn] = chunk.valid[cn][idx]
                     continue
                 kind, v = assigned[cn]
+                if kind == "seq":
+                    # drawn per row in the caller's row loop
+                    data[cn] = np.zeros(len(idx), dtype=c.type.np_dtype)
+                    valid[cn] = np.ones(len(idx), dtype=bool)
+                    continue
                 if kind == "const":
                     data[cn] = np.full(len(idx), 0 if v is None else v,
                                        dtype=c.type.np_dtype)
@@ -468,6 +497,10 @@ class DMLMixin:
                                 int(data[cn][j])]
                         else:
                             new[cn] = data[cn][j].item()
+                    for cn, (kind, v) in assigned.items():
+                        if kind == "seq":
+                            new[cn] = self._sequence_op(
+                                session, "nextval", v, None)
                     todo.append((old, new))
             pending = self._txn_key_state(effects, u.table)
             self._enforce_checks(u.table, td, [new for _o, new in todo],

@@ -35,9 +35,21 @@ SELECT inside an open transaction with writes reads an uploaded overlay
 of its own writes, never cached. Point and range reads on the primary
 key take host fast paths (exec/fastpath.py).
 
-Everything else the reference engine does (views, sequences, secondary
-indexes, set operations, distribution, distributed spill) is not ported
-yet and raises EngineError.
+Sessions may run on their own threads: ``execute`` tries the OLTP lane
+first (exec/oltplane.py, exec/oltpbatch.py: single-row statements on
+an all-integer single-pk table, served by a native row mirror and
+batch windows), then takes the statement gate (utils/rwlock.py): plain
+single-SELECTs outside a txn share it, everything else is exclusive.
+The per-statement state (``last_exec``, the statement and nesting
+depth, the generation sinks) is per thread; the exec cache, the device
+tables and their reservations are locked one by one.
+
+Views re-plan as derived tables at every use; sequences allocate in KV
+transactions of their own (``nextval`` never rolls back).
+
+Everything else the reference engine does (secondary indexes, set
+operations, distribution, distributed spill) is not ported yet and
+raises EngineError.
 """
 
 from __future__ import annotations
@@ -45,6 +57,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import datetime
+import json
+import threading
+import time
 import weakref
 from collections import OrderedDict
 
@@ -61,14 +76,17 @@ from ..ops.batch import ColumnBatch, pull_arrays, pull_batch_columns
 from ..ops.join import MAX_EXPAND
 from ..sql import ast, parser
 from ..sql import plan as P
-from ..sql.bound import BCol
+from ..sql.binder import Binder, Scope
+from ..sql.bound import BCol, BConst
 from ..sql.decorrelate import decorrelate_exists, decorrelate_scalar
 from ..sql.planner import CatalogView, PlanError, Planner
 from ..sql.types import ColumnSchema, Family, TableSchema
 from ..storage.columnstore import ColumnStore
 from ..storage.hlc import Clock, Timestamp
+from ..storage.keys import prefix_end
 from ..utils.num import next_pow2
 from ..utils.devstats import DeviceStats
+from ..utils.rwlock import RWLock
 from ..utils.metric import MetricRegistry
 from ..utils.mon import BytesMonitor
 from ..utils.settings import SettingError, Settings
@@ -80,6 +98,7 @@ from .dml import DMLMixin
 from .fastpath import FastpathMixin
 from .joinfilter import find_specs
 from .movement import TransferScheduler
+from .oltplane import OltpLaneMixin
 from .scanplane import ScanPlaneMixin, scan_maps
 from .session import (SENTINEL_COLUMNS, CompactOverflow, EngineError,
                       HashCapacityExceeded, Prepared, Result, Session,
@@ -127,11 +146,44 @@ _MODES = ("auto", "on", "off")
 _VAR_VALUES = {"pallas_groupagg": _MODES, "sort_normalized": _MODES,
                "streaming": ("auto", "off"),
                "streaming_pipeline": ("on", "off"),
-               "spill": _MODES}
+               "spill": _MODES, "oltp_batch": ("auto", "off")}
 
 
-class Engine(DMLMixin, ConstraintMixin, DDLMixin, FastpathMixin,
-             ScanPlaneMixin):
+def _per_thread(name: str, fresh):
+    """A property whose value is per thread (``fresh()`` on a thread's
+    first read): the per-statement state shared readers would race on."""
+
+    def get(self):
+        tl = self._tl
+        if not hasattr(tl, name):
+            setattr(tl, name, fresh())
+        return getattr(tl, name)
+
+    def set_(self, v):
+        setattr(self._tl, name, v)
+    return property(get, set_)
+
+
+class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
+             FastpathMixin, ScanPlaneMixin):
+    # the per-statement state, per thread: the last statement's route
+    # (_fresh_route: its main query's Compact nodes, replans
+    # ("no_topk", "no_compact", in order) and last run's
+    # RunContext.route; the subqueries it evaluated, the temps it
+    # materialized ([name, rows, "columnar" or "rows"]) and the
+    # partition counts of its partitioned re-runs; under "all" the
+    # totals over every plan run the statement made), whether a
+    # statement is open, the depth of subquery / temp-body runs, the
+    # open preparations' generation sets (tables that subqueries read
+    # while a plan binds them join every open set), the CTE depth per
+    # session and the waits of the open statement's scope (_run_scope)
+    last_exec = _per_thread("last_exec", lambda: _fresh_route())
+    _in_statement = _per_thread("in_statement", lambda: False)
+    _nested = _per_thread("nested", lambda: 0)
+    _gen_sinks = _per_thread("gen_sinks", list)
+    _cte_depth = _per_thread("cte_depth", dict)
+    _scope_waits = _per_thread("scope_waits", dict)
+
     def __init__(self, device=None, store: ColumnStore | None = None):
         self.device = resolve_device(device)
         self.store = store or ColumnStore()
@@ -157,37 +209,46 @@ class Engine(DMLMixin, ConstraintMixin, DDLMixin, FastpathMixin,
             "sql.exec.hbm_budget_bytes"))
         self.movement = TransferScheduler(self.hbm, self.metrics)
         self.devstats = DeviceStats(self.device, self.hbm)
+        self._tl = threading.local()
+        # the statement gate: plain read-only SELECTs share it, every
+        # other statement takes it exclusively (`with _stmt_lock:` is
+        # the write side)
+        self._stmt_lock = RWLock()
         # (table, generation) -> (uploaded column set, ColumnBatch);
-        # each entry holds a reservation under the same key
+        # each entry holds a reservation under the same key. Uploads and
+        # evictions hold _device_lock, so two shared readers never
+        # upload one table twice
         self._device_tables: dict[tuple, tuple] = {}
-        # the last statement's route (_fresh_route): its main query's
-        # Compact nodes, replans ("no_topk", "no_compact", in order) and
-        # last run's RunContext.route; the subqueries it evaluated, the
-        # temps it materialized ([name, rows, "columnar" or "rows"]: the
-        # path each took) and the partition counts of its
-        # partitioned re-runs; and under "all" the totals over every
-        # plan run the statement made, inner ones included
-        self.last_exec = _fresh_route()
+        self._device_lock = threading.RLock()
         # compiled plans: exec-cache key -> (compiled plan, meta), and
-        # the lookups by outcome (the reference's sql.plan.cache.*)
+        # the lookups by outcome (the reference's sql.plan.cache.*),
+        # both under _cache_lock (a hit's move-to-end is a mutation)
         self._exec_cache: OrderedDict = OrderedDict()
         self.plan_cache = {"hit": 0, "miss": 0}
-        self._in_statement = False
-        self._nested = 0        # depth of subquery / temp-body runs
-        # open preparations' generation sets: tables that subqueries
-        # read while a plan binds them join every open set
-        self._gen_sinks: list[set] = []
-        self._cte_depth: dict[int, int] = {}
+        self._cache_lock = threading.Lock()
+        self._sessions_lock = threading.Lock()
+        # name -> view descriptor (None = read the catalog again)
+        self._view_defs: dict | None = None
+        self._lane_init()
 
     # -- public API ----------------------------------------------------------
     def session(self) -> Session:
         s = Session()
-        self._open_sessions.add(s)
+        self._track_session(s)
         return s
 
+    def _track_session(self, s: Session) -> None:
+        with self._sessions_lock:
+            self._open_sessions.add(s)
+
     def execute(self, sql: str, session: Session | None = None) -> Result:
+        # the OLTP lane first: it returns None for whatever it does not
+        # serve bit for bit
+        res = self.lane_execute(sql, session)
+        if res is not None:
+            return res
         session = session or self.session()
-        self._open_sessions.add(session)
+        self._track_session(session)
         try:
             stmt = parser.parse(sql)
         except Exception:
@@ -202,17 +263,76 @@ class Engine(DMLMixin, ConstraintMixin, DDLMixin, FastpathMixin,
                 "current transaction is aborted, commands ignored "
                 "until end of transaction block")
         try:
-            return self._dispatch(stmt, session, sql)
+            with self._run_scope(self._stmt_tables(stmt),
+                                 self._stmt_read_only(stmt, session, sql)):
+                return self._dispatch(stmt, session, sql)
         except Exception:
             if session.txn is not None and not isinstance(
                     stmt, ast.BeginTxn):
                 session.txn_aborted = True
             raise
 
+    @contextlib.contextmanager
+    def _gate(self, shared: bool):
+        """The statement gate's shared or exclusive side."""
+        if shared:
+            self._stmt_lock.acquire_read()
+            try:
+                yield
+            finally:
+                self._stmt_lock.release_read()
+        else:
+            with self._stmt_lock:
+                yield
+
+    def _stmt_read_only(self, stmt, session: Session,
+                        sql_text: str) -> bool:
+        """May this statement run under the shared side of the gate?
+        Plain single-SELECTs outside a txn do; anything that can change
+        engine-shared state (DML and DDL, txn sessions, CTE and derived
+        temps, views, which expand into derived temps, sequence calls,
+        subqueries, which can decorrelate into temps) is exclusive."""
+        if not isinstance(stmt, ast.Select):
+            return False
+        if session.txn is not None or session.effects:
+            return False
+        if stmt.ctes or self._has_derived(stmt):
+            return False
+        low = (sql_text or "").lower()
+        if "nextval" in low or "setval" in low or "currval" in low:
+            return False
+        if low.count("select") != 1:
+            return False
+        views = self._view_map()
+        refs = ([stmt.table] if stmt.table is not None else []) \
+            + [j.table for j in stmt.joins]
+        return not any(r.subquery is None and r.name in views
+                       for r in refs)
+
     def _dispatch(self, stmt, session: Session, sql: str) -> Result:
         if isinstance(stmt, ast.Select):
             with self._statement():
                 return self._exec_select(stmt, session, sql)
+        if isinstance(stmt, (ast.Insert, ast.Update, ast.Delete,
+                             ast.Truncate)) \
+                and stmt.table in self._view_map():
+            raise EngineError(
+                f"{stmt.table!r} is a view; views are not modifiable")
+        if isinstance(stmt, (ast.CreateTable, ast.DropTable,
+                             ast.Truncate, ast.CreateView, ast.DropView)):
+            # eligibility may flip (a CHECK, an FK child); a re-created
+            # table needs a new mirror
+            self._lane_reset()
+        if isinstance(stmt, ast.CreateView):
+            return self._exec_create_view(stmt, session)
+        if isinstance(stmt, ast.DropView):
+            return self._exec_drop_view(stmt)
+        if isinstance(stmt, ast.CreateSequence):
+            return self._exec_create_sequence(stmt)
+        if isinstance(stmt, ast.DropSequence):
+            return self._exec_drop_sequence(stmt)
+        if isinstance(stmt, ast.ShowSequences):
+            return self._show_sequences()
         if isinstance(stmt, ast.Insert):
             return self._exec_insert(stmt, session)
         if isinstance(stmt, ast.Update):
@@ -308,11 +428,59 @@ class Engine(DMLMixin, ConstraintMixin, DDLMixin, FastpathMixin,
                 out[tb] = out.get(tb, 0) + (op[0] == "put")
         return out
 
-    @staticmethod
-    def _sequence_ops(session: Session):
-        def no_sequences(fn, name, arg):
-            raise EngineError("sequences are not yet ported")
-        return no_sequences
+    # -- sequences ------------------------------------------------------------
+    SEQ_PREFIX = b"/seq/"
+
+    def _sequence_ops(self, session: Session):
+        return lambda fn, name, arg: self._sequence_op(session, fn, name,
+                                                       arg)
+
+    def _seq_desc(self, name: str) -> dict:
+        raw = self.kv.txn(lambda t: t.get(self.SEQ_PREFIX + name.encode()))
+        if raw is None:
+            raise EngineError(f"sequence {name!r} does not exist")
+        return json.loads(raw.decode())
+
+    def _sequence_op(self, session: Session, fn: str, name: str,
+                     arg) -> int:
+        """nextval/currval/setval. nextval allocates in a KV txn of its
+        own: a value is never handed out twice, and a ROLLBACK of the
+        caller's txn never returns one (pg semantics)."""
+        key = self.SEQ_PREFIX + name.encode()
+        if fn == "currval":
+            if name not in session.seq_currval:
+                raise EngineError(f"currval of sequence {name!r} is not "
+                                  f"yet defined in this session")
+            return session.seq_currval[name]
+        if fn == "nextval":
+            def bump(t):
+                raw = t.get(key)
+                if raw is None:
+                    raise EngineError(f"sequence {name!r} does not exist")
+                d = json.loads(raw.decode())
+                d["value"] = (d["start"] if d.get("value") is None
+                              else d["value"] + d["increment"])
+                t.put(key, json.dumps(d).encode())
+                return d["value"]
+            v = self.kv.txn(bump)
+        else:  # setval
+            desc = self._seq_desc(name)
+            desc["value"] = int(arg)
+            self.kv.txn(lambda t: t.put(key, json.dumps(desc).encode()))
+            v = int(arg)
+        session.seq_currval[name] = v
+        return v
+
+    def _show_sequences(self) -> Result:
+        p = self.SEQ_PREFIX
+        rows = []
+        for k, v in self.kv.scan(p, prefix_end(p)):
+            d = json.loads(v.decode())
+            rows.append((k[len(p):].decode(), d["start"], d["increment"],
+                         d.get("value")))
+        return Result(names=["sequence_name", "start", "increment",
+                             "last_value"], rows=sorted(rows),
+                      tag="SHOW SEQUENCES")
 
     # -- planning ------------------------------------------------------------
     def catalog_view(self, read_ts: Timestamp | None = None,
@@ -883,10 +1051,37 @@ class Engine(DMLMixin, ConstraintMixin, DDLMixin, FastpathMixin,
             return
         self._in_statement = True
         self.last_exec = _fresh_route()
+        self.last_exec["waits"] = self._scope_waits
         try:
             yield
         finally:
             self._in_statement = False
+
+    @contextlib.contextmanager
+    def _run_scope(self, tables, shared: bool):
+        """The scope of one statement (execute, or a prepared handle's
+        run). Full-path statements read the columnstore: the lane's
+        queued writes on ``tables`` (every table for None) publish first
+        and lane writes there wait until the statement ends; then the
+        gate is held, shared or exclusive. Inside a statement this
+        thread is already running, both are held. Temps are not lane
+        tables. The seconds spent getting in go to ``last_exec["waits"]``
+        (``_nonlane_scope``'s ``fence_s``/``flush_s``, and ``gate_s``)."""
+        if self._in_statement:
+            yield
+            return
+        if tables is not None:
+            tables = {t for t in tables if not t.startswith(TEMP_PREFIX)}
+        waits: dict = {}
+        with self._nonlane_scope(tables, waits):
+            t0 = time.perf_counter()
+            with self._gate(shared):
+                waits["gate_s"] = time.perf_counter() - t0
+                self._scope_waits = waits
+                try:
+                    yield
+                finally:
+                    self._scope_waits = {}
 
     @contextlib.contextmanager
     def _inner(self):
@@ -930,6 +1125,7 @@ class Engine(DMLMixin, ConstraintMixin, DDLMixin, FastpathMixin,
         if not isinstance(stmt, ast.Select):
             raise EngineError("can only prepare SELECTs")
         _check_select(stmt)
+        stmt = self._expand_views(stmt)
         sel = stmt
         if not (stmt.ctes or self._has_derived(stmt)):
             sel = self._decorrelate(stmt)
@@ -946,11 +1142,11 @@ class Engine(DMLMixin, ConstraintMixin, DDLMixin, FastpathMixin,
         tables into temps, then prepare and run (the reference's
         ``_exec_select``; its re-runs live in Prepared.run)."""
         _check_select(sel)
-        sel = self._decorrelate(sel)
+        sel = self._decorrelate(self._expand_views(sel))
         if sel.ctes or self._has_derived(sel):
             return self._exec_with_temps(sel, session, sql_text)
         if sel.table is None:
-            raise EngineError("table-free SELECTs are not yet ported")
+            return self._exec_table_free(sel, session)
         match = self._index_fastpath_match(sel, session)
         if match is not None:
             res = self._exec_index_fastpath(sel, session, match)
@@ -970,6 +1166,31 @@ class Engine(DMLMixin, ConstraintMixin, DDLMixin, FastpathMixin,
                     "path").inc()
                 return res
         return self._prepare_select(sel, session, sql_text).run()
+
+    def _exec_table_free(self, sel: ast.Select, session: Session) -> Result:
+        """SELECT <constant exprs> with no FROM: one row of what the
+        binder folds (the sequence builtins, literals, constant
+        arithmetic). Other table-free shapes are not yet ported."""
+        if sel.where is not None or sel.group_by or sel.having \
+                or sel.order_by or sel.limit is not None or sel.offset:
+            raise EngineError("table-free SELECT clauses are not yet "
+                              "ported")
+        binder = Binder(Scope(), sequence_ops=self._sequence_ops(session),
+                        now_micros=self._read_ts(session).wall // 1000)
+        names, row, types = [], [], []
+        for it in sel.items:
+            if it.star:
+                raise EngineError("SELECT * requires FROM")
+            b = binder.bind(it.expr)
+            if not isinstance(b, BConst):
+                raise EngineError("table-free SELECTs of non-constant "
+                                  "expressions are not yet ported")
+            names.append(it.alias or "column")
+            row.append(decode_scalar(b.value, b.value is not None, b.type,
+                                     None)
+                       if not isinstance(b.value, str) else b.value)
+            types.append(b.type)
+        return Result(names=names, rows=[tuple(row)], types=types)
 
     def _exec_params(self, session: Session, no_topk: bool) -> ExecParams:
         sortn = str(session.vars.get("sort_normalized", "auto")).lower()
@@ -1151,23 +1372,25 @@ class Engine(DMLMixin, ConstraintMixin, DDLMixin, FastpathMixin,
         compile_spill_sort). ``key`` holds ``cgens`` (_cache_gens); a
         miss drops the entries that read one of these tables at an
         older generation, which no later run can hit."""
-        hit = self._exec_cache.get(key)
-        if hit is not None:
-            self.plan_cache["hit"] += 1
-            self._exec_cache.move_to_end(key)
-            return hit[:2]
-        self.plan_cache["miss"] += 1
+        with self._cache_lock:
+            hit = self._exec_cache.get(key)
+            if hit is not None:
+                self.plan_cache["hit"] += 1
+                self._exec_cache.move_to_end(key)
+                return hit[:2]
+            self.plan_cache["miss"] += 1
         try:
             runf = compile_fn(node, params, meta)
         except ExecError as e:
             raise EngineError(str(e)) from e
         now = {t: g for t, g, _ in cgens}
-        for k in [k for k, v in self._exec_cache.items()
-                  if any(now.get(t, g) != g for t, g, _ in v[2])]:
-            del self._exec_cache[k]
-        self._exec_cache[key] = (runf, meta, cgens)
-        while len(self._exec_cache) > self.EXEC_CACHE_MAX:
-            self._exec_cache.popitem(last=False)
+        with self._cache_lock:
+            for k in [k for k, v in self._exec_cache.items()
+                      if any(now.get(t, g) != g for t, g, _ in v[2])]:
+                del self._exec_cache[k]
+            self._exec_cache[key] = (runf, meta, cgens)
+            while len(self._exec_cache) > self.EXEC_CACHE_MAX:
+                self._exec_cache.popitem(last=False)
         return runf, meta
 
     # -- subqueries, derived tables, CTEs -------------------------------------
@@ -1288,7 +1511,7 @@ class Engine(DMLMixin, ConstraintMixin, DDLMixin, FastpathMixin,
         try:
             if sub.ctes:
                 raise _RowPath("nested CTEs take the row path")
-            sub = self._decorrelate(sub)
+            sub = self._decorrelate(self._expand_views(sub))
             if sub.ctes or self._has_derived(sub):
                 raise _RowPath("derived tables take the row path")
             with self._inner():
@@ -1497,28 +1720,30 @@ class Engine(DMLMixin, ConstraintMixin, DDLMixin, FastpathMixin,
         (MemoryQuotaError past it) and released with the copy."""
         td = self.store.table(name)
         key = (name, td.generation)
-        hit = self._device_tables.get(key)
-        if hit is not None and cols <= hit[0]:
-            return hit[1]
-        self._evict_device(name)
-        if hit is not None:
-            cols = cols | hit[0]
-        self.movement.reserve_resident(key,
-                                       self._table_device_bytes(td, cols))
-        try:
-            b = self._batch_from_chunks(td, td.chunks, cols)
-        except BaseException:
-            self.movement.release_resident(key)
-            raise
-        self._device_tables[key] = (cols, b)
-        return b
+        with self._device_lock:
+            hit = self._device_tables.get(key)
+            if hit is not None and cols <= hit[0]:
+                return hit[1]
+            self._evict_device(name)
+            if hit is not None:
+                cols = cols | hit[0]
+            self.movement.reserve_resident(
+                key, self._table_device_bytes(td, cols))
+            try:
+                b = self._batch_from_chunks(td, td.chunks, cols)
+            except BaseException:
+                self.movement.release_resident(key)
+                raise
+            self._device_tables[key] = (cols, b)
+            return b
 
     def _evict_device(self, name: str) -> None:
         """Drop every resident device copy of table ``name`` and its
         reservation."""
-        for k in [k for k in self._device_tables if k[0] == name]:
-            del self._device_tables[k]
-            self.movement.release_resident(k)
+        with self._device_lock:
+            for k in [k for k in self._device_tables if k[0] == name]:
+                del self._device_tables[k]
+                self.movement.release_resident(k)
 
     def _batch_from_chunks(self, td, chunks, cols: frozenset) -> ColumnBatch:
         """Concatenate chunks, pad to a power-of-two row count of at
@@ -1590,7 +1815,7 @@ class Engine(DMLMixin, ConstraintMixin, DDLMixin, FastpathMixin,
 
 def _fresh_route() -> dict:
     return {"compact_nodes": 0, "replans": [], "subqueries": 0,
-            "temps": [], "partitioned": [], "paging": None,
+            "temps": [], "partitioned": [], "paging": None, "waits": {},
             "all": {"runs": 0, "compact_nodes": 0, "compacts_applied": 0,
                     "topk_cuts": 0, "group_ids": 0, "expansions": [],
                     "replans": [], "partitioned": [], "paging": []}}

@@ -511,5 +511,6 @@ class ScanPlaneMixin:
     def drop_device_cache(self) -> None:
         """Evict every resident table copy and release its
         reservation."""
-        for name in {k[0] for k in self._device_tables}:
-            self._evict_device(name)
+        with self._device_lock:
+            for name in {k[0] for k in self._device_tables}:
+                self._evict_device(name)

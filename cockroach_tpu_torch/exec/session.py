@@ -62,6 +62,8 @@ class Session:
     # a failed statement aborts the whole txn (pg: "current transaction
     # is aborted" until ROLLBACK), which keeps statements atomic
     txn_aborted: bool = False
+    # currval() state: sequence name -> last nextval in this session
+    seq_currval: dict = field(default_factory=dict)
 
     @property
     def txn_read_ts(self) -> Optional[Timestamp]:
@@ -238,7 +240,13 @@ class Prepared:
 
     def run(self, read_ts=None) -> Result:
         eng = self.engine
-        with eng._statement():
+        s = self.session
+        # the gate's side by execute()'s rule: uncorrelated subqueries
+        # re-run when a generation moves, and can materialize temps
+        with eng._run_scope({t for t, _ in self.gens},
+                            eng._stmt_read_only(self.stmt, s,
+                                                self.sql_text)), \
+                eng._statement():
             self._refresh()
             if self.spill is not None and self.spill.kind == "sort":
                 # the external merge sort's tail runs on the host

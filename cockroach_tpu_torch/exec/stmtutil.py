@@ -62,9 +62,11 @@ class RerunPrepared:
     sql_text: str
 
     def run(self, read_ts=None) -> Result:
-        with self.engine._statement():
-            return self.engine._exec_select(self.stmt, self.session,
-                                            self.sql_text)
+        eng = self.engine
+        with eng._run_scope(eng._stmt_tables(self.stmt), False), \
+                eng._statement():
+            return eng._exec_select(self.stmt, self.session,
+                                    self.sql_text)
 
 
 def rewrite_table_names(sel, mapping: dict):
@@ -202,3 +204,25 @@ def split_conjuncts_ast(e: ast.Expr) -> list:
 
     walk(e)
     return out
+
+
+def collect_tables(node, out: set) -> None:
+    """Every stored table a parsed statement names, into ``out``: every
+    AST node is a dataclass, so a generic field walk reaches subqueries,
+    CTE bodies and derived tables wherever they nest (a CTE's own name
+    is collected where the statement reads it)."""
+    if node is None or isinstance(node, (str, int, float, bool, bytes)):
+        return
+    if isinstance(node, (list, tuple)):
+        for x in node:
+            collect_tables(x, out)
+        return
+    if isinstance(node, ast.TableRef):
+        if node.subquery is not None:
+            collect_tables(node.subquery, out)
+        else:
+            out.add(node.name)
+        return
+    if dataclasses.is_dataclass(node):
+        for f in dataclasses.fields(node):
+            collect_tables(getattr(node, f.name), out)

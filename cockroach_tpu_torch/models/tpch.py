@@ -910,6 +910,23 @@ WHERE s_suppkey = supplier_no
 ORDER BY s_suppkey
 """
 
+# Q15 as the TPC-H specification writes it: a view, the query over it,
+# and the view dropped again (the same rows as the CTE form above)
+Q15_VIEW = ("""
+CREATE VIEW revenue0 (supplier_no, total_revenue) AS
+  SELECT l_suppkey, sum(l_extendedprice * (1 - l_discount))
+  FROM lineitem
+  WHERE l_shipdate >= date '1996-01-01'
+    AND l_shipdate < date '1996-04-01'
+  GROUP BY l_suppkey
+""", """
+SELECT s_suppkey, s_name, total_revenue
+FROM supplier, revenue0
+WHERE s_suppkey = supplier_no
+  AND total_revenue = (SELECT max(total_revenue) FROM revenue0)
+ORDER BY s_suppkey
+""", "DROP VIEW revenue0")
+
 # Q16 (parts/supplier relationship): NOT IN subquery + count distinct
 Q16 = """
 SELECT p_brand, p_type, p_size, count(DISTINCT ps_suppkey) AS supplier_cnt

@@ -37,6 +37,18 @@ class Gauge:
         return self._v
 
 
+class FuncGauge:
+    """A gauge read from a function at snapshot time."""
+
+    def __init__(self, name: str, fn, help_: str = ""):
+        self.name = name
+        self.help = help_
+        self._fn = fn
+
+    def value(self):
+        return self._fn()
+
+
 class Histogram:
     """Count and sum of the observed values (the reference keeps log2
     buckets too; nothing in this package reads them)."""
@@ -67,6 +79,9 @@ class MetricRegistry:
 
     def gauge(self, name: str, help_: str = "") -> Gauge:
         return self._get_or_add(name, lambda: Gauge(name, help_))
+
+    def func_gauge(self, name: str, fn, help_: str = "") -> FuncGauge:
+        return self._get_or_add(name, lambda: FuncGauge(name, fn, help_))
 
     def histogram(self, name: str, help_: str = "") -> Histogram:
         return self._get_or_add(name, lambda: Histogram(name, help_))

@@ -9,8 +9,11 @@ per-workload operation mixes:
   C: 100% read                    F: 50% read / 50% read-modify-write
 
 ``setup`` loads the records through INSERT statements of at most
-``load_batch`` rows each. The reference's multi-threaded
-``run_concurrent`` waits for the engine's statement gate.
+``load_batch`` rows each. ``run_concurrent`` runs N drivers over one
+engine on threads of their own (the reference's ``--concurrency``).
+Every driver logs the field0 value each of its writes gave a key
+(``writes``), so a concurrent run's final table can be held to what
+some driver wrote.
 """
 
 from __future__ import annotations
@@ -85,6 +88,9 @@ class YCSB:
         self.session = session
         self.record_latency = record_latency
         self.latencies: list = []      # per-step seconds when enabled
+        # the same by operation kind
+        self.op_latencies: dict = {op: [] for op in self.ops}
+        self.writes: list = []         # (key, field0) of every write
         # hoisted: the mix is fixed, don't rebuild per step
         self._op_names, op_probs = zip(*self.mix.items())
         self._op_sampler = _CdfSampler(op_probs, self.rng, batch=1024)
@@ -138,12 +144,14 @@ class YCSB:
             e.execute(f"SELECT field0, field1 FROM usertable "
                       f"WHERE ycsb_key = {k}", s)
         elif op == "update":
+            v = int(self.rng.integers(0, 1000))
             self._write_retry(f"UPDATE usertable SET field0 = "
-                              f"{int(self.rng.integers(0, 1000))} "
-                              f"WHERE ycsb_key = {k}")
+                              f"{v} WHERE ycsb_key = {k}")
+            self.writes.append((k, v))
         elif op == "insert":
             self._write_retry(f"INSERT INTO usertable VALUES "
                               f"({self.next_key}, 0, 0)")
+            self.writes.append((self.next_key, 0))
             self.next_key += 1
         elif op == "scan":
             e.execute(f"SELECT ycsb_key, field0 FROM usertable "
@@ -155,8 +163,11 @@ class YCSB:
             v = (r.rows[0][0] or 0) + 1 if r.rows else 0
             self._write_retry(f"UPDATE usertable SET field0 = {v} "
                               f"WHERE ycsb_key = {k}")
+            self.writes.append((k, v))
         if self.record_latency:
-            self.latencies.append(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self.latencies.append(dt)
+            self.op_latencies[op].append(dt)
         self.ops[op] += 1
         return op
 
@@ -168,3 +179,91 @@ class YCSB:
         dt = time.monotonic() - t0
         return {"ops": dict(self.ops), "seconds": dt,
                 "ops_per_sec": steps / dt if dt > 0 else 0.0}
+
+    def run_concurrent(self, steps: int = 100, workers: int = 16,
+                       session_vars: dict | None = None,
+                       record_latency: bool = False,
+                       timeout: float = 600.0,
+                       insert_base: int | None = None) -> dict:
+        """N concurrent drivers over one engine, each with its own
+        worker object (its own RNG seeded 1000 + w, zipf and counters;
+        nothing shared but the engine). Insert keyspaces are disjoint
+        per worker: worker w inserts from ``insert_base`` (the record
+        count by default) + (w + 1) * 10,000,000, above any key a
+        sequential run inserted; a later concurrent run over the same
+        table passes another base.
+        ``session_vars`` gives every driver its own Session with those
+        variables set (the ``oltp_batch`` A/B rides this);
+        ``record_latency`` adds p50/p99 milliseconds, overall and per
+        operation kind. A driver that has not finished within
+        ``timeout`` seconds of the start raises (a deadlock must fail,
+        not hang). The drivers stay in ``self.drivers`` (their
+        ``writes`` logs)."""
+        import threading
+        import time
+
+        from ..exec.session import Session
+
+        per = max(steps // workers, 1)
+        drivers = []
+        for w in range(workers):
+            session = None
+            if session_vars is not None:
+                session = Session()
+                for k, v in session_vars.items():
+                    session.vars.set(k, v)
+            d = YCSB(self.engine, workload=self.workload,
+                     records=self.records, seed=1000 + w,
+                     distribution=self.distribution,
+                     scan_limit=self.scan_limit, session=session,
+                     record_latency=record_latency)
+            d.next_key = (self.records if insert_base is None
+                          else insert_base) + (w + 1) * 10_000_000
+            drivers.append(d)
+        self.drivers = drivers
+        errors: list = []
+
+        def drive(d):
+            try:
+                for _ in range(per):
+                    d.step()
+            except Exception as exc:
+                errors.append(exc)
+
+        threads = [threading.Thread(target=drive, args=(d,), daemon=True)
+                   for d in drivers]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(max(0.0, t0 + timeout - time.monotonic()))
+        dt = time.monotonic() - t0
+        stuck = sum(t.is_alive() for t in threads)
+        if stuck:
+            raise TimeoutError(f"{stuck} of {workers} YCSB drivers did "
+                               f"not finish within {timeout} s")
+        if errors:
+            raise errors[0]
+        total = per * workers
+        out = {"ops": {op: sum(d.ops[op] for d in drivers)
+                       for op in self.ops},
+               "seconds": dt, "workers": workers,
+               "ops_per_sec": total / dt if dt > 0 else 0.0,
+               "retries": sum(d.retries for d in drivers)}
+        if record_latency:
+            out.update(_percentiles(
+                [x for d in drivers for x in d.latencies]))
+            for op in self.ops:
+                xs = [x for d in drivers for x in d.op_latencies[op]]
+                if xs:
+                    out[op] = _percentiles(xs)
+        return out
+
+
+def _percentiles(xs: list) -> dict:
+    """p50/p99 milliseconds of a list of seconds."""
+    xs = sorted(xs)
+    if not xs:
+        return {}
+    return {"p50_ms": xs[len(xs) // 2] * 1e3,
+            "p99_ms": xs[min(len(xs) - 1, int(len(xs) * 0.99))] * 1e3}

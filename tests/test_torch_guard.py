@@ -5,6 +5,9 @@
 - Entry points never quietly fall back to the CPU: without a card and
   without an explicit device, Engine() raises, and the kernel wrapper
   takes its plain version only for CPU tensors.
+- The OLTP lane's native row mirror (native/oltp.cpp) builds into
+  ``_build/``, never beside its source, and a failed build raises: the
+  lane is never turned off in silence.
 """
 
 import ast
@@ -36,7 +39,62 @@ def _imported_roots(path: Path):
 def test_port_scan_covers_the_package():
     names = {p.name for p in _port_files()}
     assert {"engine.py", "compile.py", "groupagg_large.py", "groupagg.py",
-            "hashtable.py", "join.py", "chip_smoke.py"} <= names
+            "hashtable.py", "join.py", "chip_smoke.py", "oltplane.py",
+            "oltpbatch.py", "rwlock.py", "ycsb.py"} <= names
+    assert ROOT / "cockroach_tpu_torch" / "native" / "__init__.py" in \
+        _port_files()
+
+
+def test_native_sources_are_the_ports_own():
+    """The lane's C++ and the gate's lock live in the port: nothing of
+    them is loaded from the JAX package."""
+    from cockroach_tpu_torch import native
+    from cockroach_tpu_torch.utils import rwlock
+    assert native.OLTP_SRC == ROOT / "cockroach_tpu_torch" / "native" / \
+        "oltp.cpp"
+    assert Path(rwlock.__file__).parent == ROOT / "cockroach_tpu_torch" / \
+        "utils"
+
+
+def test_oltp_mirror_builds_into_build_dir():
+    from cockroach_tpu_torch import native
+    before = {p.name for p in native.OLTP_SRC.parent.iterdir()}
+    lib = native.get_oltp()
+    path = native.lib_path(native.OLTP_SRC)
+    assert path.parent == ROOT / "cockroach_tpu_torch" / "_build"
+    assert path.exists() and path.name.startswith("oltp-")
+    assert {p.name for p in native.OLTP_SRC.parent.iterdir()} == before
+    assert not list(native.OLTP_SRC.parent.glob("*.so"))
+    h = lib.oltp_create(2)
+    assert lib.oltp_nversions(h) == 0
+    lib.oltp_destroy(h)
+
+
+def test_failed_native_build_raises(tmp_path, monkeypatch):
+    from cockroach_tpu_torch import native
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    bad = tmp_path / "broken.cpp"
+    bad.write_text("this is not C++\n")
+    with pytest.raises(native.NativeBuildError, match="failed"):
+        native.load_library(bad)
+    assert not list((tmp_path / "_build").glob("*.so"))
+    with pytest.raises(native.NativeBuildError):
+        native.load_library(native.OLTP_SRC, cxx=str(tmp_path / "no-cxx"))
+
+
+def test_lane_raises_when_its_build_fails(monkeypatch):
+    """An engine whose lane cannot be built raises at its first lane
+    statement instead of serving everything on the full path."""
+    from cockroach_tpu_torch import native
+    from cockroach_tpu_torch.exec.engine import Engine
+
+    def broken():
+        raise native.NativeBuildError("g++ failed")
+    monkeypatch.setattr(native, "get_oltp", broken)
+    e = Engine(device="cpu")
+    e.execute("CREATE TABLE t (k INT PRIMARY KEY, v INT)")
+    with pytest.raises(native.NativeBuildError):
+        e.execute("INSERT INTO t VALUES (1, 2)")
 
 
 @pytest.mark.parametrize("path", _port_files(),
