@@ -171,11 +171,11 @@ Phases (any failure exits non-zero before the final line):
    (`oltp_phase`; `oltp_phase_alone()` runs it by itself). usertable
    is dropped and bulk-loaded again with 1,000,000 records (i, i*7 %
    1000, i*13 % 1000) through the store's ingest path; the native
-   mirror's first rebuild is timed. YCSB A-F run 20,000 operations
+   mirror's first rebuild is timed. YCSB A-F run 10,000 operations
    each in one session (zipfian, seed 1, scans of 10): every statement
    must be a lane hit; ops/s and p50/p99 per operation kind; A's and
    E's reads and scans are then replayed against an oracle of every
-   mix's writes. A and E run at 16 workers (32,000 operations each)
+   mix's writes. A and E run at 16 workers (16,000 operations each)
    with oltp_batch auto, then off: ops/s, p50/p99, retries, the batch
    counters (windows, fused statements, window size p50, wait in the
    window) and the group commits. A third YCSB-A at 16 workers runs
@@ -198,13 +198,68 @@ Phases (any failure exits non-zero before the final line):
    a value drawn in a rolled-back txn never handed out. usertable
    gains one chunk per flush. The timestamp cache's size and the cost
    of one add are printed. Phase 12 must take 150 s or less.
+13. The front door, on the SF1 engine after phase 12
+   (`frontdoor_phase`, then `entry_points_phase`;
+   `frontdoor_phase_alone()` runs both by themselves). A PgServer runs
+   over that Engine, first with the `threads` frontend, then the
+   `reactor`. Under each, one client (server/miniclient.py) sends
+   TPC-H Q1, Q6, Q14 and Q3 through the simple protocol, Q6 through the
+   extended protocol with its dates, discount bounds and quantity as
+   $n parameters in text and then in binary (the dates in text both
+   times), then `SET pallas_groupagg = on` and Q1F; then each
+   text once more through execute(). Every count is set to 0 just
+   before each run and read just after, and phase 13's launches are
+   the sum of what was read. The decoded rows equal the numpy oracles
+   over the arrays as phase 11 left them (phase 2's and 6's
+   tolerances) and execute()'s rows for the same text (Q1F within rel
+   1e-5); Q1 launches kernel 1 once and Q1F kernel 2 once, each way,
+   and each launch is held against its plain version at the inputs it
+   was given. Medians of 5 warm runs of Q1, Q6 and a usertable pk
+   point SELECT over the wire, and through execute(), where Q1 and Q6
+   also take 21 warm runs with the parse cache and 21 with a parse per
+   statement; the timed runs' launches are counted the same way, but
+   not held against the plain version one by one. 16 wire sessions, a thread each in a client process of
+   their own (`wire_client_main`, so their Python does not share the
+   server's interpreter lock), run YCSB-B and then YCSB-E (16,000
+   operations a mix, the port's statement texts, a 40001 retried):
+   ops/s and p50/p99 by kind, and 200 written keys read back as some
+   session wrote them; under `threads`, `reactor`, and `reactor` with
+   sql.exec.switch_interval = 0.001 (which must set the interpreter's
+   switch interval and restore it at 0). Then 1,000 idle sessions are
+   parked on the reactor while the 16 live sessions run YCSB-B (4,000
+   operations): the server process's thread count (it may grow by the
+   worker pool at most), the RSS a parked session costs (its client
+   end included), the live p99; and Q1 from a 17th session beside
+   YCSB-B (4,000 operations) equals its oracle and launches kernel 1
+   once (checked) while lane statements complete.
+   Admission, at 4 execution slots: 8 sessions of a noisy tenant
+   (`application_name`) send Q1 4 times each (each equal to the oracle,
+   every launch checked) while 4 of a quiet tenant send pk point reads
+   that the lane refuses (a residual conjunct), so each takes the full
+   path through admission; once with no tenant cap and once at
+   sql.admission.tenant.slots = 2. For each: the quiet and noisy
+   p50/p99, admission.tenant.slot_waits (at least 1 at the cap) and
+   queued; then what /_status/tenants serves. The entry points, on the card,
+   reusing the kernels phase 1 built (`_build/` unchanged): a Node
+   with TPC-H SF 0.1 in process (Q1 over the wire equals its oracle,
+   launches kernel 1 once, checked; /_status/statements lists its
+   fingerprint with count 1; /_status/vars serves the metrics; stop()
+   returns), and as processes of their own, started together:
+   `python3 -m cockroach_tpu_torch demo --sf 0.1` with Q1 and Q6 on
+   stdin (its printed rows equal the SF 0.1 oracles), `start
+   --listen-addr 127.0.0.1:0` with `sql -e` of a CREATE TABLE, an
+   INSERT of 500 lineitem rows, Q6 (equal to its oracle) and SHOW
+   STATEMENTS (Q6's fingerprint with count 1), and `workload tpcc
+   --steps 200` (exit 0, its JSON line).
 Each phase's seconds are printed. After phase 10, one JSON `dml` line
-holds phase 11's numbers and one JSON `oltp` line phase 12's, each
-with the card's name and power limit; then one JSON line of
-per-kernel numbers (the large-G kernel's launches count Q1, Q5, Q10,
-Q12 and the path runs of phases 7, 8, 10, 11 and 12; `path_checks`
-holds each of its calls in phases 7, 8, 10, 11 and 12 held against
-the plain version), the nvidia-smi line, and the last line
+holds phase 11's numbers, one JSON `oltp` line phase 12's and one JSON
+`frontdoor` line phase 13's, each with the card's name and power
+limit; then one JSON line of per-kernel numbers (the large-G kernel's
+launches count Q1, Q5, Q10, Q12 and the path runs of phases 7, 8, 10,
+11, 12 and 13, the small-G kernel's Q1F, Q6F and phase 13's;
+`path_checks` holds each of the large-G kernel's calls in phases 7,
+8, 10, 11, 12 and 13 held against the plain version, and the small-G
+kernel's phase 13 calls), the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile DIR
@@ -219,6 +274,7 @@ import contextlib
 import gc
 import json
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -1977,9 +2033,9 @@ def refresh_phase(eng, li, part, orders, cust, sf, reps: int = 3) -> dict:
     out["routes"] = routes
     out["q6_in_txn"], out["q6_outside_txn"] = q6_txn, q6_out
     print("refresh: " + json.dumps(out), flush=True)
-    # lineitem's arrays as this phase left them, for phase 12's oracles
-    # (taken off before the dml line prints)
-    out["li_after"] = li2
+    # lineitem's and orders' arrays as this phase left them, for the
+    # oracles of phases 12 and 13 (taken off before the dml line prints)
+    out["li_after"], out["orders_after"] = li2, orders2
     return out
 
 
@@ -2163,6 +2219,7 @@ def dml_phase_alone(sf: float = SF, ycsb_records: int = 100_000,
     out = dml_phase(eng, li, tpch.gen_part(sf), sf, ycsb_records,
                     ycsb_ops)
     out["refresh"].pop("li_after")
+    out["refresh"].pop("orders_after")
     print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"dml": dict(out, card=smi)}), flush=True)
     return out
@@ -2196,10 +2253,55 @@ def oltp_phase_alone(sf: float = SF, **kw) -> dict:
     return out
 
 
+def frontdoor_phase_alone(sf: float = SF, records: int = 1_000_000,
+                          **kw) -> dict:
+    """Phase 13 by itself: builds the kernels, loads lineitem, part,
+    orders and customer at `sf` and a bulk-loaded usertable of
+    `records` keys on the card, runs frontdoor_phase and the entry
+    points and prints the `frontdoor` line (``python3 -c "import
+    chip_smoke; chip_smoke.frontdoor_phase_alone()"``); `kw` goes to
+    frontdoor_phase."""
+    import numpy as np
+
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import build
+    smi = _smi()
+    print(f"card: {smi}", flush=True)
+    build.compile_all(["groupagg_large", "groupagg"])
+    t0 = time.perf_counter()
+    eng = Engine()
+    tpch.load(eng, sf=sf, tables=("lineitem", "part"), encoded=True)
+    tpch.load(eng, sf=sf, tables=("orders", "customer"))
+    li = tpch.gen_lineitem(sf, encoded=True)
+    li["l_returnflag"] = np.asarray(tpch.RF_VALUES)[li["l_returnflag"]]
+    li["l_linestatus"] = np.asarray(tpch.LS_VALUES)[li["l_linestatus"]]
+    li["l_shipmode"] = np.asarray(tpch.SHIPMODES, dtype=object)[
+        li["l_shipmode"]]
+    eng.execute(USERTABLE_DDL)
+    i = np.arange(records, dtype=np.int64)
+    eng.store.insert_columns("usertable", {
+        "ycsb_key": i, "field0": i * 7 % 1000, "field1": i * 13 % 1000},
+        eng.clock.now())
+    print(f"load SF{sf}: {time.perf_counter() - t0:.1f} s", flush=True)
+    out = frontdoor_phase(eng, li, tpch.gen_orders(sf),
+                          tpch.gen_customer(sf), tpch.gen_part(sf),
+                          records, **kw)
+    out["entry_points"] = entry_points_phase()
+    out.pop("path_checks")
+    out.pop("small_checks")
+    out["entry_points"].pop("node_checks")
+    print(f"phase 13: {out['seconds']:.1f} s", flush=True)
+    print(json.dumps({"frontdoor": dict(out, card=smi)}), flush=True)
+    return out
+
+
 # -- 12. the OLTP lane beside the card ---------------------------------------
 OLTP_RECORDS = 1_000_000        # usertable rows, bulk-ingested
-OLTP_OPS = 20_000               # operations per single-session mix
-OLTP_CONC_OPS = 32_000          # operations per concurrent run
+# phase 12's depth, cut to leave phase 13 its time (20,000 and 32,000
+# before it)
+OLTP_OPS = 10_000               # operations per single-session mix
+OLTP_CONC_OPS = 16_000          # operations per concurrent run
 OLTP_WORKERS = 16
 OLTP_GROUP_BY = ("SELECT field0, count(*), sum(field1), min(field1), "
                  "max(field1) FROM usertable GROUP BY field0")
@@ -2699,6 +2801,842 @@ def oltp_phase(eng, li_after, supplier, records: int = OLTP_RECORDS,
     return out
 
 
+# -- 13. the front door -------------------------------------------------------
+FRONT_OPS = 16_000              # YCSB operations a mix over the wire
+FRONT_SIDE_OPS = 4_000          # YCSB-B beside the parked sessions, Q1
+FRONT_CLIENTS = 16              # wire sessions, one thread each
+FRONT_PARKED = 1_000            # idle sessions parked on the reactor
+FRONT_SF = 0.1                  # the entry points' own TPC-H scale
+FRONT_Q1_RUNS = 4               # Q1s a noisy-tenant session sends
+ADM_SLOTS = 4                   # execution slots in the admission step
+FRONT_TIMEOUT = 600.0           # a wire client's socket timeout (s)
+PARSE_REPS = 21                 # warm runs a way, parse cache vs none
+# Q6 with its date and discount bounds and its quantity cut as $n
+Q6_PARAMS = ("SELECT sum(l_extendedprice * l_discount) AS revenue FROM "
+             "lineitem WHERE l_shipdate >= date $1 AND l_shipdate < "
+             "date $2 AND l_discount BETWEEN $3 AND $4 AND "
+             "l_quantity < $5")
+Q6_OIDS = (25, 25, 701, 701, 20)
+Q6_TEXT = (b"1994-01-01", b"1995-01-01", b"0.05", b"0.07", b"24")
+
+
+class _WireResult:
+    def __init__(self, rows, tag):
+        self.rows, self.tag = rows, tag
+
+
+class _WireFront:
+    """YCSB's engine over the wire: each thread sends its statements on
+    a connection of its own, so run_concurrent's drivers are that many
+    pgwire sessions; a 40001 comes back as the engine's restart error,
+    which the workload retries."""
+
+    def __init__(self, addr, **kw):
+        import threading
+        self.addr, self.kw = addr, kw
+        self._tl = threading.local()
+        self._lock = threading.Lock()
+        self.clients = []
+
+    def _client(self):
+        from cockroach_tpu_torch.server.miniclient import MiniClient
+        c = getattr(self._tl, "c", None)
+        if c is None:
+            c = MiniClient(*self.addr, timeout=FRONT_TIMEOUT, **self.kw)
+            with self._lock:
+                self.clients.append(c)
+            self._tl.c = c
+        return c
+
+    def execute(self, sql, session=None):
+        from cockroach_tpu_torch.exec.session import EngineError
+        from cockroach_tpu_torch.server.miniclient import PgError
+        try:
+            _names, rows, tag = self._client().query(sql)
+        except PgError as e:
+            if e.sqlstate == "40001":
+                raise EngineError(f"restart transaction: {e}") from e
+            raise
+        return _WireResult(rows, tag)
+
+    def close(self):
+        for c in self.clients:
+            c.close()
+
+
+class _WireClients:
+    """The YCSB wire sessions' process (``wire_client_main``): one
+    command a run, its result read back when the run ends."""
+
+    def __init__(self):
+        import os
+        from pathlib import Path
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(root) + os.pathsep + env.get("PYTHONPATH",
+                                                             "")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.wire_client_main())"], cwd=root, env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+
+    def send(self, cmd: dict) -> None:
+        self.proc.stdin.write(json.dumps(cmd) + "\n")
+        self.proc.stdin.flush()
+
+    def result(self, label: str) -> dict:
+        line = self.proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"{label}: the client process exited "
+                                 f"({self.proc.poll()})")
+        res = json.loads(line)
+        if "error" in res:
+            raise AssertionError(f"{label}: {res['error']}")
+        return res
+
+    def close(self) -> None:
+        try:
+            self.proc.stdin.write("\n")
+            self.proc.stdin.close()
+        except OSError:
+            pass
+        try:
+            self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def wire_client_main() -> int:
+    """Phase 13's YCSB sessions as a process of their own: one JSON
+    command a line on stdin ({"addr": [host, port], "mix", "records",
+    "ops", "clients", "insert_base"}), one JSON line back a command:
+    YCSB.run_concurrent's numbers over that many wire sessions, a thread
+    each, and the values written to the first 200 keys written (or
+    {"error": ...}). An empty line ends it."""
+    from cockroach_tpu_torch.workload.ycsb import YCSB
+    for line in sys.stdin:
+        if not line.strip():
+            break
+        cmd = json.loads(line)
+        front = _WireFront(tuple(cmd["addr"]))
+        try:
+            y = YCSB(front, cmd["mix"], records=cmd["records"], seed=1)
+            res = y.run_concurrent(
+                cmd["ops"], workers=cmd["clients"], record_latency=True,
+                timeout=FRONT_TIMEOUT, insert_base=cmd["insert_base"])
+        except Exception as e:
+            print(json.dumps({"error": repr(e)}), flush=True)
+            continue
+        finally:
+            front.close()
+        written: dict = {}
+        for d in y.drivers:
+            for k, v in d.writes:
+                written.setdefault(k, []).append(v)
+        res["written"] = [[k, written[k]] for k in sorted(written)[:200]]
+        print(json.dumps(res), flush=True)
+    return 0
+
+
+def _wire_form(rows) -> list:
+    """Engine rows as a wire client decodes them: dates as their text."""
+    import datetime
+    return [tuple(v.isoformat() if isinstance(v, datetime.date) else v
+                  for v in r) for r in rows]
+
+
+def _extended(c, sql, params, fmts, oids):
+    """Parse/Bind/Execute/Sync on a MiniClient, with per-parameter
+    format codes (0 text, 1 binary) and text results."""
+    import struct
+    c._send(b"P", b"\x00" + sql.encode() + b"\x00"
+            + struct.pack("!H", len(oids))
+            + b"".join(struct.pack("!I", o) for o in oids))
+    b = bytearray(b"\x00\x00")
+    b += struct.pack("!H", len(fmts)) + b"".join(
+        struct.pack("!H", f) for f in fmts)
+    b += struct.pack("!H", len(params))
+    for p in params:
+        b += struct.pack("!i", len(p)) + p
+    b += struct.pack("!H", 0)
+    c._send(b"B", bytes(b))
+    c._send(b"E", b"\x00" + struct.pack("!i", 0))
+    c._send(b"S")
+    return c._collect()
+
+
+@contextlib.contextmanager
+def recording_small():
+    """Record every call of the small-G kernel's wrapper while the block
+    runs (its arguments, for compare_small)."""
+    from cockroach_tpu_torch.ops.cuda import groupagg as tg
+    kernel = tg.dense_group_aggregate
+    calls: list = []
+
+    def recording(*args, **kw):
+        calls.append((args[0], args[1], tuple(args[2]), tuple(args[3]),
+                      args[4], tuple(args[5])))
+        return kernel(*args, **kw)
+
+    tg.dense_group_aggregate = recording
+    try:
+        yield calls
+    finally:
+        tg.dense_group_aggregate = kernel
+
+
+def _kernel_counts(on_card: bool) -> tuple:
+    from cockroach_tpu_torch.ops.cuda import groupagg as tg
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    if on_card:
+        return tgl.LAUNCHES, tg.LAUNCHES
+    return tgl.PLAIN_CALLS, tg.PLAIN_CALLS
+
+
+def _pctl(xs) -> dict:
+    xs = sorted(xs)
+    return {"n": len(xs), "p50_ms": xs[len(xs) // 2] * 1e3,
+            "p99_ms": xs[min(len(xs) - 1, int(len(xs) * 0.99))] * 1e3}
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def _connect_idle(addr):
+    """A raw session that completed startup and now sits idle."""
+    import socket
+    import struct
+    sock = socket.create_connection(addr, timeout=60)
+    body = struct.pack("!I", 196608) + b"user\x00root\x00\x00"
+    sock.sendall(struct.pack("!I", len(body) + 4) + body)
+    buf = b""
+    while True:
+        off = 0
+        while off + 5 <= len(buf):
+            (ln,) = struct.unpack_from("!I", buf, off + 1)
+            if off + 1 + ln > len(buf):
+                break
+            if buf[off:off + 1] == b"Z":
+                return sock
+            off += 1 + ln
+        buf = buf[off:]
+        b = sock.recv(4096)
+        if not b:
+            raise ConnectionError("server closed during startup")
+        buf += b
+
+
+def _check_wire_query(eng, c, label, sql, check, on_card, session=None,
+                      k1=None, k2=None, extended=None) -> dict:
+    """One statement over the wire, then the same text through
+    execute(), each with its kernel launches (counted from 0 just before
+    it and read just after), held against its oracle (``check(rows)``)
+    and against each other; each launch of either held against the plain
+    version at its inputs (on the card). ``k1``/``k2``: the launches of
+    kernel 1 and 2 each must make."""
+    _counts_zero()
+    t0 = time.perf_counter()
+    with recording_slots() as calls, recording_small() as scalls:
+        names, rows, tag = (extended(c) if extended is not None
+                            else c.query(sql))
+        _sync()
+    s = time.perf_counter() - t0
+    n1, n2 = _kernel_counts(on_card)
+    _counts_zero()
+    with recording_slots() as dcalls, recording_small() as dscalls:
+        direct = _wire_form(eng.execute(sql, session).rows)
+        _sync()
+    d1, d2 = _kernel_counts(on_card)
+    for how, got in (("wire", (n1, n2)), ("execute", (d1, d2))):
+        if (k1 is not None and got[0] != k1) or \
+                (k2 is not None and got[1] != k2):
+            raise AssertionError(f"{label} {how}: kernel launches {got}, "
+                                 f"want ({k1}, {k2})")
+    err = check(rows)
+    out = {"s": s, "groupagg_large": n1, "groupagg": n2,
+           "execute_groupagg_large": d1, "execute_groupagg": d2,
+           "rows": len(rows), "tag": tag}
+    if k2:
+        # the small-G kernel adds in f32 with atomics: two runs agree
+        # within its tolerance, not bit for bit
+        check_float(f"{label} vs execute", rows, direct)
+    elif rows != direct:
+        raise AssertionError(f"{label}: wire rows != execute's: "
+                             f"{rows[:2]} vs {direct[:2]}")
+    if err is not None:
+        out["max_rel_err"] = err
+    if on_card:
+        out["kernel_checks"] = (check_calls(label, calls, n1)
+                                + check_calls(f"{label} execute", dcalls, d1))
+        out["small_checks"] = _check_small_calls(label, scalls + dscalls,
+                                                 n2 + d2)
+    return out
+
+
+def _check_small_calls(label, calls, launches) -> list:
+    """The small-G kernel against its plain version at each recorded
+    call; every launch must have been recorded."""
+    from cockroach_tpu_torch.ops.cuda import groupagg as tg
+    if len(calls) != launches:
+        raise AssertionError(f"{label}: {len(calls)} recorded calls of the "
+                             f"small-G kernel, {launches} launches")
+    return [compare_small(tg, a, f"{label} small") for a in calls]
+
+
+def frontdoor_phase(eng, li, orders, cust, part, records: int,
+                    ops: int = FRONT_OPS, clients: int = FRONT_CLIENTS,
+                    parked: int = FRONT_PARKED,
+                    side_ops: int = FRONT_SIDE_OPS,
+                    q1_runs: int = FRONT_Q1_RUNS) -> dict:
+    """Phase 13 on the SF1 engine after phase 12: the pgwire server
+    (server/pgwire.py, server/pgfront.py) over ``eng``. ``li``,
+    ``orders``: the arrays as phase 11 left them (strings decoded);
+    ``records``: usertable's bulk-loaded keys. Returns the `frontdoor`
+    numbers."""
+    import resource
+    import sys as _sys
+    import threading
+
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.server.miniclient import MiniClient
+    from cockroach_tpu_torch.server.node import _tenants_payload
+    from cockroach_tpu_torch.server.pgwire import PgServer
+    on_card = eng.device.type == "cuda"
+    t_phase = time.perf_counter()
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    need = 2 * parked + 1024
+    if soft < need:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (
+            need if hard == resource.RLIM_INFINITY else min(hard, need),
+            hard))
+    want_q1, want_q6 = tpch.ref_q1(li), tpch.ref_q6(li)
+    want_q14 = tpch.ref_q14(li, part)
+    want_q3 = _wire_form(tpch.ref_q3(li, orders, cust))
+    checks = {
+        "q1": (tpch.Q1, lambda r: check_q1(r, want_q1), 1, 0),
+        "q6": (tpch.Q6, lambda r: check_rows("Q6 wire", r, [(want_q6,)]),
+               None, 0),
+        "q14": (tpch.Q14, lambda r: check_rows("Q14 wire", r,
+                                               [(want_q14,)]), None, 0),
+        "q3": (tpch.Q3, lambda r: check_rows("Q3 wire", r, want_q3),
+               None, 0)}
+    s_on = eng.session()
+    eng.execute("SET pallas_groupagg = on", s_on)
+    point = "SELECT field0, field1 FROM usertable WHERE ycsb_key = 4242"
+    out = {"queries": {}, "wire_ms": {}, "ycsb": {}}
+    k_total, timed = [0, 0], [0, 0]
+    path_checks, small_checks = {}, []
+    # each run's drivers insert from base + (w + 1) * 10,000,000
+    bases = iter(range(records + 200_000_000, records + 4_000_000_000,
+                       200_000_000))
+    # the 16 YCSB sessions run in a process of their own, so their
+    # Python does not share the server's interpreter lock
+    sessions = _WireClients()
+
+    def note(label, r):
+        k_total[0] += r["groupagg_large"] + r["execute_groupagg_large"]
+        k_total[1] += r["groupagg"] + r["execute_groupagg"]
+        if r.get("kernel_checks"):
+            path_checks[f"sf1 {label} phase 13"] = r.pop("kernel_checks")
+        small_checks.extend(r.pop("small_checks", []))
+
+    def counted(label, fn, held=True):
+        """fn() with the counts from 0 just before it, read just after
+        and added to the phase's. ``held``: each launch recorded and
+        held against the plain version (timed runs are counted only:
+        recording would keep every call's inputs on the card while they
+        are timed). Returns fn's value and the launches
+        of kernels 1 and 2."""
+        _counts_zero()
+        if held:
+            with recording_slots() as calls, recording_small() as scalls:
+                r = fn()
+                _sync()
+        else:
+            r = fn()
+            _sync()
+        n1, n2 = _kernel_counts(on_card)
+        k_total[0] += n1
+        k_total[1] += n2
+        if not held:
+            timed[0] += n1
+            timed[1] += n2
+        elif on_card:
+            path_checks[f"sf1 {label} phase 13"] = check_calls(label, calls,
+                                                               n1)
+            small_checks.extend(_check_small_calls(label, scalls, n2))
+        return r, (n1, n2)
+
+    def ycsb_over(addr, mix, label, beside=None, n_ops=ops):
+        h0 = eng.lane_hits
+        sessions.send({"addr": list(addr), "mix": mix, "records": records,
+                       "ops": n_ops, "clients": clients,
+                       "insert_base": next(bases)})
+        side = {}
+        if beside is not None:
+            deadline = time.perf_counter() + 120.0
+            while eng.lane_hits - h0 < 8 * clients and \
+                    time.perf_counter() < deadline:
+                time.sleep(0.001)
+            side = beside()
+        res = sessions.result(label)
+        # every written key reads back one of the values some session
+        # wrote to it (a sample, through execute's own sessions)
+        for k, vs in res["written"]:
+            got = eng.execute(f"SELECT field0 FROM usertable WHERE "
+                              f"ycsb_key = {k}").rows
+            if not got or got[0][0] not in vs:
+                raise AssertionError(f"{label}: key {k} reads {got}, "
+                                     f"written {vs}")
+        r = {"ops_per_s": res["ops_per_sec"], "seconds": res["seconds"],
+             "p50_ms": res["p50_ms"], "p99_ms": res["p99_ms"],
+             "mix": res["ops"], "retries": res["retries"],
+             "by_op": {op: res[op] for op in res["ops"] if op in res},
+             "lane_hits": eng.lane_hits - h0}
+        print(f"{label}: " + json.dumps(r), flush=True)
+        return r, side
+
+    def admission_run(cap: int) -> dict:
+        """Noisy Q1s and quiet point reads at once under tenant slots
+        ``cap`` (0: none); the quiet sessions read until the noisy ones
+        are done, once at least. Latencies, waits and the lane hits in the run."""
+        snap0, h0 = eng.metrics.snapshot(), eng.lane_hits
+        eng.settings.set("sql.admission.tenant.slots", cap)
+        noisy_lat, quiet_lat, errs = [], [], []
+        lock, done = threading.Lock(), threading.Event()
+
+        def noisy():
+            try:
+                c = MiniClient(*srv.addr, timeout=FRONT_TIMEOUT,
+                               application_name="noisy")
+                for _ in range(q1_runs):
+                    t1 = time.perf_counter()
+                    rows = c.query(tpch.Q1)[1]
+                    with lock:
+                        noisy_lat.append(time.perf_counter() - t1)
+                    check_q1(rows, want_q1)
+                c.close()
+            except BaseException as e:
+                errs.append(e)
+
+        def quiet(i):
+            try:
+                c = MiniClient(*srv.addr, timeout=FRONT_TIMEOUT,
+                               application_name="quiet")
+                j = 0
+                while j == 0 or not done.is_set():
+                    k = (i * 7919 + j * 104729) % records
+                    j += 1
+                    t1 = time.perf_counter()
+                    rows = c.query(f"SELECT field1 FROM usertable WHERE "
+                                   f"ycsb_key = {k} AND field1 >= 0")[1]
+                    with lock:
+                        quiet_lat.append(time.perf_counter() - t1)
+                    if rows != [(k * 13 % 1000,)]:
+                        raise AssertionError(f"quiet read {k}: {rows}")
+                c.close()
+            except BaseException as e:
+                errs.append(e)
+        try:
+            loud = [threading.Thread(target=noisy) for _ in range(8)]
+            calm = [threading.Thread(target=quiet, args=(i,))
+                    for i in range(4)]
+            t0 = time.perf_counter()
+            for th in calm + loud:
+                th.start()
+            for th in loud:
+                th.join(FRONT_TIMEOUT)
+            done.set()
+            for th in calm:
+                th.join(FRONT_TIMEOUT)
+            seconds = time.perf_counter() - t0
+        finally:
+            done.set()
+            eng.settings.set("sql.admission.tenant.slots", 0)
+        if errs or any(th.is_alive() for th in loud + calm):
+            raise AssertionError(f"admission run (tenant slots {cap}) "
+                                 f"failed: {errs[:1]}")
+        if eng.lane_hits != h0:
+            raise AssertionError("a quiet read took the lane")
+        snap1 = eng.metrics.snapshot()
+        return {"seconds": seconds,
+                **{k: snap1[f"admission.{m}"] - snap0[f"admission.{m}"]
+                   for k, m in (("slot_waits", "tenant.slot_waits"),
+                                ("queued", "queued"),
+                                ("admitted", "admitted"))},
+                "noisy_q1": _pctl(noisy_lat), "quiet_point": _pctl(quiet_lat)}
+
+    try:
+        # 1. queries, then YCSB-B and -E, under each frontend
+        for fe in ("threads", "reactor"):
+            srv = PgServer(eng, frontend=fe).start()
+            try:
+                c = MiniClient(*srv.addr, timeout=FRONT_TIMEOUT)
+                q = out["queries"][fe] = {}
+                for name, (sql, check, k1, k2) in checks.items():
+                    q[name] = _check_wire_query(eng, c, f"{name} {fe}", sql,
+                                                check, on_card, k1=k1, k2=k2)
+                    note(f"{name} wire {fe}", q[name])
+                for fmt, params in (
+                        ("text", Q6_TEXT),
+                        ("binary", Q6_TEXT[:2] + (
+                            struct.pack("!d", 0.05), struct.pack("!d", 0.07),
+                            struct.pack("!q", 24)))):
+                    fmts = (0, 0, 0, 0, 0) if fmt == "text" \
+                        else (0, 0, 1, 1, 1)
+                    q[f"q6_{fmt}_params"] = _check_wire_query(
+                        eng, c, f"q6 extended {fmt} {fe}", tpch.Q6,
+                        lambda r: check_rows("Q6 extended", r, [(want_q6,)]),
+                        on_card, k2=0, extended=lambda cl, p=params, f=fmts:
+                        _extended(cl, Q6_PARAMS, p, f, Q6_OIDS))
+                    note(f"q6 extended {fmt} {fe}", q[f"q6_{fmt}_params"])
+                c.query("SET pallas_groupagg = on")
+                q["q1f"] = _check_wire_query(
+                    eng, c, f"q1f {fe}", tpch.Q1F,
+                    lambda r: check_float("Q1F wire", r, want_q1), on_card,
+                    session=s_on, k1=0, k2=1)
+                note(f"q1f wire {fe}", q["q1f"])
+                c.query("SET pallas_groupagg = auto")
+                out["wire_ms"][fe], _ = counted(f"timed wire {fe}", lambda: {
+                    "q1": _median_ms(lambda: c.query(tpch.Q1)),
+                    "q6": _median_ms(lambda: c.query(tpch.Q6)),
+                    "point": _median_ms(lambda: c.query(point))},
+                    held=False)
+                c.close()
+                print(f"queries over the wire ({fe}): " + json.dumps(
+                    {"queries": q, "wire_ms": out["wire_ms"][fe]}), flush=True)
+                for mix in ("B", "E"):
+                    out["ycsb"][f"{mix}_{fe}"], _ = ycsb_over(
+                        srv.addr, mix, f"ycsb-{mix} {clients} wire sessions "
+                        f"{fe}")
+            finally:
+                srv.stop()
+        def execute_medians():
+            from cockroach_tpu_torch.sql import parser
+            ms = {"point": _median_ms(lambda: eng.execute(point))}
+            # the parse cache against a parse per statement (the point
+            # read is the lane's, which parses no statement): Q1 and Q6
+            # in turns, PARSE_REPS warm runs each way
+            for k, sql in (("q1", tpch.Q1), ("q6", tpch.Q6)):
+                ms[k] = _median_ms(lambda: eng.execute(sql), PARSE_REPS)
+                eng._parse_cached = lambda text, _tenant: parser.parse(text)
+                try:
+                    ms[f"{k}_parse_each"] = _median_ms(
+                        lambda: eng.execute(sql), PARSE_REPS)
+                finally:
+                    del eng._parse_cached
+            return ms
+        out["execute_ms"], _ = counted("timed execute", execute_medians,
+                                       held=False)
+        out["wire_overhead_ms"] = {
+            k: out["wire_ms"]["reactor"][k] - out["execute_ms"][k]
+            for k in out["wire_ms"]["reactor"]}
+
+        # 2. the reactor with a 1 ms switch interval, parked sessions, Q1
+        #    beside YCSB-B
+        srv = PgServer(eng, frontend="reactor").start()
+        try:
+            default_si = _sys.getswitchinterval()
+            eng.settings.set("sql.exec.switch_interval", 0.001)
+            try:
+                if abs(_sys.getswitchinterval() - 0.001) > 1e-9:
+                    raise AssertionError("sql.exec.switch_interval did not "
+                                         "set the switch interval")
+                for mix in ("B", "E"):
+                    out["ycsb"][f"{mix}_reactor_si1ms"], _ = ycsb_over(
+                        srv.addr, mix, f"ycsb-{mix} {clients} wire sessions "
+                        "reactor switch_interval=0.001")
+            finally:
+                eng.settings.set("sql.exec.switch_interval", 0.0)
+            if _sys.getswitchinterval() != default_si:
+                raise AssertionError("the switch interval was not restored")
+
+            impl = srv._impl
+            threads0, rss0 = threading.active_count(), _rss_bytes()
+            t0 = time.perf_counter()
+            socks = [_connect_idle(srv.addr) for _ in range(parked)]
+            connect_s = time.perf_counter() - t0
+            deadline = time.perf_counter() + 30
+            while impl._count_active() and time.perf_counter() < deadline:
+                time.sleep(0.01)
+            rss1, threads1 = _rss_bytes(), threading.active_count()
+            try:
+                live, _ = ycsb_over(srv.addr, "B", f"ycsb-B {clients} wire "
+                                    f"sessions beside {parked} parked",
+                                    n_ops=side_ops)
+                if len(impl._sessions) < parked:
+                    raise AssertionError("parked sessions were retired")
+                threads_live = threading.active_count()
+            finally:
+                for s in socks:
+                    s.close()
+            out["parked"] = {
+                "sessions": parked, "connect_s": connect_s,
+                "threads_before": threads0, "threads_parked": threads1,
+                "threads_with_live_clients": threads_live,
+                "pool_workers": impl._pool._max_workers,
+                "rss_bytes_per_parked_session": (rss1 - rss0) / parked,
+                "live_ycsb_b": live}
+            print("parked sessions: " + json.dumps(out["parked"]), flush=True)
+            if threads1 > threads0 + impl._pool._max_workers:
+                raise AssertionError(f"{parked} parked sessions took threads: "
+                                     f"{threads0} -> {threads1}")
+
+            def q1_beside():
+                c = MiniClient(*srv.addr, timeout=FRONT_TIMEOUT)
+                try:
+                    h0 = eng.lane_hits
+                    r = _check_wire_query(
+                        eng, c, "q1 beside ycsb-B", tpch.Q1,
+                        lambda rows: check_q1(rows, want_q1), on_card, k1=1)
+                    r["lane_hits_during"] = eng.lane_hits - h0
+                    return r
+                finally:
+                    c.close()
+            beside, q1 = ycsb_over(srv.addr, "B", f"ycsb-B {clients} wire "
+                                   "sessions beside Q1", beside=q1_beside,
+                                   n_ops=side_ops)
+            if not q1["lane_hits_during"]:
+                raise AssertionError("no lane statement ran while Q1 did")
+            note("q1 wire beside ycsb-B", q1)
+            out["beside_q1"] = {"ycsb_b": beside, "q1": q1}
+            print("Q1 beside YCSB-B over the wire: " + json.dumps(q1),
+                  flush=True)
+
+            # 3. admission at ADM_SLOTS execution slots: a noisy tenant
+            #    sends Q1 from 8 sessions while a quiet tenant sends pk
+            #    point reads from 4, first with no tenant cap, then with
+            #    2 slots a tenant. The quiet reads carry a residual
+            #    conjunct, so the lane refuses them and they take the
+            #    full path (the primary-key fastpath) through admission
+            out["admission"] = {"slots": ADM_SLOTS}
+            # the full path's first pk read of usertable builds its
+            # sorted row locators (seconds at 1,000,000 records): built
+            # here, so that neither run's latencies hold it
+            t0 = time.perf_counter()
+            eng.execute("SELECT field1 FROM usertable WHERE ycsb_key = 0 "
+                        "AND field1 >= 0")
+            out["admission"]["locators_s"] = time.perf_counter() - t0
+            slots0 = eng.admission.slots
+            eng.admission.slots = ADM_SLOTS
+            try:
+                for cap in (0, 2):
+                    r, (n1, n2) = counted(
+                        f"q1 noisy tenant, tenant slots {cap}",
+                        lambda cap=cap: admission_run(cap))
+                    if (n1, n2) != (8 * q1_runs, 0):
+                        raise AssertionError(
+                            f"{8 * q1_runs} noisy Q1s launched the kernels "
+                            f"{(n1, n2)} times")
+                    out["admission"][f"tenant_slots_{cap}"] = r
+            finally:
+                eng.admission.slots = slots0
+            out["admission"]["tenants"] = {
+                t["app_name"]: t for t in _tenants_payload(eng)["tenants"]
+                if t["app_name"] in ("noisy", "quiet")}
+            print("admission: " + json.dumps(out["admission"]), flush=True)
+            if out["admission"]["tenant_slots_2"]["slot_waits"] < 1:
+                raise AssertionError("8 noisy sessions at 2 tenant slots "
+                                     "never waited")
+        finally:
+            srv.stop()
+    finally:
+        sessions.close()
+    out["kernel_launches"] = {"groupagg_large": k_total[0],
+                              "groupagg": k_total[1]}
+    # of which in timed runs, counted but not held against the plain
+    # version one by one
+    out["kernel_launches_timed"] = {"groupagg_large": timed[0],
+                                    "groupagg": timed[1]}
+    out["path_checks"] = path_checks
+    out["small_checks"] = small_checks
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _shell_rows(text: str, first: str) -> list:
+    """The rows the CLI shell printed for a result whose first column
+    header is ``first``: whitespace-split, up to the command tag."""
+    lines = text.splitlines()
+    # the shell's prompts ("> ", "... ") precede a header read from stdin
+    i = next(j for j, ln in enumerate(lines)
+             if ln.lstrip("> .").split()[:1] == [first])
+    rows = []
+    for ln in lines[i + 2:]:
+        if ln.startswith("SELECT "):
+            break
+        rows.append(ln.split())
+    return rows
+
+
+def entry_points_phase(sf: float = FRONT_SF, device=None) -> dict:
+    """Phase 13's entry points on the card (``device`` names another,
+    for a rehearsal): Node in process, then ``demo``, ``start`` + ``sql
+    -e`` and ``workload tpcc`` as processes of their own, all at once.
+    Each reuses the kernels phase 1 built: _build/ is unchanged."""
+    import os
+    import urllib.request
+    from pathlib import Path
+
+    import numpy as np
+
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import build
+    from cockroach_tpu_torch.server import Node, NodeConfig
+    from cockroach_tpu_torch.server.miniclient import MiniClient
+    from cockroach_tpu_torch.utils.sqlstats import fingerprint
+    on_card = device is None
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    built = {p.name: p.stat().st_mtime_ns
+             for p in build.BUILD_DIR.glob("*.so")}
+    li = tpch.gen_lineitem(sf)
+    want_q1, want_q6 = tpch.ref_q1(li), tpch.ref_q6(li)
+    out = {"sf": sf}
+    dev = [] if device is None else ["--device", device]
+    cmd = [sys.executable, "-m", "cockroach_tpu_torch"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root) + os.pathsep + env.get("PYTHONPATH", "")
+    # the processes start first: each takes seconds to reach the card
+    demo = subprocess.Popen(
+        cmd + ["demo", "--sf", str(sf)] + dev, cwd=root, env=env,
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    import tempfile
+    start_err = tempfile.TemporaryFile(mode="w+")
+    start = subprocess.Popen(
+        cmd + ["start", "--listen-addr", "127.0.0.1:0"] + dev, cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=start_err, text=True)
+    wl = subprocess.Popen(cmd + ["workload", "tpcc", "--steps", "200"] + dev,
+                          cwd=root, env=env, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True)
+    procs = (demo, start, wl)
+    try:
+        # in process
+        t0 = time.perf_counter()
+        node = Node(NodeConfig(load_tpch_sf=sf, device=device)).start()
+        try:
+            start_s = time.perf_counter() - t0
+            c = MiniClient(*node.sql_addr, timeout=FRONT_TIMEOUT)
+            k0 = _kernel_counts(on_card)[0]
+            with recording_slots() as calls:
+                rows = c.query(tpch.Q1)[1]
+                _sync()
+            n1 = _kernel_counts(on_card)[0] - k0
+            c.close()
+            check_q1(rows, want_q1)
+            if n1 != 1:
+                raise AssertionError(f"Node's Q1 launched kernel 1 {n1} "
+                                     "times")
+            node_checks = check_calls("node q1", calls, 1) if on_card \
+                else []
+            host, port = node.http_addr
+            base = f"http://{host}:{port}"
+            stmts = json.loads(urllib.request.urlopen(
+                base + "/_status/statements", timeout=30).read())
+            q1 = [s for s in stmts["statements"]
+                  if s["fingerprint"] == fingerprint(tpch.Q1)]
+            if len(q1) != 1 or q1[0]["count"] != 1:
+                raise AssertionError(f"/_status/statements Q1: {q1}")
+            metrics = urllib.request.urlopen(base + "/_status/vars",
+                                             timeout=30).read().decode()
+            if "admission_admitted" not in metrics:
+                raise AssertionError("/_status/vars has no admission "
+                                     "metrics")
+        finally:
+            t0 = time.perf_counter()
+            node.stop()
+            stop_s = time.perf_counter() - t0
+        out["node"] = {"start_s": start_s, "stop_s": stop_s,
+                       "q1_launches": n1, "q1_count": q1[0]["count"],
+                       "metrics_lines": metrics.count("\n")}
+
+        # start + sql -e: a small lineitem made over the wire, Q6 and
+        # SHOW STATEMENTS
+        addr = None
+        for line in start.stdout:
+            if line.startswith("sql:"):
+                addr = line.split("@", 1)[1].split("/", 1)[0]
+                break
+        if addr is None:
+            start_err.seek(0)
+            raise AssertionError("start printed no sql: line: "
+                                 + start_err.read()[-2000:])
+        small = tpch.gen_lineitem(0.01, rows=500)
+        inserts = tpch.insert_statements("lineitem", small)
+        sql = subprocess.run(
+            cmd + ["sql", "--url", addr, "-e", tpch.DDL["lineitem"]]
+            + [a for s in inserts for a in ("-e", s)]
+            + ["-e", tpch.Q6, "-e", "SHOW STATEMENTS"], cwd=root, env=env,
+            capture_output=True, text=True, timeout=300)
+        if sql.returncode != 0:
+            raise AssertionError(f"sql -e failed: {sql.stderr[-2000:]}")
+        got_q6 = float(_shell_rows(sql.stdout, "revenue")[0][0])
+        if not _close(got_q6, tpch.ref_q6(small), 1e-9):
+            raise AssertionError(f"start + sql -e Q6 {got_q6} != "
+                                 f"{tpch.ref_q6(small)}")
+        fp = fingerprint(tpch.Q6)
+        line = next(ln for ln in sql.stdout.splitlines()
+                    if ln.startswith(fp))
+        if line[len(fp):].split()[0] != "1":
+            raise AssertionError(f"SHOW STATEMENTS Q6: {line}")
+        out["start_sql"] = {"q6": got_q6, "q6_count": 1,
+                            "statements": len(inserts) + 3}
+
+        # demo with Q1 and Q6 piped on stdin
+        text, err = demo.communicate(
+            tpch.Q1.strip() + ";\n" + tpch.Q6.strip() + ";\n\\q\n",
+            timeout=600)
+        if demo.returncode != 0:
+            raise AssertionError(f"demo exited {demo.returncode}: "
+                                 f"{err[-2000:]}")
+        q1_rows = [(r[0], r[1], *map(float, r[2:]))
+                   for r in _shell_rows(text, "l_returnflag")]
+        check_q1(q1_rows, want_q1)
+        q6_demo = float(_shell_rows(text, "revenue")[0][0])
+        if not _close(q6_demo, want_q6, 1e-9):
+            raise AssertionError(f"demo Q6 {q6_demo} != {want_q6}")
+        out["demo"] = {"q1_groups": len(q1_rows), "q6": q6_demo}
+
+        wout, werr = wl.communicate(timeout=600)
+        if wl.returncode != 0:
+            raise AssertionError(f"workload tpcc exited {wl.returncode}: "
+                                 f"{werr[-2000:]}")
+        tpcc = json.loads(wout.strip().splitlines()[-1])
+        if tpcc["steps"] != 200:
+            raise AssertionError(f"workload tpcc: {tpcc}")
+        out["workload_tpcc"] = tpcc
+    finally:
+        import signal
+        if start.poll() is None:
+            start.send_signal(signal.SIGINT)
+        for p in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        start_err.close()
+    if start.returncode != 0:
+        raise AssertionError(f"start exited {start.returncode} on SIGINT")
+    after = {p.name: p.stat().st_mtime_ns
+             for p in build.BUILD_DIR.glob("*.so")}
+    if on_card and after != built:
+        raise AssertionError(f"the entry points built kernels again: "
+                             f"{sorted(set(after) ^ set(built))}")
+    out["node_checks"] = node_checks
+    out["seconds"] = time.perf_counter() - t_phase
+    print("entry points: " + json.dumps(
+        {k: v for k, v in out.items() if k != "node_checks"}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2729,8 +3667,10 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"stream": stream}), flush=True)
     oltp = dml.pop("oltp")
+    front = dml.pop("frontdoor")
     print(json.dumps({"dml": dict(dml, card=smi)}), flush=True)
     print(json.dumps({"oltp": dict(oltp, card=smi)}), flush=True)
+    print(json.dumps({"frontdoor": dict(front, card=smi)}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -2741,9 +3681,11 @@ def main() -> int:
 
 
 def sf1_phases(opts) -> tuple:
-    """Phases 1-9, 11 and 12 at SF1; returns (kernels, nvidia-smi line,
-    card name, phase 11's numbers with phase 12's under "oltp"). Every engine and table of these phases lives in this frame
-    only, so they are freed when it returns."""
+    """Phases 1-9, 11, 12 and 13 at SF1; returns (kernels, nvidia-smi
+    line, card name, phase 11's numbers with phase 12's under "oltp" and
+    phase 13's under "frontdoor"). Every engine and table of these
+    phases lives in this frame only, so they are freed when it
+    returns."""
     import numpy as np
     import torch
 
@@ -3060,8 +4002,9 @@ def sf1_phases(opts) -> tuple:
 
     # -- 12. the OLTP lane beside the card ---------------------------------
     t0 = time.perf_counter()
-    oltp = oltp_phase(eng, dml["refresh"].pop("li_after"),
-                      tpch.gen_supplier(SF))
+    li_after = dml["refresh"].pop("li_after")
+    orders_after = dml["refresh"].pop("orders_after")
+    oltp = oltp_phase(eng, li_after, tpch.gen_supplier(SF))
     large["launches"] += sum(oltp["kernel1_launches"].values())
     large["phase12_launches"] = oltp["kernel1_launches"]
     large["path_checks"].update(oltp.pop("path_checks"))
@@ -3070,6 +4013,28 @@ def sf1_phases(opts) -> tuple:
         raise AssertionError(f"phase 12 took {oltp['seconds']:.1f} s, past "
                              "its 150 s")
     dml["oltp"] = oltp
+
+    # -- 13. the front door ------------------------------------------------
+    t0 = time.perf_counter()
+    front = frontdoor_phase(eng, li_after, orders_after,
+                            tpch.gen_customer(SF), part, OLTP_RECORDS)
+    entry = entry_points_phase()
+    front["entry_points"] = entry
+    for i, k in enumerate(("groupagg_large", "groupagg")):
+        n = front["kernel_launches"][k] + (entry["node"]["q1_launches"]
+                                           if i == 0 else 0)
+        kernels[i]["launches"] += n
+        kernels[i]["phase13_launches"] = n
+        kernels[i]["phase13_timed_launches"] = \
+            front["kernel_launches_timed"][k]
+    large["path_checks"].update(front.pop("path_checks"))
+    large["path_checks"]["sf0.1 node q1 phase 13"] = entry.pop(
+        "node_checks")
+    kernels[1]["path_checks"] = {"phase 13": front.pop("small_checks")}
+    front["seconds_with_entry_points"] = time.perf_counter() - t0
+    print(f"phase 13: {front['seconds_with_entry_points']:.1f} s",
+          flush=True)
+    dml["frontdoor"] = front
     if opts.profile:
         from cockroach_tpu_torch.profile_tpch import profile_queries
         profile_queries(eng, {"q3": (tpch.Q3, None), "q5": (tpch.Q5, None),

@@ -61,7 +61,6 @@ import json
 import threading
 import time
 import weakref
-from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -85,16 +84,19 @@ from ..storage.columnstore import ColumnStore
 from ..storage.hlc import Clock, Timestamp
 from ..storage.keys import prefix_end
 from ..utils.num import next_pow2
+from ..utils.admission import AdmissionController
 from ..utils.devstats import DeviceStats
 from ..utils.rwlock import RWLock
 from ..utils.metric import MetricRegistry
 from ..utils.mon import BytesMonitor
 from ..utils.settings import SettingError, Settings
+from ..utils.sqlstats import StatsRegistry
 from .compile import (ExecError, ExecParams, RunContext, compile_plan,
                       compile_streaming)
 from .constraints import ConstraintMixin
 from .ddl import DDLMixin
 from .dml import DMLMixin
+from .expr import ExprContext, compile_expr
 from .fastpath import FastpathMixin
 from .joinfilter import find_specs
 from .movement import TransferScheduler
@@ -107,6 +109,7 @@ from .spill import compile_spill_sort
 from .stream import extract_zone_preds
 from .stmtutil import (RerunPrepared, decode_scalar, host_sort,
                        rewrite_table_names)
+from .tenantcache import TenantLRU
 
 EPOCH_DATE = datetime.date(1970, 1, 1)
 EPOCH_DT = datetime.datetime(1970, 1, 1)
@@ -214,6 +217,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         # other statement takes it exclusively (`with _stmt_lock:` is
         # the write side)
         self._stmt_lock = RWLock()
+        self.devstats.register(
+            self.metrics, lambda: self._stmt_lock._waiting_writers)
         # (table, generation) -> (uploaded column set, ColumnBatch);
         # each entry holds a reservation under the same key. Uploads and
         # evictions hold _device_lock, so two shared readers never
@@ -223,9 +228,24 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         # compiled plans: exec-cache key -> (compiled plan, meta), and
         # the lookups by outcome (the reference's sql.plan.cache.*),
         # both under _cache_lock (a hit's move-to-end is a mutation)
-        self._exec_cache: OrderedDict = OrderedDict()
+        self._exec_cache = TenantLRU(self.EXEC_CACHE_MAX)
         self.plan_cache = {"hit": 0, "miss": 0}
         self._cache_lock = threading.Lock()
+        # statement text -> parsed AST, under the same lock; both caches
+        # tag their entries with the executing statement's tenant
+        # (exec/tenantcache.py: sql.exec.plan_cache.tenant_budget bounds
+        # a tenant to evicting its own entries)
+        self._parse_cache = TenantLRU(self.PARSE_CACHE_MAX)
+        # the executing statement's tenant, published per thread between
+        # admission's acquire and release
+        self._tenant_tl = threading.local()
+        # per-fingerprint statement statistics (SHOW STATEMENTS, the
+        # node's /_status/statements) and per-tenant rollups
+        self.sqlstats = StatsRegistry()
+        # admission in front of the statement gate (utils/admission.py):
+        # a bounded, tenant-fair queue of execution slots
+        self.admission = AdmissionController(slots=16, max_queue=128)
+        self._admission_metrics()
         self._sessions_lock = threading.Lock()
         # name -> view descriptor (None = read the catalog again)
         self._view_defs: dict | None = None
@@ -249,8 +269,11 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             return res
         session = session or self.session()
         self._track_session(session)
+        app = str(session.vars.get("application_name") or "")
+        # each anonymous connection is a tenant of its own
+        tenant = app or f"s{id(session)}"
         try:
-            stmt = parser.parse(sql)
+            stmt = self._parse_cached(sql, tenant)
         except Exception:
             # a syntax error inside an explicit txn block aborts it,
             # as any other statement failure does (pg semantics)
@@ -262,15 +285,140 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             raise EngineError(
                 "current transaction is aborted, commands ignored "
                 "until end of transaction block")
+        # admission before the lane fence and the gate, as in the
+        # reference: a statement queued here holds neither
+        hbm_est = (self._stmt_hbm_estimate(stmt)
+                   if self.admission.tenant_hbm_bytes else 0)
+        self.admission.acquire(
+            priority=str(session.vars.get("admission_priority", "normal")),
+            tenant=tenant, hbm=hbm_est)
+        prev_tenant = getattr(self._tenant_tl, "value", "")
+        self._tenant_tl.value = tenant
+        t0 = time.monotonic()
         try:
             with self._run_scope(self._stmt_tables(stmt),
                                  self._stmt_read_only(stmt, session, sql)):
-                return self._dispatch(stmt, session, sql)
+                res = self._dispatch(stmt, session, sql)
         except Exception:
             if session.txn is not None and not isinstance(
                     stmt, ast.BeginTxn):
                 session.txn_aborted = True
+            dt = time.monotonic() - t0
+            self.metrics.counter("sql.failure.count",
+                                 "statements that errored").inc()
+            self.sqlstats.record(sql, dt, 0, failed=True)
+            self.sqlstats.record_tenant(app or "(unset)", wall_s=dt,
+                                        failed=True)
             raise
+        finally:
+            self._tenant_tl.value = prev_tenant
+            self.admission.release(tenant=tenant, hbm=hbm_est)
+        dt = time.monotonic() - t0
+        self.metrics.counter(f"sql.{type(stmt).__name__.lower()}.count",
+                             "statements executed, by type").inc()
+        self.metrics.histogram("sql.exec.latency",
+                               "statement execution latency (s)").observe(dt)
+        self.devstats.note_execute(dt)
+        rows = max(len(res.rows), res.row_count)
+        self.sqlstats.record(sql, dt, rows)
+        # the bytes a streamed or spilled SELECT moved (the reference's
+        # profile plane also counts uploads and shuffles: not ported)
+        paging = (self.last_exec.get("paging") or {}) \
+            if isinstance(stmt, ast.Select) else {}
+        self.sqlstats.record_tenant(
+            app or "(unset)", wall_s=dt,
+            bytes_moved=int(paging.get("bytes", 0)), rows=rows,
+            stall_s=float(paging.get("stall_s", 0.0)))
+        return res
+
+    def _parse_cached(self, sql: str, tenant: str):
+        """The statement's AST, parsed once per text. A plain SELECT (no
+        CTEs, no derived tables) runs without editing its AST (view
+        expansion and the temp path copy before they rewrite), so it
+        shares the cached object; any other statement gets a deep copy,
+        since its executor may rewrite it in place."""
+        with self._cache_lock:
+            stmt = self._parse_cache.get(sql)
+        if stmt is None:
+            stmt = parser.parse(sql)
+            with self._cache_lock:
+                self._parse_cache.put(sql, stmt, tenant)
+        if isinstance(stmt, ast.Select) and not stmt.ctes \
+                and not self._has_derived(stmt):
+            return stmt
+        return copy.deepcopy(stmt)
+
+    def _stmt_hbm_estimate(self, stmt) -> int:
+        """The tenant HBM ledger's estimate of a statement: the device
+        bytes of a resident upload of every column of each base table
+        it names (exec/scanplane.py's reckoning), projection and filters
+        ignored. It gates concurrency per tenant; uploads still reserve
+        against the budget themselves."""
+        total = 0
+        for t in self._stmt_tables(stmt) or ():
+            td = self.store.tables.get(t)
+            if td is not None:
+                total += self._table_device_bytes(td, None)
+        return total
+
+    def _admission_metrics(self) -> None:
+        """The admission plane's metrics and settings hook
+        (cockroach_tpu/exec/engine.py's wiring)."""
+        m, adm = self.metrics, self.admission
+        m.func_counter("admission.admitted", lambda: adm.admitted,
+                       "statements granted an execution slot")
+        m.func_counter("admission.rejected", lambda: adm.rejected,
+                       "statements rejected (queue full, wait timeout, "
+                       "or shed)")
+        m.func_counter("admission.queued", lambda: adm.queued,
+                       "statements that waited in the admission queue")
+        adm.wait_observer = m.histogram(
+            "admission.wait_seconds",
+            "admission queue wait per queued grant (s)").observe
+        # transfer-stall back-pressure: a saturated copy engine sheds
+        # low-priority statements before they queue
+        adm.movement_wait_p99 = lambda: self.movement.m_wait.quantile(0.99)
+        # the backlog in front of the card: writers waiting at the gate
+        adm.exec_queue_depth = self.devstats.queue_depth
+        m.func_counter(
+            "admission.tenant.slot_waits", lambda: adm.tenant_slot_waits,
+            "statements queued because their tenant was at its "
+            "concurrent-slot cap while global slots were free")
+        m.func_counter(
+            "admission.tenant.hbm_waits", lambda: adm.tenant_hbm_waits,
+            "statements queued because their tenant's in-flight HBM "
+            "ledger could not fit the statement's estimate")
+        m.func_gauge(
+            "admission.tenant.active", lambda: len(adm.tenant_usage()),
+            "tenants currently holding at least one execution slot")
+        m.func_counter(
+            "admission.tenant.plan_evictions",
+            lambda: (sum(self._exec_cache.tenant_evictions.values())
+                     + sum(self._parse_cache.tenant_evictions.values())),
+            "plan/parse cache entries a tenant evicted from its own "
+            "partition on hitting sql.exec.plan_cache.tenant_budget")
+        self._admission_settings()
+        self.settings.on_change(
+            lambda n, v: self._admission_settings()
+            if n.startswith(("sql.admission.", "sql.exec.plan_cache.",
+                             "sql.exec.hbm_budget_bytes")) else None)
+
+    def _admission_settings(self) -> None:
+        """The controller's shed thresholds and tenant quotas, and the
+        caches' tenant budget, from sql.admission.* and
+        sql.exec.plan_cache.tenant_budget (0 disables each)."""
+        g, adm = self.settings.get, self.admission
+        adm.shed_queue_depth = int(g("sql.admission.shed.queue_depth"))
+        adm.shed_wait_seconds = float(g("sql.admission.shed.wait_seconds"))
+        adm.shed_exec_queue_depth = int(
+            g("sql.admission.shed.exec_queue_depth"))
+        adm.tenant_slots = int(g("sql.admission.tenant.slots"))
+        frac = float(g("sql.admission.tenant.hbm_fraction"))
+        adm.tenant_hbm_bytes = (int(frac * int(g("sql.exec.hbm_budget_bytes")))
+                                if frac > 0 else 0)
+        budget = int(g("sql.exec.plan_cache.tenant_budget"))
+        self._exec_cache.tenant_budget = budget
+        self._parse_cache.tenant_budget = budget
 
     @contextlib.contextmanager
     def _gate(self, shared: bool):
@@ -351,6 +499,16 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         if isinstance(stmt, ast.Analyze):
             self.store.analyze(stmt.table)
             return Result(tag="ANALYZE")
+        if isinstance(stmt, ast.ShowStatements):
+            return Result(
+                names=["fingerprint", "count", "mean_latency_ms",
+                       "max_latency_ms", "rows", "failures"],
+                rows=[(st.fingerprint, st.count,
+                       round(st.mean_latency_s * 1e3, 3),
+                       round(st.max_latency_s * 1e3, 3),
+                       st.total_rows, st.failures)
+                      for st in self.sqlstats.all()],
+                tag="SHOW STATEMENTS")
         if isinstance(stmt, ast.SetVar) and stmt.cluster:
             try:
                 self.settings.set(stmt.name, stmt.value)
@@ -1168,9 +1326,9 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         return self._prepare_select(sel, session, sql_text).run()
 
     def _exec_table_free(self, sel: ast.Select, session: Session) -> Result:
-        """SELECT <constant exprs> with no FROM: one row of what the
-        binder folds (the sequence builtins, literals, constant
-        arithmetic). Other table-free shapes are not yet ported."""
+        """SELECT <exprs> with no FROM: one row. What the binder folds
+        (the sequence builtins, literals, constant arithmetic) is taken
+        as folded; other expressions run over a one-row batch."""
         if sel.where is not None or sel.group_by or sel.having \
                 or sel.order_by or sel.limit is not None or sel.offset:
             raise EngineError("table-free SELECT clauses are not yet "
@@ -1182,13 +1340,18 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             if it.star:
                 raise EngineError("SELECT * requires FROM")
             b = binder.bind(it.expr)
-            if not isinstance(b, BConst):
-                raise EngineError("table-free SELECTs of non-constant "
-                                  "expressions are not yet ported")
             names.append(it.alias or "column")
-            row.append(decode_scalar(b.value, b.value is not None, b.type,
-                                     None)
-                       if not isinstance(b.value, str) else b.value)
+            if isinstance(b, BConst):
+                row.append(decode_scalar(b.value, b.value is not None,
+                                         b.type, None)
+                           if not isinstance(b.value, str) else b.value)
+            else:
+                d, v = compile_expr(b)(ExprContext({}, 1, self.device))
+                d = torch.as_tensor(d).reshape(-1)[:1]
+                v = torch.as_tensor(v).reshape(-1)[:1]
+                row.append(decode_scalar(d.cpu().numpy()[0],
+                                         bool(v.cpu().numpy()[0]),
+                                         b.type, None))
             types.append(b.type)
         return Result(names=names, rows=[tuple(row)], types=types)
 
@@ -1344,8 +1507,11 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                         else None),
             joinfilter=jf_specs, placement=self._placement_key(session))
 
-    # compiled plans kept (an LRU, as the reference bounds its cache)
+    # compiled plans and parses kept: at the cap the oldest half goes
+    # (exec/tenantcache.py, as the reference's); an exec-cache hit
+    # counts as new
     EXEC_CACHE_MAX = 512
+    PARSE_CACHE_MAX = 4096
 
     def _cache_gens(self, gens) -> tuple:
         """The exec-cache key's part for the tables a plan reads:
@@ -1376,7 +1542,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             hit = self._exec_cache.get(key)
             if hit is not None:
                 self.plan_cache["hit"] += 1
-                self._exec_cache.move_to_end(key)
+                self._exec_cache.touch(key)
                 return hit[:2]
             self.plan_cache["miss"] += 1
         try:
@@ -1388,9 +1554,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             for k in [k for k, v in self._exec_cache.items()
                       if any(now.get(t, g) != g for t, g, _ in v[2])]:
                 del self._exec_cache[k]
-            self._exec_cache[key] = (runf, meta, cgens)
-            while len(self._exec_cache) > self.EXEC_CACHE_MAX:
-                self._exec_cache.popitem(last=False)
+            self._exec_cache.put(key, (runf, meta, cgens),
+                                 getattr(self._tenant_tl, "value", ""))
         return runf, meta
 
     # -- subqueries, derived tables, CTEs -------------------------------------

@@ -22,9 +22,8 @@ Full-path statements suspend lane writes only on the tables they can
 read (`_stmt_tables`); a statement whose tables cannot be enumerated
 (DDL, a view reference) suspends the lane everywhere. Lane reads bump
 the timestamp cache like the Python fastpath, so a later writer never
-commits beneath a served read. The reference's per-hit statement
-statistics (``sqlstats.record_fp``) are not ported: the port has no
-sqlstats.
+commits beneath a served read. Every hit is recorded in the
+engine's statement statistics under its shape (``sqlstats.record_fp``).
 """
 
 from __future__ import annotations
@@ -402,6 +401,7 @@ class OltpLaneMixin:
             # with (WHERE k = 'abc' against a shape built for k = 42):
             # the full path binds it and raises the real type error
             return None
+        t0 = time.perf_counter()
         try:
             if plan.kind == "scan":
                 # range scans stay per statement: the native scan is
@@ -422,6 +422,8 @@ class OltpLaneMixin:
             return None
         if res is not None:
             self._lane_hits.inc()
+            self.sqlstats.record_fp(shape, time.perf_counter() - t0,
+                                    max(len(res.rows), res.row_count))
         return res
 
     # -- shape classification ---------------------------------------------
@@ -1077,7 +1079,8 @@ class OltpLaneMixin:
     # suspend the lane (COMMIT publishes a txn's effects, so it stays
     # global)
     _TABLELESS = (ast.SetVar, ast.BeginTxn, ast.RollbackTxn,
-                  ast.CreateSequence, ast.DropSequence, ast.ShowSequences)
+                  ast.CreateSequence, ast.DropSequence, ast.ShowSequences,
+                  ast.ShowStatements)
 
     def _stmt_tables(self, stmt):
         """Base tables ``stmt`` can read or write, or None when they

@@ -66,6 +66,10 @@ class Session:
     seq_currval: dict = field(default_factory=dict)
 
     @property
+    def in_txn(self) -> bool:
+        return self.txn is not None
+
+    @property
     def txn_read_ts(self) -> Optional[Timestamp]:
         return self.txn.meta.read_ts if self.txn is not None else None
 

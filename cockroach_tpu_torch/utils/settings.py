@@ -2,13 +2,15 @@
 cockroach_tpu/utils/settings.py that this package reads).
 
 ``Settings`` is the typed cluster-setting registry
-(``Engine.settings.get/set``, ``SET CLUSTER SETTING``); ``SessionVars``
-holds one connection's variables, with the reference's names."""
+(``Engine.settings.get/set``, ``SET CLUSTER SETTING``, update callbacks
+through ``on_change``); ``SessionVars`` holds one connection's
+variables, with the reference's names."""
 
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass, field
+from typing import Callable
 
 
 class SettingError(Exception):
@@ -30,6 +32,7 @@ class Settings:
         self._defs: dict[str, _Setting] = {}
         self._values: dict[str, object] = {}
         self._lock = threading.Lock()
+        self._watchers: list[Callable[[str, object], None]] = []
         _register_builtins(self)
 
     def register(self, name: str, default, kind: type,
@@ -40,12 +43,17 @@ class Settings:
         d = self._defs.get(name)
         if d is None:
             raise SettingError(f"unknown cluster setting {name!r}")
+        if d.kind is bool and isinstance(value, str):
+            value = value.lower() in ("true", "on", "1", "yes")
         try:
             value = d.kind(value)
         except (TypeError, ValueError) as e:
             raise SettingError(f"bad value for {name}: {value!r}") from e
         with self._lock:
             self._values[name] = value
+            watchers = list(self._watchers)
+        for w in watchers:
+            w(name, value)
 
     def get(self, name: str):
         d = self._defs.get(name)
@@ -53,6 +61,10 @@ class Settings:
             raise SettingError(f"unknown cluster setting {name!r}")
         with self._lock:
             return self._values.get(name, d.default)
+
+    def on_change(self, fn: Callable[[str, object], None]) -> None:
+        """Call ``fn(name, value)`` after every successful set."""
+        self._watchers.append(fn)
 
 
 def _register_builtins(s: Settings) -> None:
@@ -63,6 +75,53 @@ def _register_builtins(s: Settings) -> None:
                "aggregate scans over bigger tables stream in pages, "
                "over-budget join builds and sorts spill (0 = no "
                "budget)")
+    # admission and the tenant quota plane (utils/admission.py)
+    s.register("sql.admission.shed.queue_depth", 0, int,
+               "admission queue depth at which low-priority statements "
+               "are rejected up front instead of queued (0 disables)")
+    s.register("sql.admission.shed.wait_seconds", 0.0, float,
+               "recent admission grant-wait (EWMA, seconds) above which "
+               "low-priority statements are shed (0 disables)")
+    s.register("sql.admission.shed.exec_queue_depth", 0, int,
+               "writers waiting at the statement gate above which "
+               "low-priority statements are shed (0 disables)")
+    s.register("sql.admission.tenant.slots", 0, int,
+               "per-tenant cap on concurrently held admission slots; a "
+               "tenant at its cap queues behind other tenants even when "
+               "global slots are free (0 disables)")
+    s.register("sql.admission.tenant.hbm_fraction", 0.0, float,
+               "fraction of sql.exec.hbm_budget_bytes one tenant's "
+               "in-flight statements may pin at once; statements whose "
+               "estimated working set would push the tenant over wait "
+               "for an eligible slot instead of dispatching (0 disables)")
+    s.register("sql.exec.plan_cache.tenant_budget", 0, int,
+               "per-tenant entry budget in the compiled-plan and parse "
+               "caches: a tenant past its budget evicts its own oldest "
+               "entries, never another tenant's (0 = shared LRU)")
+    # the pgwire front door (server/pgwire.py, server/pgfront.py)
+    s.register("server.prepared_statement_budget", 256, int,
+               "named prepared statements one pgwire session may hold; "
+               "Parse past the budget fails with 53400 (0 disables)")
+    s.register("server.pgwire_frontend", "reactor", str,
+               "pgwire connection front end: reactor = one selector "
+               "event loop owns all sockets, idle sessions hold no "
+               "thread, a bounded worker pool runs the protocol; "
+               "threads = thread-per-connection socketserver")
+    s.register("server.idle_session_timeout", 0.0, float,
+               "seconds a pgwire session may sit idle outside a "
+               "transaction before the server closes it (0 disables)")
+    s.register("server.startup_deadline_seconds", 10.0, float,
+               "deadline for a new connection to complete its startup "
+               "packet and authentication (0 disables)")
+    s.register("sql.exec.switch_interval", 0.0, float,
+               "sys.setswitchinterval applied while the server runs (0 "
+               "= the interpreter default). Process-global: a smaller "
+               "quantum lets OLTP batch windows close while an analytic "
+               "statement holds the interpreter lock")
+    s.register("timeseries.retention.seconds", 6 * 3600, int,
+               "fine-resolution (10s) timeseries slabs older than this "
+               "are rolled up to coarse resolution and pruned by the "
+               "node's maintenance loop")
 
 
 @dataclass
@@ -107,6 +166,12 @@ class SessionVars:
         # resident and streamed paths would pass the budget; on forces
         # every eligible shape; off never spills
         "spill": "auto",             # auto | on | off
+        # admission tier for this session's statements (the reference's
+        # admission.WorkPriority): high | normal | low
+        "admission_priority": "normal",
+        # the tenant key of admission and the caches (drivers send it
+        # in their startup packet)
+        "application_name": "",
     })
 
     def set(self, name: str, value) -> None:

@@ -3,8 +3,9 @@
 - No module of cockroach_tpu_torch, and not chip_smoke.py, imports
   jax or anything of the JAX package (an AST scan of every import).
 - Entry points never quietly fall back to the CPU: without a card and
-  without an explicit device, Engine() raises, and the kernel wrapper
-  takes its plain version only for CPU tensors.
+  without an explicit device, Engine(), the server's Node and the CLI's
+  start, demo and workload raise, and the kernel wrapper takes its
+  plain version only for CPU tensors.
 - The OLTP lane's native row mirror (native/oltp.cpp) builds into
   ``_build/``, never beside its source, and a failed build raises: the
   lane is never turned off in silence.
@@ -40,7 +41,16 @@ def test_port_scan_covers_the_package():
     names = {p.name for p in _port_files()}
     assert {"engine.py", "compile.py", "groupagg_large.py", "groupagg.py",
             "hashtable.py", "join.py", "chip_smoke.py", "oltplane.py",
-            "oltpbatch.py", "rwlock.py", "ycsb.py"} <= names
+            "oltpbatch.py", "rwlock.py", "ycsb.py",
+            # the front door
+            "pgwire.py", "pgfront.py", "miniclient.py", "node.py", "ts.py",
+            "cli.py", "__main__.py", "log.py", "sqlstats.py",
+            "admission.py", "tenantcache.py", "tpcc.py", "bank.py",
+            "kvload.py", "movr.py", "ssb.py"} <= names
+    server = ROOT / "cockroach_tpu_torch" / "server"
+    assert {p.name for p in _port_files() if p.parent == server} == {
+        "__init__.py", "pgwire.py", "pgfront.py", "miniclient.py",
+        "node.py", "ts.py"}
     assert ROOT / "cockroach_tpu_torch" / "native" / "__init__.py" in \
         _port_files()
 
@@ -113,6 +123,22 @@ def test_engine_without_card_raises():
         Engine()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         default_device()
+
+
+def test_server_and_cli_without_card_raise():
+    """The node and the CLI's engine commands keep the device policy:
+    the card unless a device is named."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from cockroach_tpu_torch import cli
+    from cockroach_tpu_torch.server import Node, NodeConfig
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Node(NodeConfig())
+    for argv in (["start", "--listen-addr", "127.0.0.1:0"],
+                 ["demo", "--sf", "0.01"], ["workload", "kv"],
+                 ["workload", "kv", "--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
 
 
 def test_wrapper_uses_plain_version_only_for_cpu_tensors():
