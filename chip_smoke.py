@@ -220,7 +220,7 @@ Phases (any failure exits non-zero before the final line):
    statement; the timed runs' launches are counted the same way, but
    not held against the plain version one by one. 16 wire sessions, a thread each in a client process of
    their own (`wire_client_main`, so their Python does not share the
-   server's interpreter lock), run YCSB-B and then YCSB-E (16,000
+   server's interpreter lock), run YCSB-B and then YCSB-E (8,000
    operations a mix, the port's statement texts, a 40001 retried):
    ops/s and p50/p99 by kind, and 200 written keys read back as some
    session wrote them; under `threads`, `reactor`, and `reactor` with
@@ -250,17 +250,53 @@ Phases (any failure exits non-zero before the final line):
    --listen-addr 127.0.0.1:0` with `sql -e` of a CREATE TABLE, an
    INSERT of 500 lineitem rows, Q6 (equal to its oracle) and SHOW
    STATEMENTS (Q6's fingerprint with count 1), and `workload tpcc
-   --steps 200` (exit 0, its JSON line).
+   --steps 200` (exit 0, its JSON line). The in-process Node's client
+   (application_name `phase14`) sends its Q1 past a 1 ms
+   sql.trace.slow_statement.threshold: /debug/tracez lists it; POST
+   /_status/stmtdiag arms Q6, whose next run over the wire equals its
+   oracle and captures a bundle fetched at /_status/stmtdiag/<id>;
+   /_status/tenants shows the tenant's device_seconds.
+14. What clients and operators send, on the SF1 engine after phase 9
+   and before phase 11's writes, on phase 7's tables and oracles
+   (`observability_phase`; `observability_phase_alone()` loads SF1 and
+   runs it by itself). Every statement run is driven with every count
+   set to 0 just before it and read just after, each kernel launch held
+   against its plain version at its inputs. Composed CTEs: TPC-H Q4,
+   Q15, Q21, Q13 and Q22 prepared, run once (the slow path captures)
+   and 5 times more: every run equals its oracle at phase 7's
+   tolerances and launches kernel 1 as phase 7 does; runs 2-6 compose
+   (no temp materialized or uploaded, nothing declined). One slow run
+   (execute) and one composed run of Q4 and Q21 under torch.profiler:
+   wall, busy and HtoD ms. A customer inserted between two runs of
+   composed Q22 sends the next run to the slow path (rows equal the
+   oracle over the changed table), and the run after it composes
+   again; its delete does the same and restores phase 7's rows. Set
+   operations: a UNION ALL of two Q1-shaped aggregates split at ship
+   date 1995-06-17 (kernel 1 once a branch; also prepared, run
+   twice), an EXCEPT and an INTERSECT of BUILDING customers against
+   the distinct o_custkey, and a UNION of n_name and r_name, each equal
+   to its numpy oracle. EXPLAIN ANALYZE of Q1, and of Q1F under SET
+   pallas_groupagg = on: kernel 1, then kernel 2, once each; the root's
+   actual rows equal the rows returned; the aggregate's device ms is
+   above 0 and the operators' add up to no more than the total; each
+   operator's device ms printed beside the kernel's own CUDA-event ms
+   at the same inputs. EXPLAIN ANALYZE (DEBUG) of Q6 returns a bundle
+   that the registry serves by its id. SET tracing = on, Q1, SHOW TRACE
+   FOR SESSION (plan, dispatch and materialize spans); Q6 past a 1 ms
+   slow-statement threshold enters the ring. Medians of 5 warm runs of
+   Q1 and Q6 through execute with sql.stmt_profile.enabled on, off, on
+   (the coarse plane's cost; those runs' launches are counted apart).
 Each phase's seconds are printed. After phase 10, one JSON `dml` line
-holds phase 11's numbers, one JSON `oltp` line phase 12's and one JSON
-`frontdoor` line phase 13's, each with the card's name and power
-limit; then one JSON line of per-kernel numbers (the large-G kernel's
-launches count Q1, Q5, Q10, Q12 and the path runs of phases 7, 8, 10,
-11, 12 and 13, the small-G kernel's Q1F, Q6F and phase 13's;
-`path_checks` holds each of the large-G kernel's calls in phases 7,
-8, 10, 11, 12 and 13 held against the plain version, and the small-G
-kernel's phase 13 calls), the nvidia-smi line, and the last line
-{"ok": true, "device": {...}}.
+holds phase 11's numbers, one JSON `oltp` line phase 12's, one JSON
+`frontdoor` line phase 13's and one JSON `observability` line phase
+14's (with the node's checks under "node"), each with the card's name
+and power limit; then one JSON line of per-kernel numbers (the large-G
+kernel's launches count Q1, Q5, Q10, Q12 and the path runs of phases
+7, 8, 10, 11, 12, 13 and 14, the small-G kernel's Q1F, Q6F and phases
+13's and 14's; `path_checks` holds each of the large-G kernel's calls
+in phases 7, 8, 10, 11, 12, 13 and 14 held against the plain version,
+and the small-G kernel's phase 13 and 14 calls), the nvidia-smi line,
+and the last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile DIR
 
@@ -1034,16 +1070,29 @@ def _check_launches(label, routes, want) -> None:
                                  f"not {n}")
 
 
+def _oracle_tables(li, sf) -> dict:
+    """Every TPC-H table's generator columns at `sf` for the oracles,
+    lineitem from `li`."""
+    from cockroach_tpu_torch.models import tpch
+    return {"lineitem": li, "orders": tpch.gen_orders(sf),
+            "customer": tpch.gen_customer(sf),
+            "supplier": tpch.gen_supplier(sf), "part": tpch.gen_part(sf),
+            "partsupp": tpch.gen_partsupp(sf),
+            "nation": tpch.gen_nation(), "region": tpch.gen_region()}
+
+
 def subquery_phase(eng, li, sf, reps: int = 3,
                    kernel_launches=SF1_PHASE7_LAUNCHES,
-                   q20_partitions=SF1_Q20_PARTITIONS) -> dict:
+                   q20_partitions=SF1_Q20_PARTITIONS,
+                   keep: dict | None = None) -> dict:
     """Phase 7 on an engine holding every TPC-H table at `sf` (lineitem
     from `li`, strings decoded): Q2 ... Q22 through Engine.execute, each
     with every count set to 0 just before it and read just after,
     against the numpy oracles and the expected routes
     (`kernel_launches`, Q20's `q20_partitions`; None skips a check),
     then the medians of `reps` warm runs and the peak device memory.
-    Returns {query: route}."""
+    Returns {query: route}; `keep` gets the generator's tables and the
+    oracles' rows (phase 14 reads them)."""
     import numpy as np
     import torch
 
@@ -1056,12 +1105,10 @@ def subquery_phase(eng, li, sf, reps: int = 3,
         if li[col].dtype.kind in "iu":   # dictionary codes
             li[col] = np.asarray(vals, dtype=object)[li[col]]
     t0 = time.perf_counter()
-    tables = {"lineitem": li, "orders": tpch.gen_orders(sf),
-              "customer": tpch.gen_customer(sf),
-              "supplier": tpch.gen_supplier(sf), "part": tpch.gen_part(sf),
-              "partsupp": tpch.gen_partsupp(sf),
-              "nation": tpch.gen_nation(), "region": tpch.gen_region()}
+    tables = _oracle_tables(li, sf)
     want = {q: tpch.oracle_rows(q, tables) for q in SUBQUERY_QUERIES}
+    if keep is not None:
+        keep.update(tables=tables, want=dict(want))
     print(f"phase 7 oracles: {time.perf_counter() - t0:.1f} s", flush=True)
     s = eng.session()
     routes, errs = {}, {}
@@ -1230,6 +1277,381 @@ def prepared_phase(eng, runs: int = 5) -> dict:
                 rec[f"{way}_event_ms"] = _cuda_ms(fn, reps=runs, warm=1)
         out[q] = rec
         print(f"{q} prepared: " + json.dumps(rec), flush=True)
+    return out
+
+
+# -- phase 14: what clients and operators send --------------------------------
+
+COMPOSED_QUERIES = ("q4", "q15", "q21", "q13", "q22")
+COMPOSED_RUNS = 6               # the capturing run, then 5 composed
+PROFILED_CTE = ("q4", "q21")    # slow against composed under the profiler
+SPLIT_DATE = "1995-06-17"
+Q1_SHAPE = ("SELECT l_returnflag, l_linestatus, sum(l_quantity) AS "
+            "sum_qty, sum(l_extendedprice) AS sum_base_price, count(*) AS "
+            "count_order FROM lineitem WHERE l_shipdate {op} DATE "
+            f"'{SPLIT_DATE}' GROUP BY l_returnflag, l_linestatus")
+UNION_ALL_Q1 = (Q1_SHAPE.format(op="<=") + " UNION ALL "
+                + Q1_SHAPE.format(op=">") + " ORDER BY 1, 2, 5")
+SEGMENT = "BUILDING"
+EXCEPT_Q = (f"SELECT c_custkey FROM customer WHERE c_mktsegment = "
+            f"'{SEGMENT}' EXCEPT SELECT DISTINCT o_custkey FROM orders "
+            "ORDER BY 1")
+INTERSECT_Q = EXCEPT_Q.replace("EXCEPT", "INTERSECT")
+UNION_STR_Q = "SELECT n_name FROM nation UNION SELECT r_name FROM region " \
+    "ORDER BY 1"
+# the customer a write adds between two runs of composed Q22: a
+# country code Q22 counts, a balance above its average, no orders
+NEW_CUSTOMER = {"c_custkey": 999_999_999, "c_name": "Customer#999999999",
+                "c_nationkey": 3, "c_phone": "13-555-555-5555",
+                "c_acctbal": 9999.99, "c_mktsegment": SEGMENT}
+PLANE_AB_RUNS = 5               # warm runs a way, profile plane on/off
+
+
+def _profiled(fn) -> dict:
+    """Wall, device-busy and HtoD ms of one run of `fn` from
+    torch.profiler, as profile_tpch measures them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    htod = sum(e.time_range.elapsed_us() for e in dev
+               if "HtoD" in e.name) / 1e3
+    return {"wall_ms": wall, "busy_ms": busy, "htod_ms": htod,
+            "idle_share": max(0.0, 1.0 - busy / wall)}
+
+
+def _analyze_ops(rows) -> tuple:
+    """(per plan line: (operator, device ms, actual rows), total ms, rows
+    returned) of an EXPLAIN ANALYZE."""
+    import re
+    lines = [r[0] for r in rows]
+    ops = []
+    for ln in lines[lines.index("plan:") + 1:]:
+        dev = re.search(r"device=([0-9.]+)ms", ln)
+        act = re.search(r"actual rows=([0-9]+)", ln)
+        ops.append((ln.strip().split(" ")[0], float(dev.group(1)),
+                    int(act.group(1))))
+    tot = next(ln for ln in lines if ln.strip().startswith("total:"))
+    m = re.search(r"total: ([0-9.]+)ms, rows returned: ([0-9]+)", tot)
+    return ops, float(m.group(1)), int(m.group(2))
+
+
+def observability_phase(eng, kept: dict,
+                        kernel_launches=SF1_PHASE7_LAUNCHES) -> dict:
+    """Phase 14 on the SF1 engine after phase 9, before phase 11's
+    writes (`kept`: phase 7's tables and oracles). Composed CTEs, set
+    operations, EXPLAIN ANALYZE, tracing and the profile plane's cost.
+    Every statement run is driven with every count set to 0 just before
+    it and read just after, and on the card each kernel launch is held
+    against its plain version at its inputs. Returns the phase's
+    numbers: launches by kernel ("launches", counted; "timed_launches",
+    the A/B loops', not held one by one), kernel 1's and kernel 2's
+    path checks, and everything the observability line prints."""
+    import numpy as np
+
+    from cockroach_tpu_torch.bench_groupagg import kernel_ms as small_ms
+    from cockroach_tpu_torch.bench_groupagg_large import kernel_ms
+    from cockroach_tpu_torch.exec.engine import TEMP_PREFIX
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    from cockroach_tpu_torch.utils import tracing
+    from cockroach_tpu_torch.utils.sqlstats import fingerprint
+    on_card = eng.device.type == "cuda"
+    t_phase = time.perf_counter()
+    tables, want = kept["tables"], kept["want"]
+    out = {"launches": {"groupagg_large": 0, "groupagg": 0},
+           "checks": {}, "small_checks": {}}
+    temp_uploads = []
+    upload = eng._batch_from_chunks   # the bound method
+
+    def counting_upload(td, chunks, cols):
+        if td.schema.name.startswith(TEMP_PREFIX):
+            temp_uploads.append(td.schema.name)
+        return upload(td, chunks, cols)
+
+    def driven(label, fn):
+        """fn() with the counts at 0 before and read after; each launch
+        of kernel 1 and 2 held against its plain version. Returns (fn's
+        value, (kernel 1 launches, kernel 2 launches), kernel 1's
+        recorded calls, kernel 2's)."""
+        _counts_zero()
+        with recording_slots() as calls, recording_small() as scalls:
+            val = fn()
+            _sync()
+        k1, k2 = _kernel_counts(on_card)
+        out["launches"]["groupagg_large"] += k1
+        out["launches"]["groupagg"] += k2
+        kept1, kept2 = list(calls), list(scalls)
+        if on_card:
+            if k1 or calls:
+                out["checks"][label] = check_calls(label, calls, k1)
+            if k2 or scalls:
+                out["small_checks"][label] = _check_small_calls(
+                    label, scalls, k2)
+        return val, (k1, k2), kept1, kept2
+
+    eng._batch_from_chunks = counting_upload
+    try:
+        # -- 14.1 composed CTEs ----------------------------------------
+        composed = {}
+        for q in COMPOSED_QUERIES:
+            sql = tpch.QUERIES[q]
+            s = eng.session()
+            p = eng.prepare(sql, s)
+            runs = []
+            for i in range(COMPOSED_RUNS):
+                temp_uploads.clear()
+                t0 = time.perf_counter()
+                res, (k1, _), _, _ = driven(f"{q} composed run {i + 1}",
+                                            p.run)
+                ms = (time.perf_counter() - t0) * 1e3
+                check_result(f"{q.upper()} run {i + 1}", res, want[q])
+                le = eng.last_exec
+                if i == 0 and (le["composed"] or not le["temps"]):
+                    raise AssertionError(f"{q}: the first run composed")
+                if i > 0 and (not le["composed"] or le["temps"]
+                              or temp_uploads):
+                    raise AssertionError(
+                        f"{q} run {i + 1}: not composed (temps "
+                        f"{le['temps']}, temp uploads {temp_uploads})")
+                if kernel_launches is not None and \
+                        k1 != kernel_launches[q]:
+                    raise AssertionError(f"{q} run {i + 1} launched kernel "
+                                         f"1 {k1} times, not "
+                                         f"{kernel_launches[q]}")
+                runs.append({"ms": ms, "composed": le["composed"],
+                             "groupagg_large": k1})
+            if (p.composed_runs, p.declined) != (COMPOSED_RUNS - 1, 0):
+                raise AssertionError(f"{q}: {p.composed_runs} composed "
+                                     f"runs, {p.declined} declined")
+            composed[q] = {"runs": runs, "slow_ms": runs[0]["ms"],
+                           "composed_median_ms": statistics.median(
+                               r["ms"] for r in runs[1:])}
+            if q in PROFILED_CTE and on_card:
+                # one slow run (execute takes the temps through the
+                # host) and one composed run, under the profiler
+                composed[q]["slow"] = driven(
+                    f"{q} profiled slow",
+                    lambda: _profiled(lambda: eng.execute(sql, s)))[0]
+                composed[q]["composed"] = driven(
+                    f"{q} profiled composed",
+                    lambda: _profiled(p.run))[0]
+                if not eng.last_exec["composed"]:
+                    raise AssertionError(f"{q}: profiled run not composed")
+            print(f"{q} composed: " + json.dumps(composed[q]), flush=True)
+            if q == "q22":
+                composed[q]["write"] = _composed_write_check(
+                    eng, p, s, tables, want, driven)
+        out["composed"] = composed
+    finally:
+        del eng._batch_from_chunks
+
+    # -- 14.2 set operations ------------------------------------------------
+    li, orders, cust = tables["lineitem"], tables["orders"], \
+        tables["customer"]
+    split = tpch._days(SPLIT_DATE)
+    want_union = []
+    for mask in (li["l_shipdate"] <= split, li["l_shipdate"] > split):
+        for rf, ls in sorted(set(zip(li["l_returnflag"][mask],
+                                     li["l_linestatus"][mask]))):
+            m = mask & (li["l_returnflag"] == rf) & \
+                (li["l_linestatus"] == ls)
+            want_union.append((rf, ls, float(li["l_quantity"][m].sum()),
+                               float(li["l_extendedprice"][m].sum()),
+                               int(m.sum())))
+    want_union.sort(key=lambda r: (r[0], r[1], r[4]))
+    seg = cust["c_custkey"][np.asarray(cust["c_mktsegment"]) == SEGMENT]
+    want_except = [(int(k),) for k in np.setdiff1d(seg, orders["o_custkey"])]
+    want_inter = [(int(k),) for k in np.intersect1d(seg,
+                                                    orders["o_custkey"])]
+    want_str = [(v,) for v in sorted(set(tpch.NATIONS) | set(tpch.REGIONS))]
+    s = eng.session()
+    setops = {}
+    for label, sql, w in (("union_all_q1", UNION_ALL_Q1, want_union),
+                          ("except", EXCEPT_Q, want_except),
+                          ("intersect", INTERSECT_Q, want_inter),
+                          ("union_strings", UNION_STR_Q, want_str)):
+        t0 = time.perf_counter()
+        res, (k1, k2), _, _ = driven(label, lambda: eng.execute(sql, s))
+        setops[label] = {"ms": (time.perf_counter() - t0) * 1e3,
+                         "rows": len(res.rows), "groupagg_large": k1}
+        check_result(label, res, w)
+    if setops["union_all_q1"]["groupagg_large"] != 2:
+        raise AssertionError("the UNION ALL of two Q1-shaped aggregates did "
+                             "not launch kernel 1 once a branch")
+    p = eng.prepare(UNION_ALL_Q1, s)
+    for i in range(2):
+        res, (k1, _), _, _ = driven(f"union_all_q1 prepared {i + 1}", p.run)
+        check_result(f"prepared UNION ALL run {i + 1}", res, want_union)
+        if k1 != 2:
+            raise AssertionError("a prepared UNION ALL run did not launch "
+                                 "kernel 1 once a branch")
+    out["setops"] = setops
+    print("set operations: " + json.dumps(setops), flush=True)
+
+    # -- 14.3 EXPLAIN ANALYZE ----------------------------------------------
+    analyze = {}
+    s_on = eng.session()
+    eng.execute("SET pallas_groupagg = on", s_on)
+    for label, sql, sess, kern in (("q1", tpch.Q1, s, 0),
+                                   ("q1f", tpch.Q1F, s_on, 1)):
+        res, ks, c1, c2 = driven(f"explain analyze {label}",
+                                 lambda: eng.execute("EXPLAIN ANALYZE "
+                                                     + sql, sess))
+        if ks != ((1, 0) if kern == 0 else (0, 1)):
+            raise AssertionError(f"EXPLAIN ANALYZE {label} launched "
+                                 f"{ks}, not its kernel once")
+        ops, total, nrows = _analyze_ops(res.rows)
+        agg = [o for o in ops if o[0] == "Aggregate"]
+        if nrows != 4 or ops[0][2] != nrows:
+            raise AssertionError(f"EXPLAIN ANALYZE {label}: actual rows "
+                                 f"{ops[0][2]}, returned {nrows}")
+        if not agg or agg[0][1] <= 0:
+            raise AssertionError(f"EXPLAIN ANALYZE {label}: no device ms "
+                                 f"for the aggregate: {ops}")
+        if sum(o[1] for o in ops) > total:
+            raise AssertionError(f"EXPLAIN ANALYZE {label}: operators' "
+                                 f"{sum(o[1] for o in ops)} ms pass the "
+                                 f"total {total}")
+        analyze[label] = {"operators": ops, "total_ms": total}
+        if on_card:
+            analyze[label]["kernel_event_ms"] = (
+                kernel_ms(tgl.plan_slots(*c1[0])) if kern == 0
+                else small_ms(c2[0]))
+        print(f"EXPLAIN ANALYZE {label}: " + json.dumps(analyze[label]),
+              flush=True)
+    res, _, _, _ = driven("explain analyze debug q6", lambda: eng.execute(
+        "EXPLAIN ANALYZE (DEBUG) " + tpch.Q6, s))
+    bundle = json.loads(res.rows[0][0])
+    again = eng.stmtdiag.get(bundle["id"])
+    stored = json.loads(json.dumps(again, default=str)) if again else {}
+    if any(stored.get(k) != v for k, v in bundle.items()):
+        raise AssertionError("the debug bundle's id does not fetch it")
+    analyze["q6_debug_bundle"] = {"id": bundle["id"],
+                                  "ops": len(bundle["profile"]["ops"]),
+                                  "device_time_s":
+                                      bundle["profile"]["device_time_s"]}
+    out["explain_analyze"] = analyze
+
+    # -- 14.4 tracing and the planes' cost ----------------------------------
+    st = eng.session()
+    eng.execute("SET tracing = on", st)
+    driven("traced q1", lambda: eng.execute(tpch.Q1, st))
+    eng.execute("SET tracing = off", st)
+    text = "\n".join(r[0] for r in eng.execute("SHOW TRACE FOR SESSION",
+                                               st).rows)
+    for name in ("plan:", "dispatch:", "materialize:"):
+        if name not in text:
+            raise AssertionError(f"SHOW TRACE FOR SESSION has no {name}")
+    ring0 = len(eng.slow_traces)
+    eng.settings.set("sql.trace.slow_statement.threshold", 0.001)
+    try:
+        driven("slow q6", lambda: eng.execute(tpch.Q6, s))
+    finally:
+        eng.settings.set("sql.trace.slow_statement.threshold", 0.0)
+    slow = list(eng.slow_traces)[ring0:]
+    if not any(t["fingerprint"] == fingerprint(tpch.Q6) for t in slow):
+        raise AssertionError("Q6 did not enter the slow-statement ring")
+    if tracing.span_from_wire(slow[-1]["span"]).find("dispatch") is None:
+        raise AssertionError("the ring's span has no dispatch")
+    ab = {"q1_ms": {}, "q6_ms": {}}
+    k0 = _kernel_counts(on_card)
+    for i, enabled in enumerate((True, False, True)):
+        eng.settings.set("sql.stmt_profile.enabled", enabled)
+        for q, sql in (("q1", tpch.Q1), ("q6", tpch.Q6)):
+            ab[f"{q}_ms"][f"{'on' if enabled else 'off'}_{i}"] = \
+                _median_ms(lambda: eng.execute(sql, s), reps=PLANE_AB_RUNS)
+    eng.settings.set("sql.stmt_profile.enabled", True)
+    k1 = _kernel_counts(on_card)
+    out["timed_launches"] = {"groupagg_large": k1[0] - k0[0],
+                             "groupagg": k1[1] - k0[1]}
+    out["tracing"] = {"show_trace_lines": text.count("\n") + 1,
+                      "slow_ring": len(slow), "profile_plane_ab": ab}
+    print("tracing and the profile plane's cost: "
+          + json.dumps(out["tracing"]), flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def observability_phase_alone(sf: float = SF, device=None,
+                              rows: int | None = None) -> dict:
+    """Phase 14 by itself (``python3 -c "import chip_smoke;
+    chip_smoke.observability_phase_alone()"``): loads every TPC-H table
+    at `sf` as phases 2 and 6 do (``device`` names another than the
+    card for a rehearsal, ``rows`` caps lineitem), computes phase 7's
+    oracles for the composed queries, runs the phase and prints its
+    line. Phase 7's kernel-1 counts hold at SF1 only."""
+    import numpy as np
+
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    if device is None:
+        print(f"card: {_smi()}", flush=True)
+    t0 = time.perf_counter()
+    eng = Engine(device=device)
+    tpch.load(eng, sf=sf, rows=rows, tables=("lineitem", "part"),
+              encoded=True)
+    tpch.load(eng, sf=sf, tables=("orders", "customer", "supplier",
+                                  "partsupp", "nation", "region"))
+    li = tpch.gen_lineitem(sf, rows=rows, encoded=True)
+    for col, vals in (("l_returnflag", tpch.RF_VALUES),
+                      ("l_linestatus", tpch.LS_VALUES),
+                      ("l_shipmode", tpch.SHIPMODES),
+                      ("l_shipinstruct", tpch.SHIPINSTRUCT)):
+        li[col] = np.asarray(vals, dtype=object)[li[col]]
+    tables = _oracle_tables(li, sf)
+    kept = {"tables": tables,
+            "want": {q: tpch.oracle_rows(q, tables)
+                     for q in COMPOSED_QUERIES}}
+    print(f"load SF{sf}: {time.perf_counter() - t0:.1f} s", flush=True)
+    out = observability_phase(
+        eng, kept, kernel_launches=SF1_PHASE7_LAUNCHES if sf == 1
+        and rows is None else None)
+    for k in ("checks", "small_checks"):
+        out[k] = {label: len(v) for label, v in out[k].items()}
+    print(json.dumps({"observability": out}, default=str), flush=True)
+    return out
+
+
+def _composed_write_check(eng, p, s, tables, want, driven) -> dict:
+    """A customer added between two runs of composed Q22 sends the next
+    run to the slow path, whose rows equal the oracle over the changed
+    table; the run after it composes again. Deleting the customer does
+    the same and restores phase 7's rows."""
+    import numpy as np
+
+    from cockroach_tpu_torch.models import tpch
+    c = NEW_CUSTOMER
+    cust = {k: np.append(v, c[k]) for k, v in tables["customer"].items()}
+    changed = tpch.oracle_rows("q22", dict(tables, customer=cust))
+    if changed == want["q22"]:
+        raise AssertionError("the added customer does not change Q22")
+    cols = ", ".join(c)
+    vals = ", ".join(repr(v) for v in c.values())
+    out = {}
+    for step, stmt, w in (
+            ("insert", f"INSERT INTO customer ({cols}) VALUES ({vals})",
+             changed),
+            ("delete", "DELETE FROM customer WHERE c_custkey = "
+                       f"{c['c_custkey']}", want["q22"])):
+        eng.execute(stmt, s)
+        declined = p.declined
+        for i, must_compose in enumerate((False, True)):
+            res, _, _, _ = driven(f"q22 after {step} {i + 1}", p.run)
+            check_result(f"Q22 after the {step}, run {i + 1}", res, w)
+            if eng.last_exec["composed"] != must_compose:
+                raise AssertionError(f"Q22 after the {step}, run {i + 1}: "
+                                     f"composed {eng.last_exec['composed']}")
+        if p.declined != declined + 1:
+            raise AssertionError(f"the {step} did not decline once")
+        out[step] = {"declined": p.declined, "composed": p.composed_runs}
     return out
 
 
@@ -2802,7 +3224,7 @@ def oltp_phase(eng, li_after, supplier, records: int = OLTP_RECORDS,
 
 
 # -- 13. the front door -------------------------------------------------------
-FRONT_OPS = 16_000              # YCSB operations a mix over the wire
+FRONT_OPS = 8_000               # YCSB operations a mix over the wire
 FRONT_SIDE_OPS = 4_000          # YCSB-B beside the parked sessions, Q1
 FRONT_CLIENTS = 16              # wire sessions, one thread each
 FRONT_PARKED = 1_000            # idle sessions parked on the reactor
@@ -3475,6 +3897,50 @@ def _shell_rows(text: str, first: str) -> list:
     return rows
 
 
+NODE_TENANT = "phase14"          # the node client's application_name
+
+
+def _node_observability(base: str, c, want_q6) -> dict:
+    """Phase 14 through the node, after its client's slow Q1:
+    /debug/tracez lists that Q1; POST /_status/stmtdiag arms Q6, whose
+    next run over the wire captures a bundle fetched at
+    /_status/stmtdiag/<id>; /_status/tenants shows the client's tenant
+    with a device time and an HBM high-water."""
+    import urllib.request
+
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.utils.sqlstats import fingerprint
+
+    def get(path):
+        return json.loads(urllib.request.urlopen(base + path,
+                                                 timeout=30).read())
+    traces = [t for t in get("/debug/tracez")["traces"]
+              if t["fingerprint"] == fingerprint(tpch.Q1)]
+    if not traces or traces[-1]["application_name"] != NODE_TENANT:
+        raise AssertionError("/debug/tracez does not list the slow Q1")
+    req = urllib.request.Request(
+        base + "/_status/stmtdiag",
+        data=json.dumps({"sql": tpch.Q6}).encode(),
+        headers={"Content-Type": "application/json"})
+    armed = json.loads(urllib.request.urlopen(req, timeout=30).read())
+    got_q6 = float(c.query(tpch.Q6)[1][0][0])
+    if not _close(got_q6, want_q6, 1e-9):
+        raise AssertionError(f"node Q6 {got_q6} != {want_q6}")
+    bundle = get(f"/_status/stmtdiag/{armed['request_id']}")
+    if bundle["fingerprint"] != armed["fingerprint"] or \
+            not bundle["profile"]["ops"] or not bundle["plan"]:
+        raise AssertionError(f"stmtdiag bundle: {sorted(bundle)}")
+    tenant = {t["app_name"]: t for t in
+              get("/_status/tenants")["tenants"]}.get(NODE_TENANT)
+    if tenant is None or not tenant["device_seconds"]:
+        raise AssertionError(f"/_status/tenants {NODE_TENANT}: {tenant}")
+    return {"tracez_q1_duration_s": traces[-1]["duration_s"],
+            "stmtdiag_bundle_id": bundle["id"],
+            "stmtdiag_device_time_s": bundle["device_time_s"],
+            "stmtdiag_ops": len(bundle["profile"]["ops"]),
+            "tenant": tenant}
+
+
 def entry_points_phase(sf: float = FRONT_SF, device=None) -> dict:
     """Phase 13's entry points on the card (``device`` names another,
     for a rehearsal): Node in process, then ``demo``, ``start`` + ``sql
@@ -3523,13 +3989,19 @@ def entry_points_phase(sf: float = FRONT_SF, device=None) -> dict:
         node = Node(NodeConfig(load_tpch_sf=sf, device=device)).start()
         try:
             start_s = time.perf_counter() - t0
-            c = MiniClient(*node.sql_addr, timeout=FRONT_TIMEOUT)
+            c = MiniClient(*node.sql_addr, timeout=FRONT_TIMEOUT,
+                           application_name=NODE_TENANT)
+            # phase 14 through the node: Q1 past the slow-statement
+            # threshold
+            c.query("SET CLUSTER SETTING sql.trace.slow_statement."
+                    "threshold = 0.001")
             k0 = _kernel_counts(on_card)[0]
             with recording_slots() as calls:
                 rows = c.query(tpch.Q1)[1]
                 _sync()
             n1 = _kernel_counts(on_card)[0] - k0
-            c.close()
+            c.query("SET CLUSTER SETTING sql.trace.slow_statement."
+                    "threshold = 0")
             check_q1(rows, want_q1)
             if n1 != 1:
                 raise AssertionError(f"Node's Q1 launched kernel 1 {n1} "
@@ -3549,6 +4021,9 @@ def entry_points_phase(sf: float = FRONT_SF, device=None) -> dict:
             if "admission_admitted" not in metrics:
                 raise AssertionError("/_status/vars has no admission "
                                      "metrics")
+            out["observability"] = _node_observability(base, c,
+                                                       want_q6)
+            c.close()
         finally:
             t0 = time.perf_counter()
             node.stop()
@@ -3668,9 +4143,12 @@ def main() -> int:
     print(json.dumps({"stream": stream}), flush=True)
     oltp = dml.pop("oltp")
     front = dml.pop("frontdoor")
+    obs = dml.pop("observability")
+    obs["node"] = front["entry_points"].pop("observability")
     print(json.dumps({"dml": dict(dml, card=smi)}), flush=True)
     print(json.dumps({"oltp": dict(oltp, card=smi)}), flush=True)
     print(json.dumps({"frontdoor": dict(front, card=smi)}), flush=True)
+    print(json.dumps({"observability": dict(obs, card=smi)}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -3957,7 +4435,8 @@ def sf1_phases(opts) -> tuple:
 
     # -- 7. subqueries, derived tables and CTEs at SF1 -----------------------
     t0 = time.perf_counter()
-    sub_routes = subquery_phase(eng, li, SF)
+    kept: dict = {}
+    sub_routes = subquery_phase(eng, li, SF, keep=kept)
     print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 8. SSB at SF1, in an Engine of its own --------------------------------
@@ -3987,6 +4466,20 @@ def sf1_phases(opts) -> tuple:
                                            *(("ssb " + k, v) for k, v in
                                              ssb_routes.items())]
         if r.get("kernel_checks")}
+
+    # -- 14. set operations, composed CTEs, EXPLAIN ANALYZE, tracing -------
+    # (on phase 7's tables, before phase 11's writes)
+    t0 = time.perf_counter()
+    obs = observability_phase(eng, kept)
+    del kept
+    for i, k in enumerate(("groupagg_large", "groupagg")):
+        kernels[i]["launches"] += obs["launches"][k]
+        kernels[i]["phase14_launches"] = obs["launches"][k]
+        kernels[i]["phase14_timed_launches"] = obs["timed_launches"][k]
+    large["path_checks"].update(
+        (f"sf1 {k} phase 14", v) for k, v in obs.pop("checks").items())
+    small_checks14 = obs.pop("small_checks")
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 11. windows, the write path and YCSB-E (it changes the tables) ------
     t0 = time.perf_counter()
@@ -4030,11 +4523,13 @@ def sf1_phases(opts) -> tuple:
     large["path_checks"].update(front.pop("path_checks"))
     large["path_checks"]["sf0.1 node q1 phase 13"] = entry.pop(
         "node_checks")
-    kernels[1]["path_checks"] = {"phase 13": front.pop("small_checks")}
+    kernels[1]["path_checks"] = {"phase 13": front.pop("small_checks"),
+                                 "phase 14": small_checks14}
     front["seconds_with_entry_points"] = time.perf_counter() - t0
     print(f"phase 13: {front['seconds_with_entry_points']:.1f} s",
           flush=True)
     dml["frontdoor"] = front
+    dml["observability"] = obs
     if opts.profile:
         from cockroach_tpu_torch.profile_tpch import profile_queries
         profile_queries(eng, {"q3": (tpch.Q3, None), "q5": (tpch.Q5, None),

@@ -55,6 +55,7 @@ from ..sql import plan as P
 from ..sql.bound import BoundAgg
 from ..sql.pushdown import _expr_key
 from ..sql.types import Family
+from . import profile
 from .expr import ExprContext, compile_expr
 
 
@@ -115,6 +116,36 @@ def _ctx_of(batch: ColumnBatch, aggs=None) -> ExprContext:
 
 def compile_plan(node: P.PlanNode, params: ExecParams,
                  meta: P.OutputMeta | None = None) -> CompiledNode:
+    """The plan as a closure over RunContext. Every operator is wrapped
+    for the fine profile plane (exec/profile.py): while a fine sink is
+    active on the running thread the operator runs inside
+    ``sink.op(node)`` (CUDA events on the card) and reports its output
+    rows as a device count; otherwise the wrapper only calls it."""
+    fn = _compile_plan(node, params, meta)
+
+    def run_op(rc):
+        sink = profile.fine_sink()
+        if sink is None:
+            return fn(rc)
+        with sink.op(node) as rec:
+            b = fn(rc)
+            rec.rows = b.sel.sum()
+            if isinstance(node, P.Scan):
+                # a scan's output is the uploaded table slice
+                rec.bytes_uploaded = _batch_nbytes(b)
+        return b
+    return run_op
+
+
+def _batch_nbytes(b: ColumnBatch) -> int:
+    n = b.sel.numel() * b.sel.element_size()
+    for d in b.data:
+        n += d.numel() * d.element_size()
+    return int(n)
+
+
+def _compile_plan(node: P.PlanNode, params: ExecParams,
+                  meta: P.OutputMeta | None = None) -> CompiledNode:
     if isinstance(node, P.Scan):
         return _compile_scan(node)
     if isinstance(node, P.Filter):

@@ -45,11 +45,16 @@ depth, the generation sinks) is per thread; the exec cache, the device
 tables and their reservations are locked one by one.
 
 Views re-plan as derived tables at every use; sequences allocate in KV
-transactions of their own (``nextval`` never rolls back).
+transactions of their own (``nextval`` never rolls back). Set operations
+run their branches as statements and merge on the host; a prepared CTE
+or derived-table statement composes its temps and main plan on the card
+from its second run (exec/ctecompose.py). SHOW, EXPLAIN [ANALYZE],
+session tracing, statement diagnostics and the profile planes are
+exec/explain.py's and exec/profile.py's.
 
-Everything else the reference engine does (secondary indexes, set
-operations, distribution, distributed spill) is not ported yet and
-raises EngineError.
+Everything else the reference engine does (secondary indexes,
+distribution, distributed spill) is not ported yet and raises
+EngineError.
 """
 
 from __future__ import annotations
@@ -57,10 +62,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import datetime
+import decimal
 import json
 import threading
 import time
 import weakref
+from collections import Counter, deque
 
 import numpy as np
 import torch
@@ -79,7 +86,8 @@ from ..sql.binder import Binder, Scope
 from ..sql.bound import BCol, BConst
 from ..sql.decorrelate import decorrelate_exists, decorrelate_scalar
 from ..sql.planner import CatalogView, PlanError, Planner
-from ..sql.types import ColumnSchema, Family, TableSchema
+from ..sql.types import (INT8, ColumnSchema, Family, TableSchema,
+                         common_numeric_type)
 from ..storage.columnstore import ColumnStore
 from ..storage.hlc import Clock, Timestamp
 from ..storage.keys import prefix_end
@@ -89,13 +97,17 @@ from ..utils.devstats import DeviceStats
 from ..utils.rwlock import RWLock
 from ..utils.metric import MetricRegistry
 from ..utils.mon import BytesMonitor
+from ..utils import tracing
 from ..utils.settings import SettingError, Settings
 from ..utils.sqlstats import StatsRegistry
+from ..utils.stmtdiag import StmtDiagRegistry
+from . import profile
 from .compile import (ExecError, ExecParams, RunContext, compile_plan,
                       compile_streaming)
 from .constraints import ConstraintMixin
 from .ddl import DDLMixin
 from .dml import DMLMixin
+from .explain import ExplainMixin, StatementObserver
 from .expr import ExprContext, compile_expr
 from .fastpath import FastpathMixin
 from .joinfilter import find_specs
@@ -108,7 +120,7 @@ from .session import (SENTINEL_COLUMNS, CompactOverflow, EngineError,
 from .spill import compile_spill_sort
 from .stream import extract_zone_preds
 from .stmtutil import (RerunPrepared, decode_scalar, host_sort,
-                       rewrite_table_names)
+                       rewrite_table_names, sort_rows)
 from .tenantcache import TenantLRU
 
 EPOCH_DATE = datetime.date(1970, 1, 1)
@@ -168,7 +180,7 @@ def _per_thread(name: str, fresh):
 
 
 class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
-             FastpathMixin, ScanPlaneMixin):
+             FastpathMixin, ScanPlaneMixin, ExplainMixin):
     # the per-statement state, per thread: the last statement's route
     # (_fresh_route: its main query's Compact nodes, replans
     # ("no_topk", "no_compact", in order) and last run's
@@ -186,6 +198,15 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
     _gen_sinks = _per_thread("gen_sinks", list)
     _cte_depth = _per_thread("cte_depth", dict)
     _scope_waits = _per_thread("scope_waits", dict)
+    # observability, per thread: the last statement's coarse profile
+    # (exec/profile.py), the plan node of its main query (EXPLAIN
+    # ANALYZE and diagnostics render it), whether the running statement
+    # is analyzed (its plan takes no selection compaction) and the
+    # capture of a composing CTE handle's slow run (exec/ctecompose.py)
+    last_profile = _per_thread("last_profile", lambda: None)
+    _last_plan = _per_thread("last_plan", lambda: None)
+    _analyzing = _per_thread("analyzing", lambda: False)
+    _cte_capture = _per_thread("cte_capture", lambda: None)
 
     def __init__(self, device=None, store: ColumnStore | None = None):
         self.device = resolve_device(device)
@@ -206,10 +227,16 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         self._check_fn_cache: dict = {}
         self.settings = Settings()
         self.metrics = MetricRegistry()
+        # the executing statement's tenant, published per thread between
+        # admission's acquire and release: ``value`` is admission's key,
+        # ``app`` the rollup's (application_name or "(unset)")
+        self._tenant_tl = threading.local()
         # the device-byte pool: resident uploads reserve against it,
-        # streamed and spill windows lease from it
-        self.hbm = BytesMonitor("hbm", lambda: self.settings.get(
-            "sql.exec.hbm_budget_bytes"))
+        # streamed and spill windows lease from it; each reservation
+        # belongs to the tenant whose statement made it
+        self.hbm = BytesMonitor(
+            "hbm", lambda: self.settings.get("sql.exec.hbm_budget_bytes"),
+            owner=lambda: getattr(self._tenant_tl, "app", ""))
         self.movement = TransferScheduler(self.hbm, self.metrics)
         self.devstats = DeviceStats(self.device, self.hbm)
         self._tl = threading.local()
@@ -236,12 +263,23 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         # (exec/tenantcache.py: sql.exec.plan_cache.tenant_budget bounds
         # a tenant to evicting its own entries)
         self._parse_cache = TenantLRU(self.PARSE_CACHE_MAX)
-        # the executing statement's tenant, published per thread between
-        # admission's acquire and release
-        self._tenant_tl = threading.local()
         # per-fingerprint statement statistics (SHOW STATEMENTS, the
         # node's /_status/statements) and per-tenant rollups
         self.sqlstats = StatsRegistry()
+        # observability: span tracing (utils/tracing.py), the ring of
+        # slow statements' recordings behind /debug/tracez (past
+        # sql.trace.slow_statement.threshold) and statement diagnostics
+        # (utils/stmtdiag.py: armed fingerprints capture a bundle on
+        # their next execution)
+        self.tracer = tracing.Tracer()
+        self.slow_traces: deque = deque(maxlen=32)
+        self.stmtdiag = StmtDiagRegistry(metrics=self.metrics)
+        self.metrics.counter(
+            "exec.profile.statements",
+            "statements executed with an active profile sink")
+        self.metrics.counter(
+            "exec.profile.operators",
+            "operator entries recorded into profile sinks")
         # admission in front of the statement gate (utils/admission.py):
         # a bounded, tenant-fair queue of execution slots
         self.admission = AdmissionController(slots=16, max_queue=128)
@@ -292,13 +330,19 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         self.admission.acquire(
             priority=str(session.vars.get("admission_priority", "normal")),
             tenant=tenant, hbm=hbm_est)
-        prev_tenant = getattr(self._tenant_tl, "value", "")
+        prev = (getattr(self._tenant_tl, "value", ""),
+                getattr(self._tenant_tl, "app", ""))
         self._tenant_tl.value = tenant
+        # the rollup key: reservations made now belong to it
+        self._tenant_tl.app = app or "(unset)"
+        obs = StatementObserver(self, stmt, session, sql)
         t0 = time.monotonic()
         try:
-            with self._run_scope(self._stmt_tables(stmt),
-                                 self._stmt_read_only(stmt, session, sql)):
-                res = self._dispatch(stmt, session, sql)
+            with obs.observe():
+                with self._run_scope(self._stmt_tables(stmt),
+                                     self._stmt_read_only(stmt, session,
+                                                          sql)):
+                    res = self._dispatch(stmt, session, sql)
         except Exception:
             if session.txn is not None and not isinstance(
                     stmt, ast.BeginTxn):
@@ -306,12 +350,13 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             dt = time.monotonic() - t0
             self.metrics.counter("sql.failure.count",
                                  "statements that errored").inc()
+            obs.failed()
             self.sqlstats.record(sql, dt, 0, failed=True)
             self.sqlstats.record_tenant(app or "(unset)", wall_s=dt,
                                         failed=True)
             raise
         finally:
-            self._tenant_tl.value = prev_tenant
+            self._tenant_tl.value, self._tenant_tl.app = prev
             self.admission.release(tenant=tenant, hbm=hbm_est)
         dt = time.monotonic() - t0
         self.metrics.counter(f"sql.{type(stmt).__name__.lower()}.count",
@@ -321,14 +366,18 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         self.devstats.note_execute(dt)
         rows = max(len(res.rows), res.row_count)
         self.sqlstats.record(sql, dt, rows)
-        # the bytes a streamed or spilled SELECT moved (the reference's
-        # profile plane also counts uploads and shuffles: not ported)
-        paging = (self.last_exec.get("paging") or {}) \
-            if isinstance(stmt, ast.Select) else {}
+        psink = obs.psink
+        # the statement's bytes moved and stalls (the coarse profile
+        # plane: resident uploads, streamed pages, spilled partitions),
+        # its time on the card and the tenant's own HBM high-water
         self.sqlstats.record_tenant(
-            app or "(unset)", wall_s=dt,
-            bytes_moved=int(paging.get("bytes", 0)), rows=rows,
-            stall_s=float(paging.get("stall_s", 0.0)))
+            app or "(unset)", wall_s=dt, rows=rows,
+            bytes_moved=psink.total_bytes_moved() if psink else 0,
+            stall_s=psink.total_stall_seconds() if psink else 0.0,
+            device_s=obs.device_seconds(),
+            hbm_bytes=(self.hbm.owner_peak(app or "(unset)")
+                       if psink else None))
+        obs.finished(res, dt)
         return res
 
     def _parse_cached(self, sql: str, tenant: str):
@@ -458,9 +507,16 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                        for r in refs)
 
     def _dispatch(self, stmt, session: Session, sql: str) -> Result:
-        if isinstance(stmt, ast.Select):
+        if isinstance(stmt, (ast.Select, ast.SetOp)):
             with self._statement():
                 return self._exec_select(stmt, session, sql)
+        if isinstance(stmt, ast.Explain):
+            with self._statement():
+                return self._exec_explain(stmt, session, sql)
+        if isinstance(stmt, (ast.ShowVar, ast.ShowAll, ast.ShowTables,
+                             ast.ShowColumns, ast.ShowCreateTable,
+                             ast.ShowTrace)):
+            return self._exec_show(stmt, session)
         if isinstance(stmt, (ast.Insert, ast.Update, ast.Delete,
                              ast.Truncate)) \
                 and stmt.table in self._view_map():
@@ -515,6 +571,14 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             except SettingError as e:
                 raise EngineError(str(e)) from e
             return Result(tag="SET CLUSTER SETTING")
+        if isinstance(stmt, ast.SetVar) \
+                and stmt.name == "statement_diagnostics":
+            # SET statement_diagnostics = '<statement>' arms its
+            # fingerprint: the next execution captures a bundle
+            req = self.stmtdiag.arm(str(stmt.value))
+            return Result(names=["request_id", "fingerprint"],
+                          rows=[(req["request_id"], req["fingerprint"])],
+                          tag="SET")
         if isinstance(stmt, ast.SetVar):
             value = stmt.value
             if stmt.name in _VAR_VALUES:
@@ -690,7 +754,14 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                            keys_unique_fn=unique_fn)
 
     def _plan(self, stmt: ast.Select, session: Session,
-              read_ts: Timestamp, no_memo: bool = False):
+              read_ts: Timestamp, no_memo: bool = False,
+              for_explain: bool = False, trace=None):
+        """(plan node, OutputMeta) of one SELECT. ``for_explain``: an
+        EXPLAIN's plan, whose sequence calls bind to a placeholder
+        instead of allocating (pg EXPLAIN semantics) and which may fold
+        volatile builtins; ``trace`` is its sql/rules.RuleTrace."""
+        if not isinstance(stmt, ast.Select):
+            raise EngineError("can only EXPLAIN SELECT")
         in_txn = session.txn is not None
         cv = self.catalog_view(
             read_ts=None if in_txn else read_ts,
@@ -712,11 +783,13 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         planner = Planner(
             cv, subquery_eval=subquery_eval,
             now_micros=read_ts.wall // 1000,
-            sequence_ops=self._sequence_ops(session),
+            sequence_ops=((lambda fn, name, arg: 0) if for_explain
+                          else self._sequence_ops(session)),
             use_memo=(not no_memo
                       and session.vars.get("optimizer", "on") != "off"),
-            volatile_fold_ok=False,
-            rules=session.vars.get("optimizer_rules", "on") != "off")
+            volatile_fold_ok=for_explain,
+            rules=session.vars.get("optimizer_rules", "on") != "off",
+            trace=trace)
         return planner.plan_select(stmt)
 
     def _bound_agg_group_rows(self, node, read_ts: Timestamp,
@@ -1265,6 +1338,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         if self._nested == 0:
             le.update(route)
             le["compact_nodes"] = compacts
+            self._last_plan = prep.node
 
     def _note_replan(self, flag: str) -> None:
         self.last_exec["all"]["replans"].append(flag)
@@ -1274,12 +1348,17 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
     # -- SELECT --------------------------------------------------------------
     def prepare(self, sql: str, session: Session | None = None):
         """Prepare a SELECT for repeated execution (the pgwire prepared
-        statement). Returns a ``Prepared``; a statement with CTEs or
-        derived tables (including those decorrelation introduces)
-        materializes temps per execution, so it gets a re-execute
-        handle (stmtutil.RerunPrepared) instead."""
+        statement). Returns a ``Prepared``; a set operation, or a
+        statement with CTEs or derived tables (including those
+        decorrelation introduces), which materializes temps per
+        execution, gets a re-execute handle (stmtutil.RerunPrepared)
+        instead, which composes a CTE statement's later runs on the
+        device (exec/ctecompose.py)."""
         session = session or self.session()
         stmt = parser.parse(sql)
+        if isinstance(stmt, ast.SetOp):
+            # the branches run as statements and merge on the host
+            return RerunPrepared(self, session, stmt, sql)
         if not isinstance(stmt, ast.Select):
             raise EngineError("can only prepare SELECTs")
         _check_select(stmt)
@@ -1294,11 +1373,14 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         with self._statement():
             return self._prepare_select(sel, session, sql)
 
-    def _exec_select(self, sel: ast.Select, session: Session,
+    def _exec_select(self, sel, session: Session,
                      sql_text: str) -> Result:
-        """Run one SELECT: decorrelate, materialize CTEs and derived
-        tables into temps, then prepare and run (the reference's
-        ``_exec_select``; its re-runs live in Prepared.run)."""
+        """Run one SELECT or set operation: decorrelate, materialize
+        CTEs and derived tables into temps, then prepare and run (the
+        reference's ``_exec_select``; its re-runs live in
+        Prepared.run)."""
+        if isinstance(sel, ast.SetOp):
+            return self._exec_setop(sel, session, sql_text)
         _check_select(sel)
         sel = self._decorrelate(self._expand_views(sel))
         if sel.ctes or self._has_derived(sel):
@@ -1325,35 +1407,173 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                 return res
         return self._prepare_select(sel, session, sql_text).run()
 
+    # -- set operations ------------------------------------------------------
+    def _exec_setop(self, so: ast.SetOp, session: Session,
+                    sql_text: str) -> Result:
+        """UNION / INTERSECT / EXCEPT [ALL]: both branches run as
+        ordinary statements on the card, and the combine is a host
+        multiset merge over their decoded rows, as in the reference (and
+        its setOpNode, sql/union.go). NULLs compare equal in the merge
+        (rows are tuples; None == None); numeric branch types unify as
+        expression arithmetic would."""
+        if so.ctes:
+            # WITH over a set op: the CTEs materialize into temps, then
+            # both branches read them
+            return self._exec_with_temps(so, session, sql_text)
+        with self._inner():
+            left = self._exec_select(so.left, session,
+                                     f"(setop-l {so.left!r})")
+            right = self._exec_select(so.right, session,
+                                      f"(setop-r {so.right!r})")
+        if len(left.names) != len(right.names):
+            raise EngineError(
+                f"each {so.op.upper()} branch must have the same number "
+                f"of columns ({len(left.names)} vs {len(right.names)})")
+        numeric = (Family.INT, Family.FLOAT, Family.DECIMAL)
+        out_types = list(left.types)
+        coerce_cols = {}  # column index -> unified SQLType
+        for i, (lt, rt) in enumerate(zip(left.types, right.types)):
+            if lt.family == rt.family or \
+                    "unknown" in (lt.family.value, rt.family.value):
+                continue
+            if lt.family in numeric and rt.family in numeric:
+                ut = common_numeric_type(lt, rt)
+                out_types[i] = coerce_cols[i] = ut
+                continue
+            raise EngineError(
+                f"{so.op.upper()} branch column types do not match: "
+                f"{lt} vs {rt}")
+        lrows, rrows = list(left.rows), list(right.rows)
+        if coerce_cols:
+            lrows = _unify_rows(lrows, coerce_cols)
+            rrows = _unify_rows(rrows, coerce_cols)
+        if so.op == "union":
+            rows = lrows + rrows
+            if not so.all:
+                rows = list(dict.fromkeys(rows))
+        elif so.all:
+            # INTERSECT ALL keeps min(l, r) copies of a row, EXCEPT ALL
+            # max(l - r, 0)
+            rc = Counter(rrows)
+            rows = []
+            for r in lrows:
+                hit = rc[r] > 0
+                if hit:
+                    rc[r] -= 1
+                if hit == (so.op == "intersect"):
+                    rows.append(r)
+        else:
+            rset = set(rrows)
+            keep = so.op == "intersect"
+            rows = list(dict.fromkeys(r for r in lrows
+                                      if (r in rset) == keep))
+        if so.order_by:
+            rows = _sort_decoded(rows, left.names, so.order_by)
+        rows = _cut(rows, so.limit, so.offset)
+        return Result(names=list(left.names), rows=rows, types=out_types)
+
+    # -- table-free SELECT ----------------------------------------------------
     def _exec_table_free(self, sel: ast.Select, session: Session) -> Result:
-        """SELECT <exprs> with no FROM: one row. What the binder folds
-        (the sequence builtins, literals, constant arithmetic) is taken
-        as folded; other expressions run over a one-row batch."""
-        if sel.where is not None or sel.group_by or sel.having \
-                or sel.order_by or sel.limit is not None or sel.offset:
-            raise EngineError("table-free SELECT clauses are not yet "
-                              "ported")
+        """SELECT <exprs> with no FROM: one row, with SQL's answers for
+        the clauses. A constant WHERE or HAVING that is not TRUE leaves
+        no row (the reference ignores both and always returns one);
+        GROUP BY over the one row keeps one group; ORDER BY has one row
+        to order; LIMIT and OFFSET cut it. What the binder folds (the
+        sequence builtins, literals, constant arithmetic) is taken as
+        folded; other expressions run over a one-row batch.
+        ``generate_series`` and ``unnest`` in the select list are the
+        set-returning forms (``_maybe_generate_series``)."""
         binder = Binder(Scope(), sequence_ops=self._sequence_ops(session),
+                        subquery_eval=lambda s, lim: self._eval_subquery(
+                            s, session, lim),
                         now_micros=self._read_ts(session).wall // 1000)
+        srf = self._maybe_generate_series(sel, binder)
+        if srf is not None:
+            return srf
         names, row, types = [], [], []
         for it in sel.items:
             if it.star:
                 raise EngineError("SELECT * requires FROM")
             b = binder.bind(it.expr)
             names.append(it.alias or "column")
-            if isinstance(b, BConst):
-                row.append(decode_scalar(b.value, b.value is not None,
-                                         b.type, None)
-                           if not isinstance(b.value, str) else b.value)
-            else:
-                d, v = compile_expr(b)(ExprContext({}, 1, self.device))
-                d = torch.as_tensor(d).reshape(-1)[:1]
-                v = torch.as_tensor(v).reshape(-1)[:1]
-                row.append(decode_scalar(d.cpu().numpy()[0],
-                                         bool(v.cpu().numpy()[0]),
-                                         b.type, None))
+            row.append(self._table_free_value(b))
             types.append(b.type)
-        return Result(names=names, rows=[tuple(row)], types=types)
+        keep = all(self._table_free_value(binder.bind(c)) is True
+                   for c in (sel.where, sel.having) if c is not None)
+        rows = _cut([tuple(row)] if keep else [], sel.limit, sel.offset)
+        return Result(names=names, rows=rows, types=types)
+
+    def _table_free_value(self, b):
+        """The client value of a bound expression over the one row."""
+        if isinstance(b, BConst):
+            return (decode_scalar(b.value, b.value is not None, b.type,
+                                  None)
+                    if not isinstance(b.value, str) else b.value)
+        d, v = compile_expr(b)(ExprContext({}, 1, self.device))
+        d = torch.as_tensor(d).reshape(-1)[:1]
+        v = torch.as_tensor(v).reshape(-1)[:1]
+        return decode_scalar(d.cpu().numpy()[0], bool(v.cpu().numpy()[0]),
+                             b.type, None)
+
+    def _maybe_generate_series(self, sel: ast.Select, binder: Binder):
+        """SELECT generate_series(a, b [, step]) and SELECT
+        unnest(ARRAY[...]): the set-returning functions of a table-free
+        select list (FROM generate_series(...) desugars to this as a
+        derived table, sql/parser.py). Arguments fold to constants;
+        ORDER BY, LIMIT and OFFSET apply, and WHERE or GROUP BY go
+        through a CTE, as in the reference."""
+        if len(sel.items) != 1 or sel.items[0].star:
+            return None
+        e = sel.items[0].expr
+        if not (isinstance(e, ast.FuncCall)
+                and e.name in ("generate_series", "unnest")):
+            return None
+        if sel.where is not None or sel.distinct or sel.group_by \
+                or sel.having:
+            raise EngineError(
+                f"{e.name} supports only ORDER BY/LIMIT/OFFSET "
+                "(materialize it in a CTE for WHERE/GROUP BY)")
+        name = sel.items[0].alias or e.name
+        if e.name == "unnest":
+            rows, ty = self._unnest_rows(e, binder)
+        else:
+            if len(e.args) not in (2, 3):
+                raise EngineError("generate_series(start, stop [, step])")
+            vals = []
+            for a in e.args:
+                b = binder.bind(a)
+                if not isinstance(b, BConst) or b.value is None:
+                    raise EngineError(
+                        "generate_series arguments must be constants")
+                vals.append(int(b.value))
+            start, stop = vals[0], vals[1]
+            step = vals[2] if len(vals) == 3 else 1
+            if step == 0:
+                raise EngineError("generate_series step cannot be 0")
+            rows = [(int(v),) for v in
+                    range(start, stop + (1 if step > 0 else -1), step)]
+            ty = INT8
+        if sel.order_by:
+            rows = _sort_decoded(rows, [name], sel.order_by)
+        return Result(names=[name], rows=_cut(rows, sel.limit, sel.offset),
+                      types=[ty])
+
+    @staticmethod
+    def _unnest_rows(e: ast.FuncCall, binder: Binder) -> tuple:
+        """(rows, element type) of unnest over a constant array."""
+        from ..sql import datum as dtm
+        if len(e.args) != 1:
+            raise EngineError("unnest(array)")
+        b = binder.bind(e.args[0])
+        if not isinstance(b, BConst):
+            raise EngineError("unnest over columns is not supported "
+                              "(constant arrays only)")
+        elem = b.type.elem if b.type.family == Family.ARRAY else b.type
+        if b.value is None:
+            return [], elem
+        if b.type.family != Family.ARRAY:
+            raise EngineError("unnest needs an array argument")
+        return [(v,) for v in dtm.parse_array(b.value, b.type.elem)], elem
 
     def _exec_params(self, session: Session, no_topk: bool) -> ExecParams:
         sortn = str(session.vars.get("sort_normalized", "auto")).lower()
@@ -1394,8 +1614,9 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         sink: set = set()
         self._gen_sinks.append(sink)
         try:
-            node, meta = self._plan(sel, session, read_ts,
-                                    no_memo=no_memo)
+            with self.tracer.span("plan"):
+                node, meta = self._plan(sel, session, read_ts,
+                                        no_memo=no_memo)
         finally:
             self._gen_sinks.pop()
         scan_aliases, scan_cols = scan_maps(node)
@@ -1422,9 +1643,10 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                                             no_memo=True)
             raise
         self._bound_agg_group_rows(node, read_ts, overlay)
-        if not no_compact and not paged:
-            # selection compaction is gated off under paging: its
-            # sentinel cannot ride the page state
+        if not no_compact and not paged and not self._analyzing:
+            # selection compaction is gated off under paging (its
+            # sentinel cannot ride the page state) and in an analyzed
+            # run (EXPLAIN ANALYZE renders the planner's plan)
             node = self._insert_compaction(node)
         scans, gens, shapes = {}, sink, []
         resident = {t for a, t in scan_aliases.items() if a not in paged}
@@ -1480,8 +1702,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             compile_fn = compile_streaming
         else:
             compile_fn = compile_plan
-        runf, meta = self._compiled(key, cgens, node, params, meta,
-                                    compile_fn)
+        runf, meta, node = self._compiled(key, cgens, node, params, meta,
+                                          compile_fn)
         p_alias = spill.alias if spill is not None else (
             stream[0] if stream is not None else None)
         # zone checks of the paged scan's pushed-down predicates (the
@@ -1496,7 +1718,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         if stream is not None or (spill is not None
                                   and spill.kind == "join"):
             jf_specs = find_specs(node, p_alias, self.store)
-        return Prepared(
+        prep = Prepared(
             self, session, sel, sql_text, runf, scans, meta,
             tuple(sorted(gens)), node, no_topk=no_topk,
             no_compact=no_compact, stream=stream,
@@ -1505,7 +1727,13 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             spill_cols=(scan_cols.get(spill.build_alias)
                         if spill is not None and spill.build_alias
                         else None),
-            joinfilter=jf_specs, placement=self._placement_key(session))
+            joinfilter=jf_specs, placement=self._placement_key(session),
+            scan_tables=dict(scan_aliases))
+        cap = self._cte_capture
+        if cap is not None and cap["want_main"] and not cap["disabled"]:
+            # the last preparation after the temps is the main plan
+            cap["preps"].append(prep)
+        return prep
 
     # compiled plans and parses kept: at the cap the oldest half goes
     # (exec/tenantcache.py, as the reference's); an exec-cache hit
@@ -1533,20 +1761,27 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
 
     def _compiled(self, key, cgens: tuple, node, params: ExecParams,
                   meta, compile_fn=compile_plan):
-        """(compiled plan, meta) from the exec cache, or compiled now
-        with ``compile_fn`` (compile_plan, compile_streaming or
-        compile_spill_sort). ``key`` holds ``cgens`` (_cache_gens); a
-        miss drops the entries that read one of these tables at an
-        older generation, which no later run can hit."""
+        """(compiled plan, meta, plan node) from the exec cache, or
+        compiled now with ``compile_fn`` (compile_plan,
+        compile_streaming or compile_spill_sort). A hit returns the plan
+        node the entry was compiled from (the key's plan fingerprint
+        makes it equal to ``node``): the fine profile plane keys its
+        operators by that node's identity. ``key`` holds ``cgens``
+        (_cache_gens); a miss drops the entries that read one of these
+        tables at an older generation, which no later run can hit."""
         with self._cache_lock:
             hit = self._exec_cache.get(key)
             if hit is not None:
                 self.plan_cache["hit"] += 1
                 self._exec_cache.touch(key)
-                return hit[:2]
+        self.tracer.tag(plan_cache="hit" if hit is not None else "miss")
+        if hit is not None:
+            return hit[0], hit[1], hit[3]
+        with self._cache_lock:
             self.plan_cache["miss"] += 1
         try:
-            runf = compile_fn(node, params, meta)
+            with self.tracer.span("compile"):
+                runf = compile_fn(node, params, meta)
         except ExecError as e:
             raise EngineError(str(e)) from e
         now = {t: g for t, g, _ in cgens}
@@ -1554,9 +1789,9 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             for k in [k for k, v in self._exec_cache.items()
                       if any(now.get(t, g) != g for t, g, _ in v[2])]:
                 del self._exec_cache[k]
-            self._exec_cache.put(key, (runf, meta, cgens),
+            self._exec_cache.put(key, (runf, meta, cgens, node),
                                  getattr(self._tenant_tl, "value", ""))
-        return runf, meta
+        return runf, meta, node
 
     # -- subqueries, derived tables, CTEs -------------------------------------
     def _eval_subquery(self, sel: ast.Select, session: Session,
@@ -1597,11 +1832,13 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             [j.table for j in sel.joins]
         return any(r.subquery is not None for r in refs)
 
-    def _exec_with_temps(self, sel: ast.Select, session: Session,
+    def _exec_with_temps(self, sel, session: Session,
                          sql_text: str) -> Result:
         """WITH ctes / FROM (SELECT ...): materialize each into a temp
-        table, rewrite the references, run the main query, drop the
-        temps and evict their device copies."""
+        table, rewrite the references, run the main query (or both
+        branches of a set operation), drop the temps and evict their
+        device copies. A composing CTE handle's slow run records what
+        it composes from here (``_cte_capture``)."""
         # a DEEP copy: the rewrites below assign into nested JoinClause
         # and TableRef objects of the caller's AST, which a prepared
         # handle runs again
@@ -1614,6 +1851,11 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         # that re-enters this path
         depth = self._cte_depth.get(id(session), 0)
         self._cte_depth[id(session)] = depth + 1
+        cap = self._cte_capture
+        if cap is not None and depth > 0:
+            # a nested CTE body re-enters here: the composition models
+            # one level, so such statements keep the slow path
+            cap["disabled"] = True
         prefix = f"{TEMP_PREFIX}{id(session):x}_d{depth}"
         seq = [0]
 
@@ -1630,6 +1872,11 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                                               f"(cte {sub!r})")
                 mapping[name] = tname
             sel.ctes = []
+            if isinstance(sel, ast.SetOp):
+                if cap is not None:
+                    cap["disabled"] = True   # a host merge: no main plan
+                return self._exec_setop(
+                    rewrite_table_names(sel, mapping), session, sql_text)
             refs = ([("table", sel.table)] if sel.table is not None
                     else []) + [("join", j) for j in sel.joins]
             for kind, obj in refs:
@@ -1647,6 +1894,9 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                 else:
                     obj.table = newref
             sel = rewrite_table_names(sel, mapping)
+            if cap is not None and depth == 0:
+                # the next preparation at this depth is the main plan
+                cap["want_main"] = True
             return self._exec_select(sel, session, sql_text)
         finally:
             if depth:
@@ -1657,6 +1907,23 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                 if t in self.store.tables:
                     self.store.drop_table(t)
                 self._evict_device(t)
+
+    # -- composed CTE capture (exec/ctecompose.py) ---------------------------
+    def _begin_cte_capture(self, stmt, session: Session) -> bool:
+        """Start recording, on this thread, what a composing CTE
+        handle's slow run composes from: its columnar temps (their
+        bodies' Prepared plans and shapes) and its main Prepared plan.
+        Only a SELECT outside a txn composes."""
+        if not isinstance(stmt, ast.Select) or session.txn is not None \
+                or session.effects:
+            return False
+        self._cte_capture = {"temps": [], "preps": [], "disabled": False,
+                             "want_main": False}
+        return True
+
+    def _end_cte_capture(self):
+        cap, self._cte_capture = self._cte_capture, None
+        return cap
 
     def _materialize_temp_select(self, tname: str, sub: ast.Select,
                                  session: Session, rename,
@@ -1674,6 +1941,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         path. ``last_exec["temps"]`` gets [name, rows, "columnar" or
         "rows"]."""
         try:
+            if isinstance(sub, ast.SetOp):
+                raise _RowPath("set operations merge on the host")
             if sub.ctes:
                 raise _RowPath("nested CTEs take the row path")
             sub = self._decorrelate(self._expand_views(sub))
@@ -1692,6 +1961,10 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                         raise _RowPath("a sorted partitioned result "
                                        "takes the row path") from None
                     pulled = self._partitioned_columns(prep, None)[0]
+                    if self._cte_capture is not None:
+                        # one run of the body's plan overflows: nothing
+                        # to compose
+                        self._cte_capture["disabled"] = True
             meta = prep.meta
             names = _temp_names(meta.names, rename, tname)
             cols: dict[str, np.ndarray] = {}
@@ -1718,6 +1991,11 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                 self.store.insert_columns(tname, cols, Timestamp(1, 0),
                                           valid=valid)
             self.last_exec["temps"].append([tname, n, "columnar"])
+            cap = self._cte_capture
+            if cap is not None and not cap["disabled"]:
+                cap["temps"].append({"tname": tname, "prep": prep,
+                                     "meta": meta, "names": names,
+                                     "rows": n})
             return
         except (EngineError, PlanError) as e:
             if tname in self.store.tables:
@@ -1728,6 +2006,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             if not isinstance(e, (_RowPath, PlanError, HashCapacityExceeded,
                                   CompactOverflow)):
                 raise
+        if self._cte_capture is not None:
+            self._cte_capture["disabled"] = True   # a row-path temp
         with self._inner():
             res = self._exec_select(sub, session, sql_text)
         self._materialize_temp(tname, res, rename)
@@ -1813,7 +2093,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         key = ("partitioned", prep.sql_text, shapes, cgens,
                params.hash_group_capacity, params.pallas_groupagg,
                params.sort_normalized, hash(repr(node)))
-        runf, meta = self._compiled(key, cgens, node, params, prep.meta)
+        runf, meta, _ = self._compiled(key, cgens, node, params,
+                                       prep.meta)
         names = list(meta.names)
         ts = (read_ts or self._read_ts(prep.session)).to_int()
 
@@ -1892,15 +2173,18 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             self._evict_device(name)
             if hit is not None:
                 cols = cols | hit[0]
-            self.movement.reserve_resident(
-                key, self._table_device_bytes(td, cols))
+            nbytes = self._table_device_bytes(td, cols)
+            self.movement.reserve_resident(key, nbytes)
             try:
-                b = self._batch_from_chunks(td, td.chunks, cols)
+                with self.tracer.span("upload", table=name):
+                    b = self._batch_from_chunks(td, td.chunks, cols)
             except BaseException:
                 self.movement.release_resident(key)
                 raise
             self._device_tables[key] = (cols, b)
-            return b
+        profile.note(f"upload:{name}", batches=1, rows=td.row_count,
+                     bytes_uploaded=nbytes)
+        return b
 
     def _evict_device(self, name: str) -> None:
         """Drop every resident device copy of table ``name`` and its
@@ -1981,6 +2265,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
 def _fresh_route() -> dict:
     return {"compact_nodes": 0, "replans": [], "subqueries": 0,
             "temps": [], "partitioned": [], "paging": None, "waits": {},
+            "composed": False,
             "all": {"runs": 0, "compact_nodes": 0, "compacts_applied": 0,
                     "topk_cuts": 0, "group_ids": 0, "expansions": [],
                     "replans": [], "partitioned": [], "paging": []}}
@@ -2046,3 +2331,44 @@ def _decode_column(data: np.ndarray, valid: np.ndarray, ty,
                    dictionary) -> list:
     return [decode_scalar(d, bool(m), ty, dictionary)
             for d, m in zip(data, valid)]
+
+
+def _cut(rows: list, limit, offset) -> list:
+    """LIMIT/OFFSET over host rows."""
+    if offset:
+        rows = rows[offset:]
+    return rows if limit is None else rows[:limit]
+
+
+def _unify_rows(rows: list, coerce_cols: dict) -> list:
+    """A set operation's branch rows with the columns of
+    ``coerce_cols`` (index -> unified SQLType) in the unified type."""
+    out = []
+    for r in rows:
+        r = list(r)
+        for i, ut in coerce_cols.items():
+            if r[i] is None:
+                continue
+            if ut.family == Family.FLOAT:
+                r[i] = float(r[i])
+            elif ut.family == Family.DECIMAL:
+                r[i] = decimal.Decimal(str(r[i]))
+        out.append(tuple(r))
+    return out
+
+
+def _sort_decoded(rows: list, names: list, order_by) -> list:
+    """Host ORDER BY of decoded rows by output column name or position
+    (a set operation's, a set-returning function's)."""
+    keys = []
+    for ob in order_by:
+        if isinstance(ob.expr, ast.Literal) \
+                and isinstance(ob.expr.value, int):
+            i = ob.expr.value - 1
+        elif isinstance(ob.expr, ast.ColumnRef) and ob.expr.name in names:
+            i = names.index(ob.expr.name)
+        else:
+            raise EngineError(
+                "set-op ORDER BY must reference output columns")
+        keys.append((i, ob.desc, ob.nulls_first))
+    return sort_rows(rows, keys)

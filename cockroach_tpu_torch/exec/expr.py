@@ -24,6 +24,7 @@ from ..sql.bound import (BAggRef, BBetween, BBin, BCase, BCast, BCoalesce,
                          BExpr, BExtract, BFunc, BInList, BIsNull, BUnary,
                          BWinRef)
 from ..sql.types import Family, SQLType
+from .session import EngineError
 
 
 class ExprContext:
@@ -379,6 +380,30 @@ def _compile_func(e: BFunc) -> CompiledExpr:
             d, v = fs[0](ctx)
             return torch.isfinite(d), v
         return f_isfinite
+    if name == "width_bucket":
+        # the reference's buckets for ascending bounds (x < lo -> 0,
+        # x >= hi -> n + 1, NULL for lo = hi); for descending bounds
+        # PostgreSQL's mirror (x > lo -> 0, x <= hi -> n + 1), where the
+        # reference counts as if ascending; a count below 1 is
+        # PostgreSQL's error, where the reference returns buckets
+        nb = int(e.args[3].value)
+        if nb <= 0:
+            raise EngineError("width_bucket count must be greater than "
+                              "zero")
+
+        def f_wb(ctx):
+            (x, vx), (lo, vl), (hi, vh), (_, vn) = [f(ctx) for f in fs]
+            asc = lo < hi
+            span = torch.where(hi != lo, hi - lo, torch.ones_like(hi))
+            inner = torch.floor((x - lo) / span * nb).to(torch.int64) + 1
+            up = torch.where(x < lo, 0, torch.where(x >= hi, nb + 1, inner))
+            down = torch.where(x > lo, 0,
+                               torch.where(x <= hi, nb + 1, inner))
+            ok = torch.logical_and(torch.logical_and(vx, vl),
+                                   torch.logical_and(vh, vn))
+            return (torch.where(asc, up, down),
+                    torch.logical_and(ok, hi != lo))
+        return f_wb
     if name == "isnan":
         def f_isnan(ctx):
             d, v = fs[0](ctx)

@@ -1080,7 +1080,8 @@ class OltpLaneMixin:
     # global)
     _TABLELESS = (ast.SetVar, ast.BeginTxn, ast.RollbackTxn,
                   ast.CreateSequence, ast.DropSequence, ast.ShowSequences,
-                  ast.ShowStatements)
+                  ast.ShowStatements, ast.ShowVar, ast.ShowAll,
+                  ast.ShowTrace)
 
     def _stmt_tables(self, stmt):
         """Base tables ``stmt`` can read or write, or None when they
@@ -1088,8 +1089,8 @@ class OltpLaneMixin:
         lane on every table."""
         if isinstance(stmt, self._TABLELESS):
             return set()
-        if not isinstance(stmt, (ast.Select, ast.Insert, ast.Update,
-                                 ast.Delete)):
+        if not isinstance(stmt, (ast.Select, ast.SetOp, ast.Insert,
+                                 ast.Update, ast.Delete)):
             return None
         names: set = set()
         tbl = getattr(stmt, "table", None)

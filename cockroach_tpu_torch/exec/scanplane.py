@@ -21,6 +21,7 @@ import numpy as np
 from ..sql import plan as P
 from ..sql.types import Family
 from ..utils.num import next_pow2
+from . import profile
 from .compile import can_spill_sort, can_stream
 from .session import Session
 from .stream import PageSource, extract_zone_preds
@@ -507,6 +508,16 @@ class ScanPlaneMixin:
         self.last_exec["all"]["paging"].append(entry)
         if self._nested == 0:
             self.last_exec["paging"] = entry
+        # the coarse profile plane: a streamed scan's pages count as
+        # uploads, a spill's partitions and runs as spilled bytes
+        table = prep.stream[1] if prep.stream is not None \
+            else prep.spill.table
+        label = ("stream:" if route == "stream"
+                 else route.replace("-", ":") + ":") + table
+        moved = ({"bytes_uploaded": int(bytes_moved)} if route == "stream"
+                 else {"bytes_spilled": int(bytes_moved)})
+        profile.note(label, batches=max(pages, partitions), rows=0,
+                     stall_seconds=stall, **moved)
 
     def drop_device_cache(self) -> None:
         """Evict every resident table copy and release its

@@ -64,6 +64,9 @@ class Session:
     txn_aborted: bool = False
     # currval() state: sequence name -> last nextval in this session
     seq_currval: dict = field(default_factory=dict)
+    # SET tracing = on: each statement's recording (utils/tracing.py
+    # Span), shown by SHOW TRACE FOR SESSION
+    trace: list = field(default_factory=list)
 
     @property
     def in_txn(self) -> bool:
@@ -126,6 +129,9 @@ class Prepared:
     joinfilter: tuple = ()
     # Engine._placement_key at preparation
     placement: tuple = ()
+    # alias -> table of every scan (a composed CTE run feeds the temps'
+    # aliases batches of its own, exec/ctecompose.py)
+    scan_tables: dict = field(default_factory=dict)
 
     def _refresh(self) -> None:
         eng = self.engine
@@ -143,7 +149,7 @@ class Prepared:
             no_topk=self.no_topk, no_compact=self.no_compact)
         for f in ("runf", "scans", "meta", "gens", "node", "stream",
                   "stream_cols", "stream_zone", "spill", "spill_cols",
-                  "joinfilter", "placement"):
+                  "joinfilter", "placement", "scan_tables"):
             setattr(self, f, getattr(p, f))
 
     def _join_filters(self, tsv: int) -> tuple:
@@ -256,11 +262,15 @@ class Prepared:
                 # the external merge sort's tail runs on the host
                 from .spill import run_spill_sort
                 ts = read_ts or eng._read_ts(self.session)
-                return run_spill_sort(eng, self, ts.to_int())
+                with eng.tracer.span("dispatch"):
+                    return run_spill_sort(eng, self, ts.to_int())
             while True:
                 try:
-                    return eng._materialize(self.checked(read_ts),
-                                            self.meta, check=False)
+                    with eng.tracer.span("dispatch"):
+                        out = self.checked(read_ts)
+                    with eng.tracer.span("materialize"):
+                        return eng._materialize(out, self.meta,
+                                                check=False)
                 except HashCapacityExceeded:
                     try:
                         return eng._run_partitioned(self, read_ts)

@@ -1,9 +1,9 @@
 """Statement helpers of the engine (the subset of
 cockroach_tpu/exec/stmtutil.py that this package uses): CTE and
-derived-table name rewriting, the re-execute handle for statements
-that materialize temps, the host-side ORDER BY of a partitioned
-GROUP BY, AST walks of the write path and the client decode of
-physical values."""
+derived-table name rewriting, the re-execute handle for set operations
+and statements that materialize temps, SHOW CREATE TABLE's DDL, the
+host-side ORDER BY of a partitioned GROUP BY, AST walks of the write
+path and the client decode of physical values."""
 
 from __future__ import annotations
 
@@ -23,20 +23,27 @@ EPOCH_DT = datetime.datetime(1970, 1, 1)
 
 def host_sort(rows: list, meta: P.OutputMeta, keys) -> list:
     """ORDER BY over decoded result rows (the partitioned GROUP BY's
-    merge). Matches the device order: ascending puts NULLs last,
-    descending puts NULLs first, unless the key says otherwise; strings
-    compare lexicographically, as dictionary ranks do."""
-    out = list(rows)
-    for key in reversed(list(keys)):
-        name, desc = key[0], key[1]
-        nf = key[2] if len(key) > 2 else None
-        null_first = nf if nf is not None else desc
+    merge), by (name, desc[, nulls_first]) keys over ``meta.names``."""
+    idx = []
+    for key in keys:
         try:
-            i = meta.names.index(name)
+            i = meta.names.index(key[0])
         except ValueError:
             raise EngineError(
-                f"cannot host-sort a partitioned result by {name!r}") \
+                f"cannot host-sort a partitioned result by {key[0]!r}") \
                 from None
+        idx.append((i, key[1], key[2] if len(key) > 2 else None))
+    return sort_rows(rows, idx)
+
+
+def sort_rows(rows: list, keys) -> list:
+    """Rows sorted by (column index, desc, nulls_first or None) keys, as
+    the device orders them: ascending puts NULLs last, descending puts
+    NULLs first, unless nulls_first says otherwise; strings compare
+    lexicographically, as dictionary ranks do."""
+    out = list(rows)
+    for i, desc, nf in reversed(list(keys)):
+        null_first = nf if nf is not None else desc
         # the NULL flag is chosen before the reversal so the presented
         # order puts NULLs where null_first says
         out = sorted(out,
@@ -51,29 +58,127 @@ def host_sort(rows: list, meta: P.OutputMeta, keys) -> list:
 @dataclass(eq=False)
 class RerunPrepared:
     """Prepared handle for statements that cannot pin one compiled plan:
-    CTEs and derived tables materialize fresh temps per execution, so
-    each run() re-executes the statement through the engine (whose
-    stable temp names keep the main query's exec-cache entry hitting).
-    The reference composes steady-state re-runs on the device
-    (exec/ctecompose.py); that composition is not ported."""
+    CTEs and derived tables materialize fresh temps per execution, set
+    operations merge on the host, so each run() re-executes the
+    statement through the engine (whose stable temp names keep the main
+    query's exec-cache entry hitting). A successful CTE or derived-table
+    run captures its bodies' and main query's plans, and later runs
+    against unchanged base tables compose them on the card
+    (exec/ctecompose.py): no pull or upload between stages, one result
+    pull, no re-plan. A drift (a base table's generation, a txn), a glue
+    overflow or a body sentinel declines the composition: that run takes
+    the slow path and captures again. ``composed_runs`` and ``declined``
+    count both, as do the engine's ``sql.cte.composed.*`` counters."""
     engine: object
     session: object
     stmt: object
     sql_text: str
+    _composed: object = None
+    composed_runs: int = 0
+    declined: int = 0
 
     def run(self, read_ts=None) -> Result:
         eng = self.engine
         with eng._run_scope(eng._stmt_tables(self.stmt), False), \
                 eng._statement():
-            return eng._exec_select(self.stmt, self.session,
-                                    self.sql_text)
+            comp = self._composed
+            if comp is not None:
+                self._composed = None
+                if comp.valid():
+                    try:
+                        res = comp.run(read_ts)
+                    except EngineError:
+                        pass
+                    else:
+                        self._composed = comp
+                        self.composed_runs += 1
+                        eng.last_exec["composed"] = True
+                        eng.metrics.counter(
+                            "sql.cte.composed.runs",
+                            "CTE statement runs composed on the "
+                            "device").inc()
+                        return res
+                self.declined += 1
+                eng.metrics.counter(
+                    "sql.cte.composed.declined",
+                    "compositions declined (a base table moved, a txn, "
+                    "a glue overflow or a body sentinel): the run took "
+                    "the slow path").inc()
+            capturing = eng._begin_cte_capture(self.stmt, self.session)
+            try:
+                res = eng._exec_select(self.stmt, self.session,
+                                       self.sql_text)
+            finally:
+                cap = eng._end_cte_capture() if capturing else None
+            if cap is not None:
+                from .ctecompose import build_composition
+                self._composed = build_composition(eng, self.session, cap)
+            return res
+
+    def dispatch(self, read_ts=None):
+        """The composed pipeline's device result batch (no sync)."""
+        comp = self._composed
+        if comp is not None and comp.valid():
+            return comp.dispatch(read_ts)
+        raise EngineError(
+            "this statement shape cannot dispatch asynchronously")
+
+
+def render_create(desc) -> str:
+    """CREATE TABLE DDL reconstructed from a table descriptor (SHOW
+    CREATE TABLE)."""
+    def ty(t):
+        f = t.family.value
+        names = {"int": "INT8", "float": "FLOAT8", "bool": "BOOL",
+                 "string": "STRING", "date": "DATE",
+                 "timestamp": "TIMESTAMP", "interval": "INTERVAL"}
+        if f == "decimal":
+            return f"DECIMAL({t.precision},{t.scale})"
+        if f == "array":
+            return f"{ty(t.elem)}[]"
+        if f == "json":
+            return "JSONB"
+        return names.get(f, f.upper())
+
+    parts = []
+    for c in desc.columns:
+        if c.state != "public":
+            continue
+        s = f"{c.name} {ty(c.type)}"
+        if not c.nullable:
+            s += " NOT NULL"
+        parts.append(s)
+    if desc.primary_key:
+        parts.append(f"PRIMARY KEY ({', '.join(desc.primary_key)})")
+    for i in desc.indexes:
+        if i.state != "public":
+            continue
+        kw = "UNIQUE INDEX" if i.unique else "INDEX"
+        parts.append(f"{kw} {i.name} ({', '.join(i.columns)})")
+    for ck in desc.checks:
+        parts.append(f"CONSTRAINT {ck['name']} CHECK ({ck['expr_sql']})")
+    for fk in desc.fks:
+        parts.append(
+            f"CONSTRAINT {fk['name']} FOREIGN KEY "
+            f"({', '.join(fk['columns'])}) REFERENCES "
+            f"{fk['ref_table']} ({', '.join(fk['ref_columns'])})")
+    cols = ",\n  ".join(parts)
+    return f"CREATE TABLE {desc.name} (\n  {cols}\n)"
 
 
 def rewrite_table_names(sel, mapping: dict):
-    """Deep-copy a Select with CTE names replaced by their materialized
-    temp-table names, in FROM/JOIN refs and inside expression
-    subqueries (which execute while the temps are live)."""
+    """Deep-copy a Select or SetOp with CTE names replaced by their
+    materialized temp-table names, in FROM/JOIN refs and inside
+    expression subqueries (which execute while the temps are live), in
+    both branches of a set operation wherever it nests."""
     if not mapping:
+        return sel
+    if isinstance(sel, ast.SetOp):
+        sel = copy.copy(sel)
+        shadowed = {name for name, _, _ in sel.ctes}
+        inner = {k: v for k, v in mapping.items() if k not in shadowed}
+        sel.left = rewrite_table_names(sel.left, inner)
+        sel.right = rewrite_table_names(sel.right, inner)
         return sel
     sel = copy.deepcopy(sel)
 
@@ -109,8 +214,10 @@ def rewrite_table_names(sel, mapping: dict):
             fix_expr(v)
 
     def fix_select(s):
-        if not isinstance(s, ast.Select):
-            raise EngineError("set operations are not yet ported")
+        if isinstance(s, ast.SetOp):
+            fix_select(s.left)
+            fix_select(s.right)
+            return
         # a CTE of the same name in an inner scope shadows the outer
         shadowed = {name for name, _, _ in s.ctes}
         inner = {k: v for k, v in mapping.items() if k not in shadowed}

@@ -101,19 +101,28 @@ IN_LIST_ISIN = 16
 
 
 def in_list(x: SV, values) -> SV:
-    """x IN (v1, v2, ...) with a constant list: OR of equals, or one
-    torch.isin for a long list (the same equalities)."""
+    """x IN (v1, v2, ...) with a constant list, in SQL's three-valued
+    logic: TRUE on a match, else NULL when the list holds a NULL (None),
+    else FALSE; NULL for a NULL x. The test is an OR of equals, or one
+    torch.isin for a long list (the same equalities). The reference
+    ignores a NULL in the list (``x NOT IN (5, NULL)`` is TRUE there
+    for x = 7); this follows SQL."""
     d = x[0]
+    has_null = any(v is None for v in values)
+    values = [v for v in values if v is not None]
     if len(values) > IN_LIST_ISIN:
         if d.dtype == torch.bool:
             d = d.to(torch.int32)
-        test = torch.tensor(list(values), device=d.device)
+        test = torch.tensor(values, device=d.device)
         if test.is_floating_point() != d.is_floating_point():
             test, d = test.to(torch.float64), d.to(torch.float64)
-        return torch.isin(d, test.to(d.dtype)), x[1]
-    acc = torch.zeros_like(d, dtype=torch.bool)
-    for v in values:
-        acc = torch.logical_or(acc, d == v)
+        acc = torch.isin(d, test.to(d.dtype))
+    else:
+        acc = torch.zeros_like(d, dtype=torch.bool)
+        for v in values:
+            acc = torch.logical_or(acc, d == v)
+    if has_null:
+        return acc, torch.logical_and(x[1], acc)
     return acc, x[1]
 
 

@@ -11,11 +11,15 @@ them up and returns once the SQL listener is bound.
 Status endpoints: ``/healthz``, ``/_status/statements`` (per-fingerprint
 statement statistics), ``/_status/tenants`` (application_name-keyed
 rollups), ``/ts/query`` and ``/ts/metrics`` (the KV-backed time-series
-DB, server/ts.py), and the Prometheus text at ``/metrics`` and
-``/_status/vars``. The cluster fabric (rpc, gossip, membership, the
-status fan-out), ``/debug/tracez``, ``/_status/stmtdiag``,
-``/_debug/ranges`` and ``/_status/nodes`` are not ported yet: each
-answers 404 with "not yet ported".
+DB, server/ts.py), the Prometheus text at ``/metrics`` and
+``/_status/vars``, ``/debug/tracez`` (the engine's ring of slow
+statements' trace recordings) and ``/_status/stmtdiag`` (GET: armed
+requests and captured bundles; POST ``{"sql": ...}`` or
+``{"fingerprint": ...}``: arm one) with ``/_status/stmtdiag/<id>`` (one
+bundle). The cluster fabric (rpc, gossip, membership, the status
+fan-out: tracez's ``?cluster=1``), ``/_debug/ranges`` and
+``/_status/nodes`` are not ported yet: each answers 404 with "not yet
+ported".
 """
 
 from __future__ import annotations
@@ -33,8 +37,7 @@ from .ts import TimeSeriesDB
 
 # endpoints of the reference's status server that need subsystems the
 # port does not have yet
-NOT_PORTED = ("/debug/tracez", "/_status/stmtdiag", "/_debug/ranges",
-              "/_status/nodes", "/_status/membership")
+NOT_PORTED = ("/_debug/ranges", "/_status/nodes", "/_status/membership")
 
 
 @dataclass
@@ -77,6 +80,12 @@ def _statements_payload(engine) -> dict:
         "total_rows": s.total_rows,
         "failures": s.failures,
     } for s in engine.sqlstats.all()]}
+
+
+def _tracez_payload(engine) -> dict:
+    """The /debug/tracez body: the slow-statement ring (spans in the
+    wire format of utils/tracing.py span_to_wire)."""
+    return {"traces": list(engine.slow_traces)}
 
 
 def _tenants_payload(engine) -> dict:
@@ -132,9 +141,22 @@ class Node:
             payload = _statements_payload(eng)
         elif path == "/_status/tenants":
             payload = _tenants_payload(eng)
+        elif path == "/debug/tracez":
+            if qs.get("cluster", ["0"])[0] == "1":
+                raise NotImplementedError(
+                    "/debug/tracez?cluster=1: the fan-out across peers is "
+                    "not yet ported")
+            payload = _tracez_payload(eng)
+        elif path == "/_status/stmtdiag":
+            payload = eng.stmtdiag.summary()
+        elif path.startswith("/_status/stmtdiag/"):
+            payload = eng.stmtdiag.get(int(path.rsplit("/", 1)[1]))
+            if payload is None:
+                return None
         else:
             return None
-        return json.dumps(payload).encode(), "application/json"
+        return (json.dumps(payload, default=str).encode(),
+                "application/json")
 
     def _start_status_server(self):
         """The status/metrics HTTP endpoint (pkg/server/status)."""
@@ -153,8 +175,7 @@ class Node:
                 self.wfile.write(body)
 
             def _not_ported(self, path: str) -> bool:
-                if path in NOT_PORTED or path.startswith(
-                        "/_status/stmtdiag/"):
+                if path in NOT_PORTED:
                     self._reply(404, f"{path}: not yet ported".encode())
                     return True
                 return False
@@ -165,6 +186,9 @@ class Node:
                     return
                 try:
                     out = node._status_body(url.path, parse_qs(url.query))
+                except NotImplementedError as ex:
+                    self._reply(404, f"{ex}".encode())
+                    return
                 except (KeyError, ValueError) as ex:
                     self._reply(400, str(ex).encode())
                     return
@@ -175,8 +199,27 @@ class Node:
 
             def do_POST(self):
                 path = urlparse(self.path).path
-                if not self._not_ported(path):
+                if self._not_ported(path):
+                    return
+                if path != "/_status/stmtdiag":
                     self._reply(404, b"not found")
+                    return
+                # arm a statement fingerprint: the next matching
+                # execution captures a diagnostics bundle. Body:
+                # {"sql": "..."} or {"fingerprint": "..."}
+                try:
+                    n = int(self.headers.get("Content-Length", "0"))
+                    req = json.loads(self.rfile.read(n) or b"{}")
+                    if "fingerprint" in req:
+                        out = node.engine.stmtdiag.arm(
+                            str(req["fingerprint"]), is_fingerprint=True)
+                    else:
+                        out = node.engine.stmtdiag.arm(str(req["sql"]))
+                except (KeyError, ValueError) as ex:
+                    self._reply(400, str(ex).encode())
+                    return
+                self._reply(200, json.dumps(out).encode(),
+                            "application/json")
 
         class Srv(http.server.ThreadingHTTPServer):
             daemon_threads = True

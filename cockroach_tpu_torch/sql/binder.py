@@ -1109,18 +1109,25 @@ class Binder:
             d = self._dict_of(x)
             if d is None:
                 raise BindError("IN on non-dictionary string column")
+            has_null = False
             for item in e.items:
                 b = self.bind(item)
                 if not isinstance(b, BConst):
                     raise BindError("IN list must be constants")
+                if b.value is None:
+                    # three-valued IN: a NULL item makes a non-match
+                    # NULL (ops/kernels.py in_list); the reference
+                    # drops it
+                    has_null = True
+                    continue
                 code = d.codes.get(b.value)
                 if code is not None:
                     vals.append(code)
                 elif not self.dict_folds:
                     vals.append(-1)   # impossible code: never matches
             if not vals:
-                return BConst(e.negated, BOOL)
-            return BInList(x, vals, e.negated, BOOL)
+                return BConst(None if has_null else e.negated, BOOL)
+            return BInList(x, vals + [None] * has_null, e.negated, BOOL)
         # common numeric type across x and all items (so `int_col IN
         # (1.5)` compares at decimal precision instead of rounding 1.5)
         bound_items = [self.bind(i) for i in e.items]

@@ -24,7 +24,8 @@ are dictionary-encoded at ingest (codes on device, dictionary on
 host). This module is the scan plane. Writes go through the row-oriented
 KV layer (kv/txn.py, exec/dml.py) and reach the scan plane only as
 committed effects (``apply_committed``): tombstones on the superseded
-versions and one new sealed chunk of the new versions.
+versions and new sealed chunks (of at most `chunk_rows` rows) of the
+new versions.
 """
 
 from __future__ import annotations
@@ -213,8 +214,12 @@ class ColumnStore:
     """All tables of one store (one node's data plane)."""
 
     def __init__(self, chunk_rows: int | None = None):
+        from ..utils.metamorphic import metamorphic_pow2
         if chunk_rows is None:
-            chunk_rows = 1 << 20
+            # metamorphic: chunk size is perf-only; results must not
+            # change at 64 rows or 1M rows
+            chunk_rows = metamorphic_pow2(
+                "columnstore.chunk_rows", 1 << 20, 6, 20)
         self._lock = threading.RLock()
         self.tables: dict[str, TableData] = {}
         self.chunk_rows = chunk_rows
@@ -476,29 +481,36 @@ class ColumnStore:
                         new_keys[key] = len(new_rows)
                         new_rows.append([key, row, tsi, MAX_TS_INT])
             emit = [e for e in new_rows if e[1] is not None]
-            base_ci = len(td.chunks)
-            if emit:
-                rowids = []
-                for _k, row, _t, _d in emit:
-                    rid = int(row.get(ROWID, 0))
-                    if not rid:
-                        rid = td.next_rowid
-                        td.next_rowid += 1
-                    rowids.append(rid)
+            rowids = []
+            for _k, row, _t, _d in emit:
+                rid = int(row.get(ROWID, 0))
+                if not rid:
+                    rid = td.next_rowid
+                    td.next_rowid += 1
+                rowids.append(rid)
+            # sealed chunks of at most chunk_rows rows (the reference's
+            # open chunk seals there; a metamorphic constant in tests)
+            step = max(int(td.chunk_rows), 1)
+            cuts = range(0, len(emit), step)
+            base = len(td.chunks)
+            for j, lo in enumerate(cuts):
+                part = emit[lo:lo + step]
                 chunk = self.rows_chunk(
-                    td, [r for _, r, _, _ in emit],
-                    np.asarray([t for _, _, t, _ in emit], dtype=np.int64),
-                    np.asarray([d for _, _, _, d in emit], dtype=np.int64),
-                    np.asarray(rowids, dtype=np.int64))
+                    td, [r for _, r, _, _ in part],
+                    np.asarray([t for _, _, t, _ in part], dtype=np.int64),
+                    np.asarray([d for _, _, _, d in part], dtype=np.int64),
+                    np.asarray(rowids[lo:lo + step], dtype=np.int64))
                 chunk.finalize_stats()
                 td.chunks.append(chunk)
-                for i, (k, _row, _tsi, dts) in enumerate(emit):
+                for i, (k, _row, _tsi, dts) in enumerate(part):
                     if dts == MAX_TS_INT:
-                        idx[k] = (base_ci, i)
+                        idx[k] = (base + j, i)
             gen = td.generation
             self._bump(td)
-            self._extend_locators(td, [r for _, r, _, _ in emit], base_ci,
-                                  gen)
+            for j, lo in enumerate(cuts):
+                self._extend_locators(
+                    td, [r for _, r, _, _ in emit[lo:lo + step]], base + j,
+                    gen if j == 0 else td.generation)
 
     @staticmethod
     def _extend_locators(td: TableData, rows: list, base_ci: int,

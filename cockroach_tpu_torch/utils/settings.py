@@ -62,6 +62,14 @@ class Settings:
         with self._lock:
             return self._values.get(name, d.default)
 
+    def snapshot(self) -> dict:
+        """Every setting's current value (the diagnostics bundle's
+        settings section)."""
+        with self._lock:
+            out = {n: d.default for n, d in self._defs.items()}
+            out.update(self._values)
+            return out
+
     def on_change(self, fn: Callable[[str, object], None]) -> None:
         """Call ``fn(name, value)`` after every successful set."""
         self._watchers.append(fn)
@@ -122,6 +130,23 @@ def _register_builtins(s: Settings) -> None:
                "fine-resolution (10s) timeseries slabs older than this "
                "are rolled up to coarse resolution and pruned by the "
                "node's maintenance loop")
+    # observability: the slow-statement ring, operator profiles
+    s.register("sql.trace.slow_statement.threshold", 0.0, float,
+               "statements slower than this many seconds keep their "
+               "trace recording in the /debug/tracez ring buffer "
+               "(0 disables)")
+    s.register("sql.stmt_profile.enabled", True, bool,
+               "per-statement coarse operator profile (exec/profile"
+               ".py): the data-movement sites note their bytes and "
+               "stalls into the executing statement's sink, and the "
+               "statement's device time is taken from the card, feeding "
+               "the per-tenant rollups at /_status/tenants (results "
+               "are identical either way)")
+
+
+def _meta_page_rows() -> int:
+    from .metamorphic import metamorphic_pow2
+    return metamorphic_pow2("sql.streaming_page_rows", 1 << 21, 12, 21)
 
 
 @dataclass
@@ -155,9 +180,10 @@ class SessionVars:
         # upload would not fit sql.exec.hbm_budget_bytes; off uploads
         # it whole (a quota error past the budget)
         "streaming": "auto",         # auto | off
-        # rows per streamed page, rounded up to a power of two (a fixed
-        # default; the reference picks it metamorphically in tests)
-        "streaming_page_rows": 1 << 21,
+        # rows per streamed page, rounded up to a power of two (2^21;
+        # under COCKROACH_TPU_METAMORPHIC a seeded power of two from
+        # 2^12, as in the reference)
+        "streaming_page_rows": _meta_page_rows(),
         # on: a background worker assembles and uploads page i+1 while
         # the card computes page i; off: pages assemble synchronously
         "streaming_pipeline": "on",  # on | off
@@ -169,6 +195,10 @@ class SessionVars:
         # admission tier for this session's statements (the reference's
         # admission.WorkPriority): high | normal | low
         "admission_priority": "normal",
+        # SET tracing = off | on | cluster: on records each statement
+        # for SHOW TRACE FOR SESSION; on one node cluster records what
+        # on records (there are no remote participants)
+        "tracing": "off",            # off | on | cluster
         # the tenant key of admission and the caches (drivers send it
         # in their startup packet)
         "application_name": "",

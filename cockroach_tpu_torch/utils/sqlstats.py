@@ -84,11 +84,16 @@ class StmtStats:
 class TenantStats:
     """Per-tenant (application_name-keyed) resource rollup: statements,
     rows, the statements' wall time from admission's grant to the
-    result (gate wait and host work included), bytes moved by streamed
-    pages and their stall time.
+    result (gate wait and host work included), bytes moved (resident
+    uploads, streamed pages, spilled partitions: the coarse profile
+    plane) and their stall time.
     ``device_seconds`` and ``hbm_bytes_held`` keep the reference's keys
-    but stay None: nothing in the port measures a tenant's device time
-    or its own HBM (the reference's profile plane is not ported).
+    with what their names say: the statements' time on the card (CUDA
+    events around each statement's dispatch; on a CPU engine its host
+    clock) and the most the tenant's own reservations held at once in
+    the device budget (utils/mon.py). Each stays None until measured:
+    the profile plane off (``sql.stmt_profile.enabled``) measures
+    neither.
     """
     app_name: str
     statements: int = 0
@@ -141,10 +146,14 @@ class StatsRegistry:
 
     def record_tenant(self, app_name: str, wall_s: float = 0.0,
                       bytes_moved: int = 0, rows: int = 0,
-                      stall_s: float = 0.0, failed: bool = False) -> None:
+                      stall_s: float = 0.0, failed: bool = False,
+                      device_s: float | None = None,
+                      hbm_bytes: int | None = None) -> None:
         """Accumulate one statement against its tenant (engine:
         ``application_name`` session var, '(unset)' when empty).
-        Exposed at /_status/tenants."""
+        Exposed at /_status/tenants. ``device_s`` adds to the device
+        seconds and ``hbm_bytes`` raises the HBM high-water, each when
+        measured (not None)."""
         with self._mu:
             t = self._tenants.get(app_name)
             if t is None:
@@ -154,6 +163,10 @@ class StatsRegistry:
             t.wall_seconds += wall_s
             t.bytes_moved += bytes_moved
             t.stall_seconds += stall_s
+            if device_s is not None:
+                t.device_seconds = (t.device_seconds or 0.0) + device_s
+            if hbm_bytes is not None:
+                t.hbm_bytes_held = max(t.hbm_bytes_held or 0, hbm_bytes)
             if failed:
                 t.failures += 1
 

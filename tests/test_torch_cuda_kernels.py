@@ -520,3 +520,48 @@ def test_txn_overlay_on_card_leaves_committed_copy(cuda):
     assert e.execute(q).rows == committed
     e.execute("ROLLBACK", s)
     assert e.execute(q).rows == committed
+
+
+# -- composed CTEs and the fine profile plane on the card ----------------------
+
+def test_composed_ctes_on_card_match_cpu(cuda):
+    """Prepared Q4, Q13, Q21 and Q22 compose on the card after their
+    first run (no temp uploaded) and give the CPU engine's rows."""
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    engines = {}
+    for dev in ("cpu", "cuda"):
+        engines[dev] = e = Engine(device=dev)
+        tpch.load(e, sf=0.01, rows=20_000, tables=tpch.ALL_TABLES)
+    for q in ("q4", "q13", "q21", "q22"):
+        want = engines["cpu"].execute(tpch.QUERIES[q]).rows
+        e = engines["cuda"]
+        p = e.prepare(tpch.QUERIES[q])
+        for i in range(3):
+            assert p.run().rows == want, (q, i)
+            assert e.last_exec["composed"] == (i > 0)
+        assert (p.composed_runs, p.declined) == (2, 0)
+
+
+def test_explain_analyze_on_card_times_operators(cuda):
+    """EXPLAIN ANALYZE of Q1 on the card: kernel 1 launches once, each
+    operator has CUDA-event device time, the aggregate's above 0 and
+    the operators' within the total."""
+    import re
+
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    e = Engine()
+    tpch.load(e, sf=0.01, rows=20_000, tables=("lineitem",))
+    e.execute(tpch.Q1)
+    before = tgl.LAUNCHES
+    lines = [r[0] for r in e.execute("EXPLAIN ANALYZE " + tpch.Q1).rows]
+    assert tgl.LAUNCHES == before + 1
+    plan = lines[lines.index("plan:") + 1:]
+    dev = [float(re.search(r"device=([0-9.]+)ms", ln).group(1))
+           for ln in plan]
+    total = float(re.search(r"total: ([0-9.]+)ms", "\n".join(lines))
+                  .group(1))
+    agg = [d for ln, d in zip(plan, dev) if "Aggregate" in ln]
+    assert agg and agg[0] > 0 and sum(dev) <= total
+    assert "(actual rows=4)" in plan[0]

@@ -46,7 +46,10 @@ def test_port_scan_covers_the_package():
             "pgwire.py", "pgfront.py", "miniclient.py", "node.py", "ts.py",
             "cli.py", "__main__.py", "log.py", "sqlstats.py",
             "admission.py", "tenantcache.py", "tpcc.py", "bank.py",
-            "kvload.py", "movr.py", "ssb.py"} <= names
+            "kvload.py", "movr.py", "ssb.py",
+            # the operator's planes, composed CTEs, test-time checks
+            "profile.py", "ctecompose.py", "explain.py", "tracing.py",
+            "stmtdiag.py", "invariants.py", "metamorphic.py"} <= names
     server = ROOT / "cockroach_tpu_torch" / "server"
     assert {p.name for p in _port_files() if p.parent == server} == {
         "__init__.py", "pgwire.py", "pgfront.py", "miniclient.py",
@@ -64,6 +67,21 @@ def test_native_sources_are_the_ports_own():
         "oltp.cpp"
     assert Path(rwlock.__file__).parent == ROOT / "cockroach_tpu_torch" / \
         "utils"
+
+
+def test_observability_modules_are_the_ports_own():
+    """The planes copied from JAX-free modules of the reference live in
+    the port and load nothing of the JAX package."""
+    import importlib
+    pkg = ROOT / "cockroach_tpu_torch"
+    for mod, where in (("exec.profile", "exec"), ("exec.ctecompose", "exec"),
+                       ("utils.tracing", "utils"),
+                       ("utils.stmtdiag", "utils"),
+                       ("utils.invariants", "utils"),
+                       ("utils.metamorphic", "utils")):
+        m = importlib.import_module(f"cockroach_tpu_torch.{mod}")
+        assert Path(m.__file__).parent == pkg / where
+        assert not set(_imported_roots(Path(m.__file__))) & set(FORBIDDEN)
 
 
 def test_oltp_mirror_builds_into_build_dir():

@@ -129,15 +129,17 @@ def test_status_endpoints_have_the_reference_keys():
     assert _item_keys(got["/_status/statements"]) == _item_keys(
         want["/_status/statements"])
     # the tenants' rollups: the reference's keys and their wall time;
-    # no device time or HBM of a tenant's own is measured in the port
+    # the device time and the tenant's own HBM high-water are measured
+    # (on a CPU engine the device time is the dispatch's host clock)
     assert _item_keys(got["/_status/tenants"]) == {
         k: sorted(set(v) | {"wall_seconds"})
         for k, v in _item_keys(want["/_status/tenants"]).items()}
     tenants = {t["app_name"]: t for t in got["/_status/tenants"]["tenants"]}
     assert set(tenants) == {"app", "(unset)"}
     assert tenants["app"]["wall_seconds"] > 0
-    assert tenants["app"]["device_seconds"] is None
-    assert tenants["app"]["hbm_bytes_held"] is None
+    assert 0 < tenants["app"]["device_seconds"] \
+        <= tenants["app"]["wall_seconds"]
+    assert tenants["app"]["hbm_bytes_held"] > 0
     assert "admission.admitted" in got["/ts/metrics"]
     assert "admission.admitted" in want["/ts/metrics"]
     q = "/ts/query?name=admission.admitted&start=0&end=9999999999"
@@ -151,12 +153,19 @@ def test_prometheus_page_and_not_ported_endpoints(node):
     for name in ("admission_admitted", "admission_tenant_slot_waits",
                  "exec_device_hbm_bytes", "sql_exec_latency_bucket"):
         assert name in text
-    for path in ("/debug/tracez", "/_status/stmtdiag", "/_debug/ranges",
-                 "/_status/stmtdiag/3", "/_status/nodes"):
+    for path in ("/_debug/ranges", "/_status/nodes",
+                 "/debug/tracez?cluster=1"):
         with pytest.raises(urllib.error.HTTPError) as ei:
             _get(node, path)
         assert ei.value.code == 404
         assert b"not yet ported" in ei.value.read()
+    # served since the tracing and diagnostics planes came
+    assert json.loads(_get(node, "/debug/tracez")) == {"traces": []}
+    assert json.loads(_get(node, "/_status/stmtdiag")) == {
+        "armed": [], "bundles": []}
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        _get(node, "/_status/stmtdiag/3")
+    assert ei.value.code == 404
     with pytest.raises(urllib.error.HTTPError) as ei:
         _get(node, "/ts/query?start=0")
     assert ei.value.code == 400

@@ -582,3 +582,64 @@ def _auth_exchange(addr, payload):
     finally:
         sock.close()
     return [f for f in split_frames(data) if f[0] != b"K"]
+
+
+# -- what clients and operators send: set operations, SHOW, EXPLAIN -----------
+
+OPERATOR_SETUP = (
+    "CREATE TABLE w (k INT8 NOT NULL PRIMARY KEY, s STRING, "
+    "d DECIMAL(8,2))",
+    "INSERT INTO w VALUES (1, 'a', 1.50), (2, 'b', NULL), (3, 'a', 2.25)",
+)
+OPERATOR_SQL = {
+    "union": "SELECT k FROM w UNION SELECT k + 1 FROM w ORDER BY 1",
+    "except_strings": ("SELECT s FROM w EXCEPT SELECT s FROM w "
+                       "WHERE k = 2 ORDER BY s"),
+    "show_tables": "SHOW TABLES",
+    "show_var": "SHOW hash_group_capacity",
+    "show_setting": "SHOW sql.exec.hbm_budget_bytes",
+    "show_columns": "SHOW COLUMNS FROM w",
+    "show_create": "SHOW CREATE TABLE w",
+    "explain": "EXPLAIN SELECT s, count(*) FROM w GROUP BY s",
+    "explain_point": "EXPLAIN SELECT s FROM w WHERE k = 2",
+    "series": "SELECT generate_series(1, 4) AS g",
+}
+
+
+@pytest.fixture(scope="module")
+def operator_servers():
+    """A reference server and the port's two frontends over engines that
+    made the same table by the same SQL (their catalogs hold only it)."""
+    with reference_modules("cockroach_tpu.exec.engine",
+                           "cockroach_tpu.server.pgwire") as (jeng, jpg):
+        ref_eng = jeng.Engine()
+        port_eng = Engine(device="cpu")
+        started = []
+        try:
+            for stmt in OPERATOR_SETUP:
+                ref_eng.execute(stmt)
+                port_eng.execute(stmt)
+            warm = ref_eng.session()
+            warm.vars.set("distsql", "off")
+            for sql in OPERATOR_SQL.values():
+                ref_eng.execute(sql, warm)
+            out = {"ref": jpg.PgServer(ref_eng, frontend="threads").start()}
+            started.append(out["ref"])
+            for fe in FRONTENDS:
+                out[fe] = PgServer(port_eng, frontend=fe).start()
+                started.append(out[fe])
+            yield out
+        finally:
+            for s in started:
+                s.stop()
+            ref_eng.close()
+
+
+@pytest.mark.parametrize("frontend", FRONTENDS)
+@pytest.mark.parametrize("name", list(OPERATOR_SQL))
+def test_operator_statements_over_the_wire(operator_servers, frontend,
+                                           name):
+    got = both(operator_servers, frontend,
+               query("SET distsql = off") + query(OPERATOR_SQL[name]), 2)
+    assert [t for t, _ in got if t == b"E"] == []
+    assert any(t == b"D" for t, _ in got)

@@ -344,8 +344,13 @@ def test_oracle_equals_the_port(port, query):
 
 
 def test_set_operations_are_refused(port):
-    with pytest.raises(EngineError, match="not yet ported"):
-        port.execute("SELECT g FROM bt UNION SELECT k FROM bn")
+    """Set operations run (tests/test_torch_setops.py); one whose
+    branches differ in their column count is refused, with the
+    reference's text."""
+    assert port.execute("SELECT g FROM bt UNION SELECT k FROM bn "
+                        "ORDER BY g").rows[:3] == [(1,), (2,), (3,)]
+    with pytest.raises(EngineError, match="same number of columns"):
+        port.execute("SELECT g, v FROM bt UNION SELECT k FROM bn")
 
 
 def test_wide_expansion_left_join():
