@@ -286,17 +286,44 @@ Phases (any failure exits non-zero before the final line):
    slow-statement threshold enters the ring. Medians of 5 warm runs of
    Q1 and Q6 through execute with sql.stmt_profile.enabled on, off, on
    (the coarse plane's cost; those runs' launches are counted apart).
+15. Schema and history, on the SF1 engine after phase 13, with the HLC
+   wall time t0 phase 11 took before RF1. Q1 and Q6 AS OF SYSTEM TIME
+   t0, twice each, and a prepared Q1 AS OF t0 equal the oracles of the
+   tables phase 11 started from; without AS OF, its post-refresh
+   oracles. The second AS OF Q1 hits the exec cache and moves no byte
+   to the card. After a quiet window, an UPDATE of one order's lines
+   that leaves Q1 as it was; then one text of Q1 AS OF SYSTEM TIME
+   '-Ns', each run reading at a new timestamp inside the window, equals
+   the present oracle, and its second and later runs plan and move
+   nothing. A protected timestamp at t0 on lineitem and orders and
+   a zone of gc.ttl_seconds = 1 on lineitem: a GC pass removes nothing
+   t0 can see and AS OF Q1 is unchanged; released, the next pass
+   removes exactly the versions deleted below its threshold (every one
+   RF2 deleted among them), present Q1 equals its oracle, and AS OF t0
+   is refused below the GC threshold. CREATE INDEX on o_custkey runs its
+   backfill job (SHOW JOBS: succeeded; SHOW INDEXES: public) and 20
+   point SELECTs by o_custkey take the index fast path once each and
+   equal the oracle; a UNIQUE index on s_name is built and refuses a
+   duplicate with the reference's text; a UNIQUE index on l_orderkey
+   fails in its job and leaves no index. ALTER TABLE lineitem ADD
+   COLUMN l_fee DECIMAL(15,2) NOT NULL DEFAULT 0.05 backfills, Q1 with
+   sum(l_fee) gives 0.05 x count_order in every group, exactly, and
+   after DROP COLUMN plain Q1 equals its oracle. Each Q1 launches
+   kernel 1 once, held against the plain version at its own slots;
+   kernel 2's launches are counted too, each held against its plain
+   version.
 Each phase's seconds are printed. After phase 10, one JSON `dml` line
 holds phase 11's numbers, one JSON `oltp` line phase 12's, one JSON
-`frontdoor` line phase 13's and one JSON `observability` line phase
-14's (with the node's checks under "node"), each with the card's name
-and power limit; then one JSON line of per-kernel numbers (the large-G
-kernel's launches count Q1, Q5, Q10, Q12 and the path runs of phases
-7, 8, 10, 11, 12, 13 and 14, the small-G kernel's Q1F, Q6F and phases
-13's and 14's; `path_checks` holds each of the large-G kernel's calls
-in phases 7, 8, 10, 11, 12, 13 and 14 held against the plain version,
-and the small-G kernel's phase 13 and 14 calls), the nvidia-smi line,
-and the last line {"ok": true, "device": {...}}.
+`frontdoor` line phase 13's, one JSON `observability` line phase
+14's (with the node's checks under "node") and one JSON `history` line
+phase 15's, each with the card's name and power limit; then one JSON
+line of per-kernel numbers (the large-G kernel's launches count Q1, Q5,
+Q10, Q12 and the path runs of phases 7, 8, 10, 11, 12, 13, 14 and 15,
+the small-G kernel's Q1F, Q6F and phases 13's and 14's; `path_checks`
+holds each of the large-G kernel's calls in phases 7, 8, 10, 11, 12,
+13, 14 and 15 held against the plain version, and the small-G kernel's
+phase 13 and 14 calls), the nvidia-smi line, and the last line {"ok":
+true, "device": {...}}.
 
     python3 chip_smoke.py --profile DIR
 
@@ -2329,6 +2356,10 @@ def refresh_phase(eng, li, part, orders, cust, sf, reps: int = 3) -> dict:
             "q6": tpch.ref_q6(li2), "q14": tpch.ref_q14(li2, part),
             "q3": tpch.ref_q3(li2, orders2, cust)}
     del rf1_only
+    # the HLC wall time before the first write: phase 15 reads AS OF it
+    time.sleep(0.002)
+    out["t0_wall"] = eng.clock.now().wall
+    time.sleep(0.002)
     # RF1 in one transaction, with a Q6 that reads its own writes
     s = eng.session()
     t0 = time.perf_counter()
@@ -2458,6 +2489,340 @@ def refresh_phase(eng, li, part, orders, cust, sf, reps: int = 3) -> dict:
     # lineitem's and orders' arrays as this phase left them, for the
     # oracles of phases 12 and 13 (taken off before the dml line prints)
     out["li_after"], out["orders_after"] = li2, orders2
+    return out
+
+
+HISTORY_SAMPLE = 20             # point SELECTs by o_custkey
+# seconds with no lineitem write before phase 15's own write: AS OF
+# '-Ns' reads land in the middle of that window, historical (a newer
+# version exists) and with a known state
+INTERVAL_WINDOW_S = 6.0
+FEE_DDL = ("ALTER TABLE lineitem ADD COLUMN l_fee DECIMAL(15,2) NOT NULL "
+           "DEFAULT 0.05")
+GC_REFUSED = "must be after replica GC threshold"
+
+
+def _as_of(sql: str, wall: int) -> str:
+    """A lineitem query read AS OF SYSTEM TIME ``wall``."""
+    return sql.replace("FROM lineitem\n",
+                       f"FROM lineitem AS OF SYSTEM TIME {wall}\n")
+
+
+@contextlib.contextmanager
+def _gc_pauses(out: list):
+    """Appends to ``out`` the ms the cyclic collector ran while the
+    block ran: a host pause inside a statement's time."""
+    marks: list = []
+
+    def note(_phase, _info):
+        marks.append(time.perf_counter())
+    gc.callbacks.append(note)
+    try:
+        yield
+    finally:
+        gc.callbacks.remove(note)
+        out.append(sum(b - a for a, b in zip(marks[::2], marks[1::2]))
+                   * 1e3)
+
+
+def history_phase(eng, li, li_after, orders_after, sf, t0_wall) -> dict:
+    """Phase 15 on the engine phase 11 wrote: AS OF SYSTEM TIME t0 (the
+    HLC wall time before RF1) against the oracles of `li`, the present
+    against `li_after`; protected timestamps, a zone and MVCC GC; the
+    online CREATE INDEX jobs; ALTER TABLE ADD/DROP COLUMN under Q1. Each
+    kernel-1 launch is counted from 0 and held against the plain
+    version at its slots (on the card), each kernel-2 launch at its
+    inputs; AS OF '-Ns' beside a write reads at a new historical
+    timestamp each statement and must plan and upload nothing the
+    second time."""
+    import numpy as np
+
+    from cockroach_tpu_torch.exec.session import EngineError
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    from cockroach_tpu_torch.storage.hlc import Timestamp
+    on_card = eng.device.type == "cuda"
+    t_phase = time.perf_counter()
+    # every lineitem write so far committed at or before this
+    t_quiet = eng.clock.now().wall
+    want = {"q1_then": tpch.ref_q1(li), "q6_then": tpch.ref_q6(li),
+            "q1_now": tpch.ref_q1(li_after), "q6_now": tpch.ref_q6(li_after)}
+    q1_then, q6_then = _as_of(tpch.Q1, t0_wall), _as_of(tpch.Q6, t0_wall)
+    out = {"t0_wall": t0_wall, "runs": {}}
+    checks: dict = {}
+    small_checks: list = []
+    total = [0, 0]
+
+    def run(label, fn, k1_want, check):
+        """One statement: both kernels' launches from 0, rows checked."""
+        _counts_zero()
+        pause: list = []
+        with recording_slots() as calls, recording_small() as scalls, \
+                _gc_pauses(pause):
+            t0 = time.perf_counter()
+            res = fn()
+            _sync()
+            dt = time.perf_counter() - t0
+        k1, k2 = _kernel_counts(on_card)
+        if k1 != k1_want:
+            raise AssertionError(f"{label}: kernel 1 launched {k1} times, "
+                                 f"not {k1_want}")
+        check(res.rows)
+        if on_card and k1:
+            checks[f"sf1 {label} phase 15"] = check_calls(
+                f"phase 15 {label}", calls, k1)
+        if on_card and k2:
+            small_checks.extend(_check_small_calls(f"phase 15 {label}",
+                                                   scalls, k2))
+        total[0] += k1
+        total[1] += k2
+        out["runs"][label] = {"ms": dt * 1e3, "kernel1": k1, "kernel2": k2,
+                              "gc_ms": pause[0]}
+        return res
+
+    def q1_is(w):
+        return lambda rows: check_q1(rows, w)
+
+    def q6_is(w):
+        def check(rows):
+            if not _close(rows[0][0], w, DECIMAL_REL):
+                raise AssertionError(f"Q6 {rows[0][0]} != oracle {w}")
+        return check
+
+    def moved() -> int:
+        ps = eng.last_profile
+        return ps.total_bytes_moved() if ps is not None else -1
+
+    # -- 1. AS OF t0 against the tables phase 11 started from -----------
+    run("q1 as of t0", lambda: eng.execute(q1_then), 1,
+        q1_is(want["q1_then"]))
+    miss = eng.plan_cache["miss"]
+    run("q1 as of t0 again", lambda: eng.execute(q1_then), 1,
+        q1_is(want["q1_then"]))
+    out["q1_as_of_second_htod_bytes"] = moved()
+    if eng.plan_cache["miss"] != miss or out["q1_as_of_second_htod_bytes"]:
+        raise AssertionError(
+            f"the second AS OF Q1 planned again or uploaded: misses "
+            f"{eng.plan_cache['miss'] - miss}, "
+            f"{out['q1_as_of_second_htod_bytes']} bytes")
+    for label in ("q6 as of t0", "q6 as of t0 again"):
+        run(label, lambda: eng.execute(q6_then), 0, q6_is(want["q6_then"]))
+    p = eng.prepare(q1_then)
+    run("prepared q1 as of t0", p.run, 1, q1_is(want["q1_then"]))
+    run("q1 now", lambda: eng.execute(tpch.Q1), 1, q1_is(want["q1_now"]))
+    run("q6 now", lambda: eng.execute(tpch.Q6), 0, q6_is(want["q6_now"]))
+    _counts_zero()
+    out["q1_as_of_ms"] = _median_ms(lambda: eng.execute(q1_then), reps=3)
+    out["q1_now_ms"] = _median_ms(lambda: eng.execute(tpch.Q1), reps=3)
+    timed, timed2 = _kernel_counts(on_card)
+    # three runs each of two statements already run (and checked) above
+    want2 = 3 * (out["runs"]["q1 as of t0 again"]["kernel2"]
+                 + out["runs"]["q1 now"]["kernel2"])
+    if timed != 6 or timed2 != want2:
+        raise AssertionError(f"6 timed Q1 runs launched kernel 1 {timed} "
+                             f"times, kernel 2 {timed2} (not {want2})")
+    total[0] += timed
+    total[1] += timed2
+    out["timed_launches"] = {"groupagg_large": timed, "groupagg": timed2}
+
+    # -- 1b. AS OF '-Ns' beside a write -------------------------------------
+    # each statement of one text reads at a new historical timestamp, in
+    # the quiet window before the write: the state of li_after
+    time.sleep(max(0.0, INTERVAL_WINDOW_S
+                   - (eng.clock.now().wall - t_quiet) / 1e9))
+    t_write = eng.clock.now().wall     # the UPDATE commits after it
+    upd = int(li_after["l_orderkey"][0])
+    eng.execute("UPDATE lineitem SET l_shipmode = l_shipmode WHERE "
+                f"l_orderkey = {upd}")
+    run("q1 now after a write", lambda: eng.execute(tpch.Q1), 1,
+        q1_is(want["q1_now"]))
+    ago = round((eng.clock.now().wall - t_write) / 1e9
+                + INTERVAL_WINDOW_S / 2, 6)
+    q1_ago = _as_of(tpch.Q1, f"'-{ago:.6f}s'")
+    ago_ns = int(ago * 1e9)
+    out["interval"] = {"ago_s": ago, "runs": []}
+    for label in ("q1 as of interval", "q1 as of interval again"):
+        miss = eng.plan_cache["miss"]
+        before = eng.clock.now().wall
+        run(label, lambda: eng.execute(q1_ago), 1, q1_is(want["q1_now"]))
+        after = eng.clock.now().wall
+        # the read timestamp lies in [before, after] - ago
+        if not t_quiet < before - ago_ns or not after - ago_ns < t_write:
+            raise AssertionError(f"{label} read outside the quiet window")
+        out["interval"]["runs"].append({
+            "misses": eng.plan_cache["miss"] - miss, "htod_bytes": moved(),
+            "read_ts_lo": before - ago_ns})
+    second = out["interval"]["runs"][1]
+    if second["misses"] or second["htod_bytes"]:
+        raise AssertionError(f"the second AS OF '-Ns' Q1 planned again or "
+                             f"uploaded: {second}")
+    _counts_zero()
+    before = eng.clock.now().wall
+    out["q1_as_of_interval_ms"] = _median_ms(lambda: eng.execute(q1_ago),
+                                             reps=3)
+    timed, timed2 = _kernel_counts(on_card)
+    want2 = 3 * out["runs"]["q1 as of interval again"]["kernel2"]
+    if timed != 3 or timed2 != want2 or \
+            eng.clock.now().wall - ago_ns >= t_write:
+        raise AssertionError(f"3 timed AS OF '-Ns' Q1 runs: kernel 1 "
+                             f"{timed}, kernel 2 {timed2} (not {want2}), "
+                             f"from {before - ago_ns} against {t_write}")
+    total[0] += timed
+    total[1] += timed2
+    out["timed_launches"]["groupagg_large"] += timed
+    out["timed_launches"]["groupagg"] += timed2
+
+    # -- 2. protected timestamps, a zone, MVCC GC ---------------------------
+    td = eng.store.table("lineitem")
+    rid = eng.protectedts.protect(Timestamp(t0_wall, 0).to_int(),
+                                  ["lineitem", "orders"], meta="phase 15")
+    eng.execute("ALTER TABLE lineitem CONFIGURE ZONE USING "
+                "gc.ttl_seconds = 1")
+    protected = eng.run_gc("lineitem")
+    if protected:
+        raise AssertionError(f"a GC pass under the protection at t0 "
+                             f"removed {protected} versions")
+    run("q1 as of t0 after protected gc", lambda: eng.execute(q1_then), 1,
+        q1_is(want["q1_then"]))
+    eng.protectedts.release(rid)
+    thr = eng.gc_threshold("lineitem").to_int()
+    expect = sum(int((c.mvcc_del <= thr).sum()) for c in td.chunks)
+    versions0 = td.row_count
+    t0 = time.perf_counter()
+    removed = eng.run_gc("lineitem")
+    out["gc"] = {"s": time.perf_counter() - t0, "removed": removed,
+                 "versions_before": versions0,
+                 "versions_after": eng.store.table("lineitem").row_count,
+                 "protected_pass_removed": protected}
+    rf2 = tpch.rf2_orderkeys(sf)
+    left = sum(int(np.isin(c.data["l_orderkey"], rf2).sum())
+               for c in eng.store.table("lineitem").chunks)
+    if removed != expect or left:
+        raise AssertionError(f"GC removed {removed} versions, {expect} lay "
+                             f"below its threshold; {left} RF2 lines left")
+    run("q1 now after gc", lambda: eng.execute(tpch.Q1), 1,
+        q1_is(want["q1_now"]))
+    try:
+        eng.execute(q1_then)
+        raise AssertionError("AS OF t0 below the GC threshold was served")
+    except EngineError as e:
+        if GC_REFUSED not in str(e):
+            raise
+        out["as_of_refused"] = str(e)
+    out["zone"] = eng.execute(
+        "SHOW ZONE CONFIGURATION FOR TABLE lineitem").rows
+    print(f"phase 15 zone: {out['zone']}; gc: {out['gc']}", flush=True)
+
+    # -- 3. online CREATE INDEX ---------------------------------------------
+    t0 = time.perf_counter()
+    eng.execute("CREATE INDEX o_cust_idx ON orders (o_custkey)")
+    out["o_cust_idx_s"] = time.perf_counter() - t0
+    job = eng.execute("SHOW JOBS").rows[-1]
+    idx = eng.execute("SHOW INDEXES FROM orders").rows
+    if job[1:3] != ("index-backfill", "succeeded") or \
+            ("orders", "o_cust_idx", "o_custkey", False, "public") not in idx:
+        raise AssertionError(f"CREATE INDEX: job {job}, indexes {idx}")
+    cust = orders_after["o_custkey"]
+    keys = np.random.default_rng(15).choice(np.unique(cust), HISTORY_SAMPLE,
+                                            replace=False)
+    fast = eng.metrics.counter("sql.select.index_fastpath")
+    t0 = time.perf_counter()
+    for k in keys.tolist():
+        c0 = fast.value()
+        got = eng.execute(f"SELECT o_orderkey, o_totalprice FROM orders "
+                          f"WHERE o_custkey = {k}").rows
+        hit = cust == k
+        oracle = sorted(zip(orders_after["o_orderkey"][hit].tolist(),
+                            np.round(orders_after["o_totalprice"][hit], 2)
+                            .tolist()))
+        if fast.value() != c0 + 1 or sorted(
+                (o, round(v, 2)) for o, v in got) != oracle:
+            raise AssertionError(f"o_custkey = {k}: {got} != {oracle} "
+                                 f"(fast path {fast.value() - c0})")
+    out["point_selects"] = {"n": HISTORY_SAMPLE,
+                            "ms": (time.perf_counter() - t0) * 1e3
+                            / HISTORY_SAMPLE}
+    t0 = time.perf_counter()
+    eng.execute("CREATE UNIQUE INDEX s_name_key ON supplier (s_name)")
+    out["s_name_key_s"] = time.perf_counter() - t0
+    dup = ("duplicate key value ('Supplier#000000001',) violates unique "
+           "index 's_name_key' of 'supplier'")
+    try:
+        eng.execute("INSERT INTO supplier VALUES "
+                    "(99999999, 'Supplier#000000001', 1, 1.00)")
+        raise AssertionError("a duplicate s_name was inserted")
+    except EngineError as e:
+        if str(e) != dup:
+            raise
+    t0 = time.perf_counter()
+    try:
+        eng.execute("CREATE UNIQUE INDEX l_ok_key ON lineitem (l_orderkey)")
+        raise AssertionError("a unique index over l_orderkey was built")
+    except EngineError as e:
+        out["l_ok_key_error"] = str(e)
+    out["l_ok_key_s"] = time.perf_counter() - t0
+    job = eng.execute("SHOW JOBS").rows[-1]
+    li_idx = eng.execute("SHOW INDEXES FROM lineitem").rows
+    if "duplicate key value" not in out["l_ok_key_error"] or \
+            job[2] != "failed" or len(li_idx) != 1:
+        raise AssertionError(f"l_ok_key: {out['l_ok_key_error']}, job "
+                             f"{job}, indexes {li_idx}")
+    out["jobs"] = eng.execute("SHOW JOBS").rows
+
+    # -- 4. ALTER TABLE under Q1 ----------------------------------------------
+    t0 = time.perf_counter()
+    eng.execute(FEE_DDL)
+    out["add_column_s"] = time.perf_counter() - t0
+
+    def fee_is(rows):
+        check_q1([r[:-1] for r in rows], want["q1_now"])
+        for r in rows:
+            if round(r[-1] * 100) != 5 * r[-2]:
+                raise AssertionError(f"sum(l_fee) {r[-1]} != 0.05 x {r[-2]}")
+    q1_fee = tpch.Q1.replace("count(*) AS count_order",
+                             "count(*) AS count_order, sum(l_fee) AS fee")
+    run("q1 with l_fee", lambda: eng.execute(q1_fee), 1, fee_is)
+    t0 = time.perf_counter()
+    eng.execute("ALTER TABLE lineitem DROP COLUMN l_fee")
+    out["drop_column_s"] = time.perf_counter() - t0
+    run("q1 after drop column", lambda: eng.execute(tpch.Q1), 1,
+        q1_is(want["q1_now"]))
+    out["launches"] = {"groupagg_large": total[0], "groupagg": total[1]}
+    out["path_checks"] = checks
+    out["small_checks"] = small_checks
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def history_phase_alone(sf: float = SF, device=None, rows=None) -> dict:
+    """Phase 15 by itself: loads lineitem, part, orders, customer and
+    supplier at `sf`, runs phase 11's refresh pair (its t0 and its
+    tables' oracles), then history_phase, and prints its line
+    (``python3 -c "import chip_smoke; chip_smoke.history_phase_alone()"``;
+    on the CPU ``history_phase_alone(0.01, "cpu", rows=20000)``)."""
+    import numpy as np
+
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    smi = _smi() if device is None else "cpu"
+    print(f"card: {smi}", flush=True)
+    t0 = time.perf_counter()
+    eng = Engine(device=device)
+    tpch.load(eng, sf=sf, rows=rows, tables=("lineitem", "part"),
+              encoded=True)
+    tpch.load(eng, sf=sf, tables=("orders", "customer", "supplier"))
+    li = tpch.gen_lineitem(sf, rows=rows, encoded=True)
+    li["l_returnflag"] = np.asarray(tpch.RF_VALUES)[li["l_returnflag"]]
+    li["l_linestatus"] = np.asarray(tpch.LS_VALUES)[li["l_linestatus"]]
+    li["l_shipmode"] = np.asarray(tpch.SHIPMODES, dtype=object)[
+        li["l_shipmode"]]
+    print(f"load SF{sf}: {time.perf_counter() - t0:.1f} s", flush=True)
+    refresh = refresh_phase(eng, li, tpch.gen_part(sf), tpch.gen_orders(sf),
+                            tpch.gen_customer(sf), sf, reps=1)
+    out = history_phase(eng, li, refresh["li_after"],
+                        refresh["orders_after"], sf, refresh["t0_wall"])
+    print(f"phase 15: {out['seconds']:.1f} s", flush=True)
+    print(json.dumps({"history": dict(out, card=smi)}), flush=True)
     return out
 
 
@@ -4144,11 +4509,13 @@ def main() -> int:
     oltp = dml.pop("oltp")
     front = dml.pop("frontdoor")
     obs = dml.pop("observability")
+    hist = dml.pop("history")
     obs["node"] = front["entry_points"].pop("observability")
     print(json.dumps({"dml": dict(dml, card=smi)}), flush=True)
     print(json.dumps({"oltp": dict(oltp, card=smi)}), flush=True)
     print(json.dumps({"frontdoor": dict(front, card=smi)}), flush=True)
     print(json.dumps({"observability": dict(obs, card=smi)}), flush=True)
+    print(json.dumps({"history": dict(hist, card=smi)}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -4159,9 +4526,10 @@ def main() -> int:
 
 
 def sf1_phases(opts) -> tuple:
-    """Phases 1-9, 11, 12 and 13 at SF1; returns (kernels, nvidia-smi
-    line, card name, phase 11's numbers with phase 12's under "oltp" and
-    phase 13's under "frontdoor"). Every engine and table of these
+    """Phases 1-9 and 11-15 at SF1; returns (kernels, nvidia-smi line,
+    card name, phase 11's numbers with phase 12's under "oltp", phase
+    13's under "frontdoor", 14's under "observability" and 15's under
+    "history"). Every engine and table of these
     phases lives in this frame only, so they are freed when it
     returns."""
     import numpy as np
@@ -4530,6 +4898,18 @@ def sf1_phases(opts) -> tuple:
           flush=True)
     dml["frontdoor"] = front
     dml["observability"] = obs
+
+    # -- 15. schema and history (it changes the tables) ---------------------
+    t0 = time.perf_counter()
+    hist = history_phase(eng, li, li_after, orders_after, SF,
+                         dml["refresh"]["t0_wall"])
+    for i, k in enumerate(("groupagg_large", "groupagg")):
+        kernels[i]["launches"] += hist["launches"][k]
+        kernels[i]["phase15_launches"] = hist["launches"][k]
+    large["path_checks"].update(hist.pop("path_checks"))
+    kernels[1]["path_checks"]["phase 15"] = hist.pop("small_checks")
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+    dml["history"] = hist
     if opts.profile:
         from cockroach_tpu_torch.profile_tpch import profile_queries
         profile_queries(eng, {"q3": (tpch.Q3, None), "q5": (tpch.Q5, None),

@@ -78,6 +78,24 @@ class Catalog:
             return d
         return self.kv.txn(fn)
 
+    def write_new_version(self, desc: TableDescriptor) -> TableDescriptor:
+        """Publish ``desc`` at version+1 (one schema-change step); the
+        caller then waits for old leases (LeaseManager.wait_one_version).
+        A writer holding a stale copy fails with "version skew"."""
+        def fn(t):
+            cur_raw = t.get(desc_key(desc.id))
+            if cur_raw is None:
+                raise CatalogError(f"descriptor {desc.id} missing")
+            cur = TableDescriptor.decode(cur_raw)
+            if cur.version != desc.version:
+                raise CatalogError(
+                    f"version skew on {desc.name!r}: have "
+                    f"{desc.version}, stored {cur.version}")
+            desc.version += 1
+            t.put(desc_key(desc.id), desc.encode())
+            return desc
+        return self.kv.txn(fn)
+
     # -- reads ---------------------------------------------------------------
     def get_by_name(self, name: str) -> Optional[TableDescriptor]:
         def fn(t):
@@ -86,6 +104,12 @@ class Catalog:
                 return None
             d = t.get(desc_key(int(raw.decode())))
             return TableDescriptor.decode(d) if d is not None else None
+        return self.kv.txn(fn)
+
+    def get_by_id(self, desc_id: int) -> Optional[TableDescriptor]:
+        def fn(t):
+            raw = t.get(desc_key(desc_id))
+            return TableDescriptor.decode(raw) if raw is not None else None
         return self.kv.txn(fn)
 
     def list_tables(self) -> list[TableDescriptor]:

@@ -1,13 +1,13 @@
-"""Constraint enforcement inside DML txns: CHECK and FOREIGN KEY
-(RESTRICT) constraints.
+"""Constraint enforcement inside DML txns: CHECK, FOREIGN KEY
+(RESTRICT) and UNIQUE constraints.
 
 The port of cockroach_tpu/exec/constraints.py. FK existence probes run
 against the scan-plane row locators plus this txn's buffered effects;
 concurrent-txn races are serialized by the KV plane. NOT NULL and the
 duplicate-primary-key check live in the INSERT and UPDATE paths
-(exec/dml.py). This package has no secondary index yet, so
-``_maintain_indexes`` has nothing to maintain: unique indexes come with
-CREATE INDEX, which is not ported.
+(exec/dml.py). Unique indexes keep KV entries written inside the
+statement's txn (``_maintain_indexes``), so a ROLLBACK releases a value
+and two open txns writing one value conflict.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 from ..kv.txn import Txn
 from ..sql import parser
 from ..sql.binder import Binder
+from ..storage import keys as K
 from .expr import compile_expr
 from .session import EngineError
 
@@ -184,6 +185,54 @@ class ConstraintMixin:
 
     def _maintain_indexes(self, table: str, td, t: Txn, pending: dict,
                           old_row, new_row, rts: int) -> None:
-        """Per-row secondary-index maintenance inside a DML txn: a
-        no-op until CREATE INDEX and UNIQUE constraints are ported (the
-        reference writes unique-index KV entries here)."""
+        """Per-row index maintenance inside a DML txn: a unique index's
+        KV entry for ``old_row`` goes, ``new_row``'s is checked for
+        uniqueness and written. A NULL in an indexed column exempts the
+        row (SQL unique semantics). A non-unique index is derived from
+        the scan plane and needs nothing here."""
+        tid = td.schema.table_id
+        for idx in self._table_indexes(table):
+            if not idx.unique:
+                continue
+            cols = tuple(idx.columns)
+            old_vals = _index_vals(old_row, cols)
+            new_vals = _index_vals(new_row, cols)
+            if old_vals == new_vals:
+                continue
+            if old_vals is not None:
+                t.delete(K.table_key(tid, old_vals, idx.index_id))
+            if new_vals is not None:
+                self._check_unique(table, td, idx, new_vals, t, pending,
+                                   new_row, rts)
+                t.put(K.table_key(tid, new_vals, idx.index_id),
+                      td.codec.key(new_row))
+
+    def _check_unique(self, table: str, td, idx, vals: tuple, t: Txn,
+                      pending: dict, new_row: dict, rts: int) -> None:
+        new_key = td.codec.key(new_row)
+        err = EngineError(f"duplicate key value {vals!r} violates unique "
+                          f"index {idx.name!r} of {table!r}")
+        # the KV entry: committed rows written through the row plane and
+        # this txn's earlier writes (a txn reads its own intents); a
+        # concurrent writer conflicts on this same key
+        raw = t.get(K.table_key(td.schema.table_id, vals, idx.index_id))
+        if raw is not None and raw != new_key:
+            raise err
+        # the scan plane: bulk-ingested rows that never had KV pairs,
+        # visible at this txn's read timestamp
+        sec = self.store.ensure_secondary_index(table, tuple(idx.columns))
+        for ci, ri in sec.get(vals, []):
+            c = td.chunks[ci]
+            if not (c.mvcc_ts[ri] <= rts < c.mvcc_del[ri]):
+                continue
+            rk = self.store.row_key(td, c, ri)
+            if rk != new_key and rk not in pending:
+                raise err
+
+
+def _index_vals(row, cols: tuple):
+    """The row's values of ``cols``, or None (no row, or a NULL)."""
+    if row is None:
+        return None
+    vals = tuple(row.get(cn) for cn in cols)
+    return None if any(v is None for v in vals) else vals

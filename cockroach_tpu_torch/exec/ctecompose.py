@@ -185,19 +185,22 @@ class ComposedCTE:
 def build_composition(engine, session, capture) -> ComposedCTE | None:
     """A ComposedCTE from one successful slow-path capture, or None when
     the shape cannot compose: a row-path temp, a nested CTE, a set
-    operation, a paged or spilled plan, a temp read by another temp's
-    body, or a main query served by a fast path."""
+    operation, a paged or spilled plan, an AS OF SYSTEM TIME plan, a
+    temp read by another temp's body, or a main query served by a fast
+    path."""
     if (not capture or capture.get("disabled") or not capture["temps"]
             or not capture["preps"]):
         return None
     main = capture["preps"][-1]
-    if main.stream is not None or main.spill is not None:
+    if main.stream is not None or main.spill is not None \
+            or main.as_of is not None:
         return None
     scan_tables = main.scan_tables
     temp_names = {t["tname"] for t in capture["temps"]}
     for t in capture["temps"]:
         p = t["prep"]
-        if p.stream is not None or p.spill is not None:
+        if p.stream is not None or p.spill is not None \
+                or p.as_of is not None:
             return None
         if any(tb in temp_names for tb, _ in p.gens):
             return None   # a temp scanning another temp: slow path

@@ -1,12 +1,27 @@
-"""DDL: CREATE TABLE (with DEFAULT, CHECK and REFERENCES), DROP TABLE,
-TRUNCATE, CREATE/DROP VIEW and CREATE/DROP SEQUENCE.
+"""DDL: CREATE TABLE (with DEFAULT, UNIQUE, CHECK and REFERENCES), DROP
+TABLE, TRUNCATE, CREATE/DROP INDEX, CREATE/DROP VIEW and CREATE/DROP
+SEQUENCE.
 
-The port of the parts of cockroach_tpu/exec/ddl.py that the write path
-reaches: a table's descriptor is written to the catalog (catalog/, a
-transactional record in the KV plane) before its columnstore table is
-created. A view is a descriptor carrying SQL text, re-planned at every
-use (``_expand_views``); a sequence is a KV record. UNIQUE constraints
-and secondary indexes are not ported yet and raise.
+The port of cockroach_tpu/exec/ddl.py: a table's descriptor is written
+to the catalog (catalog/, a transactional record in the KV plane) before
+its columnstore table is created. A view is a descriptor carrying SQL
+text, re-planned at every use (``_expand_views``); a sequence is a KV
+record.
+
+Secondary indexes (the reference's pkg/sql/rowenc encodings kept by the
+row writers): the scan plane is columnar and the analytic path never
+decodes keys, so a non-unique index is a host-side locator the store
+derives from its chunks (generation-cached,
+storage/columnstore.py ensure_secondary_index) for point reads and DML.
+A UNIQUE index also keeps KV entries at /Table/<tid>/<index_id>/<vals>
+-> pk key, written inside each DML txn, so two writers of one value
+conflict in the KV plane (the guarantee the reference gets from a CPut
+on the index key). CREATE INDEX is an online schema change: the index
+is published WRITE_ONLY (writers maintain it), then a durable job
+backfills and validates it and publishes it PUBLIC
+(jobs/schemachange.py). UNIQUE column and table constraints of CREATE
+TABLE are unique indexes at birth: the table is empty, so they are
+PUBLIC at once.
 """
 
 from __future__ import annotations
@@ -14,10 +29,13 @@ from __future__ import annotations
 import copy
 import json
 
-from ..catalog import CatalogError, TableDescriptor
+from ..catalog import CatalogError, IndexDescriptor, TableDescriptor
+from ..catalog.descriptor import WRITE_ONLY
+from ..jobs.schemachange import INDEX_BACKFILL_JOB
 from ..sql import ast, parser
 from ..sql.binder import Binder, Scope
 from ..sql.bound import BConst
+from ..sql.rowenc import ROWID
 from ..sql.types import ColumnSchema, Family, TableSchema
 from ..storage import keys as K
 from .session import EngineError, Result
@@ -58,8 +76,6 @@ class DDLMixin:
             if c.if_not_exists:
                 return Result(tag="CREATE TABLE")
             raise EngineError(f"table {c.name!r} already exists")
-        if c.uniques or any(d.unique for d in c.columns):
-            raise EngineError("UNIQUE constraints are not yet ported")
         schema = TableSchema(
             name=c.name,
             columns=[ColumnSchema(d.name, d.type, d.nullable,
@@ -67,8 +83,10 @@ class DDLMixin:
                      for d in c.columns],
             primary_key=list(c.primary_key))
         colnames = {d.name for d in c.columns}
+        uniq_sets = [[d.name] for d in c.columns if d.unique] \
+            + [list(u) for u in c.uniques]
         # FK references resolve now: the target must exist and the
-        # referenced columns must be its primary key
+        # referenced columns must be its primary key or a unique index
         fk_records = []
         for fkname, lcols, rt, rcols in c.foreign_keys:
             for cn in lcols:
@@ -78,11 +96,14 @@ class DDLMixin:
                 # self-referential: validate against the in-flight
                 # definition (the table does not exist yet)
                 rcols = rcols or list(c.primary_key)
-                unique_sets = [tuple(c.primary_key)]
+                unique_sets = [tuple(c.primary_key)] + \
+                    [tuple(u) for u in uniq_sets]
             elif rt in self.store.tables:
                 rschema = self.store.table(rt).schema
                 rcols = rcols or list(rschema.primary_key)
-                unique_sets = [tuple(rschema.primary_key)]
+                unique_sets = [tuple(rschema.primary_key)] + [
+                    tuple(i.columns) for i in self._table_indexes(rt)
+                    if i.unique]
             else:
                 raise EngineError(
                     f"referenced table {rt!r} does not exist")
@@ -95,10 +116,18 @@ class DDLMixin:
             fk_records.append({"name": fkname, "columns": list(lcols),
                                "ref_table": rt,
                                "ref_columns": list(rcols)})
+        for u in uniq_sets:
+            for cn in u:
+                if cn not in colnames:
+                    raise EngineError(f"unique column {cn!r} not in table")
         desc0 = TableDescriptor.from_schema(schema)
         desc0.checks = [{"name": n, "expr_sql": text}
                         for n, _e, text in c.checks]
         desc0.fks = fk_records
+        desc0.indexes = [
+            IndexDescriptor(f"{c.name}_{'_'.join(u)}_key", 2 + i, list(u),
+                            True, "public")
+            for i, u in enumerate(uniq_sets)]
         # the descriptor (the system of record) is written first,
         # transactionally; the columnstore table is the scan-plane
         # materialization keyed by the allocated descriptor id
@@ -114,6 +143,7 @@ class DDLMixin:
         for cs in schema.columns:
             cs.cid = by_name.get(cs.name, 0)
         self.store.create_table(schema)
+        self._index_defs.pop(c.name, None)
         self._constraint_defs.pop(c.name, None)
         self._fk_children = None
         # CHECK expressions must bind against the new schema (unknown
@@ -169,6 +199,7 @@ class DDLMixin:
         except CatalogError:
             pass  # a store-only table (carried in, never CREATEd)
         self.store.drop_table(d.name)
+        self._index_defs.pop(d.name, None)
         self._constraint_defs.pop(d.name, None)
         self._fk_children = None
         self._evict_device(d.name)
@@ -197,6 +228,98 @@ class DDLMixin:
         self.store.create_table(schema)
         self._evict_device(tr.table)
         return Result(tag="TRUNCATE")
+
+    # -- secondary indexes ----------------------------------------------------
+    def _table_indexes(self, table: str) -> list:
+        """The table's index descriptors (every state), cached until a
+        schema change drops the entry. A catalog error fails the
+        statement rather than caching "no indexes", which would drop
+        unique enforcement in silence; a table with no descriptor (one
+        carried into the store) has none."""
+        cached = self._index_defs.get(table)
+        if cached is not None:
+            return cached
+        d = self.catalog.get_by_name(table)
+        idxs = list(d.indexes) if d is not None else []
+        self._index_defs[table] = idxs
+        return idxs
+
+    def _exec_create_index(self, c: ast.CreateIndex) -> Result:
+        if c.table not in self.store.tables:
+            raise EngineError(f"table {c.table!r} does not exist")
+        td = self.store.table(c.table)
+        for cn in c.columns:
+            try:
+                td.schema.column(cn)
+            except KeyError:
+                raise EngineError(
+                    f"column {cn!r} does not exist in {c.table!r}")
+        desc = self.catalog.get_by_name(c.table)
+        if desc is None:
+            raise EngineError(
+                f"table {c.table!r} has no descriptor (pre-catalog)")
+        if c.name == "primary":
+            raise EngineError(
+                "index name 'primary' is reserved for the primary key")
+        if any(i.name == c.name for i in desc.indexes):
+            if c.if_not_exists:
+                return Result(tag="CREATE INDEX")
+            raise EngineError(
+                f"index {c.name!r} already exists on {c.table!r}")
+        next_id = 1 + max([i.index_id for i in desc.indexes],
+                          default=1)  # the primary index is 1
+        # WRITE_ONLY: after the lease drain every writer maintains the
+        # index; readers do not use it yet
+        desc.indexes.append(IndexDescriptor(
+            c.name, next_id, list(c.columns), c.unique, WRITE_ONLY))
+        self.leases.publish(desc)
+        self._index_defs.pop(c.table, None)
+        # the checkpointed backfill, the validation and the PUBLIC
+        # publish run as a durable job (resumable after a crash)
+        job_id = self.jobs.create(INDEX_BACKFILL_JOB,
+                                  {"table": c.table, "index": c.name})
+        rec = self.jobs.run_job(job_id)
+        self._index_defs.pop(c.table, None)
+        if rec.status != "succeeded":
+            raise EngineError(
+                f"CREATE INDEX failed: {rec.error or rec.status}")
+        return Result(tag="CREATE INDEX")
+
+    def _exec_drop_index(self, d_stmt: ast.DropIndex) -> Result:
+        found = [(desc, i) for desc in self.catalog.list_tables()
+                 for i in desc.indexes if i.name == d_stmt.name]
+        if not found:
+            if d_stmt.if_exists:
+                return Result(tag="DROP INDEX")
+            raise EngineError(f"index {d_stmt.name!r} does not exist")
+        if len(found) > 1:
+            tables = sorted(d.name for d, _ in found)
+            raise EngineError(
+                f"index name {d_stmt.name!r} is ambiguous (exists on "
+                f"tables {tables}); drop and recreate with distinct "
+                f"names")
+        desc, idx = found[0]
+        desc.indexes = [i for i in desc.indexes if i.name != idx.name]
+        self.leases.publish(desc)
+        self._index_defs.pop(desc.name, None)
+        if idx.unique:
+            # the index keyspace goes at once (the reference's is a
+            # GC-TTL'd schema-change job)
+            p = K.table_prefix(desc.id, idx.index_id)
+            self.kv.txn(lambda t: t.delete_range(p, K.prefix_end(p)))
+        return Result(tag="DROP INDEX")
+
+    def _exec_show_indexes(self, stmt: ast.ShowIndexes) -> Result:
+        d = self.catalog.get_by_name(stmt.table)
+        if d is None:
+            raise EngineError(f"table {stmt.table!r} does not exist")
+        rows = [(stmt.table, "primary",
+                 ", ".join(d.primary_key) or ROWID, True, "public")]
+        rows += [(stmt.table, i.name, ", ".join(i.columns), i.unique,
+                  i.state) for i in d.indexes]
+        return Result(names=["table_name", "index_name", "columns",
+                             "unique", "state"],
+                      rows=rows, tag="SHOW INDEXES")
 
     # -- views ----------------------------------------------------------------
     # A view is a descriptor carrying SQL text; every use re-plans it

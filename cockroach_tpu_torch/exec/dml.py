@@ -374,8 +374,14 @@ class DMLMixin:
             self._register_table_read(t, d.table, read_ts)
             rts = read_ts.to_int()
             pending = self._txn_key_state(effects, d.table)
+            cand = self._dml_index_candidates(d.table, d.where, session)
+            n_committed = len(td.chunks)
             victims: list[tuple[bytes, dict]] = []
-            for chunk in self._overlay_chunks(d.table, effects, read_ts):
+            for ci, chunk in enumerate(
+                    self._overlay_chunks(d.table, effects, read_ts)):
+                if cand is not None and ci < n_committed \
+                        and ci not in cand:
+                    continue
                 mask = chunk.live_mask(rts) & predf(chunk)
                 for ri in np.nonzero(mask)[0]:
                     row = self.store.extract_row(td, chunk, int(ri))
@@ -480,7 +486,13 @@ class DMLMixin:
             rts = read_ts.to_int()
             idx = self.store.ensure_pk_index(u.table)
             todo = []
-            for chunk in self._overlay_chunks(u.table, effects, read_ts):
+            cand = self._dml_index_candidates(u.table, u.where, session)
+            n_committed = len(td.chunks)
+            for ci, chunk in enumerate(
+                    self._overlay_chunks(u.table, effects, read_ts)):
+                if cand is not None and ci < n_committed \
+                        and ci not in cand:
+                    continue
                 mask = chunk.live_mask(rts) & predf(chunk)
                 if not mask.any():
                     continue

@@ -52,9 +52,15 @@ from its second run (exec/ctecompose.py). SHOW, EXPLAIN [ANALYZE],
 session tracing, statement diagnostics and the profile planes are
 exec/explain.py's and exec/profile.py's.
 
-Everything else the reference engine does (secondary indexes,
-distribution, distributed spill) is not ported yet and raises
-EngineError.
+Schema changes run online (exec/ddl.py, exec/maintenance.py): CREATE
+INDEX and ALTER TABLE publish descriptor versions through leases and
+backfill as durable jobs. AS OF SYSTEM TIME sets a SELECT's read
+timestamp, a runtime argument of its compiled plan (the upload carries
+every version), below a table's GC threshold refused.
+
+Everything else the reference engine does (BACKUP/RESTORE,
+changefeeds, distribution, distributed spill) is not ported yet and
+raises EngineError.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ import copy
 import datetime
 import decimal
 import json
+import re
 import threading
 import time
 import weakref
@@ -73,7 +80,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..catalog import Catalog
+from ..catalog import Catalog, LeaseManager
 from ..kv.txn import DB as KVDB
 from ..kv.txn import KVStore, Txn
 from ..kv.concurrency import TxnAbortedError, TxnRetryError
@@ -82,7 +89,7 @@ from ..ops.batch import ColumnBatch, pull_arrays, pull_batch_columns
 from ..ops.join import MAX_EXPAND
 from ..sql import ast, parser
 from ..sql import plan as P
-from ..sql.binder import Binder, Scope
+from ..sql.binder import Binder, Scope, parse_timestamp
 from ..sql.bound import BCol, BConst
 from ..sql.decorrelate import decorrelate_exists, decorrelate_scalar
 from ..sql.planner import CatalogView, PlanError, Planner
@@ -111,6 +118,7 @@ from .explain import ExplainMixin, StatementObserver
 from .expr import ExprContext, compile_expr
 from .fastpath import FastpathMixin
 from .joinfilter import find_specs
+from .maintenance import MaintenanceMixin
 from .movement import TransferScheduler
 from .oltplane import OltpLaneMixin
 from .scanplane import ScanPlaneMixin, scan_maps
@@ -120,7 +128,7 @@ from .session import (SENTINEL_COLUMNS, CompactOverflow, EngineError,
 from .spill import compile_spill_sort
 from .stream import extract_zone_preds
 from .stmtutil import (RerunPrepared, decode_scalar, host_sort,
-                       rewrite_table_names, sort_rows)
+                       propagate_as_of, rewrite_table_names, sort_rows)
 from .tenantcache import TenantLRU
 
 EPOCH_DATE = datetime.date(1970, 1, 1)
@@ -180,7 +188,7 @@ def _per_thread(name: str, fresh):
 
 
 class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
-             FastpathMixin, ScanPlaneMixin, ExplainMixin):
+             MaintenanceMixin, FastpathMixin, ScanPlaneMixin, ExplainMixin):
     # the per-statement state, per thread: the last statement's route
     # (_fresh_route: its main query's Compact nodes, replans
     # ("no_topk", "no_compact", in order) and last run's
@@ -217,6 +225,16 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         self.kv = KVDB(KVStore(clock=self.clock))
         self.catalog = Catalog(self.kv,
                                id_floor=lambda: self.store._next_table_id)
+        # descriptor leases (catalog/lease.py): schema changes publish
+        # through them and wait for older versions to drain
+        self.leases = LeaseManager(self.catalog, holder=f"sql-{id(self)}",
+                                   now_ns=lambda: self.clock.now().wall)
+        # per-table index descriptors from the catalog (exec/ddl.py
+        # _table_indexes); the job registry and the protected-timestamp
+        # records, built at first use (exec/maintenance.py)
+        self._index_defs: dict[str, list] = {}
+        self._jobs = None
+        self._pts = None
         # sessions this engine handed out (non-transactional DDL checks
         # their open txns' effects)
         self._open_sessions: weakref.WeakSet = weakref.WeakSet()
@@ -517,16 +535,36 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                              ast.ShowColumns, ast.ShowCreateTable,
                              ast.ShowTrace)):
             return self._exec_show(stmt, session)
+        if isinstance(stmt, ast.ConfigureZone):
+            return self._exec_configure_zone(stmt)
+        if isinstance(stmt, ast.ShowZone):
+            return self._exec_show_zone(stmt)
+        if isinstance(stmt, ast.ShowIndexes):
+            return self._exec_show_indexes(stmt)
+        if isinstance(stmt, ast.ShowJobs):
+            return self._exec_show_jobs()
+        if isinstance(stmt, ast.CancelJob):
+            self.jobs.cancel(stmt.job_id)
+            return Result(tag="CANCEL JOB")
         if isinstance(stmt, (ast.Insert, ast.Update, ast.Delete,
-                             ast.Truncate)) \
+                             ast.Truncate, ast.AlterTable)) \
                 and stmt.table in self._view_map():
             raise EngineError(
                 f"{stmt.table!r} is a view; views are not modifiable")
         if isinstance(stmt, (ast.CreateTable, ast.DropTable,
-                             ast.Truncate, ast.CreateView, ast.DropView)):
-            # eligibility may flip (a CHECK, an FK child); a re-created
-            # table needs a new mirror
+                             ast.Truncate, ast.CreateView, ast.DropView,
+                             ast.CreateIndex, ast.DropIndex,
+                             ast.AlterTable)):
+            # eligibility may flip (a CHECK, an FK child, an index, a
+            # column DEFAULT); a re-created or changed table needs a new
+            # mirror
             self._lane_reset()
+        if isinstance(stmt, ast.AlterTable):
+            return self._exec_alter(stmt)
+        if isinstance(stmt, ast.CreateIndex):
+            return self._exec_create_index(stmt)
+        if isinstance(stmt, ast.DropIndex):
+            return self._exec_drop_index(stmt)
         if isinstance(stmt, ast.CreateView):
             return self._exec_create_view(stmt, session)
         if isinstance(stmt, ast.DropView):
@@ -640,6 +678,44 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
     def _read_ts(self, session: Session) -> Timestamp:
         return session.txn_read_ts or self.clock.now()
 
+    def _as_of_ts(self, sel, session: Session) -> Timestamp | None:
+        """The statement's AS OF SYSTEM TIME as a Timestamp, or None
+        without one. The forms (a subset of the reference's,
+        sql/as_of.go): a negative interval string ('-10s', '-2m',
+        '-1h'), a timestamp string, or decimal HLC wall nanoseconds."""
+        aso = getattr(sel, "as_of", None)
+        if aso is None:
+            return None
+        if session.txn is not None:
+            raise EngineError(
+                "AS OF SYSTEM TIME is not allowed inside a transaction")
+        if not isinstance(aso, ast.Literal):
+            raise EngineError("AS OF SYSTEM TIME requires a constant")
+        v = aso.value
+        if isinstance(v, str):
+            m = re.fullmatch(r"-(\d+(?:\.\d+)?)([smh])", v.strip())
+            if m:
+                mult = {"s": 1e9, "m": 60e9, "h": 3600e9}[m.group(2)]
+                wall = self.clock.now().wall - int(float(m.group(1)) * mult)
+            else:
+                try:
+                    wall = parse_timestamp(v) * 1000  # micros -> ns
+                except Exception:
+                    raise EngineError(
+                        f"cannot parse AS OF SYSTEM TIME {v!r}") from None
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            wall = int(v)
+        else:
+            raise EngineError(f"cannot parse AS OF SYSTEM TIME {v!r}")
+        if wall <= 0 or wall > self.clock.now().wall:
+            raise EngineError("AS OF SYSTEM TIME must be in the past")
+        return Timestamp(int(wall), 0)
+
+    def _stmt_read_ts(self, sel, session: Session) -> Timestamp:
+        """The read timestamp of one SELECT: its AS OF SYSTEM TIME, else
+        the session's."""
+        return self._as_of_ts(sel, session) or self._read_ts(session)
+
     @staticmethod
     def _overlay_puts(session: Session) -> dict:
         """Tables the session's open txn wrote -> its buffered puts on
@@ -715,7 +791,27 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         explicit txn overlay rows could fall outside a committed range
         and corrupt a mixed-radix group code)."""
         from ..sql.stats import TableStats
-        schemas = {n: td.schema for n, td in self.store.tables.items()}
+        # the planner sees the PUBLIC schema: a column mid-add or
+        # mid-drop (WRITE_ONLY, jobs/schemachange.py) is in the store,
+        # hidden until published; only PUBLIC indexes are access paths
+        schemas = {}
+        for n, td in self.store.tables.items():
+            s = td.schema
+            if any(c.hidden for c in s.columns):
+                s = TableSchema(name=s.name,
+                                columns=[c for c in s.columns
+                                         if not c.hidden],
+                                primary_key=list(s.primary_key),
+                                table_id=s.table_id)
+            schemas[n] = s
+        indexes = {}
+        for n in self.store.tables:
+            if n.startswith(TEMP_PREFIX):
+                continue   # a statement's temp: no descriptor, no index
+            pub = [(i.name, tuple(i.columns), i.unique)
+                   for i in self._table_indexes(n) if i.state == "public"]
+            if pub:
+                indexes[n] = pub
         dicts = {n: dict(td.dictionaries)
                  for n, td in self.store.tables.items()}
         stats_map = {}
@@ -751,7 +847,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                            key_distinct_fn=self.store.key_distinct,
                            int_range_fn=(self.store.key_int_range
                                          if int_ranges else None),
-                           keys_unique_fn=unique_fn)
+                           keys_unique_fn=unique_fn, indexes=indexes)
 
     def _plan(self, stmt: ast.Select, session: Session,
               read_ts: Timestamp, no_memo: bool = False,
@@ -775,6 +871,9 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         done = {}
 
         def subquery_eval(sel, limit_one):
+            # AS OF pins the whole statement: its subqueries read at the
+            # same timestamp
+            sel = propagate_as_of(sel, stmt)
             key = (repr(sel), limit_one)
             if key not in done:
                 done[key] = self._eval_subquery(sel, session, limit_one)
@@ -1361,7 +1460,6 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             return RerunPrepared(self, session, stmt, sql)
         if not isinstance(stmt, ast.Select):
             raise EngineError("can only prepare SELECTs")
-        _check_select(stmt)
         stmt = self._expand_views(stmt)
         sel = stmt
         if not (stmt.ctes or self._has_derived(stmt)):
@@ -1381,7 +1479,6 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         Prepared.run)."""
         if isinstance(sel, ast.SetOp):
             return self._exec_setop(sel, session, sql_text)
-        _check_select(sel)
         sel = self._decorrelate(self._expand_views(sel))
         if sel.ctes or self._has_derived(sel):
             return self._exec_with_temps(sel, session, sql_text)
@@ -1609,8 +1706,15 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         Inside an open txn with writes, the tables it wrote read an
         overlay of committed chunks and its buffered effects, uploaded
         for this statement alone (never cached, never paged), at the
-        txn's read timestamp."""
-        read_ts = self._read_ts(session)
+        txn's read timestamp.
+
+        AS OF SYSTEM TIME sets the read timestamp of the whole
+        preparation (the plan's checks, the handle's runs) and is
+        refused below a scanned table's GC threshold; the timestamp is
+        a runtime argument of the compiled plan, never part of its
+        exec-cache key."""
+        as_of = self._as_of_ts(sel, session)
+        read_ts = as_of or self._read_ts(session)
         sink: set = set()
         self._gen_sinks.append(sink)
         try:
@@ -1651,6 +1755,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         scans, gens, shapes = {}, sink, []
         resident = {t for a, t in scan_aliases.items() if a not in paged}
         for alias, tname in scan_aliases.items():
+            if as_of is not None:
+                self._check_gc_threshold(tname, as_of)
             # the read enters the timestamp cache (and an open txn's
             # refresh set): a conflicting writer is pushed above it
             self._register_table_read(session.txn, tname, read_ts)
@@ -1728,7 +1834,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                         if spill is not None and spill.build_alias
                         else None),
             joinfilter=jf_specs, placement=self._placement_key(session),
-            scan_tables=dict(scan_aliases))
+            scan_tables=dict(scan_aliases), as_of=as_of)
         cap = self._cte_capture
         if cap is not None and cap["want_main"] and not cap["disabled"]:
             # the last preparation after the temps is the main plan
@@ -1865,7 +1971,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
 
         try:
             for name, cols, sub in sel.ctes:
-                sub = rewrite_table_names(sub, mapping)
+                sub = propagate_as_of(rewrite_table_names(sub, mapping),
+                                      sel)
                 tname = tname_of(name)
                 temps.append(tname)
                 self._materialize_temp_select(tname, sub, session, cols,
@@ -1883,7 +1990,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                 ref = obj if kind == "table" else obj.table
                 if ref.subquery is None:
                     continue
-                sub = rewrite_table_names(ref.subquery, mapping)
+                sub = propagate_as_of(
+                    rewrite_table_names(ref.subquery, mapping), sel)
                 tname = tname_of(ref.alias)
                 temps.append(tname)
                 self._materialize_temp_select(tname, sub, session, None,
@@ -2096,7 +2204,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         runf, meta, _ = self._compiled(key, cgens, node, params,
                                        prep.meta)
         names = list(meta.names)
-        ts = (read_ts or self._read_ts(prep.session)).to_int()
+        ts = (read_ts or prep.as_of
+              or self._read_ts(prep.session)).to_int()
 
         def run_pid(nparts: int, pid: int) -> dict:
             rc = RunContext(prep.scans, ts, nparts, pid)
@@ -2269,11 +2378,6 @@ def _fresh_route() -> dict:
             "all": {"runs": 0, "compact_nodes": 0, "compacts_applied": 0,
                     "topk_cuts": 0, "group_ids": 0, "expansions": [],
                     "replans": [], "partitioned": [], "paging": []}}
-
-
-def _check_select(sel: ast.Select) -> None:
-    if getattr(sel, "as_of", None) is not None:
-        raise EngineError("AS OF SYSTEM TIME is not yet ported")
 
 
 def _temp_names(names, rename, tname: str) -> list:

@@ -244,7 +244,8 @@ class ExplainMixin:
                           rows=[(ln,) for ln in
                                 self._explain_composite(target, session)],
                           tag="EXPLAIN")
-        node, emeta = self._plan(target, session, self._read_ts(session),
+        node, emeta = self._plan(target, session,
+                                 self._stmt_read_ts(target, session),
                                  for_explain=True, trace=rtrace)
         costs = estimate(node, self.catalog_view().stats)
         tree = P.plan_tree_repr(node, costs=costs)

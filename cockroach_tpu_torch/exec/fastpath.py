@@ -1,11 +1,14 @@
-"""Host-side primary-key fast paths: point and range reads that never
-touch the device (the latency analogue of the reference's kvfetcher
-single-range fast path).
+"""Host-side index fast paths: point and range reads that never touch
+the device (the latency analogue of the reference's kvfetcher
+single-range fast path, a constrained index scan).
 
-The port of cockroach_tpu/exec/fastpath.py. Until secondary indexes are
-ported, the primary key is the only candidate index. The range path
-serves YCSB-E's ``WHERE k >= x ORDER BY k LIMIT n`` with early
-termination over a sorted locator of the key's row versions.
+The port of cockroach_tpu/exec/fastpath.py. The candidate indexes are
+the primary key and the table's PUBLIC secondary indexes, best first:
+primary, unique, non-unique. The range path serves YCSB-E's ``WHERE k
+>= x ORDER BY k LIMIT n`` with early termination over a sorted locator
+of the index's row versions. Both read at the statement's AS OF SYSTEM
+TIME when it has one. ``_dml_index_candidates`` narrows a point
+UPDATE or DELETE to the chunks an index says can hold its rows.
 """
 
 from __future__ import annotations
@@ -26,6 +29,46 @@ from .stmtutil import decode_storage_value, split_conjuncts_ast
 class FastpathMixin:
     """Engine methods of the host fast paths; mixed into
     exec.engine.Engine (all state lives on the Engine instance)."""
+
+    def _dml_index_candidates(self, table: str, where,
+                              session: Session):
+        """The chunks that can hold rows matching ``where``'s equality
+        conjuncts, by a usable secondary index: a point UPDATE or DELETE
+        then evaluates its predicate over those alone. None: no usable
+        index, every chunk. The locator covers every row version, so a
+        pruned chunk holds no match at any timestamp."""
+        if where is None or not self._table_indexes(table):
+            # index-less tables (the lane's whole population) skip
+            # building and matching the probe SELECT
+            return None
+        probe = ast.Select(items=[ast.SelectItem(None, star=True)],
+                           table=ast.TableRef(table), where=where)
+        match = self._index_fastpath_match(probe, session)
+        if match is None:
+            return None
+        _label, cols, vals, _residual = match
+        sec = self.store.ensure_secondary_index(table, cols)
+        return {ci for ci, _ri in sec.get(vals, [])}
+
+    def _public_indexes(self, tname: str, schema) -> list:
+        """(label, columns, rank) of the candidate indexes: the primary
+        key (0), PUBLIC unique (1) and non-unique (2) secondary ones."""
+        cands = []
+        if schema.primary_key:
+            cands.append(("primary", tuple(schema.primary_key), 0))
+        for idx in self._table_indexes(tname):
+            if idx.state == "public":
+                cands.append((idx.name, tuple(idx.columns),
+                               1 if idx.unique else 2))
+        return cands
+
+    def _fastpath_read_ts(self, sel: ast.Select, session: Session,
+                          tname: str):
+        read_ts = self._as_of_ts(sel, session)
+        if read_ts is None:
+            return self._read_ts(session)
+        self._check_gc_threshold(tname, read_ts)
+        return read_ts
 
     def _fastpath_shape(self, sel: ast.Select, session: Session):
         """Common structural gate: a single stored table and
@@ -58,7 +101,7 @@ class FastpathMixin:
 
     def _index_fastpath_match(self, sel: ast.Select, session: Session):
         """(label, cols, vals, residual) when this SELECT is an equality
-        lookup covering every primary-key column: single table,
+        lookup covering every column of a usable index: single table,
         projection-only items, conjunctive WHERE with constant
         equalities. None = the compiled scan path."""
         shape = self._fastpath_shape(sel, session)
@@ -87,25 +130,27 @@ class FastpathMixin:
                     and lhs.name not in eq):
                 eq[lhs.name] = rhs
                 eq_conjs[lhs.name] = c
-        cols = tuple(schema.primary_key)
-        if not eq or not cols or not all(cn in eq for cn in cols):
+        if not eq:
             return None
-        vals = []
-        for cn in cols:
-            v = self._coerce_index_literal(schema.column(cn), eq[cn])
-            if v is None:
-                return None
-            vals.append(v)
-        consumed = {id(eq_conjs[cn]) for cn in cols}
-        residual = any(id(c) not in consumed for c in conjs)
-        return ("primary", cols, tuple(vals), residual)
+        for label, cols, _rank in sorted(
+                self._public_indexes(tname, schema), key=lambda c: c[2]):
+            if not all(cn in eq for cn in cols):
+                continue
+            vals = [self._coerce_index_literal(schema.column(cn), eq[cn])
+                    for cn in cols]
+            if any(v is None for v in vals):
+                continue
+            consumed = {id(eq_conjs[cn]) for cn in cols}
+            residual = any(id(c) not in consumed for c in conjs)
+            return (label, cols, tuple(vals), residual)
+        return None
 
     def _exec_index_fastpath(self, sel: ast.Select, session: Session,
                              match) -> Optional[Result]:
         _label, cols, vals, residual = match
         tname = sel.table.name
         td = self.store.table(tname)
-        read_ts = self._read_ts(session)
+        read_ts = self._fastpath_read_ts(sel, session, tname)
         rts = read_ts.to_int()
         positions = self.store.ensure_secondary_index(tname, cols).get(
             vals, [])
@@ -159,16 +204,13 @@ class FastpathMixin:
         return v
 
     def _range_fastpath_match(self, sel: ast.Select, session: Session):
-        """Match a primary-key-ordered range scan: equality on a prefix
-        of the key plus optional bounds on the next column (a
-        constrained ordered index scan)."""
+        """Match an index-ordered range scan: equality on a prefix of an
+        index plus optional bounds on the next column (a constrained
+        ordered index scan)."""
         shape = self._fastpath_shape(sel, session)
         if shape is None or sel.where is None:
             return None
         tname, schema, visible, projected = shape
-        cols = tuple(schema.primary_key)
-        if not cols:
-            return None
         # comparisons normalized to (conj, col, op, literal)
         comps = []
         for c in split_conjuncts_ast(sel.where):
@@ -187,6 +229,15 @@ class FastpathMixin:
                     comps.append((c, lhs.name, op, rhs))
                     continue
             comps.append((c, None, None, None))
+        for label, cols, _rank in self._public_indexes(tname, schema):
+            m = self._range_match_index(sel, schema, projected, comps,
+                                        label, cols)
+            if m is not None:
+                return m
+        return None
+
+    def _range_match_index(self, sel, schema, projected, comps, label,
+                           cols):
         consumed = []
         eq_vals = []
         p = 0
@@ -239,7 +290,7 @@ class FastpathMixin:
                 isinstance(ob.expr, ast.ColumnRef)
                 and ob.expr.name in projected for ob in sel.order_by):
             return None  # cannot even host-sort the output
-        return {"label": "primary", "cols": cols, "p": p,
+        return {"label": label, "cols": cols, "p": p,
                 "eq_vals": tuple(eq_vals), "lo": lo,
                 "lo_strict": lo_strict, "hi": hi,
                 "hi_strict": hi_strict, "residual": residual,
@@ -249,7 +300,7 @@ class FastpathMixin:
                              m: dict) -> Optional[Result]:
         tname = sel.table.name
         td = self.store.table(tname)
-        read_ts = self._read_ts(session)
+        read_ts = self._fastpath_read_ts(sel, session, tname)
         rts = read_ts.to_int()
         entries = self.store.ensure_sorted_index(tname, m["cols"])
         p, eq_vals = m["p"], m["eq_vals"]

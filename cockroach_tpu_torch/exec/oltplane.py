@@ -450,13 +450,16 @@ class OltpLaneMixin:
     def _lane_table_ok(self, tname: str) -> bool:
         """Schema-level eligibility: mirrorable columns and none of the
         write-path features the lane skips (CHECK, FK, FK children,
-        column DEFAULTs): those statements take the full path."""
+        column DEFAULTs, ALTER TABLE defaults, secondary indexes, whose
+        unique entries and locators only the full path maintains):
+        those statements take the full path."""
         if tname not in self.store.tables or tname in self._view_map():
             return False
         td = self.store.table(tname)
         if not mirror_eligible(td.schema):
             return False
-        if any(c.default is not None for c in td.schema.columns):
+        if any(c.default is not None for c in td.schema.columns) \
+                or td.column_defaults or self._table_indexes(tname):
             return False
         d = self.catalog.get_by_name(tname)
         if d is not None and (d.checks or d.fks):
@@ -1081,7 +1084,7 @@ class OltpLaneMixin:
     _TABLELESS = (ast.SetVar, ast.BeginTxn, ast.RollbackTxn,
                   ast.CreateSequence, ast.DropSequence, ast.ShowSequences,
                   ast.ShowStatements, ast.ShowVar, ast.ShowAll,
-                  ast.ShowTrace)
+                  ast.ShowTrace, ast.ShowJobs, ast.CancelJob)
 
     def _stmt_tables(self, stmt):
         """Base tables ``stmt`` can read or write, or None when they

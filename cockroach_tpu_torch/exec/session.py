@@ -132,6 +132,9 @@ class Prepared:
     # alias -> table of every scan (a composed CTE run feeds the temps'
     # aliases batches of its own, exec/ctecompose.py)
     scan_tables: dict = field(default_factory=dict)
+    # AS OF SYSTEM TIME: the fixed historical read timestamp of every
+    # run (an interval form resolves again when the handle re-prepares)
+    as_of: Optional[Timestamp] = None
 
     def _refresh(self) -> None:
         eng = self.engine
@@ -149,7 +152,7 @@ class Prepared:
             no_topk=self.no_topk, no_compact=self.no_compact)
         for f in ("runf", "scans", "meta", "gens", "node", "stream",
                   "stream_cols", "stream_zone", "spill", "spill_cols",
-                  "joinfilter", "placement", "scan_tables"):
+                  "joinfilter", "placement", "scan_tables", "as_of"):
             setattr(self, f, getattr(p, f))
 
     def _join_filters(self, tsv: int) -> tuple:
@@ -170,7 +173,7 @@ class Prepared:
         """Run the compiled plan once; the device result batch."""
         from .compile import RunContext
         self._refresh()
-        ts = read_ts or self.engine._read_ts(self.session)
+        ts = read_ts or self.as_of or self.engine._read_ts(self.session)
         tsv = ts.to_int()
         if self.spill is not None:
             if self.spill.kind != "join":
@@ -261,7 +264,7 @@ class Prepared:
             if self.spill is not None and self.spill.kind == "sort":
                 # the external merge sort's tail runs on the host
                 from .spill import run_spill_sort
-                ts = read_ts or eng._read_ts(self.session)
+                ts = read_ts or self.as_of or eng._read_ts(self.session)
                 with eng.tracer.span("dispatch"):
                     return run_spill_sort(eng, self, ts.to_int())
             while True:
@@ -273,7 +276,8 @@ class Prepared:
                                                 check=False)
                 except HashCapacityExceeded:
                     try:
-                        return eng._run_partitioned(self, read_ts)
+                        return eng._run_partitioned(
+                            self, read_ts or self.as_of)
                     except CompactOverflow:
                         self._replan("no_compact")
 

@@ -333,3 +333,17 @@ def collect_tables(node, out: set) -> None:
     if dataclasses.is_dataclass(node):
         for f in dataclasses.fields(node):
             collect_tables(getattr(node, f.name), out)
+
+
+def propagate_as_of(inner, outer):
+    """AS OF SYSTEM TIME covers the whole statement: a sub-select (an
+    expression subquery, a CTE, a derived table) inherits the outer
+    clause unless it carries its own."""
+    if not isinstance(inner, ast.Select) \
+            or not isinstance(outer, ast.Select):
+        return inner
+    if outer.as_of is None or inner.as_of is not None:
+        return inner
+    inner = copy.copy(inner)
+    inner.as_of = outer.as_of
+    return inner

@@ -5,7 +5,9 @@ pkg/server: ``NewServer`` server.go:203 wires the subsystems,
 ``AcceptClients`` server.go:1915 opens the pgwire listener). A Node owns
 an Engine on its device (``cuda`` unless ``NodeConfig.device`` names
 another; with no card and no device it raises), the pgwire server, the
-HTTP status server and an optional maintenance loop; ``start()`` brings
+HTTP status server and an optional maintenance loop (orphaned jobs, MVCC
+GC, intents, time series; off unless
+``NodeConfig.maintenance_interval`` is set); ``start()`` brings
 them up and returns once the SQL listener is bound.
 
 Status endpoints: ``/healthz``, ``/_status/statements`` (per-fingerprint
@@ -32,6 +34,7 @@ from urllib.parse import parse_qs, urlparse
 
 from .. import __version__
 from ..exec.engine import Engine
+from ..utils import log
 from .pgwire import PgServer
 from .ts import TimeSeriesDB
 
@@ -47,8 +50,10 @@ class NodeConfig:
     http_port: int | None = 0     # status/metrics; None disables
     load_tpch_sf: float | None = None  # demo mode: preload TPC-H tables
     node_id: int = 1
-    # background maintenance: the abandoned-intent sweep and the tsdb
-    # record + rollup pass every this many seconds; None disables
+    # background maintenance every this many seconds: orphaned-job
+    # adoption, an MVCC GC pass over every user table, the
+    # abandoned-intent sweep and the tsdb record + rollup pass; None
+    # disables
     maintenance_interval: float | None = None
     # pgwire password gate: {user: cleartext password}; None = insecure
     # mode (the reference's --insecure), every user accepted
@@ -106,6 +111,12 @@ class Node:
         self._started = False
         # metrics recorded into the KV plane by the maintenance loop
         self.tsdb = TimeSeriesDB(self.engine.kv, self.engine.metrics)
+        # the engine's registry (its schema-change resumers registered):
+        # the maintenance loop adopts orphaned jobs through it
+        self.jobs = self.engine.jobs
+        self._maint_errors = self.engine.metrics.counter(
+            "node.maintenance.errors",
+            "maintenance-loop steps that raised (each is logged)")
 
     @property
     def sql_addr(self) -> tuple[str, int]:
@@ -246,15 +257,15 @@ class Node:
         if self.config.maintenance_interval is not None:
             self._start_maintenance()
         self._started = True
-        from ..utils import log
         log.structured(log.OPS, "node_start", node_id=self.config.node_id,
                        sql_addr="%s:%d" % self.pg.addr)
         return self
 
     def _start_maintenance(self):
-        """The background passes the port has: the abandoned-intent
-        sweep (intentresolver analogue) and the metric samples into the
-        time-series DB with its rollup/prune pass."""
+        """Orphaned-job adoption (the reference's registry.go:1508
+        adoption loop), MVCC GC passes (mvcc_gc_queue), the
+        abandoned-intent sweep and the time-series passes, on a
+        background cadence."""
         stop = self._maint_stop = threading.Event()
 
         def loop():
@@ -266,16 +277,28 @@ class Node:
         self._maint_thread.start()
 
     def maintain_once(self) -> None:
-        """One maintenance pass (the loop's body; tests tick it)."""
+        """One maintenance pass (the loop's body; tests tick it). A step
+        that raises is counted in ``node.maintenance.errors`` and logged,
+        and the pass goes on with the next step (job failures also land
+        in their records)."""
+        self._maint_step("jobs", self.jobs.adopt_and_run_all)
+        for name in list(self.engine.store.tables):
+            if not name.startswith("__"):
+                self._maint_step(f"gc {name}", self.engine.run_gc, name)
+        self._maint_step("intents",
+                         self.engine.kv.store.intent_resolver.clean_span)
+        self._maint_step("tsdb", self._ts_pass)
+
+    def _maint_step(self, what: str, fn, *args) -> None:
         try:
-            self.engine.kv.store.intent_resolver.clean_span()
-        except Exception:
-            pass
-        try:
-            self.tsdb.record()
-            self.run_ts_maintenance()
-        except Exception:
-            pass
+            fn(*args)
+        except Exception as e:
+            self._maint_errors.inc()
+            log.error(log.OPS, "maintenance step %s failed: %s", what, e)
+
+    def _ts_pass(self) -> None:
+        self.tsdb.record()
+        self.run_ts_maintenance()
 
     def run_ts_maintenance(self) -> None:
         """One tsdb rollup/prune pass with the fine-slab retention of
@@ -295,7 +318,6 @@ class Node:
             self._http.server_close()
             self._http = None
         if self._started:
-            from ..utils import log
             log.structured(log.OPS, "node_stop",
                            node_id=self.config.node_id)
         self._started = False

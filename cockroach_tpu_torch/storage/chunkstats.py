@@ -223,3 +223,14 @@ def compute(data: dict, valid: dict, mvcc_ts: np.ndarray,
     st.ts_min = int(mvcc_ts.min()) if n else 0
     st.del_max = int(mvcc_del.max()) if n else 0
     return st
+
+
+def extend(st: ChunkStats, col: str, vals: np.ndarray,
+           valid: np.ndarray) -> None:
+    """Add one column's summaries to a sealed chunk's stats (the backfill
+    of a column that ALTER TABLE added)."""
+    z, bl, sk = _column_stats(vals, valid)
+    st.zones[col] = z
+    if bl is not None:
+        st.blooms[col] = bl
+        st.distinct[col] = sk

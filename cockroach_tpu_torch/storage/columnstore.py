@@ -196,6 +196,12 @@ class TableData:
     # (cols tuple) -> (generation, sorted [(vals, chunk, row)])
     sec_index_cache: dict = field(default_factory=dict)
     sorted_index_cache: dict = field(default_factory=dict)
+    # storage-form defaults of columns ALTER TABLE added: rows written
+    # without the column (and the chunks the backfill fills) carry them
+    column_defaults: dict = field(default_factory=dict)
+    # the threshold of the last MVCC GC pass (Timestamp.to_int): no
+    # read below it sees every version it would have seen
+    gc_threshold: int = 0
     _codec: object = field(default=None, repr=False, compare=False)
 
     @property
@@ -290,7 +296,7 @@ class ColumnStore:
         data: dict[str, np.ndarray] = {}
         vmap: dict[str, np.ndarray] = {}
         with self._lock:
-            defaults = getattr(td, "column_defaults", {})
+            defaults = td.column_defaults
             for col in td.schema.columns:
                 cn = col.name
                 if cn not in cols:
@@ -350,6 +356,108 @@ class ColumnStore:
             chunk.finalize_stats()
             td.chunks.append(chunk)
             td.pk_index = None  # rebuilt lazily if DML touches this table
+            self._bump(td)
+
+    # -- schema changes (ALTER TABLE; the backfill of pkg/sql/backfill) -----
+    def add_column(self, name: str, col, default=None,
+                   hidden: bool = True) -> None:
+        """Add a column to the live schema, hidden until published. The
+        sealed chunks are backfilled one by one by the schema-change job
+        (backfill_column_chunk); rows written meanwhile carry
+        ``default`` (storage form) at once."""
+        td = self.table(name)
+        with self._lock:
+            if any(c.name == col.name for c in td.schema.columns):
+                raise ValueError(f"column {col.name!r} already exists")
+            col.hidden = hidden
+            td.schema.columns.append(col)
+            if col.type.uses_dictionary:
+                td.dictionaries.setdefault(col.name, Dictionary())
+            if default is not None:
+                td.column_defaults[col.name] = default
+            td._codec = None
+            td.pk_index = None
+            self._bump(td)
+
+    def backfill_column_chunk(self, name: str, colname: str,
+                              chunk_index: int) -> bool:
+        """Fill one sealed chunk with the column's default (idempotent:
+        False when the chunk has it already). The unit of the
+        schema-change job's checkpoints."""
+        td = self.table(name)
+        with self._lock:
+            if chunk_index >= len(td.chunks):
+                return False
+            chunk = td.chunks[chunk_index]
+            if colname in chunk.data:
+                return False
+            col = td.schema.column(colname)
+            default = td.column_defaults.get(colname)
+            n = chunk.n
+            if default is None:
+                chunk.data[colname] = np.zeros(n, dtype=(
+                    np.int32 if col.type.uses_dictionary
+                    else col.type.np_dtype))
+                chunk.valid[colname] = np.zeros(n, dtype=bool)
+            elif col.type.uses_dictionary:
+                code = td.dictionaries[colname].encode(default)
+                chunk.data[colname] = np.full(n, code, dtype=np.int32)
+                chunk.valid[colname] = np.ones(n, dtype=bool)
+            else:
+                v = default
+                if col.type.family == Family.DECIMAL \
+                        and not isinstance(v, (int, np.integer)):
+                    v = int(round(float(v) * 10 ** col.type.scale))
+                chunk.data[colname] = np.full(n, v, dtype=col.type.np_dtype)
+                chunk.valid[colname] = np.ones(n, dtype=bool)
+            if chunk._stats is not None:
+                chunkstats.extend(chunk._stats, colname,
+                                  chunk.data[colname], chunk.valid[colname])
+                chunk._zones[colname] = chunk._stats.zones[colname]
+            else:
+                chunk.finalize_stats()
+            self._bump(td)
+            return True
+
+    def unfilled_chunks(self, name: str, colname: str) -> list[int]:
+        td = self.table(name)
+        with self._lock:
+            return [i for i, c in enumerate(td.chunks)
+                    if colname not in c.data]
+
+    def publish_column(self, name: str, colname: str) -> None:
+        """Show an added column to readers (its descriptor went PUBLIC)."""
+        self._set_hidden(name, colname, False)
+
+    def hide_column(self, name: str, colname: str) -> None:
+        self._set_hidden(name, colname, True)
+
+    def _set_hidden(self, name: str, colname: str, hidden: bool) -> None:
+        td = self.table(name)
+        with self._lock:
+            td.schema.column(colname).hidden = hidden
+            self._bump(td)
+
+    def drop_column(self, name: str, colname: str) -> None:
+        td = self.table(name)
+        with self._lock:
+            idx = td.schema.column_index(colname)
+            if colname in td.schema.primary_key:
+                raise ValueError(
+                    f"cannot drop primary key column {colname!r}")
+            del td.schema.columns[idx]
+            td.dictionaries.pop(colname, None)
+            td.column_defaults.pop(colname, None)
+            for c in td.chunks:
+                c.data.pop(colname, None)
+                c.valid.pop(colname, None)
+                c._zones.pop(colname, None)
+                if c._stats is not None:
+                    c._stats.zones.pop(colname, None)
+                    c._stats.blooms.pop(colname, None)
+                    c._stats.distinct.pop(colname, None)
+            td._codec = None
+            td.pk_index = None
             self._bump(td)
 
     # -- the write path: committed effects, keys, row locators ---------------
@@ -531,7 +639,8 @@ class ColumnStore:
                 if sort:
                     loc = list(loc)
                 for i, row in enumerate(rows):
-                    vals = tuple(row.get(cn) for cn in cols)
+                    vals = tuple(row.get(cn, td.column_defaults.get(cn))
+                                 for cn in cols)
                     if any(v is None for v in vals):
                         continue
                     if sort:
@@ -546,11 +655,13 @@ class ColumnStore:
                    rowid) -> Chunk:
         """Storage-logical row dicts as one chunk (no seal-time stats):
         strings are dictionary-encoded, DECIMAL ints are already-scaled
-        physical values (floats are logical and get scaled)."""
+        physical values (floats are logical and get scaled). A column a
+        row lacks takes its ALTER TABLE default, else NULL."""
         n = len(rows)
         data, vmap = {}, {}
         for col in td.schema.columns:
-            vals = [r.get(col.name) for r in rows]
+            dv = td.column_defaults.get(col.name)
+            vals = [r.get(col.name, dv) for r in rows]
             vmap[col.name] = np.array([x is not None for x in vals],
                                       dtype=bool)
             if col.type.uses_dictionary:
@@ -583,9 +694,11 @@ class ColumnStore:
             cached = td.sec_index_cache.get(cols)
             if cached is not None and cached[0] == td.generation:
                 return cached[1]
-            idx: dict[tuple, list] = {}
-            for ci, vals, ri in self._index_rows(td, cols):
-                idx.setdefault(vals, []).append((ci, ri))
+            idx = self._numeric_locator(td, cols)
+            if idx is None:
+                idx = {}
+                for ci, vals, ri in self._index_rows(td, cols):
+                    idx.setdefault(vals, []).append((ci, ri))
             td.sec_index_cache = {k: v for k, v in
                                   td.sec_index_cache.items()
                                   if v[0] == td.generation}
@@ -610,6 +723,52 @@ class ColumnStore:
                                      if v[0] == td.generation}
             td.sorted_index_cache[cols] = (td.generation, entries)
             return entries
+
+    @staticmethod
+    def _numeric_locator(td: TableData, cols: tuple):
+        """ensure_secondary_index's locator built with numpy when every
+        column is stored as integers or booleans (no dictionary): the
+        same dict, keys in the order of their first row and positions in
+        row order, without a Python step per row. None: another column
+        type, the caller's row loop builds it."""
+        for cn in cols:
+            if td.schema.column(cn).type.uses_dictionary or any(
+                    c.data[cn].dtype.kind not in "iub" for c in td.chunks):
+                return None
+        cis, ris, keys = [], [], [[] for _ in cols]
+        for ci, chunk in enumerate(td.chunks):
+            valid = np.ones(chunk.n, dtype=bool)
+            for cn in cols:
+                valid &= chunk.valid[cn]
+            rows = np.nonzero(valid)[0]
+            cis.append(np.full(len(rows), ci, dtype=np.int64))
+            ris.append(rows)
+            for j, cn in enumerate(cols):
+                keys[j].append(chunk.data[cn][rows])
+        if not cis or not sum(len(r) for r in ris):
+            return {}
+        ci, ri = np.concatenate(cis), np.concatenate(ris)
+        keys = [np.concatenate(k) for k in keys]
+        order = (np.argsort(keys[0], kind="stable") if len(keys) == 1
+                 else np.lexsort(keys[::-1]))
+        sk = [k[order] for k in keys]
+        n = len(order)
+        new = np.zeros(n, dtype=bool)
+        new[0] = True
+        for k in sk:
+            new[1:] |= k[1:] != k[:-1]
+        starts = np.nonzero(new)[0]
+        ends = np.append(starts[1:], n)
+        # groups in the order of their first row (a stable sort puts
+        # that row first in its group); the dict is built by one
+        # dict(zip()) over slices made with map, since a comprehension
+        # over millions of groups spends most of its time in the cyclic
+        # collector's passes
+        groups = np.argsort(order[starts], kind="stable")
+        pos = list(zip(ci[order].tolist(), ri[order].tolist()))
+        vals = zip(*(k[starts][groups].tolist() for k in sk))
+        return dict(zip(vals, map(pos.__getitem__, map(
+            slice, starts[groups].tolist(), ends[groups].tolist()))))
 
     @staticmethod
     def _index_rows(td: TableData, cols: tuple):
@@ -768,30 +927,43 @@ class ColumnStore:
         the default); GROUP BY accumulator sizing sets
         include_null_group because NULL keys DO form a group. Cached
         per generation when read_ts sees the table's final state
-        (same reasoning as keys_unique_for_read tier 2)."""
+        (same reasoning as keys_unique_for_read tier 2). A historical
+        read_ts (AS OF SYSTEM TIME) sizes a GROUP BY by the count over
+        ALL versions, cached per generation too: every snapshot is a
+        subset, so it bounds each snapshot's groups, and an AS OF
+        '-10s' that reads at a new timestamp each statement reuses it.
+        A join's expansion stays exact at the snapshot (the
+        all-versions count of a row updated many times could pass the
+        limit past which the join is refused)."""
         td = self.table(name)
         with self._lock:
-            cacheable = read_ts_int >= self._ts_hi_locked(td)
             mk = ("__maxmult__", include_null_group) + cols
-            if cacheable:
-                hit = td.key_distinct_cache.get(mk)
-                if hit is not None and hit[0] == td.generation:
-                    return hit[1]
+            at = read_ts_int
+            if read_ts_int < self._ts_hi_locked(td):
+                if not include_null_group:
+                    return self._key_max_multiplicity_locked(
+                        td, cols, read_ts_int)
+                mk = ("__maxmult_allversions__",) + cols
+                at = None
+            hit = td.key_distinct_cache.get(mk)
+            if hit is not None and hit[0] == td.generation:
+                return hit[1]
             k = self._key_max_multiplicity_locked(
-                td, cols, read_ts_int, include_null_group)
-            if cacheable:
-                td.key_distinct_cache[mk] = (td.generation, k)
+                td, cols, at, include_null_group)
+            td.key_distinct_cache[mk] = (td.generation, k)
             return k
 
     @staticmethod
     def _key_max_multiplicity_locked(td: TableData, cols: tuple,
-                                     read_ts_int: int,
+                                     read_ts_int: int | None,
                                      include_null_group: bool = False
                                      ) -> int:
+        """None for read_ts_int: over every version."""
         parts: list[list[np.ndarray]] = [[] for _ in cols]
         null_rows = 0
         for chunk in td.chunks:
-            live = chunk.live_mask(read_ts_int)
+            live = (np.ones(chunk.n, dtype=bool) if read_ts_int is None
+                    else chunk.live_mask(read_ts_int))
             m = live.copy()
             for c in cols:
                 m = m & chunk.valid[c]
@@ -805,6 +977,9 @@ class ColumnStore:
         n = len(cat[0])
         if n == 0:
             return null_rows
+        dense = ColumnStore._dense_key_counts(cat, n)
+        if dense is not None:
+            return max(int(dense.max()), null_rows)
         order = np.lexsort(tuple(reversed(cat)))
         change = np.zeros(n, dtype=bool)
         change[0] = True
@@ -814,6 +989,26 @@ class ColumnStore:
         starts = np.flatnonzero(change)
         runs = np.diff(np.append(starts, n))
         return max(int(runs.max()), null_rows)
+
+    @staticmethod
+    def _dense_key_counts(cat: list, n: int):
+        """Rows per key by one bincount when every key column holds
+        integers (dictionary codes among them) whose value ranges
+        multiply to at most max(n, 2^20) slots: a GROUP BY over a few
+        codes (TPC-H Q1's flags) costs a pass over the rows instead of
+        a sort. None: the caller sorts."""
+        if any(c.dtype.kind not in "iub" for c in cat):
+            return None
+        limit = max(n, 1 << 20)
+        idx = np.zeros(n, dtype=np.int64)
+        slots = 1
+        for c in cat:
+            lo, hi = int(c.min()), int(c.max())
+            slots *= hi - lo + 1
+            if slots > limit:
+                return None
+            idx = idx * (hi - lo + 1) + (c.astype(np.int64) - lo)
+        return np.bincount(idx, minlength=slots)
 
     def key_int_range(self, name: str, col: str):
         """(min, max, count) of an int-family key column over ALL
@@ -842,3 +1037,56 @@ class ColumnStore:
             out = None if lo is None else (lo, hi, n)
             td.key_distinct_cache[ck] = (td.generation, out)
             return out
+
+    # -- GC ------------------------------------------------------------------
+    def gc_pending(self, name: str, threshold: Timestamp) -> int:
+        """The row versions a GC pass at ``threshold`` would remove."""
+        td = self.table(name)
+        ti = threshold.to_int()
+        with self._lock:
+            return sum(int((c.mvcc_del <= ti).sum()) for c in td.chunks)
+
+    def record_gc_threshold(self, name: str, threshold: Timestamp) -> None:
+        """A GC pass's threshold without its compaction: reads below it
+        are refused."""
+        td = self.table(name)
+        with self._lock:
+            td.gc_threshold = max(td.gc_threshold, threshold.to_int())
+
+    def gc(self, name: str, threshold: Timestamp) -> int:
+        """Drop the row versions deleted at or before ``threshold`` (the
+        reference's MVCC GC queue, kvserver/mvcc_gc_queue.go) and record
+        the threshold: reads below it are refused. A chunk that loses
+        rows is rebuilt with fresh write-time summaries, so row
+        positions move and the table takes a new generation; a pass
+        that removes nothing leaves the chunks and the generation (and
+        so every cached upload and plan) as they were."""
+        td = self.table(name)
+        ti = threshold.to_int()
+        removed = 0
+        with self._lock:
+            new_chunks = []
+            for chunk in td.chunks:
+                keep = chunk.mvcc_del > ti
+                drop = chunk.n - int(keep.sum())
+                if drop == 0:
+                    new_chunks.append(chunk)
+                    continue
+                removed += drop
+                if keep.any():
+                    nc = Chunk(
+                        data={k: v[keep] for k, v in chunk.data.items()},
+                        valid={k: v[keep] for k, v in chunk.valid.items()},
+                        mvcc_ts=chunk.mvcc_ts[keep],
+                        mvcc_del=chunk.mvcc_del[keep],
+                        n=int(keep.sum()),
+                        rowid=(chunk.rowid[keep]
+                               if chunk.rowid is not None else None))
+                    nc.finalize_stats()
+                    new_chunks.append(nc)
+            td.gc_threshold = max(td.gc_threshold, ti)
+            if removed:
+                td.chunks = new_chunks
+                td.pk_index = None
+                self._bump(td)
+        return removed

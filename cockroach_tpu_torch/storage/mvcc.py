@@ -325,3 +325,33 @@ class MVCC:
         return False
 
     # -- GC ------------------------------------------------------------------
+    def gc(self, start: bytes, end: bytes, threshold: Timestamp) -> int:
+        """MVCC GC over [start, end): drop the versions shadowed as of
+        ``threshold`` and the tombstones older than it (the reference's
+        mvcc_gc_queue semantics). Nothing under an unresolved intent
+        goes: if its txn aborts, the version beneath is live again."""
+        removed = 0
+        newest_below: set[bytes] = set()
+        to_delete: list[EngineKey] = []
+        intent_keys: set[bytes] = set()
+        for ek, raw in self.engine.scan(EngineKey.meta(start),
+                                        EngineKey.meta(end),
+                                        include_tombstones=True):
+            if ek.is_meta:
+                if raw is not None:
+                    intent_keys.add(ek.key)
+                continue
+            if raw is None or ek.key in intent_keys or ek.ts > threshold:
+                continue
+            if ek.key not in newest_below:
+                # the newest version at or below the threshold stays,
+                # unless it is a tombstone
+                newest_below.add(ek.key)
+                if _dec_value(raw) is None:
+                    to_delete.append(ek)
+            else:
+                to_delete.append(ek)  # shadowed below the threshold
+        for ek in to_delete:
+            self.engine.delete(ek)
+            removed += 1
+        return removed

@@ -126,6 +126,11 @@ def _register_builtins(s: Settings) -> None:
                "= the interpreter default). Process-global: a smaller "
                "quantum lets OLTP batch windows close while an analytic "
                "statement holds the interpreter lock")
+    # zones and MVCC GC (exec/maintenance.py): a table's zone
+    # (CONFIGURE ZONE) overrides both
+    s.register("kv.range.max_bytes", 512 << 20, int,
+               "range split threshold (cf. 512MB default)")
+    s.register("kv.gc.ttl_seconds", 14400, int, "MVCC GC TTL")
     s.register("timeseries.retention.seconds", 6 * 3600, int,
                "fine-resolution (10s) timeseries slabs older than this "
                "are rolled up to coarse resolution and pruned by the "

@@ -64,7 +64,8 @@ SHOWS = ("SHOW TABLES", "SHOW COLUMNS FROM child",
          "SHOW CREATE TABLE expensive", "SHOW CREATE TABLE named",
          "SHOW hash_group_capacity", "SHOW tracing",
          "SHOW sql.trace.slow_statement.threshold",
-         "SHOW sql.exec.hbm_budget_bytes")
+         "SHOW sql.exec.hbm_budget_bytes", "SHOW INDEXES FROM child",
+         "SHOW JOBS", "SHOW ZONE CONFIGURATION FOR TABLE child")
 
 
 @pytest.fixture(scope="module")
@@ -189,7 +190,7 @@ def test_show_unknown_and_not_ported(engines):
         show.execute("SHOW no_such_thing")
     with pytest.raises(EngineError, match="does not exist"):
         show.execute("SHOW CREATE TABLE nope")
-    for sql in ("SHOW INDEXES FROM child", "SHOW JOBS",
-                "SHOW ZONE CONFIGURATION FOR TABLE child"):
+    for sql in ("BACKUP TABLE child INTO '/nowhere'",
+                "RESTORE TABLE child FROM '/nowhere'"):
         with pytest.raises(EngineError, match="not yet ported"):
             show.execute(sql)
