@@ -144,7 +144,7 @@ Phases (any failure exits non-zero before the final line):
    warm full run and the median of 3 warm runs with an outer LIMIT
    1000 (decoding 1.5M rows to Python is most of a full run). (b)
    TPC-H's refresh pair through SQL: the pk locators built and timed
-   (the reference's pure-Python row_key loop timed over 1,000,000 rows
+   (the reference's pure-Python row_key loop timed over 250,000 rows
    beside them), RF1 (1,500 orders and their ~6,000 lines, multi-row INSERTs in one
    transaction) with a Q6 inside it that must read its own writes, RF2
    (DELETE of 1,500 orders' lines and orders), an UPDATE of one
@@ -161,7 +161,8 @@ Phases (any failure exits non-zero before the final line):
    A small table is refilled after TRUNCATE and after DROP + CREATE
    with the same row count and dictionary size, and must read its own
    strings through execute() and a Prepared made before the TRUNCATE.
-   (c) YCSB-E (BASELINE.json config 5): 100,000 records loaded by the
+   (c) YCSB-E (BASELINE.json config 5): 50,000 records in the whole run
+   (100,000 by itself, `dml_phase_alone`) loaded by the
    workload's INSERTs of 10,000 rows, then 10,000 operations (95%
    scans of 10, 5% inserts, zipfian, seed 1, every statement served by
    the OLTP lane), timed; every scan's rows are then held against a
@@ -220,7 +221,7 @@ Phases (any failure exits non-zero before the final line):
    statement; the timed runs' launches are counted the same way, but
    not held against the plain version one by one. 16 wire sessions, a thread each in a client process of
    their own (`wire_client_main`, so their Python does not share the
-   server's interpreter lock), run YCSB-B and then YCSB-E (8,000
+   server's interpreter lock), run YCSB-B and then YCSB-E (6,000
    operations a mix, the port's statement texts, a 40001 retried):
    ops/s and p50/p99 by kind, and 200 written keys read back as some
    session wrote them; under `threads`, `reactor`, and `reactor` with
@@ -312,18 +313,42 @@ Phases (any failure exits non-zero before the final line):
    kernel 1 once, held against the plain version at its own slots;
    kernel 2's launches are counted too, each held against its plain
    version.
+16. Jobs and changefeeds, on the SF1 engine after phase 15 (`jobs_phase`;
+   `jobs_phase_alone()` loads SF1 and runs it by itself), in a temporary
+   directory removed at its end. CREATE CHANGEFEED FOR supplier into a
+   file sink delivers its 10,000 rows from cursor 0; a changefeed on
+   lineitem from now; an UPDATE of one order's lines goes the full path
+   (the lane counts a "changefeed active" decline) and its events
+   arrive. BACKUP TABLE lineitem, orders INTO a collection (SHOW JOBS:
+   succeeded; one protection record at the layer's end_ts). A row-TTL
+   pass over l_shipdate deletes exactly the rows at or before the 5,000th
+   ship date (numpy's count), the feed gets exactly those keys as
+   deletes and a resolved timestamp past them, and Q1 equals its oracle
+   over the rest. A second BACKUP adds an incremental layer and moves
+   the one protection record to its end_ts. RESTORE into a second engine
+   on the card: its Q1 and Q6 equal the source's and the oracles, and an
+   INSERT there takes a rowid past every restored one; the engine closes.
+   An IMPORT of 6,000,000 rows in chunks of 500,000, whose first session
+   crashes after chunk 3 with a lease of 0, is adopted by a second
+   session: count(*), sum(a) and a GROUP BY s equal the sums of
+   synthetic_chunk's arrays exactly. CANCEL JOB ends both feeds' threads;
+   the supplier sink holds its 10,000 rows and one UPDATE, resolved
+   timestamps monotone. Each Q1 launches kernel 1 once and the GROUP BY
+   as its route takes it, each launch held against the plain version;
+   kernel 2's launches are read from its count.
 Each phase's seconds are printed. After phase 10, one JSON `dml` line
 holds phase 11's numbers, one JSON `oltp` line phase 12's, one JSON
 `frontdoor` line phase 13's, one JSON `observability` line phase
-14's (with the node's checks under "node") and one JSON `history` line
-phase 15's, each with the card's name and power limit; then one JSON
-line of per-kernel numbers (the large-G kernel's launches count Q1, Q5,
-Q10, Q12 and the path runs of phases 7, 8, 10, 11, 12, 13, 14 and 15,
-the small-G kernel's Q1F, Q6F and phases 13's and 14's; `path_checks`
-holds each of the large-G kernel's calls in phases 7, 8, 10, 11, 12,
-13, 14 and 15 held against the plain version, and the small-G kernel's
-phase 13 and 14 calls), the nvidia-smi line, and the last line {"ok":
-true, "device": {...}}.
+14's (with the node's checks under "node"), one JSON `history` line
+phase 15's and one JSON `jobs` line phase 16's, each with the card's
+name and power limit; then one JSON line of per-kernel numbers (the
+large-G kernel's launches count Q1, Q5, Q10, Q12 and the path runs of
+phases 7, 8, 10, 11, 12, 13, 14, 15 and 16, the small-G kernel's Q1F,
+Q6F and phases 13's and 14's; `path_checks` holds each of the large-G
+kernel's calls in phases 7, 8, 10, 11, 12, 13, 14, 15 and 16 held
+against the plain version, and the small-G kernel's phase 13 and 14
+calls), the nvidia-smi line, and the last line {"ok": true, "device":
+{...}}.
 
     python3 chip_smoke.py --profile DIR
 
@@ -2267,7 +2292,7 @@ def _apply_refresh(li, orders, li_new, o_new, rf2, upd_key, upd_disc):
 
 
 # rows of lineitem whose keys the pure-Python row_key loop encodes, timed
-PK_LOOP_SAMPLE = 1_000_000
+PK_LOOP_SAMPLE = 250_000
 
 
 def check_refreshed(q, res, want) -> None:
@@ -2823,6 +2848,432 @@ def history_phase_alone(sf: float = SF, device=None, rows=None) -> dict:
                         refresh["orders_after"], sf, refresh["t0_wall"])
     print(f"phase 15: {out['seconds']:.1f} s", flush=True)
     print(json.dumps({"history": dict(out, card=smi)}), flush=True)
+    return out
+
+
+# -- phase 16: jobs and changefeeds ------------------------------------------
+
+IMPORT_ROWS = 6_000_000         # the IMPORT job's rows
+IMPORT_CHUNK = 500_000          # rows a chunk (one sealed chunk each)
+IMPORT_CRASH = 3                # the first session dies after this chunk
+IMPORT_COLUMNS = {"a": "int", "b": "float", "s": 16}
+IMPORT_DDL = ("CREATE TABLE imp (a INT8 NOT NULL, b FLOAT NOT NULL, "
+              "s STRING NOT NULL)")
+IMPORT_GROUP_BY = "SELECT s, count(*), sum(a) FROM imp GROUP BY s ORDER BY s"
+TTL_ROW = 5_000                 # the TTL cutoff is this row's ship date
+FEED_TIMEOUT = 60.0             # seconds a feed has to deliver
+
+
+def _feed_lines(path: str) -> tuple:
+    """(row events, resolved timestamps) in a file sink so far."""
+    rows, resolved = [], []
+    try:
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+    except FileNotFoundError:
+        return rows, resolved
+    for line in text.splitlines():
+        if not line.endswith("}"):
+            continue            # a line the feed is still writing
+        o = json.loads(line)
+        if "resolved" in o:
+            resolved.append(o["resolved"])
+        else:
+            rows.append(o)
+    return rows, resolved
+
+
+def _wait_feed(path: str, cond, label: str) -> tuple:
+    deadline = time.monotonic() + FEED_TIMEOUT
+    while True:
+        got = _feed_lines(path)
+        if cond(*got):
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{label}: the feed delivered "
+                                 f"{len(got[0])} rows, {len(got[1])} "
+                                 "resolved timestamps")
+        time.sleep(0.02)
+
+
+def _collection_bytes(path: str, layer: int) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path) if f.startswith(f"l{layer}_"))
+
+
+def jobs_phase(eng, li_after, sf, import_rows: int = IMPORT_ROWS,
+               import_chunk: int = IMPORT_CHUNK,
+               ttl_row: int = TTL_ROW) -> dict:
+    """Phase 16 on the engine phase 15 left (``li_after``: lineitem's
+    arrays as it holds them): changefeeds on supplier (from cursor 0)
+    and lineitem (from now), a full BACKUP of lineitem and orders, a row
+    TTL pass over lineitem, an incremental BACKUP, RESTORE into a second
+    engine, an IMPORT job of ``import_rows`` rows in chunks of
+    ``import_chunk`` that crashes and is adopted, and CANCEL JOB of both
+    feeds. The TTL cutoff is the ship date of lineitem's ``ttl_row``-th
+    row in ship-date order. Each step checks its own result; each kernel-1 launch is
+    held against the plain version at its slots (on the card), each
+    kernel-2 launch at its inputs."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.jobs import (IMPORT_JOB, ImportResumer,
+                                          Registry, synthetic_chunk)
+    from cockroach_tpu_torch.jobs.registry import _CrashForTesting
+    from cockroach_tpu_torch.models import tpch
+    on_card = eng.device.type == "cuda"
+    t_phase = time.perf_counter()
+    out = {"steps_s": {}}
+    checks: dict = {}
+    small_checks: list = []
+    total = [0, 0]
+
+    def run(label, fn, k1_want, check=None):
+        """One statement: both kernels' launches from 0, rows checked."""
+        _counts_zero()
+        with recording_slots() as calls, recording_small() as scalls:
+            t0 = time.perf_counter()
+            res = fn()
+            _sync()
+            dt = time.perf_counter() - t0
+        k1, k2 = _kernel_counts(on_card)
+        if k1_want is not None and k1 != k1_want:
+            raise AssertionError(f"{label}: kernel 1 launched {k1} times, "
+                                 f"not {k1_want}")
+        if check is not None:
+            check(res.rows)
+        if on_card and k1:
+            checks[f"sf1 {label} phase 16"] = check_calls(
+                f"phase 16 {label}", calls, k1)
+        if on_card and k2:
+            small_checks.extend(_check_small_calls(f"phase 16 {label}",
+                                                   scalls, k2))
+        total[0] += k1
+        total[1] += k2
+        out.setdefault("runs", {})[label] = {"ms": dt * 1e3, "kernel1": k1,
+                                             "kernel2": k2}
+        return res
+
+    def step(name, t0):
+        out["steps_s"][name] = time.perf_counter() - t0
+
+    def q1_is(w):
+        return lambda rows: check_q1(rows, w)
+
+    def q6_is(w):
+        def check(rows):
+            if not _close(rows[0][0], w, DECIMAL_REL):
+                raise AssertionError(f"Q6 {rows[0][0]} != oracle {w}")
+        return check
+
+    with tempfile.TemporaryDirectory(prefix="phase16-") as tmp:
+        coll = os.path.join(tmp, "collection")
+        sup_path = os.path.join(tmp, "supplier.ndjson")
+        li_path = os.path.join(tmp, "lineitem.ndjson")
+
+        # -- 1. feeds -----------------------------------------------------
+        t0 = time.perf_counter()
+        n_sup = eng.store.table("supplier").row_count
+        jid_sup = eng.execute(f"CREATE CHANGEFEED FOR supplier INTO "
+                              f"'file://{sup_path}'").rows[0][0]
+        rows, _ = _wait_feed(sup_path, lambda r, res: res,
+                             "supplier catch-up")
+        if len(rows) != n_sup or any(r["after"] is None for r in rows):
+            raise AssertionError(f"supplier catch-up: {len(rows)} events, "
+                                 f"{n_sup} rows")
+        out["supplier_catch_up_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        cursor = eng.clock.now().to_int()
+        jid_li = eng.create_changefeed("lineitem", f"file://{li_path}",
+                                       cursor=cursor)
+        _wait_feed(li_path, lambda r, res: res, "lineitem feed start")
+        out["lineitem_feed_start_s"] = time.perf_counter() - t1
+        threads = {j: eng._cdc_threads[j][0] for j in (jid_sup, jid_li)}
+        declines = eng.metrics.counter("exec.oltp.lane.cdc_declines")
+        d0, h0 = declines.value(), eng.lane_hits
+        upd = int(li_after["l_orderkey"][-1])
+        n_upd = int((li_after["l_orderkey"] == upd).sum())
+        t1 = time.perf_counter()
+        res = eng.execute("UPDATE lineitem SET l_shipmode = l_shipmode "
+                          f"WHERE l_orderkey = {upd}")
+        out["lineitem_update_s"] = time.perf_counter() - t1
+        if res.row_count != n_upd or declines.value() <= d0 \
+                or eng.lane_hits != h0:
+            raise AssertionError(
+                f"lineitem UPDATE: {res.row_count} rows of {n_upd}, lane "
+                f"declines {declines.value() - d0}, lane hits "
+                f"{eng.lane_hits - h0}")
+        rows, _ = _wait_feed(li_path, lambda r, res: len(r) >= n_upd,
+                             "lineitem UPDATE's events")
+        if len(rows) != n_upd or any(r["after"]["l_orderkey"] != upd
+                                     for r in rows):
+            raise AssertionError(f"lineitem feed: {len(rows)} events for "
+                                 f"the UPDATE of {n_upd} rows")
+        t1 = time.perf_counter()
+        eng.execute("UPDATE supplier SET s_acctbal = s_acctbal "
+                    "WHERE s_suppkey = 1")
+        _wait_feed(sup_path, lambda r, res: len(r) >= n_sup + 1,
+                   "supplier UPDATE's event")
+        out["supplier_update_s"] = time.perf_counter() - t1
+        out["lane_cdc_declines"] = declines.value() - d0
+        step("feeds", t0)
+
+        # -- 2. full backup -----------------------------------------------
+        t0 = time.perf_counter()
+        res = eng.execute(f"BACKUP TABLE lineitem, orders INTO '{coll}'")
+        out["full_backup_s"] = time.perf_counter() - t0
+        job = eng.execute("SHOW JOBS").rows[-1]
+        recs = [r for r in eng.protectedts.records() if r[3] == coll]
+        with open(os.path.join(coll, "BACKUP_MANIFEST.json")) as f:
+            end0 = json.load(f)["layers"][0]["end_ts"]
+        if job[:3] != (res.rows[0][0], "backup", "succeeded") \
+                or len(recs) != 1 or recs[0][1] != end0:
+            raise AssertionError(f"full BACKUP: job {job}, protection "
+                                 f"records {recs}, layer end {end0}")
+        out["full_bytes"] = _collection_bytes(coll, 0)
+        print(f"phase 16 full BACKUP: {out['full_backup_s']:.2f} s, "
+              f"{out['full_bytes']} bytes", flush=True)
+        step("full_backup", t0)
+
+        # -- 3. row TTL over l_shipdate -------------------------------------
+        t0 = time.perf_counter()
+        ship = li_after["l_shipdate"]
+        day = int(np.sort(ship)[ttl_row])
+        want_del = int((ship <= day).sum())
+        if not 1_000 <= want_del <= 20_000:
+            raise AssertionError(f"the TTL cutoff deletes {want_del} rows")
+        td = eng.store.table("lineitem")
+        now_i = eng.clock.now().to_int()
+        want_keys = set()
+        for c in td.chunks:
+            idx = np.flatnonzero(c.live_mask(now_i)
+                                 & (c.data["l_shipdate"] <= day))
+            want_keys.update(k.hex() for k in eng.store.keys_at(td, c, idx))
+        if len(want_keys) != want_del:
+            raise AssertionError(f"{len(want_keys)} live lineitem rows at "
+                                 f"or before the cutoff, oracle {want_del}")
+        n_before = len(_feed_lines(li_path)[0])
+        ttl_s = eng.clock.now().wall // 10 ** 9 - (day * 86_400 + 43_200)
+        jid = eng.run_ttl("lineitem", "l_shipdate", ttl_s)
+        deleted = eng.jobs.job(jid).progress["deleted"]
+        if deleted != want_del:
+            raise AssertionError(f"TTL deleted {deleted} rows, oracle "
+                                 f"{want_del}")
+        out["ttl_s"] = time.perf_counter() - t0
+        rows, resolved = _wait_feed(
+            li_path, lambda r, res: len(r) >= n_before + want_del and res
+            and res[-1] >= max(x["updated"] for x in r[n_before:]),
+            "TTL deletes")
+        gone = rows[n_before:]
+        if len(gone) != want_del or any(r["after"] is not None
+                                        for r in gone) \
+                or {r["key"] for r in gone} != want_keys:
+            raise AssertionError(f"the lineitem feed's TTL events: "
+                                 f"{len(gone)}, oracle {want_del} keys")
+        out["ttl_feed_s"] = time.perf_counter() - t0 - out["ttl_s"]
+        kept = ship > day
+        li_now = {k: v[kept] for k, v in li_after.items()}
+        want_q1, want_q6 = tpch.ref_q1(li_now), tpch.ref_q6(li_now)
+        src_rows = run("q1 after ttl", lambda: eng.execute(tpch.Q1), 1,
+                       q1_is(want_q1)).rows
+        src_q1 = out["runs"]["q1 after ttl"]
+        src_q6 = run("q6 after ttl", lambda: eng.execute(tpch.Q6), 0,
+                     q6_is(want_q6)).rows
+        _counts_zero()
+        out["q1_source_ms"] = _median_ms(lambda: eng.execute(tpch.Q1),
+                                         reps=3)
+        timed, timed2 = _kernel_counts(on_card)
+        if timed != 3:
+            raise AssertionError(f"3 runs of Q1 launched kernel 1 {timed} "
+                                 "times")
+        total[0] += timed
+        total[1] += timed2
+        step("ttl", t0)
+
+        # -- 4. incremental backup ------------------------------------------
+        t0 = time.perf_counter()
+        eng.execute(f"BACKUP TABLE lineitem, orders INTO '{coll}'")
+        out["incremental_backup_s"] = time.perf_counter() - t0
+        out["incremental_bytes"] = _collection_bytes(coll, 1)
+        recs = [r for r in eng.protectedts.records() if r[3] == coll]
+        with open(os.path.join(coll, "BACKUP_MANIFEST.json")) as f:
+            end1 = json.load(f)["layers"][1]["end_ts"]
+        if len(recs) != 1 or recs[0][1] != end1 or not end1 > end0:
+            raise AssertionError(f"incremental BACKUP: protection records "
+                                 f"{recs}, layer ends {end0}, {end1}")
+        print(f"phase 16 incremental BACKUP: "
+              f"{out['incremental_backup_s']:.2f} s, "
+              f"{out['incremental_bytes']} bytes against the full layer's "
+              f"{out['full_bytes']}", flush=True)
+        step("incremental_backup", t0)
+
+        # -- 5. restore into a second engine ----------------------------------
+        t0 = time.perf_counter()
+        e2 = Engine(device=eng.device)
+        e2.execute(f"RESTORE TABLE lineitem, orders FROM '{coll}'")
+        out["restore_s"] = time.perf_counter() - t0
+        for t in ("lineitem", "orders"):
+            a = e2.execute(f"SELECT count(*) FROM {t}").rows
+            b = eng.execute(f"SELECT count(*) FROM {t}").rows
+            if a != b:
+                raise AssertionError(f"restored {t}: {a} rows, source {b}")
+        first = run("q1 restored", lambda: e2.execute(tpch.Q1), 1,
+                    q1_is(want_q1))
+        for r, w in zip(first.rows, src_rows):
+            # INT and DECIMAL exact, the FLOAT8 averages within 1e-12
+            if r[:6] + r[9:] != w[:6] + w[9:] or any(
+                    not _close(a, b, 1e-12) for a, b in zip(r[6:9],
+                                                            w[6:9])):
+                raise AssertionError(f"restored Q1 {r} != source's {w}")
+        out["q1_restored_first_ms"] = out["runs"]["q1 restored"]["ms"]
+        out["q1_source_first_ms"] = src_q1["ms"]
+        got6 = run("q6 restored", lambda: e2.execute(tpch.Q6), 0,
+                   q6_is(want_q6)).rows
+        if got6 != src_q6:
+            raise AssertionError(f"restored Q6 {got6} != source {src_q6}")
+        _counts_zero()
+        out["q1_restored_ms"] = _median_ms(lambda: e2.execute(tpch.Q1),
+                                           reps=3)
+        timed, timed2 = _kernel_counts(on_card)
+        if timed != 3:
+            raise AssertionError(f"3 runs of restored Q1 launched kernel 1 "
+                                 f"{timed} times")
+        total[0] += timed
+        total[1] += timed2
+        td2 = e2.store.table("lineitem")
+        top = max(int(c.rowid.max()) for c in td2.chunks if c.n)
+        e2.execute("INSERT INTO lineitem VALUES (1, 1, 1, 9, 1.00, 1.00, "
+                   "0.00, 0.00, 'N', 'O', '1998-01-01', '1998-01-01', "
+                   "'1998-01-01', 'NONE', 'AIR')")
+        new_rid = int(e2.store.table("lineitem").chunks[-1].rowid.max())
+        if new_rid <= top:
+            raise AssertionError(f"the INSERT after RESTORE took rowid "
+                                 f"{new_rid}, a restored one reaches {top}")
+        out["insert_rowid_past_restored"] = [new_rid, top]
+        print(f"phase 16 RESTORE: {out['restore_s']:.2f} s; Q1 restored "
+              f"first {out['q1_restored_first_ms']:.2f} ms, warm "
+              f"{out['q1_restored_ms']:.2f}; source first "
+              f"{out['q1_source_first_ms']:.2f}, warm "
+              f"{out['q1_source_ms']:.2f}", flush=True)
+        e2.close()
+        del e2, td2
+        gc.collect()
+        if on_card:
+            import torch
+            torch.cuda.empty_cache()
+        step("restore", t0)
+
+        # -- 6. IMPORT, crashed and adopted -----------------------------------
+        t0 = time.perf_counter()
+        eng.execute(IMPORT_DDL)
+        eng.store.set_dictionary("imp", "s", [f"v{i}" for i in range(16)])
+        payload = {"table": "imp", "total_rows": import_rows,
+                   "chunk_rows": import_chunk, "seed": 16,
+                   "columns": IMPORT_COLUMNS}
+        reg1 = Registry(eng.kv, session_id="import-1", lease_seconds=0.0)
+        reg1.register(IMPORT_JOB, lambda: ImportResumer(
+            eng, crash_after_chunk=IMPORT_CRASH))
+        jid = reg1.create(IMPORT_JOB, payload)
+        try:
+            reg1.run_job(jid)
+            raise AssertionError("the IMPORT's first session did not crash")
+        except _CrashForTesting:
+            pass
+        reg2 = Registry(eng.kv, session_id="import-2")
+        reg2.register(IMPORT_JOB, lambda: ImportResumer(eng))
+        rec = reg2.run_job(jid)
+        out["import_s"] = time.perf_counter() - t0
+        out["import_rows_per_s"] = import_rows / out["import_s"]
+        n_chunks = -(-import_rows // import_chunk)
+        parts = [synthetic_chunk(16, i, min(import_chunk, import_rows
+                                            - i * import_chunk),
+                                 IMPORT_COLUMNS) for i in range(n_chunks)]
+        a = np.concatenate([p["a"] for p in parts])
+        s = np.concatenate([p["s"] for p in parts])
+        got = eng.execute("SELECT count(*), sum(a) FROM imp").rows
+        if rec.status != "succeeded" or got != [(import_rows,
+                                                 int(a.sum()))]:
+            raise AssertionError(f"IMPORT: {rec.status}, {got} against "
+                                 f"{import_rows} rows, sum {int(a.sum())}")
+        cnt = np.bincount(s, minlength=16)
+        sums = np.bincount(s, weights=a, minlength=16)
+        want_g = sorted((f"v{i}", int(cnt[i]), int(sums[i]))
+                        for i in range(16) if cnt[i])
+
+        def group_by_is(rows):
+            if [tuple(r) for r in rows] != want_g:
+                raise AssertionError(f"IMPORT GROUP BY {rows} != {want_g}")
+        run("import group by", lambda: eng.execute(IMPORT_GROUP_BY), None,
+            group_by_is)
+        out["import_group_by"] = out["runs"]["import group by"]
+        print(f"phase 16 IMPORT: {import_rows} rows in "
+              f"{out['import_s']:.2f} s; its GROUP BY launched kernel 1 "
+              f"{out['import_group_by']['kernel1']} times", flush=True)
+        step("import", t0)
+
+        # -- 7. cancel both feeds ---------------------------------------------
+        t0 = time.perf_counter()
+        for j in (jid_sup, jid_li):
+            eng.execute(f"CANCEL JOB {j}")
+        for j, th in threads.items():
+            th.join(timeout=FEED_TIMEOUT)
+            if th.is_alive() or eng.jobs.job(j).status != "canceled":
+                raise AssertionError(f"changefeed {j}: thread alive "
+                                     f"{th.is_alive()}, job "
+                                     f"{eng.jobs.job(j).status}")
+        sup_rows, sup_res = _feed_lines(sup_path)
+        li_rows, li_res = _feed_lines(li_path)
+        if len(sup_rows) != n_sup + 1 or sup_res != sorted(sup_res) \
+                or li_res != sorted(li_res):
+            raise AssertionError(f"supplier sink: {len(sup_rows)} events "
+                                 f"for {n_sup} rows and one UPDATE; "
+                                 "resolved timestamps monotone: "
+                                 f"{sup_res == sorted(sup_res)}, "
+                                 f"{li_res == sorted(li_res)}")
+        out["feed_events"] = {"supplier": len(sup_rows),
+                              "supplier_resolved": len(sup_res),
+                              "lineitem": len(li_rows),
+                              "lineitem_resolved": len(li_res)}
+        out["jobs"] = eng.execute("SHOW JOBS").rows[-8:]
+        step("cancel", t0)
+    out["rows_deleted"] = deleted
+    out["launches"] = {"groupagg_large": total[0], "groupagg": total[1]}
+    out["path_checks"] = checks
+    out["small_checks"] = small_checks
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def jobs_phase_alone(sf: float = SF, device=None, rows=None) -> dict:
+    """Phase 16 by itself: loads lineitem, orders and supplier at `sf`,
+    runs jobs_phase and prints its line (``python3 -c "import chip_smoke;
+    chip_smoke.jobs_phase_alone()"``; on the CPU
+    ``jobs_phase_alone(0.01, "cpu", rows=20000)``)."""
+    import numpy as np
+
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    smi = _smi() if device is None else "cpu"
+    print(f"card: {smi}", flush=True)
+    t0 = time.perf_counter()
+    eng = Engine(device=device)
+    tpch.load(eng, sf=sf, rows=rows, tables=("lineitem",), encoded=True)
+    tpch.load(eng, sf=sf, tables=("orders", "supplier"))
+    li = tpch.gen_lineitem(sf, rows=rows, encoded=True)
+    li["l_returnflag"] = np.asarray(tpch.RF_VALUES)[li["l_returnflag"]]
+    li["l_linestatus"] = np.asarray(tpch.LS_VALUES)[li["l_linestatus"]]
+    print(f"load SF{sf}: {time.perf_counter() - t0:.1f} s", flush=True)
+    # the IMPORT and the TTL cutoff scale with sf below SF1
+    scale = min(sf, 1.0)
+    out = jobs_phase(eng, li, sf, import_rows=int(IMPORT_ROWS * scale),
+                     import_chunk=int(IMPORT_CHUNK * scale),
+                     ttl_row=max(1_000, int(TTL_ROW * scale)))
+    print(f"phase 16: {out['seconds']:.1f} s", flush=True)
+    print(json.dumps({"jobs": dict(out, card=smi)}), flush=True)
     return out
 
 
@@ -3589,7 +4040,7 @@ def oltp_phase(eng, li_after, supplier, records: int = OLTP_RECORDS,
 
 
 # -- 13. the front door -------------------------------------------------------
-FRONT_OPS = 8_000               # YCSB operations a mix over the wire
+FRONT_OPS = 6_000               # YCSB operations a mix over the wire
 FRONT_SIDE_OPS = 4_000          # YCSB-B beside the parked sessions, Q1
 FRONT_CLIENTS = 16              # wire sessions, one thread each
 FRONT_PARKED = 1_000            # idle sessions parked on the reactor
@@ -4510,12 +4961,14 @@ def main() -> int:
     front = dml.pop("frontdoor")
     obs = dml.pop("observability")
     hist = dml.pop("history")
+    jobs = dml.pop("jobs")
     obs["node"] = front["entry_points"].pop("observability")
     print(json.dumps({"dml": dict(dml, card=smi)}), flush=True)
     print(json.dumps({"oltp": dict(oltp, card=smi)}), flush=True)
     print(json.dumps({"frontdoor": dict(front, card=smi)}), flush=True)
     print(json.dumps({"observability": dict(obs, card=smi)}), flush=True)
     print(json.dumps({"history": dict(hist, card=smi)}), flush=True)
+    print(json.dumps({"jobs": dict(jobs, card=smi)}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -4526,10 +4979,10 @@ def main() -> int:
 
 
 def sf1_phases(opts) -> tuple:
-    """Phases 1-9 and 11-15 at SF1; returns (kernels, nvidia-smi line,
+    """Phases 1-9 and 11-16 at SF1; returns (kernels, nvidia-smi line,
     card name, phase 11's numbers with phase 12's under "oltp", phase
-    13's under "frontdoor", 14's under "observability" and 15's under
-    "history"). Every engine and table of these
+    13's under "frontdoor", 14's under "observability", 15's under
+    "history" and 16's under "jobs"). Every engine and table of these
     phases lives in this frame only, so they are freed when it
     returns."""
     import numpy as np
@@ -4851,7 +5304,8 @@ def sf1_phases(opts) -> tuple:
 
     # -- 11. windows, the write path and YCSB-E (it changes the tables) ------
     t0 = time.perf_counter()
-    dml = dml_phase(eng, li, part, SF)
+    # YCSB-E at 50,000 records in the whole run (phase 16's room)
+    dml = dml_phase(eng, li, part, SF, ycsb_records=50_000)
     routes11 = dml["refresh"]["routes"]
     large["launches"] += sum(r["groupagg_large"] for r in routes11.values())
     large["phase11_launches"] = {q: r["groupagg_large"]
@@ -4910,6 +5364,17 @@ def sf1_phases(opts) -> tuple:
     kernels[1]["path_checks"]["phase 15"] = hist.pop("small_checks")
     print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
     dml["history"] = hist
+
+    # -- 16. jobs and changefeeds (it changes the tables) -------------------
+    t0 = time.perf_counter()
+    jobs = jobs_phase(eng, li_after, SF)
+    for i, k in enumerate(("groupagg_large", "groupagg")):
+        kernels[i]["launches"] += jobs["launches"][k]
+        kernels[i]["phase16_launches"] = jobs["launches"][k]
+    large["path_checks"].update(jobs.pop("path_checks"))
+    kernels[1]["path_checks"]["phase 16"] = jobs.pop("small_checks")
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+    dml["jobs"] = jobs
     if opts.profile:
         from cockroach_tpu_torch.profile_tpch import profile_queries
         profile_queries(eng, {"q3": (tpch.Q3, None), "q5": (tpch.Q5, None),

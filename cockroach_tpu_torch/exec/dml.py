@@ -89,13 +89,18 @@ class DMLMixin:
 
     def _publish(self, effects: list, ts: Timestamp) -> None:
         """Apply a committed txn's effects to the scan plane, table by
-        table in first-touch order, and drop the stale device copies."""
+        table in first-touch order, drop the stale device copies, and
+        hand each table's ops to the changefeeds on it (committed
+        effects only, at the commit timestamp)."""
         by_table: dict[str, list] = {}
         for table, op in effects:
             by_table.setdefault(table, []).append(op)
         for table, ops in by_table.items():
             self.store.apply_committed(table, ops, ts)
             self._evict_device(table)
+            for feed in self.cdc_feeds:
+                if feed.table == table:
+                    feed.on_publish(ops, ts)
 
     def _register_table_read(self, txn: Optional[Txn], table: str,
                              read_ts: Timestamp) -> None:

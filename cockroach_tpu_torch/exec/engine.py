@@ -58,9 +58,13 @@ backfill as durable jobs. AS OF SYSTEM TIME sets a SELECT's read
 timestamp, a runtime argument of its compiled plan (the upload carries
 every version), below a table's GC threshold refused.
 
-Everything else the reference engine does (BACKUP/RESTORE,
-changefeeds, distribution, distributed spill) is not ported yet and
-raises EngineError.
+BACKUP and RESTORE (with incremental layers), CREATE CHANGEFEED, row
+TTL and IMPORT run as jobs of the same registry (jobs/, cdc/,
+exec/maintenance.py); a table with a live changefeed stays off the OLTP
+lane.
+
+Everything else the reference engine does (distribution, distributed
+spill) is not ported yet and raises EngineError.
 """
 
 from __future__ import annotations
@@ -235,6 +239,10 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         self._index_defs: dict[str, list] = {}
         self._jobs = None
         self._pts = None
+        # changefeed event taps (cdc/changefeed.py TableFeed), and each
+        # changefeed job's thread: job id -> (thread, table)
+        self.cdc_feeds: list = []
+        self._cdc_threads: dict[int, tuple] = {}
         # sessions this engine handed out (non-transactional DDL checks
         # their open txns' effects)
         self._open_sessions: weakref.WeakSet = weakref.WeakSet()
@@ -312,6 +320,22 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         s = Session()
         self._track_session(s)
         return s
+
+    def close(self) -> None:
+        """Release what the engine holds on its device: each resident
+        table copy with its reservation, and the compiled plans. Its
+        changefeed jobs are canceled (their threads end at their next
+        check). The engine stays usable: a later statement uploads
+        again."""
+        for jid in list(self._cdc_threads):
+            self.jobs.cancel(jid)
+        self._cdc_threads.clear()
+        with self._device_lock:
+            for name in {k[0] for k in self._device_tables}:
+                self._evict_device(name)
+        with self._cache_lock:
+            for k in list(self._exec_cache):
+                del self._exec_cache[k]
 
     def _track_session(self, s: Session) -> None:
         with self._sessions_lock:
@@ -544,8 +568,20 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         if isinstance(stmt, ast.ShowJobs):
             return self._exec_show_jobs()
         if isinstance(stmt, ast.CancelJob):
+            # asynchronous: the gate is held here and a changefeed's
+            # thread may be waiting for it, so joining would deadlock;
+            # the job sees the request at its next check and ends
             self.jobs.cancel(stmt.job_id)
+            self._cdc_threads.pop(stmt.job_id, None)
             return Result(tag="CANCEL JOB")
+        if isinstance(stmt, ast.Backup):
+            return self._exec_backup(stmt)
+        if isinstance(stmt, ast.Restore):
+            return self._exec_restore(stmt)
+        if isinstance(stmt, ast.CreateChangefeed):
+            jid = self.create_changefeed(stmt.table, stmt.sink)
+            return Result(names=["job_id"], rows=[(jid,)],
+                          tag="CREATE CHANGEFEED")
         if isinstance(stmt, (ast.Insert, ast.Update, ast.Delete,
                              ast.Truncate, ast.AlterTable)) \
                 and stmt.table in self._view_map():
@@ -554,7 +590,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         if isinstance(stmt, (ast.CreateTable, ast.DropTable,
                              ast.Truncate, ast.CreateView, ast.DropView,
                              ast.CreateIndex, ast.DropIndex,
-                             ast.AlterTable)):
+                             ast.AlterTable, ast.Restore)):
             # eligibility may flip (a CHECK, an FK child, an index, a
             # column DEFAULT); a re-created or changed table needs a new
             # mirror

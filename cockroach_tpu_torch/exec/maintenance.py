@@ -1,12 +1,16 @@
 """Online schema changes, jobs, zone configurations, protected
-timestamps and MVCC GC: the engine's asynchronous-work surface.
+timestamps, MVCC GC, BACKUP and RESTORE, row TTL and changefeeds: the
+engine's asynchronous-work surface.
 
-The port of cockroach_tpu/exec/maintenance.py without BACKUP, RESTORE,
-row TTL and changefeeds (their jobs are not ported yet). ALTER TABLE
-ADD/DROP COLUMN moves the descriptor through WRITE_ONLY to PUBLIC with
-a lease drain at each version (catalog/lease.py), the ADD's backfill
-running as a durable job (jobs/schemachange.py), as the reference's
-schema changer does (pkg/sql/schemachanger through pkg/jobs).
+The port of cockroach_tpu/exec/maintenance.py. ALTER TABLE ADD/DROP
+COLUMN moves the descriptor through WRITE_ONLY to PUBLIC with a lease
+drain at each version (catalog/lease.py), the ADD's backfill running as
+a durable job (jobs/schemachange.py), as the reference's schema changer
+does (pkg/sql/schemachanger through pkg/jobs). BACKUP and RESTORE run
+their jobs inside the statement (jobs/backup.py); ``run_ttl`` runs one
+row-TTL pass as a job (jobs/ttl.py); ``create_changefeed`` starts a
+changefeed job on a thread of its own that runs until CANCEL JOB
+(cdc/changefeed.py).
 
 A GC pass (``run_gc``) drops the row versions deleted before
 now - ``gc.ttl_seconds`` (the table's zone, else the cluster setting
@@ -23,6 +27,7 @@ the reference silently reads the collected history.
 from __future__ import annotations
 
 import json
+import threading
 
 from ..catalog.descriptor import WRITE_ONLY, ColumnDescriptor
 from ..jobs.schemachange import (INDEX_BACKFILL_JOB, SCHEMA_CHANGE_JOB,
@@ -45,15 +50,22 @@ class MaintenanceMixin:
 
     @property
     def jobs(self):
-        """The engine's job registry (built at first use), with the two
-        schema-change resumers."""
+        """The engine's job registry (built at first use), with the
+        schema-change, changefeed, backup, restore and TTL resumers."""
         if self._jobs is None:
-            from ..jobs import Registry
+            from ..cdc import CHANGEFEED_JOB, ChangefeedResumer
+            from ..jobs import (BACKUP_JOB, RESTORE_JOB, TTL_JOB,
+                                BackupResumer, Registry, RestoreResumer,
+                                TTLResumer)
             reg = Registry(self.kv, session_id=f"engine-{id(self)}")
             reg.register(SCHEMA_CHANGE_JOB,
                          lambda: SchemaChangeResumer(self))
             reg.register(INDEX_BACKFILL_JOB,
                          lambda: IndexBackfillResumer(self))
+            reg.register(CHANGEFEED_JOB, lambda: ChangefeedResumer(self))
+            reg.register(BACKUP_JOB, lambda: BackupResumer(self))
+            reg.register(RESTORE_JOB, lambda: RestoreResumer(self))
+            reg.register(TTL_JOB, lambda: TTLResumer(self))
             self._jobs = reg
         return self._jobs
 
@@ -152,6 +164,76 @@ class MaintenanceMixin:
                 f"AS OF SYSTEM TIME: batch timestamp {read_ts.wall} must "
                 f"be after replica GC threshold {thr.wall} of table "
                 f"{table!r}")
+
+    # -- BACKUP, RESTORE, row TTL, changefeeds --------------------------------
+    def _exec_backup(self, stmt: ast.Backup) -> Result:
+        from ..jobs import BACKUP_JOB
+        for t in stmt.tables:
+            if t not in self.store.tables:
+                raise EngineError(f"table {t!r} does not exist")
+        jid = self.jobs.create(BACKUP_JOB, {"tables": stmt.tables,
+                                            "dest": stmt.dest})
+        rec = self.jobs.run_job(jid)
+        if rec.status != "succeeded":
+            raise EngineError(f"BACKUP failed: {rec.error}")
+        return Result(names=["job_id"], rows=[(jid,)], tag="BACKUP")
+
+    def _exec_restore(self, stmt: ast.Restore) -> Result:
+        from ..jobs import RESTORE_JOB
+        jid = self.jobs.create(RESTORE_JOB, {"tables": stmt.tables,
+                                             "src": stmt.src})
+        rec = self.jobs.run_job(jid)
+        if rec.status != "succeeded":
+            raise EngineError(f"RESTORE failed: {rec.error}")
+        return Result(names=["job_id"], rows=[(jid,)], tag="RESTORE")
+
+    def _table_created(self, table: str) -> None:
+        """A table created outside CREATE TABLE (RESTORE): the
+        engine's per-table index, constraint and FK caches forget it."""
+        self._index_defs.pop(table, None)
+        self._constraint_defs.pop(table, None)
+        self._fk_children = None
+
+    def run_ttl(self, table: str, ttl_col: str, ttl_seconds: int) -> int:
+        """One row-TTL pass over ``table`` (the pkg/ttl analogue): deletes
+        the rows whose ``ttl_col`` is older than ``ttl_seconds``; returns
+        the job id. The schedule is the caller's."""
+        from ..jobs import TTL_JOB
+        jid = self.jobs.create(TTL_JOB, {"table": table, "ttl_col": ttl_col,
+                                         "ttl_seconds": ttl_seconds})
+        rec = self.jobs.run_job(jid)
+        if rec.status != "succeeded":
+            raise EngineError(f"TTL job failed: {rec.error}")
+        return jid
+
+    def create_changefeed(self, table: str, sink: str, cursor: int = 0,
+                          resolved_every_s: float = 0.05) -> int:
+        """Start a changefeed job tailing ``table`` into ``sink``
+        (mem://name or file://path) from ``cursor`` (a Timestamp int;
+        0: the table's whole history); returns the job id. It runs on a
+        thread of its own until canceled (CANCEL JOB)."""
+        from ..cdc import CHANGEFEED_JOB
+        if table not in self.store.tables:
+            raise EngineError(f"table {table!r} does not exist")
+        job_id = self.jobs.create(CHANGEFEED_JOB, {
+            "table": table, "sink": sink, "cursor": cursor,
+            "resolved_every_s": resolved_every_s})
+        th = threading.Thread(target=self._run_changefeed, args=(job_id,),
+                              daemon=True, name=f"changefeed-{job_id}")
+        # the OLTP lane declines writes to a table whose feed thread
+        # lives (exec/oltplane.py); dead threads gate nothing
+        self._cdc_threads[job_id] = (th, table)
+        th.start()
+        return job_id
+
+    def _run_changefeed(self, job_id: int) -> None:
+        # a resumer's failure is in the job record; what escapes the
+        # registry itself is logged
+        try:
+            self.jobs.run_job(job_id)
+        except Exception as e:
+            from ..utils import log
+            log.error(log.JOBS, "changefeed job %s: %s", job_id, e)
 
     # -- ALTER TABLE ----------------------------------------------------------
     def _exec_alter(self, a: ast.AlterTable) -> Result:

@@ -245,6 +245,7 @@ class ShapeIneligible(Exception):
 
 # a lane write's table is read by a full-path statement in flight
 _SUSPENDED = "nonlane active"
+_CDC = "changefeed active"
 
 
 # sentinel literal values used to discover slot roles: the shape text
@@ -352,6 +353,10 @@ class OltpLaneMixin:
         self._lane_published = self.metrics.counter(
             "exec.oltp.lane.published_ops",
             "lane writes published to the columnstore")
+        self._lane_cdc_declines = self.metrics.counter(
+            "exec.oltp.lane.cdc_declines",
+            "lane plans and writes declined: a changefeed is active on "
+            "their table")
         self._gc_proposals = self.metrics.counter(
             "kv.groupcommit.proposals",
             "group commits: one kv commit per batch-window write round")
@@ -451,9 +456,11 @@ class OltpLaneMixin:
         """Schema-level eligibility: mirrorable columns and none of the
         write-path features the lane skips (CHECK, FK, FK children,
         column DEFAULTs, ALTER TABLE defaults, secondary indexes, whose
-        unique entries and locators only the full path maintains):
-        those statements take the full path."""
+        unique entries and locators only the full path maintains) and no
+        live changefeed: those statements take the full path."""
         if tname not in self.store.tables or tname in self._view_map():
+            return False
+        if self._lane_fed(tname):
             return False
         td = self.store.table(tname)
         if not mirror_eligible(td.schema):
@@ -752,6 +759,10 @@ class OltpLaneMixin:
                 # its snapshot was taken after a flush, so new writes
                 # must not queue beneath it (re-checked at commit)
                 raise ShapeIneligible(_SUSPENDED)
+            if self._lane_fed(plan.table):
+                # checked here too, not only at plan build: a feed
+                # registers after CREATE CHANGEFEED returns
+                raise ShapeIneligible(_CDC)
             m = self._lane_mirror(plan.table)
             td = self.store.table(plan.table)
             last = None
@@ -915,6 +926,8 @@ class OltpLaneMixin:
                     # waiters fall back to the full path, as the
                     # per-statement lane does
                     req.error = ShapeIneligible(_SUSPENDED)
+                elif self._lane_fed(req.plan.table):
+                    req.error = ShapeIneligible(_CDC)
                 else:
                     live.append(req)
             while live:
@@ -1069,6 +1082,24 @@ class OltpLaneMixin:
             m = self._lane_mirrors.get(table)
             if m is not None:
                 m.synced_gen = self.store.table(table).generation
+
+    def _lane_fed(self, tname: str) -> bool:
+        """A changefeed tails ``tname``: its feed is registered, or its
+        job's thread lives. The feed takes its events from the publish
+        path, which a deferred lane publish would starve, so the table's
+        writes go the full path (dead threads gate nothing). Counted in
+        exec.oltp.lane.cdc_declines."""
+        if any(f.table == tname for f in self.cdc_feeds) or any(
+                th.is_alive() and tb == tname
+                for th, tb in list(self._cdc_threads.values())):
+            self._lane_cdc_declines.inc()
+            return True
+        return False
+
+    def _lane_feeds_changed(self) -> None:
+        """A feed registered or closed (under the gate's write side): the
+        shapes classified meanwhile are classified again."""
+        self._lane_shapes.clear()
 
     def _lane_reset(self) -> None:
         """DDL (under the exclusive gate): every lane plan and mirror

@@ -111,9 +111,12 @@ class Node:
         self._started = False
         # metrics recorded into the KV plane by the maintenance loop
         self.tsdb = TimeSeriesDB(self.engine.kv, self.engine.metrics)
-        # the engine's registry (its schema-change resumers registered):
-        # the maintenance loop adopts orphaned jobs through it
+        # the engine's registry (schema-change, changefeed, backup,
+        # restore and TTL resumers registered) and IMPORT's: the
+        # maintenance loop adopts an orphaned job of any type through it
+        from ..jobs import IMPORT_JOB, ImportResumer
         self.jobs = self.engine.jobs
+        self.jobs.register(IMPORT_JOB, lambda: ImportResumer(self.engine))
         self._maint_errors = self.engine.metrics.counter(
             "node.maintenance.errors",
             "maintenance-loop steps that raised (each is logged)")

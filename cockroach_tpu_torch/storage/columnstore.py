@@ -339,20 +339,27 @@ class ColumnStore:
 
     def append_chunk(self, name: str, data: dict[str, np.ndarray],
                      valid: dict[str, np.ndarray], mvcc_ts: np.ndarray,
-                     mvcc_del: np.ndarray) -> None:
+                     mvcc_del: np.ndarray,
+                     rowid: Optional[np.ndarray] = None) -> None:
         """Append one sealed chunk of already-physical column arrays
         with explicit MVCC bounds (bulk ingest, and storage/transfer.py
-        carrying another store's row versions over unchanged)."""
+        carrying another store's row versions over unchanged). Given
+        ``rowid``s are kept and ``next_rowid`` moves past them; else the
+        chunk takes the next ones."""
         td = self.table(name)
         n = len(mvcc_ts)
         with self._lock:
-            rid0 = td.next_rowid
-            td.next_rowid += n
+            if rowid is None:
+                rowid = np.arange(td.next_rowid, td.next_rowid + n,
+                                  dtype=np.int64)
+            else:
+                rowid = np.asarray(rowid, dtype=np.int64)
+            if n:
+                td.next_rowid = max(td.next_rowid, int(rowid.max()) + 1)
             chunk = Chunk(data=data, valid=valid,
                           mvcc_ts=np.asarray(mvcc_ts, dtype=np.int64),
                           mvcc_del=np.asarray(mvcc_del, dtype=np.int64),
-                          n=n,
-                          rowid=np.arange(rid0, rid0 + n, dtype=np.int64))
+                          n=n, rowid=rowid)
             chunk.finalize_stats()
             td.chunks.append(chunk)
             td.pk_index = None  # rebuilt lazily if DML touches this table
@@ -682,6 +689,116 @@ class ColumnStore:
             data[col.name] = arr
         return Chunk(data=data, valid=vmap, mvcc_ts=mvcc_ts,
                      mvcc_del=mvcc_del, n=n, rowid=rowid)
+
+    # -- MVCC windows and bulk rows (BACKUP/RESTORE, changefeed catch-up) ---
+    def mvcc_window(self, name: str, lo: int, hi: int) -> list:
+        """The MVCC window (lo, hi] of a table as whole-chunk masks:
+        [(chunk, put, deleted)], ``put`` the rows written in the window
+        and live at hi (lo < mvcc_ts <= hi < mvcc_del), ``deleted`` the
+        rows live at lo whose deletion falls in it (mvcc_ts <= lo <
+        mvcc_del <= hi), both row-index arrays. Chunks with neither are
+        left out. The window algebra of the reference's backup export
+        (jobs/backup.py), one numpy pass a chunk."""
+        td = self.table(name)
+        out = []
+        with self._lock:
+            for chunk in td.chunks:
+                ts, dl = chunk.mvcc_ts, chunk.mvcc_del
+                put = np.flatnonzero((ts > lo) & (ts <= hi) & (dl > hi))
+                gone = np.flatnonzero((ts <= lo) & (dl > lo) & (dl <= hi))
+                if put.size or gone.size:
+                    out.append((chunk, put, gone))
+        return out
+
+    def changes_since(self, name: str, since: int) -> list:
+        """Every row version written after ``since`` and every deletion
+        after it, per chunk: [(chunk, written, deleted)] as row-index
+        arrays (the changefeed's catch-up scan)."""
+        td = self.table(name)
+        out = []
+        with self._lock:
+            for chunk in td.chunks:
+                dl = chunk.mvcc_del
+                put = np.flatnonzero(chunk.mvcc_ts > since)
+                gone = np.flatnonzero((dl != MAX_TS_INT) & (dl > since))
+                if put.size or gone.size:
+                    out.append((chunk, put, gone))
+        return out
+
+    @staticmethod
+    def chunk_column(td: TableData, chunk: Chunk, cn: str,
+                     idx: np.ndarray) -> tuple:
+        """(physical values, validity) of column ``cn`` at rows ``idx`` of
+        one chunk; a chunk the ALTER TABLE backfill has not reached gives
+        the column's default (else NULL)."""
+        if cn in chunk.data:
+            return chunk.data[cn][idx], chunk.valid[cn][idx]
+        col = td.schema.column(cn)
+        n = len(idx)
+        dv = td.column_defaults.get(cn)
+        if dv is None:
+            dt = np.int32 if col.type.uses_dictionary else col.type.np_dtype
+            return np.zeros(n, dtype=dt), np.zeros(n, dtype=bool)
+        if col.type.uses_dictionary:
+            return (np.full(n, td.dictionaries[cn].encode(dv), np.int32),
+                    np.ones(n, dtype=bool))
+        if col.type.family == Family.DECIMAL \
+                and not isinstance(dv, (int, np.integer)):
+            dv = int(round(float(dv) * 10 ** col.type.scale))
+        return np.full(n, dv, dtype=col.type.np_dtype), np.ones(n, bool)
+
+    def rows_at(self, td: TableData, chunk: Chunk, idx: np.ndarray) -> list:
+        """Rows ``idx`` of one chunk as storage-logical dicts, equal to
+        ``extract_row``'s, decoded a column at a time."""
+        from ..sql.rowenc import ROWID
+        cols: list = []
+        for col in td.schema.columns:
+            data, valid = self.chunk_column(td, chunk, col.name, idx)
+            d = td.dictionaries.get(col.name)
+            if d is None:
+                vals = data.tolist()
+            else:   # an empty dictionary: every row of the column is NULL
+                vals = d.decode_array(data).tolist() if len(d) \
+                    else [None] * len(idx)
+            cols.append([v if ok else None
+                         for v, ok in zip(vals, valid.tolist())])
+        names = [c.name for c in td.schema.columns]
+        rows = [dict(zip(names, r)) for r in zip(*cols)]
+        if chunk.rowid is not None:
+            for row, rid in zip(rows, chunk.rowid[idx].tolist()):
+                row[ROWID] = rid
+        return rows
+
+    def keys_at(self, td: TableData, chunk: Chunk, idx: np.ndarray) -> list:
+        """The KV keys of rows ``idx`` of one chunk (``row_key``'s bytes):
+        one numpy pass for int-family keys, else a loop."""
+        got = self._batch_row_keys(td, chunk, idx)
+        if got is not None:
+            return got
+        return [self.row_key(td, chunk, int(ri)) for ri in idx]
+
+    def insert_rows(self, name: str, data: dict, valid: dict,
+                    rowid: np.ndarray, ts: Timestamp) -> int:
+        """Bulk insert of physical column arrays that keeps the given
+        rowids (RESTORE's full layer), in sealed chunks of at most
+        ``chunk_rows`` rows committed at ``ts``; ``next_rowid`` moves
+        past the largest, so later inserts never reuse one. String
+        columns carry codes into the table's own dictionaries."""
+        td = self.table(name)
+        n = len(rowid)
+        step = max(int(td.chunk_rows), 1)
+        tsi = ts.to_int()
+        with self._lock:
+            for lo in range(0, n, step):
+                sl = slice(lo, lo + step)
+                m = len(rowid[sl])
+                self.append_chunk(
+                    name, {c: v[sl] for c, v in data.items()},
+                    {c: v[sl] for c, v in valid.items()},
+                    np.full(m, tsi, dtype=np.int64),
+                    np.full(m, MAX_TS_INT, dtype=np.int64),
+                    rowid=rowid[sl])
+        return n
 
     def ensure_secondary_index(self, name: str, cols: tuple) -> dict:
         """Build (lazily, generation-cached) the value-tuple ->

@@ -82,6 +82,11 @@ class LSM:
                 self.mem.put(k, v)
             self._maybe_flush()
 
+    def atomic(self) -> threading.RLock:
+        """The engine's lock, held across a read-modify-write of several
+        calls (it is re-entrant: the calls inside take it again)."""
+        return self._lock
+
     # -- read path ---------------------------------------------------------
     def get(self, key: EngineKey) -> Optional[bytes]:
         with self._lock:

@@ -278,21 +278,33 @@ class MVCC:
                        status: TxnStatus,
                        commit_ts: Optional[Timestamp] = None) -> bool:
         """MVCCResolveWriteIntent: commit rewrites the provisional
-        version to commit_ts; abort removes it."""
-        meta = self._meta(key)
-        if meta is None or meta.id != txn.id:
-            return False
-        ops: list = [(EngineKey.meta(key), None)]
-        prov_key = EngineKey.versioned(key, meta.write_ts)
-        if status == TxnStatus.COMMITTED:
-            cts = commit_ts or meta.write_ts
-            if cts != meta.write_ts:
-                raw = self.engine.get(prov_key)
+        version to commit_ts; abort removes it.
+
+        The meta read, the provisional value's read and the batch run
+        under the engine's lock: the committer and a pusher that found
+        the record COMMITTED may resolve one intent at once, and the
+        second must find the meta gone. Interleaved, it read the moved
+        provisional value as None and wrote that at commit_ts, a delete
+        of the committed version (readers saw the pre-image). Only the
+        resolver that reads the meta writes, and never a value it did
+        not find."""
+        with self.engine.atomic():
+            meta = self._meta(key)
+            if meta is None or meta.id != txn.id:
+                return False
+            ops: list = [(EngineKey.meta(key), None)]
+            prov_key = EngineKey.versioned(key, meta.write_ts)
+            if status == TxnStatus.COMMITTED:
+                cts = commit_ts or meta.write_ts
+                if cts != meta.write_ts:
+                    raw = self.engine.get(prov_key)
+                    if raw is None:
+                        return False    # another resolver moved it
+                    ops.append((prov_key, None))
+                    ops.append((EngineKey.versioned(key, cts), raw))
+            else:
                 ops.append((prov_key, None))
-                ops.append((EngineKey.versioned(key, cts), raw))
-        else:
-            ops.append((prov_key, None))
-        self.engine.write_batch(ops)
+            self.engine.write_batch(ops)
         return True
 
     def has_writes_between(self, start: bytes, end: bytes,

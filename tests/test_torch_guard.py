@@ -58,6 +58,18 @@ def test_port_scan_covers_the_package():
         _port_files()
 
 
+def test_port_scan_covers_jobs_and_cdc():
+    """The import scan reaches every module of jobs/ and cdc/."""
+    pkg = ROOT / "cockroach_tpu_torch"
+    scanned = set(_port_files())
+    for sub, names in (("jobs", {"__init__.py", "registry.py",
+                                 "schemachange.py", "backup.py", "ttl.py",
+                                 "import_job.py"}),
+                       ("cdc", {"__init__.py", "changefeed.py"})):
+        assert {p.name for p in (pkg / sub).glob("*.py")} == names
+        assert {pkg / sub / n for n in names} <= scanned
+
+
 def test_native_sources_are_the_ports_own():
     """The lane's C++ and the gate's lock live in the port: nothing of
     them is loaded from the JAX package."""

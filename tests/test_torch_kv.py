@@ -269,3 +269,78 @@ def test_concurrent_transfers_serializable():
         model[to] += amt
     assert all(model[i] == int(db.get(b"acct%d" % i))
                for i in range(accounts))
+
+
+def _pushed_committed_intent(k):
+    """A store holding one txn's intent on b"k" that the txn committed
+    above the intent's timestamp (a served read of b"j" pushed its write
+    timestamp). Returns (db, txn meta, commit ts, intent ts)."""
+    mvcc = importlib.import_module("cockroach_tpu_torch.storage.mvcc")
+    db = k.DB()
+    db.put(b"k", b"v0")
+    t = k.Txn(db.store)
+    t.put(b"k", b"v1")
+    laid = t.meta.write_ts
+    r = k.Txn(db.store)
+    r.get(b"j")                       # the tscache now sits above laid
+    r.commit()
+    t.put(b"j", b"w")                 # pushes t's write timestamp
+    cts = t.meta.write_ts
+    assert cts > laid
+    db.store.txns.end(t.meta.id, mvcc.TxnStatus.COMMITTED, commit_ts=cts)
+    return db, t.meta, cts, laid
+
+
+@pytest.mark.parametrize("second", ["nested", "thread"])
+def test_two_resolvers_of_a_pushed_intent_keep_the_value(second):
+    """Two resolvers of one committed intent pushed above its timestamp
+    (the committer and a pusher that found the record COMMITTED) must
+    leave the committed value at the commit timestamp. The second
+    resolver runs between the first one's meta read and its move of
+    the provisional value: in the same thread ("nested"), or in another
+    that the first waits for ("thread"). A resolution that is not
+    atomic writes the missing provisional value, None, at the commit
+    timestamp, which erases the committed version: readers then see
+    v0."""
+    mvcc_mod = importlib.import_module("cockroach_tpu_torch.storage.mvcc")
+    k = _kv(PKGS["port"])
+    db, meta, cts, _laid = _pushed_committed_intent(k)
+    mvcc = db.store.mvcc
+    committed = mvcc_mod.TxnStatus.COMMITTED
+    meta_of = mvcc._meta
+    fired = threading.Event()
+    done = threading.Event()
+    other: list = []
+
+    def resolve_other():
+        try:
+            other.append(mvcc.resolve_intent(b"k", meta, committed, cts))
+        finally:
+            done.set()
+
+    def hooked_meta(key):
+        got = meta_of(key)
+        if key == b"k" and not fired.is_set():
+            fired.set()
+            if second == "nested":
+                resolve_other()
+            else:
+                th = threading.Thread(target=resolve_other, daemon=True)
+                th.start()
+                # a resolution that holds the engine keeps the other
+                # out until it ends: the wait then expires
+                done.wait(timeout=0.5)
+        return got
+
+    mvcc._meta = hooked_meta
+    try:
+        first = mvcc.resolve_intent(b"k", meta, committed, cts)
+    finally:
+        mvcc._meta = meta_of
+    assert done.wait(timeout=10)
+    assert mvcc._meta(b"k") is None
+    got = mvcc.get(b"k", db.store.clock.now())
+    assert got is not None and (got.ts, got.value) == (cts, b"v1")
+    assert db.get(b"k") == b"v1"
+    # exactly one of the two resolved it
+    assert sorted([first] + other) == [False, True]
