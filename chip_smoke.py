@@ -6,7 +6,11 @@
 Phases (any failure exits non-zero before the final line):
 1. Card and build: prints the card's name and power limit and builds
    every CUDA kernel of the main path from csrc/ (one nvcc per source,
-   all started at once).
+   all started at once). The whole run shares one fresh cold-start
+   cache root (COCKROACH_TPU_COMPILE_CACHE_DIR, removed at its end);
+   the parity gate's verdicts and kernel 1's launch point are resolved
+   in it here, as an engine's first `auto` plan build would (a fuzz and
+   a sweep at the synthetic shape), before any run is counted.
 2. Main path: Engine() on the card loads TPC-H SF1 lineitem
    (6,001,215 rows, padded on the device to 8,388,608) and part
    (200,000 rows) through CREATE TABLE / bulk ingest / ANALYZE, then
@@ -89,7 +93,9 @@ Phases (any failure exits non-zero before the final line):
    Compact nodes and replans. At SF1 the large-G kernel's launches per
    query (SF1_PHASE7_LAUNCHES) and Q20's partition count (16: its
    decorrelated GROUP BY overflows the default hash table) are
-   checked. Every temp of Q2, Q4, Q7, Q8, Q9, Q13, Q15, Q17, Q20, Q21
+   checked (Q2 launches once where the parity gate promoted
+   int_minmax: its min(ps_supplycost) per part key). Every temp of Q2,
+   Q4, Q7, Q8, Q9, Q13, Q15, Q17, Q20, Q21
    and Q22 must take the columnar path (Engine.last_exec["temps"]), not
    the decoded rows. No sort may leave the packed lanes, and no temp
    may outlive its statement. Every call of the large-G kernel these
@@ -185,12 +191,12 @@ Phases (any failure exits non-zero before the final line):
    lane statements complete while it runs, and no lane write falls to
    the full path. Then `SELECT field0, count(*), sum(field1),
    min(field1), max(field1) FROM usertable GROUP BY field0` (under
-   SET pallas_groupagg = on: the port routes INT MIN/MAX to kernel 1
-   only there until the parity gate is ported) flushes the lane's
-   queue as one chunk, misses the exec cache, uploads usertable again
-   and launches kernel 1 once, held against the plain version at its
-   slots and against numpy over the full path's rows (and equal to
-   its `auto` run); its second run hits. Every key's field0 must be
+   `auto` where the parity gate promoted int_minmax, else under SET
+   pallas_groupagg = on) flushes the lane's queue as one chunk, misses
+   the exec cache, uploads usertable again and launches kernel 1 once,
+   held against the plain version at its slots and against numpy over
+   the full path's rows (and equal to its `off` run); its second run
+   hits. Every key's field0 must be
    its value before the concurrent runs or one some driver wrote, and
    count(*) and sum(field1) exact. TPC-H Q15 runs as the specification
    writes it (CREATE VIEW revenue0, the query, DROP VIEW): one temp,
@@ -336,16 +342,43 @@ Phases (any failure exits non-zero before the final line):
    timestamps monotone. Each Q1 launches kernel 1 once and the GROUP BY
    as its route takes it, each launch held against the plain version;
    kernel 2's launches are read from its count.
+17. Cold start and kernel infrastructure, on the SF1 engine after phase
+   9 (lineitem as loaded; `coldstart_phase`; `coldstart_phase_alone()`
+   loads SF1 and runs it by itself). (a) The parity gate: its verdicts
+   (and a second fuzz's, which must agree); under `auto`, `SELECT
+   l_suppkey, min(l_extendedprice), max(l_orderkey), min(l_quantity)
+   FROM lineitem GROUP BY l_suppkey` (6,001,215 rows, 10,000 groups)
+   and Q2 launch kernel 1 exactly when int_minmax was promoted, each
+   launch held against the plain version, the GROUP BY's rows equal to
+   numpy's bit for bit and Q2's to phase 7's oracle, both equal to
+   their `off` runs. (b) The launch-point sweep with CUDA events at the
+   synthetic shape (n = 2^16, G = 2^12) and at Q1's captured slots,
+   every point's ms and the winner persisted per card name; every
+   point held against the plain version at both shapes (integer and
+   MIN/MAX rows bit for bit); Q1 at the shipped point and at the tuned
+   one (read back from the table, no second sweep) give the same rows.
+   (c) Q6 with five literal sets from TPC-H's substitution ranges: one
+   exec-cache miss, then four hits, each equal to its numpy oracle
+   (rel 1e-9); the host ms of a run with new literals, plan_shape_cache
+   off and on. (d) Two child processes ingest the Q1/Q6 columns of
+   lineitem from an .npz and share a cache root holding the tuning and
+   verdict tables: the first (prewarm 0) journals its misses, the
+   second (sql.exec.compile_cache.prewarm = 8) prewarms them and its
+   first Q1 and Q6 are exec-cache hits; each prints its prewarm
+   seconds, statements warmed, first Q1 and Q6 ms, plan_cache, and
+   kernel-library loads and builds; their rows equal phase 2's, and
+   each Q1 launch is held against the plain version.
 Each phase's seconds are printed. After phase 10, one JSON `dml` line
 holds phase 11's numbers, one JSON `oltp` line phase 12's, one JSON
 `frontdoor` line phase 13's, one JSON `observability` line phase
 14's (with the node's checks under "node"), one JSON `history` line
-phase 15's and one JSON `jobs` line phase 16's, each with the card's
-name and power limit; then one JSON line of per-kernel numbers (the
+phase 15's, one JSON `jobs` line phase 16's and one JSON `coldstart`
+line phase 17's, each with the card's name and power limit; then one JSON
+line of per-kernel numbers (the
 large-G kernel's launches count Q1, Q5, Q10, Q12 and the path runs of
-phases 7, 8, 10, 11, 12, 13, 14, 15 and 16, the small-G kernel's Q1F,
+phases 7, 8, 10, 11, 12, 13, 14, 15, 16 and 17, the small-G kernel's Q1F,
 Q6F and phases 13's and 14's; `path_checks` holds each of the large-G
-kernel's calls in phases 7, 8, 10, 11, 12, 13, 14, 15 and 16 held
+kernel's calls in phases 7, 8, 10, 11, 12, 13, 14, 15, 16 and 17 held
 against the plain version, and the small-G kernel's phase 13 and 14
 calls), the nvidia-smi line, and the last line {"ok": true, "device":
 {...}}.
@@ -485,10 +518,11 @@ def compare_kernel(tgl, args, label: str) -> dict:
 
 def compare_slots(tgl, args, label: str) -> tuple:
     """The wrapper aggregate_slots against aggregate_slots_plain on the
-    same card inputs, per caller slot through the rows each reads;
-    raises on a mismatch. Returns the largest f32 errors (relative to
-    the group's sum of |value|), and the shape: rows, groups, slots and
-    the kernel's layout."""
+    same card inputs (at the recorded launch point, args[5], where there
+    is one), per caller slot through the rows each reads; raises on a
+    mismatch. Returns the largest f32 errors (relative to the group's
+    sum of |value|), and the shape: rows, groups, slots, the kernel's
+    layout and launch point."""
     from cockroach_tpu_torch.ops.cuda.groupagg_large_check import (
         compare_plain)
     before = tgl.LAUNCHES
@@ -497,12 +531,14 @@ def compare_slots(tgl, args, label: str) -> tuple:
         raise AssertionError(f"{label}: the wrapper did not launch once")
     plan = tgl.plan_slots(*args)
     layout = tgl.choose_layout(plan)
+    point = list(tgl.kernel_point(args[5] if len(args) > 5 else None))
     print(f"kernel vs plain [{label}]: n={plan.gid.shape[0]} "
           f"G={plan.num_groups} slots={len(args[2])} "
           f"kernel_slots={len(plan.kslots)} columns={len(plan.cols)} "
-          f"masks={len(plan.masks)} layout={layout} ok {out}", flush=True)
+          f"masks={len(plan.masks)} layout={layout} point={point} ok {out}",
+          flush=True)
     return out, {"n": int(plan.gid.shape[0]), "G": plan.num_groups,
-                 "slots": len(args[2]), "layout": layout}
+                 "slots": len(args[2]), "layout": layout, "point": point}
 
 
 @contextlib.contextmanager
@@ -526,15 +562,37 @@ def recording_slots():
         tgl.aggregate_slots = kernel
 
 
-def check_calls(label, calls, launches) -> list:
+def engine_point(device="cuda") -> tuple:
+    """Kernel 1's launch point an `auto` engine of this process builds
+    its plans with: the tuning table's entry for the card under the
+    run's cache root, else the shipped point (ops/cuda/autotune.py)."""
+    import torch
+
+    from cockroach_tpu_torch.exec import coldstart
+    from cockroach_tpu_torch.ops.cuda import autotune
+    from cockroach_tpu_torch.utils.settings import Settings
+    dev = torch.device(device)
+    root = coldstart.init_cache_dir(Settings(), dev)
+    return autotune.table_point(coldstart.device_key(dev), root) \
+        or autotune.DEFAULT
+
+
+def check_calls(label, calls, launches, point=None) -> list:
     """The large-G kernel against its plain version at each recorded
-    call of one query (compare_slots: the same tolerances as phase 4);
-    every launch the query made must have been recorded. Returns one
-    record a call: its shape and errors."""
+    call of one query (compare_slots: the same tolerances as phase 4),
+    each at the launch point the query launched with, which must be
+    ``point`` (default: engine_point()); every launch the query made
+    must have been recorded. Returns one record a call: its shape and
+    errors."""
     from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
     if len(calls) != launches:
         raise AssertionError(f"{label}: {len(calls)} recorded calls of the "
                              f"large-G kernel, {launches} launches")
+    want = tuple(engine_point() if point is None else point)
+    for args in calls:
+        if args[5] is None or tuple(args[5]) != want:
+            raise AssertionError(f"{label}: kernel 1 launched at the point "
+                                 f"{args[5]}, the engine's is {want}")
     out = []
     for i, args in enumerate(calls):
         errs, shape = compare_slots(tgl, args, f"{label} call {i + 1}")
@@ -756,8 +814,10 @@ def slot_numbers(tgl, args) -> dict:
         host_us, kernel_ms, prebuilt_columns, shape)
     shp = shape(args)
     plan = tgl.plan_slots(*args)
-    out = {"ms": _cuda_ms(lambda: tgl.aggregate_slots(*args)),
-           "kernel_ms": kernel_ms(plan),
+    point = args[5] if len(args) > 5 else None
+    out = {"point": list(tgl.kernel_point(point)),
+           "ms": _cuda_ms(lambda: tgl.aggregate_slots(*args)),
+           "kernel_ms": kernel_ms(plan, point=point),
            "plain_ms": _cuda_ms(lambda: tgl.aggregate_slots_plain(*args),
                                 reps=3, warm=1),
            "host_us": host_us(lambda: tgl.aggregate_slots(*args))}
@@ -778,15 +838,18 @@ def slot_numbers(tgl, args) -> dict:
 
 
 def _slot_call(args, kw) -> tuple:
-    full = dict(zip(("gid", "sel", "slots", "num_groups", "want_rep"),
-                    args), **kw)
+    full = dict(zip(("gid", "sel", "slots", "num_groups", "want_rep",
+                     "point"), args), **kw)
     return (full["gid"], full["sel"], tuple(full["slots"]),
-            full["num_groups"], bool(full.get("want_rep", False)))
+            full["num_groups"], bool(full.get("want_rep", False)),
+            full.get("point"))
 
 
 def slot_args(captured, key) -> tuple:
     """The large-G kernel's slot-interface arguments as a query passed
-    them: (gid, sel, slots, G, want_rep)."""
+    them: (gid, sel, slots, G, want_rep, point), the point being the
+    launch point the engine launched with, so a check or a timing
+    launches the same instantiation."""
     return _slot_call(*captured[key])
 
 
@@ -1110,6 +1173,16 @@ def check_result(label, res, want) -> float:
 SF1_PHASE7_LAUNCHES = {"q2": 0, "q4": 1, "q7": 1, "q8": 1, "q9": 1,
                        "q11": 1, "q13": 2, "q15": 1, "q16": 0, "q17": 1,
                        "q18": 0, "q19": 0, "q20": 0, "q21": 1, "q22": 2}
+
+
+def phase7_launches(infra: dict) -> dict:
+    """SF1_PHASE7_LAUNCHES as the card's parity gate routes them: with
+    int_minmax promoted, Q2's min(ps_supplycost) per part key (200,000
+    dense groups) takes kernel 1 under `auto`."""
+    out = dict(SF1_PHASE7_LAUNCHES)
+    if "int_minmax" in infra["exact_paths"]:
+        out.update({q: out[q] + 1 for q in MINMAX_QUERIES})
+    return out
 SF1_Q20_PARTITIONS = [16]
 SF1_SSB_LAUNCHES = {"q1.1": 0, "q1.2": 0, "q2.1": 1, "q3.1": 1, "q4.1": 1}
 
@@ -2243,10 +2316,10 @@ def check_window(label, got, want) -> float:
 
 def window_phase(eng, orders: dict, reps: int = 3) -> dict:
     """Phase 11a: the window queries at full size, each checked once in
-    full against its oracle, then timed as medians of `reps` warm runs
-    with an outer LIMIT (decoding 1.5M rows to Python objects takes
-    seconds a query and would be most of the time), those rows checked
-    too, and one warm full run timed."""
+    full against its oracle (that first run timed), then timed as
+    medians of `reps` warm runs with an outer LIMIT (decoding 1.5M rows
+    to Python objects takes seconds a query and would be most of the
+    time), those rows checked too."""
     out = {}
     for name in WINDOW_QUERIES:
         want = window_oracle(name, orders)
@@ -2259,8 +2332,6 @@ def window_phase(eng, orders: dict, reps: int = 3) -> dict:
                      want[:WINDOW_LIMIT])
         out[name] = {
             "rows": len(res.rows), "first_s": first_s,
-            "full_ms": _median_ms(lambda: eng.execute(window_sql(name)),
-                                  reps=1),
             "limit_ms": _median_ms(lambda: eng.execute(lim), reps=reps),
             "max_rel_err": err}
         print(f"window {name}: " + json.dumps(out[name]), flush=True)
@@ -3669,14 +3740,17 @@ def _lane_group_by(eng, on_card: bool, label: str) -> tuple:
     against the plain version at their slots on the card), exec-cache
     misses, the lane flushes it made and whether it uploaded usertable.
 
-    It runs under SET pallas_groupagg = on: the port routes INT MIN/MAX
-    to kernel 1 under `auto` only once the reference's parity gate is
-    ported (ROADMAP Queue 1 item 10), and the kernel's INT MIN/MAX path
-    is exact (the high-limb refine). The same statement under `auto`
-    (no kernel) must give the same rows."""
+    It runs under `auto` where the card's parity gate promoted
+    int_minmax (ops/cuda/paritygate.py), else under SET pallas_groupagg
+    = on: its INT MIN/MAX take kernel 1 only there. The same statement
+    under `off` (no kernel) must give the same rows."""
     from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    from cockroach_tpu_torch.ops.cuda import paritygate
     s_on = eng.session()
-    s_on.vars.set("pallas_groupagg", "on")
+    exact = paritygate.promoted(eng._device_key, eng._compile_cache_dir,
+                                eng.device, engine_point(eng.device))
+    s_on.vars.set("pallas_groupagg",
+                  "auto" if "int_minmax" in exact else "on")
     c0, miss0 = _lane_counts(eng), eng.plan_cache["miss"]
     hit0 = eng.plan_cache["hit"]
     chunks0 = len(eng.store.table("usertable").chunks)
@@ -3702,8 +3776,11 @@ def _lane_group_by(eng, on_card: bool, label: str) -> tuple:
                              f"kernel 1 {route['groupagg_large']} times")
     if on_card:
         route["kernel_checks"] = check_calls(label, calls, 1)
-    if sorted(eng.execute(OLTP_GROUP_BY).rows) != sorted(res.rows):
-        raise AssertionError(f"{label}: auto's rows != the kernel's")
+    s_off = eng.session()
+    s_off.vars.set("pallas_groupagg", "off")
+    if sorted(eng.execute(OLTP_GROUP_BY, s_off).rows) != sorted(res.rows):
+        raise AssertionError(f"{label}: off's rows != the kernel's")
+    route["mode"] = s_on.vars.get("pallas_groupagg")
     print(f"{label} route: " + json.dumps(
         {k: v for k, v in route.items() if k != "kernel_checks"}),
         flush=True)
@@ -4928,6 +5005,529 @@ def entry_points_phase(sf: float = FRONT_SF, device=None) -> dict:
     return out
 
 
+# -- 17. cold start and kernel infrastructure ---------------------------------
+
+MINMAX_GROUP_BY = ("SELECT l_suppkey, min(l_extendedprice), "
+                   "max(l_orderkey), min(l_quantity) FROM lineitem "
+                   "GROUP BY l_suppkey")
+# TPC-H queries whose routes take kernel 1 for an INT/DECIMAL MIN/MAX
+# under `auto` once the parity gate promoted int_minmax (Q2's
+# decorrelated min(ps_supplycost) per part key, 200,000 dense groups)
+MINMAX_QUERIES = ("q2",)
+# Q6 with literals from TPC-H's substitution ranges (DATE: 1 January of
+# 1993-1997, DISCOUNT: 0.02-0.09, QUANTITY: 24-25); written on one line
+# so its statement shape is not tpch.Q6's
+Q6_SHAPE = ("SELECT sum(l_extendedprice * l_discount) AS revenue FROM "
+            "lineitem WHERE l_shipdate >= date '{y}-01-01' AND l_shipdate "
+            "< date '{y}-01-01' + interval '1 year' AND l_discount BETWEEN "
+            "{d} - 0.01 AND {d} + 0.01 AND l_quantity < {q}")
+Q6_LITERALS = ((1993, "0.02", 24), (1994, "0.06", 25), (1995, "0.04", 24),
+               (1996, "0.09", 25), (1997, "0.07", 24))
+# new literals for the host-time comparison, shape cache off and on
+Q6_TIMED = ((1993, "0.03", 25), (1995, "0.05", 25), (1996, "0.08", 24),
+            (1997, "0.04", 25), (1994, "0.09", 24), (1993, "0.08", 24))
+# the lineitem columns Q1 and Q6 read: the cold-start children's table
+COLD_COLUMNS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                "l_returnflag", "l_linestatus", "l_shipdate")
+COLD_PREWARM = 8
+
+
+@contextlib.contextmanager
+def cache_root():
+    """A fresh cold-start cache root for the run (exec/coldstart.py reads
+    COCKROACH_TPU_COMPILE_CACHE_DIR), removed at its end: every engine of
+    the run, and every process it starts, shares it."""
+    import os
+    import shutil
+    import tempfile
+    from cockroach_tpu_torch.exec.coldstart import ENV_VAR
+    root = tempfile.mkdtemp(prefix="chip-smoke-cache-")
+    prev = os.environ.get(ENV_VAR)
+    os.environ[ENV_VAR] = root
+    try:
+        yield root
+    finally:
+        if prev is None:
+            os.environ.pop(ENV_VAR, None)
+        else:
+            os.environ[ENV_VAR] = prev
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def kernel_infra(device: str = "cuda") -> dict:
+    """Phase 1's half of phase 17: kernel 1's launch point for this card
+    and the parity gate's verdicts at it, resolved as an engine's first
+    `auto` plan build would resolve them (the tuning table's point, else
+    the shipped one: `auto` never sweeps; a fuzz in both layouts at that
+    point, persisted under the cache root), before any main-path run is
+    counted."""
+    import torch
+
+    from cockroach_tpu_torch.exec import coldstart
+    from cockroach_tpu_torch.ops.cuda import autotune, paritygate
+    from cockroach_tpu_torch.utils.settings import Settings
+    dev = torch.device(device)
+    key = coldstart.device_key(dev)
+    d = coldstart.init_cache_dir(Settings(), dev)
+    r0 = autotune.RUNS.value("sweep")
+    point = autotune.params_for(key, d, "auto", dev)
+    if autotune.RUNS.value("sweep") != r0:
+        raise AssertionError("`auto` swept the launch points")
+    t0 = time.perf_counter()
+    exact = paritygate.promoted(key, d, dev, point)
+    out = {"cache_dir": d, "exact_paths": list(exact),
+           "point": list(point), "fuzz_s": time.perf_counter() - t0}
+    print("kernel infrastructure: " + json.dumps(out), flush=True)
+    return out
+
+
+def q6_oracle(li, year: int, disc: str, qty: int) -> float:
+    import numpy as np
+
+    from cockroach_tpu_torch.models import tpch
+    d0 = tpch._days(f"{year}-01-01")
+    d1 = tpch._days(f"{year + 1}-01-01")
+    lo, hi = float(disc) - 0.01, float(disc) + 0.01
+    # the DECIMAL(15,2) bounds, exactly as the engine compares them
+    lo, hi = round(lo * 100) / 100, round(hi * 100) / 100
+    dc = np.round(li["l_discount"] * 100)
+    m = ((li["l_shipdate"] >= d0) & (li["l_shipdate"] < d1)
+         & (dc >= round(lo * 100)) & (dc <= round(hi * 100))
+         & (li["l_quantity"] < qty))
+    return float((li["l_extendedprice"][m] * li["l_discount"][m]).sum())
+
+
+def minmax_oracle(li) -> list:
+    """MINMAX_GROUP_BY by numpy: rows sorted by l_suppkey."""
+    import numpy as np
+    keys = li["l_suppkey"]
+    order = np.argsort(keys, kind="stable")
+    ks = keys[order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    out = [np.minimum.reduceat(li["l_extendedprice"][order], starts),
+           np.maximum.reduceat(li["l_orderkey"][order], starts),
+           np.minimum.reduceat(li["l_quantity"][order], starts)]
+    return [(int(k), float(a), int(b), float(c))
+            for k, a, b, c in zip(ks[starts], *out)]
+
+
+def _child_env(root: str) -> dict:
+    import os
+    from cockroach_tpu_torch.exec.coldstart import ENV_VAR
+    return dict(os.environ, **{ENV_VAR: root})
+
+
+def coldstart_child_main() -> int:
+    """A cold-start child process (phase 17d): argv = [npz, prewarm,
+    device] (device "cuda": the card; "cpu" for a rehearsal).
+    Loads the lineitem columns of the npz into an Engine on the card,
+    prewarms the top `prewarm` journaled statements, then runs Q1 and
+    Q6 once each with every count set to 0 just before and read just
+    after (each kernel-1 launch held against its plain version), and
+    prints one JSON line of what it measured."""
+    import numpy as np
+
+    from cockroach_tpu_torch.exec import coldstart
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import groupagg as tg
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    t_start = time.perf_counter()
+    path, prewarm = sys.argv[1], int(sys.argv[2])
+    cols = dict(np.load(path))
+    eng = Engine(device=None if sys.argv[3] == "cuda" else sys.argv[3])
+    eng.execute(
+        "CREATE TABLE lineitem (l_quantity DECIMAL(15,2) NOT NULL, "
+        "l_extendedprice DECIMAL(15,2) NOT NULL, l_discount DECIMAL(15,2) "
+        "NOT NULL, l_tax DECIMAL(15,2) NOT NULL, l_returnflag STRING NOT "
+        "NULL, l_linestatus STRING NOT NULL, l_shipdate DATE NOT NULL)")
+    for cn in ("l_returnflag", "l_linestatus"):
+        eng.store.set_dictionary("lineitem", cn, tpch.LINEITEM_DICTS[cn])
+    eng.store.insert_columns("lineitem", cols, eng.clock.now())
+    load_s = time.perf_counter() - t_start
+    eng.settings.set("sql.exec.compile_cache.prewarm", prewarm)
+    tally = coldstart.TALLY
+    t0 = time.perf_counter()
+    warmed = eng.prewarm()
+    _sync()
+    out = {"prewarm": prewarm, "load_s": load_s,
+           "prewarm_s": time.perf_counter() - t0, "warmed": warmed,
+           "prewarm_errors": tally.prewarm_errors,
+           "point": list(engine_point(eng.device))}
+    for q, sql in (("q1", tpch.Q1), ("q6", tpch.Q6)):
+        _counts_zero()
+        h0, m0 = eng.plan_cache["hit"], eng.plan_cache["miss"]
+        t0 = time.perf_counter()
+        with recording_slots() as calls:
+            rows = eng.execute(sql).rows
+            _sync()
+        out[f"{q}_first_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{q}_hit"] = eng.plan_cache["hit"] - h0
+        out[f"{q}_miss"] = eng.plan_cache["miss"] - m0
+        on_card = eng.device.type == "cuda"
+        out[f"{q}_launches"] = {
+            "groupagg_large": tgl.LAUNCHES if on_card else tgl.PLAIN_CALLS,
+            "groupagg": tg.LAUNCHES if on_card else tg.PLAIN_CALLS}
+        out[f"{q}_checks"] = check_calls(
+            f"child {q}", calls, tgl.LAUNCHES) if on_card else []
+        out[f"{q}_rows"] = [[str(v) for v in r] for r in rows]
+    out.update(plan_cache=dict(eng.plan_cache), lib_loads=tally.lib_loads,
+               lib_builds=tally.lib_builds, plan_builds=tally.plan_builds,
+               seconds=time.perf_counter() - t_start)
+    eng.close()
+    print("COLDSTART " + json.dumps(out), flush=True)
+    return 0
+
+
+def _run_child(npz: str, prewarm: int, root: str, device: str) -> dict:
+    cmd = [sys.executable, "-c", "import sys, chip_smoke; "
+           "sys.exit(chip_smoke.coldstart_child_main())", npz, str(prewarm),
+           device]
+    proc = subprocess.run(cmd, env=_child_env(root), capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"cold-start child (prewarm {prewarm}) "
+                             f"failed:\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("COLDSTART ")][-1]
+    return json.loads(line[len("COLDSTART "):])
+
+
+def coldstart_phase(eng, li, li_codes, kept, sf, infra, q1_args,
+                    q1_rows, q6_rows) -> dict:
+    """Phase 17 on the SF1 engine after phase 9 (lineitem as loaded):
+    (a) the parity gate's verdicts, the MIN/MAX GROUP BY and the MIN/MAX
+    TPC-H queries under `auto`; (b) the launch-point sweep; (c) the
+    plan shape cache on Q6's literal sets; (d) two cold-start child
+    processes. Returns its numbers, with "launches" (kernel 1's and
+    kernel 2's in this process's counted runs) and "path_checks"."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from cockroach_tpu_torch.exec import coldstart
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import autotune, paritygate
+    from cockroach_tpu_torch.ops.cuda import groupagg as tg
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    from cockroach_tpu_torch.ops.cuda.groupagg_large_check import (
+        compare_plain)
+    on_card = eng.device.type == "cuda"
+    t_start = time.perf_counter()
+    key = eng._device_key
+    d = eng._compile_cache_dir
+    launches = {"groupagg_large": 0, "groupagg": 0}
+    checks: dict = {}
+    out: dict = {"card": _smi() if on_card else "cpu"}
+
+    def counted(label, sql, session=None, point=None):
+        _counts_zero()
+        with recording_slots() as calls:
+            res = eng.execute(sql, session)
+            _sync()
+        n1 = tgl.LAUNCHES if on_card else tgl.PLAIN_CALLS
+        n2 = tg.LAUNCHES if on_card else tg.PLAIN_CALLS
+        launches["groupagg_large"] += n1
+        launches["groupagg"] += n2
+        if on_card and n1:
+            checks[label] = check_calls(label, calls, n1, point)
+        return res, n1
+
+    # -- (a) the parity gate ------------------------------------------------
+    point0 = engine_point(eng.device)
+    if list(point0) != list(infra["point"]):
+        raise AssertionError(f"the engine's point {point0} != phase 1's "
+                             f"{infra['point']}")
+    exact = paritygate.promoted(key, d, eng.device, point0)
+    if tuple(infra["exact_paths"]) != exact:
+        raise AssertionError(f"the engine's verdicts {exact} != phase 1's "
+                             f"{infra['exact_paths']}")
+    t0 = time.perf_counter()
+    again = paritygate.fuzz(key, None, eng.device, point0)
+    out["gate"] = {"promoted": list(exact), "fuzz_again": list(again),
+                   "fuzz_s": time.perf_counter() - t0,
+                   "phase1_fuzz_s": infra["fuzz_s"]}
+    print("parity gate on the card: " + json.dumps(out["gate"]), flush=True)
+    if again != exact:
+        raise AssertionError(f"a second fuzz gave {again}, not {exact}")
+    want_mm = 1 if "int_minmax" in exact else 0
+    res, n1 = counted("minmax group by", MINMAX_GROUP_BY)
+    got = sorted(tuple(r) for r in res.rows)
+    want = minmax_oracle(li)
+    if n1 != want_mm:
+        raise AssertionError(f"the MIN/MAX GROUP BY launched kernel 1 {n1} "
+                             f"times under auto, not {want_mm}")
+    if [(int(a), float(b), int(c), float(e)) for a, b, c, e in got] != want:
+        raise AssertionError("the MIN/MAX GROUP BY rows != numpy")
+    s_off = eng.session()
+    s_off.vars.set("pallas_groupagg", "off")
+    if sorted(tuple(r) for r in eng.execute(MINMAX_GROUP_BY, s_off).rows) \
+            != got:
+        raise AssertionError("the MIN/MAX GROUP BY under off != auto")
+    out["minmax_group_by"] = {"groups": len(got), "rows_in": int(
+        eng.store.table("lineitem").row_count), "launches": n1,
+        "ms": _median_ms(lambda: eng.execute(MINMAX_GROUP_BY), reps=3),
+        "off_ms": _median_ms(lambda: eng.execute(MINMAX_GROUP_BY, s_off),
+                             reps=3)}
+    out["minmax_queries"] = {}
+    for q in MINMAX_QUERIES:
+        res, n1 = counted(f"{q} minmax", tpch.QUERIES[q])
+        err = check_result(q.upper(), res, kept["want"][q])
+        if n1 != want_mm:
+            raise AssertionError(f"{q} launched kernel 1 {n1} times under "
+                                 f"auto, not {want_mm}")
+        if eng.execute(tpch.QUERIES[q], s_off).rows != res.rows:
+            raise AssertionError(f"{q} under off != auto")
+        # `off` is the route these queries took before the gate: no
+        # kernel-1 launch
+        out["minmax_queries"][q] = {
+            "launches": n1, "max_rel_err": err,
+            "ms": _median_ms(lambda q=q: eng.execute(tpch.QUERIES[q]),
+                             reps=3),
+            "off_ms": _median_ms(
+                lambda q=q: eng.execute(tpch.QUERIES[q], s_off), reps=3)}
+    print("MIN/MAX under auto: " + json.dumps(
+        {"group_by": out["minmax_group_by"],
+         "queries": out["minmax_queries"]}), flush=True)
+
+    # -- (b) the launch-point sweep -----------------------------------------
+    gid, sel, slots, G, rep = q1_args[:5]
+    n = gid.shape[0]
+
+    def q1_slots(p):
+        """Q1's captured slots with each i64 sum's limbs re-cut to the
+        point's exactness bound (the same bits)."""
+        wmax = tgl.limb_width(n, n, block_rows=p[0] * p[1], cap=p[3])
+        out_s = []
+        for s in slots:
+            if s.kind == "i64sum" and s.w > wmax:
+                s = tgl.i64sum(s.value, s.mask, wmax,
+                               min(-(-(s.w * s.k) // wmax), -(-64 // wmax)))
+            out_s.append(s)
+        return tuple(out_s)
+
+    def q1_workload(p):
+        sp = q1_slots(p)
+        return lambda: tgl.aggregate_slots(gid, sel, sp, G, rep, point=p)
+
+    # the sweep (what `on` runs, plus Q1's slots) persists under a root
+    # of its own: the run's main path keeps the point phase 1 resolved,
+    # and the tuned Q1 below reads the winner back from there
+    d_tune = os.path.join(d, "sweep")
+    os.makedirs(d_tune, exist_ok=True)
+    shutil.copy(paritygate.table_path(d), d_tune)
+    runs0 = autotune.RUNS.value("sweep")
+    sweep = autotune.autotune(key, d_tune, eng.device,
+                              workloads=(q1_workload,))
+    shapes = autotune.CUDA_SHAPES if on_card else autotune.CPU_SHAPES
+    points = {}
+    for p in autotune.CANDIDATES:
+        name = autotune.point_name(p)
+        rec = {"ms": sweep.timings[name] * 1e3}
+        cases = [(f"synthetic {n_s}x{g_s}",
+                  autotune.synthetic_slots(p, n_s, g_s, eng.device))
+                 for n_s, g_s in shapes]
+        cases.append(("q1", (gid, sel, q1_slots(p), G, rep)))
+        for label, case in cases:
+            args = (*case, p)
+            before = tgl.LAUNCHES
+            res_p = tgl.aggregate_slots(*args)
+            _sync()
+            if on_card and tgl.LAUNCHES != before + 1:
+                raise AssertionError(f"point {name} did not launch once")
+            rec[label] = compare_plain(args, res_p)
+            del args, case, res_p
+        points[name] = rec
+    out["sweep"] = {"winner": autotune.point_name(sweep.best),
+                    "margin": autotune.MARGIN,
+                    "phase1_point": autotune.point_name(infra["point"]),
+                    "points": points}
+    print(f"launch-point sweep [{out['card']}]: "
+          + json.dumps(out["sweep"]), flush=True)
+    # Q1 under the tuned point against the shipped point, bit for bit
+    def drop_plans():
+        with eng._cache_lock:
+            for k in list(eng._exec_cache):
+                del eng._exec_cache[k]
+
+    def fresh_q1(session, point):
+        drop_plans()
+        seen = []
+        kernel = tgl.aggregate_slots
+
+        def recording(*args, **kw):
+            seen.append(kw.get("point"))
+            return kernel(*args, **kw)
+        tgl.aggregate_slots = recording
+        try:
+            rows = counted("q1 " + str(session.vars.get("pallas_autotune")),
+                           tpch.Q1, session, point)[0].rows
+        finally:
+            tgl.aggregate_slots = kernel
+        return rows, seen
+
+    autotune.forget()
+    s_ship = eng.session()
+    s_ship.vars.set("pallas_autotune", "off")
+    shipped, seen_ship = fresh_q1(s_ship, autotune.DEFAULT)
+    # the gate's verdict at the winner, fuzzed outside the counted run
+    # when the winner is not the shipped point
+    out["sweep"]["gate_at_winner"] = list(paritygate.promoted(
+        key, d_tune, eng.device, sweep.best))
+    h0 = autotune.TABLE.value("hit")
+    eng._compile_cache_dir = d_tune
+    try:
+        tuned, seen_tuned = fresh_q1(eng.session(), sweep.best)
+    finally:
+        # later statements plan at the run's point again
+        eng._compile_cache_dir = d
+        drop_plans()
+    if shipped != tuned or tuned != q1_rows:
+        raise AssertionError("Q1 under the tuned point != the shipped "
+                             "point's rows")
+    # the first recorded call is the query's (the rest are its checks)
+    if seen_ship[:1] != [autotune.DEFAULT] or \
+            seen_tuned[:1] != [sweep.best]:
+        raise AssertionError(f"Q1 ran at {seen_ship} and {seen_tuned}")
+    if autotune.TABLE.value("hit") != h0 + 1 or \
+            autotune.RUNS.value("sweep") != runs0 + 1:
+        raise AssertionError("the tuned point was not read back from the "
+                             "table without a sweep")
+    out["sweep"]["q1_tuned_equals_shipped"] = True
+
+    # -- (c) the plan shape cache --------------------------------------------
+    s = eng.session()
+    m0, h0 = eng.plan_cache["miss"], eng.plan_cache["hit"]
+    q6 = []
+    for y, dsc, qty in Q6_LITERALS:
+        res, _ = counted(f"q6 {y}", Q6_SHAPE.format(y=y, d=dsc, q=qty), s)
+        want6 = q6_oracle(li, y, dsc, qty)
+        if not _close(res.rows[0][0], want6, 1e-9):
+            raise AssertionError(f"Q6 ({y}, {dsc}, {qty}) {res.rows[0][0]} "
+                                 f"!= oracle {want6}")
+        q6.append(res.rows[0][0])
+    misses = eng.plan_cache["miss"] - m0
+    hits = eng.plan_cache["hit"] - h0
+    if (misses, hits) != (1, 4):
+        raise AssertionError(f"Q6's five literal sets: {misses} misses, "
+                             f"{hits} hits, not 1 and 4")
+    s_text = eng.session()
+    s_text.vars.set("plan_shape_cache", "off")
+    host = {}
+    for mode, sess, lits in (("off", s_text, Q6_TIMED[:3]),
+                             ("on", s, Q6_TIMED[3:])):
+        ms = []
+        for y, dsc, qty in lits:
+            t0 = time.perf_counter()
+            eng.execute(Q6_SHAPE.format(y=y, d=dsc, q=qty), sess)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        host[f"new_literals_{mode}_ms"] = statistics.median(ms)
+    out["plan_shape_cache"] = dict(host, revenue=q6, misses=misses,
+                                   hits=hits)
+    print("plan shape cache, Q6 literal sets: "
+          + json.dumps(out["plan_shape_cache"]), flush=True)
+
+    # -- (d) cold start in two child processes --------------------------------
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-cold-")
+    try:
+        npz = os.path.join(tmp, "lineitem.npz")
+        cols = {c: li_codes.get(c, li[c]) for c in COLD_COLUMNS}
+        np.savez(npz, **cols)
+        root = os.path.join(tmp, "root")
+        child_dir = coldstart.cache_dir(root, eng.device)
+        os.makedirs(child_dir)
+        # a restarted node keeps its tuning and verdict tables: those of
+        # the sweep's root, the verdict there fuzzed at the tuned point
+        for f in (autotune.table_path(d_tune),
+                  paritygate.table_path(d_tune)):
+            shutil.copy(f, child_dir)
+        dev = eng.device.type
+        cold = _run_child(npz, 0, root, dev)
+        warm = _run_child(npz, COLD_PREWARM, root, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want_rows = {"q1": [[str(v) for v in r] for r in q1_rows],
+                 "q6": [[str(v) for v in r] for r in q6_rows]}
+    for c in (cold, warm):
+        for q in ("q1", "q6"):
+            if c.pop(f"{q}_rows") != want_rows[q]:
+                raise AssertionError(f"child (prewarm {c['prewarm']}) {q} "
+                                     "rows != phase 2's")
+        if c["q1_launches"]["groupagg_large"] != 1:
+            raise AssertionError("a child's Q1 did not launch kernel 1 once")
+    if cold["q1_hit"] != 0 or warm["warmed"] != 2 or warm["q1_hit"] != 1 \
+            or warm["q6_hit"] != 1 or warm["prewarm_errors"]:
+        raise AssertionError(f"cold start: unwarmed {cold}, warmed {warm}")
+    checks["child q1 unwarmed"] = cold.pop("q1_checks")
+    checks["child q1 warmed"] = warm.pop("q1_checks")
+    cold.pop("q6_checks")
+    warm.pop("q6_checks")
+    out["coldstart"] = {"unwarmed": cold, "warmed": warm}
+    print("cold start (children): " + json.dumps(out["coldstart"]),
+          flush=True)
+    out["launches"] = launches
+    out["child_launches"] = {
+        "groupagg_large": sum(c[f"{q}_launches"]["groupagg_large"]
+                              for c in (cold, warm) for q in ("q1", "q6")),
+        "groupagg": sum(c[f"{q}_launches"]["groupagg"]
+                        for c in (cold, warm) for q in ("q1", "q6"))}
+    out["path_checks"] = checks
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def coldstart_phase_alone(sf: float = SF, device=None,
+                          rows: int | None = None) -> dict:
+    """Phase 17 by itself on the card: builds the kernels, resolves the
+    gate and the launch point under a fresh cache root, loads every
+    TPC-H table at `sf`, runs phase 2's Q1 and Q6 (capturing Q1's slots)
+    and phase 7's Q2 oracle, then phase 17. Prints its JSON line."""
+    import numpy as np
+
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import build
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    with cache_root():
+        if device is None:
+            build.compile_all(["groupagg_large", "groupagg"])
+        infra = kernel_infra(device or "cuda")
+        eng = Engine(device=device)
+        tpch.load(eng, sf=sf, tables=tpch.ALL_TABLES, encoded=True,
+                  rows=rows)
+        li = tpch.gen_lineitem(sf, encoded=True, rows=rows)
+        codes = {c: li[c].copy() for c in ("l_returnflag", "l_linestatus")}
+        captured = {}
+        kernel = tgl.aggregate_slots
+
+        def recording(*args, **kw):
+            captured.setdefault("q1", (args, kw))
+            return kernel(*args, **kw)
+        tgl.aggregate_slots = recording
+        try:
+            q1_rows = eng.execute(tpch.Q1).rows
+        finally:
+            tgl.aggregate_slots = kernel
+        q6_rows = eng.execute(tpch.Q6).rows
+        tables = _oracle_tables(dict(li, **{
+            c: np.asarray(v, dtype=object)[li[c]] for c, v in
+            (("l_returnflag", tpch.RF_VALUES),
+             ("l_linestatus", tpch.LS_VALUES),
+             ("l_shipinstruct", tpch.SHIPINSTRUCT),
+             ("l_shipmode", tpch.SHIPMODES))}), sf)
+        kept = {"want": {q: tpch.oracle_rows(q, tables)
+                         for q in MINMAX_QUERIES}}
+        out = coldstart_phase(eng, li, codes, kept, sf, infra,
+                              slot_args(captured, "q1"), q1_rows, q6_rows)
+        eng.close()
+        _sync()
+    print(json.dumps({"coldstart": out}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4941,6 +5541,12 @@ def main() -> int:
                     help="also profile the phase 6 queries into DIR")
     opts = ap.parse_args()
 
+    with cache_root():
+        return _main(opts)
+
+
+def _main(opts) -> int:
+    import torch
     t_start = time.perf_counter()
     kernels, smi, name, dml = sf1_phases(opts)
     # the SF1 engines and tables went with sf1_phases' frame: free what
@@ -4950,7 +5556,7 @@ def main() -> int:
 
     # -- 10. beyond memory at SF10 ---------------------------------------------
     t0 = time.perf_counter()
-    stream = beyond_memory_phase()
+    stream = beyond_memory_phase(reps=2)
     kernels[0]["launches"] += sum(stream["kernel1_launches"].values())
     kernels[0]["phase10_launches"] = stream["kernel1_launches"]
     kernels[0]["path_checks"].update(stream.pop("path_checks"))
@@ -4962,6 +5568,7 @@ def main() -> int:
     obs = dml.pop("observability")
     hist = dml.pop("history")
     jobs = dml.pop("jobs")
+    cold = dml.pop("coldstart")
     obs["node"] = front["entry_points"].pop("observability")
     print(json.dumps({"dml": dict(dml, card=smi)}), flush=True)
     print(json.dumps({"oltp": dict(oltp, card=smi)}), flush=True)
@@ -4969,6 +5576,7 @@ def main() -> int:
     print(json.dumps({"observability": dict(obs, card=smi)}), flush=True)
     print(json.dumps({"history": dict(hist, card=smi)}), flush=True)
     print(json.dumps({"jobs": dict(jobs, card=smi)}), flush=True)
+    print(json.dumps({"coldstart": dict(cold, card=smi)}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -4979,10 +5587,10 @@ def main() -> int:
 
 
 def sf1_phases(opts) -> tuple:
-    """Phases 1-9 and 11-16 at SF1; returns (kernels, nvidia-smi line,
+    """Phases 1-9 and 11-17 at SF1; returns (kernels, nvidia-smi line,
     card name, phase 11's numbers with phase 12's under "oltp", phase
     13's under "frontdoor", 14's under "observability", 15's under
-    "history" and 16's under "jobs"). Every engine and table of these
+    "history", 16's under "jobs" and 17's under "coldstart"). Every engine and table of these
     phases lives in this frame only, so they are freed when it
     returns."""
     import numpy as np
@@ -5013,6 +5621,9 @@ def sf1_phases(opts) -> tuple:
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
+    # the parity gate's verdicts and kernel 1's launch point, as the
+    # first `auto` plan build would resolve them (phase 17 reports them)
+    infra = kernel_infra()
 
     # -- 2. main path ---------------------------------------------------
     t0 = time.perf_counter()
@@ -5020,6 +5631,8 @@ def sf1_phases(opts) -> tuple:
     tpch.load(eng, sf=SF, tables=("lineitem", "part"), encoded=True)
     n_rows = eng.store.table("lineitem").row_count
     li = tpch.gen_lineitem(SF, encoded=True)
+    # phase 17's cold-start children ingest the dictionary codes
+    li_codes = {c: li[c] for c in ("l_returnflag", "l_linestatus")}
     li["l_returnflag"] = np.asarray(tpch.RF_VALUES)[li["l_returnflag"]]
     li["l_linestatus"] = np.asarray(tpch.LS_VALUES)[li["l_linestatus"]]
     part = tpch.gen_part(SF)
@@ -5160,7 +5773,7 @@ def sf1_phases(opts) -> tuple:
         "replaces": "cockroach_tpu/ops/pallas/groupagg_large.py:149",
         "launches": launches["groupagg_large"],
         "max_abs_err": errs["max_abs_err"], "ms": q1_numbers["ms"],
-        "kernel_ms": q1_numbers["kernel_ms"],
+        "kernel_ms": q1_numbers["kernel_ms"], "point": q1_numbers["point"],
         "plain_ms": q1_numbers["plain_ms"],
         "bound_ms": q1_numbers["bound_ms"], "bound_by": "bytes",
         "content_bound_ms": q1_numbers["content_bound_ms"],
@@ -5257,7 +5870,8 @@ def sf1_phases(opts) -> tuple:
     # -- 7. subqueries, derived tables and CTEs at SF1 -----------------------
     t0 = time.perf_counter()
     kept: dict = {}
-    sub_routes = subquery_phase(eng, li, SF, keep=kept)
+    sub_routes = subquery_phase(eng, li, SF, keep=kept,
+                                kernel_launches=phase7_launches(infra))
     print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 8. SSB at SF1, in an Engine of its own --------------------------------
@@ -5287,6 +5901,22 @@ def sf1_phases(opts) -> tuple:
                                            *(("ssb " + k, v) for k, v in
                                              ssb_routes.items())]
         if r.get("kernel_checks")}
+
+    # -- 17. cold start and kernel infrastructure ----------------------------
+    # (lineitem as loaded: before phase 11's writes)
+    t0 = time.perf_counter()
+    cold = coldstart_phase(eng, li, li_codes, kept, SF, infra,
+                           slot_args(captured, "q1"), rows["q1"],
+                           rows["q6"])
+    for i, k in enumerate(("groupagg_large", "groupagg")):
+        kernels[i]["launches"] += cold["launches"][k]
+        kernels[i]["phase17_launches"] = cold["launches"][k]
+        kernels[i]["phase17_child_launches"] = cold["child_launches"][k]
+    large["path_checks"].update(
+        (f"sf1 {k} phase 17", v) for k, v in cold.pop("path_checks").items())
+    large["launch_point"] = cold["sweep"]["winner"]
+    large["exact_paths"] = cold["gate"]["promoted"]
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # -- 14. set operations, composed CTEs, EXPLAIN ANALYZE, tracing -------
     # (on phase 7's tables, before phase 11's writes)
@@ -5375,6 +6005,7 @@ def sf1_phases(opts) -> tuple:
     kernels[1]["path_checks"]["phase 16"] = jobs.pop("small_checks")
     print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
     dml["jobs"] = jobs
+    dml["coldstart"] = cold
     if opts.profile:
         from cockroach_tpu_torch.profile_tpch import profile_queries
         profile_queries(eng, {"q3": (tpch.Q3, None), "q5": (tpch.Q5, None),

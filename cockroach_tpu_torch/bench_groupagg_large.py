@@ -5,8 +5,9 @@
 
 Loads every TPC-H table at the given scale into the port's Engine on the
 current CUDA card and runs Q1, Q5, Q10 and Q12 (default
-``pallas_groupagg = auto``), keeping the slots each hands the kernel.
-Then, at each query's inputs:
+``pallas_groupagg = auto``), keeping the slots each hands the kernel
+and the launch point the engine resolved (``point``, printed per query):
+every launch below is at that point. Then, at each query's inputs:
 - for every build of the kernel (the checkout's csrc/groupagg_large.cu,
   named "tree", and each ``--source``, a variant of that file with the
   same C interface, named by its file's stem), in the accumulator layout
@@ -78,17 +79,19 @@ def events_ms(fn, reps: int = 20, warm: int = 2) -> float:
 
 
 def kernel_ms(plan, layout: str | None = None, reps: int = 20,
-              lib=None) -> float:
+              lib=None, point=None) -> float:
     """Mean device time of one bare launch of the large-G kernel (its
     init kernel and the aggregation) at a plan, the launch prepared
     beforehand: CUDA events around `reps` launches back to back, so the
     card does not wait on the host between them. lib: a build of the
-    kernel (default the checkout's)."""
+    kernel (default the checkout's); point: the launch point (default
+    the shipped one)."""
     import torch
 
     from .ops.cuda import groupagg_large as tgl
     layout = layout or tgl.choose_layout(plan)
-    run, _ = tgl.launcher(plan, layout, lib or tgl._lib())
+    run, _ = tgl.launcher(plan, layout, lib or tgl._lib(),
+                          tgl.kernel_point(point))
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -208,30 +211,35 @@ def stage_prebuilt(gid, sel, slots, G, want_rep):
                                      rep), amax
 
 
-def stage_slots(gid, sel, slots, G, want_rep):
-    """The aggregation stage over slots: the kernel, and its max-|value|
-    words as the sentinel's float64 bound."""
+def stage_slots(gid, sel, slots, G, want_rep, point=None):
+    """The aggregation stage over slots: the kernel at the launch point,
+    and its max-|value| words as the sentinel's float64 bound."""
     import torch
 
     from .ops.cuda import groupagg_large as tgl
-    res = tgl.aggregate_slots(gid, sel, slots, G, want_rep)
+    res = tgl.aggregate_slots(gid, sel, slots, G, want_rep, point=point)
     return res, torch.where(res.maxabs < 0, 2.0 ** 63,
                             res.maxabs.to(torch.float64))
 
 
 def capture(eng, queries: dict) -> dict:
     """Run each {name: sql} once, keeping the (gid, sel, slots, G,
-    want_rep) it hands the large-G kernel."""
+    want_rep, point) it hands the large-G kernel: the point is the launch
+    point the engine resolved. Each runs once before: its first plan
+    build may fuzz the parity gate, whose launches are not the query's."""
     from .ops.cuda import groupagg_large as tgl
     captured = {}
     kernel = tgl.aggregate_slots
     try:
         for q, sql in queries.items():
+            eng.execute(sql)
             def recording(gid, sel, slots, num_groups, want_rep=False,
-                          q=q):
+                          point=None, q=q):
                 captured.setdefault(q, (gid, sel, tuple(slots),
-                                        num_groups, bool(want_rep)))
-                return kernel(gid, sel, slots, num_groups, want_rep)
+                                        num_groups, bool(want_rep),
+                                        point))
+                return kernel(gid, sel, slots, num_groups, want_rep,
+                              point=point)
             tgl.aggregate_slots = recording
             eng.execute(sql)
     finally:
@@ -244,7 +252,7 @@ def shape(args) -> dict:
     (``bound_ms``), by content (``content_bound_ms``) and by the
     pre-built columns (``prebuilt_bound_ms``)."""
     from .ops.cuda import groupagg_large as tgl
-    gid, sel, slots, G, want_rep = args
+    gid, sel, slots, G, want_rep = args[:5]
     plan = tgl.plan_slots(*args)
     pre, _ = prebuilt_columns(gid, sel, slots, want_rep)
     nbytes, pbytes = slot_bytes(plan), prebuilt_bytes(pre, G)
@@ -306,26 +314,33 @@ def main() -> int:
 
     plans = {q: tgl.plan_slots(*args) for q, args in captured.items()}
     layout = {q: tgl.choose_layout(p) for q, p in plans.items()}
+    # every launch at the point the engine resolved for the query
+    point = {q: tgl.kernel_point(args[5]) for q, args in captured.items()}
     errs = {q: {f"{b}/{layout[q]}": compare_plain(captured[q], tgl.SlotResult(
-        *tgl.launch(p, layout[q], lib), p.rows, p.rep_row))
+        *tgl.launch(p, layout[q], lib, point[q]), p.rows, p.rep_row))
         for b, lib in libs.items()} for q, p in plans.items()}
     alone = {q: {f"{b}/{layout[q]}": [] for b in libs} for q in plans}
     for _ in range(a.rounds):
         for q, p in plans.items():
             for b in list(libs) + list(libs)[::-1]:
                 alone[q][f"{b}/{layout[q]}"].append(
-                    kernel_ms(p, layout[q], a.reps, libs[b]))
+                    kernel_ms(p, layout[q], a.reps, libs[b], point[q]))
     out = {"card": card, "sf": a.sf, "reps": a.reps, "rounds": a.rounds,
            "shapes": shapes, "errors": errs, "queries": {}}
     for q, args in captured.items():
         plan = plans[q]
-        run, _ = tgl.launcher(plan, layout[q], libs["tree"])
+        run, _ = tgl.launcher(plan, layout[q], libs["tree"], point[q])
         stage = {"prebuilt": [], "slots": []}
         for _ in range(a.rounds):
             for way in ("prebuilt", "slots", "slots", "prebuilt"):
-                fn = stage_prebuilt if way == "prebuilt" else stage_slots
-                stage[way].append(events_ms(lambda: fn(*args), a.reps))
+                if way == "prebuilt":
+                    stage[way].append(events_ms(
+                        lambda: stage_prebuilt(*args[:5]), a.reps))
+                else:
+                    stage[way].append(events_ms(
+                        lambda: stage_slots(*args), a.reps))
         out["queries"][q] = {
+            "point": list(point[q]),
             "alone_ms": {k: {"mean": sum(v) / len(v), "each": v}
                          for k, v in alone[q].items()},
             "wrapper_ms": events_ms(lambda: tgl.aggregate_slots(*args),
@@ -334,7 +349,7 @@ def main() -> int:
             # ctypes call and its two launches, and the whole wrapper
             "plan_host_us": host_us(lambda: tgl.plan_slots(*args)),
             "launcher_host_us": host_us(lambda: tgl.launcher(
-                plan, layout[q], libs["tree"])),
+                plan, layout[q], libs["tree"], point[q])),
             "run_host_us": host_us(run),
             "wrapper_host_us": host_us(lambda: tgl.aggregate_slots(*args)),
             "stage_ms": {k: {"mean": sum(v) / len(v), "each": v}

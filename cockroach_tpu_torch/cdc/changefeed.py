@@ -208,9 +208,12 @@ class ChangefeedResumer:
     """payload: {table, sink, cursor, resolved_every_s};
     progress: {resolved}.
 
-    Runs until canceled. Adopted after a crash, it registers the feed
-    again from the checkpointed resolved timestamp and re-emits what
-    came after it (at least once)."""
+    Runs until canceled, renewing its job lease on the lease's own
+    cadence (JobContext.keep_alive, every pass of its loop) besides the
+    checkpoint of each advanced resolved timestamp, so a live feed is
+    never adopted, however rarely it emits resolved timestamps. Adopted after a
+    crash, it registers the feed again from the checkpointed resolved
+    timestamp and re-emits what came after it (at least once)."""
 
     def __init__(self, engine, poll_s: float = 0.01):
         self.engine = engine
@@ -224,6 +227,7 @@ class ChangefeedResumer:
         feed = TableFeed(self.engine, table, resolved)
         emit_every = float(p.get("resolved_every_s", 0.05))
         last_resolved_emit = 0.0
+        checkpointed = -1
         try:
             while True:
                 ctx.check_cancel()
@@ -239,8 +243,13 @@ class ChangefeedResumer:
                         resolved = frontier
                     sink.emit_resolved(resolved)
                     sink.flush()
-                    ctx.checkpoint({"resolved": resolved})
+                    if resolved > checkpointed:
+                        # the checkpoint renews the job's lease too
+                        ctx.checkpoint({"resolved": resolved})
+                        checkpointed = resolved
                     last_resolved_emit = now
+                # the lease's own cadence, whatever resolved_every_s is
+                ctx.keep_alive()
                 if not evs:
                     time.sleep(self.poll_s)
         finally:

@@ -77,6 +77,12 @@
 //   into shared memory, one global atomicMax per block.
 // - registers are capped so that MIN_BLOCKS blocks share an SM: the
 //   loads of one warp wait while others fold.
+// - launch points: (BLOCK, ROWS, MIN_BLOCKS) are template parameters,
+//   one instantiation per entry of POINTS (the shipped point first,
+//   256 x 4 x 4), selected at launch; FEW follows ROWS (at most 32 / ROWS
+//   groups fit a warp's membership word). ops/cuda/autotune.py times
+//   them. Every point adds the same integers into the same words, so
+//   every point gives the same result.
 // - no per-call host work beyond filling the argument struct: the column
 //   pointers and slots travel by value in the launch's parameter space
 //   (caps MAX_COLS, MAX_MASKS, MAX_SLOTS, which the wrapper checks), an
@@ -100,11 +106,23 @@ constexpr int MASK_SEL = -1;   // sel alone
 constexpr int MAX_COLS = 64;
 constexpr int MAX_MASKS = 30;  // mask bits 0..29 of a row's bit word
 constexpr int MAX_SLOTS = 64;
-constexpr int BLOCK = 256;
-constexpr int MIN_BLOCKS = 4;  // blocks an SM: registers capped at 64
-constexpr int ROWS = 4;        // rows per thread per tile
-constexpr int FEW = 8;         // warp-aggregated adds up to this many groups
 constexpr int MM_HI_SHIFT = 40;
+
+// Launch points: threads a block, rows a thread per tile, blocks an SM
+// (registers capped at 65536 / (BLOCK * MIN_BLOCKS) a thread). Keep in
+// the order of ops/cuda/groupagg_large.py KERNEL_POINTS.
+struct Point {
+  int block, rows, min_blocks;
+};
+constexpr Point POINTS[] = {
+    {256, 4, 4}, {128, 4, 8}, {512, 4, 2}, {256, 2, 4}, {256, 8, 2}};
+constexpr int N_POINTS = sizeof(POINTS) / sizeof(POINTS[0]);
+
+// warp-aggregated adds up to this many groups a tile
+template <int ROWS>
+struct FewOf {
+  static constexpr int value = 32 / ROWS < 8 ? 32 / ROWS : 8;
+};
 constexpr unsigned FULL = 0xffffffffu;
 constexpr unsigned SEL_BIT = 1u << 30;
 constexpr unsigned ROW_BIT = 1u << 31;  // the row is < n
@@ -211,6 +229,7 @@ __device__ __forceinline__ double pow2(int e) {
 // group j; memb holds, ROWS bits per group, which of this lane's rows
 // are in it, and peers, for lane j, which lanes' row k is in group j
 // (so a count is a ballot and a popcount per row position).
+template <int ROWS>
 struct TileGroups {
   bool few;       // warp-uniform: all valid rows fall in <= FEW groups
   int ng;
@@ -218,11 +237,13 @@ struct TileGroups {
   unsigned memb;
   unsigned peers[ROWS];  // lane j: the lanes whose row k is in group j
 };
-static_assert(FEW * ROWS <= 32, "memb holds ROWS bits a group");
 
-__device__ __forceinline__ TileGroups tile_groups(const int (&g)[ROWS],
-                                                  int lane) {
-  TileGroups t;
+template <int ROWS>
+__device__ __forceinline__ TileGroups<ROWS> tile_groups(
+    const int (&g)[ROWS], int lane) {
+  constexpr int FEW = FewOf<ROWS>::value;
+  static_assert(FEW * ROWS <= 32, "memb holds ROWS bits a group");
+  TileGroups<ROWS> t;
   t.few = true;
   t.ng = 0;
   t.gmine = 0;
@@ -262,15 +283,18 @@ __device__ __forceinline__ TileGroups tile_groups(const int (&g)[ROWS],
   return t;
 }
 
-__device__ __forceinline__ unsigned rows_of(const TileGroups& t, int j) {
+template <int ROWS>
+__device__ __forceinline__ unsigned rows_of(const TileGroups<ROWS>& t,
+                                            int j) {
   return (t.memb >> (j * ROWS)) & ((1u << ROWS) - 1u);
 }
 
 // Per group, the warp's sum of x over the group's rows, left in lane j
 // for group j: the rows of a lane add in registers first, so one
 // reduction covers the group's 32 * ROWS rows.
+template <int ROWS>
 __device__ __forceinline__ unsigned group_sums(const unsigned (&x)[ROWS],
-                                               const TileGroups& t,
+                                               const TileGroups<ROWS>& t,
                                                int lane) {
   unsigned mine = 0;
   for (int j = 0; j < t.ng; ++j) {
@@ -285,7 +309,7 @@ __device__ __forceinline__ unsigned group_sums(const unsigned (&x)[ROWS],
   return mine;
 }
 
-template <int LAYOUT>
+template <int LAYOUT, int BLOCK, int ROWS, int MIN_BLOCKS>
 __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
 groupagg_large_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -333,7 +357,7 @@ groupagg_large_kernel(const __grid_constant__ Params p) {
       for (int k = 0; k < ROWS; ++k)
         if ((bits[k] & ROW_BIT) && __ldg(&mk[row[k]])) bits[k] |= 1u << m;
     }
-    const TileGroups tg = tile_groups(g, lane);
+    const TileGroups<ROWS> tg = tile_groups<ROWS>(g, lane);
     const bool few = tg.few;  // warp-uniform
 
     for (int s = 0; s < p.n_slots; ++s) {
@@ -553,6 +577,7 @@ struct DeviceInfo {
   int sms;
   int smem_per_sm;  // shared memory an SM holds, and that a block costs
   int smem_block;   // besides its dynamic bytes (reserved + static)
+  bool shared_ready[N_POINTS];  // the shared-memory attribute is set
 };
 DeviceInfo g_info[16];
 
@@ -574,10 +599,6 @@ cudaError_t device_info(DeviceInfo** out) {
             cudaSuccess)
       return e;
     d.smem_block = reserved + (int)(sizeof(unsigned long long) * MAX_SLOTS);
-    if ((e = cudaFuncSetAttribute(groupagg_large_kernel<SHARED>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  SMEM_DYN_MAX)) != cudaSuccess)
-      return e;
     d.ready = true;
   }
   *out = &d;
@@ -585,11 +606,21 @@ cudaError_t device_info(DeviceInfo** out) {
 }
 
 // One block per tile up to the blocks the SMs hold at once: MIN_BLOCKS
-// an SM by registers (the launch bounds cap them at 64 and the kernel
-// uses about that), fewer where the shared accumulators do not fit.
-template <int LAYOUT>
-cudaError_t launch(const DeviceInfo& d, const Params& p, int smem,
+// an SM by registers (the launch bounds cap them), fewer where the
+// shared accumulators do not fit.
+template <int LAYOUT, int PT>
+cudaError_t launch(DeviceInfo& d, const Params& p, int smem,
                    cudaStream_t stream) {
+  constexpr int BLOCK = POINTS[PT].block;
+  constexpr int ROWS = POINTS[PT].rows;
+  constexpr int MIN_BLOCKS = POINTS[PT].min_blocks;
+  auto kernel = groupagg_large_kernel<LAYOUT, BLOCK, ROWS, MIN_BLOCKS>;
+  if (LAYOUT == SHARED && !d.shared_ready[PT]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_DYN_MAX);
+    if (e != cudaSuccess) return e;
+    d.shared_ready[PT] = true;
+  }
   int per_sm = d.smem_per_sm / (smem + d.smem_block);
   if (per_sm > MIN_BLOCKS) per_sm = MIN_BLOCKS;
   if (per_sm < 1) per_sm = 1;
@@ -597,9 +628,23 @@ cudaError_t launch(const DeviceInfo& d, const Params& p, int smem,
   long long grid = (p.n + tile - 1) / tile;
   if (grid > (long long)d.sms * per_sm) grid = (long long)d.sms * per_sm;
   if (grid < 1) grid = 1;
-  groupagg_large_kernel<LAYOUT><<<(unsigned)grid, BLOCK, smem, stream>>>(p);
+  kernel<<<(unsigned)grid, BLOCK, smem, stream>>>(p);
   return cudaGetLastError();
 }
+
+template <int LAYOUT>
+cudaError_t launch_point(DeviceInfo& d, const Params& p, int smem,
+                         int point, cudaStream_t stream) {
+  switch (point) {
+    case 0: return launch<LAYOUT, 0>(d, p, smem, stream);
+    case 1: return launch<LAYOUT, 1>(d, p, smem, stream);
+    case 2: return launch<LAYOUT, 2>(d, p, smem, stream);
+    case 3: return launch<LAYOUT, 3>(d, p, smem, stream);
+    case 4: return launch<LAYOUT, 4>(d, p, smem, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+static_assert(N_POINTS == 5, "launch_point switches over every point");
 
 }  // namespace
 
@@ -608,18 +653,18 @@ cudaError_t launch(const DeviceInfo& d, const Params& p, int smem,
 // col_ptrs/col_types [n_cols], mask_ptrs [n_masks] (uint8 0/1 columns),
 // slots [n_slots * 8] ints (kind, col, mask, row, w, k, frow, mx).
 // layout: 0 shared-memory accumulators ((nf + ni) * G * 4 bytes must fit
-// in SMEM_DYN_MAX), 1 global atomics.
+// in SMEM_DYN_MAX), 1 global atomics. point: an index into POINTS.
 extern "C" int groupagg_large_launch(
     const void* gid, const void* sel, void* acc_f, void* acc_i,
     void* maxabs, const long long* col_ptrs, const unsigned char* col_types,
     int n_cols, const long long* mask_ptrs, int n_masks, const int* slots,
     int n_slots, long long n, int G, int nf, int ni, int n_mx, int rep_row,
-    int layout, void* stream) {
+    int layout, int point, void* stream) {
   if (n_cols < 0 || n_cols > MAX_COLS || n_masks < 0 ||
       n_masks > MAX_MASKS || n_slots < 0 || n_slots > MAX_SLOTS ||
       nf < 1 || nf > MAX_SLOTS || ni < 1 || n_mx < 0 || n_mx > MAX_SLOTS ||
       G < 1 || n < 0 || n >= (1ll << 31) || layout < 0 ||
-      layout >= N_LAYOUTS)
+      layout >= N_LAYOUTS || point < 0 || point >= N_POINTS)
     return (int)cudaErrorInvalidValue;
   Params p;
   memset(&p, 0, sizeof(p));
@@ -684,10 +729,22 @@ extern "C" int groupagg_large_launch(
   groupagg_large_init<<<(unsigned)igrid, 256, 0, s>>>(p);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  if (layout == GLOBAL) return (int)launch<GLOBAL>(*d, p, 0, s);
+  if (layout == GLOBAL)
+    return (int)launch_point<GLOBAL>(*d, p, 0, point, s);
   const long long bytes = (long long)(nf + ni) * G * 4;
   if (bytes > SMEM_DYN_MAX) return (int)cudaErrorInvalidValue;
-  return (int)launch<SHARED>(*d, p, (int)bytes, s);
+  return (int)launch_point<SHARED>(*d, p, (int)bytes, point, s);
+}
+
+// The launch points this library holds, as (block, rows, min_blocks)
+// triples into out[0 .. cap); returns how many there are.
+extern "C" int groupagg_large_points(int* out, int cap) {
+  for (int j = 0; j < N_POINTS && 3 * j + 2 < cap; ++j) {
+    out[3 * j] = POINTS[j].block;
+    out[3 * j + 1] = POINTS[j].rows;
+    out[3 * j + 2] = POINTS[j].min_blocks;
+  }
+  return N_POINTS;
 }
 
 extern "C" const char* groupagg_large_error_string(int err) {

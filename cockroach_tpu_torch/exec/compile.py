@@ -50,6 +50,7 @@ from ..ops import hashtable, sortkey
 from ..ops.batch import ColumnBatch
 from ..ops.cuda import groupagg as pg
 from ..ops.cuda import groupagg_large as pgl
+from ..ops.cuda import paritygate
 from ..ops.join import hash_join
 from ..sql import plan as P
 from ..sql.bound import BoundAgg
@@ -76,6 +77,13 @@ class ExecParams:
     topk_sort: bool = True
     # session var sort_normalized: auto | on | off
     sort_normalized: str = "auto"
+    # kernel 1's launch point (block, rows, min_blocks, limb_cap) from
+    # the tuning table (ops/cuda/autotune.py) and the kernel-1 paths the
+    # parity gate proved exact on this card (ops/cuda/paritygate.py),
+    # which `auto` admits. Both are performance-only under the gate's
+    # proof, so neither is part of the exec-cache key.
+    pallas_point: tuple = (256, 4, 4, 22)
+    pallas_exact_paths: tuple = ()
 
 
 class RunContext:
@@ -88,14 +96,19 @@ class RunContext:
     ``nparts``/``pid`` drive the partitioned re-run of a hash GROUP BY
     that overflowed its table: the run keeps only the rows whose salted
     key hash lands in partition ``pid`` of ``nparts``
-    (ops/hashtable.py partition_mask). nparts = 1 keeps every row."""
+    (ops/hashtable.py partition_mask). nparts = 1 keeps every row.
+
+    ``params``: the statement's lifted filter literals (Python scalars,
+    exec/planparam.py), read by the plan's BParam nodes."""
 
     def __init__(self, scans: dict[str, ColumnBatch], read_ts: int,
-                 nparts: int = 1, pid: int = 0, route: dict | None = None):
+                 nparts: int = 1, pid: int = 0, route: dict | None = None,
+                 params: tuple = ()):
         self.scans = scans
         self.read_ts = read_ts
         self.nparts = nparts
         self.pid = pid
+        self.params = params
         # a paged run shares one route over its pages
         self.route = route if route is not None else self.new_route()
 
@@ -108,10 +121,11 @@ class RunContext:
 CompiledNode = Callable[[RunContext], ColumnBatch]
 
 
-def _ctx_of(batch: ColumnBatch, aggs=None) -> ExprContext:
+def _ctx_of(batch: ColumnBatch, aggs=None,
+            params: tuple = ()) -> ExprContext:
     cols = {name: (batch.data[i], batch.valid[i])
             for i, name in enumerate(batch.names)}
-    return ExprContext(cols, batch.n, batch.device, aggs)
+    return ExprContext(cols, batch.n, batch.device, aggs, params)
 
 
 def compile_plan(node: P.PlanNode, params: ExecParams,
@@ -154,7 +168,7 @@ def _compile_plan(node: P.PlanNode, params: ExecParams,
 
         def run_filter(rc):
             b = childf(rc)
-            pv = predf(_ctx_of(b))
+            pv = predf(_ctx_of(b, params=rc.params))
             return b.and_sel(torch.logical_and(pv[0], pv[1]))
         return run_filter
     if isinstance(node, P.Project):
@@ -236,7 +250,7 @@ def _compile_scan(node: P.Scan) -> CompiledNode:
         b = ColumnBatch.from_dict(cols, valid,
                                   sel=torch.logical_and(raw.sel, live))
         if predf is not None:
-            pv = predf(_ctx_of(b))
+            pv = predf(_ctx_of(b, params=rc.params))
             b = b.and_sel(torch.logical_and(pv[0], pv[1]))
         for cname, cf in computedf:
             d, v = cf(_ctx_of(b))
@@ -496,15 +510,16 @@ def _pallas_dense_partials(slots, aggfs, b, ctx, gid, num_groups: int,
     return aggs_out, live
 
 
-def _pallas_large_ok(aggs, mode: str) -> bool:
-    """Static (SQL-type) envelope check for the large-G kernel. `auto`
-    admits only aggregates whose kernel results are exact: counts,
-    `any` (representative-row gather), and int64-limb sums/avgs over
-    INT/DECIMAL args. `on` also admits INT/DECIMAL MIN/MAX (exact
-    through the high-limb refine) and FLOAT sum/avg/min/max, which
-    accumulate in f32 (approximate, as in the small-G kernel). The
-    reference's parity gate can promote paths under `auto`; it is not
-    ported, so no path is promoted here."""
+def _pallas_large_ok(aggs, mode: str, exact_paths: tuple = ()) -> bool:
+    """Static (SQL-type) envelope check for the large-G kernel (the
+    reference's). `auto` admits only aggregates whose kernel results
+    are exact: counts, `any` (representative-row gather), int64-limb
+    sums/avgs over INT/DECIMAL args, and whatever ``exact_paths`` the
+    parity gate (ops/cuda/paritygate.py) proved bit-identical on this
+    card: ``int_minmax`` (INT/DECIMAL MIN/MAX through the high limb and
+    its refinement), ``float_sum`` (FLOAT sum/avg in f32). `on` admits
+    every path, FLOAT MIN/MAX included (approximate, as in the small-G
+    kernel)."""
     for a in aggs:
         if a.distinct:
             return False
@@ -514,12 +529,16 @@ def _pallas_large_ok(aggs, mode: str) -> bool:
         if a.func in ("sum", "sum_int", "avg"):
             if fam in (Family.INT, Family.DECIMAL):
                 continue
-            if fam == Family.FLOAT and mode == "on":
+            if fam == Family.FLOAT and \
+                    (mode == "on" or "float_sum" in exact_paths):
                 continue
             return False
-        if a.func in ("min", "max") and mode == "on" \
-                and fam in (Family.INT, Family.DECIMAL, Family.FLOAT):
-            continue
+        if a.func in ("min", "max"):
+            if fam in (Family.INT, Family.DECIMAL) and \
+                    (mode == "on" or "int_minmax" in exact_paths):
+                continue
+            if mode == "on" and fam == Family.FLOAT:
+                continue
         return False
     return True
 
@@ -568,8 +587,11 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
             # the static check ran on SQL types; limb sums and the
             # MIN/MAX high limb need real integers
             return None
-    # the reference's default tile point, so the limb layout is its
-    w = pgl.limb_width(n, max_group_rows)
+    # the launch point's exactness bound: its tile's rows and every
+    # group's rows in one int32 accumulator (the shipped point gives
+    # the reference's limb layout)
+    block, rows, _mb, cap = params.pallas_point
+    w = pgl.limb_width(n, max_group_rows, block_rows=block * rows, cap=cap)
     slots, tags = [], []
     want_rep = False
     exact = {}  # agg index -> limb count k
@@ -605,7 +627,7 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
     tags.append(("live",))
 
     res = pgl.aggregate_slots(gid, sel, tuple(slots), num_groups,
-                              want_rep)
+                              want_rep, point=params.pallas_point)
     acc_f, acc_i = res.acc_f, res.acc_i
     row = dict(zip(tags, res.rows))
     live = acc_i[row[("live",)]] > 0
@@ -641,18 +663,9 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
                 # rows that hold it: every survivor is an input value,
                 # so the result is bit-equal to the plain path's
                 d0, v0 = argdata[i]
-                m = torch.logical_and(sel, v0)
-                rowhi = d0.to(torch.int64) >> pgl.MM_HI_SHIFT
-                # an empty group's +/-inf has no int64 value: park it
-                # at 0 (no row of that group is in `m`)
-                win = torch.where(torch.isfinite(d), d, 0.0) \
-                    .to(torch.int64)
-                g = torch.clamp(gid.to(torch.int64), 0, num_groups - 1)
-                refine = torch.logical_and(m, rowhi == win[g])
-                fold = aggops.group_min if a.func == "min" \
-                    else aggops.group_max
-                aggs_out.append((fold(d0, gid, refine, num_groups),
-                                 nonempty))
+                aggs_out.append((paritygate.refine_int_minmax(
+                    d0, torch.logical_and(sel, v0), gid, d, num_groups,
+                    a.func), nonempty))
                 continue
             aggs_out.append((d.to(torch.float64), nonempty))
             continue
@@ -782,7 +795,8 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
         large = (pslots is None and mode in ("on", "auto") and groupfs
                  and dense and b.n % 128 == 0 and num_groups <= LARGE_G_MAX
                  and not (mode == "auto" and b.n < AUTO_MIN_ROWS)
-                 and _pallas_large_ok([a for a, _ in aggfs], mode))
+                 and _pallas_large_ok([a for a, _ in aggfs], mode,
+                                      params.pallas_exact_paths))
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
         rep_state = None
         kernel_live = None   # liveness from a kernel's own launch

@@ -22,8 +22,8 @@ result pull. The reference's analogue is a WithExpr spool feeding its
 readers in memory (sql/opt WithExpr; here the buffer stays in HBM).
 
 The glue produces the temp batch of the port's upload
-(Engine._batch_from_chunks): the captured width (rows bucketed from 128,
-where the reference pads from 1,024), live rows first in the body's
+(Engine._batch_from_chunks): the captured width (rows bucketed by the
+engine's shape ladder, exec/coldstart.py, as the reference's), live rows first in the body's
 output order, padding rows with data 0, validity False, ``_mvcc_ts`` at
 _DEAD_TS = 2^62 and ``_mvcc_del`` 0, live rows visible at any read
 timestamp (written at wall 1, never deleted), and dictionary codes
@@ -160,13 +160,13 @@ class ComposedCTE:
         flags = []
         with eng._inner():
             for st in self.stages:
-                rc = RunContext(st.prep.scans, tsv)
+                rc = RunContext(st.prep.scans, tsv, params=st.prep.params)
                 sub_out = st.prep.runf(rc)
                 eng._note_route(st.prep, rc.route)
                 for a, glue in st.glues:
                     scans[a], ovf = glue(sub_out)
                     flags.append(ovf)
-        rc = RunContext(scans, tsv)
+        rc = RunContext(scans, tsv, params=self.main.params)
         out = self.main.runf(rc)
         eng._note_route(self.main, rc.route)
         flag = flags[0]

@@ -14,9 +14,12 @@ shape -> a ``Prepared`` over device-resident tables (exec/session.py).
 Its run is one eager pass and a host decode, where the result's error
 sentinels are checked: a top-k cut that crossed a tie replans with the
 full sort, an overflowed compaction block replans uncompacted, a hash
-GROUP BY past its table re-runs partition by partition. Tables upload
-once per (table, generation), padded to a power of two of at least 128
-rows with never-visible padding rows, reserved against the device
+GROUP BY past its table re-runs partition by partition. Statements that
+differ only in filter literals share one compiled plan: the literals
+ride each run as parameters (exec/planparam.py). Tables upload once
+per (table, generation), padded to a rung of the shape ladder
+(exec/coldstart.py: powers of two from 1,024 rows by default) with
+never-visible padding rows, reserved against the device
 budget ``sql.exec.hbm_budget_bytes`` (``Engine.settings``), and are
 reused across statements.
 
@@ -92,8 +95,9 @@ from ..ops import hashtable
 from ..ops.batch import ColumnBatch, pull_arrays, pull_batch_columns
 from ..ops.join import MAX_EXPAND
 from ..sql import ast, parser
+from ..sql.parser import ParseError
 from ..sql import plan as P
-from ..sql.binder import Binder, Scope, parse_timestamp
+from ..sql.binder import BindError, Binder, Scope, parse_timestamp
 from ..sql.bound import BCol, BConst
 from ..sql.decorrelate import decorrelate_exists, decorrelate_scalar
 from ..sql.planner import CatalogView, PlanError, Planner
@@ -102,17 +106,17 @@ from ..sql.types import (INT8, ColumnSchema, Family, TableSchema,
 from ..storage.columnstore import ColumnStore
 from ..storage.hlc import Clock, Timestamp
 from ..storage.keys import prefix_end
-from ..utils.num import next_pow2
+from ..ops.cuda import autotune, paritygate
 from ..utils.admission import AdmissionController
 from ..utils.devstats import DeviceStats
 from ..utils.rwlock import RWLock
 from ..utils.metric import MetricRegistry
 from ..utils.mon import BytesMonitor
-from ..utils import tracing
+from ..utils import log, tracing
 from ..utils.settings import SettingError, Settings
 from ..utils.sqlstats import StatsRegistry
 from ..utils.stmtdiag import StmtDiagRegistry
-from . import profile
+from . import coldstart, profile
 from .compile import (ExecError, ExecParams, RunContext, compile_plan,
                       compile_streaming)
 from .constraints import ConstraintMixin
@@ -125,6 +129,8 @@ from .joinfilter import find_specs
 from .maintenance import MaintenanceMixin
 from .movement import TransferScheduler
 from .oltplane import OltpLaneMixin
+from .planparam import (parameterize, plan_fingerprint, run_values,
+                        shape_text)
 from .scanplane import ScanPlaneMixin, scan_maps
 from .session import (SENTINEL_COLUMNS, CompactOverflow, EngineError,
                       HashCapacityExceeded, Prepared, Result, Session,
@@ -314,6 +320,16 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         # name -> view descriptor (None = read the catalog again)
         self._view_defs: dict | None = None
         self._lane_init()
+        # cold start (exec/coldstart.py): this card's and toolchain's
+        # cache subdirectory (the shapes journal, kernel 1's tuning and
+        # parity-verdict tables), None when the cache is off; the
+        # compile, autotune and parity-gate metrics
+        self._compile_cache_dir = coldstart.init_cache_dir(self.settings,
+                                                           self.device)
+        self._device_key = coldstart.device_key(self.device)
+        coldstart.register_metrics(self.metrics)
+        autotune.register_metrics(self.metrics)
+        paritygate.register_metrics(self.metrics)
 
     # -- public API ----------------------------------------------------------
     def session(self) -> Session:
@@ -379,12 +395,18 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         self._tenant_tl.app = app or "(unset)"
         obs = StatementObserver(self, stmt, session, sql)
         t0 = time.monotonic()
+        # the statement's compile bill: plan builds and kernel builds
+        # and loads run on this thread (exec/coldstart.py)
+        c0 = coldstart.thread_compile_seconds()
         try:
             with obs.observe():
                 with self._run_scope(self._stmt_tables(stmt),
                                      self._stmt_read_only(stmt, session,
                                                           sql)):
                     res = self._dispatch(stmt, session, sql)
+                compile_s = coldstart.thread_compile_seconds() - c0
+                if compile_s > 0:
+                    self.tracer.tag(compile_s=round(compile_s, 6))
         except Exception:
             if session.txn is not None and not isinstance(
                     stmt, ast.BeginTxn):
@@ -407,7 +429,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                                "statement execution latency (s)").observe(dt)
         self.devstats.note_execute(dt)
         rows = max(len(res.rows), res.row_count)
-        self.sqlstats.record(sql, dt, rows)
+        self.sqlstats.record(sql, dt, rows, compile_s=compile_s)
         psink = obs.psink
         # the statement's bytes moved and stalls (the coarse profile
         # plane: resident uploads, streamed pages, spilled partitions),
@@ -419,6 +441,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             device_s=obs.device_seconds(),
             hbm_bytes=(self.hbm.owner_peak(app or "(unset)")
                        if psink else None))
+        obs.compile_s = compile_s
         obs.finished(res, dt)
         return res
 
@@ -1092,7 +1115,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             + buffered_puts
         limit = self.MAX_JOIN_EXPANSION
         if k > limit and k <= MAX_EXPAND and _probe_rows_bound(
-                join.left, self.store) * k <= self.MAX_WIDE_EXPANDED_ROWS:
+                self, join.left) * k <= self.MAX_WIDE_EXPANDED_ROWS:
             limit = MAX_EXPAND
         if k > limit:
             raise EngineError(
@@ -1718,6 +1741,100 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             topk_sort=not no_topk,
             sort_normalized=sortn if sortn in _MODES else "off")
 
+    def _autotune_mode(self, session: Session) -> str:
+        """Kernel 1's launch-point autotune mode: the session variable
+        ``pallas_autotune`` over the cluster setting
+        ``sql.exec.pallas.autotune`` (ops/cuda/autotune.py)."""
+        mode = session.vars.get("pallas_autotune", None)
+        if mode is None:
+            mode = self.settings.get("sql.exec.pallas.autotune")
+        mode = str(mode).lower()
+        if mode not in autotune.MODES:
+            raise EngineError(f"pallas_autotune = {mode} is not a mode "
+                              "(auto, on, off)")
+        return mode
+
+    def _on_exec_miss(self, session: Session, params: ExecParams,
+                      sql_text: str, bucket: int) -> ExecParams:
+        """An exec-cache miss: journal the statement for a restarted
+        process's prewarm (with its paged bucket and the plan-changing
+        session variables it ran under, non-default ones only), and give
+        the plan kernel 1's launch point and the paths the parity gate
+        promoted on this card. Both are performance-only, bit-identical
+        under the gate's proof, so neither is in the exec-cache key."""
+        jvars = {}
+        if params.hash_group_capacity != 1 << 17:
+            jvars["hash_group_capacity"] = params.hash_group_capacity
+        if params.pallas_groupagg != "auto":
+            jvars["pallas_groupagg"] = params.pallas_groupagg
+        if params.sort_normalized != "auto":
+            jvars["sort_normalized"] = params.sort_normalized
+        coldstart.journal_record(self._compile_cache_dir, sql_text,
+                                 bucket=bucket, vars=jvars)
+        mode = params.pallas_groupagg
+        if mode == "off":
+            return params
+        params.pallas_point = autotune.params_for(
+            self._device_key, self._compile_cache_dir,
+            self._autotune_mode(session), self.device)
+        if mode == "auto":
+            params.pallas_exact_paths = paritygate.promoted(
+                self._device_key, self._compile_cache_dir, self.device,
+                params.pallas_point)
+        return params
+
+    # the session variables a journal entry may replay into a prewarm
+    # session: exactly the plan-changing ones _on_exec_miss journals
+    _PREWARM_VARS = ("hash_group_capacity", "pallas_groupagg",
+                     "sort_normalized")
+
+    def prewarm(self, top_k: int | None = None) -> int:
+        """Re-prepare the top-K statements of the previous run's shapes
+        journal (exec/coldstart.py) so their tables are uploaded, their
+        plans built and their kernel libraries loaded before the first
+        user statement (``top_k`` defaults to the setting
+        sql.exec.compile_cache.prewarm, 0 = off). Call it after the data
+        is loaded. A resident statement runs once, its result decoded
+        and dropped; a paged one warms without reading its data
+        (Prepared.warm). A statement that cannot be prepared (its table
+        is gone, say) is counted in exec.compile.prewarm_errors and
+        logged; a kernel build or launch error raises. Returns the
+        number of statements warmed."""
+        if top_k is None:
+            top_k = int(self.settings.get("sql.exec.compile_cache.prewarm"))
+        if not top_k or not self._compile_cache_dir:
+            return 0
+        warmed = 0
+        for sql, bucket, jvars in coldstart.journal_entries(
+                self._compile_cache_dir, top_k):
+            session = self.session()
+            for name, val in jvars.items():
+                if name in self._PREWARM_VARS:
+                    session.vars.set(name, val)
+            if bucket:
+                session.vars.set("streaming_page_rows", bucket)
+            try:
+                prep = self.prepare(sql, session)
+                if isinstance(prep, RerunPrepared):
+                    pass  # its temps are made anew by every run
+                elif prep.stream is not None or prep.spill is not None:
+                    prep.warm(bucket)
+                else:
+                    # the whole run, result decode included: a bare
+                    # dispatch leaves the decode's first-use work on the
+                    # card to the first user statement
+                    prep.run()
+            except (EngineError, PlanError, BindError, ParseError) as e:
+                # the statement no longer plans here; a kernel's build
+                # or launch error is none of these and raises
+                coldstart.note_prewarmed(False)
+                log.warning(log.SQL_EXEC, "prewarm of %r failed: %s",
+                            sql, e)
+                continue
+            warmed += 1
+            coldstart.note_prewarmed(True)
+        return warmed
+
     def _prepare_select(self, sel: ast.Select, session: Session,
                         sql_text: str, no_topk: bool = False,
                         no_compact: bool = False,
@@ -1831,10 +1948,34 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             outer.update(g for g in gens if not g[0].startswith(TEMP_PREFIX))
         params = self._exec_params(session, no_topk)
         cgens = self._cache_gens(gens)
-        key = (sql_text, tuple(sorted(shapes)), cgens, stream, spill,
+        # statement-shape plan cache: filter literals leave the plan as
+        # run parameters, so literal-varying statements of one shape
+        # share a compiled plan (the reference's gate: not under stream,
+        # spill, an overlay or CTE capture, nor plan_shape_cache = off;
+        # an analyzed run renders the planner's plan, so it keeps its
+        # literals too)
+        pvals: tuple = ()
+        psc = str(session.vars.get("plan_shape_cache", "auto")).lower()
+        if psc != "off" and stream is None and spill is None \
+                and not overlay and self._cte_capture is None \
+                and not self._analyzing:
+            pnode, vals = parameterize(node)
+            if vals is not None:
+                node, pvals = pnode, vals
+        if pvals:
+            # the literals left the plan, so they leave the key's text;
+            # the structural fingerprint rejects a literal that changed
+            # the plan's shape (a LIMIT, a re-ordered join)
+            keytext, plan_fp = shape_text(sql_text), plan_fingerprint(node)
+        else:
+            # a subquery's inlined constant changes the fingerprint
+            keytext, plan_fp = sql_text, hash(repr(node))
+        key = (keytext, tuple(sorted(shapes)), cgens, stream, spill,
                params.hash_group_capacity, params.pallas_groupagg,
-               params.sort_normalized, hash(repr(node)), no_topk,
-               no_compact)
+               params.sort_normalized, plan_fp, no_topk, no_compact,
+               tuple(str(v.dtype) for v in pvals))
+        journal = (sql_text, stream[2] if stream is not None
+                   else spill.page_rows if spill is not None else 0)
         if spill is not None and spill.kind == "sort":
             compile_fn = compile_spill_sort
         elif stream is not None or spill is not None:
@@ -1844,8 +1985,9 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             compile_fn = compile_streaming
         else:
             compile_fn = compile_plan
-        runf, meta, node = self._compiled(key, cgens, node, params, meta,
-                                          compile_fn)
+        runf, meta, node = self._compiled(
+            key, cgens, node, params, meta, compile_fn,
+            miss=lambda: self._on_exec_miss(session, params, *journal))
         p_alias = spill.alias if spill is not None else (
             stream[0] if stream is not None else None)
         # zone checks of the paged scan's pushed-down predicates (the
@@ -1870,7 +2012,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                         if spill is not None and spill.build_alias
                         else None),
             joinfilter=jf_specs, placement=self._placement_key(session),
-            scan_tables=dict(scan_aliases), as_of=as_of)
+            scan_tables=dict(scan_aliases), as_of=as_of,
+            params=run_values(pvals))
         cap = self._cte_capture
         if cap is not None and cap["want_main"] and not cap["disabled"]:
             # the last preparation after the temps is the main plan
@@ -1902,7 +2045,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         return tuple(sorted(out))
 
     def _compiled(self, key, cgens: tuple, node, params: ExecParams,
-                  meta, compile_fn=compile_plan):
+                  meta, compile_fn=compile_plan, miss=None):
         """(compiled plan, meta, plan node) from the exec cache, or
         compiled now with ``compile_fn`` (compile_plan,
         compile_streaming or compile_spill_sort). A hit returns the plan
@@ -1910,19 +2053,26 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         makes it equal to ``node``): the fine profile plane keys its
         operators by that node's identity. ``key`` holds ``cgens``
         (_cache_gens); a miss drops the entries that read one of these
-        tables at an older generation, which no later run can hit."""
+        tables at an older generation, which no later run can hit.
+        ``miss()``, on a miss, gives the ExecParams to compile with."""
         with self._cache_lock:
             hit = self._exec_cache.get(key)
             if hit is not None:
                 self.plan_cache["hit"] += 1
                 self._exec_cache.touch(key)
         self.tracer.tag(plan_cache="hit" if hit is not None else "miss")
+        self.metrics.counter(
+            "sql.plan.cache.hit" if hit is not None
+            else "sql.plan.cache.miss",
+            "compiled-plan cache lookups, by outcome").inc()
         if hit is not None:
             return hit[0], hit[1], hit[3]
         with self._cache_lock:
             self.plan_cache["miss"] += 1
+        if miss is not None:
+            params = miss()
         try:
-            with self.tracer.span("compile"):
+            with self.tracer.span("compile"), coldstart.plan_build():
                 runf = compile_fn(node, params, meta)
         except ExecError as e:
             raise EngineError(str(e)) from e
@@ -2244,7 +2394,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
               or self._read_ts(prep.session)).to_int()
 
         def run_pid(nparts: int, pid: int) -> dict:
-            rc = RunContext(prep.scans, ts, nparts, pid)
+            rc = RunContext(prep.scans, ts, nparts, pid,
+                            params=prep.params)
             out = runf(rc)
             self._note_route(prep, rc.route)
             self._check_sentinels(out)
@@ -2340,12 +2491,12 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                 self.movement.release_resident(k)
 
     def _batch_from_chunks(self, td, chunks, cols: frozenset) -> ColumnBatch:
-        """Concatenate chunks, pad to a power-of-two row count of at
-        least 128 (sel False, MVCC never-visible), and copy to the
-        device with the MVCC columns. torch.tensor copies, so the
-        device batch never aliases the store's arrays."""
+        """Concatenate chunks, pad to the row count's shape-ladder rung
+        (sel False, MVCC never-visible), and copy to the device with
+        the MVCC columns. torch.tensor copies, so the device batch never
+        aliases the store's arrays."""
         n = sum(c.n for c in chunks)
-        padded = next_pow2(max(n, 128))
+        padded = self._row_bucket(n)
         data, valid = {}, {}
         for col in td.schema.columns:
             cn = col.name
@@ -2429,12 +2580,12 @@ def _temp_names(names, rename, tname: str) -> list:
     return names
 
 
-def _probe_rows_bound(node, store) -> int:
+def _probe_rows_bound(eng, node) -> int:
     """An upper bound on a plan's output rows: the padded row count of
     its largest scan, times the expansion of every join below."""
     if isinstance(node, P.Scan):
-        return next_pow2(max(store.table(node.table).row_count, 128))
-    rows = max([_probe_rows_bound(getattr(node, a), store)
+        return eng._row_bucket(eng.store.table(node.table).row_count)
+    rows = max([_probe_rows_bound(eng, getattr(node, a))
                 for a in ("child", "left") if getattr(node, a, None)
                 is not None] or [1])
     return rows * max(getattr(node, "expand", 1), 1)

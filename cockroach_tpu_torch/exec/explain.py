@@ -20,9 +20,11 @@ executes the statement and then re-runs a fresh plan, unjitted, for the
 measurement; the port's operators run eagerly already, so one run gives
 both the result and the measurement, and each kernel launches once. Like
 the reference's measured re-run, the analyzed run takes no selection
-compaction, so the rendered plan is the planner's. The reference's
-``xla compile`` line has no counterpart: the port compiles no XLA
-program.
+compaction and lifts no literal into a parameter, so the rendered plan
+is the planner's. In place of the reference's ``xla compile`` line (its
+XLA backend compile) the port prints ``plan build and kernel load``: the
+statement's seconds in plan builds and kernel library builds and loads
+(exec/coldstart.py), when there were any.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from ..sql import plan as P
 from ..utils import tracing
 from ..utils.settings import SettingError
 from ..utils.sqlstats import fingerprint
-from . import profile
+from . import coldstart, profile
 from .scanplane import scan_maps
 from .session import EngineError, Result
 from .stmtutil import render_create
@@ -75,6 +77,8 @@ class StatementObserver:
             and not is_show_trace)
         self.rec = None
         self._clock = None
+        # the statement's compile seconds (Engine.execute sets them)
+        self.compile_s = 0.0
 
     @contextlib.contextmanager
     def observe(self):
@@ -162,7 +166,8 @@ class StatementObserver:
             try:
                 bundle = eng._diag_bundle(
                     self.stmt, self.session, self.sql, self.rec, psink, dt,
-                    self.diag_m0, self.device_seconds())
+                    self.diag_m0, self.device_seconds(),
+                    compile_s=self.compile_s)
                 eng.stmtdiag.fulfill(self.diag_req, bundle)
             except Exception:
                 eng.stmtdiag.rearm(self.fp, self.diag_req)
@@ -331,6 +336,7 @@ class ExplainMixin:
         if not isinstance(sel, ast.Select):
             raise EngineError("can only EXPLAIN ANALYZE SELECT")
         m0 = self.metrics.snapshot() if debug else None
+        c0 = coldstart.thread_compile_seconds()
         with self.tracer.capture(
                 "explain-analyze-debug" if debug else "explain-analyze",
                 record_request=True) as rec:
@@ -339,8 +345,9 @@ class ExplainMixin:
                 sel, session, sql_text)
             dt = time.monotonic() - t0
         if debug:
-            bundle = self._diag_bundle(sel, session, sql_text, rec, sink,
-                                       dt, m0, sink.wall_s, node=node)
+            bundle = self._diag_bundle(
+                sel, session, sql_text, rec, sink, dt, m0, sink.wall_s,
+                node=node, compile_s=coldstart.thread_compile_seconds() - c0)
             bundle["id"] = self.stmtdiag.fulfill(None, bundle)
             return Result(names=["bundle"],
                           rows=[(json.dumps(bundle, default=str),)],
@@ -352,6 +359,9 @@ class ExplainMixin:
             if s is not None:
                 tag_s = "".join(f" {k}={v}" for k, v in s.tags.items())
                 lines.append(f"  {name}: {s.duration_ms:.2f}ms{tag_s}")
+        compile_ms = (coldstart.thread_compile_seconds() - c0) * 1e3
+        if compile_ms > 0:
+            lines.append(f"  plan build and kernel load: {compile_ms:.2f}ms")
         lines.append(f"  total: {dt * 1e3:.2f}ms, "
                      f"rows returned: {len(res.rows)}")
         if node is not None:
@@ -415,7 +425,8 @@ class ExplainMixin:
 
     # -- statement diagnostics ------------------------------------------
     def _diag_bundle(self, stmt, session, sql_text: str, rec, psink,
-                     dt: float, m0, device_s, node=None) -> dict:
+                     dt: float, m0, device_s, node=None,
+                     compile_s: float = 0.0) -> dict:
         """One statement diagnostics bundle (the reference's
         stmtdiagnostics zip, here a JSON dict): the plan that ran with
         its operators' profile, the profile itself, the trace recording,
@@ -432,8 +443,8 @@ class ExplainMixin:
                             else type(stmt).__name__),
             "statement": type(stmt).__name__,
             "latency_s": dt,
-            # no XLA: the port compiles its closures in microseconds
-            "compile_s": 0.0,
+            # plan builds and kernel library builds and loads
+            "compile_s": compile_s,
             "device_time_s": device_s,
         }
         try:

@@ -21,21 +21,24 @@ import torch
 from ..ops import kernels as K
 from ..sql.bound import (BAggRef, BBetween, BBin, BCase, BCast, BCoalesce,
                          BCol, BConst, BDictGather, BDictLookup, BDictRemap,
-                         BExpr, BExtract, BFunc, BInList, BIsNull, BUnary,
-                         BWinRef)
+                         BExpr, BExtract, BFunc, BInList, BIsNull, BParam,
+                         BUnary, BWinRef)
 from ..sql.types import Family, SQLType
 from .session import EngineError
 
 
 class ExprContext:
-    """Evaluation context: column name -> (data, valid); agg results."""
+    """Evaluation context: column name -> (data, valid); agg results;
+    the run's statement parameters (exec/planparam.py BParam values, as
+    Python scalars)."""
 
     def __init__(self, cols: dict, n: int, device: torch.device,
-                 aggs: list | None = None):
+                 aggs: list | None = None, params: tuple = ()):
         self.cols = cols
         self.n = n
         self.device = device
         self.aggs = aggs or []
+        self.params = params
 
     def col(self, name: str):
         return self.cols[name]
@@ -80,6 +83,17 @@ def compile_expr(e: BExpr) -> CompiledExpr:
                            device=ctx.device)
             return d, torch.ones(ctx.n, dtype=torch.bool, device=ctx.device)
         return f_const
+
+    if isinstance(e, BParam):
+        idx, pty = e.index, e.type
+
+        def f_param(ctx):
+            # a run argument (statement-shape plan cache): a Python
+            # scalar, filled like the baked f_const above
+            d = torch.full((ctx.n,), ctx.params[idx], dtype=_dtype(pty),
+                           device=ctx.device)
+            return d, torch.ones(ctx.n, dtype=torch.bool, device=ctx.device)
+        return f_param
 
     if isinstance(e, BCol):
         name = e.name

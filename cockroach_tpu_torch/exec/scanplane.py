@@ -5,11 +5,11 @@ cockroach_tpu/exec/scanplane.py). Mixed into exec/engine.py's Engine;
 every bit of state lives on the Engine.
 
 The byte reckoning is the reference's formulas over this package's
-upload widths (no int32 narrowing) and its row bucket, next_pow2(max(n,
-128)): a table costs 16 bytes of MVCC columns plus (itemsize + 1) per
-column per padded row, and an aggregation 16 bytes per aggregate per
-row of temporaries. Near a threshold the two engines' verdicts can
-therefore differ.
+upload widths (no int32 narrowing) and the reference's row buckets (the
+shape ladder, exec/coldstart.py): a table costs 16 bytes of MVCC columns
+plus (itemsize + 1) per column per padded row, and an aggregation 16
+bytes per aggregate per row of temporaries. Near a threshold the two
+engines' verdicts can differ by the upload widths alone.
 """
 
 from __future__ import annotations
@@ -20,8 +20,7 @@ import numpy as np
 
 from ..sql import plan as P
 from ..sql.types import Family
-from ..utils.num import next_pow2
-from . import profile
+from . import coldstart, profile
 from .compile import can_spill_sort, can_stream
 from .session import Session
 from .stream import PageSource, extract_zone_preds
@@ -108,9 +107,14 @@ class ScanPlaneMixin:
     # spill-join fan-out ceiling (the reference's)
     MAX_SPILL_JOIN_PARTITIONS = 256
 
-    @staticmethod
-    def _row_bucket(n: int) -> int:
-        return next_pow2(max(int(n), 128))
+    def shape_ladder(self) -> coldstart.ShapeLadder:
+        """The shape-bucket ladder every padded row count comes from:
+        resident uploads, streamed pages and spill partitions
+        (exec/coldstart.py; settings sql.exec.shape_bucket.*)."""
+        return coldstart.ladder_from_settings(self.settings)
+
+    def _row_bucket(self, n: int) -> int:
+        return self.shape_ladder().bucket(n)
 
     def _budget(self) -> int:
         return int(self.settings.get("sql.exec.hbm_budget_bytes"))

@@ -135,6 +135,10 @@ class Prepared:
     # AS OF SYSTEM TIME: the fixed historical read timestamp of every
     # run (an interval form resolves again when the handle re-prepares)
     as_of: Optional[Timestamp] = None
+    # statement-shape plan cache (exec/planparam.py): this statement's
+    # lifted filter literals, as Python scalars, for the shared plan's
+    # BParam nodes; () = not parameterized
+    params: tuple = ()
 
     def _refresh(self) -> None:
         eng = self.engine
@@ -152,7 +156,8 @@ class Prepared:
             no_topk=self.no_topk, no_compact=self.no_compact)
         for f in ("runf", "scans", "meta", "gens", "node", "stream",
                   "stream_cols", "stream_zone", "spill", "spill_cols",
-                  "joinfilter", "placement", "scan_tables", "as_of"):
+                  "joinfilter", "placement", "scan_tables", "as_of",
+                  "params"):
             setattr(self, f, getattr(p, f))
 
     def _join_filters(self, tsv: int) -> tuple:
@@ -183,10 +188,35 @@ class Prepared:
             return run_spill_join(self.engine, self, tsv)
         if self.stream is not None:
             return self._dispatch_paged(tsv)
-        rc = RunContext(self.scans, tsv)
+        rc = RunContext(self.scans, tsv, params=self.params)
         out = self.runf(rc)
         self.engine._note_route(self, rc.route)
         return out
+
+    def warm(self, bucket: int = 0) -> None:
+        """Make a paged statement ready without reading its data
+        (Engine.prewarm): its plan was built and its resident tables
+        uploaded when it was prepared; here the kernel libraries load,
+        and a streamed plan runs one never-visible padding page of
+        ``bucket`` rows (its page rows when 0) through its page, combine
+        and final steps, the path a run whose pages are all skipped
+        takes."""
+        from .compile import RunContext
+        eng = self.engine
+        if eng.device.type == "cuda":
+            from ..ops.cuda import groupagg, groupagg_large
+            groupagg._lib()
+            groupagg_large._lib()
+        if self.stream is None:
+            return
+        alias, tname, page_rows = self.stream
+        src = eng._page_source(tname, self.stream_cols, bucket or page_rows)
+        scans = dict(self.scans)
+        scans[alias] = src.empty_page()
+        tsv = eng._read_ts(self.session).to_int()
+        s = self.runf.page_fn(RunContext(scans, tsv))
+        s = self.runf.combine(s, s)
+        self.runf.final_fn(s)
 
     def _dispatch_paged(self, tsv: int):
         """The streamed plan: page partials combined on the card, then

@@ -159,7 +159,8 @@ def run_spill_join(engine, prep, tsv: int) -> ColumnBatch:
     m_rounds.inc()
 
     psrc = engine._page_source(sp.table, prep.stream_cols, sp.page_rows)
-    bsrc = engine._page_source(sp.build_table, prep.spill_cols, 128)
+    bsrc = engine._page_source(sp.build_table, prep.spill_cols,
+                               engine._row_bucket(1))
 
     ppids = radix_partition_ids(*_host_key_cols(psrc, sp.probe_keys),
                                 sp.nparts)

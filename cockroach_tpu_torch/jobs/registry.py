@@ -10,6 +10,16 @@ job whose lease lapsed and resumes it from its last checkpoint.
 
 Adoption runs when a caller asks (``adopt_and_run_all``, ``run_job``);
 the node's maintenance loop calls it on a cadence (server/node.py).
+
+The owner of a running job renews its lease to ``now + lease_seconds``
+at every checkpoint (in the same KV write as the progress) and through
+``JobContext.renew_lease``/``keep_alive`` between checkpoints (at
+least every third of ``lease_seconds``), as a claimed job's
+sqlliveness session heartbeats in CockroachDB: a job that runs past
+``lease_seconds`` (a changefeed runs until canceled) is not adopted
+while its owner lives. A job whose owner stopped renewing is adoptable
+once its lease lapses. The reference sets the lease at the claim only
+and never renews it.
 """
 
 from __future__ import annotations
@@ -77,18 +87,39 @@ class JobContext:
         self.job_id = record.id
         self.payload = dict(record.payload)
         self._progress = dict(record.progress)
+        self._renewed_at = registry.now()   # the claim set the lease
 
     def progress(self) -> dict:
         return dict(self._progress)
 
     def checkpoint(self, progress: dict,
                    fraction: Optional[float] = None) -> None:
-        """Persist progress now. Raises LeaseLostError when another
-        session adopted the job meanwhile: the slow runner abandons it."""
-        self._registry._update(self.job_id, progress=dict(progress),
-                               fraction=fraction,
-                               expect_owner=self._registry.session_id)
+        """Persist progress now and renew the lease in the same write.
+        Raises LeaseLostError when another session adopted the job
+        meanwhile: the slow runner abandons it."""
+        reg = self._registry
+        reg._update(self.job_id, progress=dict(progress),
+                    fraction=fraction, expect_owner=reg.session_id,
+                    lease_expires=reg.now() + reg.lease_seconds)
         self._progress = dict(progress)
+        self._renewed_at = reg.now()
+
+    def renew_lease(self) -> None:
+        """Extend the lease to now + lease_seconds without a checkpoint
+        (a long runner's heartbeat between checkpoints). Raises
+        LeaseLostError when another session holds the job."""
+        reg = self._registry
+        reg._update(self.job_id, expect_owner=reg.session_id,
+                    lease_expires=reg.now() + reg.lease_seconds)
+        self._renewed_at = reg.now()
+
+    def keep_alive(self) -> None:
+        """Renew the lease when a third of ``lease_seconds`` has passed
+        since the last renewal or checkpoint: a runner calls it on every
+        pass of its loop, whatever its own cadence."""
+        reg = self._registry
+        if reg.now() - self._renewed_at >= reg.lease_seconds / 3:
+            self.renew_lease()
 
     def check_cancel(self) -> None:
         if self._registry.job(self.job_id).status == CANCEL_REQUESTED:

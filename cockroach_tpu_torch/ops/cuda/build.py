@@ -8,6 +8,9 @@ loads a stale build. Nothing is compiled when a module is imported:
 the first launch builds (``load``), and ``compile_all`` starts every
 nvcc at once for a caller that wants all kernels ready up front (also
 for variants of a source kept elsewhere, to time them side by side).
+Each library made ready is tallied for the cold-start plane
+(exec/coldstart.py): found in ``_build/`` and loaded, or built with
+nvcc, and its seconds billed to the loading thread's statement.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -45,12 +49,16 @@ def _source(name: str | Path) -> Path:
     return name if isinstance(name, Path) else CSRC / f"{name}.cu"
 
 
+def source_tag(name: str | Path) -> str:
+    """The content hash of csrc/<name>.cu (or of the source at a path)
+    that names its build."""
+    return hashlib.sha256(_source(name).read_bytes()).hexdigest()[:16]
+
+
 def lib_path(name: str | Path) -> Path:
     """Where the build of csrc/<name>.cu (or of the source at a path)
     goes (content-addressed)."""
-    src = _source(name)
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()
-    return BUILD_DIR / f"{src.stem}-{tag[:16]}.so"
+    return BUILD_DIR / f"{_source(name).stem}-{source_tag(name)}.so"
 
 
 def _start(name: str | Path):
@@ -96,7 +104,12 @@ def load(name: str | Path) -> ctypes.CDLL:
     first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        _finish(name, _start(name))
+        from ...exec import coldstart
+        t0 = time.perf_counter()
+        started = _start(name)
+        _finish(name, started)
         lib = ctypes.CDLL(str(lib_path(name)))
         _loaded[name] = lib
+        coldstart.note_library(started is not None,
+                               time.perf_counter() - t0)
     return lib

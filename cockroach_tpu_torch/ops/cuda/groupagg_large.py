@@ -53,6 +53,7 @@ import torch
 
 from .. import agg as aggops
 from . import build
+from .paritygate import MM_HI_SHIFT
 
 MIN, MAX = "min", "max"
 
@@ -63,8 +64,14 @@ LANES = 128
 GROUP_TILE = 512
 BLOCK_ROWS = 1024
 
-# copy of cockroach_tpu/ops/pallas/paritygate.py MM_HI_SHIFT
-MM_HI_SHIFT = 40
+# the kernel's launch points (block, rows, min_blocks), in the order of
+# csrc/groupagg_large.cu's POINTS table (checked when the library loads):
+# threads a block, rows a thread per tile, blocks an SM the registers
+# are capped for. The first is the shipped point; ops/cuda/autotune.py
+# times them.
+KERNEL_POINTS = ((256, 4, 4), (128, 4, 8), (512, 4, 2), (256, 2, 4),
+                 (256, 8, 2))
+DEFAULT_POINT = KERNEL_POINTS[0]
 
 # csrc/groupagg_large.cu: dynamic shared memory a block may take, the
 # caps of its by-value argument struct, its accumulator layouts
@@ -259,10 +266,11 @@ class _Columns:
 
 
 def plan_slots(gid, sel, slots, num_groups: int,
-               want_rep: bool = False) -> Plan:
+               want_rep: bool = False, point=None) -> Plan:
     """The kernel's view of `slots`: columns folded by storage, slots
     with the same columns folded into one (an i64sum keeps the larger
-    k), output rows assigned."""
+    k), output rows assigned. Takes aggregate_slots' arguments; the
+    launch point does not change the plan."""
     _check_device(gid)
     n = gid.shape[0]
     if num_groups < 1 or n >= 2 ** 31:
@@ -364,17 +372,21 @@ def plan_columns(gid, sel, mat_values, mm_values, num_groups: int,
 # -- entry points -----------------------------------------------------------
 
 def aggregate_slots(gid, sel, slots: tuple, num_groups: int,
-                    want_rep: bool = False) -> SlotResult:
+                    want_rep: bool = False, point=None) -> SlotResult:
     """One-pass large-G grouped aggregation over slots (module
     docstring). gid: int[n] dense ids; rows outside [0, G) match no
-    group. sel: bool[n]."""
+    group. sel: bool[n]. ``point``: the launch point (block, rows,
+    min_blocks[, limb_cap]), the shipped one when None; every point
+    gives the same result."""
     plan = plan_slots(gid, sel, slots, num_groups, want_rep)
-    return SlotResult(*_run(plan), plan.rows, plan.rep_row)
+    return SlotResult(*_run(plan, point), plan.rows, plan.rep_row)
 
 
 def aggregate_slots_plain(gid, sel, slots: tuple, num_groups: int,
-                          want_rep: bool = False) -> SlotResult:
-    """aggregate_slots in plain PyTorch scatters, on any device."""
+                          want_rep: bool = False,
+                          point=None) -> SlotResult:
+    """aggregate_slots in plain PyTorch scatters, on any device (the
+    launch point does not change the result)."""
     plan = plan_slots(gid, sel, slots, num_groups, want_rep)
     return SlotResult(*_plain(plan), plan.rows, plan.rep_row)
 
@@ -401,13 +413,26 @@ def large_group_aggregate_plain(gid, sel, mat_values: tuple,
     return _plain(plan)[:2]
 
 
-def _run(plan: Plan):
+def _run(plan: Plan, point=None):
     global PLAIN_CALLS
     dev = plan.gid.device
+    kp = kernel_point(point)
     if dev.type == "cpu":
         PLAIN_CALLS += 1
         return _plain(plan)
-    return launch(plan, choose_layout(plan), _lib())
+    return launch(plan, choose_layout(plan), _lib(), kp)
+
+
+def kernel_point(point) -> tuple:
+    """The (block, rows, min_blocks) of a launch point or an autotune
+    point (which adds the limb cap); raises for one the library does not
+    hold."""
+    if point is None:
+        return DEFAULT_POINT
+    kp = tuple(int(v) for v in point[:3])
+    if kp not in KERNEL_POINTS:
+        raise ValueError(f"no kernel instantiation for launch point {kp}")
+    return kp
 
 
 def choose_layout(plan: Plan) -> str:
@@ -423,17 +448,19 @@ def fits(plan: Plan, layout: str) -> bool:
         4 * (plan.nf + plan.ni) * plan.num_groups <= SMEM_LIMIT
 
 
-def launch(plan: Plan, layout: str, lib: ctypes.CDLL):
+def launch(plan: Plan, layout: str, lib: ctypes.CDLL,
+           point: tuple = DEFAULT_POINT):
     """Allocate the outputs and launch `lib`'s kernel once, with the
-    given accumulator layout, on the current stream (asynchronous; the
-    library initialises the outputs itself). Raises if it is refused.
-    Returns (acc_f, acc_i, maxabs)."""
-    run, out = launcher(plan, layout, lib)
+    given accumulator layout and launch point, on the current stream
+    (asynchronous; the library initialises the outputs itself). Raises
+    if it is refused. Returns (acc_f, acc_i, maxabs)."""
+    run, out = launcher(plan, layout, lib, point)
     run()
     return out
 
 
-def launcher(plan: Plan, layout: str, lib: ctypes.CDLL):
+def launcher(plan: Plan, layout: str, lib: ctypes.CDLL,
+             point: tuple = DEFAULT_POINT):
     """One launch prepared: returns (run, (acc_f, acc_i, maxabs)), the
     outputs allocated and the arguments packed, run() launching on the
     current stream. Each run initialises the outputs and folds the rows
@@ -459,7 +486,8 @@ def launcher(plan: Plan, layout: str, lib: ctypes.CDLL):
             struct.pack(f"{nm}q", *(m.data_ptr() for m in plan.masks)), nm,
             struct.pack(f"{8 * ns}i", *(v for s in plan.kslots for v in s)),
             ns, plan.gid.shape[0], G, plan.nf, plan.ni, plan.n_mx,
-            plan.rep_row, LAYOUTS.index(layout))
+            plan.rep_row, LAYOUTS.index(layout),
+            KERNEL_POINTS.index(kernel_point(point)))
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
 
     def run():
@@ -479,15 +507,25 @@ def _lib() -> ctypes.CDLL:
 
 
 def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """`lib` (a build of csrc/groupagg_large.cu) with its C signatures."""
+    """`lib` (a build of csrc/groupagg_large.cu) with its C signatures;
+    raises if its launch points are not KERNEL_POINTS."""
     if not getattr(lib, "_typed", False):
         p, i, ll, b = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_char_p)
         lib.groupagg_large_launch.argtypes = [
-            p, p, p, p, p, b, b, i, b, i, b, i, ll, i, i, i, i, i, i, p]
+            p, p, p, p, p, b, b, i, b, i, b, i, ll, i, i, i, i, i, i, i, p]
         lib.groupagg_large_launch.restype = i
         lib.groupagg_large_error_string.argtypes = [i]
         lib.groupagg_large_error_string.restype = ctypes.c_char_p
+        lib.groupagg_large_points.argtypes = [p, i]
+        lib.groupagg_large_points.restype = i
+        cap = 3 * 16
+        buf = (ctypes.c_int * cap)()
+        got = lib.groupagg_large_points(buf, cap)
+        pts = tuple(tuple(buf[3 * j:3 * j + 3]) for j in range(got))
+        if pts != KERNEL_POINTS:
+            raise RuntimeError(f"groupagg_large library holds launch "
+                               f"points {pts}, not {KERNEL_POINTS}")
         lib._typed = True
     return lib
 

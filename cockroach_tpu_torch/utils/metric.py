@@ -52,6 +52,23 @@ def buckets_quantile(buckets: list, q: float) -> float:
     return log2_bucket_bound(len(buckets) - 1)
 
 
+class Tally:
+    """Plain counts by key under a lock, for module-level tallies that
+    func metrics read (a process's autotune sweeps, parity checks)."""
+
+    def __init__(self):
+        self._c: dict[str, float] = {}
+        self._lock = threading.Lock()
+
+    def bump(self, key: str, by: float = 1) -> None:
+        with self._lock:
+            self._c[key] = self._c.get(key, 0) + by
+
+    def value(self, key: str) -> float:
+        with self._lock:
+            return self._c.get(key, 0)
+
+
 class Counter:
     def __init__(self, name: str, help_: str = ""):
         self.name = name

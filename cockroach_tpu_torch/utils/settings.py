@@ -23,6 +23,7 @@ class _Setting:
     default: object
     kind: type
     description: str = ""
+    validate: Callable[[object], None] | None = None
 
 
 class Settings:
@@ -36,8 +37,12 @@ class Settings:
         _register_builtins(self)
 
     def register(self, name: str, default, kind: type,
-                 description: str = "") -> None:
-        self._defs[name] = _Setting(name, default, kind, description)
+                 description: str = "",
+                 validate: Callable[[object], None] | None = None) -> None:
+        """``validate(value)`` raises SettingError for a value the
+        setting refuses."""
+        self._defs[name] = _Setting(name, default, kind, description,
+                                    validate)
 
     def set(self, name: str, value) -> None:
         d = self._defs.get(name)
@@ -49,6 +54,8 @@ class Settings:
             value = d.kind(value)
         except (TypeError, ValueError) as e:
             raise SettingError(f"bad value for {name}: {value!r}") from e
+        if d.validate is not None:
+            d.validate(value)
         with self._lock:
             self._values[name] = value
             watchers = list(self._watchers)
@@ -73,6 +80,11 @@ class Settings:
     def on_change(self, fn: Callable[[str, object], None]) -> None:
         """Call ``fn(name, value)`` after every successful set."""
         self._watchers.append(fn)
+
+
+def _pow2(v) -> None:
+    if v < 1 or v & (v - 1) != 0:
+        raise SettingError("must be a power of two")
 
 
 def _register_builtins(s: Settings) -> None:
@@ -140,6 +152,29 @@ def _register_builtins(s: Settings) -> None:
                "statements slower than this many seconds keep their "
                "trace recording in the /debug/tracez ring buffer "
                "(0 disables)")
+    # cold start (exec/coldstart.py) and kernel 1's launch-point
+    # autotune (ops/cuda/autotune.py): the reference's names
+    s.register("sql.exec.compile_cache.dir", "", str,
+               "root of the cold-start cache: shapes journal, kernel-1 "
+               "tuning and parity-verdict tables ('' = "
+               "$COCKROACH_TPU_COMPILE_CACHE_DIR or ~/.cache/"
+               "cockroach_tpu_torch; 'off' disables). State lives in a "
+               "per-toolchain, per-card subdirectory, so an upgrade "
+               "invalidates by path, never by flush")
+    s.register("sql.exec.compile_cache.prewarm", 0, int,
+               "top-K statements of the previous run's shapes journal "
+               "that Engine.prewarm() re-prepares at start (0 disables)")
+    s.register("sql.exec.shape_bucket.min_rows", 1024, int,
+               "smallest padded row bucket", _pow2)
+    s.register("sql.exec.shape_bucket.steps_per_octave", 1, int,
+               "row buckets per doubling of the shape ladder (1 = "
+               "power-of-two padding; 2/4/8 insert intermediate "
+               "buckets: less padding, more plan shapes)", _pow2)
+    s.register("sql.exec.pallas.autotune", "auto", str,
+               "kernel-1 launch-point autotune: auto = the tuning "
+               "table's point, else the shipped one (never sweeps); on "
+               "= sweep when the table has no entry, on a card or the "
+               "CPU; off = the shipped point")
     s.register("sql.stmt_profile.enabled", True, bool,
                "per-statement coarse operator profile (exec/profile"
                ".py): the data-movement sites note their bytes and "
@@ -207,6 +242,15 @@ class SessionVars:
         # the tenant key of admission and the caches (drivers send it
         # in their startup packet)
         "application_name": "",
+        # kernel 1's launch-point autotune (ops/cuda/autotune.py): None
+        # defers to sql.exec.pallas.autotune; auto | on | off. Points
+        # are performance-only: results are bit-identical across them
+        "pallas_autotune": None,     # None | auto | on | off
+        # statement-shape plan cache (exec/planparam.py): auto lifts
+        # eligible filter literals into run parameters so statements
+        # differing only in them share one compiled plan; off keys the
+        # plan by the statement's text
+        "plan_shape_cache": "auto",  # auto | off
     })
 
     def set(self, name: str, value) -> None:

@@ -5,8 +5,9 @@ replaced by placeholders, so `SELECT a FROM t WHERE b = 7` and
 `... b = 8` are one statement — tracking counts, latency moments, and
 row counts. Surfaced through SHOW STATEMENTS.
 
-The port's copy of cockroach_tpu/utils/sqlstats.py. Its plans run
-eagerly, so ``compile_s`` stays 0 for its statements.
+The port's copy of cockroach_tpu/utils/sqlstats.py. A statement's
+``compile_s`` is its seconds in plan builds and kernel library builds
+and loads (exec/coldstart.py), where the reference's is XLA's compile.
 """
 
 from __future__ import annotations
@@ -40,8 +41,8 @@ class StmtStats:
     total_rows: int = 0
     failures: int = 0
     # compile seconds attributed to the fingerprint's executions (the
-    # reference's compile-vs-execute split; 0 in the port, whose plans
-    # are eager PyTorch)
+    # reference's compile-vs-execute split): plan builds and kernel
+    # library builds and loads
     total_compile_s: float = 0.0
     # latency distribution in the metric plane's shared log2 bucket
     # layout (utils/metric.py) — the recording path is unchanged;

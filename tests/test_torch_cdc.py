@@ -245,3 +245,72 @@ def test_lane_declines_a_fed_table_until_cancel(tmp_path):
     assert e.lane_hits == h2 + 1
     assert e.execute("SELECT a FROM t WHERE k >= 3 AND k <= 5 ORDER BY k"
                      ).rows == [(102,), (103,), (104,)]
+
+
+class _Adopted:
+    """A resumer that records its runs and returns at once."""
+
+    def __init__(self, seen: list):
+        self.seen = seen
+
+    def resume(self, ctx):
+        self.seen.append(ctx.job_id)
+
+
+@pytest.mark.parametrize("resolved_every_s", [0.05, 5.0])
+def test_live_feed_keeps_its_lease_past_lease_seconds(tmp_path,
+                                                      resolved_every_s):
+    """A changefeed runs until canceled; its owner renews the job lease
+    on the lease's own cadence, so a second registry's adoption pass
+    finds nothing to adopt long after lease_seconds (0.5 s) have passed
+    since the claim, also when resolved timestamps come far more rarely
+    than the lease lasts (5 s)."""
+    from cockroach_tpu_torch.cdc import CHANGEFEED_JOB, open_sink
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.jobs import Registry
+    e = Engine(device="cpu")
+    e.execute("CREATE TABLE t (k INT8 NOT NULL PRIMARY KEY, a INT8)")
+    e.execute("INSERT INTO t VALUES (1, 1), (2, 2)")
+    e.jobs.lease_seconds = 0.5
+    uri = f"mem://lease-{id(e)}"
+    jid = e.create_changefeed("t", uri, resolved_every_s=resolved_every_s)
+    sink = open_sink(uri)
+    assert wait(lambda: len(sink.rows) >= 2 and sink.resolved)
+    other = Registry(e.kv, session_id="other-node", lease_seconds=0.5)
+    seen: list = []
+    other.register(CHANGEFEED_JOB, lambda: _Adopted(seen))
+    try:
+        deadline = time.monotonic() + 3 * 0.5 + 0.2
+        while time.monotonic() < deadline:
+            assert other.adopt_and_run_all() == []
+            time.sleep(0.1)
+        e.execute("INSERT INTO t VALUES (3, 3)")
+        assert wait(lambda: len(sink.rows) >= 3)
+        assert other.adopt_and_run_all() == [] and seen == []
+        rec = e.jobs.job(jid)
+        assert rec.status == "running"
+        assert rec.lease_owner == e.jobs.session_id
+        assert rec.lease_expires > time.time()
+    finally:
+        e.jobs.cancel(jid)
+        assert wait(lambda: e.jobs.job(jid).status == "canceled")
+
+
+def test_job_of_a_dead_owner_is_adopted_after_its_lease():
+    """A runner that claimed a job and died renews nothing: the job is
+    not adoptable while its lease runs and is adopted after it."""
+    from cockroach_tpu_torch.jobs import Registry
+    from cockroach_tpu_torch.kv.txn import DB
+    db = DB()
+    dead = Registry(db, session_id="dead-node", lease_seconds=0.5)
+    seen: list = []
+    dead.register("probe", lambda: _Adopted([]))
+    jid = dead.create("probe", {})
+    assert dead._try_claim(jid) is not None  # claimed, then it died
+    adopter = Registry(db, session_id="adopter", lease_seconds=0.5)
+    adopter.register("probe", lambda: _Adopted(seen))
+    assert adopter.adopt_and_run_all() == []
+    assert wait(lambda: adopter.adopt_and_run_all() != [], timeout=5)
+    assert seen == [jid]
+    rec = adopter.job(jid)
+    assert rec.status == "succeeded" and rec.lease_owner == ""

@@ -338,9 +338,11 @@ def test_wide_expansion_refused_past_the_row_bound(monkeypatch):
     # K between 33 and 64 is accepted only while the probe side's padded
     # rows times K stay within MAX_WIDE_EXPANDED_ROWS (8192 here): 40
     # orders per customer over 100 customers (128 padded rows, 5,120
-    # expanded) run, over 300 customers (512 padded, 20,480) are refused
+    # expanded) run, over 300 customers (512 padded, 20,480) are refused;
+    # padded rows follow the shape ladder, here from 128 rows
     monkeypatch.setattr(Engine, "MAX_WIDE_EXPANDED_ROWS", 1 << 13)
     e = Engine(device="cpu")
+    e.settings.set("sql.exec.shape_bucket.min_rows", 128)
     e.execute("CREATE TABLE small (ck INT8 NOT NULL)")
     e.execute("CREATE TABLE big (ck INT8 NOT NULL)")
     e.execute("CREATE TABLE o (ok INT8 NOT NULL, ock INT8 NOT NULL)")

@@ -143,10 +143,11 @@ def test_explain_analyze_has_reference_shape(engines):
     assert "actual rows=4" in plan[0]
     # the port's spans are the reference's less its XLA compile; the
     # port also opens the "upload" span the reference's list names
-    # (a table copied to the device inside the statement)
+    # (a table copied to the device inside the statement) and prints
+    # its own compile line (plan builds, kernel library loads)
     assert "xla compile" in r_spans and "xla compile" not in spans
     assert {"plan", "dispatch", "materialize"} <= set(spans) <= \
-        set(r_spans) | {"upload"}
+        set(r_spans) | {"upload", "plan build and kernel load"}
     assert len(dev) == len(plan) and all(d >= 0 for d in dev)
     assert sum(dev) <= total_ms
 
