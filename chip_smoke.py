@@ -368,20 +368,45 @@ Phases (any failure exits non-zero before the final line):
    seconds, statements warmed, first Q1 and Q6 ms, plan_cache, and
    kernel-library loads and builds; their rows equal phase 2's, and
    each Q1 launch is held against the plain version.
+18. Distributed aggregation over a shard mesh, after phase 17 (lineitem
+   as loaded; `distributed_phase`; `distributed_phase_alone()` loads SF1
+   lineitem and part and runs it by itself). An Engine over the SF1
+   store on make_mesh([cuda:0] * 4): four shard slots on the one card.
+   Q1, Q6, Q14, phase 17's MIN/MAX GROUP BY and, under SET
+   pallas_groupagg = on, Q1F and Q6F run distributed and under SET
+   distsql = off, each with every count set to 0 just before it and
+   read just after: one dispatch each distributed, none local; rows
+   equal to the local run's (INT, DECIMAL, STRING, DATE exactly, FLOAT8
+   within rel 1e-9, Q1F and Q6F within rel 1e-5) and to the numpy
+   oracles. Kernel 1 launches 4 times for Q1 (and for the MIN/MAX GROUP
+   BY where int_minmax was promoted), kernel 2 4 times each for Q1F and
+   Q6F, every launch held against its plain version at its shard's
+   inputs and launch point. tests/test_dist_hash_groupby.py's hg table
+   at 6,000,000 rows and 100,000 keys (spread past a span of 2^21 so
+   that it groups by hash) takes the hash route through the exchange
+   (two group_ids a shard) and equals numpy and the local run. Q1 on
+   the pool's 2-slot sub-meshes (sql.exec.submesh.size = 2) gives the
+   same rows through kernel 1 twice; no CollectiveFault retry; the
+   dispatchers' queues empty. Then 5 warm runs each way in pairs (3 for
+   hg), their medians, and for each way the device busy ms
+   (torch.profiler), the host ms and the idle share; kernel 1's and
+   kernel 2's numbers (slot_numbers, small_numbers) at one shard's Q1
+   and Q1F inputs.
 Each phase's seconds are printed. After phase 10, one JSON `dml` line
 holds phase 11's numbers, one JSON `oltp` line phase 12's, one JSON
 `frontdoor` line phase 13's, one JSON `observability` line phase
 14's (with the node's checks under "node"), one JSON `history` line
-phase 15's, one JSON `jobs` line phase 16's and one JSON `coldstart`
-line phase 17's, each with the card's name and power limit; then one JSON
-line of per-kernel numbers (the
+phase 15's, one JSON `jobs` line phase 16's, one JSON `coldstart`
+line phase 17's and one JSON `distributed` line phase 18's, each with
+the card's name and power limit; then one JSON line of per-kernel
+numbers (the
 large-G kernel's launches count Q1, Q5, Q10, Q12 and the path runs of
-phases 7, 8, 10, 11, 12, 13, 14, 15, 16 and 17, the small-G kernel's Q1F,
-Q6F and phases 13's and 14's; `path_checks` holds each of the large-G
-kernel's calls in phases 7, 8, 10, 11, 12, 13, 14, 15, 16 and 17 held
-against the plain version, and the small-G kernel's phase 13 and 14
-calls), the nvidia-smi line, and the last line {"ok": true, "device":
-{...}}.
+phases 7, 8, 10, 11, 12, 13, 14, 15, 16, 17 and 18, the small-G
+kernel's Q1F, Q6F and phases 13's, 14's and 18's; `path_checks` holds
+each of the large-G kernel's calls in phases 7, 8, 10, 11, 12, 13, 14,
+15, 16, 17 and 18 held against the plain version, and the small-G
+kernel's phase 13, 14 and 18 calls), the nvidia-smi line, and the last
+line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile DIR
 
@@ -5528,6 +5553,293 @@ def coldstart_phase_alone(sf: float = SF, device=None,
     return out
 
 
+# -- 18. distributed aggregation over a shard mesh ----------------------------
+
+DIST_SHARDS = 4                 # slots of the mesh, all on one card
+DIST_REPS = 5                   # warm pairs (distributed, local) a query
+HG_ROWS = 6_000_000             # tests/test_dist_hash_groupby.py's hg table
+HG_KEYS = 100_000
+# its keys spread past a span of 2^21, so that the GROUP BY takes the
+# hash strategy (the test's keys 0..99,999 plan densely)
+HG_SPREAD = (1 << 22) + 1
+HG_REPS = 3                     # warm pairs of the hg GROUP BY
+HG_DDL = "CREATE TABLE hg (k INT8 NOT NULL, v INT8, f FLOAT)"
+HG_SQL = "SELECT k, sum(v) AS s, count(*) AS c FROM hg GROUP BY k"
+
+
+def hg_columns(rows: int = HG_ROWS, keys: int = HG_KEYS) -> dict:
+    import numpy as np
+    rng = np.random.default_rng(7)
+    return {"k": rng.integers(0, keys, size=rows).astype(np.int64)
+            * HG_SPREAD,
+            "v": rng.integers(-1000, 1000, size=rows).astype(np.int64),
+            "f": rng.random(rows)}
+
+
+def hg_oracle(cols: dict) -> list:
+    """HG_SQL by numpy: (k, sum(v), count(*)) sorted by k."""
+    import numpy as np
+    keys, inv = np.unique(cols["k"], return_inverse=True)
+    sums = np.zeros(len(keys), dtype=np.int64)
+    np.add.at(sums, inv, cols["v"])
+    return [(int(k), int(s), int(c)) for k, s, c in
+            zip(keys, sums, np.bincount(inv))]
+
+
+def distributed_phase(src, want: dict, exact_paths,
+                      reps: int = DIST_REPS, hg_rows: int = HG_ROWS,
+                      hg_reps: int = HG_REPS) -> dict:
+    """Phase 18 on the SF1 tables of ``src`` (lineitem and part as
+    loaded): an Engine over the same store on a mesh of DIST_SHARDS
+    slots of ``src``'s device. Q1, Q6, Q14, MINMAX_GROUP_BY and, under
+    `on`, Q1F and Q6F run distributed and with distsql = off, each with
+    every count set to 0 just before it and read just after; the hg
+    GROUP BY takes the hash route through the exchange. Rows equal the
+    local run's and the oracles in ``want`` (q1, q6, q14, minmax); kernel
+    1 launches once a shard for Q1 (and for the MIN/MAX GROUP BY where
+    ``exact_paths`` holds int_minmax), kernel 2 once a shard for Q1F and
+    Q6F, each launch held against its plain version at its shard's
+    inputs; Q1 once more on 2-slot sub-meshes; no CollectiveFault retry;
+    the dispatchers' queues empty. Then warm pairs, the host ms and the
+    device idle share of each query both ways, and kernel 1's and kernel
+    2's numbers at one shard's Q1 and Q1F inputs. Returns its numbers,
+    with "launches", "timed_launches", "path_checks" and
+    "small_checks"."""
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import groupagg as tg
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    from cockroach_tpu_torch.parallel.mesh import make_mesh
+    t_start = time.perf_counter()
+    dev = src.device
+    on_card = dev.type == "cuda"
+    eng = Engine(store=src.store, mesh=make_mesh([dev] * DIST_SHARDS))
+    out: dict = {"card": _smi() if on_card else "cpu",
+                 "shards": DIST_SHARDS, "queries": {}}
+    launches = {"groupagg_large": 0, "groupagg": 0}
+    large_checks: dict = {}
+    small_checks: dict = {}
+    first: dict = {}
+    dispatches = eng.metrics.counter("exec.allreduce.calls")
+    sessions = {}
+    for dist in ("auto", "off"):
+        for mode in ("auto", "on"):
+            s = eng.session()
+            s.vars.set("distsql", dist)
+            s.vars.set("pallas_groupagg", mode)
+            sessions[dist, mode] = s
+
+    def counted(label, sql, dist, mode="auto"):
+        _counts_zero()
+        d0 = dispatches.value()
+        with recording_slots() as calls, recording_small() as scalls:
+            res = eng.execute(sql, sessions[dist, mode])
+            _sync()
+        n1, n2 = _kernel_counts(on_card)
+        launches["groupagg_large"] += n1
+        launches["groupagg"] += n2
+        first.setdefault(label, (calls[:1], scalls[:1]))
+        if on_card and n1:
+            large_checks[f"sf1 {label} phase 18"] = check_calls(
+                label, calls, n1)
+        if on_card and n2:
+            small_checks[label] = _check_small_calls(label, scalls, n2)
+        tot = eng.last_exec["all"]
+        return res, {"groupagg_large": n1, "groupagg": n2,
+                     "dispatches": dispatches.value() - d0,
+                     "group_ids": tot["group_ids"],
+                     "partitioned": list(tot["partitioned"])}
+
+    def expect(label, route, **want_route):
+        got = {k: route[k] for k in want_route}
+        if got != want_route:
+            raise AssertionError(f"phase 18 {label}: route {got}, want "
+                                 f"{want_route}")
+
+    t0 = time.perf_counter()
+    eng.execute(HG_DDL)
+    hg = hg_columns(hg_rows)
+    eng.store.insert_columns("hg", hg, eng.clock.now())
+    want = dict(want, hg=hg_oracle(hg))
+    del hg
+    out["hg_load_s"] = time.perf_counter() - t0
+    mm = 1 if "int_minmax" in exact_paths else 0
+    n = DIST_SHARDS
+    cases = {
+        "q1": (tpch.Q1, "auto", {"groupagg_large": n, "groupagg": 0}),
+        "q6": (tpch.Q6, "auto", {"groupagg_large": 0, "groupagg": 0}),
+        "q14": (tpch.Q14, "auto", {"groupagg_large": 0, "groupagg": 0}),
+        "minmax": (MINMAX_GROUP_BY, "auto",
+                   {"groupagg_large": mm * n, "groupagg": 0}),
+        "q1f": (tpch.Q1F, "on", {"groupagg_large": 0, "groupagg": n}),
+        "q6f": (tpch.Q6F, "on", {"groupagg_large": 0, "groupagg": n}),
+        "hg": (HG_SQL, "auto", {"groupagg_large": 0, "groupagg": 0}),
+    }
+    rows = {}
+    for q, (sql, mode, kern) in cases.items():
+        t0 = time.perf_counter()
+        dres, droute = counted(q, sql, "auto", mode)
+        first_s = time.perf_counter() - t0
+        lres, lroute = counted(f"{q} local", sql, "off", mode)
+        # one dispatch, and one more a partition of a partitioned re-run
+        expect(q, droute, dispatches=1 + sum(droute["partitioned"]),
+               **kern)
+        expect(f"{q} local", lroute, dispatches=0)
+        if q == "hg":
+            # the hash route through the exchange, on every shard
+            if droute["group_ids"] < 2:
+                raise AssertionError(f"phase 18 hg: group_ids "
+                                     f"{droute['group_ids']}, no exchange")
+            got = sorted(tuple(r) for r in dres.rows)
+            if got != want["hg"] or sorted(
+                    tuple(r) for r in lres.rows) != got:
+                raise AssertionError("phase 18 hg: rows != numpy or local")
+            err = 0.0
+        else:
+            rel = 1e-5 if mode == "on" else 1e-9
+            err = same_result(f"phase 18 {q} distributed vs local", dres,
+                              lres, rel)
+            if q == "q1":
+                check_q1(dres.rows, want["q1"])
+            elif q in ("q6", "q14"):
+                if not _close(dres.rows[0][0], want[q], 1e-9):
+                    raise AssertionError(f"phase 18 {q}: {dres.rows[0][0]} "
+                                         f"!= oracle {want[q]}")
+            elif q == "minmax":
+                got = sorted((int(a), float(b), int(c), float(e))
+                             for a, b, c, e in dres.rows)
+                if got != want["minmax"]:
+                    raise AssertionError("phase 18 minmax: rows != numpy")
+            else:
+                check_float(f"phase 18 {q}", dres.rows,
+                            want["q1"] if q == "q1f" else [(want["q6"],)])
+        rows[q] = dres.rows
+        out["queries"][q] = {"route": droute, "local_route": lroute,
+                             "first_run_s": first_s,
+                             "dist_vs_local_max_rel_err": err}
+        print(f"phase 18 {q}: " + json.dumps(out["queries"][q]), flush=True)
+
+    # Q1 on the pool's 2-slot sub-meshes
+    pool = eng._submesh_pool()
+    p0 = pool.dispatches
+    eng.settings.set("sql.exec.submesh.size", "2")
+    try:
+        res, route = counted("q1 submesh 2", tpch.Q1, "auto")
+    finally:
+        eng.settings.set("sql.exec.submesh.size", "auto")
+    expect("q1 submesh 2", route, groupagg_large=2, dispatches=1)
+    if pool.dispatches != p0 + 1 or res.rows != rows["q1"]:
+        raise AssertionError("phase 18: Q1 on a 2-slot sub-mesh did not "
+                             "route there or gave other rows")
+    out["submesh2_q1"] = route
+    retries = eng.metrics.counter(
+        "sql.distsql.collective_fault.retries").value()
+    depth = eng.devstats.dispatch_depth()
+    if retries or depth:
+        raise AssertionError(f"phase 18: {retries} CollectiveFault "
+                             f"retries, dispatcher depth {depth}")
+    out.update(collective_fault_retries=retries, dispatcher_depth=depth)
+
+    # warm pairs in one process, and the card's busy time of each way
+    t_timed = time.perf_counter()
+    _counts_zero()
+    out["timed"] = {}
+    for q, (sql, mode, _) in cases.items():
+        n_reps = hg_reps if q == "hg" else reps
+        ms = {"auto": [], "off": []}
+        for _ in range(n_reps):
+            for dist in ("auto", "off"):
+                _sync()
+                t0 = time.perf_counter()
+                eng.execute(sql, sessions[dist, mode])
+                _sync()
+                ms[dist].append((time.perf_counter() - t0) * 1e3)
+        rec = {}
+        for dist, name in (("auto", "distributed"), ("off", "local")):
+            med = statistics.median(ms[dist])
+            busy = (_device_busy_ms(
+                lambda: eng.execute(sql, sessions[dist, mode]), 2)
+                if on_card else 0.0)
+            rec[name] = {"median_ms": med, "runs_ms": ms[dist],
+                         "device_busy_ms": busy,
+                         "host_ms": med - busy,
+                         "idle_share": max(0.0, 1.0 - busy / med)}
+        out["timed"][q] = rec
+        print(f"phase 18 timed {q}: " + json.dumps(rec), flush=True)
+    # Q1 on the 2-slot sub-meshes, in pairs with the full mesh: the host
+    # cost a shard adds
+    ms2 = {"2": [], "4": []}
+    for _ in range(reps):
+        for size, setting in (("2", "2"), ("4", "off")):
+            eng.settings.set("sql.exec.submesh.size", setting)
+            _sync()
+            t0 = time.perf_counter()
+            eng.execute(tpch.Q1, sessions["auto", "auto"])
+            _sync()
+            ms2[size].append((time.perf_counter() - t0) * 1e3)
+    eng.settings.set("sql.exec.submesh.size", "auto")
+    out["timed"]["q1_by_shards"] = {
+        f"{k}_shards_median_ms": statistics.median(v)
+        for k, v in ms2.items()}
+    print("phase 18 timed Q1 by shard count: "
+          + json.dumps(out["timed"]["q1_by_shards"]), flush=True)
+    out["timed_launches"] = dict(zip(("groupagg_large", "groupagg"),
+                                     _kernel_counts(on_card)))
+    out["timed_s"] = time.perf_counter() - t_timed
+
+    # the kernels at one shard's inputs
+    if on_card:
+        q1_call = first["q1"][0][0]
+        q1f_call = first["q1f"][1][0]
+        out["shard_numbers"] = {
+            "q1": slot_numbers(tgl, q1_call),
+            "q1f": small_numbers(tg, q1f_call, "Q1F shard")}
+        print("phase 18 kernel 1 at a Q1 shard: "
+              + json.dumps(out["shard_numbers"]["q1"]), flush=True)
+    eng.execute("DROP TABLE hg")
+    eng.close()
+    out["launches"] = launches
+    out["path_checks"] = large_checks
+    out["small_checks"] = small_checks
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def distributed_phase_alone(sf: float = SF, device=None,
+                            rows: int | None = None,
+                            hg_rows: int = HG_ROWS) -> dict:
+    """Phase 18 by itself on the card: builds the kernels, resolves the
+    gate and the launch point under a fresh cache root, loads lineitem
+    and part at `sf`, then runs phase 18. Prints its JSON line."""
+    import numpy as np
+
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import build
+    with cache_root():
+        if device is None:
+            build.compile_all(["groupagg_large", "groupagg"])
+        infra = kernel_infra(device or "cuda")
+        src = Engine(device=device)
+        tpch.load(src, sf=sf, tables=("lineitem", "part"), encoded=True,
+                  rows=rows)
+        li = tpch.gen_lineitem(sf, encoded=True, rows=rows)
+        for c, vals in (("l_returnflag", tpch.RF_VALUES),
+                        ("l_linestatus", tpch.LS_VALUES)):
+            li[c] = np.asarray(vals)[li[c]]
+        part = tpch.gen_part(sf)
+        want = {"q1": tpch.ref_q1(li), "q6": tpch.ref_q6(li),
+                "q14": tpch.ref_q14(li, part), "minmax": minmax_oracle(li)}
+        out = distributed_phase(src, want, infra["exact_paths"],
+                                hg_rows=hg_rows)
+        src.close()
+        _sync()
+    for k in ("path_checks", "small_checks"):
+        out[k] = len(out[k])
+    print(json.dumps({"distributed": out}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5569,6 +5881,7 @@ def _main(opts) -> int:
     hist = dml.pop("history")
     jobs = dml.pop("jobs")
     cold = dml.pop("coldstart")
+    dist = dml.pop("distributed")
     obs["node"] = front["entry_points"].pop("observability")
     print(json.dumps({"dml": dict(dml, card=smi)}), flush=True)
     print(json.dumps({"oltp": dict(oltp, card=smi)}), flush=True)
@@ -5577,6 +5890,7 @@ def _main(opts) -> int:
     print(json.dumps({"history": dict(hist, card=smi)}), flush=True)
     print(json.dumps({"jobs": dict(jobs, card=smi)}), flush=True)
     print(json.dumps({"coldstart": dict(cold, card=smi)}), flush=True)
+    print(json.dumps({"distributed": dict(dist, card=smi)}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -5587,10 +5901,11 @@ def _main(opts) -> int:
 
 
 def sf1_phases(opts) -> tuple:
-    """Phases 1-9 and 11-17 at SF1; returns (kernels, nvidia-smi line,
+    """Phases 1-9 and 11-18 at SF1; returns (kernels, nvidia-smi line,
     card name, phase 11's numbers with phase 12's under "oltp", phase
     13's under "frontdoor", 14's under "observability", 15's under
-    "history", 16's under "jobs" and 17's under "coldstart"). Every engine and table of these
+    "history", 16's under "jobs", 17's under "coldstart" and 18's under
+    "distributed"). Every engine and table of these
     phases lives in this frame only, so they are freed when it
     returns."""
     import numpy as np
@@ -5918,6 +6233,23 @@ def sf1_phases(opts) -> tuple:
     large["exact_paths"] = cold["gate"]["promoted"]
     print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 18. distributed aggregation over a shard mesh ----------------------
+    # (lineitem as loaded: before phase 11's writes)
+    t0 = time.perf_counter()
+    dist = distributed_phase(eng, {"q1": want_q1, "q6": want_q6,
+                                   "q14": want_q14,
+                                   "minmax": minmax_oracle(li)},
+                             infra["exact_paths"])
+    for i, k in enumerate(("groupagg_large", "groupagg")):
+        kernels[i]["launches"] += dist["launches"][k]
+        kernels[i]["phase18_launches"] = dist["launches"][k]
+        kernels[i]["phase18_timed_launches"] = dist["timed_launches"][k]
+    large["path_checks"].update(dist.pop("path_checks"))
+    small_checks18 = dist.pop("small_checks")
+    large["phase18_shard"] = dist["shard_numbers"]["q1"]
+    kernels[1]["phase18_shard"] = dist["shard_numbers"]["q1f"]
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- 14. set operations, composed CTEs, EXPLAIN ANALYZE, tracing -------
     # (on phase 7's tables, before phase 11's writes)
     t0 = time.perf_counter()
@@ -5976,7 +6308,8 @@ def sf1_phases(opts) -> tuple:
     large["path_checks"]["sf0.1 node q1 phase 13"] = entry.pop(
         "node_checks")
     kernels[1]["path_checks"] = {"phase 13": front.pop("small_checks"),
-                                 "phase 14": small_checks14}
+                                 "phase 14": small_checks14,
+                                 "phase 18": small_checks18}
     front["seconds_with_entry_points"] = time.perf_counter() - t0
     print(f"phase 13: {front['seconds_with_entry_points']:.1f} s",
           flush=True)
@@ -6006,6 +6339,7 @@ def sf1_phases(opts) -> tuple:
     print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
     dml["jobs"] = jobs
     dml["coldstart"] = cold
+    dml["distributed"] = dist
     if opts.profile:
         from cockroach_tpu_torch.profile_tpch import profile_queries
         profile_queries(eng, {"q3": (tpch.Q3, None), "q5": (tpch.Q5, None),

@@ -99,8 +99,27 @@ def thread_compile_seconds() -> float:
     return _cell()[0]
 
 
+def attribution_cell() -> list:
+    """The mutable cell this thread's compile seconds are billed to.
+    Cross-thread executors (the mesh dispatcher, a distributed plan's
+    shard threads: parallel/distagg.py) capture it on the issuing
+    thread and adopt it around the call, so the statement's delta stays
+    its own."""
+    return _cell()
+
+
+def set_attribution_cell(cell) -> list:
+    """Point this thread's compile billing at ``cell``; returns the
+    previous cell, for the caller to restore."""
+    prev = _cell()
+    _TLS.cell = cell if cell is not None else [0.0]
+    return prev
+
+
 def _bill(seconds: float) -> None:
-    _cell()[0] += seconds
+    # shard threads of one statement share its cell
+    with _LOCK:
+        _cell()[0] += seconds
 
 
 @contextmanager

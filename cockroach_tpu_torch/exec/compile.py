@@ -33,7 +33,19 @@ its partition's rows of a hash GROUP BY. ``compile_streaming`` splits
 an aggregate-rooted plan into page partials, their combine and a
 finalize for the streamed and spilled paths. Window functions sort
 once and scan (ops/window.py); a window sees its whole partition, so
-it never streams or spills.
+it never streams, spills or runs distributed.
+
+With ``ExecParams.axis_name`` set (a parallel/collective.py ShardAxis),
+the plan runs once per shard slot of a mesh, on row slices of its
+probe-spine tables, and keeps the reference's collectives where the
+reference has them: partial counts and sums psum, MIN pmin, MAX and
+`any` pmax, a global overflow bound psum, and both kernels' partials
+merge after their per-shard launches (kernel 1's int32 limb rows cut
+for the global row bound, so their psum is exact). A hash GROUP BY
+exchanges its shard-local groups to their hash owner and all_gathers
+the merged ones (_compile_hash_dist_aggregate). The outputs are the
+same on every shard, so Sort, Limit and HAVING above the aggregate run
+on each; the fused top-k, compaction and DISTINCT aggregates stay off.
 """
 
 from __future__ import annotations
@@ -84,6 +96,14 @@ class ExecParams:
     # proof, so neither is part of the exec-cache key.
     pallas_point: tuple = (256, 4, 4, 22)
     pallas_exact_paths: tuple = ()
+    # When set, the plan runs once per shard slot of a mesh: scans see
+    # row slices, and aggregate partials merge with collectives over
+    # this shard axis (parallel/collective.py ShardAxis: psum, pmin,
+    # pmax, all_gather, all_to_all), the DistSQL final-stage merge.
+    axis_name: object = None
+    # the mesh's slot count (the exchange's send-buffer shapes depend
+    # on it)
+    n_shards: int = 1
 
 
 class RunContext:
@@ -218,6 +238,7 @@ def _compile_plan(node: P.PlanNode, params: ExecParams,
         return _compile_sort(node, params, meta)
     if isinstance(node, P.Limit):
         if isinstance(node.child, P.Sort) and params.topk_sort \
+                and params.axis_name is None \
                 and node.limit is not None \
                 and 0 < node.limit + node.offset <= TOPK_MAX:
             return _compile_topk_sort_limit(node, params, meta)
@@ -345,18 +366,34 @@ def _agg_output(group_cols, aggs_out, live, itemfs, havingf,
     return out
 
 
+def _merges(axis):
+    """(psum, pmin, pmax) over ``axis``, or identities on one device."""
+    if axis is None:
+        def ident(x):
+            return x
+        return ident, ident, ident
+    return axis.psum, axis.pmin, axis.pmax
+
+
 def _agg_partials(a: BoundAgg, argf, batch, ctx, gid, num_groups,
-                  max_group_rows=0, rep_state=None, sort_mode="off"):
+                  max_group_rows=0, rep_state=None, sort_mode="off",
+                  axis=None):
     """One aggregate's per-group arrays on the plain scatter path:
-    (data, valid, overflow or None)."""
+    (data, valid, overflow or None).
+
+    With ``axis`` set, the partials merge across the mesh's shards with
+    the collective of each (the reference's final-stage merge): counts
+    and sums psum, MIN pmin, MAX and `any` pmax."""
     grouped = gid is not None
     dev = batch.device
+    psum, pmin, pmax = _merges(axis)
     if a.func == "count_rows":
         mask = batch.sel
         if grouped:
             d = aggops.group_count(gid, mask, num_groups)
         else:
             d = aggops.masked_count(mask).reshape(1)
+        d = psum(d)
         return d, torch.ones_like(d, dtype=torch.bool), None
     d0, v0 = argf(ctx)
     if a.func == "any" and grouped and rep_state is not None \
@@ -376,6 +413,7 @@ def _agg_partials(a: BoundAgg, argf, batch, ctx, gid, num_groups,
         cnt = aggops.group_count(gid, mask, num_groups)
     else:
         cnt = aggops.masked_count(mask).reshape(1)
+    cnt = psum(cnt)
     if a.func == "count":
         return cnt, torch.ones_like(cnt, dtype=torch.bool), None
     nonempty = cnt > 0
@@ -389,22 +427,26 @@ def _agg_partials(a: BoundAgg, argf, batch, ctx, gid, num_groups,
                                  arg_nonneg=a.arg_nonneg)
         else:
             d = aggops.masked_sum(d0, mask, acc_dtype=acc).reshape(1)
+        d = psum(d)
         overflow = None
         if acc == torch.int64:
             # int64 wraps silently past its range: a cheap global bound
-            # (rows x max|value|) proves most scans cannot; otherwise
-            # an f64 shadow sum exposes a wrap. Both are computed
-            # eagerly (no host round trip to pick one).
+            # (rows x max|value|, summed over the shards so that every
+            # shard agrees) proves most scans cannot; otherwise an f64
+            # shadow sum exposes a wrap. Both are computed eagerly (no
+            # host round trip to pick one).
             dz64 = torch.where(mask, d0, torch.zeros_like(d0)) \
                 .to(torch.float64)
-            cannot = float(d0.shape[0]) * torch.amax(torch.abs(dz64)) \
-                < float(2 ** 62)
+            bound = psum((float(d0.shape[0])
+                          * torch.amax(torch.abs(dz64))).reshape(1))[0]
+            cannot = bound < float(2 ** 62)
             if grouped:
                 sh = aggops.group_sum(d0.to(torch.float64), gid, mask,
                                       num_groups)
             else:
                 sh = aggops.masked_sum(d0.to(torch.float64), mask) \
                     .reshape(1)
+            sh = psum(sh)
             err = torch.abs(d.to(torch.float64) - sh)
             tol = torch.clamp(torch.abs(sh) * 1e-3, min=1e12)
             overflow = torch.logical_and(torch.logical_not(cannot),
@@ -418,10 +460,11 @@ def _agg_partials(a: BoundAgg, argf, batch, ctx, gid, num_groups,
             s = aggops.group_sum(df, gid, mask, num_groups)
         else:
             s = aggops.masked_sum(df, mask).reshape(1)
-        d = s / torch.clamp(cnt, min=1).to(torch.float64)
+        d = psum(s) / torch.clamp(cnt, min=1).to(torch.float64)
         return d, nonempty, None
     if a.func in ("min", "max", "any"):
-        # `any` is a per-group-constant value: max picks it
+        # `any` is a per-group-constant value: max picks it (an empty
+        # shard's group holds the max identity, which loses the pmax)
         if grouped:
             fold = aggops.group_min if a.func == "min" else aggops.group_max
             d = fold(d0, gid, mask, num_groups)
@@ -429,7 +472,7 @@ def _agg_partials(a: BoundAgg, argf, batch, ctx, gid, num_groups,
             fold = aggops.masked_min if a.func == "min" \
                 else aggops.masked_max
             d = fold(d0, mask).reshape(1)
-        return d, nonempty, None
+        return (pmin if a.func == "min" else pmax)(d), nonempty, None
     raise ExecError(f"aggregate {a.func} unsupported")
 
 
@@ -463,13 +506,17 @@ def _pallas_agg_slots(aggs) -> list | None:
 
 
 def _pallas_dense_partials(slots, aggfs, b, ctx, gid, num_groups: int,
-                           grouped: bool):
+                           grouped: bool, axis=None):
     """Every aggregate's (data, valid) from ONE small-G kernel pass, in
     aggfs order, and for a grouped plan the groups' liveness from the
     same pass (else None): a group is live when it holds a selected
     row, which `count(*)`'s slot counts; without one, one more COUNT
     slot does. Never a SUM's paired count: a group whose arguments are
-    all NULL is live and returns a NULL sum."""
+    all NULL is live and returns a NULL sum.
+
+    With ``axis`` set, each shard's kernel partials merge column by
+    column with their op's collective: counts and SUMs psum, MIN pmin,
+    MAX pmax."""
     argdata = {i: argf(ctx) for i, (a, argf) in enumerate(aggfs)
                if argf is not None}
     slots = list(slots)
@@ -494,6 +541,16 @@ def _pallas_dense_partials(slots, aggfs, b, ctx, gid, num_groups: int,
     acc, cnt = pg.dense_group_aggregate(gid, b.sel, tuple(values),
                                         tuple(masks), num_groups,
                                         tuple(ops))
+    if axis is not None:
+        # one collective an op kind, over its columns together
+        cnt = axis.psum(cnt)
+        acc = acc.clone()
+        for kinds, merge in (((pg.COUNT, pg.SUM), axis.psum),
+                             ((pg.MIN,), axis.pmin), ((pg.MAX,), axis.pmax)):
+            cols = [j for j, op in enumerate(ops) if op in kinds]
+            if cols:
+                idx = torch.tensor(cols, device=acc.device)
+                acc[:, idx] = merge(acc[:, idx])
     col_of = {(i, role): j for j, (op, i, role) in enumerate(slots)}
     aggs_out = []
     for i, (a, argf) in enumerate(aggfs):
@@ -575,9 +632,19 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
     FLOAT sums add in f32. MIN/MAX of FLOAT reduce the f32 value; of
     INT/DECIMAL, the arithmetic high limb (order-preserving, f32-exact),
     refined to the full-width winner by a plain fold over the rows
-    holding it."""
+    holding it.
+
+    On a mesh (``params.axis_name`` set) each shard's kernel partials
+    merge with collectives: the i32 limb, count and liveness rows psum
+    exactly, since the limb width bounds them by the GLOBAL
+    max_group_rows over every shard's rows; f32 sum and shadow rows
+    psum; MIN/MAX rows pmin/pmax (the INT refinement runs on the merged
+    winner, and its shard results pmin/pmax again); `any` merges each
+    shard's representative with a pmax over an identity fill (the FD
+    makes every shard that holds the group agree on the value)."""
     n = b.n
     sel = b.sel
+    axis = params.axis_name
     argdata = _agg_args(aggfs, ctx)
     for i, (a, _) in enumerate(aggfs):
         if a.func in ("sum", "sum_int", "avg", "min", "max") \
@@ -591,7 +658,11 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
     # group's rows in one int32 accumulator (the shipped point gives
     # the reference's limb layout)
     block, rows, _mb, cap = params.pallas_point
-    w = pgl.limb_width(n, max_group_rows, block_rows=block * rows, cap=cap)
+    # on a mesh, every shard's rows: summed shard limbs then stay
+    # below 2^31 too (a shard's row count alone would let them wrap)
+    n_all = n * (params.n_shards if axis is not None else 1)
+    w = pgl.limb_width(n_all, max_group_rows, block_rows=block * rows,
+                       cap=cap)
     slots, tags = [], []
     want_rep = False
     exact = {}  # agg index -> limb count k
@@ -630,16 +701,33 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
                               want_rep, point=params.pallas_point)
     acc_f, acc_i = res.acc_f, res.acc_i
     row = dict(zip(tags, res.rows))
-    live = acc_i[row[("live",)]] > 0
     rep = rep_live = None
     if want_rep:
-        racc = acc_i[res.rep_row]  # REPMIN row (n = empty group)
+        # REPMIN row (n = empty group): shard-local row ids
+        racc = acc_i[res.rep_row]
         rep_live = racc < n
         rep = torch.clamp(racc, max=n - 1)
     # |value| bounds as float64: the uint64 pattern of 2^63 reads as
-    # INT64_MIN
+    # INT64_MIN; n x max|value| per int64 sum, summed over the shards
     maxabs = torch.where(res.maxabs < 0, 2.0 ** 63,
                          res.maxabs.to(torch.float64))
+    bound = float(n) * maxabs
+    if axis is not None:
+        acc_i = axis.psum(acc_i)
+        mm_ops = {row[t]: aggfs[t[1]][0].func for t in tags
+                  if t[0] == "mm"}
+        acc_f = acc_f.clone()
+        for rows_k, merge in (
+                ([r for r in range(acc_f.shape[0]) if r not in mm_ops],
+                 axis.psum),
+                ([r for r, f in mm_ops.items() if f == "min"], axis.pmin),
+                ([r for r, f in mm_ops.items() if f == "max"], axis.pmax)):
+            if rows_k:
+                idx = torch.tensor(rows_k, device=acc_f.device)
+                acc_f[idx] = merge(acc_f[idx])
+        if bound.numel():
+            bound = axis.psum(bound)
+    live = acc_i[row[("live",)]] > 0
 
     overflow = torch.zeros((), dtype=torch.bool, device=b.device)
     aggs_out = []
@@ -650,8 +738,13 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
             continue
         if a.func == "any":
             d0, v0 = argdata[i]
-            aggs_out.append(aggops.group_any_via_rep(d0, v0, rep,
-                                                     rep_live))
+            d, v = aggops.group_any_via_rep(d0, v0, rep, rep_live)
+            if axis is not None:
+                # an empty shard contributes the max identity (already
+                # group_any_via_rep's fill), so pmax picks a real value
+                d = axis.pmax(d)
+                v = axis.psum(v.to(torch.int32)) > 0
+            aggs_out.append((d, v))
             continue
         cnt = acc_i[row[("cnt", i)]]
         nonempty = cnt > 0
@@ -663,9 +756,15 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
                 # rows that hold it: every survivor is an input value,
                 # so the result is bit-equal to the plain path's
                 d0, v0 = argdata[i]
-                aggs_out.append((paritygate.refine_int_minmax(
+                dref = paritygate.refine_int_minmax(
                     d0, torch.logical_and(sel, v0), gid, d, num_groups,
-                    a.func), nonempty))
+                    a.func)
+                if axis is not None:
+                    # a shard without the winning limb refines an empty
+                    # mask, whose identity loses this merge
+                    dref = (axis.pmin if a.func == "min"
+                            else axis.pmax)(dref)
+                aggs_out.append((dref, nonempty))
                 continue
             aggs_out.append((d.to(torch.float64), nonempty))
             continue
@@ -687,7 +786,7 @@ def _pallas_large_partials(aggfs, b, ctx, gid, num_groups: int,
         # cannot wrap, else compare the f32 shadow. Tolerance 1e-2
         # absorbs f32 accumulation noise; a real int64 wrap is ~2^64
         # off, far beyond it.
-        cannot = float(n) * maxabs[mx] < float(2 ** 62)
+        cannot = bound[mx] < float(2 ** 62)
         sh = acc_f[frow].to(torch.float64)
         err = torch.abs(total.to(torch.float64) - sh)
         tol = torch.clamp(torch.abs(sh) * 1e-2, min=1e12)
@@ -720,6 +819,16 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
     if mode not in ("auto", "on", "off"):
         raise ExecError(f"pallas_groupagg = {mode} is not a mode "
                         "(auto, on, off)")
+    axis = params.axis_name
+    if axis is not None and any(a.distinct for a in node.aggs):
+        # a distinct set cannot be unioned from per-shard partials by
+        # sum/min/max merges; distagg.analyze refuses these plans
+        raise ExecError("DISTINCT aggregates cannot run distributed")
+    if axis is not None and groupfs and not dense:
+        # hash-strategy group ids are shard-local: the groups exchange
+        # to their hash owner (the HashRouter's shuffle)
+        return _compile_hash_dist_aggregate(node, params, childf, groupfs,
+                                            aggfs, itemfs, havingf)
 
     def run_agg(rc: RunContext) -> ColumnBatch:
         b = childf(rc)
@@ -805,14 +914,17 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
             pgid = gid if gid is not None \
                 else torch.zeros(b.n, dtype=torch.int32, device=dev)
             aggs_out, kernel_live = _pallas_dense_partials(
-                pslots, aggfs, b, ctx, pgid, num_groups, gid is not None)
+                pslots, aggfs, b, ctx, pgid, num_groups, gid is not None,
+                axis)
         elif large:
             res = _pallas_large_partials(aggfs, b, ctx, gid, num_groups,
                                          node.max_group_rows, params)
         if res is not None:
             aggs_out, kernel_live, overflow = res
         elif pslots is None:
-            if gid is not None and any(
+            # the shared representative index is shard-local: on a mesh
+            # `any` merges through its pmax instead
+            if gid is not None and axis is None and any(
                     a.func == "any" and not a.distinct for a, _ in aggfs):
                 rep_state = aggops.group_rep_index(gid, b.sel, num_groups)
             aggs_out = []
@@ -820,7 +932,7 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
                 d, v, ovf = _agg_partials(a, argf, b, ctx, gid,
                                           num_groups, node.max_group_rows,
                                           rep_state,
-                                          params.sort_normalized)
+                                          params.sort_normalized, axis)
                 aggs_out.append((d, v))
                 if ovf is not None:
                     overflow = torch.logical_or(overflow, ovf)
@@ -836,7 +948,8 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
         elif rep_state is not None:
             live = rep_state[1]
         else:
-            live = aggops.group_count(gid, b.sel, num_groups) > 0
+            cnt = aggops.group_count(gid, b.sel, num_groups)
+            live = (cnt if axis is None else axis.psum(cnt)) > 0
 
         out = _agg_output(group_cols, aggs_out, live, itemfs, havingf,
                           num_groups, overflow, dev,
@@ -855,6 +968,127 @@ def _key_encode(d, v):
     elif kd.is_floating_point():
         kd = kd.to(torch.float64).view(torch.int64)
     return torch.where(v, kd, torch.zeros_like(kd)), v.to(torch.int32)
+
+
+def _compile_hash_dist_aggregate(node: P.Aggregate, params: ExecParams,
+                                 childf, groupfs, aggfs, itemfs,
+                                 havingf) -> CompiledNode:
+    """Hash GROUP BY over the mesh (the reference's
+    _compile_hash_dist_aggregate).
+
+    Per shard: local hash grouping into at most ``hash_group_capacity``
+    dense slots, with the streamed path's page-state partials per slot.
+    Then a hash-partitioned all-to-all (parallel/shuffle.py) ships each
+    partial group's slot to hash(key) % D, so each shard merges only its
+    1/D of the groups, and one all_gather of the (disjoint) merged
+    groups assembles the replicated output with no second re-group: the
+    reference's HashRouter and final-stage aggregation as collectives.
+
+    Capacity: the exchange's send budget and each shard's output budget
+    are both ``xcap`` = 2 * capacity / D slots (at least 16, at most
+    the capacity). A local or merge table past its capacity, a send
+    block past xcap or a shard owning more than xcap merged groups sets
+    the hash-overflow sentinel, on every shard alike; the engine then
+    re-runs the plan partition by partition."""
+    from ..parallel import shuffle
+    axis = params.axis_name
+    cap = params.hash_group_capacity
+    n_shards = max(params.n_shards, 1)
+    xcap = min(max(2 * cap // n_shards, 16), cap)
+    ops_layout = [_agg_state_ops(a) for a, _ in aggfs]
+    flat_ops = [op for ops in ops_layout for op in ops]
+    # the exchange's bytes are tallied once a plan (its first run)
+    tallied = [False]
+
+    def run(rc: RunContext) -> ColumnBatch:
+        b = childf(rc)
+        ctx = _ctx_of(b)
+        dev = b.device
+        keycols = []
+        gdata = []  # (name, data, valid) of each group-key expression
+        for name, gf in groupfs:
+            d, v = gf(ctx)
+            kd, kv = _key_encode(d, v)
+            keycols.extend((kd, kv))
+            gdata.append((name, d, v))
+        if rc.nparts > 1:
+            b = b.and_sel(hashtable.partition_mask(
+                tuple(keycols), rc.nparts, rc.pid))
+        gid, ng, rep = hashtable.group_ids(tuple(keycols), b.sel, cap)
+        rc.route["group_ids"] += 1
+        rc.route["group_ids_rounds"] = hashtable.ROUNDS["build"]
+        slot_live = torch.arange(cap, dtype=torch.int32, device=dev) < ng
+        flat_state = []
+        for a, argf in aggfs:
+            flat_state.extend(_agg_page_state(a, argf, b, ctx, gid, cap,
+                                              node.max_group_rows))
+
+        # per slot: the partial state and the group keys' output
+        # columns, to hash(key) % n_shards. The encoded key columns do
+        # not travel: the receiver encodes the (data, valid) pairs again
+        rep = rep.to(torch.int64)
+        dest = shuffle.dest_of(tuple(kc[rep] for kc in keycols), n_shards)
+        payload = flat_state + [d[rep] for _n, d, _v in gdata] + \
+            [v[rep] for _n, _d, v in gdata]
+        tally = not tallied[0] and axis.index() == 0
+        recv, rvalid, x_ovf = shuffle.exchange(
+            dest, slot_live, n_shards, xcap, payload, axis, tally=tally)
+        if tally:
+            tallied[0] = True
+        ns = len(flat_state)
+        r_state = recv[:ns]
+        r_gd = recv[ns:ns + len(gdata)]
+        r_gv = recv[ns + len(gdata):]
+        r_keys = []
+        for gd, gv in zip(r_gd, r_gv):
+            r_keys.extend(_key_encode(gd, gv))
+
+        # merge: each shard groups only its own 1/D of the groups again
+        gid2, ng2, rep2 = hashtable.group_ids(tuple(r_keys), rvalid, cap)
+        rc.route["group_ids"] += 1
+        merged = []
+        for gs, op in zip(r_state, flat_ops):
+            if op == "add":
+                merged.append(aggops.group_sum(gs, gid2, rvalid, cap,
+                                               acc_dtype=gs.dtype))
+            elif op == "min":
+                merged.append(aggops.group_min(gs, gid2, rvalid, cap))
+            else:
+                merged.append(aggops.group_max(gs, gid2, rvalid, cap))
+        aggs_out = []
+        sum_ovf = torch.zeros((), dtype=torch.bool, device=dev)
+        i = 0
+        for (a, _), ops in zip(aggfs, ops_layout):
+            d, v, ovf = _agg_finalize(a, tuple(merged[i:i + len(ops)]))
+            i += len(ops)
+            aggs_out.append((d, v))
+            if ovf is not None:
+                sum_ovf = torch.logical_or(sum_ovf, ovf)
+
+        # the replicated output: merged groups are disjoint across
+        # shards (a key has one hash owner), so one all_gather of each
+        # shard's first xcap dense slots concatenates them
+        def gather(x):
+            return axis.all_gather(x[:xcap])
+
+        rep2 = rep2.to(torch.int64)
+        group_cols = {name: (gather(gd[rep2]), gather(gv[rep2]))
+                      for (name, _d, _v), gd, gv in zip(gdata, r_gd, r_gv)}
+        aggs_out = [(gather(d), gather(v)) for d, v in aggs_out]
+        my_live = torch.arange(cap, dtype=torch.int32, device=dev) \
+            < torch.clamp(ng2, min=0)
+        live = gather(my_live)
+        flags = axis.psum(torch.stack([
+            sum_ovf.to(torch.int32),
+            # a local table spilled, the merge table spilled, or this
+            # shard owns more merged groups than its output budget
+            (ng < 0).to(torch.int32) + (ng2 < 0).to(torch.int32)
+            + (ng2 > xcap).to(torch.int32)]))
+        ht_ovf = torch.logical_or(flags[1] > 0, x_ovf)
+        return _agg_output(group_cols, aggs_out, live, itemfs, havingf,
+                           n_shards * xcap, flags[0] > 0, dev,
+                           ht_ovf=ht_ovf)
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -1080,9 +1314,11 @@ def _compile_sort(node: P.Sort, params: ExecParams,
 
 def _compile_window(node: P.Window, params: ExecParams) -> CompiledNode:
     """Window functions: one sort and cumulative scans per spec
-    (ops/window.py), materialized as __win{i} columns. Not streamable:
-    a window sees its whole partition."""
+    (ops/window.py), materialized as __win{i} columns. Neither
+    streamable nor distributable: a window sees its whole partition."""
     from ..ops import window as W
+    if params.axis_name is not None:
+        raise ExecError("window functions cannot run distributed yet")
     childf = compile_plan(node.child, params)
     specs = []
     for w in node.windows:

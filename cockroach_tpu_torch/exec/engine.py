@@ -66,14 +66,22 @@ TTL and IMPORT run as jobs of the same registry (jobs/, cdc/,
 exec/maintenance.py); a table with a live changefeed stays off the OLTP
 lane.
 
-Everything else the reference engine does (distribution, distributed
-spill) is not ported yet and raises EngineError.
+On an engine with a mesh (``Engine(mesh=make_mesh(...))``; ``Engine()``
+builds one over every card when there are several) an eligible plan
+runs distributed (parallel/distagg.py): its probe-spine tables upload
+sharded over the mesh's slots and its build sides replicated, the
+compiled plan runs once per slot, and its aggregate partials merge with
+the shard axis's collectives. Each dispatch goes to the full mesh or to
+a pool sub-mesh (``_DistRouter``, sql.exec.submesh.size); a statement
+whose collective dispatch faults re-runs on one device.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
+import dataclasses
 import datetime
 import decimal
 import json
@@ -94,6 +102,9 @@ from ..kv.concurrency import TxnAbortedError, TxnRetryError
 from ..ops import hashtable
 from ..ops.batch import ColumnBatch, pull_arrays, pull_batch_columns
 from ..ops.join import MAX_EXPAND
+from ..parallel import distagg
+from ..parallel import mesh as meshmod
+from ..parallel.collective import AXIS
 from ..sql import ast, parser
 from ..sql.parser import ParseError
 from ..sql import plan as P
@@ -111,7 +122,7 @@ from ..utils.admission import AdmissionController
 from ..utils.devstats import DeviceStats
 from ..utils.rwlock import RWLock
 from ..utils.metric import MetricRegistry
-from ..utils.mon import BytesMonitor
+from ..utils.mon import BytesMonitor, MemoryQuotaError
 from ..utils import log, tracing
 from ..utils.settings import SettingError, Settings
 from ..utils.sqlstats import StatsRegistry
@@ -179,7 +190,8 @@ _MODES = ("auto", "on", "off")
 _VAR_VALUES = {"pallas_groupagg": _MODES, "sort_normalized": _MODES,
                "streaming": ("auto", "off"),
                "streaming_pipeline": ("on", "off"),
-               "spill": _MODES, "oltp_batch": ("auto", "off")}
+               "spill": _MODES, "oltp_batch": ("auto", "off"),
+               "distsql": ("auto", "on", "off", "always")}
 
 
 def _per_thread(name: str, fresh):
@@ -195,6 +207,114 @@ def _per_thread(name: str, fresh):
     def set_(self, v):
         setattr(self._tl, name, v)
     return property(get, set_)
+
+
+class _DistRouter:
+    """Per-dispatch routing of one prepared distributed plan onto the
+    full mesh or a pool sub-mesh (parallel/mesh.py MeshPool): the
+    reference's _DistRouter.
+
+    It stands in the exec cache for the compiled plan and is called as
+    one, with a RunContext whose scans are the full mesh's MeshBatches.
+    It builds one compiled plan per shard count and one queued call per
+    target mesh, lazily; a psum over fewer shards is exact, so rows
+    agree across targets (floats within their tolerance).
+
+    Routing (sql.exec.submesh.size): ``off`` = always the full mesh; a
+    power of two = that sub-mesh size when the working set fits,
+    escalating to larger sizes and the full mesh when it does not;
+    ``auto`` = the full mesh while the front door is idle, the smallest
+    fitting sub-mesh once dispatches queue, so small queries run side
+    by side on disjoint rendezvous domains."""
+
+    # share of a slot's slice of the device budget a routed plan may
+    # occupy
+    FOOTPRINT_FRAC = 0.5
+
+    def __init__(self, engine, node, meta, scan_aliases, exec_params,
+                 upload_spec, sharded_bytes, repl_bytes):
+        self.engine = engine
+        self.node = node
+        self.meta = meta
+        self.scan_aliases = scan_aliases
+        self.exec_params = exec_params
+        # [(alias, table, placement, cols)]: how each scan resolves a
+        # mesh batch against any target mesh
+        self.upload_spec = upload_spec
+        self.sharded_bytes = sharded_bytes
+        self.repl_bytes = repl_bytes
+        self._lock = threading.Lock()
+        self._runfs: dict = {}   # n_shards -> compiled plan
+        self._calls: dict = {}   # "full" | (size, idx) -> queued call
+
+    def _runf_for(self, n_shards: int):
+        f = self._runfs.get(n_shards)
+        if f is None:
+            p = dataclasses.replace(self.exec_params, n_shards=n_shards)
+            f = self._runfs[n_shards] = compile_plan(self.node, p,
+                                                     self.meta)
+        return f
+
+    def _call_for(self, key, mesh, n_shards: int):
+        with self._lock:
+            c = self._calls.get(key)
+            if c is None:
+                eng = self.engine
+                c = self._calls[key] = distagg.queued_collective_call(
+                    distagg.make_distributed_fn(
+                        self._runf_for(n_shards), mesh, self.scan_aliases),
+                    metrics=eng.metrics, mesh=mesh, movement=eng.movement,
+                    # exchanged rows are bounded by one shard's
+                    # post-filter slice plus the replicated builds
+                    lease_bytes=(self.sharded_bytes // max(n_shards, 1)
+                                 + self.repl_bytes))
+            return c
+
+    def _target_size(self):
+        """Sub-mesh size for this dispatch, or None for the full mesh."""
+        eng = self.engine
+        mode = str(eng.settings.get("sql.exec.submesh.size"))
+        if mode == "off":
+            return None
+        pool = eng._submesh_pool()
+        if pool is None:
+            return None
+        full = eng.mesh.size
+        sizes = sorted(pool.sizes())  # ascending; full mesh excluded
+        if mode == "auto":
+            busy = (distagg._dispatcher_for(eng.mesh).depth() > 0
+                    or pool.occupancy() > 0)
+            if not busy:
+                return None
+        else:
+            want = int(mode)
+            if want >= full:
+                return None
+            sizes = [s for s in sizes if s >= want]
+        per_slot_budget = eng.hbm.limit / max(full, 1)
+        for s in sizes:
+            if per_slot_budget <= 0 or (
+                    self.sharded_bytes / s + self.repl_bytes
+                    <= self.FOOTPRINT_FRAC * per_slot_budget):
+                return s
+        return None  # the working set needs the full mesh
+
+    def __call__(self, rc: RunContext):
+        size = self._target_size()
+        eng = self.engine
+        if size is None:
+            return self._call_for("full", eng.mesh, eng.mesh.size)(rc)
+        pool = eng._submesh_pool()
+        submesh, token = pool.acquire(size)
+        try:
+            call = self._call_for(token, submesh, size)
+            sub = {alias: eng._device_table(tname, cols, placement,
+                                            submesh)
+                   for alias, tname, placement, cols in self.upload_spec}
+            return call(RunContext(sub, rc.read_ts, rc.nparts, rc.pid,
+                                   route=rc.route, params=rc.params))
+        finally:
+            pool.release(token)
 
 
 class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
@@ -226,8 +346,27 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
     _analyzing = _per_thread("analyzing", lambda: False)
     _cte_capture = _per_thread("cte_capture", lambda: None)
 
-    def __init__(self, device=None, store: ColumnStore | None = None):
+    def __init__(self, device=None, store: ColumnStore | None = None,
+                 mesh: meshmod.Mesh | None = None):
+        # the shard mesh of distributed plans: over every card when the
+        # engine is on a card and there are several (the reference's
+        # rule); a mesh of several slots on one device only when the
+        # caller passes it. The engine's device is the mesh's slot 0:
+        # uploads start there
+        if mesh is not None and device is None:
+            device = mesh.devices[0]
         self.device = resolve_device(device)
+        if mesh is None and self.device.type == "cuda" \
+                and torch.cuda.device_count() > 1:
+            mesh = meshmod.make_mesh()
+        if mesh is not None and str(mesh.devices[0]) != str(self.device):
+            raise EngineError(f"the engine's device {self.device} must be "
+                              f"its mesh's slot 0 ({mesh.devices[0]})")
+        self.mesh = mesh
+        # the sub-mesh dispatch pool (parallel/mesh.py MeshPool), built
+        # at the first routed dispatch; None on a mesh too small to split
+        self._mesh_pool = None
+        self._mesh_pool_lock = threading.Lock()
         self.store = store or ColumnStore()
         self.clock = Clock()
         # the transactional KV plane on the scans' clock, so commit
@@ -283,6 +422,10 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         # evictions hold _device_lock, so two shared readers never
         # upload one table twice
         self._device_tables: dict[tuple, tuple] = {}
+        # (table, generation, placement, mesh key) -> (the resident copy
+        # it was cut from, MeshBatch, reservation account or None): a
+        # table's slices or copies on a mesh (_device_table)
+        self._mesh_tables: dict[tuple, tuple] = {}
         self._device_lock = threading.RLock()
         # compiled plans: exec-cache key -> (compiled plan, meta), and
         # the lookups by outcome (the reference's sql.plan.cache.*),
@@ -330,6 +473,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         coldstart.register_metrics(self.metrics)
         autotune.register_metrics(self.metrics)
         paritygate.register_metrics(self.metrics)
+        self._mesh_metrics()
 
     # -- public API ----------------------------------------------------------
     def session(self) -> Session:
@@ -339,19 +483,90 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
 
     def close(self) -> None:
         """Release what the engine holds on its device: each resident
-        table copy with its reservation, and the compiled plans. Its
-        changefeed jobs are canceled (their threads end at their next
-        check). The engine stays usable: a later statement uploads
-        again."""
+        table copy with its reservation, the compiled plans and the mesh
+        dispatchers' threads (the full mesh's and every pool
+        sub-mesh's). Its changefeed jobs are canceled (their threads end
+        at their next check). The engine stays usable: a later statement
+        uploads again, and a later dispatch respawns its dispatcher's
+        thread (parallel/distagg.py)."""
         for jid in list(self._cdc_threads):
             self.jobs.cancel(jid)
         self._cdc_threads.clear()
         with self._device_lock:
-            for name in {k[0] for k in self._device_tables}:
+            for name in {k[0] for k in self._device_tables} | \
+                    {k[0] for k in self._mesh_tables}:
                 self._evict_device(name)
         with self._cache_lock:
             for k in list(self._exec_cache):
                 del self._exec_cache[k]
+        if self.mesh is not None:
+            distagg.shutdown_dispatchers(self.mesh)
+        pool = self._mesh_pool
+        if pool is not None:
+            for size in pool.sizes():
+                for m in pool.submeshes(size):
+                    distagg.shutdown_dispatchers(m)
+
+    # -- the mesh ------------------------------------------------------------
+    def _mesh_metrics(self) -> None:
+        """The sub-mesh plane's metrics (exec.submesh.*: the pool read
+        live) and the exchange bytes tallied when plans were built."""
+        from ..parallel import shuffle
+        m = self.metrics
+        m.func_gauge(
+            "exec.submesh.count",
+            lambda: (0 if self._mesh_pool is None else
+                     sum(self._mesh_pool.count(s)
+                         for s in self._mesh_pool.sizes())),
+            "sub-meshes in the dispatch pool (0 = pool not built)")
+        m.func_counter(
+            "exec.submesh.dispatches",
+            lambda: (0 if self._mesh_pool is None else
+                     self._mesh_pool.dispatches),
+            "distributed dispatches routed to a sub-mesh")
+        m.func_gauge(
+            "exec.submesh.occupancy",
+            lambda: (0 if self._mesh_pool is None else
+                     self._mesh_pool.occupancy()),
+            "in-flight distributed dispatches across all sub-meshes")
+        m.func_counter(
+            "exec.movement.exchange.traced.bytes",
+            shuffle.EXCHANGE_TRACED.value,
+            "all_to_all exchange buffer bytes, tallied when a plan is "
+            "built")
+
+    def _submesh_pool(self):
+        """The MeshPool over this engine's mesh, built at first use;
+        None when the mesh cannot split (absent or one slot)."""
+        if self.mesh is None or self.mesh.size < 2:
+            return None
+        pool = self._mesh_pool
+        if pool is None:
+            with self._mesh_pool_lock:
+                pool = self._mesh_pool
+                if pool is None:
+                    pool = self._mesh_pool = meshmod.MeshPool(self.mesh)
+        return pool
+
+    def _dist_decision(self, node, session: Session):
+        """Distributed over the mesh or on one device: the analogue of
+        DistSQL's shouldDistributePlan (the reference's rules). A
+        statement under the fine profile plane (EXPLAIN ANALYZE, an
+        armed diagnostics capture) runs on one device, as the
+        reference's measured re-run does: its operators' spans are the
+        issuing thread's."""
+        if str(session.vars.get("distsql", "auto")) == "off":
+            return None
+        if self.mesh is None or self.mesh.size <= 1:
+            return None
+        if self.mesh.size & (self.mesh.size - 1):
+            return None  # table padding is a power of two to split
+        if not self.settings.get("sql.distsql.mesh_partitioning.enabled"):
+            return None
+        if self._analyzing or profile.requested():
+            return None
+        d = distagg.analyze(node)
+        return d if d.ok else None
 
     def _track_session(self, s: Session) -> None:
         with self._sessions_lock:
@@ -1838,7 +2053,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
     def _prepare_select(self, sel: ast.Select, session: Session,
                         sql_text: str, no_topk: bool = False,
                         no_compact: bool = False,
-                        no_memo: bool = False) -> Prepared:
+                        no_memo: bool = False,
+                        no_dist: bool = False) -> Prepared:
         """Plan, place, check, upload and compile one SELECT into a
         Prepared.
 
@@ -1865,7 +2081,15 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         preparation (the plan's checks, the handle's runs) and is
         refused below a scanned table's GC threshold; the timestamp is
         a runtime argument of the compiled plan, never part of its
-        exec-cache key."""
+        exec-cache key.
+
+        On a mesh the distribution decision comes first, as in the
+        reference (distributed > spill > stream > resident): a
+        distributed plan's probe-spine tables upload sharded over the
+        mesh and its build sides replicated, and it compiles behind a
+        _DistRouter. A distributed upload past the budget re-prepares
+        on one device (``no_dist``), where the spill and stream tiers
+        page the same mergeable partials."""
         as_of = self._as_of_ts(sel, session)
         read_ts = as_of or self._read_ts(session)
         sink: set = set()
@@ -1879,10 +2103,14 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         scan_aliases, scan_cols = scan_maps(node)
         overlay = {t: n for t, n in self._overlay_puts(session).items()
                    if t in scan_aliases.values()}
-        spill = (None if overlay else
+        # an overlay's tables stay on one device, as in the reference
+        decision = (None if overlay or no_dist else
+                    self._dist_decision(node, session))
+        spill = (None if overlay or decision is not None else
                  self._spill_decision(node, scan_aliases, scan_cols,
                                       session, meta))
-        stream = (None if spill is not None or overlay else
+        stream = (None if spill is not None or overlay
+                  or decision is not None else
                   self._stream_decision(node, scan_aliases, scan_cols,
                                         session))
         paged = {stream[0]} if stream is not None else set()
@@ -1897,16 +2125,25 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                 return self._prepare_select(sel, session, sql_text,
                                             no_topk=no_topk,
                                             no_compact=no_compact,
-                                            no_memo=True)
+                                            no_memo=True, no_dist=no_dist)
             raise
         self._bound_agg_group_rows(node, read_ts, overlay)
-        if not no_compact and not paged and not self._analyzing:
+        if not no_compact and not paged and not self._analyzing \
+                and decision is None:
             # selection compaction is gated off under paging (its
-            # sentinel cannot ride the page state) and in an analyzed
-            # run (EXPLAIN ANALYZE renders the planner's plan)
+            # sentinel cannot ride the page state), in an analyzed run
+            # (EXPLAIN ANALYZE renders the planner's plan) and on a mesh
+            # (the reference's rule: its sentinel would need merging
+            # across the shards)
             node = self._insert_compaction(node)
         scans, gens, shapes = {}, sink, []
         resident = {t for a, t in scan_aliases.items() if a not in paged}
+        # a distributed plan records how each scan resolves against any
+        # target mesh, and the working set the router sizes sub-meshes
+        # by (post-filter estimates: a selective scan's bytes mostly die
+        # at its filter)
+        upload_spec = []
+        sharded_bytes = repl_bytes = 0
         for alias, tname in scan_aliases.items():
             if as_of is not None:
                 self._check_gc_threshold(tname, as_of)
@@ -1937,6 +2174,30 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                 shapes.append((tname, stream[2] if stream is not None
                                else 0, dl))
                 continue
+            if decision is not None:
+                placement = (meshmod.shard_spec()
+                             if alias in decision.sharded
+                             else meshmod.replicated_spec())
+                try:
+                    b = self._device_table(tname, cols, placement)
+                except MemoryQuotaError:
+                    # a shard working set past the budget: one device,
+                    # where the spill and stream tiers take it
+                    self.movement.m_spill_fallbacks.inc()
+                    return self._prepare_select(
+                        sel, session, sql_text, no_topk=no_topk,
+                        no_compact=no_compact, no_memo=no_memo,
+                        no_dist=True)
+                upload_spec.append((alias, tname, placement, cols))
+                nb = int(self._table_device_bytes(td, cols)
+                         * self._scan_survival_frac(node, alias, tname))
+                if placement == meshmod.shard_spec():
+                    sharded_bytes += nb
+                else:
+                    repl_bytes += nb
+                scans[alias] = b
+                shapes.append((tname, b.n, dl))
+                continue
             b = self._maybe_pruned_upload(node, alias, tname, cols)
             if b is None:
                 b = self._device_table(tname, cols)
@@ -1947,6 +2208,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         for outer in self._gen_sinks:
             outer.update(g for g in gens if not g[0].startswith(TEMP_PREFIX))
         params = self._exec_params(session, no_topk)
+        if decision is not None:
+            params.axis_name, params.n_shards = AXIS, self.mesh.size
         cgens = self._cache_gens(gens)
         # statement-shape plan cache: filter literals leave the plan as
         # run parameters, so literal-varying statements of one shape
@@ -1973,7 +2236,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         key = (keytext, tuple(sorted(shapes)), cgens, stream, spill,
                params.hash_group_capacity, params.pallas_groupagg,
                params.sort_normalized, plan_fp, no_topk, no_compact,
-               tuple(str(v.dtype) for v in pvals))
+               tuple(str(v.dtype) for v in pvals), decision is not None)
         journal = (sql_text, stream[2] if stream is not None
                    else spill.page_rows if spill is not None else 0)
         if spill is not None and spill.kind == "sort":
@@ -1983,6 +2246,14 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             # program: each probe row lands in exactly one (partition,
             # page), so the page-partial algebra is exact over the sweep
             compile_fn = compile_streaming
+        elif decision is not None:
+            def compile_fn(node, params, meta):
+                router = _DistRouter(self, node, meta, dict(scan_aliases),
+                                     params, upload_spec, sharded_bytes,
+                                     repl_bytes)
+                # the full mesh's plan now, inside this plan build
+                router._runf_for(self.mesh.size)
+                return router
         else:
             compile_fn = compile_plan
         runf, meta, node = self._compiled(
@@ -2013,7 +2284,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                         else None),
             joinfilter=jf_specs, placement=self._placement_key(session),
             scan_tables=dict(scan_aliases), as_of=as_of,
-            params=run_values(pvals))
+            params=run_values(pvals), decision=decision)
         cap = self._cte_capture
         if cap is not None and cap["want_main"] and not cap["disabled"]:
             # the last preparation after the temps is the main plan
@@ -2207,9 +2478,13 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         """Start recording, on this thread, what a composing CTE
         handle's slow run composes from: its columnar temps (their
         bodies' Prepared plans and shapes) and its main Prepared plan.
-        Only a SELECT outside a txn composes."""
+        Only a SELECT outside a txn, on an engine without a mesh,
+        composes."""
         if not isinstance(stmt, ast.Select) or session.txn is not None \
                 or session.effects:
+            return False
+        if self.mesh is not None and self.mesh.size > 1:
+            # the reference's rule: composition stays off on a mesh
             return False
         self._cte_capture = {"temps": [], "preps": [], "disabled": False,
                              "want_main": False}
@@ -2366,7 +2641,10 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         falls in exactly one. The partition count doubles from 2 until
         every partition fits; at the level-1 ceiling an overflowing
         partition subdivides under the rotated salt instead. The
-        re-reads hit the resident device tables.
+        re-reads hit the resident device tables. A distributed plan's
+        partitions run distributed too, and where the mesh splits into
+        two or more sub-meshes of two or more slots they run side by
+        side, one sub-mesh each (_sweep_partitions).
 
         Returns (pulled live columns concatenated over the partitions,
         the stripped Sort node, the stripped Limit node)."""
@@ -2382,28 +2660,34 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                 "partitioned; SET hash_group_capacity to a larger power "
                 "of two")
         params = self._exec_params(prep.session, prep.no_topk)
+        decision = prep.decision
+        compile_fn = compile_plan
+        if decision is not None:
+            params.axis_name, params.n_shards = AXIS, self.mesh.size
+
+            def compile_fn(node, params, meta):
+                return self._mesh_call(node, params, meta, self.mesh)
         shapes = tuple(sorted((a, b.n) for a, b in prep.scans.items()))
         cgens = self._cache_gens(prep.gens)
         key = ("partitioned", prep.sql_text, shapes, cgens,
                params.hash_group_capacity, params.pallas_groupagg,
-               params.sort_normalized, hash(repr(node)))
+               params.sort_normalized, hash(repr(node)),
+               decision is not None)
         runf, meta, _ = self._compiled(key, cgens, node, params,
-                                       prep.meta)
+                                       prep.meta, compile_fn)
         names = list(meta.names)
         ts = (read_ts or prep.as_of
               or self._read_ts(prep.session)).to_int()
 
-        def run_pid(nparts: int, pid: int) -> dict:
-            rc = RunContext(prep.scans, ts, nparts, pid,
-                            params=prep.params)
-            out = runf(rc)
-            self._note_route(prep, rc.route)
+        def run_pid(fn, scans, nparts: int, pid: int) -> tuple:
+            rc = RunContext(scans, ts, nparts, pid, params=prep.params)
+            out = fn(rc)
             self._check_sentinels(out)
-            return pull_batch_columns(out, names)
+            return pull_batch_columns(out, names), rc.route
 
-        def pid_parts(nparts: int, pid: int) -> list:
+        def pid_parts(fn, scans, nparts: int, pid: int) -> list:
             try:
-                return [run_pid(nparts, pid)]
+                return [run_pid(fn, scans, nparts, pid)]
             except HashCapacityExceeded:
                 if nparts < self.MAX_SPILL_PARTITIONS:
                     raise   # the caller doubles the level-1 fan-out
@@ -2412,7 +2696,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                 l2 = 2
                 while l2 <= self.MAX_SPILL_PARTITIONS:
                     try:
-                        return [run_pid(nparts * l2, pid2 * nparts + pid)
+                        return [run_pid(fn, scans, nparts * l2,
+                                        pid2 * nparts + pid)
                                 for pid2 in range(l2)]
                     except HashCapacityExceeded:
                         l2 *= 2
@@ -2425,19 +2710,96 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         nparts = 2
         while True:
             try:
-                parts = [p for pid in range(nparts)
-                         for p in pid_parts(nparts, pid)]
+                parts = self._sweep_partitions(
+                    runf, prep, pid_parts, nparts, key, cgens, node,
+                    params, meta)
                 break
             except HashCapacityExceeded:
                 if nparts >= self.MAX_SPILL_PARTITIONS:
                     raise
                 nparts *= 2
+        for _, route in parts:
+            self._note_route(prep, route)
         self.last_exec["all"]["partitioned"].append(nparts)
         if self._nested == 0:
             self.last_exec["partitioned"].append(nparts)
-        pulled = {c: tuple(np.concatenate([p[c][i] for p in parts])
+        pulled = {c: tuple(np.concatenate([p[c][i] for p, _ in parts])
                            for i in (0, 1)) for c in names}
         return pulled, sort_node, limit_node
+
+    def _mesh_call(self, node, params: ExecParams, meta, mesh):
+        """A plan compiled for ``mesh`` (params' shard count), behind
+        the mesh's dispatcher: called with a RunContext of MeshBatches."""
+        return distagg.queued_collective_call(
+            distagg.make_distributed_fn(compile_plan(node, params, meta),
+                                        mesh, scan_maps(node)[0]),
+            metrics=self.metrics, mesh=mesh)
+
+    def _sweep_partitions(self, runf, prep: Prepared, pid_parts,
+                          nparts: int, key, cgens, node,
+                          params: ExecParams, meta) -> list:
+        """Every partition's (pulled columns, route), in pid order (the
+        reference's _sweep_spill_partitions). A distributed plan whose
+        mesh splits into two or more sub-meshes of two or more slots
+        runs its partitions over those sub-meshes side by side, pid i on
+        sub-mesh i mod k (disjoint rendezvous domains, one gate mode);
+        else they run one after another on the plan's own target."""
+        subs = None
+        if prep.decision is not None:
+            subs = self._submesh_sweep(key, cgens, node, params, meta,
+                                       prep.decision)
+        if subs is None:
+            return [p for pid in range(nparts)
+                    for p in pid_parts(runf, prep.scans, nparts, pid)]
+        calls, scanses = subs
+        k = len(calls)
+        results: list = [None] * nparts
+        err = None
+        with concurrent.futures.ThreadPoolExecutor(max_workers=k) as ex:
+            futs = [ex.submit(pid_parts, calls[pid % k], scanses[pid % k],
+                              nparts, pid) for pid in range(nparts)]
+            for pid, f in enumerate(futs):
+                try:
+                    results[pid] = f.result()
+                except HashCapacityExceeded as e:
+                    err = err or e
+        if err is not None:
+            raise err
+        self.metrics.counter(
+            "exec.spill.submesh_sweeps",
+            "spill partition sweeps fanned out over pool sub-meshes").inc()
+        return [p for part in results for p in part]
+
+    def _submesh_sweep(self, key, cgens, node, params: ExecParams, meta,
+                       decision):
+        """(calls, scans) a sub-mesh for a partition sweep over the
+        largest sub-mesh size with two or more sub-meshes of two or more
+        slots, or None when the pool yields none or the sub-meshes'
+        placements pass the budget."""
+        pool = self._submesh_pool()
+        if pool is None:
+            return None
+        sizes = [s for s in pool.sizes() if s >= 2 and pool.count(s) >= 2]
+        if not sizes:
+            return None
+        size = sizes[0]
+        subs = pool.submeshes(size)
+        sub_params = dataclasses.replace(params, n_shards=size)
+
+        def compile_calls(node, params, meta):
+            return tuple(self._mesh_call(node, params, meta, m)
+                         for m in subs)
+        calls, _, _ = self._compiled(key + ("submesh", size), cgens, node,
+                                     sub_params, meta, compile_calls)
+        aliases, cols = scan_maps(node)
+        try:
+            scanses = [{a: self._device_table(
+                t, cols[a], meshmod.shard_spec() if a in decision.sharded
+                else meshmod.replicated_spec(), m)
+                for a, t in aliases.items()} for m in subs]
+        except MemoryQuotaError:
+            return None
+        return calls, scanses
 
     def _run_partitioned(self, prep: Prepared, read_ts) -> Result:
         """The partitioned re-run as a Result: the partitions' rows with
@@ -2455,11 +2817,21 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         return res
 
     # -- device upload -------------------------------------------------------
-    def _device_table(self, name: str, cols: frozenset) -> ColumnBatch:
+    def _device_table(self, name: str, cols: frozenset,
+                      placement: str = "single", mesh=None):
         """Resident device copy of ``name`` holding at least ``cols``:
         cached per table generation, or uploaded now. The upload's
         bytes are reserved against the budget before it moves
-        (MemoryQuotaError past it) and released with the copy."""
+        (MemoryQuotaError past it) and released with the copy.
+
+        With a mesh placement ("sharded" or "replicated", on ``mesh``,
+        the engine's by default) a MeshBatch cut from that copy: the
+        mesh is part of its identity (a batch placed on sub-mesh A never
+        serves a plan for B), and it goes with the copy it was cut from
+        (_place_on_mesh)."""
+        if placement != "single":
+            return self._mesh_table(name, cols, placement,
+                                    mesh if mesh is not None else self.mesh)
         td = self.store.table(name)
         key = (name, td.generation)
         with self._device_lock:
@@ -2482,13 +2854,79 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                      bytes_uploaded=nbytes)
         return b
 
+    def _mesh_table(self, name: str, cols: frozenset, placement: str,
+                    mesh) -> distagg.MeshBatch:
+        base = self._device_table(name, cols)
+        key = (name, self.store.table(name).generation, placement,
+               mesh.key())
+        with self._device_lock:
+            hit = self._mesh_tables.get(key)
+            if hit is not None and hit[0] is base:
+                return hit[1]
+            if hit is not None:
+                self._drop_mesh_table(key)
+            mb, extra = self._place_on_mesh(name, base, placement, mesh)
+            acct = None
+            if extra:
+                acct = ("mesh",) + key
+                self.movement.reserve_resident(acct, extra)
+            self._mesh_tables[key] = (base, mb, acct)
+        return mb
+
+    @staticmethod
+    def _place_on_mesh(name: str, base: ColumnBatch, placement: str,
+                       mesh) -> tuple:
+        """(MeshBatch, bytes copied to other devices) of a resident copy
+        on ``mesh``. Sharded: slot i takes rows [i*n/N, (i+1)*n/N) of
+        the padded table (padding rows are never visible, so every
+        slice is a valid batch); replicated: every slot the whole table.
+        A slot on the copy's own device takes views of it, so a mesh of
+        several slots on one card costs no bytes; a slot on another
+        card takes a copy there."""
+        def nbytes(b):
+            return sum(t.numel() * t.element_size()
+                       for t in (b.sel, *b.data, *b.valid))
+
+        def on(b, dev):
+            return ColumnBatch(tuple(t.to(dev) for t in b.data),
+                               tuple(t.to(dev) for t in b.valid),
+                               b.sel.to(dev), b.names)
+        pieces = []
+        if placement == meshmod.shard_spec():
+            if base.n % mesh.size:
+                raise EngineError(
+                    f"table {name!r}: {base.n} padded rows do not split "
+                    f"over {mesh.size} shards")
+            per = base.n // mesh.size
+            for i in range(mesh.size):
+                lo, hi = i * per, (i + 1) * per
+                pieces.append(ColumnBatch(
+                    tuple(t[lo:hi] for t in base.data),
+                    tuple(t[lo:hi] for t in base.valid),
+                    base.sel[lo:hi], base.names))
+        else:
+            pieces = [base] * mesh.size
+        extra = 0
+        for i, dev in enumerate(mesh.devices):
+            if dev != base.device:
+                pieces[i] = on(pieces[i], dev)
+                extra += nbytes(pieces[i])
+        return distagg.MeshBatch(pieces, placement), extra
+
+    def _drop_mesh_table(self, key) -> None:
+        acct = self._mesh_tables.pop(key)[2]
+        if acct is not None:
+            self.movement.release_resident(acct)
+
     def _evict_device(self, name: str) -> None:
-        """Drop every resident device copy of table ``name`` and its
-        reservation."""
+        """Drop every resident device copy of table ``name``, its mesh
+        placements, and their reservations."""
         with self._device_lock:
             for k in [k for k in self._device_tables if k[0] == name]:
                 del self._device_tables[k]
                 self.movement.release_resident(k)
+            for k in [k for k in self._mesh_tables if k[0] == name]:
+                self._drop_mesh_table(k)
 
     def _batch_from_chunks(self, td, chunks, cols: frozenset) -> ColumnBatch:
         """Concatenate chunks, pad to the row count's shape-ladder rung

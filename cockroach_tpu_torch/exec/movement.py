@@ -1,5 +1,5 @@
 """Per-device memory and transfer scheduler (cockroach_tpu/exec/
-movement.py without its exchange leases).
+movement.py).
 
 Every path that moves table bytes onto the card reserves them here,
 against the engine's one ``BytesMonitor`` (utils/mon.py), whose limit
@@ -14,6 +14,10 @@ is ``sql.exec.hbm_budget_bytes``:
   transient leases waits for them to drain; a ``soft_lease`` admits
   when there is room and otherwise proceeds unreserved (the estimate
   is ours, the allocation happens regardless).
+* **exchange** (``exchange_lease``): a distributed dispatch's shuffle
+  and merge buffers. It waits for other transient traffic like a
+  ``lease``, but on a pool full of resident bytes it proceeds
+  unreserved and counts the overcommit instead of failing the query.
 
 The ``exec.movement.*`` counters read the bytes admitted, leases, time
 spent waiting, and the overlap seconds (host assembly and upload time
@@ -31,6 +35,7 @@ from ..utils.mon import MemoryQuotaError
 
 KIND_PAGE = "page"     # stream / spill page windows
 KIND_SPILL = "spill"   # spill partition working slices
+KIND_EXCHANGE = "exchange"  # a distributed dispatch's exchange buffers
 _KINDS = (KIND_PAGE, KIND_SPILL)
 
 # the longest a lease waits for other transient traffic to drain
@@ -60,6 +65,17 @@ class TransferScheduler:
         self.m_overlap = metrics.counter(
             "exec.movement.overlap_seconds",
             "host transfer seconds hidden behind device compute")
+        self.m_exchange = metrics.counter(
+            "exec.movement.exchange.bytes",
+            "peer-exchange/shuffle bytes admitted through the scheduler")
+        self.m_exch_overcommit = metrics.counter(
+            "exec.movement.exchange.overcommit.bytes",
+            "exchange bytes that proceeded unreserved after waiting "
+            "for the pool (admission degraded, not denied)")
+        self.m_spill_fallbacks = metrics.counter(
+            "exec.movement.dist_spill_fallbacks",
+            "DistSQL shards that spilled past their HBM slice instead "
+            "of failing")
 
     # -- resident ------------------------------------------------------
     def reserve_resident(self, account, nbytes: int) -> None:
@@ -150,6 +166,34 @@ class TransferScheduler:
             yield 0
             return
         self._hold(nbytes)
+        try:
+            yield nbytes
+        finally:
+            self._drop(account, nbytes)
+
+    @contextmanager
+    def exchange_lease(self, nbytes: int):
+        """Lease for a distributed dispatch's exchange buffers: waits for
+        other transient traffic to drain as a ``lease`` does, but on a
+        genuinely full pool degrades to a counted overcommit rather
+        than failing the query (the buffers are allocated either way)."""
+        nbytes = int(nbytes)
+        if nbytes <= 0:
+            yield 0
+            return
+        account = ("movement", KIND_EXCHANGE, next(self._ids))
+        try:
+            self._admit(account, nbytes)
+        except MemoryQuotaError:
+            self.m_exchange.inc(nbytes)
+            self.m_exch_overcommit.inc(nbytes)
+            yield 0
+            return
+        self.m_exchange.inc(nbytes)
+        with self._cv:
+            self._transient += nbytes
+        self.m_leases.inc()
+        self.m_inflight.set(self._transient)
         try:
             yield nbytes
         finally:

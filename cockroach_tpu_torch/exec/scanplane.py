@@ -18,6 +18,7 @@ import time
 
 import numpy as np
 
+from ..parallel.distagg import analyze
 from ..sql import plan as P
 from ..sql.types import Family
 from . import coldstart, profile
@@ -27,42 +28,11 @@ from .stream import PageSource, extract_zone_preds
 from .stream import prefetch as stream_prefetch
 
 
-def _dist_analyze(node):
-    """(ok, probe-spine aliases) of the reference's distribution
-    analysis, which gates paging too: Limit?/Sort? over a non-DISTINCT
-    aggregate whose child is a probe spine (Scan, Filter, Project,
-    HashJoin with a scan-only build side)."""
-    sharded: set = set()
-
-    def scan_only(n) -> bool:
-        if isinstance(n, P.Scan):
-            return True
-        if isinstance(n, P.Filter):
-            return scan_only(n.child)
-        return False
-
-    def probe_chain(n) -> bool:
-        if isinstance(n, P.Scan):
-            sharded.add(n.alias)
-            return True
-        if isinstance(n, (P.Filter, P.Project)):
-            return probe_chain(n.child)
-        if isinstance(n, P.HashJoin):
-            if n.join_type not in ("inner", "left", "semi", "anti"):
-                return False
-            return probe_chain(n.left) and scan_only(n.right)
-        return False
-
-    n = node
-    if isinstance(n, P.Limit):
-        n = n.child
-    if isinstance(n, P.Sort):
-        n = n.child
-    if not isinstance(n, P.Aggregate) or any(a.distinct for a in n.aggs):
-        return False, set()
-    if not probe_chain(n.child):
-        return False, set()
-    return True, sharded
+def _spine(node) -> tuple[bool, set]:
+    """(ok, probe-spine aliases) of the distribution analysis
+    (parallel/distagg.py analyze), which gates paging too."""
+    d = analyze(node)
+    return d.ok, d.sharded
 
 
 def _count_aggs(node) -> int:
@@ -124,7 +94,8 @@ class ScanPlaneMixin:
         tables' generations: a Prepared re-decides when it moves."""
         v = session.vars
         return (self._budget(), str(v.get("streaming", "auto")),
-                str(v.get("spill", "auto")), self._page_rows(session))
+                str(v.get("spill", "auto")), self._page_rows(session),
+                str(v.get("distsql", "auto")))
 
     # -- the verdicts -----------------------------------------------------
     def _stream_decision(self, node, scan_aliases: dict, scan_cols: dict,
@@ -138,7 +109,7 @@ class ScanPlaneMixin:
         budget = self._budget()
         if budget <= 0 or not can_stream(node):
             return None
-        ok, sharded = _dist_analyze(node)
+        ok, sharded = _spine(node)
         if not ok or len(sharded) != 1:
             return None
         alias = next(iter(sharded))
@@ -195,7 +166,7 @@ class ScanPlaneMixin:
         from .spill import SpillPlan
         if not _has_join(node) or not can_stream(node):
             return None
-        ok, sharded = _dist_analyze(node)
+        ok, sharded = _spine(node)
         if not ok or len(sharded) != 1:
             return None
         alias = next(iter(sharded))
@@ -370,7 +341,7 @@ class ScanPlaneMixin:
         uploads."""
         session = session or self.session()
         node, _, aliases, cols = self._plan_sql(sql, session)
-        ok, sharded = _dist_analyze(node)
+        ok, sharded = _spine(node)
         probe = next(iter(sharded)) if ok and len(sharded) == 1 else None
         return self._working_set(node, aliases, cols, probe,
                                  self._page_rows(session))
@@ -445,6 +416,33 @@ class ScanPlaneMixin:
             return full, td.row_count
         return (self._chunks_device_bytes(td, keep, cols),
                 sum(c.n for c in keep))
+
+    def _scan_survival_frac(self, node, alias, tname) -> float:
+        """Estimated post-filter fraction of a scan's rows (the
+        reference's): the sketch-stats selectivity of its pushed-down
+        predicates (the scan's filter and Filter nodes above it,
+        separated only by Filter/Compact), floored at 1/64 so a
+        footprint never sizes to zero; 1.0 when nothing is judgeable.
+        The sub-mesh router sizes distributed plans by it."""
+        from ..sql import stats as S
+        from .stream import _find_chain
+        if self.store.table(tname).row_count == 0:
+            return 1.0
+        chain = _find_chain(node, alias)
+        if chain is None:
+            return 1.0
+        st = self.store.sketch_stats(tname)
+        sel = 1.0
+        if chain[0].filter is not None:
+            sel *= S._pred_selectivity(chain[0].filter, st)
+        for anc in chain[1:]:
+            if isinstance(anc, P.Compact):
+                continue
+            if not isinstance(anc, P.Filter):
+                break
+            if anc.pred is not None:
+                sel *= S._pred_selectivity(anc.pred, st)
+        return float(min(1.0, max(sel, 1.0 / 64.0)))
 
     def _maybe_pruned_upload(self, node, alias, tname, cols):
         """An uncached upload of only the zone-surviving chunks, when
@@ -527,5 +525,6 @@ class ScanPlaneMixin:
         """Evict every resident table copy and release its
         reservation."""
         with self._device_lock:
-            for name in {k[0] for k in self._device_tables}:
+            for name in {k[0] for k in self._device_tables} | \
+                    {k[0] for k in self._mesh_tables}:
                 self._evict_device(name)

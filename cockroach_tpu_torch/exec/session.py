@@ -139,6 +139,10 @@ class Prepared:
     # lifted filter literals, as Python scalars, for the shared plan's
     # BParam nodes; () = not parameterized
     params: tuple = ()
+    # the distribution decision (parallel/distagg.py DistDecision) of a
+    # plan that runs on the engine's mesh: its scans are MeshBatches and
+    # runf a _DistRouter; None on one device
+    decision: Optional[object] = None
 
     def _refresh(self) -> None:
         eng = self.engine
@@ -157,7 +161,7 @@ class Prepared:
         for f in ("runf", "scans", "meta", "gens", "node", "stream",
                   "stream_cols", "stream_zone", "spill", "spill_cols",
                   "joinfilter", "placement", "scan_tables", "as_of",
-                  "params"):
+                  "params", "decision"):
             setattr(self, f, getattr(p, f))
 
     def _join_filters(self, tsv: int) -> tuple:
@@ -282,6 +286,7 @@ class Prepared:
                 self._replan("no_compact")
 
     def run(self, read_ts=None) -> Result:
+        from ..parallel.distagg import CollectiveFault
         eng = self.engine
         s = self.session
         # the gate's side by execute()'s rule: uncorrelated subqueries
@@ -297,19 +302,38 @@ class Prepared:
                 ts = read_ts or self.as_of or eng._read_ts(self.session)
                 with eng.tracer.span("dispatch"):
                     return run_spill_sort(eng, self, ts.to_int())
-            while True:
+            try:
+                return self._run_checked(read_ts)
+            except CollectiveFault:
+                # a fault lost this plan's collective dispatch: re-run on
+                # one device, the reference's fallback when a remote flow
+                # fails to set up; the handle keeps its distributed plan
+                eng.metrics.counter(
+                    "sql.distsql.collective_fault.retries",
+                    "distributed statements re-run on one device after "
+                    "a collective dispatch faulted").inc()
+                prev = s.vars.get("distsql", "auto")
+                s.vars.set("distsql", "off")
                 try:
-                    with eng.tracer.span("dispatch"):
-                        out = self.checked(read_ts)
-                    with eng.tracer.span("materialize"):
-                        return eng._materialize(out, self.meta,
-                                                check=False)
-                except HashCapacityExceeded:
-                    try:
-                        return eng._run_partitioned(
-                            self, read_ts or self.as_of)
-                    except CompactOverflow:
-                        self._replan("no_compact")
+                    return eng._prepare_select(
+                        self.stmt, s, self.sql_text, no_topk=self.no_topk,
+                        no_compact=self.no_compact).run(read_ts)
+                finally:
+                    s.vars.set("distsql", prev)
+
+    def _run_checked(self, read_ts) -> Result:
+        eng = self.engine
+        while True:
+            try:
+                with eng.tracer.span("dispatch"):
+                    out = self.checked(read_ts)
+                with eng.tracer.span("materialize"):
+                    return eng._materialize(out, self.meta, check=False)
+            except HashCapacityExceeded:
+                try:
+                    return eng._run_partitioned(self, read_ts or self.as_of)
+                except CompactOverflow:
+                    self._replan("no_compact")
 
     def _replan(self, flag: str) -> None:
         if getattr(self, flag):

@@ -20,6 +20,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -29,6 +30,7 @@ BUILD_DIR = _PKG / "_build"
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 class BuildError(RuntimeError):
@@ -101,15 +103,19 @@ def compile_all(names: list) -> dict:
 
 def load(name: str | Path) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu (or of a source path), built
-    first if needed."""
+    first if needed. One thread builds and loads it while the others
+    wait (a distributed plan's shard threads reach a kernel together)."""
     lib = _loaded.get(name)
     if lib is None:
-        from ...exec import coldstart
-        t0 = time.perf_counter()
-        started = _start(name)
-        _finish(name, started)
-        lib = ctypes.CDLL(str(lib_path(name)))
-        _loaded[name] = lib
-        coldstart.note_library(started is not None,
-                               time.perf_counter() - t0)
+        with _LOAD_LOCK:
+            lib = _loaded.get(name)
+            if lib is None:
+                from ...exec import coldstart
+                t0 = time.perf_counter()
+                started = _start(name)
+                _finish(name, started)
+                lib = ctypes.CDLL(str(lib_path(name)))
+                _loaded[name] = lib
+                coldstart.note_library(started is not None,
+                                       time.perf_counter() - t0)
     return lib

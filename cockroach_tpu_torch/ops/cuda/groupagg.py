@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -61,6 +62,8 @@ STRATEGIES = {"thread": BLOCK, "cta": 1}
 
 LAUNCHES = 0
 PLAIN_CALLS = 0
+# the counts are bumped from a distributed plan's shard threads too
+_COUNT_LOCK = threading.Lock()
 
 
 def _check(gid, sel, values, masks, num_groups, ops):
@@ -171,7 +174,8 @@ def dense_group_aggregate(gid, sel, values: tuple, masks: tuple,
     ops = tuple(int(op) for op in ops)
     _check(gid, sel, values, masks, num_groups, ops)
     if dev.type == "cpu":
-        PLAIN_CALLS += 1
+        with _COUNT_LOCK:
+            PLAIN_CALLS += 1
         return dense_group_aggregate_plain(gid, sel, values, masks,
                                            num_groups, ops)
     return _launch(gid, sel, values, masks, num_groups, ops,
@@ -232,7 +236,8 @@ def _launcher(gid, sel, values, masks, num_groups, ops, strategy: str,
         if err != 0:
             raise RuntimeError("groupagg launch failed: "
                                + lib.groupagg_error_string(err).decode())
-        LAUNCHES += 1
+        with _COUNT_LOCK:
+            LAUNCHES += 1
 
     return launch, acc, cnt
 

@@ -46,6 +46,7 @@ from __future__ import annotations
 import ctypes
 import math
 import struct
+import threading
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -87,6 +88,8 @@ _NONE, _SEL = -2, -1
 
 LAUNCHES = 0
 PLAIN_CALLS = 0
+# the counts are bumped from a distributed plan's shard threads too
+_COUNT_LOCK = threading.Lock()
 
 
 def row_block(n: int, block_rows: int = BLOCK_ROWS) -> int:
@@ -418,7 +421,8 @@ def _run(plan: Plan, point=None):
     dev = plan.gid.device
     kp = kernel_point(point)
     if dev.type == "cpu":
-        PLAIN_CALLS += 1
+        with _COUNT_LOCK:
+            PLAIN_CALLS += 1
         return _plain(plan)
     return launch(plan, choose_layout(plan), _lib(), kp)
 
@@ -497,7 +501,8 @@ def launcher(plan: Plan, layout: str, lib: ctypes.CDLL,
             raise RuntimeError(
                 "groupagg_large launch failed: "
                 + lib.groupagg_large_error_string(err).decode())
-        LAUNCHES += 1
+        with _COUNT_LOCK:
+            LAUNCHES += 1
 
     return run, (acc_f, acc_i, maxabs)
 

@@ -5,7 +5,9 @@ budget admitted; this module reads what the caching allocator really
 holds, so the two can be printed side by side. On the CPU there is no
 allocator report and the monitor's reservations stand in. ``register``
 publishes them, with the statements' execute seconds and the backlog
-in front of the card, as the reference's ``exec.device.*`` metrics."""
+in front of the card (writers at the statement gate and executions
+queued at the mesh dispatchers), as the reference's ``exec.device.*``
+metrics."""
 
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ class DeviceStats:
         self._lock = threading.Lock()
         self._watermark = 0
         self._util_seconds = 0.0
-        self.queue_depth = lambda: 0
+        self.queue_depth = self.dispatch_depth
 
     def _cuda(self) -> bool:
         return self.device.type == "cuda"
@@ -73,11 +75,21 @@ class DeviceStats:
         with self._lock:
             return self._util_seconds
 
+    @staticmethod
+    def dispatch_depth() -> int:
+        """Executions queued at every mesh dispatcher alive in the
+        process (parallel/distagg.py)."""
+        from ..parallel import distagg
+        with distagg._DISPATCHERS_LOCK:
+            live = list(distagg._DISPATCHERS.values())
+        return sum(d.depth() for d in live)
+
     def register(self, metrics, queue_depth=None) -> "DeviceStats":
         """The ``exec.device.*`` metrics; ``queue_depth`` reads the
-        statements waiting in front of the card."""
+        statements waiting at the gate, to which the dispatchers'
+        queued executions add."""
         if queue_depth is not None:
-            self.queue_depth = queue_depth
+            self.queue_depth = lambda: queue_depth() + self.dispatch_depth()
         metrics.func_gauge(
             "exec.device.hbm.bytes", self.hbm_bytes,
             "device memory in use: the allocator's report on the card, "
@@ -91,5 +103,6 @@ class DeviceStats:
         metrics.func_gauge(
             "exec.device.queue.depth", lambda: self.queue_depth(),
             "statements waiting in front of the card (writers at the "
-            "statement gate)")
+            "statement gate, executions queued at the mesh "
+            "dispatchers)")
         return self

@@ -87,6 +87,17 @@ def _pow2(v) -> None:
         raise SettingError("must be a power of two")
 
 
+def _submesh_size(v) -> None:
+    if v in ("auto", "off"):
+        return
+    try:
+        n = int(v)
+    except ValueError:
+        raise SettingError("must be auto, off, or a power of two") from None
+    if n < 1 or n & (n - 1) != 0:
+        raise SettingError("must be auto, off, or a power of two")
+
+
 def _register_builtins(s: Settings) -> None:
     # the reference's name, type and default, so both engines take the
     # same placement routes at the same budget
@@ -95,6 +106,17 @@ def _register_builtins(s: Settings) -> None:
                "aggregate scans over bigger tables stream in pages, "
                "over-budget join builds and sorts spill (0 = no "
                "budget)")
+    # distributed execution over the engine's shard mesh
+    # (parallel/distagg.py, Engine._dist_decision and _DistRouter)
+    s.register("sql.distsql.mesh_partitioning.enabled", True, bool,
+               "partition scan spans over the device mesh")
+    s.register("sql.exec.submesh.size", "auto", str,
+               "devices per dispatch sub-mesh for eligible distributed "
+               "plans: a power of two divides the mesh into disjoint "
+               "rendezvous domains that execute concurrently; auto = "
+               "the full mesh while idle, the smallest fitting sub-mesh "
+               "once dispatches queue; off = always the full mesh",
+               _submesh_size)
     # admission and the tenant quota plane (utils/admission.py)
     s.register("sql.admission.shed.queue_depth", 0, int,
                "admission queue depth at which low-priority statements "
@@ -202,6 +224,10 @@ class SessionVars:
         # the plain path's float64); off keeps every aggregation on the
         # plain scatter path. Engine.execute rejects any other value.
         "pallas_groupagg": "auto",   # auto | on | off
+        # distributed execution on an engine with a mesh: off runs
+        # every statement on one device; the other values leave the
+        # choice to the distribution decision (Engine._dist_decision)
+        "distsql": "auto",           # auto | on | off | always
         # slots of the device hash table behind hash-strategy GROUP BY
         # (a power of two). Half of them are usable: a GROUP BY whose
         # build passes half with rows left to place overflows, and the

@@ -70,6 +70,32 @@ def test_port_scan_covers_jobs_and_cdc():
         assert {pkg / sub / n for n in names} <= scanned
 
 
+def test_port_scan_covers_parallel():
+    """The import scan reaches every module of parallel/ (the mesh, its
+    collectives, the distribution decision and the shuffle), and none of
+    them imports jax or the JAX package, directly or through a module
+    of the port they load."""
+    import importlib
+    import sys
+    pkg = ROOT / "cockroach_tpu_torch"
+    names = {"__init__.py", "mesh.py", "collective.py", "distagg.py",
+             "shuffle.py"}
+    assert {p.name for p in (pkg / "parallel").glob("*.py")} == names
+    assert {pkg / "parallel" / n for n in names} <= set(_port_files())
+    for n in sorted(names - {"__init__.py"}):
+        path = pkg / "parallel" / n
+        assert not set(_imported_roots(path)) & set(FORBIDDEN), n
+        m = importlib.import_module(f"cockroach_tpu_torch.parallel.{n[:-3]}")
+        assert Path(m.__file__) == path
+    loaded = [name for name, m in list(sys.modules.items())
+              if name.startswith("cockroach_tpu_torch.")
+              and getattr(m, "__file__", None)]
+    for name in loaded:
+        path = Path(sys.modules[name].__file__)
+        if path.suffix == ".py":
+            assert not set(_imported_roots(path)) & set(FORBIDDEN), name
+
+
 def test_native_sources_are_the_ports_own():
     """The lane's C++ and the gate's lock live in the port: nothing of
     them is loaded from the JAX package."""
