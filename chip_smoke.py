@@ -122,7 +122,8 @@ Phases (any failure exits non-zero before the final line):
    uploaded or skipped, kernel 1 never launched, peak
    max_memory_allocated() under 2 GiB) and equal the numpy oracles;
    SET streaming_pipeline = off must give identical rows. Both ways:
-   medians of 3 warm runs, rows/s, H2D GB/s over the wall time, the
+   one warm run in the whole run (medians of 3 by itself), rows/s, H2D
+   GB/s over the wall time, the
    consumer's stall and the worker's overlap seconds; and Q14's
    per-page direct-join table rebuild alone. At 64 GiB the same
    queries run resident (Q1 launches kernel 1 once) and must equal the
@@ -147,8 +148,9 @@ Phases (any failure exits non-zero before the final line):
    a whole-partition sum; two windows over a filtered scan. Each is
    checked in full against a numpy oracle (integers, DECIMAL and dates
    exactly, AVG rel 1e-9, rows in o_orderkey order), then timed: one
-   warm full run and the median of 3 warm runs with an outer LIMIT
-   1000 (decoding 1.5M rows to Python is most of a full run). (b)
+   warm full run and the median of 2 warm runs in the whole run (3 by
+   itself) with an outer LIMIT 1000 (decoding 1.5M rows to Python is
+   most of a full run). (b)
    TPC-H's refresh pair through SQL: the pk locators built and timed
    (the reference's pure-Python row_key loop timed over 250,000 rows
    beside them), RF1 (1,500 orders and their ~6,000 lines, multi-row INSERTs in one
@@ -167,9 +169,10 @@ Phases (any failure exits non-zero before the final line):
    A small table is refilled after TRUNCATE and after DROP + CREATE
    with the same row count and dictionary size, and must read its own
    strings through execute() and a Prepared made before the TRUNCATE.
-   (c) YCSB-E (BASELINE.json config 5): 50,000 records in the whole run
+   (c) YCSB-E (BASELINE.json config 5): 25,000 records in the whole run
    (100,000 by itself, `dml_phase_alone`) loaded by the
-   workload's INSERTs of 10,000 rows, then 10,000 operations (95%
+   workload's INSERTs of 10,000 rows, then 5,000 operations in the
+   whole run (10,000 by itself; 95%
    scans of 10, 5% inserts, zipfian, seed 1, every statement served by
    the OLTP lane), timed; every scan's rows are then held against a
    sorted-keys oracle replayed from the run's log, and count/sums of
@@ -178,11 +181,11 @@ Phases (any failure exits non-zero before the final line):
    (`oltp_phase`; `oltp_phase_alone()` runs it by itself). usertable
    is dropped and bulk-loaded again with 1,000,000 records (i, i*7 %
    1000, i*13 % 1000) through the store's ingest path; the native
-   mirror's first rebuild is timed. YCSB A-F run 10,000 operations
+   mirror's first rebuild is timed. YCSB A-F run 5,000 operations
    each in one session (zipfian, seed 1, scans of 10): every statement
    must be a lane hit; ops/s and p50/p99 per operation kind; A's and
    E's reads and scans are then replayed against an oracle of every
-   mix's writes. A and E run at 16 workers (16,000 operations each)
+   mix's writes. A and E run at 16 workers (8,000 operations each)
    with oltp_batch auto, then off: ops/s, p50/p99, retries, the batch
    counters (windows, fused statements, window size p50, wait in the
    window) and the group commits. A third YCSB-A at 16 workers runs
@@ -227,20 +230,20 @@ Phases (any failure exits non-zero before the final line):
    statement; the timed runs' launches are counted the same way, but
    not held against the plain version one by one. 16 wire sessions, a thread each in a client process of
    their own (`wire_client_main`, so their Python does not share the
-   server's interpreter lock), run YCSB-B and then YCSB-E (6,000
+   server's interpreter lock), run YCSB-B and then YCSB-E (3,000
    operations a mix, the port's statement texts, a 40001 retried):
    ops/s and p50/p99 by kind, and 200 written keys read back as some
    session wrote them; under `threads`, `reactor`, and `reactor` with
    sql.exec.switch_interval = 0.001 (which must set the interpreter's
    switch interval and restore it at 0). Then 1,000 idle sessions are
-   parked on the reactor while the 16 live sessions run YCSB-B (4,000
+   parked on the reactor while the 16 live sessions run YCSB-B (2,000
    operations): the server process's thread count (it may grow by the
    worker pool at most), the RSS a parked session costs (its client
    end included), the live p99; and Q1 from a 17th session beside
-   YCSB-B (4,000 operations) equals its oracle and launches kernel 1
+   YCSB-B (2,000 operations) equals its oracle and launches kernel 1
    once (checked) while lane statements complete.
    Admission, at 4 execution slots: 8 sessions of a noisy tenant
-   (`application_name`) send Q1 4 times each (each equal to the oracle,
+   (`application_name`) send Q1 twice each (each equal to the oracle,
    every launch checked) while 4 of a quiet tenant send pk point reads
    that the lane refuses (a residual conjunct), so each takes the full
    path through admission; once with no tenant cap and once at
@@ -392,21 +395,46 @@ Phases (any failure exits non-zero before the final line):
    (torch.profiler), the host ms and the idle share; kernel 1's and
    kernel 2's numbers (slot_numbers, small_numbers) at one shard's Q1
    and Q1F inputs.
+19. DistSQL flows between engines (lineitem as loaded, after phase 18;
+   `flows_phase_alone()` runs it by itself): four data nodes and a
+   gateway, port Engines on the card over LocalTransport, each with a
+   device budget of 8 GiB; every data node holds a contiguous quarter of
+   lineitem (1,500,303 or 1,500,304 rows), `part` replicated on every
+   node for gateway A and quartered for gateway B. Through Gateway.run,
+   each with every count set to 0 just before it and read just after:
+   Q1, Q6 and Q14 on A (Q14 derives a join-filter frame from the
+   replicated part), Q14 on B (the sharded x sharded join, a graph flow
+   with two exchange stages), a GROUP BY over l_partkey <= 40,000
+   through _decompose_groupby (prefer_shuffle), Q1F and Q6F under `on`,
+   a GROUP BY of (l_orderkey, l_linenumber) over one ship date whose
+   every node ships raw rows to the gateway's fold, and one of
+   l_linenumber whose every node keeps partials. Rows equal the SF1
+   engine's (FLOAT8 within rel 1e-9, 1e-5 under `on`) and the numpy
+   oracles; kernel 1 launches 4 times for Q1 (once a data node, kernel
+   2 none), kernel 2 4 times each for Q1F and Q6F (kernel 1 none), each
+   launch held against its plain version at its node's inputs;
+   shuffle.bytes.received > 0; no inbox is left in any registry. Then
+   the pieces of one flow statement (the nodes' stage runs and output
+   pulls, serde, the rest of the pump, the final stage), 5 warm runs
+   through the gateway paired with the SF1 engine's, their medians,
+   device busy ms (torch.profiler), host ms and idle share, and kernel
+   1's numbers at one node's Q1 slots (slot_numbers).
 Each phase's seconds are printed. After phase 10, one JSON `dml` line
 holds phase 11's numbers, one JSON `oltp` line phase 12's, one JSON
 `frontdoor` line phase 13's, one JSON `observability` line phase
 14's (with the node's checks under "node"), one JSON `history` line
 phase 15's, one JSON `jobs` line phase 16's, one JSON `coldstart`
-line phase 17's and one JSON `distributed` line phase 18's, each with
+line phase 17's, one JSON `distributed` line phase 18's and one JSON
+`flows` line phase 19's, each with
 the card's name and power limit; then one JSON line of per-kernel
 numbers (the
 large-G kernel's launches count Q1, Q5, Q10, Q12 and the path runs of
-phases 7, 8, 10, 11, 12, 13, 14, 15, 16, 17 and 18, the small-G
-kernel's Q1F, Q6F and phases 13's, 14's and 18's; `path_checks` holds
-each of the large-G kernel's calls in phases 7, 8, 10, 11, 12, 13, 14,
-15, 16, 17 and 18 held against the plain version, and the small-G
-kernel's phase 13, 14 and 18 calls), the nvidia-smi line, and the last
-line {"ok": true, "device": {...}}.
+phases 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19, the small-G
+kernel's Q1F, Q6F and phases 13's, 14's, 18's and 19's; `path_checks`
+holds each of the large-G kernel's calls in phases 7, 8, 10, 11, 12,
+13, 14, 15, 16, 17, 18 and 19 held against the plain version, and the
+small-G kernel's phase 13, 14, 18 and 19 calls), the nvidia-smi line,
+and the last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile DIR
 
@@ -1842,6 +1870,36 @@ def _meminfo() -> dict:
     return out
 
 
+def ref_q1_codes(li) -> list:
+    """tpch.ref_q1 over lineitem whose l_returnflag and l_linestatus are
+    the generator's dictionary codes (tpch.RF_VALUES, LS_VALUES): the same
+    rows, the same sums over the same rows in the same order, with the
+    groups found and masked on the int codes instead of on the decoded
+    strings (a minute at SF10)."""
+    import numpy as np
+
+    from cockroach_tpu_torch.models import tpch
+    rf_v, ls_v = np.asarray(tpch.RF_VALUES), np.asarray(tpch.LS_VALUES)
+    mask = li["l_shipdate"] <= tpch._days("1998-12-01") - 90
+    code = li["l_returnflag"].astype(np.int64) * len(ls_v) \
+        + li["l_linestatus"]
+    keys = sorted((rf_v[c // len(ls_v)], ls_v[c % len(ls_v)], c)
+                  for c in np.unique(code[mask]))
+    out = []
+    for rf, ls, c in keys:
+        m = mask & (code == c)
+        q = li["l_quantity"][m]
+        ep = li["l_extendedprice"][m]
+        dc = li["l_discount"][m]
+        tx = li["l_tax"][m]
+        disc_price = ep * (1 - dc)
+        charge = disc_price * (1 + tx)
+        out.append((rf, ls, q.sum(), ep.sum(), disc_price.sum(),
+                    charge.sum(), q.mean(), ep.mean(), dc.mean(),
+                    int(m.sum())))
+    return out
+
+
 def same_result(label, got, want, rel=1e-9) -> float:
     """Two Results row for row, in order: FLOAT values within `rel`,
     every other value (INT, DECIMAL, STRING, DATE) exactly. Returns the
@@ -1949,10 +2007,7 @@ def beyond_memory_phase(reps: int = 3) -> dict:
           f"{eng.store.table('part').row_count} part rows in "
           f"{load_s:.1f} s", flush=True)
     t0 = time.perf_counter()
-    li = dict(li)
-    li["l_returnflag"] = np.asarray(tpch.RF_VALUES)[li["l_returnflag"]]
-    li["l_linestatus"] = np.asarray(tpch.LS_VALUES)[li["l_linestatus"]]
-    want = {"q1": tpch.ref_q1(li), "q6": tpch.ref_q6(li),
+    want = {"q1": ref_q1_codes(li), "q6": tpch.ref_q6(li),
             "q14": tpch.ref_q14(li, tpch.gen_part(SF10))}
     print(f"SF10 oracles: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -3634,8 +3689,8 @@ def frontdoor_phase_alone(sf: float = SF, records: int = 1_000_000,
 OLTP_RECORDS = 1_000_000        # usertable rows, bulk-ingested
 # phase 12's depth, cut to leave phase 13 its time (20,000 and 32,000
 # before it)
-OLTP_OPS = 10_000               # operations per single-session mix
-OLTP_CONC_OPS = 16_000          # operations per concurrent run
+OLTP_OPS = 5_000                # operations per single-session mix
+OLTP_CONC_OPS = 8_000           # operations per concurrent run
 OLTP_WORKERS = 16
 OLTP_GROUP_BY = ("SELECT field0, count(*), sum(field1), min(field1), "
                  "max(field1) FROM usertable GROUP BY field0")
@@ -4142,12 +4197,12 @@ def oltp_phase(eng, li_after, supplier, records: int = OLTP_RECORDS,
 
 
 # -- 13. the front door -------------------------------------------------------
-FRONT_OPS = 6_000               # YCSB operations a mix over the wire
-FRONT_SIDE_OPS = 4_000          # YCSB-B beside the parked sessions, Q1
+FRONT_OPS = 3_000               # YCSB operations a mix over the wire
+FRONT_SIDE_OPS = 2_000          # YCSB-B beside the parked sessions, Q1
 FRONT_CLIENTS = 16              # wire sessions, one thread each
 FRONT_PARKED = 1_000            # idle sessions parked on the reactor
 FRONT_SF = 0.1                  # the entry points' own TPC-H scale
-FRONT_Q1_RUNS = 4               # Q1s a noisy-tenant session sends
+FRONT_Q1_RUNS = 2               # Q1s a noisy-tenant session sends
 ADM_SLOTS = 4                   # execution slots in the admission step
 FRONT_TIMEOUT = 600.0           # a wire client's socket timeout (s)
 PARSE_REPS = 21                 # warm runs a way, parse cache vs none
@@ -5840,6 +5895,395 @@ def distributed_phase_alone(sf: float = SF, device=None,
     return out
 
 
+FLOW_NODES = 4                  # data nodes of phase 19, all on one card
+FLOW_REPS = 5                   # warm pairs (gateway, one engine) a query
+FLOW_BUDGET = 8 << 30           # each phase 19 engine's device budget
+FLOW_PARTKEY_MAX = 40_000       # the l_partkey GROUP BY's range (node
+                                # hash tables stay under half their slots)
+FLOW_SHIPDATE = "1995-03-15"    # the adaptive GROUP BY's one ship date
+FLOW_GROUPBY = ("SELECT l_partkey, count(*) AS c, sum(l_quantity) AS sq "
+                "FROM lineitem WHERE l_partkey <= "
+                f"{FLOW_PARTKEY_MAX} GROUP BY l_partkey "
+                "ORDER BY l_partkey")
+FLOW_RAW = ("SELECT l_orderkey, l_linenumber, count(*) AS c, "
+            "sum(l_quantity) AS sq FROM lineitem WHERE l_shipdate = "
+            f"DATE '{FLOW_SHIPDATE}' GROUP BY l_orderkey, l_linenumber "
+            "ORDER BY l_orderkey, l_linenumber")
+FLOW_PARTIAL = ("SELECT l_linenumber, count(*) AS c, sum(l_quantity) AS sq "
+                "FROM lineitem GROUP BY l_linenumber ORDER BY l_linenumber")
+
+
+def flow_oracles(li) -> dict:
+    """numpy rows of phase 19's own statements over lineitem ``li``
+    (numeric columns as generated; DECIMAL sums as floats)."""
+    import datetime
+
+    import numpy as np
+    out = {}
+    pk, qty = li["l_partkey"], li["l_quantity"]
+    m = pk <= FLOW_PARTKEY_MAX
+    keys, inv = np.unique(pk[m], return_inverse=True)
+    out["groupby"] = list(zip(keys.tolist(),
+                              np.bincount(inv).tolist(),
+                              np.bincount(inv, weights=qty[m]).tolist()))
+    day = (datetime.date.fromisoformat(FLOW_SHIPDATE)
+           - datetime.date(1970, 1, 1)).days
+    m = li["l_shipdate"] == day
+    pairs = np.stack([li["l_orderkey"][m], li["l_linenumber"][m]], axis=1)
+    keys, inv = np.unique(pairs, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    out["raw"] = list(zip(keys[:, 0].tolist(), keys[:, 1].tolist(),
+                          np.bincount(inv).tolist(),
+                          np.bincount(inv, weights=qty[m]).tolist()))
+    keys, inv = np.unique(li["l_linenumber"], return_inverse=True)
+    out["partial"] = list(zip(keys.tolist(), np.bincount(inv).tolist(),
+                              np.bincount(inv, weights=qty).tolist()))
+    return out
+
+
+def _oracle_rows(label, got, want, rel=1e-9) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"phase 19 {label}: {len(got)} rows, numpy "
+                             f"{len(want)}")
+    for g_row, w_row in zip(got, want):
+        for g, w in zip(g_row, w_row):
+            if not _close(float(g), float(w), rel):
+                raise AssertionError(f"phase 19 {label}: {g_row} != numpy "
+                                     f"{w_row}")
+
+
+def _fabric(device, li_codes, part, parts_sharded: bool, budget: int):
+    """A gateway (node 0, no lineitem rows) over FLOW_NODES data nodes on
+    ``device``, each a port Engine over its own store holding a
+    contiguous quarter of lineitem (dictionary codes under the
+    generator's dictionaries) and part whole (every node, the gateway
+    too) or quartered over the data nodes."""
+    from cockroach_tpu_torch.distsql.node import DistSQLNode
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.kvserver.transport import LocalTransport
+    from cockroach_tpu_torch.models import tpch
+    transport = LocalTransport()
+    n = len(li_codes["l_orderkey"])
+    n_part = len(part["p_partkey"])
+    nodes, engines = [], []
+    for i in range(FLOW_NODES + 1):
+        eng = Engine(device=device)
+        eng.settings.set("sql.exec.hbm_budget_bytes", budget)
+        eng.execute(tpch.DDL["lineitem"])
+        eng.execute(tpch.DDL["part"])
+        for cn, vals in tpch.LINEITEM_DICTS.items():
+            eng.store.set_dictionary("lineitem", cn, vals)
+        ts = eng.clock.now()
+        if i > 0:
+            lo, hi = n * (i - 1) // FLOW_NODES, n * i // FLOW_NODES
+            eng.store.insert_columns(
+                "lineitem", {k: v[lo:hi] for k, v in li_codes.items()}, ts)
+        if not parts_sharded:
+            eng.store.insert_columns("part", part, ts)
+        elif i > 0:
+            lo = n_part * (i - 1) // FLOW_NODES
+            hi = n_part * i // FLOW_NODES
+            eng.store.insert_columns(
+                "part", {k: v[lo:hi] for k, v in part.items()}, ts)
+        engines.append(eng)
+        nodes.append(DistSQLNode(i, eng, transport))
+    return nodes, engines
+
+
+class _FlowClock:
+    """Wall seconds of one flow statement's pieces, by wrapping the
+    flow modules' functions while it runs: the nodes' stage runs and
+    their output pulls (``stage_s``: device work, launched and
+    synchronized by the pull), the wire's encode and decode
+    (``serde_s``), the gateway's pump and union (``pump_s``, which holds
+    the in-process transport's stage runs and serde) and its final
+    stage (``final_s``)."""
+
+    def __init__(self):
+        self.t = {"stage_s": 0.0, "serde_s": 0.0, "pump_s": 0.0,
+                  "final_s": 0.0}
+
+    def _wrap(self, owner, name, key):
+        fn = getattr(owner, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.t[key] += time.perf_counter() - t0
+        setattr(owner, name, timed)
+        return owner, name, fn
+
+    @contextlib.contextmanager
+    def running(self):
+        from cockroach_tpu_torch.distsql import node as pnode
+        from cockroach_tpu_torch.distsql import serde
+        saved = [self._wrap(pnode.DistSQLNode, "_run", "stage_s"),
+                 self._wrap(pnode, "_pull_output", "stage_s"),
+                 self._wrap(serde, "encode_columns", "serde_s"),
+                 self._wrap(serde, "decode_columns", "serde_s"),
+                 self._wrap(pnode.Gateway, "_pump_and_union", "pump_s"),
+                 self._wrap(pnode.Gateway, "_run_final", "final_s")]
+        try:
+            yield self.t
+        finally:
+            for owner, name, fn in saved:
+                setattr(owner, name, fn)
+            # the gateway's final stage pulls through _pull_output only
+            # for a raw fold; the pump holds the nodes' stages and serde
+            self.t["pump_other_s"] = max(
+                0.0, self.t["pump_s"] - self.t["stage_s"]
+                - self.t["serde_s"])
+
+
+def flows_phase(src, li_codes, part, want: dict, reps: int = FLOW_REPS,
+                budget: int = FLOW_BUDGET) -> dict:
+    """Phase 19: DistSQL flows between engines. FLOW_NODES data nodes and
+    a gateway, port Engines on ``src``'s device over LocalTransport, each
+    holding a contiguous quarter of lineitem (``li_codes``: every
+    dictionary column as codes) and ``part`` replicated (gateway A) or
+    quartered (gateway B, the graph flow). Through Gateway.run, each with
+    every count set to 0 just before it and read just after: Q1, Q6 and
+    Q14 on A (Q14 with join-filter frames shipped), Q14 on B (the
+    sharded x sharded join: two exchange stages), FLOW_GROUPBY through
+    _decompose_groupby (A with prefer_shuffle), Q1F and Q6F under
+    `on`, and the adaptive stage: FLOW_RAW (every node ships raw rows)
+    and FLOW_PARTIAL (every node keeps partials). Rows equal ``src``'s
+    (one engine over the whole tables) and the numpy oracles in
+    ``want``; kernel 1 launches once a data node for Q1 (kernel 2 none),
+    kernel 2 once a data node for Q1F and Q6F (kernel 1 none), each
+    launch held against its plain version at its node's inputs;
+    shuffle.bytes.received > 0 and no inbox left in any registry. Then
+    warm pairs through the gateway and on ``src``, both ways' device
+    busy ms (torch.profiler), host ms and idle share, the pieces of one
+    flow statement (_FlowClock), and kernel 1's numbers at one node's Q1
+    slots. Returns its numbers, with "launches", "timed_launches",
+    "path_checks" and "small_checks"."""
+    import gc as _gc
+
+    from cockroach_tpu_torch.distsql.node import Gateway
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    t_start = time.perf_counter()
+    dev = src.device
+    on_card = dev.type == "cuda"
+    out: dict = {"card": _smi() if on_card else "cpu",
+                 "nodes": FLOW_NODES, "budget": budget, "queries": {}}
+    t0 = time.perf_counter()
+    nodes_a, engines_a = _fabric(dev, li_codes, part, False, budget)
+    nodes_b, engines_b = _fabric(dev, li_codes, part, True, budget)
+    out["load_s"] = time.perf_counter() - t0
+    data = list(range(1, FLOW_NODES + 1))
+    gw = Gateway(nodes_a[0], data, replicated_tables={"part"})
+    gw_shuffle = Gateway(nodes_a[0], data, replicated_tables={"part"},
+                         prefer_shuffle=True)
+    gw_sharded = Gateway(nodes_b[0], data)
+    s_on = src.session()
+    src.execute("SET pallas_groupagg = on", s_on)
+    engines = engines_a + engines_b
+    launches = {"groupagg_large": 0, "groupagg": 0}
+    large_checks: dict = {}
+    small_checks: dict = {}
+    first: dict = {}
+
+    def msum(name, engs=engines) -> float:
+        return sum(m.value() for e in engs
+                   if (m := e.metrics.get(name)) is not None)
+
+    n = FLOW_NODES
+    cases = {
+        "q1": (gw, tpch.Q1, None, {"groupagg_large": n, "groupagg": 0}),
+        "q6": (gw, tpch.Q6, None, {"groupagg_large": 0, "groupagg": 0}),
+        "q14": (gw, tpch.Q14, None, {"groupagg_large": 0, "groupagg": 0}),
+        "q14_sharded": (gw_sharded, tpch.Q14, None,
+                        {"groupagg_large": 0, "groupagg": 0}),
+        "groupby": (gw_shuffle, FLOW_GROUPBY, None,
+                    {"groupagg_large": 0, "groupagg": 0}),
+        "q1f": (gw, tpch.Q1F, s_on, {"groupagg_large": 0, "groupagg": n}),
+        "q6f": (gw, tpch.Q6F, s_on, {"groupagg_large": 0, "groupagg": n}),
+        "raw": (gw, FLOW_RAW, None, {"groupagg_large": 0, "groupagg": 0}),
+        "partial": (gw, FLOW_PARTIAL, None,
+                    {"groupagg_large": 0, "groupagg": 0}),
+    }
+    rows = {}
+    for q, (g, sql, sess, kern) in cases.items():
+        metrics0 = {k: msum(k) for k in (
+            "distsql.flows.graph", "exec.agg.adaptive.ship_raw",
+            "exec.agg.adaptive.partial", "distsql.agg.raw_folds",
+            "exec.skip.joinfilter.filters")}
+        _counts_zero()
+        t0 = time.perf_counter()
+        with recording_slots() as calls, recording_small() as scalls:
+            res = g.run(sql, session=sess)
+            _sync()
+        first_s = time.perf_counter() - t0
+        n1, n2 = _kernel_counts(on_card)
+        launches["groupagg_large"] += n1
+        launches["groupagg"] += n2
+        first.setdefault(q, (calls[:1], scalls[:1]))
+        if on_card and n1:
+            large_checks[f"sf1 {q} phase 19"] = check_calls(
+                f"phase 19 {q}", calls, n1)
+        if on_card and n2:
+            small_checks[q] = _check_small_calls(f"phase 19 {q}", scalls,
+                                                 n2)
+        route = {"groupagg_large": n1, "groupagg": n2}
+        if route != kern:
+            raise AssertionError(f"phase 19 {q}: kernel launches {route}, "
+                                 f"want {kern}")
+        delta = {k: msum(k) - v for k, v in metrics0.items()}
+        if q == "q14_sharded" and delta["distsql.flows.graph"] != 1:
+            raise AssertionError("phase 19: the sharded Q14 did not run "
+                                 "as a graph flow")
+        if q == "groupby" and delta["distsql.flows.graph"] != 1:
+            raise AssertionError("phase 19: the GROUP BY did not run "
+                                 "through _decompose_groupby")
+        if q == "q14" and (delta["exec.skip.joinfilter.filters"] < 1
+                           or delta["distsql.flows.graph"]):
+            raise AssertionError(f"phase 19 q14: no join-filter frame or "
+                                 f"a graph flow: {delta}")
+        if q == "raw" and (delta["exec.agg.adaptive.ship_raw"] != n
+                           or delta["distsql.agg.raw_folds"] != 1):
+            raise AssertionError(f"phase 19 raw: {delta}, want every node "
+                                 "to ship raw rows, one gateway fold")
+        if q == "partial" and (delta["exec.agg.adaptive.partial"] != n
+                               or delta["exec.agg.adaptive.ship_raw"]):
+            raise AssertionError(f"phase 19 partial: {delta}, want every "
+                                 "node to keep partials")
+        local = src.execute(sql, sess)
+        rel = 1e-5 if sess is s_on else 1e-9
+        err = same_result(f"phase 19 {q} gateway vs one engine", res,
+                          local, rel)
+        if q == "q1":
+            check_q1(res.rows, want["q1"])
+        elif q in ("q6", "q14", "q14_sharded"):
+            w = want["q6" if q == "q6" else "q14"]
+            if not _close(res.rows[0][0], w, 1e-9):
+                raise AssertionError(f"phase 19 {q}: {res.rows[0][0]} != "
+                                     f"oracle {w}")
+        elif q == "q1f":
+            check_float("phase 19 q1f", res.rows, want["q1"])
+        elif q == "q6f":
+            check_float("phase 19 q6f", res.rows, [(want["q6"],)])
+        else:
+            _oracle_rows(q, res.rows, want[q])
+        rows[q] = res.rows
+        out["queries"][q] = {"route": route, "metrics": delta,
+                             "first_run_s": first_s, "rows": len(res.rows),
+                             "gateway_vs_local_max_rel_err": err}
+        print(f"phase 19 {q}: " + json.dumps(out["queries"][q]), flush=True)
+    received = msum("shuffle.bytes.received")
+    if received <= 0:
+        raise AssertionError("phase 19: no shuffle bytes received")
+    out["shuffle_bytes_received"] = received
+    out["shuffle_bytes_sent"] = msum("shuffle.bytes.sent")
+
+    # the pieces of one statement through the gateway
+    out["pieces"] = {}
+    for q in ("q1", "q14", "q14_sharded"):
+        g, sql, sess, _ = cases[q]
+        clock = _FlowClock()
+        _sync()
+        t0 = time.perf_counter()
+        with clock.running() as t:
+            g.run(sql, session=sess)
+            _sync()
+        out["pieces"][q] = dict(t, wall_s=time.perf_counter() - t0)
+    print("phase 19 pieces: " + json.dumps(out["pieces"]), flush=True)
+
+    # warm pairs in one process, and the card's busy time of each way
+    t_timed = time.perf_counter()
+    _counts_zero()
+    out["timed"] = {}
+    for q in ("q1", "q6", "q14", "q14_sharded", "q1f"):
+        g, sql, sess, _ = cases[q]
+        ways = {"gateway": lambda: g.run(sql, session=sess),
+                "local": lambda: src.execute(sql, sess)}
+        ms = {w: [] for w in ways}
+        for _ in range(reps):
+            for w, fn in ways.items():
+                _sync()
+                t0 = time.perf_counter()
+                fn()
+                _sync()
+                ms[w].append((time.perf_counter() - t0) * 1e3)
+        rec = {}
+        for w, fn in ways.items():
+            med = statistics.median(ms[w])
+            busy = _device_busy_ms(fn, 2) if on_card else 0.0
+            rec[w] = {"median_ms": med, "runs_ms": ms[w],
+                      "device_busy_ms": busy, "host_ms": med - busy,
+                      "idle_share": max(0.0, 1.0 - busy / med)}
+        out["timed"][q] = rec
+        print(f"phase 19 timed {q}: " + json.dumps(rec), flush=True)
+    out["timed_launches"] = dict(zip(("groupagg_large", "groupagg"),
+                                     _kernel_counts(on_card)))
+    out["timed_s"] = time.perf_counter() - t_timed
+    leftover = [(e_i, len(nd.registry._inboxes))
+                for e_i, nd in enumerate(nodes_a + nodes_b)
+                if nd.registry._inboxes]
+    if leftover:
+        raise AssertionError(f"phase 19: inboxes left in registries "
+                             f"{leftover}")
+
+    # kernel 1 at one node's Q1 slots
+    if on_card:
+        out["node_q1_kernel"] = slot_numbers(tgl, first["q1"][0][0])
+        print("phase 19 kernel 1 at a node's Q1 shard: "
+              + json.dumps(out["node_q1_kernel"]), flush=True)
+    for e in engines:
+        e.close()
+    del nodes_a, nodes_b, engines_a, engines_b, engines, gw, gw_shuffle
+    del gw_sharded
+    _gc.collect()
+    if on_card:
+        import torch
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["path_checks"] = large_checks
+    out["small_checks"] = small_checks
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def flows_phase_alone(sf: float = SF, device=None,
+                      rows: int | None = None) -> dict:
+    """Phase 19 by itself on the card: builds the kernels, resolves the
+    gate and the launch point under a fresh cache root, loads lineitem
+    and part at `sf` into one engine (the comparison), then runs phase
+    19. Prints its JSON line. ``device="cpu"`` with a small `sf` and
+    `rows` rehearses it on the CPU (plain-version calls stand for
+    launches; no kernel checks or timings)."""
+    import numpy as np
+
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import build
+    with cache_root():
+        if device is None:
+            build.compile_all(["groupagg_large", "groupagg"])
+        kernel_infra(device or "cuda")
+        src = Engine(device=device)
+        tpch.load(src, sf=sf, tables=("lineitem", "part"), encoded=True,
+                  rows=rows)
+        li_codes = tpch.gen_lineitem(sf, encoded=True, rows=rows)
+        li = dict(li_codes)
+        for c, vals in (("l_returnflag", tpch.RF_VALUES),
+                        ("l_linestatus", tpch.LS_VALUES)):
+            li[c] = np.asarray(vals)[li[c]]
+        part = tpch.gen_part(sf)
+        want = dict(flow_oracles(li), q1=tpch.ref_q1(li),
+                    q6=tpch.ref_q6(li), q14=tpch.ref_q14(li, part))
+        out = flows_phase(src, li_codes, part, want)
+        src.close()
+        _sync()
+    for k in ("path_checks", "small_checks"):
+        out[k] = len(out[k])
+    print(json.dumps({"flows": out}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5868,7 +6312,7 @@ def _main(opts) -> int:
 
     # -- 10. beyond memory at SF10 ---------------------------------------------
     t0 = time.perf_counter()
-    stream = beyond_memory_phase(reps=2)
+    stream = beyond_memory_phase(reps=1)
     kernels[0]["launches"] += sum(stream["kernel1_launches"].values())
     kernels[0]["phase10_launches"] = stream["kernel1_launches"]
     kernels[0]["path_checks"].update(stream.pop("path_checks"))
@@ -5882,6 +6326,7 @@ def _main(opts) -> int:
     jobs = dml.pop("jobs")
     cold = dml.pop("coldstart")
     dist = dml.pop("distributed")
+    flows = dml.pop("flows")
     obs["node"] = front["entry_points"].pop("observability")
     print(json.dumps({"dml": dict(dml, card=smi)}), flush=True)
     print(json.dumps({"oltp": dict(oltp, card=smi)}), flush=True)
@@ -5891,6 +6336,7 @@ def _main(opts) -> int:
     print(json.dumps({"jobs": dict(jobs, card=smi)}), flush=True)
     print(json.dumps({"coldstart": dict(cold, card=smi)}), flush=True)
     print(json.dumps({"distributed": dict(dist, card=smi)}), flush=True)
+    print(json.dumps({"flows": dict(flows, card=smi)}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -5901,11 +6347,11 @@ def _main(opts) -> int:
 
 
 def sf1_phases(opts) -> tuple:
-    """Phases 1-9 and 11-18 at SF1; returns (kernels, nvidia-smi line,
+    """Phases 1-9 and 11-19 at SF1; returns (kernels, nvidia-smi line,
     card name, phase 11's numbers with phase 12's under "oltp", phase
     13's under "frontdoor", 14's under "observability", 15's under
-    "history", 16's under "jobs", 17's under "coldstart" and 18's under
-    "distributed"). Every engine and table of these
+    "history", 16's under "jobs", 17's under "coldstart", 18's under
+    "distributed" and 19's under "flows"). Every engine and table of these
     phases lives in this frame only, so they are freed when it
     returns."""
     import numpy as np
@@ -5951,7 +6397,7 @@ def sf1_phases(opts) -> tuple:
     li["l_returnflag"] = np.asarray(tpch.RF_VALUES)[li["l_returnflag"]]
     li["l_linestatus"] = np.asarray(tpch.LS_VALUES)[li["l_linestatus"]]
     part = tpch.gen_part(SF)
-    want_q1, want_q6 = tpch.ref_q1(li), tpch.ref_q6(li)
+    want_q1, want_q6 = ref_q1_codes(dict(li, **li_codes)), tpch.ref_q6(li)
     want_q14 = tpch.ref_q14(li, part)
     print(f"load SF{SF}: {n_rows} lineitem rows, "
           f"{eng.store.table('part').row_count} part rows, "
@@ -6250,6 +6696,22 @@ def sf1_phases(opts) -> tuple:
     kernels[1]["phase18_shard"] = dist["shard_numbers"]["q1f"]
     print(f"phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 19. DistSQL flows between engines ----------------------------------
+    # (lineitem as loaded: before phase 11's writes; phase 18's engine
+    # is closed)
+    t0 = time.perf_counter()
+    flows = flows_phase(eng, dict(li, **li_codes), part,
+                        dict(flow_oracles(li), q1=want_q1, q6=want_q6,
+                             q14=want_q14))
+    for i, k in enumerate(("groupagg_large", "groupagg")):
+        kernels[i]["launches"] += flows["launches"][k]
+        kernels[i]["phase19_launches"] = flows["launches"][k]
+        kernels[i]["phase19_timed_launches"] = flows["timed_launches"][k]
+    large["path_checks"].update(flows.pop("path_checks"))
+    small_checks19 = flows.pop("small_checks")
+    large["phase19_node"] = flows["node_q1_kernel"]
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- 14. set operations, composed CTEs, EXPLAIN ANALYZE, tracing -------
     # (on phase 7's tables, before phase 11's writes)
     t0 = time.perf_counter()
@@ -6266,8 +6728,9 @@ def sf1_phases(opts) -> tuple:
 
     # -- 11. windows, the write path and YCSB-E (it changes the tables) ------
     t0 = time.perf_counter()
-    # YCSB-E at 50,000 records in the whole run (phase 16's room)
-    dml = dml_phase(eng, li, part, SF, ycsb_records=50_000)
+    # YCSB-E at 25,000 records in the whole run (phase 16's room)
+    dml = dml_phase(eng, li, part, SF, ycsb_records=25_000,
+                    ycsb_ops=5_000, reps=2)
     routes11 = dml["refresh"]["routes"]
     large["launches"] += sum(r["groupagg_large"] for r in routes11.values())
     large["phase11_launches"] = {q: r["groupagg_large"]
@@ -6309,7 +6772,8 @@ def sf1_phases(opts) -> tuple:
         "node_checks")
     kernels[1]["path_checks"] = {"phase 13": front.pop("small_checks"),
                                  "phase 14": small_checks14,
-                                 "phase 18": small_checks18}
+                                 "phase 18": small_checks18,
+                                 "phase 19": small_checks19}
     front["seconds_with_entry_points"] = time.perf_counter() - t0
     print(f"phase 13: {front['seconds_with_entry_points']:.1f} s",
           flush=True)
@@ -6340,6 +6804,7 @@ def sf1_phases(opts) -> tuple:
     dml["jobs"] = jobs
     dml["coldstart"] = cold
     dml["distributed"] = dist
+    dml["flows"] = flows
     if opts.profile:
         from cockroach_tpu_torch.profile_tpch import profile_queries
         profile_queries(eng, {"q3": (tpch.Q3, None), "q5": (tpch.Q5, None),

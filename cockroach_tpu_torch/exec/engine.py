@@ -1057,13 +1057,19 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
     # -- planning ------------------------------------------------------------
     def catalog_view(self, read_ts: Timestamp | None = None,
                      sketch: bool = True,
-                     int_ranges: bool = True) -> CatalogView:
+                     int_ranges: bool = True,
+                     stats: bool = True) -> CatalogView:
         """What the planner sees of the store: schemas, dictionaries,
         table statistics (ANALYZE output while fresh, else write-time
         sketches when ``sketch``) and the store's key probes.
         ``int_ranges=False`` withholds the int-range probe (inside an
         explicit txn overlay rows could fall outside a committed range
-        and corrupt a mixed-radix group code)."""
+        and corrupt a mixed-radix group code). ``stats=False`` hides
+        every data-dependent signal (row counts, distinct and
+        uniqueness probes, int ranges), so the plan's shape is a
+        function of the schema and the statement alone: every DistSQL
+        node derives the same stage graph from the SQL while holding a
+        different shard (distsql/shuffle.py)."""
         from ..sql.stats import TableStats
         # the planner sees the PUBLIC schema: a column mid-add or
         # mid-drop (WRITE_ONLY, jobs/schemachange.py) is in the store,
@@ -1088,6 +1094,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                 indexes[n] = pub
         dicts = {n: dict(td.dictionaries)
                  for n, td in self.store.tables.items()}
+        if not stats:
+            return CatalogView(schemas, dicts, {}, indexes=indexes)
         stats_map = {}
         for n, td in self.store.tables.items():
             st = None

@@ -1,6 +1,5 @@
 """Join-induced page skipping: semi-join filters derived from a
-hash-join build side (cockroach_tpu/exec/joinfilter.py without its wire
-form).
+hash-join build side (cockroach_tpu/exec/joinfilter.py).
 
 Zone maps (exec/stream.py) skip streamed pages against the scan's own
 pushed-down conjuncts; this module derives skipping from the query.
@@ -33,12 +32,17 @@ import numpy as np
 
 from ..sql import bound as B
 from ..sql import plan as P
+from ..storage.chunkstats import BlockedBloom
 from .scanplane import scan_maps
 from .stream import ZonePred, _find_chain, _split_and
 
 # exact-keys cap: past this many distinct build keys the filter carries
 # a bloom instead (never false-negative, ~2% false positives)
 KEY_CAP = 1 << 16
+# wire frames (distsql FlowSpec.joinfilter) carry exact keys up to this
+# many; past it the frame carries a bloom (the remote side needs only
+# the never-false-negative property)
+WIRE_KEY_CAP = 4096
 # derivation declines build sides past this row count (the reference's
 # auto rule): the host key sweep is O(build rows) per dispatch
 AUTO_BUILD_CAP = 1 << 22
@@ -127,6 +131,32 @@ class JoinFilter:
         elif self.bloom is not None:
             keep &= self.bloom.might_contain(v64)
         return keep
+
+    def to_wire(self) -> dict:
+        """The compact frame of FlowSpec.joinfilter: exact keys up to
+        WIRE_KEY_CAP, a bloom above (built here from exact keys: the
+        remote side needs only the never-false-negative property)."""
+        keys = bloom = None
+        if self.keys is not None and len(self.keys) <= WIRE_KEY_CAP:
+            keys = self.keys.astype(np.int64).tobytes()
+        elif self.keys is not None:
+            bl = BlockedBloom(len(self.keys))
+            bl.add(self.keys)
+            bloom = bl.tobytes()
+        elif self.bloom is not None:
+            bloom = self.bloom.tobytes()
+        return {"table": self.table, "col": self.col, "empty": self.empty,
+                "lo": int(self.lo), "hi": int(self.hi), "keys": keys,
+                "bloom": bloom}
+
+    @classmethod
+    def from_wire(cls, d: dict) -> "JoinFilter":
+        keys = (np.frombuffer(d["keys"], dtype=np.int64).copy()
+                if d.get("keys") is not None else None)
+        bloom = (BlockedBloom.from_bytes(d["bloom"])
+                 if d.get("bloom") is not None else None)
+        return cls(d["table"], d["col"], empty=d["empty"], lo=d["lo"],
+                   hi=d["hi"], keys=keys, bloom=bloom)
 
 
 def zone_pred(f: JoinFilter) -> ZonePred:

@@ -202,3 +202,9 @@ class TransferScheduler:
     def note_overlap(self, seconds: float) -> None:
         if seconds > 0:
             self.m_overlap.inc(seconds)
+
+    def note_exchange(self, nbytes: int) -> None:
+        """Account exchange bytes that move through paths which manage
+        their own buffers (DistSQL wire frames)."""
+        if nbytes > 0:
+            self.m_exchange.inc(nbytes)

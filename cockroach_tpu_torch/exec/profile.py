@@ -108,8 +108,8 @@ def op_label(node) -> str:
 class ProfileSink:
     """Thread-safe per-statement operator profile accumulator.
 
-    Entries are keyed by label (the reference also keys entries stitched
-    from remote flows by node: the port runs on one node). The
+    Entries are keyed by label; entries stitched from a remote DistSQL
+    flow (``merge_wire``) carry their node as ``label@n<node>``. The
     plan-node -> label mapping is kept so EXPLAIN ANALYZE can annotate
     the rendered tree by node object identity."""
 
@@ -126,6 +126,9 @@ class ProfileSink:
         self._pending: list[_Span] = []
         # the fine plane's measured wall of the profiled region
         self.wall_s = 0.0
+        # [(node, device_time_s)] of remote flows stitched at a DistSQL
+        # gateway (distsql/node.py _pump_and_union)
+        self.remote_walls: list = []
 
     # -- labeling --------------------------------------------------
     def _label_for(self, plan_node) -> str:
@@ -255,10 +258,31 @@ class ProfileSink:
                 sum(e.device_seconds for _, e in ents), 6),
         }
 
-    def to_wire(self) -> list[dict]:
+    def to_wire(self, node=None) -> list[dict]:
         """The op table as JSON-safe dicts (the diagnostics bundle's
-        profile)."""
-        return [dict(op=lbl, **e.to_wire()) for lbl, e in self.entries()]
+        profile, a flow_profile frame). With ``node`` every entry is
+        tagged with it, unless it carries a remote node's tag."""
+        out = []
+        for lbl, e in self.entries():
+            d = dict(op=lbl, **e.to_wire())
+            if node is not None:
+                base, sep, tag = lbl.rpartition("@n")
+                if sep and tag.lstrip("-").isdigit():
+                    d.update(op=base, node=int(tag))
+                else:
+                    d["node"] = node
+            out.append(d)
+        return out
+
+    def merge_wire(self, wire: list[dict], node=None) -> None:
+        """Add a remote flow's op table, each entry under
+        ``label@n<node>`` (its own tag, else ``node``)."""
+        for d in wire:
+            tag = d.get("node", node)
+            lbl = d.get("op", "?")
+            if tag is not None:
+                lbl = f"{lbl}@n{tag}"
+            self.note(lbl, **{k: d.get(k, 0) for k in FIELDS})
 
 
 # -- thread-local active sink (per-statement, never a global) -------

@@ -444,6 +444,44 @@ class ScanPlaneMixin:
                 sel *= S._pred_selectivity(anc.pred, st)
         return float(min(1.0, max(sel, 1.0 / 64.0)))
 
+    def _filtered_scan_batch(self, tname: str, filters, cols,
+                             read_ts=None):
+        """A DistSQL node's side of gateway-shipped join-filter frames
+        (distsql/node.py): drop whole chunks whose keys cannot match, or
+        whose MVCC window lies outside ``read_ts``, before anything
+        uploads, counting ``exec.skip.joinfilter.{chunks,bytes}``. None
+        when nothing drops (the caller keeps the cached device table);
+        else an uncached upload of the surviving chunks. A dropped
+        chunk's rows would have failed the inner/semi join (or MVCC)
+        on the device, so the rows are unchanged."""
+        td = self.store.table(tname)
+        row_w = 16 + sum(np.dtype(c.type.np_dtype).itemsize + 1
+                         for c in td.schema.columns)
+        keep, dropped, dropped_bytes = [], 0, 0
+        for c in td.chunks:
+            ok = True
+            if read_ts is not None:
+                ts_min, del_max = c.mvcc_window()
+                ok = ts_min <= read_ts < del_max
+            if ok:
+                ok = all(f.chunk_ok(c, f.col) for f in filters)
+            if ok:
+                keep.append(c)
+            else:
+                dropped += 1
+                dropped_bytes += row_w * c.n
+        if dropped == 0:
+            return None
+        self.metrics.counter(
+            "exec.skip.joinfilter.chunks",
+            "remote scan chunks pruned host-side by a gateway-shipped "
+            "join-filter frame (DistSQL)").inc(dropped)
+        self.metrics.counter(
+            "exec.skip.joinfilter.bytes",
+            "host->device bytes avoided by join-induced skipping"
+        ).inc(dropped_bytes)
+        return self._batch_from_chunks(td, keep, cols)
+
     def _maybe_pruned_upload(self, node, alias, tname, cols):
         """An uncached upload of only the zone-surviving chunks, when
         the whole table would pass the budget but the scan's pushed-down

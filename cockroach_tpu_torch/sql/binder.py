@@ -667,6 +667,34 @@ class Binder:
                         return b.dictionary
         return None
 
+    def _string_coalesce(self, args: list) -> BExpr:
+        """COALESCE over STRING arguments: every argument re-encodes into
+        one output dictionary (a column through a code remap, a literal
+        as its code), so the first valid code decodes to its own string.
+        The reference passes the literal's text to the device and
+        fails."""
+        if not any(isinstance(a, BConst) and isinstance(a.value, str)
+                   for a in args):
+            return BCoalesce(args, STRING)
+        from ..storage.columnstore import Dictionary
+        d2 = Dictionary()
+        out_args = []
+        for a in args:
+            if isinstance(a, BConst):
+                out_args.append(BConst(None if a.value is None
+                                       else d2.encode(str(a.value)), STRING))
+                continue
+            src = self._dict_of(a)
+            if src is None:
+                raise BindError("COALESCE over a string expression "
+                                "without a dictionary")
+            table = np.fromiter((d2.encode(v) for v in src.values),
+                                dtype=np.int32, count=len(src.values))
+            out_args.append(BDictRemap(a, table, STRING))
+        out = BCoalesce(out_args, STRING)
+        out.dictionary = d2
+        return out
+
     def _bind_string_compare(self, op, l, r):
         if l.type.family != Family.STRING and r.type.family != Family.STRING:
             return None
@@ -1266,6 +1294,8 @@ class Binder:
             if rty is None:
                 raise BindError("untyped COALESCE")
             args = [self.coerce(a, rty) for a in args]
+            if rty.family == Family.STRING:
+                return self._string_coalesce(args)
             return BCoalesce(args, rty)
         if name == "abs":
             x = self.bind(e.args[0])

@@ -168,6 +168,8 @@ def bind_builtin(binder, name: str, args: list, e) -> BExpr | None:
         if len(args) != 2:
             raise BuiltinError("nullif takes two arguments")
         l, r, _ = binder._align2(args[0], args[1])
+        if l.type.family == Family.STRING:
+            return _string_nullif(binder, l, r)
         return BFunc("nullif", [l, r], l.type)
     if name == "pi":
         return BConst(math.pi, FLOAT8)
@@ -548,6 +550,41 @@ _STR_TO_VAL = {
         (lambda m: m.start() + 1 if m else 0)(re.search(
             pat, s, re.IGNORECASE if "i" in flags else 0))), INT8),
 }
+
+
+def _string_nullif(binder, l, r) -> BExpr:
+    """NULLIF over STRING: the result keeps the first argument's codes and
+    its dictionary; the second argument compares in that code space (a
+    literal as its code, -1 and so never equal when it is absent; a
+    column of another dictionary through a code remap). The reference
+    passes the literal's text to the device and fails."""
+    from .bound import BDictRemap
+    if isinstance(l, BConst) and isinstance(r, BConst):
+        same = l.value is not None and r.value is not None \
+            and str(l.value) == str(r.value)
+        return BConst(None if same else l.value, STRING)
+    if isinstance(l, BConst):
+        raise BuiltinError("nullif of a string literal by a string "
+                           "column is not supported")
+    d = binder._dict_of(l)
+    if d is None:
+        raise BuiltinError("nullif over a string expression without a "
+                           "dictionary")
+    if isinstance(r, BConst):
+        r = BConst(None if r.value is None else d.codes.get(str(r.value), -1),
+                   STRING)
+    else:
+        rd = binder._dict_of(r)
+        if rd is None:
+            raise BuiltinError("nullif over a string expression without a "
+                               "dictionary")
+        if rd is not d:
+            table = np.fromiter((d.codes.get(v, -1) for v in rd.values),
+                                dtype=np.int32, count=len(rd.values))
+            r = BDictRemap(r, table, STRING)
+    out = BFunc("nullif", [l, r], STRING)
+    out.dictionary = d
+    return out
 
 
 def _intersperse(args: list, sep) -> list:

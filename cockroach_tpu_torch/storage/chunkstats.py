@@ -97,6 +97,13 @@ class BlockedBloom:
     def might_contain_any(self, keys: np.ndarray) -> bool:
         return bool(self.might_contain(keys).any())
 
+    def tobytes(self) -> bytes:
+        return self.words.tobytes()
+
+    @classmethod
+    def from_bytes(cls, raw: bytes) -> "BlockedBloom":
+        return cls(words=np.frombuffer(raw, dtype=np.uint64).copy())
+
     @staticmethod
     def _masks(h: np.ndarray) -> np.ndarray:
         one = np.uint64(1)

@@ -110,6 +110,12 @@ def _register_builtins(s: Settings) -> None:
     # (parallel/distagg.py, Engine._dist_decision and _DistRouter)
     s.register("sql.distsql.mesh_partitioning.enabled", True, bool,
                "partition scan spans over the device mesh")
+    # DistSQL flows between engines (distsql/node.py)
+    s.register("exec.agg.adaptive_raw_fraction", 0.5, float,
+               "DistSQL adaptive aggregation: when a shard's "
+               "estimated group count exceeds this fraction of its "
+               "row count, ship raw rows instead of per-shard "
+               "partial aggregates (Partial Partial Aggregates)")
     s.register("sql.exec.submesh.size", "auto", str,
                "devices per dispatch sub-mesh for eligible distributed "
                "plans: a power of two divides the mesh into disjoint "

@@ -96,6 +96,35 @@ def test_port_scan_covers_parallel():
             assert not set(_imported_roots(path)) & set(FORBIDDEN), name
 
 
+def test_port_scan_covers_distsql():
+    """The import scan reaches every module of distsql/ and kvserver/
+    (serde, flow, physical, shuffle, node; the transport), and none of
+    them imports jax or the JAX package, directly or through a module of
+    the port they load."""
+    import importlib
+    import sys
+    pkg = ROOT / "cockroach_tpu_torch"
+    for sub, names in (("distsql", {"__init__.py", "serde.py", "flow.py",
+                                    "physical.py", "shuffle.py",
+                                    "node.py"}),
+                       ("kvserver", {"__init__.py", "transport.py"})):
+        assert {p.name for p in (pkg / sub).glob("*.py")} == names
+        assert {pkg / sub / n for n in names} <= set(_port_files())
+        for n in sorted(names):
+            path = pkg / sub / n
+            assert not set(_imported_roots(path)) & set(FORBIDDEN), n
+            mod = (f"cockroach_tpu_torch.{sub}" if n == "__init__.py"
+                   else f"cockroach_tpu_torch.{sub}.{n[:-3]}")
+            assert Path(importlib.import_module(mod).__file__) == path
+    loaded = [name for name, m in list(sys.modules.items())
+              if name.startswith("cockroach_tpu_torch.")
+              and getattr(m, "__file__", None)]
+    for name in loaded:
+        path = Path(sys.modules[name].__file__)
+        if path.suffix == ".py":
+            assert not set(_imported_roots(path)) & set(FORBIDDEN), name
+
+
 def test_native_sources_are_the_ports_own():
     """The lane's C++ and the gate's lock live in the port: nothing of
     them is loaded from the JAX package."""

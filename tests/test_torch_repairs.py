@@ -8,6 +8,10 @@
 - ``width_bucket`` equals the reference for ascending bounds; for
   descending bounds it gives PostgreSQL's mirror (hand oracle), and a
   count below 1 is PostgreSQL's error, an EngineError.
+- ``coalesce`` and ``nullif`` over a STRING column with a STRING literal
+  answer (hand oracles), through ``execute`` and through a DistSQL flow:
+  the literal is encoded into the result's dictionary. The reference
+  passes the literal's text to the device and raises a TypeError.
 """
 
 import pytest
@@ -111,3 +115,36 @@ def test_reference_ignores_a_null_in_the_list(port, reference):
     rows SQL does not."""
     assert reference[IN_NULL_REF] == [(2,), (4,), (5,)]
     assert port.execute(IN_NULL_REF).rows == []
+
+
+# (statement, hand oracle) over t's s = a, b, NULL, c, a, b (k = 1..6)
+STRING_LITERALS = [
+    ("SELECT k, coalesce(s, 'none') FROM t ORDER BY k",
+     [(1, "a"), (2, "b"), (3, "none"), (4, "c"), (5, "a"), (6, "b")]),
+    ("SELECT k, nullif(s, 'a') FROM t ORDER BY k",
+     [(1, None), (2, "b"), (3, None), (4, "c"), (5, None), (6, "b")]),
+    ("SELECT coalesce(s, 'none') AS g, count(*) FROM t "
+     "GROUP BY coalesce(s, 'none') ORDER BY g",
+     [("a", 2), ("b", 2), ("c", 1), ("none", 1)]),
+]
+
+
+@pytest.mark.parametrize("sql,want", STRING_LITERALS,
+                         ids=["coalesce", "nullif", "coalesce_group_key"])
+def test_string_literal_in_coalesce_and_nullif(port, sql, want):
+    assert port.execute(sql).rows == want
+    # and through a flow: t's rows split over two data nodes
+    from cockroach_tpu_torch.distsql.node import DistSQLNode, Gateway
+    from cockroach_tpu_torch.kvserver.transport import LocalTransport
+    transport = LocalTransport()
+    nodes = []
+    for i, keys in enumerate([(), (1, 2, 3), (4, 5, 6)]):
+        e = Engine(device="cpu")
+        e.execute(SETUP[0].replace("i INT, f FLOAT, ", ""))
+        rows = [r for r in ("(1, 'a')", "(2, 'b')", "(3, NULL)", "(4, 'c')",
+                            "(5, 'a')", "(6, 'b')")
+                if int(r[1]) in keys]
+        if rows:
+            e.execute("INSERT INTO t VALUES " + ", ".join(rows))
+        nodes.append(DistSQLNode(i, e, transport))
+    assert Gateway(nodes[0], [1, 2]).run(sql).rows == want
