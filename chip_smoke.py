@@ -418,21 +418,54 @@ Phases (any failure exits non-zero before the final line):
    pulls, serde, the rest of the pump, the final stage), 5 warm runs
    through the gateway paired with the SF1 engine's, their medians,
    device busy ms (torch.profiler), host ms and idle share, and kernel
-   1's numbers at one node's Q1 slots (slot_numbers).
+   1's numbers at one node's Q1 slots (slot_numbers). Last, Q1 on A and
+   Q14 on B once more through a Gateway whose five nodes each own a
+   SocketTransport (rpc/context.py) over the same engines, the data
+   nodes each with a pump thread, all in this process (the reference's
+   socket_fakedist shape): rows equal the LocalTransport runs' (the
+   parity contract), kernel 1 launches 4 times for Q1 (each launch held
+   against its plain version) and none for Q14; then 3 warm runs each,
+   their median beside LocalTransport's.
+20. The multi-process pod (lineitem as loaded, after phase 19;
+   `pod_phase_alone()` runs it by itself): the card's free memory is
+   printed, then two processes of server/hostd.py (`--num-processes 2
+   --fanout 2 --sf 1 --queries q6,groupby,join --repeat 5`, the
+   coordinator a TCPStore on a free localhost port) run on the one card,
+   each through pod_child_main, which runs hostd.main inside
+   recording_slots() with every count at 0. Each host generates SF1
+   lineitem and part with the SF1 engine's generators and seeds and
+   keeps its half of lineitem (3,000,607 or 3,000,608 rows) and all of
+   part; host 0's gateway runs each query 5 times over the socket fabric
+   and the host merge tree. Both hosts must exit 0 within 240 s. Host
+   0's GROUP BY rows (Q1's exact sums and count) equal the SF1 engine's
+   bit for bit, its Q6 and Q14 the SF1 engine's and the numpy oracles
+   within rel 1e-9, the GROUP BY also the numpy Q1 oracle's sums and
+   counts; on each host kernel 1 launches once in each GROUP BY run's
+   stage and never for Q6 or Q14, and each launch is held against its
+   plain version at that host's inputs; exec.multihost.hosts is 2 on
+   both hosts, host 0 tree-merged (distsql.flows.tree,
+   exec.multihost.flows.merged >= 1, exec.multihost.merge.bytes > 0)
+   and host 1 shipped (shuffle.bytes.sent, rpc.frames.sent > 0). One
+   JSON `pod` line: each query's first and best-of-5 seconds, each
+   host's start-up seconds (spawn to ready, interpreter, rendezvous,
+   generation and ingest) and its mem_get_info() and its own peak allocated and reserved bytes after
+   the run, the
+   launches and the metrics.
 Each phase's seconds are printed. After phase 10, one JSON `dml` line
 holds phase 11's numbers, one JSON `oltp` line phase 12's, one JSON
 `frontdoor` line phase 13's, one JSON `observability` line phase
 14's (with the node's checks under "node"), one JSON `history` line
 phase 15's, one JSON `jobs` line phase 16's, one JSON `coldstart`
-line phase 17's, one JSON `distributed` line phase 18's and one JSON
-`flows` line phase 19's, each with
+line phase 17's, one JSON `distributed` line phase 18's, one JSON
+`flows` line phase 19's and one JSON `pod` line phase 20's, each with
 the card's name and power limit; then one JSON line of per-kernel
 numbers (the
 large-G kernel's launches count Q1, Q5, Q10, Q12 and the path runs of
-phases 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19, the small-G
-kernel's Q1F, Q6F and phases 13's, 14's, 18's and 19's; `path_checks`
-holds each of the large-G kernel's calls in phases 7, 8, 10, 11, 12,
-13, 14, 15, 16, 17, 18 and 19 held against the plain version, and the
+phases 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20 (both pod
+hosts'), the small-G kernel's Q1F, Q6F and phases 13's, 14's, 18's and
+19's; `path_checks` holds each of the large-G kernel's calls in phases
+7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20 held against the
+plain version, and the
 small-G kernel's phase 13, 14, 18 and 19 calls), the nvidia-smi line,
 and the last line {"ok": true, "device": {...}}.
 
@@ -5990,6 +6023,47 @@ def _fabric(device, li_codes, part, parts_sharded: bool, budget: int):
     return nodes, engines
 
 
+SOCKET_REPS = 3                 # phase 19's warm runs over sockets
+
+
+class _SocketFabric:
+    """Port DistSQLNodes over ``engines``, each on its own SocketTransport
+    (rpc/context.py) with a pump thread for every data node, all in this
+    process: the reference's socket_fakedist shape. Node 0 is the
+    gateway's, pumped by the gateway's own waits."""
+
+    def __init__(self, engines):
+        import threading
+
+        from cockroach_tpu_torch.distsql.node import DistSQLNode
+        from cockroach_tpu_torch.rpc.context import SocketTransport
+        self.transports = [SocketTransport(i) for i in range(len(engines))]
+        for a in self.transports:
+            for b in self.transports:
+                if a is not b:
+                    a.connect(b.node_id, b.addr)
+        self.nodes = [DistSQLNode(i, e, t) for i, (e, t) in
+                      enumerate(zip(engines, self.transports))]
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._pump, args=(t,),
+                                          daemon=True)
+                         for t in self.transports[1:]]
+        for th in self._threads:
+            th.start()
+
+    def _pump(self, t):
+        while not self._stop.is_set():
+            if not t.deliver_all():
+                time.sleep(0.0005)
+
+    def close(self):
+        self._stop.set()
+        for th in self._threads:
+            th.join(timeout=30)
+        for t in self.transports:
+            t.close()
+
+
 class _FlowClock:
     """Wall seconds of one flow statement's pieces, by wrapping the
     flow modules' functions while it runs: the nodes' stage runs and
@@ -6168,7 +6242,7 @@ def flows_phase(src, li_codes, part, want: dict, reps: int = FLOW_REPS,
             check_float("phase 19 q6f", res.rows, [(want["q6"],)])
         else:
             _oracle_rows(q, res.rows, want[q])
-        rows[q] = res.rows
+        rows[q] = res
         out["queries"][q] = {"route": route, "metrics": delta,
                              "first_run_s": first_s, "rows": len(res.rows),
                              "gateway_vs_local_max_rel_err": err}
@@ -6220,8 +6294,53 @@ def flows_phase(src, li_codes, part, want: dict, reps: int = FLOW_REPS,
     out["timed_launches"] = dict(zip(("groupagg_large", "groupagg"),
                                      _kernel_counts(on_card)))
     out["timed_s"] = time.perf_counter() - t_timed
+
+    # Q1 and the sharded Q14 once more over real sockets
+    socket_nodes = []
+    out["sockets"] = {}
+    for q, engs, kern in (("q1", engines_a, n), ("q14_sharded", engines_b,
+                                                   0)):
+        fab = _SocketFabric(engs)
+        try:
+            g = Gateway(fab.nodes[0], data, replicated_tables=(
+                {"part"} if q == "q1" else None))
+            _counts_zero()
+            t0 = time.perf_counter()
+            with recording_slots() as calls:
+                res = g.run(cases[q][1])
+                _sync()
+            first_s = time.perf_counter() - t0
+            n1, n2 = _kernel_counts(on_card)
+            if (n1, n2) != (kern, 0):
+                raise AssertionError(f"phase 19 {q} over sockets: kernel "
+                                     f"launches {(n1, n2)}, want "
+                                     f"{(kern, 0)}")
+            launches["groupagg_large"] += n1
+            if on_card and n1:
+                large_checks[f"sf1 {q} phase 19 sockets"] = check_calls(
+                    f"phase 19 {q} over sockets", calls, n1)
+            err = same_result(f"phase 19 {q} sockets vs LocalTransport",
+                              res, rows[q])
+            ms = []
+            for _ in range(SOCKET_REPS):
+                _sync()
+                t0 = time.perf_counter()
+                g.run(cases[q][1])
+                _sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            frames = sum(t.sent for t in fab.transports)
+            socket_nodes += fab.nodes
+        finally:
+            fab.close()
+        rec = {"first_run_s": first_s, "median_ms": statistics.median(ms),
+               "runs_ms": ms, "frames_sent": frames,
+               "local_median_ms": out["timed"][q]["gateway"]["median_ms"],
+               "launches": n1, "max_rel_err_vs_local": err}
+        out["sockets"][q] = rec
+        print(f"phase 19 {q} over sockets: " + json.dumps(rec), flush=True)
+    out["sockets_timed_launches"] = _kernel_counts(on_card)[0]
     leftover = [(e_i, len(nd.registry._inboxes))
-                for e_i, nd in enumerate(nodes_a + nodes_b)
+                for e_i, nd in enumerate(nodes_a + nodes_b + socket_nodes)
                 if nd.registry._inboxes]
     if leftover:
         raise AssertionError(f"phase 19: inboxes left in registries "
@@ -6284,6 +6403,288 @@ def flows_phase_alone(sf: float = SF, device=None,
     return out
 
 
+POD_HOSTS = 2                   # phase 20: hostd processes on the one card
+POD_REPEAT = 5                  # runs of each query (first and best kept)
+POD_QUERIES = ("q6", "groupby", "join")
+POD_TIMEOUT_S = 240             # each host process's limit
+
+
+def _pod_mem() -> dict:
+    """The card's free and total bytes (mem_get_info: every process's
+    use counts), and this process's own peak allocated and reserved."""
+    import torch
+    free, total = torch.cuda.mem_get_info()
+    return {"free_bytes": free, "total_bytes": total,
+            "process_max_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "process_reserved_bytes": torch.cuda.memory_reserved()}
+
+
+def pod_child_main() -> int:
+    """One host of phase 20's pod: argv = server/hostd.py's arguments.
+    Runs hostd.main(argv) inside recording_slots(), with each kernel-1
+    launch attributed to the query of the flow stage that made it, then
+    holds every recorded launch against the plain version at that
+    host's inputs (check_calls) and prints one line tagged POD_CHECKS:
+    launches per query, the checks, the host's start-up seconds
+    (rendezvous, generation and ingest, ready) and its memory (_pod_mem)
+    after the run. On the CPU (``--device cpu``) plain-version calls
+    stand for launches and nothing is held against anything."""
+    import torch
+
+    from cockroach_tpu_torch.distsql import node as pnode
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import groupagg as tg
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    from cockroach_tpu_torch.parallel import multihost
+    from cockroach_tpu_torch.server import hostd
+    t_start = time.time()
+    argv = sys.argv[1:]
+    on_card = "cpu" not in argv
+    names = {tpch.Q6: "q6", hostd.GROUPBY_SQL: "groupby", tpch.Q14: "join"}
+    per_query = {"q6": [], "groupby": [], "join": []}
+    setup = pnode.DistSQLNode._setup_flow
+    times: dict = {}
+
+    def attributed(self, spec):
+        n1, n2 = _kernel_counts(on_card)
+        try:
+            return setup(self, spec)
+        finally:
+            m1, m2 = _kernel_counts(on_card)
+            per_query[names.get(spec.sql, spec.sql)].append(
+                {"groupagg_large": m1 - n1, "groupagg": m2 - n2})
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.time()
+            try:
+                return fn(*a, **kw)
+            finally:
+                times[name] = time.time() - t0
+                times[f"{name}_done_at"] = time.time()
+        return run
+
+    saved = (multihost.init_distributed, hostd._build_engine,
+             multihost.barrier)
+    pnode.DistSQLNode._setup_flow = attributed
+    multihost.init_distributed = timed("rendezvous_s", saved[0])
+    hostd._build_engine = timed("build_s", saved[1])
+    multihost.barrier = timed("ready_barrier_s", saved[2])
+    tgl.LAUNCHES = tg.LAUNCHES = 0
+    try:
+        with recording_slots() as calls:
+            rc = hostd.main(argv)
+            _sync()
+        launches = _kernel_counts(on_card)
+        checks = (check_calls("phase 20 host", calls, launches[0])
+                  if on_card and launches[0] else [])
+    finally:
+        pnode.DistSQLNode._setup_flow = setup
+        (multihost.init_distributed, hostd._build_engine,
+         multihost.barrier) = saved
+    out = {"rc": rc, "started_at": t_start,
+           "ready_at": times.get("ready_barrier_s_done_at"),
+           "rendezvous_s": times.get("rendezvous_s"),
+           "build_s": times.get("build_s"),
+           "launches": {"groupagg_large": launches[0],
+                        "groupagg": launches[1]},
+           "per_query": per_query, "checks": checks,
+           "mem": _pod_mem() if on_card and torch.cuda.is_available()
+           else None, "seconds": time.time() - t_start}
+    print("POD_CHECKS " + json.dumps(out), flush=True)
+    return rc
+
+
+def _pod_tagged(stdout: str, tag: str) -> dict:
+    lines = [ln for ln in stdout.splitlines() if ln.startswith(tag)]
+    if not lines:
+        raise AssertionError(f"phase 20: no {tag!r} line")
+    return json.loads(lines[-1][len(tag):])
+
+
+def pod_phase(src, want: dict, sf: float = SF, rows: int | None = None,
+              device: str = "cuda") -> dict:
+    """Phase 20: a pod of POD_HOSTS hostd processes on the one card
+    (`--num-processes 2 --fanout 2 --sf 1 --queries q6,groupby,join
+    --repeat 5`, the coordinator on a free localhost port), each through
+    pod_child_main, so that every kernel-1 launch of a host is held
+    against the plain version at that host's inputs. Host 0's results
+    must equal ``src``'s (the single engine over the same generated
+    tables: GROUP BY rows bit for bit, Q6 and Q14 by the parity contract)
+    and the numpy oracles in ``want``; kernel 1 launches once a host a
+    GROUP BY run and never for Q6 or Q14; the rendezvous gauge reads 2
+    on both hosts; host 0 tree-merged host 1's partials; host 1 shipped
+    frames. Returns the `pod` line's numbers."""
+    import os
+    import socket
+
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.server.hostd import GROUPBY_SQL, _jsonable
+    t_start = time.perf_counter()
+    on_card = device == "cuda"
+    out: dict = {"card": _smi() if on_card else "cpu", "hosts": POD_HOSTS,
+                 "repeat": POD_REPEAT, "sf": sf,
+                 "parent_mem_before": _pod_mem() if on_card else None}
+    print("phase 20 card memory before the pod: "
+          + json.dumps(out["parent_mem_before"]), flush=True)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+
+    def cmd(pid):
+        c = [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.pod_child_main())",
+             "--process-id", str(pid), "--num-processes", str(POD_HOSTS),
+             "--coordinator", f"127.0.0.1:{port}", "--fanout", "2",
+             "--sf", str(sf), "--queries", ",".join(POD_QUERIES),
+             "--repeat", str(POD_REPEAT), "--device", device]
+        return c + (["--rows", str(rows)] if rows is not None else [])
+
+    env = dict(os.environ, TORCH_CPP_LOG_LEVEL="ERROR")
+    spawned_at = time.time()
+    procs = [subprocess.Popen(cmd(pid), env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for pid in range(POD_HOSTS)]
+    results = []
+    try:
+        for pid, proc in enumerate(procs):
+            try:
+                so, se = proc.communicate(timeout=POD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"phase 20: host {pid} did not end "
+                                     f"within {POD_TIMEOUT_S} s")
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 20: host {pid} exited "
+                                     f"{proc.returncode}:\n{so[-3000:]}\n"
+                                     f"{se[-4000:]}")
+            results.append((so, se))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["wall_s"] = time.time() - spawned_at
+    pod = json.loads(next(ln for ln in results[0][0].splitlines()
+                          if ln.startswith("{")))
+    hosts = [_pod_tagged(so, "POD_CHECKS ") for so, _ in results]
+
+    # rows: host 0's against the single engine and numpy
+    res = pod["results"]
+    for q in POD_QUERIES:
+        if "error" in res[q]:
+            raise AssertionError(f"phase 20 {q}: {res[q]['error']}")
+    local = {q: src.execute(sql) for q, sql in (
+        ("q6", tpch.Q6), ("groupby", GROUPBY_SQL), ("join", tpch.Q14))}
+    want_gb = [[_jsonable(v) for v in r] for r in local["groupby"].rows]
+    if res["groupby"]["rows"] != want_gb:
+        raise AssertionError(f"phase 20 groupby: {res['groupby']['rows']} "
+                             f"!= the single engine's {want_gb}")
+    for g_row, w_row in zip(res["groupby"]["rows"], want["q1"]):
+        if tuple(g_row[:2]) != tuple(w_row[:2]) or g_row[4] != w_row[9] \
+                or not _close(g_row[2], float(w_row[2]), 1e-9) \
+                or not _close(g_row[3], float(w_row[3]), 1e-9):
+            raise AssertionError(f"phase 20 groupby {g_row} != numpy "
+                                 f"{w_row}")
+    errs = {}
+    for q, w in (("q6", want["q6"]), ("join", want["q14"])):
+        got = res[q]["rows"][0][0]
+        mine = local[q].rows[0][0]
+        if not _close(got, mine, 1e-9) or not _close(got, w, 1e-9):
+            raise AssertionError(f"phase 20 {q}: {got} != the single "
+                                 f"engine's {mine} or numpy's {w}")
+        errs[q] = abs(got - mine) / max(abs(mine), 1e-300)
+    out["max_rel_err_vs_engine"] = errs
+
+    # routes: kernel 1 once a host a GROUP BY run, never for Q6 or Q14
+    for pid, h in enumerate(hosts):
+        runs = h["per_query"]
+        gb = [r["groupagg_large"] for r in runs["groupby"]]
+        if gb != [1] * POD_REPEAT:
+            raise AssertionError(f"phase 20 host {pid}: kernel 1 per "
+                                 f"GROUP BY run {gb}, want 1 each")
+        for q in ("q6", "join"):
+            if any(r["groupagg_large"] or r["groupagg"] for r in runs[q]) \
+                    or len(runs[q]) != POD_REPEAT:
+                raise AssertionError(f"phase 20 host {pid} {q}: "
+                                     f"{runs[q]}")
+        if h["launches"]["groupagg_large"] != POD_REPEAT or \
+                h["launches"]["groupagg"]:
+            raise AssertionError(f"phase 20 host {pid}: launches "
+                                 f"{h['launches']}")
+        if on_card and len(h["checks"]) != POD_REPEAT:
+            raise AssertionError(f"phase 20 host {pid}: "
+                                 f"{len(h['checks'])} launches checked")
+
+    # the rendezvous, the merge tree and the fabric
+    m0, m1 = pod["metrics"]["0"], pod["metrics"]["1"]
+    if m0.get("exec.multihost.hosts") != POD_HOSTS or \
+            (m1 or {}).get("exec.multihost.hosts") != POD_HOSTS:
+        raise AssertionError(f"phase 20: exec.multihost.hosts {m0}, {m1}")
+    if m0.get("distsql.flows.tree", 0) < 1 or \
+            m0.get("exec.multihost.flows.merged", 0) < 1 or \
+            m0.get("exec.multihost.merge.bytes", 0) <= 0:
+        raise AssertionError(f"phase 20: host 0 did not tree-merge: {m0}")
+    if m1.get("shuffle.bytes.sent", 0) <= 0 or \
+            m1.get("rpc.frames.sent", 0) <= 0:
+        raise AssertionError(f"phase 20: host 1 shipped nothing: {m1}")
+
+    out.update(
+        queries={q: {"first_s": pod["timings"][q]["first_s"],
+                     "best_s": pod["timings"][q]["elapsed_s"],
+                     "rows_per_s": pod["timings"][q]["rows_per_s"]}
+                 for q in POD_QUERIES},
+        lineitem_rows=pod["rows"],
+        startup={str(pid): {
+            "spawn_to_ready_s": h["ready_at"] - spawned_at,
+            "interpreter_s": h["started_at"] - spawned_at,
+            "rendezvous_s": h["rendezvous_s"],
+            "generate_and_ingest_s": h["build_s"]}
+            for pid, h in enumerate(hosts)},
+        host_mem={str(pid): h["mem"] for pid, h in enumerate(hosts)},
+        launches={str(pid): h["launches"] for pid, h in enumerate(hosts)},
+        metrics=pod["metrics"],
+        seconds=time.perf_counter() - t_start)
+    out["path_checks"] = {f"sf{sf:g} pod host {pid} phase 20": h["checks"]
+                          for pid, h in enumerate(hosts) if h["checks"]}
+    print("phase 20: " + json.dumps({k: v for k, v in out.items()
+                                     if k != "path_checks"}), flush=True)
+    return out
+
+
+def pod_phase_alone(sf: float = SF, device: str = "cuda",
+                    rows: int | None = None) -> dict:
+    """Phase 20 by itself: builds the kernels, resolves the gate and the
+    launch point under a fresh cache root, loads lineitem and part at
+    `sf` into one engine (the comparison), then runs the pod and prints
+    its `pod` line. ``device="cpu"`` with a small `sf` and `rows`
+    rehearses it on the CPU (plain-version calls stand for launches; no
+    kernel checks)."""
+    import numpy as np
+
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import build
+    with cache_root():
+        if device == "cuda":
+            build.compile_all(["groupagg_large", "groupagg"])
+        kernel_infra(device)
+        src = Engine(device=None if device == "cuda" else device)
+        tpch.load(src, sf=sf, tables=("lineitem", "part"), encoded=True,
+                  rows=rows)
+        li = tpch.gen_lineitem(sf, encoded=True, rows=rows)
+        codes = {c: li[c] for c in ("l_returnflag", "l_linestatus")}
+        for c, vals in (("l_returnflag", tpch.RF_VALUES),
+                        ("l_linestatus", tpch.LS_VALUES)):
+            li[c] = np.asarray(vals)[li[c]]
+        want = {"q1": ref_q1_codes(dict(li, **codes)), "q6": tpch.ref_q6(li),
+                "q14": tpch.ref_q14(li, tpch.gen_part(sf))}
+        out = pod_phase(src, want, sf, rows, device)
+        src.close()
+    out["path_checks"] = len(out["path_checks"])
+    print(json.dumps({"pod": out}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6327,6 +6728,7 @@ def _main(opts) -> int:
     cold = dml.pop("coldstart")
     dist = dml.pop("distributed")
     flows = dml.pop("flows")
+    pod = dml.pop("pod")
     obs["node"] = front["entry_points"].pop("observability")
     print(json.dumps({"dml": dict(dml, card=smi)}), flush=True)
     print(json.dumps({"oltp": dict(oltp, card=smi)}), flush=True)
@@ -6337,6 +6739,7 @@ def _main(opts) -> int:
     print(json.dumps({"coldstart": dict(cold, card=smi)}), flush=True)
     print(json.dumps({"distributed": dict(dist, card=smi)}), flush=True)
     print(json.dumps({"flows": dict(flows, card=smi)}), flush=True)
+    print(json.dumps({"pod": dict(pod, card=smi)}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -6347,11 +6750,12 @@ def _main(opts) -> int:
 
 
 def sf1_phases(opts) -> tuple:
-    """Phases 1-9 and 11-19 at SF1; returns (kernels, nvidia-smi line,
+    """Phases 1-9 and 11-20 at SF1; returns (kernels, nvidia-smi line,
     card name, phase 11's numbers with phase 12's under "oltp", phase
     13's under "frontdoor", 14's under "observability", 15's under
     "history", 16's under "jobs", 17's under "coldstart", 18's under
-    "distributed" and 19's under "flows"). Every engine and table of these
+    "distributed", 19's under "flows" and 20's under "pod"). Every
+    engine and table of these
     phases lives in this frame only, so they are freed when it
     returns."""
     import numpy as np
@@ -6712,6 +7116,16 @@ def sf1_phases(opts) -> tuple:
     large["phase19_node"] = flows["node_q1_kernel"]
     print(f"phase 19: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 20. the multi-process pod ------------------------------------------
+    # (lineitem as loaded: before phase 11's writes)
+    t0 = time.perf_counter()
+    pod = pod_phase(eng, {"q1": want_q1, "q6": want_q6, "q14": want_q14})
+    n20 = sum(h["groupagg_large"] for h in pod["launches"].values())
+    large["launches"] += n20
+    large["phase20_launches"] = pod["launches"]
+    large["path_checks"].update(pod.pop("path_checks"))
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- 14. set operations, composed CTEs, EXPLAIN ANALYZE, tracing -------
     # (on phase 7's tables, before phase 11's writes)
     t0 = time.perf_counter()
@@ -6805,6 +7219,7 @@ def sf1_phases(opts) -> tuple:
     dml["coldstart"] = cold
     dml["distributed"] = dist
     dml["flows"] = flows
+    dml["pod"] = pod
     if opts.profile:
         from cockroach_tpu_torch.profile_tpch import profile_queries
         profile_queries(eng, {"q3": (tpch.Q3, None), "q5": (tpch.Q5, None),

@@ -28,7 +28,9 @@ Branches of the reference that wait for modules not yet ported raise
 (``cluster=``, span materialization, the replan and gateway-local rungs:
 kvserver.Cluster and kv/rowfetch.RangeTable), the elastic pod
 (``elastic=``, the epoch fence, shard-lease transfer frames:
-distsql/leases.py) and socket transports (rpc/context.py).
+distsql/leases.py). Over a socket transport (rpc/context.py,
+``is_async``) the waits poll with an idle deadline instead of ending
+on an empty queue.
 """
 
 from __future__ import annotations
@@ -73,8 +75,6 @@ _LEASEHOLDER = ("the leaseholder branch needs kvserver.Cluster and "
                 "Queue 1 item 5), not yet ported")
 _ELASTIC = ("the elastic pod needs distsql/leases.py (ROADMAP Queue 1 "
             "item 4), not yet ported")
-_SOCKETS = ("socket transports need rpc/context.py's SocketTransport "
-            "(ROADMAP Queue 1 item 2), not yet ported")
 
 # end-of-iteration sentinel for the overlapped-send double buffer
 _SHIP_DONE = object()
@@ -247,9 +247,6 @@ class DistSQLNode:
     def __init__(self, node_id: int, engine, transport, cluster=None):
         if cluster is not None:
             raise FlowUnsupported(f"DistSQLNode(cluster=...): {_LEASEHOLDER}")
-        if getattr(transport, "is_async", False):
-            raise FlowUnsupported(
-                f"DistSQLNode over {type(transport).__name__}: {_SOCKETS}")
         self.node_id = node_id
         self.engine = engine
         self.transport = transport
@@ -1580,8 +1577,15 @@ class Gateway:
             inbox_nodes = list(nodes[:len(inboxes)])
         transport = self.own.transport
         registry = self.own.registry
-        # drive the network until all streams finish: the in-process
-        # transport is synchronous, so an empty queue means stalled
+        # drive the network until all streams finish. In-process
+        # transports are synchronous: an empty queue means stalled.
+        # Socket transports (rpc.SocketTransport, is_async=True)
+        # deliver whenever peers respond: poll until a deadline.
+        is_async = getattr(transport, "is_async", False)
+        # IDLE timeout: the clock resets whenever anything arrives, so
+        # a long multi-chunk stream never starves a later chunk of
+        # budget; only true silence for flow_timeout fails the flow
+        deadline = _time.monotonic() + self.flow_timeout
         fail_fast = None
         for spin in range(100_000_000):
             if all(ib.eof for ib in inboxes):
@@ -1605,7 +1609,13 @@ class Gateway:
                     break
             if transport.deliver_all() == 0 and \
                     transport.pending() == 0:
-                break
+                if not is_async:
+                    break
+                if _time.monotonic() > deadline:
+                    break
+                _time.sleep(0.001)
+            else:
+                deadline = _time.monotonic() + self.flow_timeout
         try:
             if fail_fast is not None:
                 raise fail_fast

@@ -104,6 +104,7 @@ from ..ops.batch import ColumnBatch, pull_arrays, pull_batch_columns
 from ..ops.join import MAX_EXPAND
 from ..parallel import distagg
 from ..parallel import mesh as meshmod
+from ..parallel import multihost
 from ..parallel.collective import AXIS
 from ..sql import ast, parser
 from ..sql.parser import ParseError
@@ -488,7 +489,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         sub-mesh's). Its changefeed jobs are canceled (their threads end
         at their next check). The engine stays usable: a later statement
         uploads again, and a later dispatch respawns its dispatcher's
-        thread (parallel/distagg.py)."""
+        thread (parallel/distagg.py). The pod's rendezvous, if this
+        process joined one, is torn down (multihost.shutdown_distributed)."""
         for jid in list(self._cdc_threads):
             self.jobs.cancel(jid)
         self._cdc_threads.clear()
@@ -506,6 +508,11 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             for size in pool.sizes():
                 for m in pool.submeshes(size):
                     distagg.shutdown_dispatchers(m)
+        # tear down the cross-host rendezvous too: a closed engine must
+        # not leave a live store client behind, or the next engine in
+        # this process (back-to-back tests, hostd restarts) inherits a
+        # stale coordinator
+        multihost.shutdown_distributed()
 
     # -- the mesh ------------------------------------------------------------
     def _mesh_metrics(self) -> None:
@@ -534,6 +541,12 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             shuffle.EXCHANGE_TRACED.value,
             "all_to_all exchange buffer bytes, tallied when a plan is "
             "built")
+        # multi-host pod membership, read live off the rendezvous
+        # (parallel/multihost.py): 1 until init_distributed ran
+        m.func_gauge(
+            "exec.multihost.hosts", multihost.num_hosts,
+            "host processes in this engine's rendezvous domain "
+            "(1 = single-host)")
 
     def _submesh_pool(self):
         """The MeshPool over this engine's mesh, built at first use;
@@ -2873,6 +2886,19 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                 return hit[1]
             if hit is not None:
                 self._drop_mesh_table(key)
+            if multihost.num_hosts() > 1:
+                # resident uploads are host-local on a pod: a tensor
+                # cannot be placed on another process's card. The
+                # cross-host dimension of a scan is the DistSQL merge
+                # tree's job (each host owns its shard)
+                remote = [str(d) for d in mesh.devices
+                          if not multihost.addressable(d)]
+                if remote:
+                    raise EngineError(
+                        f"table {name!r}: resident upload targets a mesh "
+                        f"with slots this process cannot address "
+                        f"({', '.join(remote)}); use the host-local mesh "
+                        "(parallel.mesh.pod_mesh)")
             mb, extra = self._place_on_mesh(name, base, placement, mesh)
             acct = None
             if extra:

@@ -52,6 +52,17 @@ class Mesh:
                     self.ids[start:start + size])
 
 
+def pod_mesh(device=None) -> Mesh:
+    """Mesh over THIS host's slice of the pod: its own cards, one slot
+    each (``device`` names another, e.g. "cpu"). Device collectives stay
+    inside the host and the host tree (the DistSQL merge_to and
+    merge_children flows) carries the cross-host merge, as in the
+    reference on the CPU; its hybrid ICI+DCN mesh of a TPU pod has no
+    counterpart here (multihost.global_mesh)."""
+    from cockroach_tpu_torch.parallel import multihost
+    return Mesh(multihost.global_mesh(device))
+
+
 def make_mesh(devices=None, n: Optional[int] = None) -> Mesh:
     """A mesh over ``devices`` (default: every visible card, one slot
     each; raises without one). With ``n``, the first n slots; fewer
@@ -129,9 +140,13 @@ _DOMAIN_GATES_LOCK = threading.Lock()
 
 
 def _devkey(mesh: Mesh) -> tuple:
-    # the reference prefixes its host's rendezvous domain (its process
-    # id on a pod); one process here, so one domain
-    return (-1,) + mesh.key()
+    # gate families are per rendezvous domain: two host processes of
+    # one pod each see local slots 0..k-1, and the gate registry must
+    # never conflate host A's slots with host B's
+    from cockroach_tpu_torch.parallel import multihost
+    topo = multihost.topology()
+    dom = topo.process_id if topo is not None else -1
+    return (dom,) + mesh.key()
 
 
 def execution_window(mesh):
@@ -160,13 +175,15 @@ class MeshPool:
     merges are exact at any shard count (floats within their
     tolerance: a reduction order per shard count).
 
-    ``num_hosts`` is 1: the reference reads it from its multi-host
-    rendezvous (parallel/multihost.py), which the port does not have
-    yet, so the pool splits this process's slots only."""
+    Pod awareness: sub-mesh partitioning never crosses a host
+    boundary. The pool splits THIS process's slots; the cross-host
+    dimension is the DistSQL merge tree's job (``num_hosts`` is read
+    from the rendezvous, parallel/multihost.py)."""
 
     def __init__(self, mesh: Mesh):
+        from cockroach_tpu_torch.parallel import multihost
         self.mesh = mesh
-        self.num_hosts = 1
+        self.num_hosts = multihost.num_hosts()
         self._subs: dict[int, list[Mesh]] = {}
         size = mesh.size // 2
         while size >= 1:

@@ -13,7 +13,8 @@ order), everything else exactly.
 
 Also here: the serde bytes held byte for byte against the reference's
 encoder; the branches that wait for modules not yet ported (cluster,
-elastic, socket transports) raising errors that name them; a node on a
+elastic) raising errors that name them (flows over socket transports
+are tests/test_torch_rpc_fabric.py's); a node on a
 two-slot CPU shard mesh; Q1 whose per-node DECIMAL partials pass 2^31
 merged exactly; kernel 1 routed once per data node (its plain version
 on the CPU, its launch on the card).
@@ -395,16 +396,10 @@ class TestNotYetPorted:
     """Branches that wait for modules not yet ported raise errors that
     name them; none answers around them."""
 
-    @pytest.mark.parametrize("kind", ["cluster", "elastic", "sockets",
+    @pytest.mark.parametrize("kind", ["cluster", "elastic",
                                       "node_cluster"])
     def test_raises_naming_the_missing_module(self, kind):
         transport = LocalTransport()
-        if kind == "sockets":
-            class SocketLike(LocalTransport):
-                is_async = True
-            with pytest.raises(FlowUnsupported, match="SocketTransport"):
-                DistSQLNode(0, port_engine(), SocketLike())
-            return
         if kind == "node_cluster":
             with pytest.raises(FlowUnsupported, match="kvserver.Cluster"):
                 DistSQLNode(0, port_engine(), transport, cluster=object())

@@ -53,7 +53,7 @@ def test_port_scan_covers_the_package():
     server = ROOT / "cockroach_tpu_torch" / "server"
     assert {p.name for p in _port_files() if p.parent == server} == {
         "__init__.py", "pgwire.py", "pgfront.py", "miniclient.py",
-        "node.py", "ts.py"}
+        "node.py", "ts.py", "hostd.py"}
     assert ROOT / "cockroach_tpu_torch" / "native" / "__init__.py" in \
         _port_files()
 
@@ -72,14 +72,15 @@ def test_port_scan_covers_jobs_and_cdc():
 
 def test_port_scan_covers_parallel():
     """The import scan reaches every module of parallel/ (the mesh, its
-    collectives, the distribution decision and the shuffle), and none of
+    collectives, the distribution decision, the shuffle and the pod's
+    rendezvous), and none of
     them imports jax or the JAX package, directly or through a module
     of the port they load."""
     import importlib
     import sys
     pkg = ROOT / "cockroach_tpu_torch"
     names = {"__init__.py", "mesh.py", "collective.py", "distagg.py",
-             "shuffle.py"}
+             "shuffle.py", "multihost.py"}
     assert {p.name for p in (pkg / "parallel").glob("*.py")} == names
     assert {pkg / "parallel" / n for n in names} <= set(_port_files())
     for n in sorted(names - {"__init__.py"}):
@@ -116,6 +117,37 @@ def test_port_scan_covers_distsql():
             mod = (f"cockroach_tpu_torch.{sub}" if n == "__init__.py"
                    else f"cockroach_tpu_torch.{sub}.{n[:-3]}")
             assert Path(importlib.import_module(mod).__file__) == path
+    loaded = [name for name, m in list(sys.modules.items())
+              if name.startswith("cockroach_tpu_torch.")
+              and getattr(m, "__file__", None)]
+    for name in loaded:
+        path = Path(sys.modules[name].__file__)
+        if path.suffix == ".py":
+            assert not set(_imported_roots(path)) & set(FORBIDDEN), name
+
+
+def test_port_scan_covers_the_fabric_and_the_pod():
+    """The import scan reaches every module of rpc/ (the socket
+    transport and codec, gossip, heartbeats, retry), utils/circuit.py,
+    parallel/multihost.py and server/hostd.py, and none of them imports
+    jax or the JAX package, directly or through a module of the port
+    they load."""
+    import importlib
+    import sys
+    pkg = ROOT / "cockroach_tpu_torch"
+    rpc = {"__init__.py", "context.py", "gossip.py", "heartbeat.py",
+           "retry.py"}
+    assert {p.name for p in (pkg / "rpc").glob("*.py")} == rpc
+    paths = [pkg / "rpc" / n for n in sorted(rpc)] + [
+        pkg / "utils" / "circuit.py", pkg / "parallel" / "multihost.py",
+        pkg / "server" / "hostd.py"]
+    assert set(paths) <= set(_port_files())
+    for path in paths:
+        assert not set(_imported_roots(path)) & set(FORBIDDEN), path
+        rel = path.relative_to(ROOT).with_suffix("")
+        mod = ".".join(rel.parts[:-1] if rel.name == "__init__"
+                       else rel.parts)
+        assert Path(importlib.import_module(mod).__file__) == path
     loaded = [name for name, m in list(sys.modules.items())
               if name.startswith("cockroach_tpu_torch.")
               and getattr(m, "__file__", None)]

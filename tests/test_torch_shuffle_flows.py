@@ -1,6 +1,6 @@
 """Host-level shuffle flows of the port against the reference's
 (tests/test_shuffle_flows.py's cases, less the one over TCP sockets,
-which waits for the socket fabric).
+which is tests/test_torch_rpc_fabric.py's).
 
 Both lineitem and part are row-sharded over three data nodes, nothing
 replicated: a join co-partitions both sides by hash of the join key
