@@ -113,12 +113,14 @@ Phases (any failure exits non-zero before the final line):
    the same text hits the exec cache (Q15's re-execute handle hits it
    on its runs), with the counters; the host ms per run both ways, the
    median wall time minus torch.profiler's device busy time.
-10. Beyond memory at TPC-H SF10, in an Engine of its own (the SF1
+10. Beyond memory at TPC-H SF10 (`beyond_memory_phase()`; the whole
+   run takes it at SF5, WHOLE_RUN_BEYOND_SF: half the rows and pages,
+   every check the same), in an Engine of its own (the SF1
    engines are freed first): prints the host's MemTotal/MemAvailable and
    the card's free and total memory, loads lineitem (60,012,150 rows),
    part (2,000,000) and orders (15,000,000) with the generators' seeds
    and prints the load seconds. At sql.exec.hbm_budget_bytes = 1 GiB
-   and pages of 2^21 rows Q1, Q6 and Q14 must stream (29 pages
+   and pages of 2^21 rows Q1, Q6 and Q14 must stream (29 pages at SF10
    uploaded or skipped, kernel 1 never launched, peak
    max_memory_allocated() under 2 GiB) and equal the numpy oracles;
    SET streaming_pipeline = off must give identical rows. Both ways:
@@ -451,22 +453,56 @@ Phases (any failure exits non-zero before the final line):
    generation and ingest) and its mem_get_info() and its own peak allocated and reserved bytes after
    the run, the
    launches and the metrics.
+21. The elastic pod at SF1 (lineitem as loaded, after phase 20;
+   `elastic_phase_alone()`): three server/hostd.py --elastic processes
+   (`--sf 1 --nshards 8 --queries groupby,q6 --repeat 8
+   --statement-gap 0.25`, heartbeats every 0.25 s, a 30 s liveness
+   window, both printed), each through elastic_child_main inside
+   recording_slots() with every count at 0: host 0 founds the pod
+   (`--initial-hosts 2`), host 1 drains after the founder's 4th GROUP
+   BY run, host 2 joins after its 2nd (`--late-join`, streaming its
+   shards from their live owners before the flip); all exit 0 within
+   240 s. Every GROUP BY run equals the SF1 engine's rows bit for bit
+   (and the numpy Q1 oracle's sums and counts), every Q6 run within rel
+   1e-9, both consistent; three epochs or more; kernel 1 once in each
+   GROUP BY stage a host runs over installed shards, never for Q6, each
+   launch held against its plain version; leases moved and shard bytes
+   streamed. Then three in-process ElasticPods over SocketTransports,
+   port engines on the card with SF1 lineitem in 8 shards: host 2 is
+   killed mid-scan and the GROUP BY comes back through the failover
+   rung with the SF1 engine's rows. One JSON `elastic` line.
+22. SQL on raft-replicated ranges (`ranges_phase_alone()`): a 3-node
+   Cluster, lineitem in 4 ranges and part in 2, 1,200 lineitem rows and
+   300 parts loaded through a gateway's INSERTs of 1,000 rows (rows/s
+   printed; raft's cost a write grows with the range's log, so not the
+   20,000 of the sf 0.01 tests). Q1 (under `on`: kernel 1 once, held
+   against its plain version), Q6 and Q14 through gateway A equal a
+   local engine's and the numpy oracles; an UPDATE through A shows on
+   gateway B, B's AS OF read from before it equals A's first Q1; after
+   stop_node of a leaseholder, a fresh gateway C has every row; Q1, Q14
+   and Q1F through Gateway(cluster=c) over three DistSQLNodes equal A's
+   (kernel 1 and kernel 2 once a node holding spans, each launch held
+   against its plain version), also after a transfer_lease;
+   /_debug/ranges lists every range with its leaseholder; medians of 5
+   warm Q1 runs on A and on the local engine, busy ms, host ms, idle
+   share. One JSON `ranges` line.
 Each phase's seconds are printed. After phase 10, one JSON `dml` line
 holds phase 11's numbers, one JSON `oltp` line phase 12's, one JSON
 `frontdoor` line phase 13's, one JSON `observability` line phase
 14's (with the node's checks under "node"), one JSON `history` line
 phase 15's, one JSON `jobs` line phase 16's, one JSON `coldstart`
 line phase 17's, one JSON `distributed` line phase 18's, one JSON
-`flows` line phase 19's and one JSON `pod` line phase 20's, each with
-the card's name and power limit; then one JSON line of per-kernel
+`flows` line phase 19's, one JSON `pod` line phase 20's, one JSON
+`elastic` line phase 21's and one JSON `ranges` line phase 22's, each
+with the card's name and power limit; then one JSON line of per-kernel
 numbers (the
 large-G kernel's launches count Q1, Q5, Q10, Q12 and the path runs of
-phases 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20 (both pod
-hosts'), the small-G kernel's Q1F, Q6F and phases 13's, 14's, 18's and
-19's; `path_checks` holds each of the large-G kernel's calls in phases
-7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20 held against the
-plain version, and the
-small-G kernel's phase 13, 14, 18 and 19 calls), the nvidia-smi line,
+phases 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20 (both pod
+hosts'), 21 (every elastic host's and the kill's) and 22, the small-G
+kernel's Q1F, Q6F and phases 13's, 14's, 18's, 19's and 22's;
+`path_checks` holds each of the large-G kernel's calls in phases 7, 8
+and 10-22 held against the plain version, and the
+small-G kernel's phase 13, 14, 18, 19 and 22 calls), the nvidia-smi line,
 and the last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile DIR
@@ -1869,7 +1905,10 @@ def _composed_write_check(eng, p, s, tables, want, driven) -> dict:
 # -- phase 10: beyond memory at SF10 ------------------------------------------
 
 SF10 = 10
-LINEITEM_SF10 = 60_012_150      # the generator's int(6,001,215 x 10)
+# phase 10's scale in the whole run: SF5 (30,006,075 lineitem rows)
+# still streams each query past the 1 GiB budget; the SF10 load alone
+# took 93-124 s of the run (beyond_memory_phase() alone keeps SF10)
+WHOLE_RUN_BEYOND_SF = 5
 STREAM_BUDGET = 1 << 30
 RESIDENT_BUDGET = 1 << 36
 PAGE_ROWS = 1 << 21             # the default streaming_page_rows
@@ -2004,10 +2043,11 @@ class PathRuns:
         return self.run(kind, label, lambda: self.eng.execute(sql, session))
 
 
-def beyond_memory_phase(reps: int = 3) -> dict:
-    """Phase 10: TPC-H Q1, Q6 and Q14 streamed at SF10 under a 1 GiB
-    device budget, then resident; a spilled lineitem x orders join and
-    a spilled sort; a streamed prepared statement."""
+def beyond_memory_phase(reps: int = 3, sf: int = SF10) -> dict:
+    """Phase 10: TPC-H Q1, Q6 and Q14 streamed at ``sf`` (SF10 alone, the
+    whole run's WHOLE_RUN_BEYOND_SF) under a 1 GiB device budget, then
+    resident; a spilled lineitem x orders join and a spilled sort; a
+    streamed prepared statement."""
     import numpy as np
     import torch
 
@@ -2025,28 +2065,28 @@ def beyond_memory_phase(reps: int = 3) -> dict:
     # (pre-encoded strings), and read by the oracles. No ANALYZE: the
     # planner reads the chunks' seal-time sketches (a minute saved)
     t0 = time.perf_counter()
-    li = tpch.gen_lineitem(SF10, encoded=True)
+    li = tpch.gen_lineitem(sf, encoded=True)
     eng.execute(tpch.DDL["lineitem"])
     for cn, vals in tpch.LINEITEM_DICTS.items():
         eng.store.set_dictionary("lineitem", cn, vals)
     eng.store.insert_columns("lineitem", li, eng.clock.now())
-    tpch.load(eng, sf=SF10, tables=("part", "orders"), analyze=False)
+    tpch.load(eng, sf=sf, tables=("part", "orders"), analyze=False)
     load_s = time.perf_counter() - t0
     n_rows = eng.store.table("lineitem").row_count
-    if n_rows != LINEITEM_SF10:
-        raise AssertionError(f"SF10 lineitem has {n_rows} rows")
-    print(f"load SF10: {n_rows} lineitem, "
+    if n_rows != int(tpch.LINEITEM_PER_SF * sf):
+        raise AssertionError(f"SF{sf} lineitem has {n_rows} rows")
+    print(f"load SF{sf}: {n_rows} lineitem, "
           f"{eng.store.table('orders').row_count} orders, "
           f"{eng.store.table('part').row_count} part rows in "
           f"{load_s:.1f} s", flush=True)
     t0 = time.perf_counter()
     want = {"q1": ref_q1_codes(li), "q6": tpch.ref_q6(li),
-            "q14": tpch.ref_q14(li, tpch.gen_part(SF10))}
-    print(f"SF10 oracles: {time.perf_counter() - t0:.1f} s", flush=True)
+            "q14": tpch.ref_q14(li, tpch.gen_part(sf))}
+    print(f"SF{sf} oracles: {time.perf_counter() - t0:.1f} s", flush=True)
 
     page_rows = PAGE_ROWS
     n_pages = -(-n_rows // page_rows)
-    out = {"sf": SF10, "lineitem_rows": n_rows, "load_s": load_s,
+    out = {"sf": sf, "lineitem_rows": n_rows, "load_s": load_s,
            "host": host, "card_free": free, "card_total": total,
            "stream_budget": STREAM_BUDGET, "page_rows": page_rows,
            "queries": {}}
@@ -2064,7 +2104,7 @@ def beyond_memory_phase(reps: int = 3) -> dict:
         if verdict != "stream-scan":
             raise AssertionError(f"{q} at 1 GiB: {verdict}, not streamed")
         res, first_ms, peak, k1 = paths.execute(
-            "streamed", f"sf10 {q} streamed", sql, s)
+            "streamed", f"sf{sf} {q} streamed", sql, s)
         pg = dict(eng.last_exec["paging"])
         if k1:
             raise AssertionError(f"streamed {q} launched kernel 1 {k1} "
@@ -2132,7 +2172,7 @@ def beyond_memory_phase(reps: int = 3) -> dict:
         if verdict != "resident":
             raise AssertionError(f"{q} at 64 GiB: {verdict}")
         res, first_ms, peak, k1 = paths.execute(
-            "resident", f"sf10 {q} resident", sql, s)
+            "resident", f"sf{sf} {q} resident", sql, s)
         if q == "q1" and k1 != 1:
             raise AssertionError(f"resident Q1 launched kernel 1 {k1} times")
         worst = same_result(f"{q} resident vs streamed", res, streamed[q])
@@ -2159,21 +2199,21 @@ def beyond_memory_phase(reps: int = 3) -> dict:
     ws = eng.working_set(SPILL_JOIN_Q, s)
     budget = ws["page_window"] + ws["builds"] * 3 // 8
     res_join, join_first_ms, join_peak, _ = paths.execute(
-        "spill_join_resident", "sf10 spill_join resident", SPILL_JOIN_Q, s)
+        "spill_join_resident", f"sf{sf} spill_join resident", SPILL_JOIN_Q, s)
     eng.drop_device_cache()
     eng.settings.set("sql.exec.hbm_budget_bytes", budget)
     p = eng.prepare(SPILL_JOIN_Q, s)
     if p.spill is None or p.spill.kind != "join" or p.spill.nparts < 4:
         raise AssertionError(f"spill join at {budget}: {p.spill}")
     spilled, spill_ms, spill_peak, _ = paths.run(
-        "spill_join", "sf10 spill_join", p.run)
+        "spill_join", f"sf{sf} spill_join", p.run)
     pg = dict(eng.last_exec["paging"])
     same_result("spill join vs resident", spilled, res_join)
     # the oracle: each order's priority as a code in sorted order (the
     # keys are dense 1..n), counted and summed over lineitem's rows
     prios = sorted(tpch.ORDER_PRIORITIES)
     lut = {v: i for i, v in enumerate(prios)}
-    opri = tpch.gen_orders(SF10)["o_orderpriority"]
+    opri = tpch.gen_orders(sf)["o_orderpriority"]
     code = np.fromiter((lut[v] for v in opri), dtype=np.int64,
                        count=len(opri))[li["l_orderkey"] - 1]
     want_join = [(k, int(c), float(r)) for k, c, r in zip(
@@ -2197,10 +2237,10 @@ def beyond_memory_phase(reps: int = 3) -> dict:
     if eng.stream_verdict(SPILL_SORT_Q, s_spill) != "spill-sort":
         raise AssertionError("the shipdate slice sort did not spill")
     res_sort, sort_ms, sort_peak, _ = paths.execute(
-        "spill_sort", "sf10 spill_sort", SPILL_SORT_Q, s_spill)
+        "spill_sort", f"sf{sf} spill_sort", SPILL_SORT_Q, s_spill)
     pg = dict(eng.last_exec["paging"])
     res_sort_res, sort_res_ms, sort_res_peak, _ = paths.execute(
-        "spill_sort_resident", "sf10 spill_sort resident", SPILL_SORT_Q, s)
+        "spill_sort_resident", f"sf{sf} spill_sort resident", SPILL_SORT_Q, s)
     same_result("spill sort vs resident", res_sort, res_sort_res)
     d0, d1 = tpch._days("1995-03-01"), tpch._days("1995-03-08")
     m = (li["l_shipdate"] >= d0) & (li["l_shipdate"] < d1)
@@ -2228,7 +2268,7 @@ def beyond_memory_phase(reps: int = 3) -> dict:
     p = eng.prepare(tpch.Q6, s)
     if p.stream is None:
         raise AssertionError("prepared Q6 did not stream at 1 GiB")
-    runs = [paths.run("prepared", f"sf10 prepared q6 run {i + 1}",
+    runs = [paths.run("prepared", f"sf{sf} prepared q6 run {i + 1}",
                       p.run)[0] for i in range(3)]
     for r in runs:
         same_result("prepared streamed Q6", r, streamed["q6"])
@@ -6685,6 +6725,937 @@ def pod_phase_alone(sf: float = SF, device: str = "cuda",
     return out
 
 
+ELASTIC_HOSTS = 3               # phase 21: hostd --elastic processes
+ELASTIC_NSHARDS = 8
+ELASTIC_REPEAT = 8
+ELASTIC_GAP = 0.25              # seconds between the founder's statements
+ELASTIC_QUERIES = ("groupby", "q6")
+# heartbeats every 0.25 s and 30 s of silence before a host is suspect:
+# SF1's generation (about 5 s) and kernel 1's runs hold the interpreter
+# that sends the beats, and no live host may be expelled
+ELASTIC_HEARTBEAT_S = 0.25
+ELASTIC_WINDOW_S = 30.0
+ELASTIC_TIMEOUT_S = 240
+ELASTIC_DRAIN_AFTER = 1.0       # host 1's drain timer (then it waits its cue)
+ELASTIC_JOIN_AT = 2             # cues: after the founder's 2nd GROUP BY run
+ELASTIC_DRAIN_AT = 4            # the joiner, after its 4th host 1's drain
+# the in-process kill: heartbeat window, flow idle timeout
+KILL_WINDOW_S = 2.0
+KILL_FLOW_TIMEOUT_S = 8.0
+
+
+def _elastic_cue(name: str) -> str:
+    return f"phase21/{name}"
+
+
+def _pump_until(pod, cond, what: str, timeout: float = 120.0) -> None:
+    """Serve this host's flows and lease work until ``cond()`` holds, as
+    hostd's serve loop does (new peers' addresses from the pod's KV, the
+    transport, the idle reconcile): a host waiting on the pod must go on
+    serving it."""
+    from cockroach_tpu_torch.parallel import multihost
+    deadline = time.monotonic() + timeout
+    t = pod.node.transport
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase 21: {what} within {timeout} s")
+        for sid, raw in multihost.kv_list("flowaddr/").items():
+            if int(sid) != pod.host_id and raw:
+                h, _, p = raw.rpartition(":")
+                t.connect(int(sid), (h, int(p)))
+        if not t.deliver_all():
+            if not pod.node._producing:
+                pod.maybe_reconcile()
+            time.sleep(0.005)
+
+
+def elastic_child_main() -> int:
+    """One host of phase 21's elastic pod: argv = server/hostd.py's
+    arguments (with --elastic). Runs hostd.main(argv) inside
+    recording_slots() with every count at 0, attributing each kernel
+    launch to the flow stage that made it (its query, epoch, and the
+    shards the host served), then holds every recorded kernel-1 launch
+    against the plain version at that host's inputs. Churn lands at
+    fixed points of the founder's statement loop: the founder posts a
+    cue after its ELASTIC_JOIN_AT-th and ELASTIC_DRAIN_AT-th GROUP BY
+    runs and waits (serving its flows) for the flip that follows each;
+    the joiner starts its join at the first cue, host 1 its drain at the
+    second. Prints one line tagged ELASTIC_CHECKS."""
+    import torch
+
+    from cockroach_tpu_torch.distsql import leases as L
+    from cockroach_tpu_torch.distsql import node as pnode
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.parallel import multihost
+    from cockroach_tpu_torch.server import hostd
+    t_start = time.time()
+    argv = sys.argv[1:]
+    on_card = "cpu" not in argv
+    hid = int(argv[argv.index("--process-id") + 1])
+    names = {tpch.Q6: "q6", hostd.GROUPBY_SQL: "groupby"}
+    flows: list = []
+    times: dict = {}
+    streamed = {"bytes": 0, "seconds": 0.0, "shards": 0}
+    setup = pnode.DistSQLNode._setup_flow
+    run = pnode.Gateway.run
+    fetch = L.fetch_shard
+    drain = L.ElasticPod.drain_pod
+    join = L.ElasticPod.join_pod
+    bootstrap = L.ElasticPod.bootstrap
+
+    def attributed(self, spec):
+        n1, n2 = _kernel_counts(on_card)
+        ran = self.flows_run
+        try:
+            return setup(self, spec)
+        finally:
+            m1, m2 = _kernel_counts(on_card)
+            pod = self.elastic
+            flows.append({
+                "query": names.get(spec.sql, spec.sql[:40]),
+                "epoch": spec.epoch, "ran": self.flows_run - ran,
+                "shards": len(pod.keeper.installed("lineitem"))
+                if pod is not None else 0,
+                "groupagg_large": m1 - n1, "groupagg": m2 - n2})
+
+    gb_runs = [0]
+
+    def cued_run(self, sql, *a, **kw):
+        pod = self.elastic
+        if sql == hostd.GROUPBY_SQL:
+            if gb_runs[0] == ELASTIC_JOIN_AT:
+                _pump_until(pod, lambda: 2 in pod.view().owners(
+                    "lineitem"), "the joiner's lease flip")
+            elif gb_runs[0] == ELASTIC_DRAIN_AT:
+                _pump_until(pod, lambda: 1 not in
+                            pod.membership.view().live, "host 1's drain")
+        out = run(self, sql, *a, **kw)
+        if sql == hostd.GROUPBY_SQL:
+            gb_runs[0] += 1
+            if gb_runs[0] == ELASTIC_JOIN_AT:
+                multihost.kv_set(_elastic_cue("join"), "1")
+            elif gb_runs[0] == ELASTIC_DRAIN_AT:
+                multihost.kv_set(_elastic_cue("drain"), "1")
+        return out
+
+    def timed_fetch(node, owner, table, sid, *a, **kw):
+        t0 = time.time()
+        out = fetch(node, owner, table, sid, *a, **kw)
+        streamed["seconds"] += time.time() - t0
+        streamed["bytes"] += sum(v.nbytes for v in out.values())
+        streamed["shards"] += 1
+        return out
+
+    def cued_join(self, *a, **kw):
+        _pump_until(self, lambda: multihost.kv_try_get(
+            _elastic_cue("join")) is not None, "the join cue")
+        t0 = time.time()
+        try:
+            return join(self, *a, **kw)
+        finally:
+            times["join_s"] = time.time() - t0
+            times["joined_at"] = time.time()
+
+    def cued_drain(self, *a, **kw):
+        _pump_until(self, lambda: multihost.kv_try_get(
+            _elastic_cue("drain")) is not None, "the drain cue")
+        t0 = time.time()
+        try:
+            return drain(self, *a, **kw)
+        finally:
+            times["drain_s"] = time.time() - t0
+
+    def timed_bootstrap(self, *a, **kw):
+        out = bootstrap(self, *a, **kw)
+        times["ready_at"] = time.time()
+        return out
+
+    pnode.DistSQLNode._setup_flow = attributed
+    pnode.Gateway.run = cued_run
+    L.fetch_shard = timed_fetch
+    L.ElasticPod.join_pod = cued_join
+    L.ElasticPod.drain_pod = cued_drain
+    L.ElasticPod.bootstrap = timed_bootstrap
+    from cockroach_tpu_torch.ops.cuda import groupagg as tg
+    from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
+    tgl.LAUNCHES = tg.LAUNCHES = 0
+    tgl.PLAIN_CALLS = tg.PLAIN_CALLS = 0
+    try:
+        with recording_slots() as calls:
+            rc = hostd.main(argv)
+            _sync()
+        launches = _kernel_counts(on_card)
+        checks = (check_calls(f"phase 21 host {hid}", calls, launches[0])
+                  if on_card and launches[0] else [])
+    finally:
+        pnode.DistSQLNode._setup_flow = setup
+        pnode.Gateway.run = run
+        L.fetch_shard = fetch
+        L.ElasticPod.join_pod = join
+        L.ElasticPod.drain_pod = drain
+        L.ElasticPod.bootstrap = bootstrap
+    out = {"rc": rc, "host": hid, "started_at": t_start,
+           "times": times, "flows": flows, "streamed": streamed,
+           "launches": {"groupagg_large": launches[0],
+                        "groupagg": launches[1]},
+           "checks": checks,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated()
+           if on_card and torch.cuda.is_available() else None,
+           "seconds": time.time() - t_start}
+    print("ELASTIC_CHECKS " + json.dumps(out), flush=True)
+    return rc
+
+
+def _elastic_flow_checks(hosts: dict) -> int:
+    """Each host's flows: a GROUP BY stage that ran over installed shards
+    launched kernel 1 once, any other stage (Q6, an empty host's, a
+    refused one) none, and kernel 2 never. Returns the kernel-1 launches
+    the flows account for."""
+    total = 0
+    for hid, h in hosts.items():
+        for f in h["flows"]:
+            want = 1 if (f["query"] == "groupby" and f["ran"]
+                         and f["shards"]) else 0
+            if f["groupagg_large"] != want or f["groupagg"]:
+                raise AssertionError(f"phase 21 host {hid} flow {f}: "
+                                     f"kernel 1 {want} time(s) wanted")
+            total += want
+        if h["launches"]["groupagg_large"] != sum(
+                f["groupagg_large"] for f in h["flows"]):
+            raise AssertionError(f"phase 21 host {hid}: launches outside "
+                                 f"its flows {h['launches']}")
+    return total
+
+
+def elastic_kill(src, li_enc: dict, part: dict, device: str = "cuda",
+                 nshards: int = ELASTIC_NSHARDS) -> dict:
+    """Phase 21's in-process kill: three ElasticPods over in-process
+    SocketTransports (a pump thread each for hosts 1 and 2), each a port
+    Engine on ``device`` holding its share of lineitem (``li_enc``, the
+    encoded generator columns) in ``nshards`` shards; host 2 is killed
+    just before the gateway's first transport pump of a GROUP BY (the
+    reference's test_kill_mid_scan hook): its heartbeats stop and every
+    link to it is cut. The statement must come back through the
+    failover rung with ``src``'s rows, the lease table must place every
+    shard once on a survivor, and kernel 1 must launch once per
+    survivor's stage, each launch held against its plain version."""
+    import threading
+
+    from cockroach_tpu_torch.distsql import leases as L
+    from cockroach_tpu_torch.distsql.node import DistSQLNode, Gateway
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.parallel import multihost
+    from cockroach_tpu_torch.rpc.context import SocketTransport
+    from cockroach_tpu_torch.server.hostd import GROUPBY_SQL, _jsonable
+    from cockroach_tpu_torch.storage.hlc import Timestamp
+    on_card = device == "cuda"
+    n = len(li_enc["l_orderkey"])
+
+    def recover(table, sid):
+        lo, hi = sid * n // nshards, (sid + 1) * n // nshards
+        return {k: v[lo:hi] for k, v in li_enc.items()}
+
+    multihost.init_distributed(num_processes=1)
+    transports = [SocketTransport(i) for i in range(3)]
+    for a in transports:
+        for b in transports:
+            if a is not b:
+                a.connect(b.node_id, b.addr)
+    stop = threading.Event()
+
+    def pump(t):
+        while not stop.is_set():
+            if not t.deliver_all():
+                time.sleep(0.0005)
+
+    engines, pods = [], []
+    t0 = time.perf_counter()
+    try:
+        for hid in range(3):
+            eng = Engine(device=None if on_card else device)
+            eng.execute(tpch.DDL["lineitem"])
+            eng.execute(tpch.DDL["part"])
+            eng.store.insert_columns("part", part, Timestamp(1, 0))
+            engines.append(eng)
+            node = DistSQLNode(hid, eng, transports[hid])
+            mem = multihost.Membership(hid, f"h{hid}", metrics=eng.metrics,
+                                       heartbeat_interval=0.05,
+                                       liveness_window=KILL_WINDOW_S)
+            keeper = L.ShardKeeper(eng)
+            keeper.register_table("lineitem", tpch.DDL["lineitem"],
+                                  dictionaries=tpch.LINEITEM_DICTS)
+            pods.append(L.ElasticPod(hid, mem, L.ShardLeases(
+                mem, metrics=eng.metrics), keeper, node=node,
+                recover=recover))
+            mem.join()
+            mem.start_heartbeat()
+        for p in pods:
+            p.bootstrap("lineitem", tpch.DDL["lineitem"], nshards,
+                        [0, 1, 2])
+        threads = [threading.Thread(target=pump, args=(t,), daemon=True)
+                   for t in transports[1:]]
+        for th in threads:
+            th.start()
+        gw = Gateway(pods[0].node, [0, 1, 2], replicated_tables={"part"},
+                     flow_timeout=KILL_FLOW_TIMEOUT_S, elastic=pods[0])
+        setup_s = time.perf_counter() - t0
+        want = [[_jsonable(v) for v in r]
+                for r in src.execute(GROUPBY_SQL).rows]
+        warm = [[_jsonable(v) for v in r] for r in gw.run(GROUPBY_SQL).rows]
+        if warm != want:
+            raise AssertionError(f"phase 21 kill, before: {warm} != {want}")
+        owners_before = sorted(pods[0].view().owners("lineitem"))
+        gate = transports[0]
+        deliver = gate.deliver_all
+        fired = []
+
+        def kill():
+            pods[2].membership.stop_heartbeat()
+            for t in transports[:2]:
+                t.partition(2)
+            transports[2].partition(0, 1)
+
+        def hooked():
+            if not fired:
+                fired.append(time.perf_counter())
+                kill()
+            return deliver()
+
+        gate.deliver_all = hooked
+        _counts_zero()
+        with recording_slots() as calls:
+            t1 = time.perf_counter()
+            try:
+                got = gw.run(GROUPBY_SQL)
+            finally:
+                gate.deliver_all = deliver
+            _sync()
+            failover_s = time.perf_counter() - t1
+        launches = _kernel_counts(on_card)[0]
+        checks = (check_calls("phase 21 kill", calls, launches)
+                  if on_card else [])
+        rows = [[_jsonable(v) for v in r] for r in got.rows]
+        if rows != want:
+            raise AssertionError(f"phase 21 kill: {rows} != the SF1 "
+                                 f"engine's {want}")
+        snap = engines[0].metrics.snapshot()
+        if snap.get("distsql.degrade.failover", 0) < 1:
+            raise AssertionError("phase 21 kill: no failover rung")
+        view = pods[0].view()
+        asg = view.assignment("lineitem")
+        if sorted(asg) != list(range(nshards)) or \
+                set(asg.values()) - {0, 1}:
+            raise AssertionError(f"phase 21 kill: leases {asg}")
+        served = {}
+        for p in pods[:2]:
+            p.maybe_reconcile()
+            for s in p.keeper.installed("lineitem"):
+                if s in served:
+                    raise AssertionError(f"phase 21 kill: shard {s} on "
+                                         "two hosts")
+                served[s] = p.host_id
+        if served != asg:
+            raise AssertionError(f"phase 21 kill: engines {served} != "
+                                 f"leases {asg}")
+        # the first attempt launches on the hosts whose stage ran before
+        # the loss was found (the victim's too: its pump thread is in
+        # this process), the replan once on each survivor
+        if not 2 <= launches <= 6:
+            raise AssertionError(f"phase 21 kill: {launches} kernel-1 "
+                                 "launches")
+        return {"setup_s": setup_s, "failover_s": failover_s,
+                "owners_before": owners_before,
+                "owners_after": sorted(set(asg.values())),
+                "failovers": snap.get("distsql.degrade.failover", 0),
+                "lease_failovers": sum(
+                    e.metrics.snapshot().get("exec.lease.failovers", 0)
+                    for e in engines),
+                "partials_reused": snap.get(
+                    "distsql.failover.partials_reused", 0),
+                "launches": launches, "checks": checks}
+    finally:
+        stop.set()
+        for p in pods:
+            p.membership.stop_heartbeat()
+        for t in transports:
+            t.close()
+        for e in engines:
+            e.close()
+        multihost.shutdown_distributed()
+
+
+def elastic_phase(src, want: dict, li_enc: dict, part: dict,
+                  sf: float = SF, rows: int | None = None,
+                  device: str = "cuda") -> dict:
+    """Phase 21: the elastic pod at ``sf`` (the shape of the reference's
+    test_late_join_mid_statement_loop). Three server/hostd.py --elastic
+    processes on the one card, each through elastic_child_main: host 0
+    founds the pod (--initial-hosts 2), host 1 is a founding member that
+    drains part-way, host 2 joins the running pod (--late-join) and
+    streams its shards from their live owners before the flip; all with
+    --sf, --nshards 8, --queries groupby,q6, --repeat 8,
+    --statement-gap 0.25 and the heartbeat settings above. Every GROUP
+    BY run must equal ``src``'s rows (the SF1 engine) bit for bit and
+    the numpy Q1 oracle's sums and counts, every Q6 run ``src``'s and
+    the oracle's within rel 1e-9, both consistent; at least three epochs
+    are seen; kernel 1 launches once in each GROUP BY stage a host runs
+    over installed shards and never for Q6, each launch held against its
+    plain version; leases moved and shard bytes were streamed. Then the
+    in-process kill (elastic_kill). Returns the `elastic` line's
+    numbers."""
+    import os
+    import tempfile
+
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.server.hostd import GROUPBY_SQL, _jsonable
+    t_start = time.perf_counter()
+    on_card = device == "cuda"
+    out: dict = {"card": _smi() if on_card else "cpu", "sf": sf,
+                 "hosts": ELASTIC_HOSTS, "nshards": ELASTIC_NSHARDS,
+                 "repeat": ELASTIC_REPEAT, "statement_gap": ELASTIC_GAP,
+                 "heartbeat_interval_s": ELASTIC_HEARTBEAT_S,
+                 "liveness_window_s": ELASTIC_WINDOW_S}
+    print("phase 21 heartbeats: every "
+          f"{ELASTIC_HEARTBEAT_S} s, liveness window {ELASTIC_WINDOW_S} s",
+          flush=True)
+    addr_file = os.path.join(tempfile.mkdtemp(), "kv_addr")
+    base = [sys.executable, "-c", "import sys, chip_smoke; "
+            "sys.exit(chip_smoke.elastic_child_main())",
+            "--elastic", "--device", device, "--sf", str(sf),
+            "--nshards", str(ELASTIC_NSHARDS),
+            "--queries", ",".join(ELASTIC_QUERIES),
+            "--repeat", str(ELASTIC_REPEAT),
+            "--statement-gap", str(ELASTIC_GAP),
+            "--flow-timeout", "120",
+            "--heartbeat-interval", str(ELASTIC_HEARTBEAT_S),
+            "--liveness-window", str(ELASTIC_WINDOW_S)] + (
+        ["--rows", str(rows)] if rows is not None else [])
+    env = dict(os.environ, TORCH_CPP_LOG_LEVEL="ERROR")
+    spawned_at = time.time()
+    procs = {0: subprocess.Popen(
+        base + ["--process-id", "0", "--kv-addr-file", addr_file,
+                "--initial-hosts", "2"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)}
+    results = {}
+    try:
+        deadline = time.time() + ELASTIC_TIMEOUT_S
+        while not (os.path.exists(addr_file)
+                   and open(addr_file).read().strip()):
+            if procs[0].poll() is not None:
+                raise AssertionError("phase 21: the founder exited "
+                                     f"{procs[0].returncode}:\n"
+                                     f"{procs[0].stderr.read()[-4000:]}")
+            if time.time() > deadline:
+                raise AssertionError("phase 21: no coordinator address")
+            time.sleep(0.05)
+        addr = open(addr_file).read().strip()
+        procs[1] = subprocess.Popen(
+            base + ["--process-id", "1", "--kv-addr", addr,
+                    "--drain-after", str(ELASTIC_DRAIN_AFTER)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        procs[2] = subprocess.Popen(
+            base + ["--process-id", "2", "--kv-addr", addr, "--late-join"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        for hid, proc in procs.items():
+            left = max(1.0, deadline - time.time())
+            try:
+                so, se = proc.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"phase 21: host {hid} did not end "
+                                     f"within {ELASTIC_TIMEOUT_S} s")
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 21: host {hid} exited "
+                                     f"{proc.returncode}:\n{so[-3000:]}\n"
+                                     f"{se[-4000:]}")
+            results[hid] = so
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["wall_s"] = time.time() - spawned_at
+    pod = json.loads(next(ln for ln in reversed(results[0].splitlines())
+                          if ln.startswith("{")))
+    hosts = {hid: json.loads(next(
+        ln for ln in so.splitlines() if ln.startswith("ELASTIC_CHECKS "))
+        [len("ELASTIC_CHECKS "):]) for hid, so in results.items()}
+
+    # rows: every run against the SF1 engine and the numpy oracles
+    res = pod["results"]
+    for q in ELASTIC_QUERIES:
+        if "error" in res[q]:
+            raise AssertionError(f"phase 21 {q}: {res[q]['error']}")
+        if not res[q]["consistent"]:
+            raise AssertionError(f"phase 21 {q}: runs disagreed")
+    want_gb = [[_jsonable(v) for v in r]
+               for r in src.execute(GROUPBY_SQL).rows]
+    if res["groupby"]["rows"] != want_gb:
+        raise AssertionError(f"phase 21 groupby: {res['groupby']['rows']} "
+                             f"!= the SF1 engine's {want_gb}")
+    for g_row, w_row in zip(res["groupby"]["rows"], want["q1"]):
+        if tuple(g_row[:2]) != tuple(w_row[:2]) or g_row[4] != w_row[9] \
+                or not _close(float(g_row[2]), float(w_row[2]), 1e-9) \
+                or not _close(float(g_row[3]), float(w_row[3]), 1e-9):
+            raise AssertionError(f"phase 21 groupby {g_row} != numpy "
+                                 f"{w_row}")
+    got6, mine6 = res["q6"]["rows"][0][0], src.execute(tpch.Q6).rows[0][0]
+    if not _close(float(got6), float(mine6), 1e-9) or \
+            not _close(float(got6), want["q6"], 1e-9):
+        raise AssertionError(f"phase 21 q6: {got6} != {mine6} or "
+                             f"{want['q6']}")
+    out["q6_rel_err_vs_engine"] = abs(float(got6) - float(mine6)) / max(
+        abs(float(mine6)), 1e-300)
+
+    # epochs, launches, leases, streaming
+    runs = pod["runs"]
+    epochs = sorted({r["epoch_before"] for r in runs}
+                    | {r["epoch_after"] for r in runs})
+    if len(epochs) < 3:
+        raise AssertionError(f"phase 21: epochs seen {epochs}")
+    launches = _elastic_flow_checks(hosts)
+    if launches < ELASTIC_REPEAT:
+        raise AssertionError(f"phase 21: {launches} kernel-1 launches")
+    if on_card:
+        for hid, h in hosts.items():
+            if len(h["checks"]) != h["launches"]["groupagg_large"]:
+                raise AssertionError(f"phase 21 host {hid}: checks")
+    metrics = pod["metrics"]
+    moves = sum((m or {}).get("exec.lease.moves", 0)
+                for m in metrics.values())
+    sent = sum((m or {}).get("exec.movement.rebalance.bytes", 0)
+               for m in metrics.values())
+    streamed = hosts[2]["streamed"]
+    if moves <= 0 or sent <= 0 or streamed["bytes"] <= 0:
+        raise AssertionError(f"phase 21: lease moves {moves}, rebalance "
+                             f"bytes {sent}, streamed {streamed}")
+    flips, prev = [], None
+    for r in runs:
+        if prev is not None and r["epoch_before"] != prev:
+            flips.append({"query": r["query"], "epoch": r["epoch_before"],
+                          "owners": r["owners_before"],
+                          "seconds": r["seconds"]})
+        prev = r["epoch_after"]
+    mb = pod["membership"]
+    if not mb.get("elastic") or 1 in mb["live"] or 2 not in mb["live"]:
+        raise AssertionError(f"phase 21 membership: {mb}")
+
+    # the in-process kill, at the same scale
+    t0 = time.perf_counter()
+    kill = elastic_kill(src, li_enc, part, device)
+    kill["seconds"] = time.perf_counter() - t0
+    out.update(
+        queries={q: {"first_s": pod["timings"][q]["first_s"],
+                     "best_s": pod["timings"][q]["elapsed_s"]}
+                 for q in ELASTIC_QUERIES},
+        first_run_after_flip=flips, epochs=epochs,
+        lease_moves=moves, rebalance_bytes_sent=sent,
+        streamed_to_joiner=streamed,
+        failovers=kill["failovers"],
+        startup={str(hid): {
+            "spawn_to_ready_s": (h["times"].get("ready_at")
+                                 or h["times"].get("joined_at")
+                                 or h["started_at"]) - spawned_at,
+            "interpreter_s": h["started_at"] - spawned_at,
+            "join_s": h["times"].get("join_s"),
+            "drain_s": h["times"].get("drain_s")}
+            for hid, h in hosts.items()},
+        peak_allocated_bytes={str(hid): h["peak_allocated_bytes"]
+                              for hid, h in hosts.items()},
+        launches={str(hid): h["launches"] for hid, h in hosts.items()},
+        membership=mb, kill={k: v for k, v in kill.items()
+                             if k != "checks"},
+        metrics=metrics, seconds=time.perf_counter() - t_start)
+    out["path_checks"] = {f"sf{sf:g} elastic host {hid} phase 21": h["checks"]
+                          for hid, h in hosts.items() if h["checks"]}
+    if kill["checks"]:
+        out["path_checks"][f"sf{sf:g} elastic kill phase 21"] = \
+            kill["checks"]
+    out["kernel1_launches"] = launches + kill["launches"]
+    print("phase 21: " + json.dumps({k: v for k, v in out.items()
+                                     if k not in ("path_checks",
+                                                  "metrics")}), flush=True)
+    return out
+
+
+def elastic_phase_alone(sf: float = SF, device: str = "cuda",
+                        rows: int | None = None) -> dict:
+    """Phase 21 by itself: builds the kernels, resolves the gate and the
+    launch point under a fresh cache root, loads lineitem and part at
+    `sf` into one engine (the comparison), then runs the elastic pod
+    and the in-process kill and prints the `elastic` line.
+    ``device="cpu"`` with a small `sf` and `rows` rehearses it on the
+    CPU (plain-version calls stand for launches; no kernel checks)."""
+    import numpy as np
+
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.ops.cuda import build
+    with cache_root():
+        if device == "cuda":
+            build.compile_all(["groupagg_large", "groupagg"])
+        kernel_infra(device)
+        src = Engine(device=None if device == "cuda" else device)
+        tpch.load(src, sf=sf, tables=("lineitem", "part"), encoded=True,
+                  rows=rows)
+        li = tpch.gen_lineitem(sf, encoded=True, rows=rows)
+        enc = dict(li)
+        for c, vals in (("l_returnflag", tpch.RF_VALUES),
+                        ("l_linestatus", tpch.LS_VALUES)):
+            li[c] = np.asarray(vals)[li[c]]
+        part = tpch.gen_part(sf)
+        want = {"q1": ref_q1_codes(enc), "q6": tpch.ref_q6(li)}
+        out = elastic_phase(src, want, enc, part, sf, rows, device)
+        src.close()
+    out["path_checks"] = len(out["path_checks"])
+    print(json.dumps({"elastic": out}), flush=True)
+    return out
+
+
+# phase 22: SQL on raft-replicated ranges. Raft is host code whose cost
+# per write grows with the range's log (each proposal is sent once per
+# append stream still in flight to a follower), about 80 rows/s at 300
+# rows a range on this repo's CPU measurements, so the load through SQL
+# is cut to RANGE_ROWS lineitem rows in RANGE_PIECES ranges and the first
+# RANGE_PARTS parts in two; Q1 and Q1F run under pallas_groupagg = on,
+# the kernels' route at any row count
+RANGE_ROWS = 1_200
+RANGE_PIECES = 4
+RANGE_PARTS = 300
+RANGE_BATCH = 1_000
+RANGE_REPS = 5
+
+
+def _sql_lit(v):
+    import numpy as np
+    if isinstance(v, (str, np.str_)):
+        return "'" + str(v).replace("'", "''") + "'"
+    if isinstance(v, (float, np.floating)):
+        return repr(float(v))
+    return str(int(v))
+
+
+def _insert_sql(table: str, cols: dict, lo: int, hi: int) -> str:
+    names = list(cols)
+    return (f"INSERT INTO {table} ({', '.join(names)}) VALUES "
+            + ", ".join("(" + ", ".join(_sql_lit(cols[c][i])
+                                        for c in names) + ")"
+                        for i in range(lo, hi)))
+
+
+def range_tables(rows: int = RANGE_ROWS, parts: int = RANGE_PARTS,
+                 sf: float = 0.01) -> tuple:
+    """Phase 22's rows: lineitem's first ``rows`` and part's first
+    ``parts`` from the sf 0.01 generators, as numpy columns (for the
+    oracles) and as SQL literal columns (dates as ISO strings)."""
+    import datetime
+
+    from cockroach_tpu_torch.models import tpch
+    li = tpch.gen_lineitem(sf, rows=rows)
+    part = {k: v[:parts] for k, v in tpch.gen_part(sf).items()}
+    epoch = datetime.date(1970, 1, 1)
+    li_sql = dict(li)
+    for c in ("l_shipdate", "l_commitdate", "l_receiptdate"):
+        li_sql[c] = [str(epoch + datetime.timedelta(days=int(d)))
+                     for d in li[c]]
+    return li, part, li_sql
+
+
+def _ranges_q(run, label, on_card, kernels) -> tuple:
+    """(Result, wall s, kernel-1 checks, kernel-2 checks) of ``run()``,
+    one statement, with every count at 0 just before it; ``kernels`` is
+    the (large, small) launch count it must make."""
+    _counts_zero()
+    t0 = time.perf_counter()
+    with recording_slots() as calls, recording_small() as scalls:
+        res = run()
+        _sync()
+    dt = time.perf_counter() - t0
+    n1, n2 = _kernel_counts(on_card)
+    if (n1, n2) != tuple(kernels):
+        raise AssertionError(f"phase 22 {label}: kernels {(n1, n2)}, "
+                             f"want {kernels}")
+    c1 = check_calls(f"phase 22 {label}", calls, n1) \
+        if on_card and n1 else []
+    c2 = _check_small_calls(f"phase 22 {label}", scalls, n2) \
+        if on_card and n2 else []
+    return res, dt, c1, c2
+
+
+def ranges_phase(device: str = "cuda", rows: int = RANGE_ROWS,
+                 parts: int = RANGE_PARTS) -> dict:
+    """Phase 22: SQL on ranges. A 3-node kvserver.Cluster; gateway A, an
+    Engine(cluster=c) on the card, creates lineitem and part, the
+    lineitem span is split in RANGE_PIECES ranges by rowid and part's in
+    two, and A INSERTs the rows in statements of RANGE_BATCH (the load's
+    rows/s printed); a local port engine L gets the same statements.
+    Through A, under pallas_groupagg = on: Q1 (kernel 1 once, held
+    against its plain version) equals L's (DECIMAL sums bit for bit,
+    AVGs within rel 1e-9) and the numpy oracle; Q6 and Q14 (no kernel)
+    equal L's and the oracles within rel 1e-9. An UPDATE through A is
+    seen by Q1 on a second gateway B (the generation token), and B's AS
+    OF SYSTEM TIME read from before it equals A's first Q1. After
+    stop_node of one lineitem range's leaseholder, Q1 on a fresh gateway
+    C has every committed row. Then the leaseholder-partitioned flow:
+    DistSQLNodes 1-3 (one per cluster node, port engines on the card)
+    and gateway node 0 with Gateway(cluster=c): Q1 and Q1F (under `on`)
+    and Q14 equal A's rows, kernel 1 launching once per node holding
+    lineitem spans for Q1 and kernel 2 once per such node for Q1F, each
+    held against its plain version; after transfer_lease of one range
+    the partition still covers the table and Q1 still equals. A
+    Node(cluster=c) lists every range with its leaseholder at
+    /_debug/ranges. Medians of RANGE_REPS warm Q1 runs on A paired with
+    L (device busy ms, host ms, idle share). Returns the `ranges` line's
+    numbers, with "launches" and "path_checks"."""
+    import urllib.request
+
+    import numpy as np
+
+    from cockroach_tpu_torch.distsql.node import DistSQLNode, Gateway
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.kv.rowfetch import RangeTable
+    from cockroach_tpu_torch.kvserver.cluster import Cluster
+    from cockroach_tpu_torch.kvserver.transport import LocalTransport
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.server import Node, NodeConfig
+    from cockroach_tpu_torch.sql.rowenc import RowCodec
+    t_start = time.perf_counter()
+    on_card = device == "cuda"
+    dev = None if on_card else device
+    out: dict = {"card": _smi() if on_card else "cpu", "rows": rows,
+                 "parts": parts, "ranges_of_lineitem": RANGE_PIECES,
+                 "batch": RANGE_BATCH}
+    launches = {"groupagg_large": 0, "groupagg": 0}
+    checks1: dict = {}
+    checks2: dict = {}
+    li, part, li_sql = range_tables(rows, parts)
+    want_q1 = tpch.ref_q1(li)
+    # Q14 joins the parts loaded: its oracle sees the lineitem rows whose
+    # part is among them
+    joined = np.isin(li["l_partkey"], part["p_partkey"])
+    want_q6 = tpch.ref_q6(li)
+    want_q14 = tpch.ref_q14({k: v[joined] for k, v in li.items()}, part)
+
+    c = Cluster(n_nodes=3)
+    c.create_range(b"\x00", b"\xff")
+    c.pump_until(lambda: c.leaseholder(1) is not None)
+    a, local = Engine(cluster=c, device=dev), Engine(device=dev)
+    for e in (a, local):
+        e.execute(tpch.DDL["lineitem"])
+        e.execute(tpch.DDL["part"])
+    li_codec = RowCodec(a.store.table("lineitem").schema)
+    p_codec = RowCodec(a.store.table("part").schema)
+    for k in range(1, RANGE_PIECES):
+        c.split_range(li_codec.key_from_pk((rows * k // RANGE_PIECES,)))
+    c.split_range(p_codec.key_from_pk((int(part["p_partkey"][parts // 2]),)))
+    c.pump(10)
+    stmts = [_insert_sql("lineitem", li_sql, lo, min(rows, lo + RANGE_BATCH))
+             for lo in range(0, rows, RANGE_BATCH)]
+    stmts += [_insert_sql("part", part, lo, min(parts, lo + RANGE_BATCH))
+              for lo in range(0, parts, RANGE_BATCH)]
+    t0 = time.perf_counter()
+    for sql in stmts:
+        a.execute(sql)
+    load_s = time.perf_counter() - t0
+    for sql in stmts:
+        local.execute(sql)
+    out.update(load_s=load_s, load_rows_per_s=(rows + parts) / load_s,
+               ranges=len(c.descriptors))
+    print(f"phase 22 load: {rows + parts} rows through raft in "
+          f"{load_s:.1f} s ({(rows + parts) / load_s:.1f} rows/s), "
+          f"{len(c.descriptors)} ranges", flush=True)
+
+    def on(eng):
+        s = eng.session()
+        eng.execute("SET pallas_groupagg = on", s)
+        return s
+
+    sa, sl = on(a), on(local)
+    rows_of = {}
+    for q, sql, kern in (("q1", tpch.Q1, (1, 0)), ("q6", tpch.Q6, (0, 0)),
+                         ("q14", tpch.Q14, (0, 0))):
+        got, dt, k1, _k2 = _ranges_q(lambda: a.execute(sql, sa), f"A {q}",
+                                     on_card, kern)
+        launches["groupagg_large"] += kern[0]
+        if k1:
+            checks1[f"sf0.01 ranges A {q} phase 22"] = k1
+        mine = local.execute(sql, sl)
+        same_result(f"phase 22 A {q}", got, mine)
+        rows_of[q] = got
+        out.setdefault("first_s", {})[q] = dt
+    check_q1(rows_of["q1"].rows, want_q1)
+    for q, w in (("q6", want_q6), ("q14", want_q14)):
+        if not _close(rows_of[q].rows[0][0], w, 1e-9):
+            raise AssertionError(f"phase 22 {q}: {rows_of[q].rows} != {w}")
+
+    # an UPDATE through A seen on B through the generation token
+    b = Engine(cluster=c, device=dev)
+    sb = on(b)
+    before = a.clock.now().wall
+    upd = ("UPDATE lineitem SET l_quantity = l_quantity + 1 "
+           f"WHERE l_orderkey <= {int(li['l_orderkey'][rows // 10])}")
+    a.execute(upd)
+    local.execute(upd)
+    got_b, _dt, k1, _ = _ranges_q(lambda: b.execute(tpch.Q1, sb), "B q1",
+                                  on_card, (1, 0))
+    launches["groupagg_large"] += 1
+    checks1["sf0.01 ranges B q1 phase 22"] = k1
+    after_l = local.execute(tpch.Q1, sl)
+    same_result("phase 22 B q1 after the UPDATE", got_b, after_l)
+    if got_b.rows == rows_of["q1"].rows:
+        raise AssertionError("phase 22: B did not see A's UPDATE")
+    got_asof, _dt, k1, _ = _ranges_q(
+        lambda: b.execute(_as_of(tpch.Q1, before), sb), "B q1 as of",
+        on_card, (1, 0))
+    launches["groupagg_large"] += 1
+    checks1["sf0.01 ranges B q1 as-of phase 22"] = k1
+    same_result("phase 22 B q1 AS OF before the UPDATE", got_asof,
+                rows_of["q1"])
+
+    # a lineitem range's leaseholder stops; a fresh gateway C
+    rt_li = RangeTable(c, a.store.table("lineitem").schema)
+    victim = c.leaseholder(c.range_for_key(rt_li.codec.span()[0] + b"\x01")
+                           .range_id)
+    c.stop_node(victim)
+    c.pump(c.liveness.ttl + 2)
+    cc = Engine(cluster=c, device=dev)
+    sc = on(cc)
+    got_c, _dt, k1, _ = _ranges_q(lambda: cc.execute(tpch.Q1, sc), "C q1",
+                                  on_card, (1, 0))
+    launches["groupagg_large"] += 1
+    checks1["sf0.01 ranges C q1 phase 22"] = k1
+    same_result("phase 22 C q1 after stop_node", got_c, after_l)
+    c.restart_node(victim)
+    c.pump(20)
+    out["stopped_node"] = victim
+
+    # the leaseholder-partitioned flow
+    transport = LocalTransport()
+    nodes = []
+    for i in range(4):
+        e = Engine(device=dev)
+        e.execute(tpch.DDL["lineitem"])
+        e.execute(tpch.DDL["part"])
+        nodes.append(DistSQLNode(i, e, transport, cluster=c))
+    li_ranges = [d for d in sorted(c.descriptors.values(),
+                                   key=lambda d: d.start_key)
+                 if d.start_key < rt_li.codec.span()[1]
+                 and d.end_key > rt_li.codec.span()[0]]
+    for i, d in enumerate(li_ranges):
+        want_lh = d.replicas[i % len(d.replicas)]
+        if c.leaseholder(d.range_id) != want_lh:
+            c.transfer_lease(d.range_id, want_lh)
+    c.pump(10)
+    gw = Gateway(nodes[0], [1, 2, 3], cluster=c)
+    sg = nodes[0].engine.session()
+    nodes[0].engine.execute("SET pallas_groupagg = on", sg)
+    holders = sorted(n for n, p in rt_li.partition_spans().items() if p)
+    nh = len(holders)
+    flows = {}
+    for q, sql, kern, ref in (("q1", tpch.Q1, (nh, 0), rows_of["q1"]),
+                              ("q14", tpch.Q14, (0, 0), None),
+                              ("q1f", tpch.Q1F, (0, nh), None)):
+        got, dt, k1, k2 = _ranges_q(lambda: gw.run(sql, session=sg),
+                                    f"flow {q}", on_card, kern)
+        launches["groupagg_large"] += kern[0]
+        launches["groupagg"] += kern[1]
+        if k1:
+            checks1[f"sf0.01 ranges flow {q} phase 22"] = k1
+        if k2:
+            checks2[f"ranges flow {q} phase 22"] = k2
+        mine = a.execute(sql, sa)
+        same_result(f"phase 22 flow {q}", got, mine,
+                    rel=1e-5 if q == "q1f" else 1e-9)
+        flows[q] = {"first_s": dt, "nodes_with_spans": nh}
+    moved = li_ranges[0]
+    to = next(n for n in moved.replicas if n != c.leaseholder(
+        moved.range_id))
+    c.transfer_lease(moved.range_id, to)
+    c.pump(10)
+    parts_after = rt_li.partition_spans()
+    covered = sorted(p for ps in parts_after.values() for p in ps)
+    lo, hi = rt_li.codec.span()
+    if covered[0][0] != lo or covered[-1][1] != hi or any(
+            x[1] != y[0] for x, y in zip(covered, covered[1:])):
+        raise AssertionError(f"phase 22: spans {covered} do not tile "
+                             "lineitem")
+    nh2 = sum(1 for p in parts_after.values() if p)
+    got, _dt, k1, _ = _ranges_q(lambda: gw.run(tpch.Q1, session=sg),
+                                "flow q1 after transfer", on_card, (nh2, 0))
+    launches["groupagg_large"] += nh2
+    if k1:
+        checks1["sf0.01 ranges flow q1 after transfer phase 22"] = k1
+    same_result("phase 22 flow q1 after transfer_lease", got, after_l)
+    flows["after_transfer"] = {"nodes_with_spans": nh2,
+                               "moved_range": moved.range_id, "to": to}
+
+    # /_debug/ranges
+    node = Node(NodeConfig(cluster=c, device=dev, listen_port=0)).start()
+    try:
+        body = json.loads(urllib.request.urlopen(
+            "http://%s:%d/_debug/ranges" % node.http_addr,
+            timeout=10).read())
+    finally:
+        node.stop()
+    if len(body["ranges"]) < RANGE_PIECES or any(
+            r["leaseholder"] is None for r in body["ranges"]):
+        raise AssertionError(f"phase 22 /_debug/ranges: {body}")
+
+    # warm Q1 pairs: A against L (device busy times on the card only)
+    pairs = {"A": [], "local": []}
+    for _ in range(RANGE_REPS):
+        for k, e, s in (("A", a, sa), ("local", local, sl)):
+            def q1(e=e, s=s):
+                e.execute(tpch.Q1, s)
+            if on_card:
+                pairs[k].append(_profiled(q1))
+            else:
+                t0 = time.perf_counter()
+                q1()
+                pairs[k].append({"wall_ms": (time.perf_counter() - t0)
+                                 * 1e3, "busy_ms": None})
+    warm = {}
+    for k, runs in pairs.items():
+        med = statistics.median(r["wall_ms"] for r in runs)
+        warm[k] = {"median_ms": med}
+        if on_card:
+            busy = statistics.median(r["busy_ms"] for r in runs)
+            warm[k].update(busy_ms=busy, host_ms=med - busy,
+                           idle_share=max(0.0, 1.0 - busy / med))
+    for e in [a, b, cc, local] + [n.engine for n in nodes]:
+        e.close()
+    out.update(queries=out.pop("first_s"), flows=flows,
+               debug_ranges=len(body["ranges"]), warm_q1=warm,
+               launches=launches, seconds=time.perf_counter() - t_start)
+    out["path_checks"] = checks1
+    out["small_checks"] = checks2
+    print("phase 22: " + json.dumps({k: v for k, v in out.items()
+                                     if k not in ("path_checks",
+                                                  "small_checks")}),
+          flush=True)
+    return out
+
+
+def ranges_phase_alone(device: str = "cuda", rows: int = RANGE_ROWS,
+                       parts: int = RANGE_PARTS) -> dict:
+    """Phase 22 by itself: builds the kernels, resolves the gate and the
+    launch point under a fresh cache root, and runs it (``device="cpu"``
+    rehearses it on the CPU: plain-version calls stand for launches, no
+    kernel checks)."""
+    from cockroach_tpu_torch.ops.cuda import build
+    with cache_root():
+        if device == "cuda":
+            build.compile_all(["groupagg_large", "groupagg"])
+        kernel_infra(device)
+        out = ranges_phase(device, rows, parts)
+    out["path_checks"] = len(out["path_checks"])
+    out["small_checks"] = len(out["small_checks"])
+    print(json.dumps({"ranges": out}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6713,7 +7684,7 @@ def _main(opts) -> int:
 
     # -- 10. beyond memory at SF10 ---------------------------------------------
     t0 = time.perf_counter()
-    stream = beyond_memory_phase(reps=1)
+    stream = beyond_memory_phase(reps=1, sf=WHOLE_RUN_BEYOND_SF)
     kernels[0]["launches"] += sum(stream["kernel1_launches"].values())
     kernels[0]["phase10_launches"] = stream["kernel1_launches"]
     kernels[0]["path_checks"].update(stream.pop("path_checks"))
@@ -6729,6 +7700,8 @@ def _main(opts) -> int:
     dist = dml.pop("distributed")
     flows = dml.pop("flows")
     pod = dml.pop("pod")
+    elastic = dml.pop("elastic")
+    ranges = dml.pop("ranges")
     obs["node"] = front["entry_points"].pop("observability")
     print(json.dumps({"dml": dict(dml, card=smi)}), flush=True)
     print(json.dumps({"oltp": dict(oltp, card=smi)}), flush=True)
@@ -6740,6 +7713,8 @@ def _main(opts) -> int:
     print(json.dumps({"distributed": dict(dist, card=smi)}), flush=True)
     print(json.dumps({"flows": dict(flows, card=smi)}), flush=True)
     print(json.dumps({"pod": dict(pod, card=smi)}), flush=True)
+    print(json.dumps({"elastic": dict(elastic, card=smi)}), flush=True)
+    print(json.dumps({"ranges": dict(ranges, card=smi)}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -6750,11 +7725,12 @@ def _main(opts) -> int:
 
 
 def sf1_phases(opts) -> tuple:
-    """Phases 1-9 and 11-20 at SF1; returns (kernels, nvidia-smi line,
-    card name, phase 11's numbers with phase 12's under "oltp", phase
-    13's under "frontdoor", 14's under "observability", 15's under
-    "history", 16's under "jobs", 17's under "coldstart", 18's under
-    "distributed", 19's under "flows" and 20's under "pod"). Every
+    """Phases 1-9 and 11-22 (phase 22 at its own scale); returns
+    (kernels, nvidia-smi line, card name, phase 11's numbers with phase
+    12's under "oltp", phase 13's under "frontdoor", 14's under
+    "observability", 15's under "history", 16's under "jobs", 17's under
+    "coldstart", 18's under "distributed", 19's under "flows", 20's
+    under "pod", 21's under "elastic" and 22's under "ranges"). Every
     engine and table of these
     phases lives in this frame only, so they are freed when it
     returns."""
@@ -7126,6 +8102,26 @@ def sf1_phases(opts) -> tuple:
     large["path_checks"].update(pod.pop("path_checks"))
     print(f"phase 20: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 21. the elastic pod (lineitem as loaded) ----------------------------
+    t0 = time.perf_counter()
+    elastic = elastic_phase(eng, {"q1": want_q1, "q6": want_q6},
+                            dict(li, **li_codes), part)
+    large["launches"] += elastic["kernel1_launches"]
+    large["phase21_launches"] = dict(elastic["launches"],
+                                     kill=elastic["kill"]["launches"])
+    large["path_checks"].update(elastic.pop("path_checks"))
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 22. SQL on raft-replicated ranges -----------------------------------
+    t0 = time.perf_counter()
+    ranges = ranges_phase()
+    for i, k in enumerate(("groupagg_large", "groupagg")):
+        kernels[i]["launches"] += ranges["launches"][k]
+        kernels[i]["phase22_launches"] = ranges["launches"][k]
+    large["path_checks"].update(ranges.pop("path_checks"))
+    small_checks22 = ranges.pop("small_checks")
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # -- 14. set operations, composed CTEs, EXPLAIN ANALYZE, tracing -------
     # (on phase 7's tables, before phase 11's writes)
     t0 = time.perf_counter()
@@ -7187,7 +8183,8 @@ def sf1_phases(opts) -> tuple:
     kernels[1]["path_checks"] = {"phase 13": front.pop("small_checks"),
                                  "phase 14": small_checks14,
                                  "phase 18": small_checks18,
-                                 "phase 19": small_checks19}
+                                 "phase 19": small_checks19,
+                                 "phase 22": small_checks22}
     front["seconds_with_entry_points"] = time.perf_counter() - t0
     print(f"phase 13: {front['seconds_with_entry_points']:.1f} s",
           flush=True)
@@ -7220,6 +8217,8 @@ def sf1_phases(opts) -> tuple:
     dml["distributed"] = dist
     dml["flows"] = flows
     dml["pod"] = pod
+    dml["elastic"] = elastic
+    dml["ranges"] = ranges
     if opts.profile:
         from cockroach_tpu_torch.profile_tpch import profile_queries
         profile_queries(eng, {"q3": (tpch.Q3, None), "q5": (tpch.Q5, None),

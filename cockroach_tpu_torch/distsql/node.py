@@ -23,14 +23,16 @@ wire as numpy arrays (serde.py); the consuming engine rebuilds torch
 tensors on its own device. Read timestamps are ints, as RunContext
 takes them.
 
-Branches of the reference that wait for modules not yet ported raise
-``FlowUnsupported`` naming what is missing: the leaseholder branch
-(``cluster=``, span materialization, the replan and gateway-local rungs:
-kvserver.Cluster and kv/rowfetch.RangeTable), the elastic pod
-(``elastic=``, the epoch fence, shard-lease transfer frames:
-distsql/leases.py). Over a socket transport (rpc/context.py,
-``is_async``) the waits poll with an idle deadline instead of ending
-on an empty queue.
+With ``cluster=`` (a kvserver.Cluster) the gateway partitions scan
+spans by range leaseholder and each node materializes its spans from the
+range plane before its stage runs (kv/rowfetch.RangeTable); a node lost
+mid-flow takes the replan and gateway-local rungs. With ``elastic=`` (a
+distsql/leases.ElasticPod) the node set is the pod's epoch'd member
+view, flows carry their planning epoch (a host whose shard set moved
+refuses them) and a lost host takes the failover rung; shard-lease
+transfers ride ``shard_fetch`` and ``shard_page`` frames. Over a socket
+transport (rpc/context.py, ``is_async``) the waits poll with an idle
+deadline instead of ending on an empty queue.
 """
 
 from __future__ import annotations
@@ -64,17 +66,6 @@ from cockroach_tpu_torch.utils.mon import MemoryQuotaError
 class FlowError(Exception):
     pass
 
-
-class FlowUnsupported(FlowError):
-    """A branch of the reference's flows whose modules are not yet
-    ported; the message names them. Raised, never answered around."""
-
-
-_LEASEHOLDER = ("the leaseholder branch needs kvserver.Cluster and "
-                "kv/rowfetch.RangeTable (the replicated KV plane, ROADMAP "
-                "Queue 1 item 5), not yet ported")
-_ELASTIC = ("the elastic pod needs distsql/leases.py (ROADMAP Queue 1 "
-            "item 4), not yet ported")
 
 # end-of-iteration sentinel for the overlapped-send double buffer
 _SHIP_DONE = object()
@@ -245,11 +236,17 @@ class DistSQLNode:
     CANCEL_MEMORY = 256
 
     def __init__(self, node_id: int, engine, transport, cluster=None):
-        if cluster is not None:
-            raise FlowUnsupported(f"DistSQLNode(cluster=...): {_LEASEHOLDER}")
         self.node_id = node_id
         self.engine = engine
         self.transport = transport
+        # kvserver.Cluster for leaseholder-partitioned scans: flows
+        # carrying spans materialize them from the range plane
+        self.cluster = cluster
+        # elastic pod handle (distsql/leases.ElasticPod) when this node
+        # takes part in dynamic membership; None = static pod. Set by
+        # ElasticPod's constructor, read by the epoch fence in
+        # _setup_flow and the gateway's failover rung.
+        self.elastic = None
         self.registry = FlowRegistry()
         # the engine's registry: flow/shuffle metrics land next to the
         # SQL metrics so one /_status/vars scrape covers the node
@@ -322,9 +319,15 @@ class DistSQLNode:
             if key in self._producing:   # late acks for finished
                 # streams would otherwise re-create state forever
                 self.acks[key] = self.acks.get(key, 0) + n
-        elif kind in ("shard_fetch", "shard_page"):
-            raise FlowUnsupported(f"{kind} frame from node {frm}: "
-                                  f"{_ELASTIC}")
+        elif kind == "shard_fetch":
+            # shard-lease rebalance: a gaining host asks for one of our
+            # held shards; page it out (distsql/leases.serve_shard_fetch)
+            from cockroach_tpu_torch.distsql import leases as _leases
+            _leases.serve_shard_fetch(self, frm, payload)
+        elif kind == "shard_page":
+            # one page of an inbound shard-lease rebalance stream
+            _, xid, chunk, eof, error = payload
+            self.registry.inbox(f"xfer:{xid}", 0).push(chunk, eof, error)
         elif kind == "cancel_flow":
             self._cancel(payload[1])
 
@@ -350,6 +353,21 @@ class DistSQLNode:
             # cancel raced ahead of the SetupFlow: drop it unexecuted
             self.flows_cancelled += 1
             return
+        if spec.epoch is not None and self.elastic is not None \
+                and not self.elastic.can_serve_epoch(spec.epoch):
+            # elastic epoch fence: this host's installed shard set does
+            # not match what the flow's epoch assigns it (the rows the
+            # plan expects here may have moved). Try a lazy reconcile
+            # first (a lease flip may not have landed locally yet); if
+            # still mismatched, refuse with the unavailable marker so
+            # the gateway replans instead of double-counting or
+            # dropping rows.
+            self.elastic.maybe_reconcile()
+            if not self.elastic.can_serve_epoch(spec.epoch):
+                outbox.close(error=(
+                    f"{_UNAVAILABLE_MARK} node {self.node_id} rebuilt "
+                    f"its shard set past epoch {spec.epoch}; replan"))
+                return
         key = (spec.flow_id, spec.stream_id)
         if key in self._flows_seen:
             return          # duplicate SetupFlow: already ran/running
@@ -360,14 +378,12 @@ class DistSQLNode:
         self._producing.add((spec.flow_id, spec.stream_id))
         try:
             self.flows_run += 1
-            if spec.epoch is not None:
-                raise FlowUnsupported(f"flow epoch {spec.epoch}: {_ELASTIC}")
-            if spec.spans is not None:
-                raise FlowUnsupported(f"flow spans: {_LEASEHOLDER}")
             sink = (_prof.ProfileSink(device=self.engine.device)
                     if spec.profile else None)
 
             def body():
+                if spec.spans is not None:
+                    self._materialize_spans(spec.spans)
                 batches, stage = self._run_local(spec, sink=sink)
                 if spec.merge_children:
                     self._merge_and_ship(spec, outbox, batches, stage)
@@ -419,6 +435,24 @@ class DistSQLNode:
         self.transport.send(self.node_id, self._diag_consumer(spec),
                             ("flow_profile", spec.flow_id,
                              spec.stream_id, wire))
+
+    def _materialize_spans(self, spans: dict) -> None:
+        """Refresh this node's scan plane with its leaseholder span
+        assignment: the cFetcher pull (kv/rowfetch.py) from committed
+        range data into the local columnstore, per flow. An empty span
+        list still (re)creates the table so the local stage sees an
+        empty shard, not a missing table."""
+        if self.cluster is None:
+            raise RuntimeError(
+                "flow carries spans but this node has no cluster")
+        from cockroach_tpu_torch.kv.rowfetch import RangeTable
+        for tname, pieces in spans.items():
+            schema = self.engine.store.table(tname).schema
+            rt = RangeTable(self.cluster, schema)
+            decoded = [(lo.encode("latin1"), hi.encode("latin1"))
+                       for lo, hi in pieces]
+            rt.materialize_into(self.engine, spans=decoded or [],
+                                ts=Timestamp(1, 0))
 
     def _exec_params(self, spec: FlowSpec) -> ExecParams:
         """The stage's static parameters: the gateway session's kernel
@@ -899,7 +933,7 @@ class DistSQLNode:
             return
         try:
             if spec.spans is not None:
-                raise FlowUnsupported(f"flow spans: {_LEASEHOLDER}")
+                self._materialize_spans(spec.spans)
             # stats=False: the stage graph must be identical on every
             # node, so planning may not consult local row counts or
             # uniqueness probes (shuffle.py module docstring)
@@ -1176,10 +1210,6 @@ class Gateway:
                  overlap: bool = True,
                  merge_fanout: int = 0,
                  elastic=None):
-        if cluster is not None:
-            raise FlowUnsupported(f"Gateway(cluster=...): {_LEASEHOLDER}")
-        if elastic is not None:
-            raise FlowUnsupported(f"Gateway(elastic=...): {_ELASTIC}")
         # prefer_shuffle: route every shuffle-decomposable statement
         # through the multi-stage hash-exchange graph, even when a
         # single-stage plan would work (the sharded x sharded join
@@ -1196,6 +1226,12 @@ class Gateway:
         # over the stream indices, stream 0 = the first node) instead
         # of the flat fan-in into the gateway; 0 = flat
         self.merge_fanout = int(merge_fanout)
+        # elastic pod (distsql/leases.ElasticPod): the node set comes
+        # from the epoch'd member view instead of the static list, flows
+        # carry the planning epoch, and a host lost mid-flow takes the
+        # failover rung (expel, lease reassignment, replan on survivors
+        # with harvested partials) instead of raising FlowUnavailable
+        self.elastic = elastic
         self.own = own
         self.nodes = data_nodes
         # tables fully present on every data node (dimension tables);
@@ -1203,6 +1239,14 @@ class Gateway:
         # co-partitions both sides
         self.replicated_tables = replicated_tables or set()
         self.flow_timeout = flow_timeout
+        # kvserver.Cluster: scans partition by range LEASEHOLDER (the
+        # PartitionSpans planner input) instead of node-local shard
+        # residency; every table is reachable from the range plane, so
+        # join build sides are implicitly replicated (each node fetches
+        # them in full)
+        self.cluster = cluster
+        if cluster is not None and own.cluster is None:
+            own.cluster = cluster
         # anything with healthy(node): lets the gateway fail fast on a
         # breaker-tripped peer instead of waiting out flow_timeout
         self.monitor = monitor
@@ -1213,6 +1257,71 @@ class Gateway:
     def _count(self, name: str, help_: str = "") -> None:
         if self.metrics is not None:
             self.metrics.counter(name, help_).inc()
+
+    def _partition_by_leaseholder(self, plan_node,
+                                  nodes: list | None = None) -> dict:
+        """node_id -> {table: [(lo, hi) latin1 spans]}: the
+        PartitionSpans decision (distsql_physical_planner.go:1096):
+        the probe-spine scan splits by range leaseholder; join build
+        sides assign their FULL span to every node (the range plane
+        makes every table globally readable, so build replication is
+        a fetch, not a storage, property)."""
+        from cockroach_tpu_torch.kv.rowfetch import RangeTable
+        from cockroach_tpu_torch.sql import plan as P
+
+        build_tables: set[str] = set()
+        spine_tables: set[str] = set()
+
+        def rec(n, build_side):
+            if isinstance(n, P.Scan):
+                if n.table == UNION:
+                    return
+                (build_tables if build_side
+                 else spine_tables).add(n.table)
+            elif isinstance(n, P.HashJoin):
+                rec(n.left, build_side)
+                rec(n.right, True)
+            elif hasattr(n, "child"):
+                rec(n.child, build_side)
+        rec(plan_node, False)
+
+        both = spine_tables & build_tables
+        if both:
+            from cockroach_tpu_torch.distsql.physical import DistUnsupported
+            raise DistUnsupported(
+                f"table(s) {sorted(both)} appear on both probe and "
+                "build sides (self-join): one local materialization "
+                "cannot be partitioned and replicated at once")
+        nodes = nodes if nodes is not None else list(self.nodes)
+        out: dict[int, dict] = {nid: {} for nid in nodes}
+        eng = self.own.engine
+        for tname in spine_tables | build_tables:
+            schema = eng.store.table(tname).schema
+            rt = RangeTable(self.cluster, schema)
+            if tname in build_tables and tname not in spine_tables:
+                full = [tuple(s.decode("latin1") for s in rt.codec.span())]
+                for nid in nodes:
+                    out[nid][tname] = full
+                continue
+            parts = rt.partition_spans()
+            for nid in nodes:
+                pieces = parts.get(nid, [])
+                out[nid][tname] = [(lo.decode("latin1"),
+                                    hi.decode("latin1"))
+                                   for lo, hi in pieces]
+            orphans = {n: p for n, p in parts.items()
+                       if n not in nodes}
+            if orphans:
+                # a leaseholder outside the flow's node set would
+                # silently drop its rows: reassign its pieces to the
+                # first participant (the reference plans the flow ON
+                # the leaseholder set; our node set is fixed up front)
+                first = nodes[0]
+                for pieces in orphans.values():
+                    out[first][tname].extend(
+                        (lo.decode("latin1"), hi.decode("latin1"))
+                        for lo, hi in pieces)
+        return out
 
     def _check_join_placement(self, plan_node) -> None:
         from cockroach_tpu_torch.distsql.physical import DistUnsupported
@@ -1238,7 +1347,14 @@ class Gateway:
         by every data node to its probe-side shard scan so
         non-matching chunks skip host-side before anything crosses the
         transport. _check_join_placement has proven every build side
-        replicated, so the gateway's copy of each is complete."""
+        replicated, so the gateway's copy of each is complete.
+
+        Node-local mode only: in leaseholder mode the gateway's local
+        copy may be partial, and a frame derived there would reject
+        matching probe rows; skipping the optimization is the correct
+        choice."""
+        if self.cluster is not None:
+            return None
         from cockroach_tpu_torch.exec import joinfilter as jf
         eng = self.own.engine
         frames = []
@@ -1265,7 +1381,8 @@ class Gateway:
             return None
         if self.prefer_shuffle:
             return kind
-        if kind == "join" and self._has_unreplicated_build(node):
+        if kind == "join" and self.cluster is None and \
+                self._has_unreplicated_build(node):
             return kind
         return None
 
@@ -1301,9 +1418,17 @@ class Gateway:
         ``pallas_groupagg`` rides every flow's spec. ``EXPLAIN ANALYZE
         [(DEBUG)]`` runs the statement under a recording or a profile.
 
-        Without a cluster a flow whose participant is gone raises
-        FlowUnavailable (the reference's replan and gateway-local rungs
-        need the range plane)."""
+        A data node lost mid-flow degrades the statement (read-only
+        statements are safely retryable; the reference re-plans around
+        dead nodes, distsql_running.go:375). In an elastic pod the
+        failover rung convicts the silent hosts, reassigns their shard
+        leases and replans on the survivors. With a cluster, span
+        partitioning can reassign a dead node's ranges to surviving
+        leaseholders, two rungs down: a replan on the survivors (when
+        the partials merge across one), else a gateway-local run over
+        every referenced table's full span. Without either, a flow whose
+        participant is gone raises FlowUnavailable. Only FlowUnavailable
+        degrades; a remote execution error propagates unchanged."""
         if session is not None:
             tmode = str(session.vars.get("tracing", "off")).lower()
             if tmode in ("on", "cluster"):
@@ -1324,8 +1449,178 @@ class Gateway:
                 rest = rest[7:].lstrip()
             return self.explain_analyze(rest, chunk_rows, debug=debug,
                                         session=session)
-        return self._run_once(sql, chunk_rows, list(self.nodes),
-                              pallas=self._pallas_mode(session))
+        from cockroach_tpu_torch.utils import log
+        pallas = self._pallas_mode(session)
+        first = self._live_nodes()
+        try:
+            return self._run_once(sql, chunk_rows, first, pallas=pallas)
+        except FlowUnavailable as err:
+            if self.elastic is not None:
+                return self._elastic_failover(sql, chunk_rows, first,
+                                              err, pallas)
+            if self.cluster is None:
+                raise
+            if not self._replannable(sql):
+                # partial fragments not mergeable across a replan: skip
+                # straight to the gateway-local rung
+                log.info(log.OPS,
+                         "flow fallback: %s; partials not replannable,"
+                         " running gateway-local", err)
+                return self._run_local_fallback(sql, pallas)
+            healthy = self._healthy(first)
+            if healthy and healthy != first:
+                log.info(log.OPS,
+                         "flow replan: shrinking %s -> %s after "
+                         "failure (%s)", first, healthy, err)
+                self._count("distsql.degrade.replan",
+                            "degradation ladder: replans on a "
+                            "shrunken node set")
+                try:
+                    return self._run_once(sql, chunk_rows, healthy,
+                                          pallas=pallas)
+                except FlowUnavailable as err2:
+                    log.info(log.OPS,
+                             "flow fallback: replan failed too (%s); "
+                             "running gateway-local", err2)
+                    return self._run_local_fallback(sql, pallas)
+            log.info(log.OPS,
+                     "flow fallback: %s; no surviving subset to "
+                     "replan onto, running gateway-local", err)
+            return self._run_local_fallback(sql, pallas)
+        except FlowError:
+            if self.cluster is None or self.monitor is None:
+                raise
+            healthy = self._healthy(first)
+            if not healthy or healthy == first:
+                raise               # nothing to shrink onto
+            log.info(log.OPS,
+                     "flow replan: shrinking %s -> %s after failure",
+                     first, healthy)
+            self._count("distsql.degrade.replan",
+                        "degradation ladder: replans on a shrunken "
+                        "node set")
+            return self._run_once(sql, chunk_rows, healthy, pallas=pallas)
+
+    def _live_nodes(self) -> list:
+        """The node set a statement plans on. In an elastic pod the
+        epoch'd member view is the planner's node set (joiners appear as
+        soon as their leases flip, drained hosts disappear with theirs);
+        with a cluster and a monitor, the currently healthy nodes (the
+        reference plans on the live leaseholder set); else the static
+        list."""
+        if self.elastic is not None:
+            return self.elastic.data_nodes()
+        if self.cluster is None or self.monitor is None:
+            return list(self.nodes)
+        return self._healthy(self.nodes) or list(self.nodes)
+
+    def _healthy(self, nodes) -> list:
+        if self.monitor is None:
+            return []
+        return [n for n in nodes
+                if n == self.own.node_id or self.monitor.healthy(n)]
+
+    def _elastic_failover(self, sql: str, chunk_rows: int, first: list,
+                          err, pallas: str, depth: int = 0):
+        """The elastic rung of the degradation ladder: a participant
+        went silent mid-flow. Wait (bounded by flow_timeout) for the
+        heartbeat plane to convict the silent hosts, expel them and
+        reassign their shard leases to survivors (data through the
+        recover hook: the owners are gone), then replan on the survivor
+        set: the merge tree re-heaps around the hole because _run_once
+        rebuilds it over the new node list, and partials are
+        re-requested only from hosts whose shard set changed; flat-mode
+        streams that finished cleanly on the first attempt are harvested
+        off the failed flow and reused at the SAME read_ts."""
+        from cockroach_tpu_torch.utils import log
+        pod = self.elastic
+        mem = pod.membership
+        wait = min(self.flow_timeout, mem.window * 2.0 + 1.0)
+        deadline = _time.monotonic() + wait
+        others = [n for n in first if n != self.own.node_id]
+        while True:
+            dead = [n for n in others if not mem.alive(n)]
+            if dead or _time.monotonic() > deadline:
+                break
+            self.own.transport.deliver_all()
+            _time.sleep(0.01)
+        if not dead:
+            if "rebuilt its shard set past epoch" in str(err) \
+                    and depth < 2:
+                # not a host loss: a host refused the flow because a
+                # concurrent join or drain flipped the epoch under the
+                # plan. Everyone is alive: replan at the new epoch.
+                self._count("distsql.degrade.replan",
+                            "degradation ladder: replans on a "
+                            "shrunken node set")
+                return self._run_once(sql, chunk_rows, pod.data_nodes(),
+                                      pallas=pallas)
+            # nobody convicted within the window: the stall was not a
+            # host loss this rung can repair
+            raise err
+        log.info(log.OPS,
+                 "elastic failover: host(s) %s convicted mid-flow; "
+                 "reassigning leases and replanning (%s)", dead, err)
+        self._count("distsql.degrade.failover",
+                    "degradation ladder: elastic failovers (host "
+                    "expelled, leases reassigned, statement replanned "
+                    "on survivors)")
+        _view, changed = pod.fail_over(dead)
+        survivors = pod.data_nodes()
+        if not survivors:
+            raise err
+        harvest = getattr(err, "harvest", None) or {}
+        reuse = {n: c for n, c in harvest.items()
+                 if n in survivors and n not in changed}
+        if reuse and self.metrics is not None:
+            self.metrics.counter(
+                "distsql.failover.partials_reused",
+                "first-attempt streams reused across an elastic "
+                "failover (hosts whose shard set did not change)"
+            ).inc(len(reuse))
+        try:
+            return self._run_once(sql, chunk_rows, survivors,
+                                  pallas=pallas, reuse=reuse,
+                                  read_ts=getattr(err, "read_ts", None))
+        except FlowUnavailable as err2:
+            if depth >= 2:
+                raise
+            return self._elastic_failover(sql, chunk_rows, survivors,
+                                          err2, pallas, depth + 1)
+
+    def _replannable(self, sql: str) -> bool:
+        """Gate the distributed-replan rung: lost partial-aggregate
+        fragments may only be recomputed on a shrunken node set when
+        the partials merge associatively (parallel/distagg.py knows
+        which shapes those are). Planning errors do not block the
+        fallback ladder."""
+        from cockroach_tpu_torch.parallel.distagg import \
+            partials_replannable
+        try:
+            node, _ = Planner(
+                self.own.engine.catalog_view(int_ranges=False),
+                use_memo=False).plan_select(parser.parse(sql))
+        except Exception:       # noqa: BLE001 — fall through the ladder
+            return True
+        return partials_replannable(node)
+
+    def _run_local_fallback(self, sql: str, pallas: str = "auto"):
+        """The bottom rung: pull every referenced table IN FULL from the
+        range plane into the gateway's engine and run the statement
+        there (the answer a one-node cluster would give)."""
+        from cockroach_tpu_torch.kv.rowfetch import RangeTable
+        self._count("distsql.degrade.local",
+                    "degradation ladder: gateway-local fallbacks")
+        eng = self.own.engine
+        node, _ = Planner(eng.catalog_view(int_ranges=False),
+                          use_memo=False).plan_select(parser.parse(sql))
+        for tname in sorted(set(_collect_scans(node).values())):
+            schema = eng.store.table(tname).schema
+            rt = RangeTable(self.cluster, schema)
+            rt.materialize_into(eng)       # spans=None: the full span
+        s = eng.session()
+        s.vars.set("pallas_groupagg", pallas)
+        return eng.execute(sql, s)
 
     def explain_analyze(self, sql: str, chunk_rows: int = 65536,
                         debug: bool = False, session=None):
@@ -1421,10 +1716,17 @@ class Gateway:
                     "not scheduling flow")
 
     def _run_once(self, sql: str, chunk_rows: int = 65536,
-                  nodes: list | None = None, pallas: str = "auto"):
+                  nodes: list | None = None, pallas: str = "auto",
+                  reuse: dict | None = None, read_ts: int | None = None):
         # the node set is a PARAMETER (not shared state): a concurrent
         # statement must never tear another's view
         nodes = list(nodes) if nodes is not None else list(self.nodes)
+        # reuse: {node_id: drained chunks} harvested off a failed
+        # attempt's EOF-clean flat streams (elastic failover): those
+        # nodes get no SetupFlow; their chunks join at the union.
+        # read_ts pins the retry to the first attempt's timestamp so
+        # reused and recomputed chunks read the same snapshot.
+        reuse = reuse or {}
         eng = self.own.engine
         transport = self.own.transport
         try:
@@ -1449,10 +1751,17 @@ class Gateway:
         kind = self._pick_graph(node)
         if kind is not None:
             return self._run_graph(sql, kind, chunk_rows, nodes, pallas)
-        self._check_join_placement(node)
+        spans_by_node = None
+        if self.cluster is not None:
+            spans_by_node = self._partition_by_leaseholder(node, nodes)
+        else:
+            self._check_join_placement(node)
         stage = split(node)
         flow_id = uuid.uuid4().hex[:12]
-        read_ts = int(eng.clock.now().to_int())
+        if read_ts is None:
+            read_ts = int(eng.clock.now().to_int())
+        epoch = (self.elastic.membership.epoch()
+                 if self.elastic is not None else None)
         jf_frames = self._derive_join_frames(node, read_ts)
         self._check_monitor(nodes)
 
@@ -1472,8 +1781,12 @@ class Gateway:
         # node i, the tree is a heap over stream indices, so stream 0
         # is the root and the gateway pumps ONE inbox
         fan = self.merge_fanout
+        # reuse forces the flat fan-in: harvested chunks are per-node
+        # streams, and a tree root's merged stream would count them
+        # twice (the tree re-heaps on the next full plan instead)
         tree = (fan > 0 and stage.stage == "partial_agg"
-                and stage.merge_exact and len(nodes) >= 2)
+                and stage.merge_exact and len(nodes) >= 2
+                and not reuse)
         if tree:
             self._count("distsql.flows.tree",
                         "distributed flows whose partial-agg streams "
@@ -1481,6 +1794,8 @@ class Gateway:
         inboxes = []
         inbox_nodes = []
         for i, nid in enumerate(nodes):
+            if nid in reuse:
+                continue   # harvested from the failed attempt
             merge_to = merge_children = None
             if tree:
                 if i > 0:
@@ -1491,13 +1806,16 @@ class Gateway:
             spec = FlowSpec(flow_id, self.own.node_id, stage.stage, sql,
                             stream_id=i, chunk_rows=chunk_rows,
                             read_ts=read_ts, window=self.window,
+                            spans=(spans_by_node.get(nid)
+                                   if spans_by_node is not None
+                                   else None),
                             trace=trace, joinfilter=jf_frames,
                             adaptive=adaptive, profile=profiled,
                             overlap=self.overlap,
                             merge_to=merge_to,
                             merge_children=merge_children,
                             merge_timeout=self.flow_timeout,
-                            pallas_groupagg=pallas)
+                            epoch=epoch, pallas_groupagg=pallas)
             if not tree or i == 0:
                 # mid-tree streams terminate at their merge parent;
                 # only the root stream reaches the gateway
@@ -1510,7 +1828,9 @@ class Gateway:
             nodes, stage=(stage if adaptive else None),
             read_ts=read_ts,
             participants=(list(nodes) if tree else None),
-            inbox_nodes=inbox_nodes)
+            inbox_nodes=inbox_nodes,
+            extra_chunks=[c for nid in nodes if nid in reuse
+                          for c in reuse[nid]])
         # output dictionaries come from the merged wire strings, not
         # the gateway's (possibly empty) local shard
         for out_name, union_col in stage.dict_outputs.items():
@@ -1533,6 +1853,9 @@ class Gateway:
             dict_folds=False).plan_select(parser.parse(sql))
         nodes = list(nodes) if nodes is not None else list(self.nodes)
         graph = shfl.decompose(kind, node)
+        spans_by_node = None
+        if self.cluster is not None:
+            spans_by_node = self._partition_tables(graph.tables, nodes)
         flow_id = uuid.uuid4().hex[:12]
         read_ts = int(eng.clock.now().to_int())
         self._check_monitor(nodes)
@@ -1549,6 +1872,9 @@ class Gateway:
             spec = FlowSpec(flow_id, self.own.node_id, "graph", sql,
                             stream_id=sid, chunk_rows=chunk_rows,
                             read_ts=read_ts, window=self.window,
+                            spans=(spans_by_node.get(nid)
+                                   if spans_by_node is not None
+                                   else None),
                             graph=kind, data_nodes=list(nodes),
                             trace=trace, profile=profiled,
                             pallas_groupagg=pallas)
@@ -1563,15 +1889,45 @@ class Gateway:
                 meta.dictionaries[out_name] = merged_dicts[union_col]
         return self._run_final(graph.final, meta, union, read_ts)
 
+    def _partition_tables(self, tables: dict,
+                          nodes: list | None = None) -> dict:
+        """Shuffle-mode PartitionSpans: EVERY table partitions by range
+        leaseholder: no build-side replication (the exchange, not a
+        full fetch, co-locates join rows)."""
+        from cockroach_tpu_torch.kv.rowfetch import RangeTable
+        nodes = nodes if nodes is not None else list(self.nodes)
+        eng = self.own.engine
+        out: dict[int, dict] = {nid: {} for nid in nodes}
+        for tname in sorted(set(tables.values())):
+            schema = eng.store.table(tname).schema
+            rt = RangeTable(self.cluster, schema)
+            parts = rt.partition_spans()
+            for nid in nodes:
+                out[nid][tname] = [(lo.decode("latin1"),
+                                    hi.decode("latin1"))
+                                   for lo, hi in parts.get(nid, [])]
+            orphans = {n: p for n, p in parts.items()
+                       if n not in nodes}
+            if orphans:
+                first = nodes[0]
+                for pieces in orphans.values():
+                    out[first][tname].extend(
+                        (lo.decode("latin1"), hi.decode("latin1"))
+                        for lo, hi in pieces)
+        return out
+
     def _pump_and_union(self, flow_id, inboxes, union_columns,
                         string_cols, nodes: list | None = None,
                         stage=None, read_ts=None,
                         participants: list | None = None,
-                        inbox_nodes: list | None = None):
+                        inbox_nodes: list | None = None,
+                        extra_chunks: list | None = None):
         # participants: the FULL node set feeding this flow when it is
         # wider than the direct producers (hierarchical merge): the
         # monitor fail-fast watches them all. inbox_nodes: producer
-        # node per inbox (positional with ``inboxes``)
+        # node per inbox (positional with ``inboxes``). extra_chunks:
+        # pre-drained chunks joining the union (harvested first-attempt
+        # streams across an elastic failover)
         nodes = nodes if nodes is not None else list(self.nodes)
         if inbox_nodes is None:
             inbox_nodes = list(nodes[:len(inboxes)])
@@ -1649,12 +2005,24 @@ class Gateway:
                         psink.remote_walls.append(
                             (w.get("node"),
                              float(w.get("device_time_s", 0.0))))
-            chunks = [c for ib in inboxes for c in ib.drain_arrays()]
+            chunks = list(extra_chunks or []) + \
+                [c for ib in inboxes for c in ib.drain_arrays()]
             if stage is not None:
                 chunks = self._fold_raw_chunks(chunks, stage, read_ts)
             union, merged_dicts = self._union_batch(
                 chunks, union_columns, string_cols)
-        except Exception:
+        except Exception as exc:
+            if isinstance(exc, FlowUnavailable) and participants is None:
+                # harvest EOF-clean flat streams off the failed attempt:
+                # a survivor whose shard leases do not move in the
+                # failover need not recompute; its chunks ride into the
+                # retry at the same read_ts. Flat mode only: a merge
+                # tree root's stream aggregates the whole tree, the hole
+                # included.
+                exc.harvest = {hn: ib.drain_arrays()
+                               for hn, ib in zip(inbox_nodes, inboxes)
+                               if ib.eof and not ib.error}
+                exc.read_ts = read_ts
             # tell every producer to stop: without this a stalled or
             # errored flow leaves remote stages running and pushing
             # chunks at a gateway that has already given up

@@ -203,6 +203,7 @@ class DDLMixin:
         self._constraint_defs.pop(d.name, None)
         self._fk_children = None
         self._evict_device(d.name)
+        self._bump_tgen_ddl(d.name, dropped=True)
         return Result(tag="DROP TABLE")
 
     def _exec_truncate(self, tr: ast.Truncate) -> Result:
@@ -227,6 +228,7 @@ class DDLMixin:
         self.store.drop_table(tr.table)
         self.store.create_table(schema)
         self._evict_device(tr.table)
+        self._bump_tgen_ddl(tr.table)
         return Result(tag="TRUNCATE")
 
     # -- secondary indexes ----------------------------------------------------

@@ -1,11 +1,13 @@
 """DML through the transactional KV plane: INSERT/UPSERT, DELETE and
 UPDATE with intents, overlay chunks and effect publication.
 
-The port of cockroach_tpu/exec/dml.py without its cluster parts (table
-generation tokens, the range-plane refresh, changefeed taps). Every DML
-statement writes row intents through kv.Txn (latches, timestamp-cache
-floors, pushes, read refresh) and records scan-plane effects that are
-published into the columnstore only at the commit timestamp.
+The port of cockroach_tpu/exec/dml.py. Every DML statement writes row
+intents through kv.Txn (latches, timestamp-cache floors, pushes, read
+refresh) and records scan-plane effects that are published into the
+columnstore only at the commit timestamp. On a cluster-backed engine
+(``Engine(cluster=...)``) the columnstore is a materialization of the
+committed range data, kept coherent across gateways by per-table
+generation tokens (``_sync_scan_plane``).
 
 UPDATE and DELETE predicates and SET assignments are evaluated on the
 host, as the reference evaluates them: point-op predicates never pay a
@@ -35,7 +37,7 @@ from ..storage.columnstore import MAX_TS_INT, Chunk
 from ..storage.hlc import Timestamp
 from .expr import ExprContext, compile_expr
 from .session import EngineError, Result, Session
-from .stmtutil import contains_func
+from .stmtutil import collect_tables, contains_func
 
 EPOCH_DATE = datetime.date(1970, 1, 1)
 EPOCH_DT = datetime.datetime(1970, 1, 1)
@@ -76,8 +78,13 @@ class DMLMixin:
             effects: list = []
             try:
                 res = fn(t, effects)
+                toks = {}
+                if self.cluster is not None and effects:
+                    toks = self._bump_table_gens(
+                        t, sorted({tb for tb, _ in effects}))
                 commit_ts = t.commit()
                 self._publish(effects, commit_ts)
+                self._scan_gens.update(toks)
                 return res
             except (TxnRetryError, TxnAbortedError) as e:
                 t.rollback()
@@ -86,6 +93,131 @@ class DMLMixin:
                 t.rollback()
                 raise
         raise retry_exhausted(last)
+
+    # -- range-plane scan-plane sync ----------------------------------------
+    # With a Cluster attached, the columnstore is a materialization of
+    # committed range data. Every DML txn bumps an opaque generation
+    # token at /tgen/<table> inside the SAME txn as its row intents;
+    # engines compare the replicated token against the one their local
+    # materialization was built from and re-fetch when they differ (the
+    # reference gets this coherence from leaseholder reads; the scan
+    # plane is a cache, so it carries its own epoch). A refresh rebuilds
+    # the table under a new store generation, so the device copy and
+    # the exec cache, both keyed by (table, generation), follow it.
+
+    TGEN_PREFIX = b"/tgen/"
+
+    def _bump_table_gens(self, t: Txn, tables: list) -> dict:
+        import uuid
+        toks = {}
+        for tb in tables:
+            toks[tb] = uuid.uuid4().hex[:16].encode()
+            t.put(self.TGEN_PREFIX + tb.encode(), toks[tb])
+        return toks
+
+    def _bump_tgen_ddl(self, name: str, dropped: bool = False) -> None:
+        """Schema-affecting DDL (DROP, TRUNCATE, ALTER) invalidates other
+        gateways' materializations through the same token."""
+        if self.cluster is None:
+            return
+        import uuid
+        tok = b"ddl-" + uuid.uuid4().hex[:12].encode()
+        self.kv.put(self.TGEN_PREFIX + name.encode(), tok)
+        if dropped:
+            self._scan_gens.pop(name, None)
+        else:
+            self._scan_gens[name] = tok
+
+    def _sync_scan_plane(self, stmt) -> None:
+        """Before a statement runs on a cluster-backed engine, make
+        every referenced table's columnstore materialization match the
+        replicated generation token."""
+        refs: set = set()
+        collect_tables(stmt, refs)
+        tb = getattr(stmt, "table", None)
+        if isinstance(tb, str):
+            refs.add(tb)
+        seen = set()
+        while refs:
+            name = refs.pop()
+            if name in seen:
+                continue
+            seen.add(name)
+            if name in self.store.tables:
+                gen = self.kv.get(self.TGEN_PREFIX + name.encode())
+                if gen == self._scan_gens.get(name):
+                    continue
+                self.refresh_table_from_ranges(name)
+                continue
+            desc = self.catalog.get_by_name(name)
+            if desc is None:
+                continue  # CTE alias or unknown: the binder will say so
+            if desc.view_sql:
+                from ..sql import parser as _p
+                collect_tables(_p.parse(desc.view_sql), refs)
+                continue
+            self.refresh_table_from_ranges(name)
+
+    def refresh_table_from_ranges(self, name: str) -> bool:
+        """(Re)build one table's columnstore from committed range data
+        (the cFetcher materialization path of kv/rowfetch.py, in the
+        engine).
+
+        The rebuild is version-faithful: every committed MVCC version
+        becomes a columnstore row with its true (mvcc_ts, mvcc_del)
+        interval, so open snapshots on this gateway and AS OF SYSTEM
+        TIME keep reading correct history after a refresh triggered by
+        another gateway's writes. Unresolved intents are skipped (the
+        pebbleMVCCScanner contract: the scan plane only ever sees
+        resolved committed versions)."""
+        desc = self.catalog.get_by_name(name)
+        if desc is None or desc.view_sql:
+            if desc is None and name in self.store.tables:
+                # dropped on another gateway: retire the local cache
+                self.store.drop_table(name)
+                self._evict_device(name)
+                self._scan_gens.pop(name, None)
+            return False
+        from ..sql.rowenc import RowCodec
+        schema = desc.public_schema()
+        codec = RowCodec(schema)
+        start, end = codec.span()
+        gen = self.kv.get(self.TGEN_PREFIX + name.encode())
+
+        # committed versions per key from every range overlapping the
+        # table span (raw engine iteration: tombstones and history too)
+        per_key: dict[bytes, list] = {}
+        store = self.kv.store
+        range_iter = getattr(store.mvcc, "_ranges_overlapping", None)
+        if range_iter is None:   # local single-store plane
+            sources = [(start, end, store.mvcc)]
+        else:
+            sources = [(max(start, d.start_key), min(end, d.end_key),
+                        rep.mvcc)
+                       for d, rep in range_iter(start, end)]
+        for lo, hi, mvcc in sources:
+            for key, tsi, val in mvcc.committed_versions(lo, hi):
+                per_key.setdefault(key, []).append((tsi, val))
+        versions: list[tuple[dict, int, int]] = []
+        for key, vers in per_key.items():
+            vers.sort()
+            for i, (tsi, val) in enumerate(vers):
+                if val is None:
+                    continue   # MVCC delete: bounds the prior version
+                del_i = vers[i + 1][0] if i + 1 < len(vers) \
+                    else MAX_TS_INT
+                versions.append((codec.decode_row(key, val), tsi, del_i))
+
+        if name in self.store.tables:
+            self.store.drop_table(name)
+            self._evict_device(name)
+        self.store.create_table(schema)
+        self.store.insert_versions(name, versions)
+        self._scan_gens[name] = gen
+        self._index_defs.pop(name, None)
+        self._constraint_defs.pop(name, None)
+        self._fk_children = None
+        return True
 
     def _publish(self, effects: list, ts: Timestamp) -> None:
         """Apply a committed txn's effects to the scan plane, table by

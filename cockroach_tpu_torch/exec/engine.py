@@ -74,6 +74,14 @@ compiled plan runs once per slot, and its aggregate partials merge with
 the shard axis's collectives. Each dispatch goes to the full mesh or to
 a pool sub-mesh (``_DistRouter``, sql.exec.submesh.size); a statement
 whose collective dispatch faults re-runs on one device.
+
+On a cluster-backed engine (``Engine(cluster=c)``, a kvserver.Cluster)
+DML, the catalog, sequences and jobs ride raft-replicated,
+leaseholder-served ranges (kv/rangekv.py), and the columnstore is a
+materialization of the committed range data: before each statement,
+every table it names is rebuilt from the ranges when its replicated
+generation token moved (exec/dml.py ``_sync_scan_plane``). Scans, and
+the kernels, still run on the engine's device; the OLTP lane declines.
 """
 
 from __future__ import annotations
@@ -348,7 +356,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
     _cte_capture = _per_thread("cte_capture", lambda: None)
 
     def __init__(self, device=None, store: ColumnStore | None = None,
-                 mesh: meshmod.Mesh | None = None):
+                 mesh: meshmod.Mesh | None = None, cluster=None):
         # the shard mesh of distributed plans: over every card when the
         # engine is on a card and there are several (the reference's
         # rule); a mesh of several slots on one device only when the
@@ -369,10 +377,25 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         self._mesh_pool = None
         self._mesh_pool_lock = threading.Lock()
         self.store = store or ColumnStore()
-        self.clock = Clock()
-        # the transactional KV plane on the scans' clock, so commit
-        # timestamps land above bulk-ingested rows' mvcc_ts
-        self.kv = KVDB(KVStore(clock=self.clock))
+        # the transactional row plane: DML writes intents here through
+        # kv.Txn and publishes committed effects into the columnstore
+        # scan plane. With a Cluster (kvserver/cluster.py) attached, that
+        # plane IS the raft-replicated range plane (kv/rangekv.py):
+        # intents, the catalog, sequences and jobs replicate and survive
+        # node failure, on the cluster's clock; without one, a
+        # single-store KV serves the same interface on the scans' clock,
+        # so commit timestamps land above bulk-ingested rows' mvcc_ts
+        self.cluster = cluster
+        if cluster is not None:
+            from ..kv.rangekv import ClusterKVStore
+            self.clock = cluster.clock
+            self.kv = KVDB(ClusterKVStore(cluster))
+        else:
+            self.clock = Clock()
+            self.kv = KVDB(KVStore(clock=self.clock))
+        # cluster mode: the generation token each table's local
+        # materialization was built from (exec/dml.py _sync_scan_plane)
+        self._scan_gens: dict[str, bytes | None] = {}
         self.catalog = Catalog(self.kv,
                                id_floor=lambda: self.store._next_table_id)
         # descriptor leases (catalog/lease.py): schema changes publish
@@ -621,6 +644,14 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         self._tenant_tl.value = tenant
         # the rollup key: reservations made now belong to it
         self._tenant_tl.app = app or "(unset)"
+        if self.cluster is not None and not self._in_statement:
+            # the scan plane is a cache of committed range data: check
+            # every referenced table's replicated generation token and
+            # re-materialize what other gateways changed, under the
+            # exclusive gate (the refresh rebuilds columnstore tables
+            # other statements may be scanning)
+            with self._stmt_lock:
+                self._sync_scan_plane(stmt)
         obs = StatementObserver(self, stmt, session, sql)
         t0 = time.monotonic()
         # the statement's compile bill: plan builds and kernel builds
@@ -952,7 +983,11 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             return Result(tag="ROLLBACK")
         if t is None:
             return Result(tag="COMMIT")
+        toks = {}
         try:
+            if self.cluster is not None and effects:
+                toks = self._bump_table_gens(
+                    t, sorted({tb for tb, _ in effects}))
             commit_ts = t.commit()
         except (TxnRetryError, TxnAbortedError) as e:
             t.rollback()
@@ -960,6 +995,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
             # retries the whole txn
             raise EngineError(f"restart transaction: {e}") from e
         self._publish(effects, commit_ts)
+        self._scan_gens.update(toks)
         return Result(tag="COMMIT")
 
     def _read_ts(self, session: Session) -> Timestamp:

@@ -250,6 +250,7 @@ class MaintenanceMixin:
         else:
             self._alter_add_column(a, desc)
         self._evict_device(a.table)
+        self._bump_tgen_ddl(a.table)
         return Result(tag="ALTER TABLE")
 
     def _alter_drop_column(self, table: str, desc, colname: str) -> None:

@@ -36,7 +36,8 @@ from ..utils.mon import MemoryQuotaError
 KIND_PAGE = "page"     # stream / spill page windows
 KIND_SPILL = "spill"   # spill partition working slices
 KIND_EXCHANGE = "exchange"  # a distributed dispatch's exchange buffers
-_KINDS = (KIND_PAGE, KIND_SPILL)
+KIND_REBALANCE = "rebalance"  # shard-lease handoff pages (elastic pod)
+_KINDS = (KIND_PAGE, KIND_SPILL, KIND_REBALANCE)
 
 # the longest a lease waits for other transient traffic to drain
 WAIT_TIMEOUT = 120.0
@@ -72,6 +73,10 @@ class TransferScheduler:
             "exec.movement.exchange.overcommit.bytes",
             "exchange bytes that proceeded unreserved after waiting "
             "for the pool (admission degraded, not denied)")
+        self.m_rebalance = metrics.counter(
+            "exec.movement.rebalance.bytes",
+            "shard-lease rebalance bytes streamed between hosts "
+            "through the scheduler")
         self.m_spill_fallbacks = metrics.counter(
             "exec.movement.dist_spill_fallbacks",
             "DistSQL shards that spilled past their HBM slice instead "
@@ -119,12 +124,13 @@ class TransferScheduler:
                     self._cv.wait(timeout=min(remaining, 1.0))
                     waited += time.monotonic() - t0
 
-    def _hold(self, nbytes: int):
+    def _hold(self, nbytes: int, kind: str = KIND_PAGE):
         with self._cv:
             self._transient += nbytes
         self.m_leases.inc()
         self.m_inflight.set(self._transient)
-        self.m_h2d.inc(nbytes)
+        (self.m_rebalance if kind == KIND_REBALANCE else self.m_h2d).inc(
+            nbytes)
 
     def _drop(self, account, nbytes: int) -> None:
         self.monitor.release(account)
@@ -144,7 +150,7 @@ class TransferScheduler:
             return
         account = ("movement", kind, next(self._ids))
         self._admit(account, nbytes)
-        self._hold(nbytes)
+        self._hold(nbytes, kind)
         try:
             yield nbytes
         finally:
@@ -165,7 +171,7 @@ class TransferScheduler:
         except MemoryQuotaError:
             yield 0
             return
-        self._hold(nbytes)
+        self._hold(nbytes, kind)
         try:
             yield nbytes
         finally:

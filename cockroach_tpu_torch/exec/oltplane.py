@@ -388,7 +388,11 @@ class OltpLaneMixin:
                      session: Optional[Session]) -> Optional[Result]:
         """Serve ``sql`` from the lane, or None to take the full path.
         Never raises for ineligibility, only for real statement errors
-        (duplicate key, NOT NULL)."""
+        (duplicate key, NOT NULL). A cluster-backed engine takes the
+        full path for every statement: the lane's writes would bypass
+        the replicated ranges."""
+        if self.cluster is not None:
+            return None
         if session is not None and (
                 session.txn is not None or session.effects
                 or session.txn_aborted

@@ -48,6 +48,11 @@ class Result:
     tag: str = "SELECT"
     types: list = field(default_factory=list)  # SQLTypes (SELECT only)
 
+    def column(self, name: str) -> list:
+        """One output column's values, in row order."""
+        i = self.names.index(name)
+        return [r[i] for r in self.rows]
+
 
 @dataclass(eq=False)  # identity-hashed: sessions live in a WeakSet
 class Session:

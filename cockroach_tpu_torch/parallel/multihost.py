@@ -23,10 +23,12 @@ The TCPStore has no conditional write and no key listing, so
 jax.distributed store. The degenerate pod (``num_processes == 1``)
 keeps an in-process dict store that has both.
 
-The elastic pod (the reference's ``Membership``, ``_KVServer`` and
-``init_elastic``, ``:404-844``) is not ported yet: its module state
-stays here as ``None`` so that ``num_hosts`` and
-``shutdown_distributed`` read and reset it as the reference does.
+The elastic pod (``init_elastic``) runs a coordinator of its own: host 0
+serves a small threaded TCP KV store (``_KVServer``: get, set, cas and
+list, one JSON line each way) and every host, founding or late-joining,
+reaches it through the ``kv_*`` entry points, which then support
+``kv_cas`` and ``kv_list``. Membership is epoch'd (``Membership``), so
+hosts can join or drain while statements run.
 
 The per-host dispatcher process entry point is server/hostd.py.
 """
@@ -34,9 +36,12 @@ The per-host dispatcher process entry point is server/hostd.py.
 from __future__ import annotations
 
 import datetime
+import json
 import os
+import socket
 import threading
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import torch
@@ -76,7 +81,10 @@ _TOPOLOGY: Optional[HostTopology] = None
 _STORE = None                 # the TCPStore of a pod of several hosts
 _LOCAL_KV: dict = {}          # single-process fallback KV store
 _TEARDOWNS: list = []         # cross-host dispatcher/pump teardown fns
-_MEMBERSHIP = None            # the elastic pod's Membership (not ported)
+_ELASTIC_CLIENT = None        # _KVClient to the elastic coordinator
+_ELASTIC_SERVER = None        # _KVServer when this host coordinates
+_MEMBERSHIP = None            # this host's Membership, when elastic
+_MEMBERSHIP_FAULTS = None     # installed MembershipFaults (tests)
 
 
 def topology() -> Optional[HostTopology]:
@@ -96,6 +104,27 @@ def num_hosts() -> int:
             pass        # KV torn down mid-scrape: fall through
     t = _TOPOLOGY
     return t.num_processes if t is not None else 1
+
+
+def membership():
+    """This host's Membership when the pod is elastic, else None."""
+    return _MEMBERSHIP
+
+
+def membership_faults():
+    """The installed MembershipFaults, or None (production path)."""
+    return _MEMBERSHIP_FAULTS
+
+
+def install_membership_faults(faults) -> None:
+    """Install (or clear, with None) membership-plane fault injection,
+    the parallel/shuffle.install_link_faults idiom for the control
+    plane: delayed or dropped heartbeats and stale-epoch lease claims.
+    Consulted by Membership heartbeat loops and the shard-lease
+    transition path (distsql/leases.py)."""
+    global _MEMBERSHIP_FAULTS
+    with _LOCK:
+        _MEMBERSHIP_FAULTS = faults
 
 
 def _timeout(seconds: float) -> datetime.timedelta:
@@ -150,7 +179,8 @@ def shutdown_distributed() -> None:
     (dispatcher pumps, transports), release the store client (host 0's
     also stops serving it), and clear the topology. Idempotent and safe
     when never initialized, so Engine.close can always call it."""
-    global _TOPOLOGY, _STORE, _MEMBERSHIP
+    global _TOPOLOGY, _STORE, _MEMBERSHIP, _ELASTIC_CLIENT
+    global _ELASTIC_SERVER
     with _LOCK:
         teardowns, _TEARDOWNS[:] = list(_TEARDOWNS), []
         for fn in reversed(teardowns):
@@ -164,6 +194,13 @@ def shutdown_distributed() -> None:
             except Exception:
                 pass
             _MEMBERSHIP = None
+        for closer in (_ELASTIC_CLIENT, _ELASTIC_SERVER):
+            if closer is not None:
+                try:
+                    closer.close()
+                except Exception:
+                    pass
+        _ELASTIC_CLIENT = _ELASTIC_SERVER = None
         _STORE = None
         _TOPOLOGY = None
         _LOCAL_KV.clear()
@@ -185,6 +222,10 @@ def _full(key: str) -> str:
 
 
 def kv_set(key: str, value: str) -> None:
+    e = _ELASTIC_CLIENT
+    if e is not None:
+        e.set(_full(key), str(value))
+        return
     s = _STORE
     if s is None:
         with _LOCK:
@@ -196,6 +237,16 @@ def kv_set(key: str, value: str) -> None:
 def kv_get(key: str, timeout_s: float = _KV_TIMEOUT_S) -> str:
     """The key's value, waiting up to ``timeout_s`` for it to be set
     (KeyError past that)."""
+    e = _ELASTIC_CLIENT
+    if e is not None:
+        deadline = time.monotonic() + timeout_s
+        while True:
+            v = e.try_get(_full(key))
+            if v is not None:
+                return v
+            if time.monotonic() > deadline:
+                raise KeyError(key)
+            time.sleep(0.01)
     s = _STORE
     if s is None:
         return _LOCAL_KV[_full(key)]
@@ -207,7 +258,12 @@ def kv_get(key: str, timeout_s: float = _KV_TIMEOUT_S) -> str:
 
 
 def kv_try_get(key: str) -> Optional[str]:
-    """Non-blocking read: the value, or None when unset."""
+    """Non-blocking read: the value, or None when unset. Membership
+    scans poll with this (a missing heartbeat must read as silence,
+    not a stall)."""
+    e = _ELASTIC_CLIENT
+    if e is not None:
+        return e.try_get(_full(key))
     s = _STORE
     if s is None:
         with _LOCK:
@@ -219,10 +275,15 @@ def kv_try_get(key: str) -> Optional[str]:
 
 def kv_cas(key: str, expect: Optional[str], new: str) -> bool:
     """Atomic compare-and-set: write ``new`` iff the key currently
-    holds ``expect`` (None = key absent). Only the in-process store
-    supports it: a pod of several hosts refuses, as the reference's
-    does on the jax.distributed store (its elastic pods, which need
-    CAS, run a coordinator of their own)."""
+    holds ``expect`` (None = key absent). The epoch bump primitive:
+    membership and lease transitions serialize on it, so a stale-epoch
+    claim loses instead of double-owning a shard. Only the in-process
+    and elastic stores support it: a static pod's TCPStore refuses, as
+    the reference's jax.distributed store does (elastic pods run a
+    coordinator of their own)."""
+    e = _ELASTIC_CLIENT
+    if e is not None:
+        return e.cas(_full(key), expect, new)
     s = _STORE
     if s is None:
         with _LOCK:
@@ -237,8 +298,13 @@ def kv_cas(key: str, expect: Optional[str], new: str) -> bool:
 
 
 def kv_list(prefix: str) -> dict:
-    """{suffix: value} for every key under ``prefix``: the in-process
-    store only, like kv_cas."""
+    """{suffix: value} for every key under ``prefix`` (membership and
+    lease-table scans): the in-process and elastic stores, like
+    kv_cas."""
+    e = _ELASTIC_CLIENT
+    if e is not None:
+        full = _full(prefix)
+        return {k[len(full):]: v for k, v in e.list(full).items()}
     s = _STORE
     if s is None:
         full = _full(prefix)
@@ -254,7 +320,10 @@ def barrier(name: str, timeout_s: float = _KV_TIMEOUT_S) -> None:
     arrival adds one to a counter; the last arrival of a round sets
     that round's release key, which everyone waits on. A name may be
     used again (each round has its own key). A no-op in the degenerate
-    pod."""
+    pod, and in an elastic one (its hosts rendezvous through membership
+    epochs)."""
+    if _ELASTIC_CLIENT is not None:
+        return
     s, t = _STORE, _TOPOLOGY
     if s is None or t is None:
         return
@@ -353,6 +422,447 @@ def merge_depth(n: int, fanout: int = DEFAULT_FANOUT) -> int:
         pid = tree_parent(pid, fanout)
         depth += 1
     return depth
+
+
+# ---------------------------------------------------------------------------
+# elastic pod: socket KV coordinator + dynamic membership 
+# ---------------------------------------------------------------------------
+# A static pod's store pins num_processes at rendezvous, so a host can
+# never JOIN it. Elastic pods therefore run their own coordinator: host
+# 0 serves a small threaded TCP KV store (get/set/cas/list, JSON lines)
+# and every host, founding or late-joining, talks to it through the
+# kv_* entry points above. The data plane is unchanged (framed
+# SocketTransport flows); device collectives stay host-local.
+
+class _KVServer:
+    """Threaded TCP KV coordinator: one JSON request per line, one
+    response per line. Linearizable by construction (every op runs
+    under one lock), which is what gives kv_cas its meaning."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+        self._data: dict = {}
+        self._mu = threading.Lock()
+        self._sock = socket.create_server((host, port))
+        self.addr = self._sock.getsockname()[:2]
+        self._closed = False
+        t = threading.Thread(target=self._accept_loop, daemon=True)
+        t.start()
+
+    def _accept_loop(self) -> None:
+        while not self._closed:
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return
+            threading.Thread(target=self._serve_conn, args=(conn,),
+                             daemon=True).start()
+
+    def _serve_conn(self, conn) -> None:
+        f = conn.makefile("rwb")
+        try:
+            for line in f:
+                try:
+                    req = json.loads(line)
+                except ValueError:
+                    break
+                resp = self._apply(req)
+                f.write(json.dumps(resp).encode() + b"\n")
+                f.flush()
+        except (OSError, ValueError):
+            pass
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def _apply(self, req: dict) -> dict:
+        op, k = req.get("op"), req.get("k")
+        with self._mu:
+            if op == "set":
+                self._data[k] = req["v"]
+                return {"ok": True}
+            if op == "get":
+                return {"ok": True, "v": self._data.get(k)}
+            if op == "cas":
+                cur = self._data.get(k)
+                if cur != req.get("expect"):
+                    return {"ok": False, "v": cur}
+                self._data[k] = req["v"]
+                return {"ok": True}
+            if op == "list":
+                return {"ok": True,
+                        "kv": {kk: vv for kk, vv in self._data.items()
+                               if kk.startswith(k)}}
+        return {"ok": False, "error": f"bad op {op!r}"}
+
+    def close(self) -> None:
+        self._closed = True
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+
+class _KVClient:
+    """One connection to the elastic coordinator; requests serialize
+    on a lock (the membership/lease planes are low-rate control
+    traffic — simplicity beats pipelining here)."""
+
+    def __init__(self, host: str, port: int, timeout_s: float = 10.0):
+        self._mu = threading.Lock()
+        self._sock = socket.create_connection((host, port),
+                                              timeout=timeout_s)
+        self._f = self._sock.makefile("rwb")
+
+    def _request(self, req: dict) -> dict:
+        with self._mu:
+            self._f.write(json.dumps(req).encode() + b"\n")
+            self._f.flush()
+            line = self._f.readline()
+        if not line:
+            raise ConnectionError("elastic KV coordinator gone")
+        return json.loads(line)
+
+    def set(self, k: str, v: str) -> None:
+        self._request({"op": "set", "k": k, "v": str(v)})
+
+    def try_get(self, k: str) -> Optional[str]:
+        return self._request({"op": "get", "k": k}).get("v")
+
+    def cas(self, k: str, expect: Optional[str], new: str) -> bool:
+        return bool(self._request({"op": "cas", "k": k,
+                                   "expect": expect,
+                                   "v": str(new)}).get("ok"))
+
+    def list(self, prefix: str) -> dict:
+        return self._request({"op": "list",
+                              "k": prefix}).get("kv", {})
+
+    def close(self) -> None:
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+
+@dataclass
+class MembershipFaults:
+    """Control-plane fault injection (install_membership_faults) —
+    the membership analogue of shuffle.install_link_faults. Fields
+    apply only to hosts listed in ``hosts`` (empty = all)."""
+
+    heartbeat_delay_s: float = 0.0   # each beat sleeps first
+    heartbeat_drop: int = 0          # swallow the next N beats
+    stale_epoch_claims: bool = False  # lease transitions bid epoch-1
+    hosts: tuple = ()                # affected host ids (() = all)
+
+    def applies(self, host_id: int) -> bool:
+        return not self.hosts or host_id in self.hosts
+
+
+@dataclass(frozen=True)
+class MemberView:
+    """One epoch's converged member view: every host that reads epoch
+    ``e`` resolves the SAME live set, because the view is written to
+    the KV *before* the epoch CAS that publishes it."""
+
+    epoch: int
+    live: tuple
+    members: dict = field(default_factory=dict, compare=False)
+
+
+class Membership:
+    """Join/leave epochs with heartbeat liveness over the pod KV —
+    the gossip-style generalization of server/node.py's live_peers
+    gate. Every transition (join, drain, leave, expel) writes the
+    next epoch's full member view under ``mb/view/<e+1>`` and then
+    CASes ``mb/epoch`` from e to e+1; losers of the race recompute
+    and retry, so concurrent churn converges without a coordinator
+    thread. Heartbeats (``mb/hb/<id>``) are wall-clock-stamped and
+    incarnation-tagged: a host that rejoins with the same id bumps
+    its incarnation, and beats from the old incarnation are ignored
+    (no zombie can keep a dead member alive)."""
+
+    HEARTBEAT_INTERVAL_S = 0.25
+    LIVENESS_WINDOW_S = 2.0
+
+    def __init__(self, host_id: int, addr: str = "", metrics=None,
+                 heartbeat_interval: Optional[float] = None,
+                 liveness_window: Optional[float] = None):
+        self.host_id = int(host_id)
+        self.addr = addr
+        self.interval = float(heartbeat_interval
+                              if heartbeat_interval is not None
+                              else self.HEARTBEAT_INTERVAL_S)
+        self.window = float(liveness_window
+                            if liveness_window is not None
+                            else self.LIVENESS_WINDOW_S)
+        self.incarnation = 0
+        self._hb_thread: Optional[threading.Thread] = None
+        self._hb_stop = threading.Event()
+        self._metrics = metrics
+        if metrics is not None:
+            self.m_epoch = metrics.gauge(
+                "cluster.membership.epoch",
+                "current pod membership epoch as last observed by "
+                "this host's membership plane")
+            self.m_live = metrics.gauge(
+                "cluster.membership.live",
+                "live members in the last observed epoch view")
+            self.m_joins = metrics.counter(
+                "cluster.membership.joins",
+                "membership join transitions this host performed")
+            self.m_expels = metrics.counter(
+                "cluster.membership.expels",
+                "members this host expelled after heartbeat silence")
+            self.m_rejoins = metrics.counter(
+                "cluster.membership.rejoins",
+                "joins that re-used an existing member id (new "
+                "incarnation fences the old one's leases)")
+            self.m_beats = metrics.counter(
+                "cluster.membership.heartbeats",
+                "liveness heartbeats this host published")
+
+    # -- KV records -------------------------------------------------
+    def _member_key(self, hid: int) -> str:
+        return f"mb/member/{hid}"
+
+    def _read_members(self) -> dict:
+        out = {}
+        for suffix, raw in kv_list("mb/member/").items():
+            try:
+                out[int(suffix)] = json.loads(raw)
+            except (ValueError, TypeError):
+                continue
+        return out
+
+    def epoch(self) -> int:
+        return int(kv_try_get("mb/epoch") or 0)
+
+    def view(self, epoch: Optional[int] = None) -> MemberView:
+        """The epoch'd member view. With no argument, the CURRENT
+        epoch's; with one, that epoch's (walks to the newest view at
+        or below it, since not every epoch rewrites every record)."""
+        e = self.epoch() if epoch is None else int(epoch)
+        probe = e
+        while probe > 0:
+            raw = kv_try_get(f"mb/view/{probe}")
+            if raw is not None:
+                d = json.loads(raw)
+                v = MemberView(epoch=e, live=tuple(d["live"]),
+                               members=d.get("members", {}))
+                self._note_view(v)
+                return v
+            probe -= 1
+        return MemberView(epoch=e, live=())
+
+    def _note_view(self, v: MemberView) -> None:
+        if self._metrics is not None:
+            self.m_epoch.set(v.epoch)
+            self.m_live.set(len(v.live))
+
+    def _transition(self, mutate) -> int:
+        """Run one membership transition: mutate the member records,
+        publish the resulting view for epoch e+1, CAS the epoch.
+        Retries until its CAS wins (concurrent churn converges)."""
+        while True:
+            e = self.epoch()
+            before = self._read_members()
+            members = mutate(dict(before))
+            # write only the records this mutation changed: a losing
+            # racer that rewrote EVERY record would clobber the
+            # winner's concurrent transition with its stale read
+            for hid, rec in members.items():
+                if before.get(hid) != rec:
+                    kv_set(self._member_key(hid), json.dumps(rec))
+            live = sorted(h for h, r in members.items()
+                          if r.get("state") in ("live", "draining"))
+            view = {"live": live,
+                    "members": {str(h): members[h] for h in live}}
+            kv_set(f"mb/view/{e + 1}", json.dumps(view))
+            if kv_cas("mb/epoch", str(e) if e else None, str(e + 1)):
+                self._note_view(MemberView(e + 1, tuple(live)))
+                return e + 1
+
+    # -- lifecycle --------------------------------------------------
+    def join(self) -> int:
+        """Enter the pod (state=live). Re-using an id that already has
+        a member record — a crashed host coming back — bumps the
+        incarnation so the old life's heartbeats and lease claims are
+        fenced, not merged."""
+        raw = kv_try_get(self._member_key(self.host_id))
+        prev = json.loads(raw) if raw else None
+        rejoin = prev is not None
+        self.incarnation = (1 if prev is None
+                            else int(prev.get("inc", 0)) + 1)
+        self.beat()     # liveness (new incarnation) predates visibility
+
+        def mutate(members: dict) -> dict:
+            members[self.host_id] = {"state": "live",
+                                     "inc": self.incarnation,
+                                     "addr": self.addr}
+            return members
+        e = self._transition(mutate)
+        if self._metrics is not None:
+            self.m_joins.inc()
+            if rejoin:
+                self.m_rejoins.inc()
+        return e
+
+    def drain(self) -> int:
+        """Announce an orderly exit: still serving (state=draining,
+        still in the live view) but planners stop placing NEW shard
+        leases here; leave() completes the exit once leases moved."""
+        def mutate(members: dict) -> dict:
+            rec = dict(members.get(self.host_id)
+                       or {"inc": self.incarnation, "addr": self.addr})
+            rec["state"] = "draining"
+            members[self.host_id] = rec
+            return members
+        return self._transition(mutate)
+
+    def leave(self) -> int:
+        def mutate(members: dict) -> dict:
+            rec = dict(members.get(self.host_id)
+                       or {"inc": self.incarnation, "addr": self.addr})
+            rec["state"] = "left"
+            members[self.host_id] = rec
+            return members
+        e = self._transition(mutate)
+        self.stop_heartbeat()
+        return e
+
+    def expel(self, hid: int) -> int:
+        """Convict a silent member (state=dead): called by the
+        failover path after its heartbeat went stale. The epoch bump
+        is what fences the dead host's in-flight lease claims."""
+        def mutate(members: dict) -> dict:
+            rec = dict(members.get(hid) or {"inc": 0, "addr": ""})
+            rec["state"] = "dead"
+            members[hid] = rec
+            return members
+        e = self._transition(mutate)
+        if self._metrics is not None:
+            self.m_expels.inc()
+        return e
+
+    # -- liveness ---------------------------------------------------
+    def beat(self) -> None:
+        """Publish one liveness heartbeat (wall-clock stamped: hosts
+        are separate processes, so monotonic clocks don't compare)."""
+        f = _MEMBERSHIP_FAULTS
+        if f is not None and f.applies(self.host_id):
+            if f.heartbeat_drop > 0:
+                f.heartbeat_drop -= 1
+                return
+            if f.heartbeat_delay_s > 0:
+                time.sleep(f.heartbeat_delay_s)
+        kv_set(f"mb/hb/{self.host_id}",
+               json.dumps({"inc": self.incarnation, "t": time.time()}))
+        if self._metrics is not None:
+            self.m_beats.inc()
+
+    def alive(self, hid: int, now: Optional[float] = None) -> bool:
+        """Heartbeat-liveness of one member: fresh beat, matching
+        incarnation, and a live/draining record in the current view."""
+        v = self.view()
+        if hid not in v.live:
+            return False
+        rec = v.members.get(str(hid), {})
+        raw = kv_try_get(f"mb/hb/{hid}")
+        if raw is None:
+            return False
+        hb = json.loads(raw)
+        if int(hb.get("inc", -1)) != int(rec.get("inc", -2)):
+            return False
+        now = time.time() if now is None else now
+        return (now - float(hb.get("t", 0.0))) <= self.window
+
+    def suspects(self, hids) -> list:
+        """The subset of ``hids`` whose heartbeats have gone stale —
+        failover conviction candidates."""
+        return [h for h in hids
+                if h != self.host_id and not self.alive(h)]
+
+    def expelled(self) -> bool:
+        """Has some OTHER host convicted us? (Our record is dead, or
+        a rejoin under our id outran us.) A live host that sees this
+        must re-join with a fresh incarnation, not keep serving."""
+        raw = kv_try_get(self._member_key(self.host_id))
+        if raw is None:
+            return False
+        rec = json.loads(raw)
+        return (rec.get("state") == "dead"
+                or int(rec.get("inc", 0)) != self.incarnation)
+
+    def start_heartbeat(self) -> None:
+        if self._hb_thread is not None:
+            return
+        self._hb_stop.clear()
+
+        def loop():
+            while not self._hb_stop.wait(self.interval):
+                try:
+                    self.beat()
+                except Exception:
+                    return      # KV gone: the pod is tearing down
+        self._hb_thread = threading.Thread(target=loop, daemon=True)
+        self._hb_thread.start()
+
+    def stop_heartbeat(self) -> None:
+        self._hb_stop.set()
+        t, self._hb_thread = self._hb_thread, None
+        if t is not None:
+            t.join(timeout=2.0)
+
+
+def init_elastic(host_id: int, kv_addr: str = "",
+                 serve_kv: bool = False,
+                 fanout: int = DEFAULT_FANOUT,
+                 metrics=None,
+                 heartbeat_interval: Optional[float] = None,
+                 liveness_window: Optional[float] = None) -> Membership:
+    """Join (or found, with serve_kv) an ELASTIC pod: no TCPStore, no
+    fixed num_processes; the kv_* entry points
+    route to the socket coordinator and membership is epoch'd, so
+    hosts can join or drain while statements run. Returns this host's
+    Membership (not yet joined — callers join once their shards are
+    streamed, so a joining host becomes visible only when servable).
+
+    The degenerate in-process form (no kv_addr, no serve_kv) rides the
+    _LOCAL_KV dict: N Membership instances in ONE process share it,
+    which is exactly what the fast-lane churn tests need."""
+    global _ELASTIC_CLIENT, _ELASTIC_SERVER, _MEMBERSHIP, _TOPOLOGY
+    server = client = None
+    if serve_kv:
+        server = _KVServer()
+        kv_addr = "%s:%d" % server.addr
+    if kv_addr:
+        h, _, p = kv_addr.rpartition(":")
+        client = _KVClient(h or "127.0.0.1", int(p))
+    m = Membership(host_id, metrics=metrics,
+                   heartbeat_interval=heartbeat_interval,
+                   liveness_window=liveness_window)
+    with _LOCK:
+        if _ELASTIC_SERVER is None:
+            _ELASTIC_SERVER = server
+        if client is not None:
+            _ELASTIC_CLIENT = client
+        _MEMBERSHIP = m
+        if _TOPOLOGY is None:
+            _TOPOLOGY = HostTopology(process_id=int(host_id),
+                                     num_processes=1,
+                                     coordinator=kv_addr,
+                                     fanout=max(1, int(fanout)))
+    return m
+
+
+def elastic_kv_addr() -> str:
+    """host:port of the coordinator this host serves ('' when it
+    doesn't) — founding host 0 publishes this for late joiners."""
+    s = _ELASTIC_SERVER
+    return "%s:%d" % s.addr if s is not None else ""
 
 
 def env_topology() -> Optional[HostTopology]:

@@ -1,5 +1,5 @@
 """Per-host dispatcher process for a multi-host pod
-(cockroach_tpu/server/hostd.py, its static pod).
+(cockroach_tpu/server/hostd.py).
 
 ``python -m cockroach_tpu_torch.server.hostd --process-id I
 --num-processes N --coordinator H:P`` joins the pod rendezvous
@@ -25,8 +25,20 @@ each host cuts its shard from the full SF1 lineitem, made by the same
 generator and seed as a single SF1 engine's.
 
 Fault modes (``--fault``) let the cross-host ladder kill a dispatcher
-or drop a merge link deterministically. The elastic pod
-(``--elastic``) waits for distsql/leases.py and exits non-zero.
+or drop a merge link deterministically.
+
+``--elastic`` switches to the DYNAMIC pod: no TCPStore, no fixed
+--num-processes. Host 0 founds the pod (serves the socket KV
+coordinator, writes its address to --kv-addr-file), waits for
+--initial-hosts members, bootstraps the shard-lease table and runs the
+statement loop; every other host points --kv-addr at the coordinator
+and either joins the founding set or, with --late-join, joins a RUNNING
+pod, streaming its new shards from their live owners before the lease
+flip. --drain-after makes a worker leave in an orderly drain mid-run,
+and --mem-fault injects membership-plane faults (delayed heartbeats,
+stale-epoch lease claims). ``--sf`` and ``--rows`` work as in the
+static mode: shard s of lineitem is rows ``[s*R/NSH, (s+1)*R/NSH)`` of
+the generator at that scale and the single engine's seed.
 """
 
 from __future__ import annotations
@@ -210,6 +222,216 @@ def _gather_peer_metrics(topo) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# elastic pod: dynamic membership + shard leases
+# ---------------------------------------------------------------------------
+
+def _elastic_recover(sf: float, rows, nshards: int):
+    """Deterministic shard regeneration, the durable-storage stand-in
+    every elastic host agrees on: shard s of lineitem is rows
+    [s*R/NSH, (s+1)*R/NSH) of the seeded generator (encoded string
+    columns, under tpch.LINEITEM_DICTS). The generator runs once per
+    process, at the first shard asked for."""
+    from cockroach_tpu_torch.models import tpch
+    made: dict = {}
+
+    def recover(table: str, sid: int) -> dict:
+        assert table == "lineitem", table
+        if not made:
+            made.update(tpch.gen_lineitem(sf, rows=rows, encoded=True))
+        n = len(made["l_orderkey"])
+        lo = sid * n // nshards
+        hi = (sid + 1) * n // nshards
+        return {k: v[lo:hi] for k, v in made.items()}
+    return recover
+
+
+def _install_mem_faults(args) -> None:
+    if args.mem_fault == "none":
+        return
+    f = multihost.MembershipFaults(
+        heartbeat_delay_s=(args.liveness_window * 2.0
+                           if args.mem_fault == "delayed-heartbeat"
+                           else 0.0),
+        stale_epoch_claims=(args.mem_fault == "stale-epoch"),
+        hosts=(args.process_id,))
+    multihost.install_membership_faults(f)
+
+
+def _elastic_serve(transport, pod, refresh_peers, drain_after: float):
+    """Elastic worker pump: flow traffic and the idle-time lease
+    reconcile, until the gateway posts ``done`` (or the drain deadline
+    lands)."""
+    drain_at = (time.monotonic() + drain_after
+                if drain_after > 0 else None)
+    while True:
+        refresh_peers()
+        moved = transport.deliver_all()
+        if pod.node is None or not pod.node._producing:
+            try:
+                pod.reconcile()
+            except Exception:   # noqa: BLE001 — the coordinator may be
+                return          # gone: the pod is tearing down
+        if drain_at is not None and time.monotonic() > drain_at:
+            pod.drain_pod()
+            return
+        if moved or transport.pending():
+            continue
+        if multihost.kv_try_get("done"):
+            return
+        time.sleep(0.005)
+
+
+def _elastic_main(args, device) -> int:
+    from cockroach_tpu_torch.distsql import leases as L
+    from cockroach_tpu_torch.distsql.node import DistSQLNode, Gateway
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.rpc.context import SocketTransport
+    from cockroach_tpu_torch.server.node import membership_status
+    from cockroach_tpu_torch.storage.hlc import Timestamp
+
+    hid = args.process_id
+    founder = not args.kv_addr
+    eng = Engine(device=device)
+    eng.execute(tpch.DDL["lineitem"])
+    eng.execute(tpch.DDL["part"])
+    eng.store.insert_columns("part", tpch.gen_part(args.sf),
+                             Timestamp(1, 0))
+    mem = multihost.init_elastic(
+        hid, kv_addr=args.kv_addr, serve_kv=founder,
+        fanout=max(1, args.fanout), metrics=eng.metrics,
+        heartbeat_interval=args.heartbeat_interval,
+        liveness_window=args.liveness_window)
+    if founder and args.kv_addr_file:
+        with open(args.kv_addr_file, "w") as f:
+            f.write(multihost.elastic_kv_addr())
+    _install_mem_faults(args)
+
+    transport = SocketTransport(hid)
+    transport.attach_metrics(eng.metrics)
+    host, port = transport.addr
+    multihost.kv_set(f"flowaddr/{hid}", f"{host}:{port}")
+    multihost.register_teardown(transport.close)
+    node = DistSQLNode(hid, eng, transport)
+    keeper = L.ShardKeeper(eng)
+    keeper.register_table("lineitem", tpch.DDL["lineitem"],
+                          dictionaries=tpch.LINEITEM_DICTS)
+    leases = L.ShardLeases(mem, metrics=eng.metrics)
+    pod = L.ElasticPod(hid, mem, leases, keeper, node=node,
+                       recover=_elastic_recover(args.sf, args.rows,
+                                                args.nshards))
+
+    known = {hid}
+
+    def refresh_peers() -> None:
+        for sid, raw in multihost.kv_list("flowaddr/").items():
+            pid = int(sid)
+            if pid not in known and raw:
+                h, _, p = raw.rpartition(":")
+                transport.connect(pid, (h, int(p)))
+                known.add(pid)
+
+    if not founder:
+        mem.start_heartbeat()
+        if args.late_join:
+            refresh_peers()
+            pod.join_pod(timeout_s=args.flow_timeout)
+        else:
+            mem.join()
+        _elastic_serve(transport, pod, refresh_peers, args.drain_after)
+        try:
+            multihost.kv_set(f"hostmetrics/{hid}",
+                             json.dumps(_metric_slice(eng)))
+        except Exception:
+            pass
+        time.sleep(0.2)
+        eng.close()
+        return 0
+
+    # founder = gateway: wait for the founding member set, bootstrap the
+    # lease table, then run the statement loop under churn
+    mem.join()
+    mem.start_heartbeat()
+    deadline = time.monotonic() + args.flow_timeout
+    while len(mem.view().live) < args.initial_hosts:
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"elastic pod: {len(mem.view().live)} of "
+                f"{args.initial_hosts} founding hosts joined")
+        time.sleep(0.01)
+    owners = sorted(mem.view().live)[:args.initial_hosts]
+    pod.bootstrap("lineitem", tpch.DDL["lineitem"], args.nshards, owners)
+    refresh_peers()
+    gw = Gateway(node, pod.data_nodes(),
+                 replicated_tables={"part"},
+                 flow_timeout=args.flow_timeout,
+                 merge_fanout=args.fanout, elastic=pod)
+    out = {"hosts": args.initial_hosts, "rows": args.rows,
+           "fanout": args.fanout, "elastic": True, "sf": args.sf,
+           "heartbeat_interval": args.heartbeat_interval,
+           "liveness_window": args.liveness_window,
+           "results": {}, "timings": {}, "runs": []}
+    qs = _queries()
+    names = [q for q in args.queries.split(",") if q]
+    for name in names:
+        best = first = None
+        rows_out, consistent = None, True
+        try:
+            for _ in range(max(1, args.repeat)):
+                refresh_peers()
+                pod.maybe_reconcile()
+                e0 = mem.epoch()
+                t0 = time.monotonic()
+                res = gw.run(qs[name])
+                dt = time.monotonic() - t0
+                first = dt if first is None else first
+                best = dt if best is None else min(best, dt)
+                # the epochs around the run and the data hosts of each
+                # (owners of some shard): a harness holds the hosts'
+                # kernel launches against them
+                e1 = mem.epoch()
+                out["runs"].append({
+                    "query": name, "seconds": dt,
+                    "epoch_before": e0, "epoch_after": e1,
+                    "owners_before": sorted(leases.view_at(e0)
+                                            .owners("lineitem")),
+                    "owners_after": sorted(leases.view_at(e1)
+                                           .owners("lineitem"))})
+                got = [[_jsonable(v) for v in r] for r in res.rows]
+                if rows_out is None:
+                    rows_out = got
+                elif got != rows_out:
+                    consistent = False
+                if args.statement_gap > 0:
+                    time.sleep(args.statement_gap)
+        except Exception as e:  # noqa: BLE001 — the harness asserts shape
+            out["results"][name] = {
+                "error": f"{type(e).__name__}: {e}"}
+            continue
+        out["results"][name] = {"names": list(res.names),
+                                "rows": rows_out,
+                                "runs": max(1, args.repeat),
+                                "consistent": consistent}
+        out["timings"][name] = {"elapsed_s": best, "first_s": first,
+                                "rows_per_s": args.rows / best}
+    out["membership"] = membership_status()
+    out["metrics"] = {"0": _metric_slice(eng)}
+    multihost.kv_set("done", "1")
+    for pid in sorted(int(s) for s in
+                      multihost.kv_list("flowaddr/").keys()):
+        if pid == hid:
+            continue
+        try:
+            out["metrics"][str(pid)] = json.loads(
+                multihost.kv_get(f"hostmetrics/{pid}", timeout_s=5.0))
+        except Exception:
+            out["metrics"][str(pid)] = None   # died or drained early
+    print(json.dumps(out), flush=True)
+    eng.close()
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="cockroach_tpu_torch.server.hostd")
     ap.add_argument("--process-id", type=int, default=0)
@@ -233,17 +455,44 @@ def main(argv=None) -> int:
     ap.add_argument("--flow-timeout", type=float, default=60.0)
     ap.add_argument("--fault", default="none",
                     choices=["none", "dispatcher-death", "drop-link"])
+    # -- elastic pod ---------------------------------------------------
     ap.add_argument("--elastic", action="store_true",
-                    help="dynamic-membership pod (not yet ported)")
+                    help="dynamic-membership pod: shard leases, "
+                    "online join/drain, statement failover")
+    ap.add_argument("--kv-addr", default="",
+                    help="elastic coordinator host:port (empty = "
+                    "found the pod and serve the KV)")
+    ap.add_argument("--kv-addr-file", default="",
+                    help="founder writes its coordinator address "
+                    "here for late joiners")
+    ap.add_argument("--nshards", type=int, default=8)
+    ap.add_argument("--initial-hosts", type=int, default=2,
+                    help="founder bootstraps leases once this many "
+                    "members joined")
+    ap.add_argument("--late-join", action="store_true",
+                    help="join a RUNNING pod: stream shards from "
+                    "live owners, then flip")
+    ap.add_argument("--drain-after", type=float, default=0.0,
+                    help="worker drains out of the pod after this "
+                    "many seconds (0 = never)")
+    ap.add_argument("--statement-gap", type=float, default=0.0,
+                    help="sleep between gateway statements (gives "
+                    "churn a window to land mid-run)")
+    ap.add_argument("--heartbeat-interval", type=float, default=0.1)
+    ap.add_argument("--liveness-window", type=float, default=1.0)
+    ap.add_argument("--mem-fault", default="none",
+                    choices=["none", "delayed-heartbeat",
+                             "stale-epoch"])
     args = ap.parse_args(argv)
 
-    if args.elastic:
-        print("hostd --elastic: the elastic pod needs distsql/leases.py "
-              "and multihost's Membership (ROADMAP Queue 1 item 4), not "
-              "yet ported", file=sys.stderr)
-        return 2
-
     device = None if args.device == "cuda" else args.device
+    if args.elastic:
+        args.rows = _lineitem_rows(args.sf, args.rows)
+        if args.rows is None:
+            from cockroach_tpu_torch.models import tpch
+            args.rows = int(tpch.LINEITEM_PER_SF * args.sf)
+        return _elastic_main(args, device)
+
     topo = multihost.init_distributed(
         coordinator=args.coordinator,
         num_processes=args.num_processes,

@@ -18,8 +18,13 @@ DB, server/ts.py), the Prometheus text at ``/metrics`` and
 statements' trace recordings) and ``/_status/stmtdiag`` (GET: armed
 requests and captured bundles; POST ``{"sql": ...}`` or
 ``{"fingerprint": ...}``: arm one) with ``/_status/stmtdiag/<id>`` (one
-bundle). The cluster fabric (rpc, gossip, membership, the status
-fan-out: tracez's ``?cluster=1``), ``/_debug/ranges`` and
+bundle), ``/_status/membership`` (this host's view of an elastic pod:
+epoch, live set, suspects and the shard-lease assignment; ``{"elastic":
+false}`` outside one) and ``/_debug/ranges`` (the range descriptors and
+leaseholders of ``NodeConfig.cluster``, a kvserver.Cluster whose
+replicated ranges the node's engine serves its tables from; several
+Nodes handed one Cluster serve the same data). The socket cluster
+fabric (rpc, gossip, the status fan-out: tracez's ``?cluster=1``) and
 ``/_status/nodes`` are not ported yet: each answers 404 with "not yet
 ported".
 """
@@ -39,8 +44,8 @@ from .pgwire import PgServer
 from .ts import TimeSeriesDB
 
 # endpoints of the reference's status server that need subsystems the
-# port does not have yet
-NOT_PORTED = ("/_debug/ranges", "/_status/nodes", "/_status/membership")
+# port does not have yet (the socket cluster fabric)
+NOT_PORTED = ("/_status/nodes",)
 
 
 @dataclass
@@ -64,6 +69,11 @@ class NodeConfig:
     auth_method: str = "cleartext"
     # the engine's device: None = the CUDA card (raises without one)
     device: str | None = None
+    # raft-replicated data plane: a kvserver.Cluster shared by the nodes
+    # of one logical cluster. With this set, the node's engine serves
+    # DML, the catalog and jobs from replicated ranges (kv/rangekv.py)
+    # instead of a node-local store
+    cluster: object = None
 
 
 def _statements_payload(engine) -> dict:
@@ -98,10 +108,59 @@ def _tenants_payload(engine) -> dict:
     return {"tenants": [t.to_wire() for t in engine.sqlstats.tenants()]}
 
 
+def membership_status() -> dict:
+    """The /_status/membership body: this host's view of the elastic
+    pod (epoch'd live set, per-member state and incarnation, heartbeat
+    suspects, and the shard-lease assignment at the current epoch, read
+    through the epoch-guarded LeaseView, never the raw lease records).
+    ``{"elastic": false}`` when the pod is static or single-process
+    (pkg/server/status.go NodesLiveness analogue)."""
+    from ..parallel import multihost
+    mem = multihost.membership()
+    if mem is None:
+        return {"elastic": False}
+    view = mem.view()
+    out = {
+        "elastic": True,
+        "host_id": mem.host_id,
+        "incarnation": mem.incarnation,
+        "epoch": view.epoch,
+        "live": sorted(view.live),
+        "members": {str(h): dict(view.members.get(str(h), {}))
+                    for h in view.live},
+        "suspects": sorted(mem.suspects(view.live)),
+        "expelled": bool(mem.expelled()),
+    }
+    try:
+        from ..distsql.leases import ShardLeases
+        lv = ShardLeases(mem).view_at(view.epoch)
+        out["leases"] = {
+            t: {str(s): o for s, o in sorted(lv.assignment(t).items())}
+            for t in sorted(lv.assignments)}
+    except Exception:   # noqa: BLE001 — the lease table may not exist yet
+        out["leases"] = {}
+    return out
+
+
+def ranges_payload(cluster) -> dict:
+    """The /_debug/ranges body: every range's descriptor and leaseholder
+    (the ``cockroach debug`` analogue); no ranges without a cluster."""
+    if cluster is None:
+        return {"ranges": []}
+    return {"ranges": [{
+        "range_id": rid,
+        "start": desc.start_key.decode("latin1"),
+        "end": desc.end_key.decode("latin1"),
+        "replicas": list(desc.replicas),
+        "leaseholder": cluster.leaseholder(rid),
+    } for rid, desc in sorted(cluster.descriptors.items())]}
+
+
 class Node:
     def __init__(self, config: NodeConfig | None = None):
         self.config = config or NodeConfig()
-        self.engine = Engine(device=self.config.device)
+        self.engine = Engine(device=self.config.device,
+                             cluster=self.config.cluster)
         self.store = self.engine.store
         self.settings = self.engine.settings
         self.clock = self.engine.clock
@@ -161,6 +220,10 @@ class Node:
                     "/debug/tracez?cluster=1: the fan-out across peers is "
                     "not yet ported")
             payload = _tracez_payload(eng)
+        elif path == "/_status/membership":
+            payload = membership_status()
+        elif path == "/_debug/ranges":
+            payload = ranges_payload(self.config.cluster)
         elif path == "/_status/stmtdiag":
             payload = eng.stmtdiag.summary()
         elif path.startswith("/_status/stmtdiag/"):
@@ -290,6 +353,10 @@ class Node:
                 self._maint_step(f"gc {name}", self.engine.run_gc, name)
         self._maint_step("intents",
                          self.engine.kv.store.intent_resolver.clean_span)
+        if self.engine.cluster is not None:
+            # aged-out aborted txn records (gc/gc.go)
+            self._maint_step("txn records",
+                             self.engine.cluster.gc_txn_records)
         self._maint_step("tsdb", self._ts_pass)
 
     def _maint_step(self, what: str, fn, *args) -> None:

@@ -690,6 +690,45 @@ class ColumnStore:
         return Chunk(data=data, valid=vmap, mvcc_ts=mvcc_ts,
                      mvcc_del=mvcc_del, n=n, rowid=rowid)
 
+    def insert_versions(self, name: str,
+                        versions: list[tuple[dict, int, int]]) -> int:
+        """Bulk ingest with explicit MVCC bounds: each element is (row,
+        mvcc_ts_int, mvcc_del_int), rows storage-logical. Used when the
+        scan plane is materialized from committed range data
+        (exec/dml.py refresh_table_from_ranges): the columnstore must
+        reproduce the range plane's version history, not re-stamp it,
+        or open snapshots and AS OF SYSTEM TIME reads go wrong. Rows go
+        in sealed chunks of at most ``chunk_rows``; synthetic-pk rowids
+        come from the decoded keys, and later inserts allocate past
+        them."""
+        from ..sql.rowenc import ROWID
+        td = self.table(name)
+        with self._lock:
+            if not versions:
+                self._bump(td)
+                return 0
+            step = max(int(td.chunk_rows), 1)
+            for lo in range(0, len(versions), step):
+                part = versions[lo:lo + step]
+                rowids = []
+                for r, _t, _d in part:
+                    rid = r.get(ROWID)
+                    if rid is None:
+                        rid = td.next_rowid
+                        td.next_rowid += 1
+                    rowids.append(int(rid))
+                td.next_rowid = max(td.next_rowid, max(rowids) + 1)
+                chunk = self.rows_chunk(
+                    td, [r for r, _t, _d in part],
+                    np.asarray([t for _r, t, _d in part], dtype=np.int64),
+                    np.asarray([d for _r, _t, d in part], dtype=np.int64),
+                    np.asarray(rowids, dtype=np.int64))
+                chunk.finalize_stats()
+                td.chunks.append(chunk)
+            td.pk_index = None
+            self._bump(td)
+        return len(versions)
+
     # -- MVCC windows and bulk rows (BACKUP/RESTORE, changefeed catch-up) ---
     def mvcc_window(self, name: str, lo: int, hi: int) -> list:
         """The MVCC window (lo, hi] of a table as whole-chunk masks:

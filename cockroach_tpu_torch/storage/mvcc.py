@@ -88,6 +88,19 @@ class WriteTooOldError(Exception):
             f"write at {write_ts} too old for {key!r}; "
             f"existing committed value at {existing_ts}")
 
+    @classmethod
+    def with_actual(cls, key: bytes,
+                    actual_ts: Timestamp) -> "WriteTooOldError":
+        """Rebuild from a wire-carried actual_ts verbatim (batch-eval
+        error results already encode existing_ts.next(); running it
+        through __init__ would advance it a second time)."""
+        e = cls.__new__(cls)
+        Exception.__init__(
+            e, f"write too old on {key!r}; retry above {actual_ts}")
+        e.key = key
+        e.actual_ts = actual_ts
+        return e
+
 
 @dataclass
 class MVCCValue:
@@ -367,3 +380,73 @@ class MVCC:
             self.engine.delete(ek)
             removed += 1
         return removed
+
+    def committed_versions(self, start: bytes, end: bytes
+                           ) -> list[tuple[bytes, int, Optional[bytes]]]:
+        """All COMMITTED raw versions in [start, end) as
+        (key, ts_int, value|None-for-tombstone), oldest-first per key.
+        Provisional versions (under an unresolved meta record) are
+        skipped. The scan-plane materialization feed (exec/dml.py) and
+        the socket cluster's replica-side version service share this
+        one implementation so the intent-skipping rule cannot
+        diverge."""
+        out: list[tuple[bytes, int, Optional[bytes]]] = []
+        cur: Optional[bytes] = None
+        meta: Optional[TxnMeta] = None
+        for ek, raw in self.engine.scan(EngineKey.meta(start),
+                                        EngineKey.meta(end),
+                                        include_tombstones=True):
+            if raw is None:
+                continue   # engine-level tombstone (GC'd version)
+            if ek.key != cur:
+                cur = ek.key
+                meta = None
+            if ek.is_meta:
+                meta = TxnMeta.from_json(raw)
+                continue
+            if meta is not None and ek.ts == meta.write_ts:
+                continue   # provisional (unresolved intent)
+            out.append((ek.key, ek.ts.to_int(), _dec_value(raw)))
+        return out
+
+    # -- introspection -------------------------------------------------------
+    def oldest_intent_ts(self, start: bytes,
+                         end: bytes) -> Optional[Timestamp]:
+        """Lowest write_ts among live intents in [start, end) — the
+        resolved-timestamp clamp for rangefeeds (the reference tracks
+        this incrementally in rangefeed's unresolvedIntentQueue)."""
+        oldest: Optional[Timestamp] = None
+        for ek, raw in self.engine.scan(EngineKey.meta(start),
+                                        EngineKey.meta(end)):
+            if ek.is_meta and raw is not None:
+                m = TxnMeta.from_json(raw)
+                if oldest is None or m.write_ts < oldest:
+                    oldest = m.write_ts
+        return oldest
+
+    def committed_versions_after(self, start: bytes, end: bytes,
+                                 after_ts: Timestamp) -> list[MVCCValue]:
+        """Every committed version with ts > after_ts in [start, end),
+        tombstones included, ordered by (ts, key) — the rangefeed
+        catch-up scan (rangefeed/catchup_scan.go)."""
+        out: list[MVCCValue] = []
+        cur_meta: Optional[TxnMeta] = None
+        cur_key: Optional[bytes] = None
+        for ek, raw in self.engine.scan(EngineKey.meta(start),
+                                        EngineKey.meta(end),
+                                        include_tombstones=True):
+            if ek.key != cur_key:
+                cur_key = ek.key
+                cur_meta = None
+            if ek.is_meta:
+                if raw is not None:
+                    cur_meta = TxnMeta.from_json(raw)
+                continue
+            if raw is None:
+                continue
+            if cur_meta is not None and ek.ts == cur_meta.write_ts:
+                continue  # provisional (uncommitted intent) version
+            if after_ts < ek.ts:
+                out.append(MVCCValue(ek.key, ek.ts, _dec_value(raw)))
+        out.sort(key=lambda mv: (mv.ts.wall, mv.ts.logical, mv.key))
+        return out

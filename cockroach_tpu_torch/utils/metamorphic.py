@@ -33,6 +33,16 @@ def is_active() -> bool:
     return _rng is not None
 
 
+def metamorphic_int(name: str, default: int, lo: int, hi: int) -> int:
+    """A constant in [lo, hi]; `default` in production."""
+    if _rng is None:
+        return default
+    with _CHOSEN_LOCK:
+        if name not in chosen:
+            chosen[name] = _rng.randint(lo, hi)
+        return chosen[name]
+
+
 def metamorphic_pow2(name: str, default: int, lo_bits: int,
                      hi_bits: int) -> int:
     """A power-of-two constant in [2^lo_bits, 2^hi_bits]."""

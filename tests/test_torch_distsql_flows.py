@@ -12,9 +12,9 @@ whole table. DECIMAL and FLOAT8 results are compared within rel 1e-9
 order), everything else exactly.
 
 Also here: the serde bytes held byte for byte against the reference's
-encoder; the branches that wait for modules not yet ported (cluster,
-elastic) raising errors that name them (flows over socket transports
-are tests/test_torch_rpc_fabric.py's); a node on a
+encoder; the leaseholder-partitioned flows over a kvserver.Cluster and
+the replan after a node's death, each case run on both packages (flows
+over socket transports are tests/test_torch_rpc_fabric.py's); a node on a
 two-slot CPU shard mesh; Q1 whose per-node DECIMAL partials pass 2^31
 merged exactly; kernel 1 routed once per data node (its plain version
 on the CPU, its launch on the card).
@@ -29,7 +29,7 @@ import torch
 from cockroach_tpu_torch.distsql import serde
 from cockroach_tpu_torch.distsql.flow import FlowSpec
 from cockroach_tpu_torch.distsql.node import (DistSQLNode, FlowError,
-                                              FlowUnsupported, Gateway)
+                                              Gateway)
 from cockroach_tpu_torch.exec.engine import Engine
 from cockroach_tpu_torch.kvserver.transport import LocalTransport
 from cockroach_tpu_torch.models import tpch
@@ -392,25 +392,172 @@ class TestFlowTracing:
         assert bundle["device_time_s"] > 0
 
 
-class TestNotYetPorted:
-    """Branches that wait for modules not yet ported raise errors that
-    name them; none answers around them."""
+def _pkg(ref_mods=None):
+    """The modules a cluster fabric needs, of the port (no argument)
+    or of the reference (``reference()``'s modules, held open by the
+    caller), and an engine factory of that package on the CPU."""
+    import importlib
+    pkg = "cockroach_tpu" if ref_mods is not None else "cockroach_tpu_torch"
+    mods = {n: importlib.import_module(f"{pkg}.{n}") for n in (
+        "exec.engine", "distsql.node", "kvserver.transport",
+        "kvserver.cluster", "kv.rowfetch", "models.tpch")}
+    kw = {} if ref_mods is not None else {"device": "cpu"}
+    return mods, (lambda: mods["exec.engine"].Engine(**kw))
 
-    @pytest.mark.parametrize("kind", ["cluster", "elastic",
-                                      "node_cluster"])
-    def test_raises_naming_the_missing_module(self, kind):
-        transport = LocalTransport()
-        if kind == "node_cluster":
-            with pytest.raises(FlowUnsupported, match="kvserver.Cluster"):
-                DistSQLNode(0, port_engine(), transport, cluster=object())
-            return
-        node = DistSQLNode(0, port_engine(), transport)
-        if kind == "cluster":
-            with pytest.raises(FlowUnsupported, match="rowfetch"):
-                Gateway(node, [0], cluster=object())
-        else:
-            with pytest.raises(FlowUnsupported, match="leases.py"):
-                Gateway(node, [0], elastic=object())
+
+def _rows_of(engine, table):
+    """All storage-logical rows of a table."""
+    store = engine.store
+    td = store.table(table)
+    return [store.extract_row(td, chunk, ri)
+            for chunk in td.chunks for ri in range(chunk.n)]
+
+
+def cluster_fabric(mods, make, rows, with_part=True, monitor=None,
+                   **gw_kw):
+    """The reference's leaseholder fabric: a 3-store Cluster holding
+    lineitem (and part) in ranges, lineitem's span split in three;
+    DistSQLNodes 0 (gateway) to 3 over one LocalTransport, each with
+    the cluster; an oracle engine over the same rows."""
+    tp = mods["models.tpch"]
+    oracle = make()
+    tp.load(oracle, sf=0.01, rows=rows)
+    c = mods["kvserver.cluster"].Cluster(n_nodes=3)
+    transport = mods["kvserver.transport"].LocalTransport()
+    nodes = []
+    for i in range(4):
+        e = make()
+        e.execute(tp.DDL["lineitem"])
+        if with_part:
+            e.execute(tp.DDL["part"])
+        nodes.append(mods["distsql.node"].DistSQLNode(i, e, transport,
+                                                      cluster=c))
+    RangeTable = mods["kv.rowfetch"].RangeTable
+    rt_li = RangeTable(c, nodes[0].engine.store.table("lineitem").schema)
+    lo, hi = rt_li.codec.span()
+    rt_p = None
+    if with_part:
+        rt_p = RangeTable(c, nodes[0].engine.store.table("part").schema)
+        lo = min(lo, rt_p.codec.span()[0])
+        hi = max(hi, rt_p.codec.span()[1])
+    c.create_range(lo, hi, replicas=[1, 2, 3])
+    c.pump_until(lambda: c.ensure_lease(1) is not None)
+    rt_li.insert_rows(_rows_of(oracle, "lineitem"))
+    if with_part:
+        rt_p.insert_rows(_rows_of(oracle, "part"))
+    s0, _s1 = rt_li.codec.span()
+    for frac in (b"\x40", b"\x80"):
+        c.split_range(s0 + frac)
+    c.pump(10)
+    gw = mods["distsql.node"].Gateway(nodes[0], [1, 2, 3], cluster=c,
+                                      monitor=monitor, **gw_kw)
+    return c, gw, oracle, rt_li, nodes, transport
+
+
+LH_ROWS = 900
+LH_AGG = ("SELECT count(*), sum(l_quantity) FROM lineitem "
+          "WHERE l_quantity < 30")
+
+
+def _lh_scenario(kind, mods, make):
+    """One case of the reference's TestLeaseholderPartitionedFlows on
+    one package: (the gateway's rows, the oracle's rows, the span
+    partition's node count)."""
+    tp = mods["models.tpch"]
+    c, gw, oracle, rt_li, _nodes, _t = cluster_fabric(mods, make, LH_ROWS)
+    if kind == "agg":
+        q = LH_AGG
+    elif kind == "join":
+        q = tp.Q14
+    else:
+        # move every lease to store 2: the partition collapses to one
+        # node, coverage stays exactly-once
+        for rid, desc in list(c.descriptors.items()):
+            lh = c.leaseholder(rid)
+            if lh is not None and lh != 2 and 2 in desc.replicas:
+                c.transfer_lease(rid, 2)
+        c.pump(10)
+        q = "SELECT count(*) FROM lineitem"
+    parts = rt_li.partition_spans()
+    return gw.run(q).rows, oracle.execute(q).rows, len(parts)
+
+
+class TestLeaseholderPartitionedFlows:
+    """Cluster mode: the Gateway partitions scans by range leaseholder
+    (PartitionSpans) and each node materializes its assignment from the
+    committed range data before running its stage. Each case runs on
+    both packages over the same generated rows; the port's gateway rows
+    equal its oracle's and the reference gateway's."""
+
+    @pytest.mark.parametrize("kind", ["agg", "join", "lease_moves"])
+    def test_leaseholder_partitioned(self, kind):
+        with reference() as ref_mods:
+            want, want_oracle, _ = _lh_scenario(kind, *_pkg(ref_mods))
+        got, oracle_rows, nparts = _lh_scenario(kind, *_pkg())
+        assert nparts >= 1
+        assert_rows_close(got, oracle_rows)
+        assert_rows_close(got, want)
+        if kind == "lease_moves":
+            assert nparts == 1 and got == want
+
+
+def _replan_scenario(mid_flow: bool, mods, make):
+    """The reference's TestFlowReplanOnFailure on one package: node 3
+    dies (before the flow's scheduling check, or only after it, found by
+    the gateway's mid-flow breaker poll); the statement replans on the
+    survivors. Returns (rows before, rows after, oracle rows, monitor
+    calls)."""
+    q = ("SELECT count(*) FROM lineitem" if mid_flow
+         else "SELECT count(*), sum(l_quantity) FROM lineitem")
+    state = {"calls": 0, "sick": set()}
+
+    class Monitor:
+        def healthy(self, n):
+            state["calls"] += 1
+            if not mid_flow:
+                return n not in state["sick"]
+            # calls 1-3: the live-set probe; 4-6: the scheduling-time
+            # check. Staying healthy through both forces the failure
+            # onto the MID-FLOW poll
+            return n != 3 or state["calls"] <= 6
+
+    c, gw, oracle, _rt, _nodes, transport = cluster_fabric(
+        mods, make, 600, with_part=False, monitor=Monitor(),
+        **({"flow_timeout": 10.0} if mid_flow else {}))
+    before = None
+    if not mid_flow:
+        before = gw.run(q).rows
+        state["sick"].add(3)
+    transport.stop_node(3)
+    for rid in list(c.descriptors):
+        if c.leaseholder(rid) == 3:
+            c.transfer_lease(rid, 1)
+    c.pump(10)
+    if mid_flow:
+        state["calls"] = 0
+    after = gw.run(q).rows
+    return before, after, oracle.execute(q).rows, state["calls"]
+
+
+class TestFlowReplanOnFailure:
+    """A read-only flow that loses a data node replans over the
+    surviving nodes instead of erroring (the reference re-plans around
+    dead nodes, distsql_running.go:375), on both packages."""
+
+    @pytest.mark.parametrize("mid_flow", [False, True],
+                             ids=["node_death", "mid_flow_death"])
+    def test_replans_on_survivors(self, mid_flow):
+        with reference() as ref_mods:
+            r_before, r_after, r_oracle, _ = _replan_scenario(
+                mid_flow, *_pkg(ref_mods))
+        before, after, want, calls = _replan_scenario(mid_flow, *_pkg())
+        if not mid_flow:
+            assert before[0][0] == want[0][0] == r_before[0][0]
+        assert_rows_close(after, want)
+        assert_rows_close(after, r_after)
+        assert r_after[0][0] == r_oracle[0][0]
+        if mid_flow:
+            assert calls > 6    # the mid-flow poll actually ran
 
 
 class TestNodeOnAMesh:

@@ -98,17 +98,26 @@ def test_port_scan_covers_parallel():
 
 
 def test_port_scan_covers_distsql():
-    """The import scan reaches every module of distsql/ and kvserver/
-    (serde, flow, physical, shuffle, node; the transport), and none of
-    them imports jax or the JAX package, directly or through a module of
-    the port they load."""
+    """The import scan reaches every module of distsql/, kvserver/ and
+    kv/ (serde, flow, physical, shuffle, node, the shard leases; the
+    transport, raft, stores, the range cluster, liveness, rangefeeds;
+    the txn plane, DistSender, the range cache, rangekv, disttxn,
+    rowfetch), and none of them imports jax or the JAX package, directly
+    or through a module of the port they load."""
     import importlib
     import sys
     pkg = ROOT / "cockroach_tpu_torch"
     for sub, names in (("distsql", {"__init__.py", "serde.py", "flow.py",
                                     "physical.py", "shuffle.py",
-                                    "node.py"}),
-                       ("kvserver", {"__init__.py", "transport.py"})):
+                                    "node.py", "leases.py"}),
+                       ("kvserver", {"__init__.py", "transport.py",
+                                     "raft.py", "store.py", "cluster.py",
+                                     "liveness.py", "rangefeed.py"}),
+                       ("kv", {"__init__.py", "concurrency.py", "txn.py",
+                               "intentresolver.py", "protectedts.py",
+                               "rangecache.py", "distsender.py",
+                               "rangekv.py", "disttxn.py",
+                               "rowfetch.py"})):
         assert {p.name for p in (pkg / sub).glob("*.py")} == names
         assert {pkg / sub / n for n in names} <= set(_port_files())
         for n in sorted(names):
@@ -240,6 +249,28 @@ def test_engine_without_card_raises():
         Engine()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         default_device()
+
+
+def test_cluster_engine_and_elastic_pod_without_card_raise():
+    """A cluster-backed engine and an elastic pod host keep the device
+    policy: the card unless a device is named (the Cluster itself is
+    host code and takes no device)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import subprocess
+    import sys
+    from cockroach_tpu_torch.exec.engine import Engine
+    from cockroach_tpu_torch.kvserver.cluster import Cluster
+    c = Cluster(n_nodes=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cluster=c)
+    assert Engine(cluster=c, device="cpu").cluster is c
+    proc = subprocess.run(
+        [sys.executable, "-m", "cockroach_tpu_torch.server.hostd",
+         "--elastic", "--rows", "10"], cwd=ROOT, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
 
 
 def test_server_and_cli_without_card_raise():

@@ -407,15 +407,6 @@ class TestTwoHostPod:
         assert pod["hosts"] == 2 and pod["rows"] == ROWS
 
 
-def test_elastic_pod_not_yet_ported():
-    proc = subprocess.run(
-        [sys.executable, "-m", "cockroach_tpu_torch.server.hostd",
-         "--elastic", "--device", "cpu"], env=_child_env(), cwd=REPO,
-        capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0
-    assert "distsql/leases.py" in proc.stderr
-
-
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
 def test_hostd_without_a_card_raises():
     """--device defaults to the card: without one, hostd fails instead

@@ -153,12 +153,16 @@ def test_prometheus_page_and_not_ported_endpoints(node):
     for name in ("admission_admitted", "admission_tenant_slot_waits",
                  "exec_device_hbm_bytes", "sql_exec_latency_bucket"):
         assert name in text
-    for path in ("/_debug/ranges", "/_status/nodes",
-                 "/debug/tracez?cluster=1"):
+    for path in ("/_status/nodes", "/debug/tracez?cluster=1"):
         with pytest.raises(urllib.error.HTTPError) as ei:
             _get(node, path)
         assert ei.value.code == 404
         assert b"not yet ported" in ei.value.read()
+    # served since the range plane and the elastic pod came: a node
+    # with no cluster lists no ranges, outside a pod no membership
+    assert json.loads(_get(node, "/_debug/ranges")) == {"ranges": []}
+    assert json.loads(_get(node, "/_status/membership")) == {
+        "elastic": False}
     # served since the tracing and diagnostics planes came
     assert json.loads(_get(node, "/debug/tracez")) == {"traces": []}
     assert json.loads(_get(node, "/_status/stmtdiag")) == {
