@@ -113,14 +113,13 @@ Phases (any failure exits non-zero before the final line):
    the same text hits the exec cache (Q15's re-execute handle hits it
    on its runs), with the counters; the host ms per run both ways, the
    median wall time minus torch.profiler's device busy time.
-10. Beyond memory at TPC-H SF10 (`beyond_memory_phase()`; the whole
-   run takes it at SF5, WHOLE_RUN_BEYOND_SF: half the rows and pages,
-   every check the same), in an Engine of its own (the SF1
+10. Beyond memory at TPC-H SF5 (`beyond_memory_phase()`), in an Engine
+   of its own (the SF1
    engines are freed first): prints the host's MemTotal/MemAvailable and
-   the card's free and total memory, loads lineitem (60,012,150 rows),
-   part (2,000,000) and orders (15,000,000) with the generators' seeds
+   the card's free and total memory, loads lineitem (30,006,075 rows),
+   part (1,000,000) and orders (7,500,000) with the generators' seeds
    and prints the load seconds. At sql.exec.hbm_budget_bytes = 1 GiB
-   and pages of 2^21 rows Q1, Q6 and Q14 must stream (29 pages at SF10
+   and pages of 2^21 rows Q1, Q6 and Q14 must stream (15 pages at SF5
    uploaded or skipped, kernel 1 never launched, peak
    max_memory_allocated() under 2 GiB) and equal the numpy oracles;
    SET streaming_pipeline = off must give identical rows. Both ways:
@@ -138,7 +137,7 @@ Phases (any failure exits non-zero before the final line):
    slice under SET spill = on must equal its resident run and a numpy
    lexsort oracle, in order; a streamed Q6 through Engine.prepare runs
    3 times, equal each time. Every kernel-1 call of these path runs
-   (resident Q1 over 2^26 padded rows, the resident join) is held
+   (resident Q1 over 2^25 padded rows, the resident join) is held
    against the plain version at its own slots. One JSON `stream` line
    holds these numbers.
 11. Windows, the write path and YCSB-E, on the SF1 engine of phases
@@ -472,16 +471,17 @@ Phases (any failure exits non-zero before the final line):
    killed mid-scan and the GROUP BY comes back through the failover
    rung with the SF1 engine's rows. One JSON `elastic` line.
 22. SQL on raft-replicated ranges (`ranges_phase_alone()`): a 3-node
-   Cluster, lineitem in 4 ranges and part in 2, 1,200 lineitem rows and
-   300 parts loaded through a gateway's INSERTs of 1,000 rows (rows/s
-   printed; raft's cost a write grows with the range's log, so not the
-   20,000 of the sf 0.01 tests). Q1 (under `on`: kernel 1 once, held
-   against its plain version), Q6 and Q14 through gateway A equal a
-   local engine's and the numpy oracles; an UPDATE through A shows on
-   gateway B, B's AS OF read from before it equals A's first Q1; after
-   stop_node of a leaseholder, a fresh gateway C has every row; Q1, Q14
-   and Q1F through Gateway(cluster=c) over three DistSQLNodes equal A's
-   (kernel 1 and kernel 2 once a node holding spans, each launch held
+   Cluster; 20,000 lineitem rows and 2,000 parts (the sf 0.01
+   generators) loaded through a gateway's INSERTs of 1,000 rows into
+   one range (rows/s printed), then lineitem split in 4 ranges and part
+   in 2. Q1 (under `auto`: kernel 1 once, held against its plain
+   version), Q6 and Q14 through gateway A equal a local engine's and
+   the numpy oracles; an UPDATE of 202 rows through A (rows/s printed)
+   shows on gateway B, B's AS OF read from before it equals A's first
+   Q1; after stop_node of a leaseholder, a fresh gateway C has every
+   row; Q1 and Q14 (`auto`) and Q1F (`on`) through Gateway(cluster=c)
+   over three DistSQLNodes equal A's (kernel 1 and kernel 2 once a
+   node holding spans, each launch held
    against its plain version), also after a transfer_lease;
    /_debug/ranges lists every range with its leaseholder; medians of 5
    warm Q1 runs on A and on the local engine, busy ms, host ms, idle
@@ -1902,13 +1902,11 @@ def _composed_write_check(eng, p, s, tables, want, driven) -> dict:
     return out
 
 
-# -- phase 10: beyond memory at SF10 ------------------------------------------
+# -- phase 10: beyond memory at SF5 -------------------------------------------
 
-SF10 = 10
-# phase 10's scale in the whole run: SF5 (30,006,075 lineitem rows)
-# still streams each query past the 1 GiB budget; the SF10 load alone
-# took 93-124 s of the run (beyond_memory_phase() alone keeps SF10)
-WHOLE_RUN_BEYOND_SF = 5
+# SF5 (30,006,075 lineitem rows) streams each query past the 1 GiB
+# budget; an SF10 load took 93-124 s of the whole run
+BEYOND_SF = 5
 STREAM_BUDGET = 1 << 30
 RESIDENT_BUDGET = 1 << 36
 PAGE_ROWS = 1 << 21             # the default streaming_page_rows
@@ -1947,7 +1945,7 @@ def ref_q1_codes(li) -> list:
     the generator's dictionary codes (tpch.RF_VALUES, LS_VALUES): the same
     rows, the same sums over the same rows in the same order, with the
     groups found and masked on the int codes instead of on the decoded
-    strings (a minute at SF10)."""
+    strings."""
     import numpy as np
 
     from cockroach_tpu_torch.models import tpch
@@ -2043,11 +2041,10 @@ class PathRuns:
         return self.run(kind, label, lambda: self.eng.execute(sql, session))
 
 
-def beyond_memory_phase(reps: int = 3, sf: int = SF10) -> dict:
-    """Phase 10: TPC-H Q1, Q6 and Q14 streamed at ``sf`` (SF10 alone, the
-    whole run's WHOLE_RUN_BEYOND_SF) under a 1 GiB device budget, then
-    resident; a spilled lineitem x orders join and a spilled sort; a
-    streamed prepared statement."""
+def beyond_memory_phase(reps: int = 3) -> dict:
+    """Phase 10: TPC-H Q1, Q6 and Q14 streamed at BEYOND_SF under a 1 GiB
+    device budget, then resident; a spilled lineitem x orders join and a
+    spilled sort; a streamed prepared statement."""
     import numpy as np
     import torch
 
@@ -2056,6 +2053,7 @@ def beyond_memory_phase(reps: int = 3, sf: int = SF10) -> dict:
     from cockroach_tpu_torch.ops import join
     from cockroach_tpu_torch.ops.batch import ColumnBatch
 
+    sf = BEYOND_SF
     host = _meminfo()
     eng = Engine()
     free, total = eng.devstats.free_total() or (0, 0)
@@ -6749,23 +6747,16 @@ def _elastic_cue(name: str) -> str:
 
 
 def _pump_until(pod, cond, what: str, timeout: float = 120.0) -> None:
-    """Serve this host's flows and lease work until ``cond()`` holds, as
-    hostd's serve loop does (new peers' addresses from the pod's KV, the
-    transport, the idle reconcile): a host waiting on the pod must go on
-    serving it."""
-    from cockroach_tpu_torch.parallel import multihost
+    """Serve this host's flows and lease work until ``cond()`` holds,
+    through hostd's own serve step: a host waiting on the pod must go on
+    serving it. A failed reconcile is retried until the deadline."""
+    from cockroach_tpu_torch.server import hostd
     deadline = time.monotonic() + timeout
-    t = pod.node.transport
+    known = {pod.host_id}
     while not cond():
         if time.monotonic() > deadline:
             raise AssertionError(f"phase 21: {what} within {timeout} s")
-        for sid, raw in multihost.kv_list("flowaddr/").items():
-            if int(sid) != pod.host_id and raw:
-                h, _, p = raw.rpartition(":")
-                t.connect(int(sid), (h, int(p)))
-        if not t.deliver_all():
-            if not pod.node._producing:
-                pod.maybe_reconcile()
+        if not hostd.elastic_serve_step(pod.node.transport, pod, known):
             time.sleep(0.005)
 
 
@@ -7314,17 +7305,21 @@ def elastic_phase_alone(sf: float = SF, device: str = "cuda",
     return out
 
 
-# phase 22: SQL on raft-replicated ranges. Raft is host code whose cost
-# per write grows with the range's log (each proposal is sent once per
-# append stream still in flight to a follower), about 80 rows/s at 300
-# rows a range on this repo's CPU measurements, so the load through SQL
-# is cut to RANGE_ROWS lineitem rows in RANGE_PIECES ranges and the first
-# RANGE_PARTS parts in two; Q1 and Q1F run under pallas_groupagg = on,
-# the kernels' route at any row count
-RANGE_ROWS = 1_200
+# phase 22: SQL on raft-replicated ranges, at the sf 0.01 tests' size:
+# RANGE_ROWS lineitem rows and all 2,000 parts, through INSERTs of
+# RANGE_BATCH rows. Raft is the reference's, draws included: a leader
+# sends its append stream again on every success response that leaves
+# entries unsent, stale ones too, so once a stale heartbeat response
+# lands after the next proposal, every write that follows in that range
+# adds a stream, and a statement's cost grows with the square of its
+# writes to one range (tests/range_load_rate.py times both packages).
+# The rows go into one range, which did not start that storm, and the
+# spans are split after the load; the UPDATE after the split, which
+# does start it, writes RANGE_UPDATE_ROWS rows
+RANGE_ROWS = 20_000
 RANGE_PIECES = 4
-RANGE_PARTS = 300
 RANGE_BATCH = 1_000
+RANGE_UPDATE_ROWS = 200
 RANGE_REPS = 5
 
 
@@ -7345,16 +7340,15 @@ def _insert_sql(table: str, cols: dict, lo: int, hi: int) -> str:
                         for i in range(lo, hi)))
 
 
-def range_tables(rows: int = RANGE_ROWS, parts: int = RANGE_PARTS,
-                 sf: float = 0.01) -> tuple:
-    """Phase 22's rows: lineitem's first ``rows`` and part's first
-    ``parts`` from the sf 0.01 generators, as numpy columns (for the
-    oracles) and as SQL literal columns (dates as ISO strings)."""
+def range_tables(rows: int = RANGE_ROWS) -> tuple:
+    """Phase 22's rows: lineitem's first ``rows`` and all of part from
+    the sf 0.01 generators, as numpy columns (for the oracles) and as
+    SQL literal columns (dates as ISO strings)."""
     import datetime
 
     from cockroach_tpu_torch.models import tpch
-    li = tpch.gen_lineitem(sf, rows=rows)
-    part = {k: v[:parts] for k, v in tpch.gen_part(sf).items()}
+    li = tpch.gen_lineitem(0.01, rows=rows)
+    part = tpch.gen_part(0.01)
     epoch = datetime.date(1970, 1, 1)
     li_sql = dict(li)
     for c in ("l_shipdate", "l_commitdate", "l_receiptdate"):
@@ -7384,34 +7378,33 @@ def _ranges_q(run, label, on_card, kernels) -> tuple:
     return res, dt, c1, c2
 
 
-def ranges_phase(device: str = "cuda", rows: int = RANGE_ROWS,
-                 parts: int = RANGE_PARTS) -> dict:
+def ranges_phase(device: str = "cuda", rows: int = RANGE_ROWS) -> dict:
     """Phase 22: SQL on ranges. A 3-node kvserver.Cluster; gateway A, an
-    Engine(cluster=c) on the card, creates lineitem and part, the
-    lineitem span is split in RANGE_PIECES ranges by rowid and part's in
-    two, and A INSERTs the rows in statements of RANGE_BATCH (the load's
-    rows/s printed); a local port engine L gets the same statements.
-    Through A, under pallas_groupagg = on: Q1 (kernel 1 once, held
-    against its plain version) equals L's (DECIMAL sums bit for bit,
-    AVGs within rel 1e-9) and the numpy oracle; Q6 and Q14 (no kernel)
-    equal L's and the oracles within rel 1e-9. An UPDATE through A is
-    seen by Q1 on a second gateway B (the generation token), and B's AS
-    OF SYSTEM TIME read from before it equals A's first Q1. After
-    stop_node of one lineitem range's leaseholder, Q1 on a fresh gateway
-    C has every committed row. Then the leaseholder-partitioned flow:
-    DistSQLNodes 1-3 (one per cluster node, port engines on the card)
-    and gateway node 0 with Gateway(cluster=c): Q1 and Q1F (under `on`)
-    and Q14 equal A's rows, kernel 1 launching once per node holding
-    lineitem spans for Q1 and kernel 2 once per such node for Q1F, each
-    held against its plain version; after transfer_lease of one range
+    Engine(cluster=c) on the card, creates lineitem and part and INSERTs
+    the rows in statements of RANGE_BATCH (the load's rows/s printed);
+    then the lineitem span is split in RANGE_PIECES ranges by rowid and
+    part's in two. A local port engine L holds the same rows (tpch.load
+    at sf 0.01, ``rows`` of lineitem).
+    Through A, under `auto`: Q1 (kernel 1 once, held against its plain
+    version) equals L's (DECIMAL sums bit for bit, AVGs within rel
+    1e-9) and the numpy oracle; Q6 and Q14 (no kernel) equal L's and
+    the oracles within rel 1e-9. An UPDATE of RANGE_UPDATE_ROWS rows
+    through A (its rows/s printed) is seen by Q1 on a second gateway B
+    (the generation token), and B's AS OF SYSTEM TIME read from before
+    it equals A's first Q1. After stop_node of one lineitem range's
+    leaseholder, Q1 on a fresh gateway C has every committed row. Then
+    the leaseholder-partitioned flow: DistSQLNodes 1-3 (one per cluster
+    node, port engines on the card) and gateway node 0 with
+    Gateway(cluster=c): Q1 and Q14 under `auto` and Q1F under `on`
+    equal A's rows, kernel 1 launching once per node holding lineitem
+    spans for Q1 and kernel 2 once per such node for Q1F, each held
+    against its plain version; after transfer_lease of one range
     the partition still covers the table and Q1 still equals. A
     Node(cluster=c) lists every range with its leaseholder at
     /_debug/ranges. Medians of RANGE_REPS warm Q1 runs on A paired with
     L (device busy ms, host ms, idle share). Returns the `ranges` line's
     numbers, with "launches" and "path_checks"."""
     import urllib.request
-
-    import numpy as np
 
     from cockroach_tpu_torch.distsql.node import DistSQLNode, Gateway
     from cockroach_tpu_torch.exec.engine import Engine
@@ -7424,55 +7417,52 @@ def ranges_phase(device: str = "cuda", rows: int = RANGE_ROWS,
     t_start = time.perf_counter()
     on_card = device == "cuda"
     dev = None if on_card else device
+    li, part, li_sql = range_tables(rows)
+    parts = len(part["p_partkey"])
     out: dict = {"card": _smi() if on_card else "cpu", "rows": rows,
                  "parts": parts, "ranges_of_lineitem": RANGE_PIECES,
                  "batch": RANGE_BATCH}
     launches = {"groupagg_large": 0, "groupagg": 0}
     checks1: dict = {}
     checks2: dict = {}
-    li, part, li_sql = range_tables(rows, parts)
     want_q1 = tpch.ref_q1(li)
-    # Q14 joins the parts loaded: its oracle sees the lineitem rows whose
-    # part is among them
-    joined = np.isin(li["l_partkey"], part["p_partkey"])
     want_q6 = tpch.ref_q6(li)
-    want_q14 = tpch.ref_q14({k: v[joined] for k, v in li.items()}, part)
+    want_q14 = tpch.ref_q14(li, part)
 
     c = Cluster(n_nodes=3)
     c.create_range(b"\x00", b"\xff")
     c.pump_until(lambda: c.leaseholder(1) is not None)
     a, local = Engine(cluster=c, device=dev), Engine(device=dev)
-    for e in (a, local):
-        e.execute(tpch.DDL["lineitem"])
-        e.execute(tpch.DDL["part"])
-    li_codec = RowCodec(a.store.table("lineitem").schema)
-    p_codec = RowCodec(a.store.table("part").schema)
-    for k in range(1, RANGE_PIECES):
-        c.split_range(li_codec.key_from_pk((rows * k // RANGE_PIECES,)))
-    c.split_range(p_codec.key_from_pk((int(part["p_partkey"][parts // 2]),)))
-    c.pump(10)
+    a.execute(tpch.DDL["lineitem"])
+    a.execute(tpch.DDL["part"])
+    # the same rows, without the SQL path's parse and write time
+    tpch.load(local, sf=0.01, rows=rows, tables=("lineitem", "part"))
     stmts = [_insert_sql("lineitem", li_sql, lo, min(rows, lo + RANGE_BATCH))
              for lo in range(0, rows, RANGE_BATCH)]
     stmts += [_insert_sql("part", part, lo, min(parts, lo + RANGE_BATCH))
               for lo in range(0, parts, RANGE_BATCH)]
+    sent = c.transport.sent
     t0 = time.perf_counter()
     for sql in stmts:
         a.execute(sql)
     load_s = time.perf_counter() - t0
-    for sql in stmts:
-        local.execute(sql)
+    load_msgs = c.transport.sent - sent
+    li_codec = RowCodec(a.store.table("lineitem").schema)
+    p_codec = RowCodec(a.store.table("part").schema)
+    t0 = time.perf_counter()
+    for k in range(1, RANGE_PIECES):
+        c.split_range(li_codec.key_from_pk((rows * k // RANGE_PIECES,)))
+    c.split_range(p_codec.key_from_pk((int(part["p_partkey"][parts // 2]),)))
+    c.pump(10)
+    split_s = time.perf_counter() - t0
     out.update(load_s=load_s, load_rows_per_s=(rows + parts) / load_s,
+               load_raft_messages=load_msgs, split_s=split_s,
                ranges=len(c.descriptors))
     print(f"phase 22 load: {rows + parts} rows through raft in "
-          f"{load_s:.1f} s ({(rows + parts) / load_s:.1f} rows/s), "
+          f"{load_s:.1f} s ({(rows + parts) / load_s:.1f} rows/s, "
+          f"{load_msgs} raft messages), split in {split_s:.1f} s: "
           f"{len(c.descriptors)} ranges", flush=True)
-
-    def on(eng):
-        s = eng.session()
-        eng.execute("SET pallas_groupagg = on", s)
-        return s
-
-    sa, sl = on(a), on(local)
+    sa, sl = a.session(), local.session()
     rows_of = {}
     for q, sql, kern in (("q1", tpch.Q1, (1, 0)), ("q6", tpch.Q6, (0, 0)),
                          ("q14", tpch.Q14, (0, 0))):
@@ -7492,11 +7482,21 @@ def ranges_phase(device: str = "cuda", rows: int = RANGE_ROWS,
 
     # an UPDATE through A seen on B through the generation token
     b = Engine(cluster=c, device=dev)
-    sb = on(b)
+    sb = b.session()
     before = a.clock.now().wall
+    last = int(li["l_orderkey"][RANGE_UPDATE_ROWS - 1])
+    n_upd = int((li["l_orderkey"] <= last).sum())
     upd = ("UPDATE lineitem SET l_quantity = l_quantity + 1 "
-           f"WHERE l_orderkey <= {int(li['l_orderkey'][rows // 10])}")
+           f"WHERE l_orderkey <= {last}")
+    sent = c.transport.sent
+    t0 = time.perf_counter()
     a.execute(upd)
+    upd_s = time.perf_counter() - t0
+    out["update"] = {"rows": n_upd, "seconds": upd_s,
+                     "rows_per_s": n_upd / upd_s,
+                     "raft_messages": c.transport.sent - sent}
+    print(f"phase 22 UPDATE after the split: {n_upd} rows in {upd_s:.2f} s "
+          f"({out['update']['raft_messages']} raft messages)", flush=True)
     local.execute(upd)
     got_b, _dt, k1, _ = _ranges_q(lambda: b.execute(tpch.Q1, sb), "B q1",
                                   on_card, (1, 0))
@@ -7521,7 +7521,7 @@ def ranges_phase(device: str = "cuda", rows: int = RANGE_ROWS,
     c.stop_node(victim)
     c.pump(c.liveness.ttl + 2)
     cc = Engine(cluster=c, device=dev)
-    sc = on(cc)
+    sc = cc.session()
     got_c, _dt, k1, _ = _ranges_q(lambda: cc.execute(tpch.Q1, sc), "C q1",
                                   on_card, (1, 0))
     launches["groupagg_large"] += 1
@@ -7550,14 +7550,16 @@ def ranges_phase(device: str = "cuda", rows: int = RANGE_ROWS,
     c.pump(10)
     gw = Gateway(nodes[0], [1, 2, 3], cluster=c)
     sg = nodes[0].engine.session()
-    nodes[0].engine.execute("SET pallas_groupagg = on", sg)
+    # kernel 2 takes Q1F only under `on`
+    sg_on = nodes[0].engine.session()
+    nodes[0].engine.execute("SET pallas_groupagg = on", sg_on)
     holders = sorted(n for n, p in rt_li.partition_spans().items() if p)
     nh = len(holders)
     flows = {}
-    for q, sql, kern, ref in (("q1", tpch.Q1, (nh, 0), rows_of["q1"]),
-                              ("q14", tpch.Q14, (0, 0), None),
-                              ("q1f", tpch.Q1F, (0, nh), None)):
-        got, dt, k1, k2 = _ranges_q(lambda: gw.run(sql, session=sg),
+    for q, sql, kern, ss in (("q1", tpch.Q1, (nh, 0), sg),
+                             ("q14", tpch.Q14, (0, 0), sg),
+                             ("q1f", tpch.Q1F, (0, nh), sg_on)):
+        got, dt, k1, k2 = _ranges_q(lambda: gw.run(sql, session=ss),
                                     f"flow {q}", on_card, kern)
         launches["groupagg_large"] += kern[0]
         launches["groupagg"] += kern[1]
@@ -7638,8 +7640,7 @@ def ranges_phase(device: str = "cuda", rows: int = RANGE_ROWS,
     return out
 
 
-def ranges_phase_alone(device: str = "cuda", rows: int = RANGE_ROWS,
-                       parts: int = RANGE_PARTS) -> dict:
+def ranges_phase_alone(device: str = "cuda", rows: int = RANGE_ROWS) -> dict:
     """Phase 22 by itself: builds the kernels, resolves the gate and the
     launch point under a fresh cache root, and runs it (``device="cpu"``
     rehearses it on the CPU: plain-version calls stand for launches, no
@@ -7649,7 +7650,7 @@ def ranges_phase_alone(device: str = "cuda", rows: int = RANGE_ROWS,
         if device == "cuda":
             build.compile_all(["groupagg_large", "groupagg"])
         kernel_infra(device)
-        out = ranges_phase(device, rows, parts)
+        out = ranges_phase(device, rows)
     out["path_checks"] = len(out["path_checks"])
     out["small_checks"] = len(out["small_checks"])
     print(json.dumps({"ranges": out}), flush=True)
@@ -7678,13 +7679,13 @@ def _main(opts) -> int:
     t_start = time.perf_counter()
     kernels, smi, name, dml = sf1_phases(opts)
     # the SF1 engines and tables went with sf1_phases' frame: free what
-    # the allocator still caches before SF10 loads
+    # the allocator still caches before SF5 loads
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 10. beyond memory at SF10 ---------------------------------------------
+    # -- 10. beyond memory at SF5 ----------------------------------------------
     t0 = time.perf_counter()
-    stream = beyond_memory_phase(reps=1, sf=WHOLE_RUN_BEYOND_SF)
+    stream = beyond_memory_phase(reps=1)
     kernels[0]["launches"] += sum(stream["kernel1_launches"].values())
     kernels[0]["phase10_launches"] = stream["kernel1_launches"]
     kernels[0]["path_checks"].update(stream.pop("path_checks"))

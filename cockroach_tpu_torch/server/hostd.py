@@ -258,24 +258,47 @@ def _install_mem_faults(args) -> None:
     multihost.install_membership_faults(f)
 
 
-def _elastic_serve(transport, pod, refresh_peers, drain_after: float):
+def connect_posted_peers(transport, known: set) -> None:
+    """Connect ``transport`` to every host whose flow address is posted
+    in the pod's KV and whose id is not in ``known`` (then added)."""
+    for sid, raw in multihost.kv_list("flowaddr/").items():
+        pid = int(sid)
+        if pid not in known and raw:
+            h, _, p = raw.rpartition(":")
+            transport.connect(pid, (h, int(p)))
+            known.add(pid)
+
+
+def elastic_serve_step(transport, pod, known: set):
+    """One pass of an elastic host's serve loop: connect newly posted
+    peers, deliver the transport's frames, and run the idle-time lease
+    reconcile unless a flow is producing. Returns None if the reconcile
+    failed (the coordinator may be gone: the pod is tearing down), else
+    whether frames moved or are pending."""
+    connect_posted_peers(transport, known)
+    moved = transport.deliver_all()
+    if pod.node is None or not pod.node._producing:
+        try:
+            pod.reconcile()
+        except Exception:   # noqa: BLE001 — reported to the caller
+            return None
+    return bool(moved or transport.pending())
+
+
+def _elastic_serve(transport, pod, known: set, drain_after: float):
     """Elastic worker pump: flow traffic and the idle-time lease
     reconcile, until the gateway posts ``done`` (or the drain deadline
     lands)."""
     drain_at = (time.monotonic() + drain_after
                 if drain_after > 0 else None)
     while True:
-        refresh_peers()
-        moved = transport.deliver_all()
-        if pod.node is None or not pod.node._producing:
-            try:
-                pod.reconcile()
-            except Exception:   # noqa: BLE001 — the coordinator may be
-                return          # gone: the pod is tearing down
+        busy = elastic_serve_step(transport, pod, known)
+        if busy is None:
+            return
         if drain_at is not None and time.monotonic() > drain_at:
             pod.drain_pod()
             return
-        if moved or transport.pending():
+        if busy:
             continue
         if multihost.kv_try_get("done"):
             return
@@ -323,23 +346,14 @@ def _elastic_main(args, device) -> int:
                                                 args.nshards))
 
     known = {hid}
-
-    def refresh_peers() -> None:
-        for sid, raw in multihost.kv_list("flowaddr/").items():
-            pid = int(sid)
-            if pid not in known and raw:
-                h, _, p = raw.rpartition(":")
-                transport.connect(pid, (h, int(p)))
-                known.add(pid)
-
     if not founder:
         mem.start_heartbeat()
         if args.late_join:
-            refresh_peers()
+            connect_posted_peers(transport, known)
             pod.join_pod(timeout_s=args.flow_timeout)
         else:
             mem.join()
-        _elastic_serve(transport, pod, refresh_peers, args.drain_after)
+        _elastic_serve(transport, pod, known, args.drain_after)
         try:
             multihost.kv_set(f"hostmetrics/{hid}",
                              json.dumps(_metric_slice(eng)))
@@ -362,7 +376,7 @@ def _elastic_main(args, device) -> int:
         time.sleep(0.01)
     owners = sorted(mem.view().live)[:args.initial_hosts]
     pod.bootstrap("lineitem", tpch.DDL["lineitem"], args.nshards, owners)
-    refresh_peers()
+    connect_posted_peers(transport, known)
     gw = Gateway(node, pod.data_nodes(),
                  replicated_tables={"part"},
                  flow_timeout=args.flow_timeout,
@@ -379,7 +393,7 @@ def _elastic_main(args, device) -> int:
         rows_out, consistent = None, True
         try:
             for _ in range(max(1, args.repeat)):
-                refresh_peers()
+                connect_posted_peers(transport, known)
                 pod.maybe_reconcile()
                 e0 = mem.epoch()
                 t0 = time.monotonic()
