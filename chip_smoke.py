@@ -7307,7 +7307,9 @@ def elastic_phase_alone(sf: float = SF, device: str = "cuda",
 
 # phase 22: SQL on raft-replicated ranges, at the sf 0.01 tests' size:
 # RANGE_ROWS lineitem rows and all 2,000 parts, through INSERTs of
-# RANGE_BATCH rows. Raft is the reference's, draws included: a leader
+# RANGE_BATCH rows. A cut from SF1: raft is host code, a few hundred
+# rows a second, so SF1's 6,001,215 rows would take hours. Raft is the
+# reference's, draws included: a leader
 # sends its append stream again on every success response that leaves
 # entries unsent, stale ones too, so once a stale heartbeat response
 # lands after the next proposal, every write that follows in that range
