@@ -149,11 +149,11 @@ Phases (any failure exits non-zero before the final line):
    a whole-partition sum; two windows over a filtered scan. Each is
    checked in full against a numpy oracle (integers, DECIMAL and dates
    exactly, AVG rel 1e-9, rows in o_orderkey order), then timed: one
-   warm full run and the median of 2 warm runs in the whole run (3 by
+   warm full run and one warm run in the whole run (the median of 3 by
    itself) with an outer LIMIT 1000 (decoding 1.5M rows to Python is
    most of a full run). (b)
    TPC-H's refresh pair through SQL: the pk locators built and timed
-   (the reference's pure-Python row_key loop timed over 250,000 rows
+   (the reference's pure-Python row_key loop timed over 50,000 rows
    beside them), RF1 (1,500 orders and their ~6,000 lines, multi-row INSERTs in one
    transaction) with a Q6 inside it that must read its own writes, RF2
    (DELETE of 1,500 orders' lines and orders), an UPDATE of one
@@ -170,9 +170,9 @@ Phases (any failure exits non-zero before the final line):
    A small table is refilled after TRUNCATE and after DROP + CREATE
    with the same row count and dictionary size, and must read its own
    strings through execute() and a Prepared made before the TRUNCATE.
-   (c) YCSB-E (BASELINE.json config 5): 25,000 records in the whole run
+   (c) YCSB-E (BASELINE.json config 5): 10,000 records in the whole run
    (100,000 by itself, `dml_phase_alone`) loaded by the
-   workload's INSERTs of 10,000 rows, then 5,000 operations in the
+   workload's INSERTs of 10,000 rows, then 2,000 operations in the
    whole run (10,000 by itself; 95%
    scans of 10, 5% inserts, zipfian, seed 1, every statement served by
    the OLTP lane), timed; every scan's rows are then held against a
@@ -231,17 +231,17 @@ Phases (any failure exits non-zero before the final line):
    statement; the timed runs' launches are counted the same way, but
    not held against the plain version one by one. 16 wire sessions, a thread each in a client process of
    their own (`wire_client_main`, so their Python does not share the
-   server's interpreter lock), run YCSB-B and then YCSB-E (3,000
+   server's interpreter lock), run YCSB-B and then YCSB-E (1,000
    operations a mix, the port's statement texts, a 40001 retried):
    ops/s and p50/p99 by kind, and 200 written keys read back as some
    session wrote them; under `threads`, `reactor`, and `reactor` with
    sql.exec.switch_interval = 0.001 (which must set the interpreter's
    switch interval and restore it at 0). Then 1,000 idle sessions are
-   parked on the reactor while the 16 live sessions run YCSB-B (2,000
+   parked on the reactor while the 16 live sessions run YCSB-B (600
    operations): the server process's thread count (it may grow by the
    worker pool at most), the RSS a parked session costs (its client
    end included), the live p99; and Q1 from a 17th session beside
-   YCSB-B (2,000 operations) equals its oracle and launches kernel 1
+   YCSB-B (600 operations) equals its oracle and launches kernel 1
    once (checked) while lane statements complete.
    Admission, at 4 execution slots: 8 sessions of a noisy tenant
    (`application_name`) send Q1 twice each (each equal to the oracle,
@@ -252,16 +252,16 @@ Phases (any failure exits non-zero before the final line):
    p50/p99, admission.tenant.slot_waits (at least 1 at the cap) and
    queued; then what /_status/tenants serves. The entry points, on the card,
    reusing the kernels phase 1 built (`_build/` unchanged): a Node
-   with TPC-H SF 0.1 in process (Q1 over the wire equals its oracle,
+   with TPC-H SF 0.05 in process (Q1 over the wire equals its oracle,
    launches kernel 1 once, checked; /_status/statements lists its
    fingerprint with count 1; /_status/vars serves the metrics; stop()
    returns), and as processes of their own, started together:
-   `python3 -m cockroach_tpu_torch demo --sf 0.1` with Q1 and Q6 on
-   stdin (its printed rows equal the SF 0.1 oracles), `start
+   `python3 -m cockroach_tpu_torch demo --sf 0.05` with Q1 and Q6 on
+   stdin (its printed rows equal the SF 0.05 oracles), `start
    --listen-addr 127.0.0.1:0` with `sql -e` of a CREATE TABLE, an
    INSERT of 500 lineitem rows, Q6 (equal to its oracle) and SHOW
    STATEMENTS (Q6's fingerprint with count 1), and `workload tpcc
-   --steps 200` (exit 0, its JSON line). The in-process Node's client
+   --steps 100` (exit 0, its JSON line). The in-process Node's client
    (application_name `phase14`) sends its Q1 past a 1 ms
    sql.trace.slow_statement.threshold: /debug/tracez lists it; POST
    /_status/stmtdiag arms Q6, whose next run over the wire equals its
@@ -486,6 +486,34 @@ Phases (any failure exits non-zero before the final line):
    /_debug/ranges lists every range with its leaseholder; medians of 5
    warm Q1 runs on A and on the local engine, busy ms, host ms, idle
    share. One JSON `ranges` line.
+23. Raft over TCP (`netcluster_phase_alone()`): three processes of
+   `python -m cockroach_tpu_torch start --device cuda --kv-addr ...` on
+   the one card. Node 1 (`--bootstrap`) alone takes the first 6,144
+   lineitem rows of the sf 0.01 generator through its pgwire in INSERTs
+   of 1,000 into one range (rows/s printed); nodes 2 and 3 then start
+   with `--join` node 1, one after the other, and are up-replicated
+   onto by snapshot (seconds printed); 200 more rows go in through node
+   2 and an UPDATE of 100 rows through node 3, replicated three ways.
+   Q1 through each node's pgwire (first and best of 5) equals the numpy
+   oracle over the final rows, the same rows on every node, and kernel
+   1 launches once a run in each node's process, read from its
+   /_status/vars (`kernel.groupagg_large.launches`). This process joins
+   as node 4 (NetCluster(4, join=...), Engine(cluster=n4) on the card,
+   no replica): its 6 Q1 runs equal the oracle, each launch held
+   against the plain version at its slots, with busy ms and idle share.
+   /_status/nodes on each node lists every other node healthy;
+   /debug/tracez?cluster=1 from node 2 merges the rings of nodes 1-4,
+   not partial; `node status` and `debug ranges` read node 2's URL.
+   Then the leaseholder's process is killed (SIGKILL): Q1 on both
+   survivors equals the oracle (kill to the first correct answer: the
+   failover seconds), 10 rows go in through a survivor, the status plane
+   shows the dead node unhealthy and the fan-out partial, and the killed
+   node restarts with `--join` a survivor and answers Q1 with that
+   write (the rejoin seconds), as does node 4. In the whole run, the
+   first half (through the Q1 runs of nodes 1-3) runs in a thread beside
+   phases 22, 14 and 11: it touches no engine or kernel count of this
+   process, and its three processes have cores of their own; the second
+   half runs after phase 11. One JSON `netcluster` line.
 Each phase's seconds are printed. After phase 10, one JSON `dml` line
 holds phase 11's numbers, one JSON `oltp` line phase 12's, one JSON
 `frontdoor` line phase 13's, one JSON `observability` line phase
@@ -493,17 +521,19 @@ holds phase 11's numbers, one JSON `oltp` line phase 12's, one JSON
 phase 15's, one JSON `jobs` line phase 16's, one JSON `coldstart`
 line phase 17's, one JSON `distributed` line phase 18's, one JSON
 `flows` line phase 19's, one JSON `pod` line phase 20's, one JSON
-`elastic` line phase 21's and one JSON `ranges` line phase 22's, each
-with the card's name and power limit; then one JSON line of per-kernel
+`elastic` line phase 21's, one JSON `ranges` line phase 22's and one
+JSON `netcluster` line phase 23's, each with the card's name and power
+limit; then one JSON line of per-kernel
 numbers (the
 large-G kernel's launches count Q1, Q5, Q10, Q12 and the path runs of
 phases 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20 (both pod
-hosts'), 21 (every elastic host's and the kill's) and 22, the small-G
+hosts'), 21 (every elastic host's and the kill's), 22 and 23 (every
+start process's, read from its /_status/vars, and node 4's), the small-G
 kernel's Q1F, Q6F and phases 13's, 14's, 18's, 19's and 22's;
 `path_checks` holds each of the large-G kernel's calls in phases 7, 8
-and 10-22 held against the plain version, and the
-small-G kernel's phase 13, 14, 18, 19 and 22 calls), the nvidia-smi line,
-and the last line {"ok": true, "device": {...}}.
+and 10-23 (in phase 23, node 4's) held against the plain version, and
+the small-G kernel's phase 13, 14, 18, 19 and 22 calls), the nvidia-smi
+line, and the last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile DIR
 
@@ -513,6 +543,7 @@ check (profile_tpch.profile_queries; traces and numbers into DIR).
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import gc
 import json
@@ -2514,7 +2545,7 @@ def _apply_refresh(li, orders, li_new, o_new, rf2, upd_key, upd_disc):
 
 
 # rows of lineitem whose keys the pure-Python row_key loop encodes, timed
-PK_LOOP_SAMPLE = 250_000
+PK_LOOP_SAMPLE = 50_000
 
 
 def check_refreshed(q, res, want) -> None:
@@ -4268,11 +4299,12 @@ def oltp_phase(eng, li_after, supplier, records: int = OLTP_RECORDS,
 
 
 # -- 13. the front door -------------------------------------------------------
-FRONT_OPS = 3_000               # YCSB operations a mix over the wire
-FRONT_SIDE_OPS = 2_000          # YCSB-B beside the parked sessions, Q1
+FRONT_OPS = 1_000               # YCSB operations a mix over the wire
+FRONT_SIDE_OPS = 600            # YCSB-B beside the parked sessions, Q1
+ENTRY_TPCC_STEPS = 100          # `workload tpcc --steps` among the entry points
 FRONT_CLIENTS = 16              # wire sessions, one thread each
 FRONT_PARKED = 1_000            # idle sessions parked on the reactor
-FRONT_SF = 0.1                  # the entry points' own TPC-H scale
+FRONT_SF = 0.05                 # the entry points' own TPC-H scale
 FRONT_Q1_RUNS = 2               # Q1s a noisy-tenant session sends
 ADM_SLOTS = 4                   # execution slots in the admission step
 FRONT_TIMEOUT = 600.0           # a wire client's socket timeout (s)
@@ -5023,7 +5055,8 @@ def entry_points_phase(sf: float = FRONT_SF, device=None) -> dict:
     start = subprocess.Popen(
         cmd + ["start", "--listen-addr", "127.0.0.1:0"] + dev, cwd=root,
         env=env, stdout=subprocess.PIPE, stderr=start_err, text=True)
-    wl = subprocess.Popen(cmd + ["workload", "tpcc", "--steps", "200"] + dev,
+    wl = subprocess.Popen(cmd + ["workload", "tpcc", "--steps",
+                                 str(ENTRY_TPCC_STEPS)] + dev,
                           cwd=root, env=env, stdout=subprocess.PIPE,
                           stderr=subprocess.PIPE, text=True)
     procs = (demo, start, wl)
@@ -5128,7 +5161,7 @@ def entry_points_phase(sf: float = FRONT_SF, device=None) -> dict:
             raise AssertionError(f"workload tpcc exited {wl.returncode}: "
                                  f"{werr[-2000:]}")
         tpcc = json.loads(wout.strip().splitlines()[-1])
-        if tpcc["steps"] != 200:
+        if tpcc["steps"] != ENTRY_TPCC_STEPS:
             raise AssertionError(f"workload tpcc: {tpcc}")
         out["workload_tpcc"] = tpcc
     finally:
@@ -7359,7 +7392,7 @@ def range_tables(rows: int = RANGE_ROWS) -> tuple:
     return li, part, li_sql
 
 
-def _ranges_q(run, label, on_card, kernels) -> tuple:
+def _ranges_q(run, label, on_card, kernels, phase: int = 22) -> tuple:
     """(Result, wall s, kernel-1 checks, kernel-2 checks) of ``run()``,
     one statement, with every count at 0 just before it; ``kernels`` is
     the (large, small) launch count it must make."""
@@ -7371,11 +7404,11 @@ def _ranges_q(run, label, on_card, kernels) -> tuple:
     dt = time.perf_counter() - t0
     n1, n2 = _kernel_counts(on_card)
     if (n1, n2) != tuple(kernels):
-        raise AssertionError(f"phase 22 {label}: kernels {(n1, n2)}, "
+        raise AssertionError(f"phase {phase} {label}: kernels {(n1, n2)}, "
                              f"want {kernels}")
-    c1 = check_calls(f"phase 22 {label}", calls, n1) \
+    c1 = check_calls(f"phase {phase} {label}", calls, n1) \
         if on_card and n1 else []
-    c2 = _check_small_calls(f"phase 22 {label}", scalls, n2) \
+    c2 = _check_small_calls(f"phase {phase} {label}", scalls, n2) \
         if on_card and n2 else []
     return res, dt, c1, c2
 
@@ -7659,6 +7692,594 @@ def ranges_phase_alone(device: str = "cuda", rows: int = RANGE_ROWS) -> dict:
     return out
 
 
+NC_ROWS = 6_144                 # lineitem rows node 1 takes alone
+NC_BATCH = 1_000                # rows an INSERT
+NC_INSERT_ROWS = 200            # then through node 2, replicated 3 ways
+NC_UPDATE_ROWS = 100            # about this many rows through node 3
+NC_SURVIVOR_ROWS = 10           # written through a survivor after the kill
+NC_REPS = 5                     # warm Q1 runs a node (best kept)
+NC_WAIT_S = 180.0               # a node's limit to serve, a failover's
+
+
+class _StartProc:
+    """One ``python -m cockroach_tpu_torch start`` process of phase 23:
+    its stdout read by a thread of its own (the lines it prints up to
+    "status: serving", by their key), its stderr into a file."""
+
+    def __init__(self, nid: int, args: list, logdir: str):
+        import os
+        import queue
+        import threading
+        from pathlib import Path
+        root = str(Path(__file__).resolve().parent)
+        self.nid = nid
+        self.log = os.path.join(logdir, f"n{nid}-{time.time_ns()}.err")
+        self._err = open(self.log, "w")
+        self.spawned = time.perf_counter()
+        env = dict(os.environ, TORCH_CPP_LOG_LEVEL="ERROR")
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "cockroach_tpu_torch", "start",
+             "--node-id", str(nid), "--listen-addr", "127.0.0.1:0", *args],
+            cwd=root, stdout=subprocess.PIPE, stderr=self._err, text=True,
+            env=env)
+        self._lines: queue.Queue = queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+        self.lines: dict = {}
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self._lines.put(line)
+        self._lines.put(None)
+
+    def serving(self, timeout: float = NC_WAIT_S) -> dict:
+        """Wait for "status: serving"; returns (and keeps) the printed
+        lines by key, with the spawn-to-serving seconds."""
+        import queue
+        deadline = time.perf_counter() + timeout
+        while self.lines.get("status") != "serving":
+            try:
+                line = self._lines.get(
+                    timeout=max(0.0, deadline - time.perf_counter()))
+            except queue.Empty:
+                line = None
+            if line is None:
+                raise AssertionError(
+                    f"phase 23: node {self.nid} did not serve (exit "
+                    f"{self.proc.poll()}): {self.tail()}")
+            key, _, val = line.partition(":")
+            self.lines[key.strip()] = val.strip()
+        self.lines["spawn_to_serving_s"] = time.perf_counter() - self.spawned
+        return self.lines
+
+    @property
+    def sql(self) -> tuple:
+        h, p = self.lines["sql"].split("@", 1)[1].split("/", 1)[0].split(":")
+        return h, int(p)
+
+    @property
+    def http(self) -> str:
+        return self.lines["http"]
+
+    def tail(self) -> str:
+        if not self._err.closed:
+            self._err.flush()
+        with open(self.log) as f:
+            return f.read()[-4000:]
+
+    def kill(self) -> None:
+        import signal
+        self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(timeout=30)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        try:
+            self.proc.wait(timeout=30)
+        finally:
+            self._err.close()
+
+
+def _nc_body(base: str, path: str) -> str:
+    import urllib.request
+    with urllib.request.urlopen(f"http://{base}{path}", timeout=30) as r:
+        return r.read().decode()
+
+
+def _nc_get(base: str, path: str):
+    return json.loads(_nc_body(base, path))
+
+
+def _nc_launches(base: str, on_card: bool) -> int:
+    """Kernel 1's launches in the node behind ``base`` (its plain
+    version's calls off the card), read from its /_status/vars."""
+    name = ("kernel_groupagg_large_launches" if on_card
+            else "kernel_groupagg_large_plain_calls")
+    for line in _nc_body(base, "/_status/vars").splitlines():
+        if line.startswith(name + " "):
+            return int(float(line.split()[1]))
+    raise AssertionError(f"phase 23: {name} missing at {base}")
+
+
+def _nc_sql(addr, sqls: list, timeout: float = NC_WAIT_S) -> list:
+    """Each statement through one pgwire session of the node at
+    ``addr``; the rows of each."""
+    from cockroach_tpu_torch.server.miniclient import MiniClient
+    c = MiniClient(*addr, timeout=timeout)
+    try:
+        return [c.query(q)[1] for q in sqls]
+    finally:
+        c.close()
+
+
+def _nc_q1(node, want, on_card: bool, reps: int = NC_REPS) -> dict:
+    """Q1 through ``node``'s pgwire: the first run and ``reps`` warm
+    runs, each equal to ``want`` (check_q1); kernel 1 must launch once a
+    run in that node's process (its /_status/vars, read before and
+    after). Returns the rows, first and best seconds and launches."""
+    from cockroach_tpu_torch.models import tpch
+    from cockroach_tpu_torch.server.miniclient import MiniClient
+    k0 = _nc_launches(node.http, on_card)
+    c = MiniClient(*node.sql, timeout=NC_WAIT_S)
+    times, rows = [], None
+    try:
+        for _ in range(1 + reps):
+            t0 = time.perf_counter()
+            got = c.query(tpch.Q1)[1]
+            times.append(time.perf_counter() - t0)
+            check_q1(got, want)
+            if rows is not None and got != rows:
+                raise AssertionError(f"phase 23 n{node.nid}: Q1 changed "
+                                     f"between runs: {got} != {rows}")
+            rows = got
+    finally:
+        c.close()
+    n = _nc_launches(node.http, on_card) - k0
+    if n != 1 + reps:
+        raise AssertionError(f"phase 23 n{node.nid}: kernel 1 launched {n} "
+                             f"times in {1 + reps} Q1 runs")
+    return {"rows": rows, "first_s": times[0],
+            "best_s": min(times[1:]) if reps else None, "launches": n}
+
+
+def _nc_retry(fn, what: str, timeout: float = NC_WAIT_S):
+    """``fn()`` until it returns, for a failover: a statement right after
+    a node's death meets the old lease until a survivor takes it. Past
+    ``timeout`` the last error is raised."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        try:
+            return fn()
+        except Exception as e:   # noqa: BLE001 — retried until the deadline
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase 23: {what} failed past "
+                                     f"{timeout} s") from e
+            time.sleep(0.1)
+
+
+def _walled(fn) -> dict:
+    """_profiled's record off the card: the wall ms of one run of `fn`,
+    no device time."""
+    t0 = time.perf_counter()
+    fn()
+    return {"wall_ms": (time.perf_counter() - t0) * 1e3, "busy_ms": None,
+            "idle_share": None}
+
+
+def _nc_cli(argv: list) -> str:
+    import contextlib
+    import io
+
+    from cockroach_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"phase 23: cli {argv} exited {rc}")
+    return buf.getvalue()
+
+
+def _nc_status(nodes: dict, dead: set, tracez_from, want_nodes) -> dict:
+    """The status plane: /_status/nodes on every live node lists each
+    other node healthy and the dead ones not; /debug/tracez?cluster=1
+    from ``tracez_from`` merges the rings of ``want_nodes`` (each with a
+    lineitem entry), partial exactly when a node is dead; `node status`
+    and `debug ranges` read a node's status URL."""
+    out = {}
+    for nid, node in nodes.items():
+        if nid in dead:
+            continue
+        o = _nc_get(node.http, "/_status/nodes")
+        if o["node_id"] != nid:
+            raise AssertionError(f"phase 23 n{nid} /_status/nodes: {o}")
+        health = {int(p): v["healthy"] for p, v in o["peers"].items()}
+        for p in set(nodes) - {nid}:
+            if health.get(p) is not (p not in dead):
+                raise AssertionError(f"phase 23 n{nid} /_status/nodes: "
+                                     f"peer {p} {health}, dead {dead}")
+        out[f"n{nid}_peers"] = health
+    body = _nc_get(tracez_from.http, "/debug/tracez?cluster=1&timeout=2")
+    by_node: dict = {}
+    for t in body["traces"]:
+        if "lineitem" in t.get("sql", ""):
+            by_node[t["node"]] = by_node.get(t["node"], 0) + 1
+    if body["partial"] is not bool(dead) or sorted(body["nodes"]) != \
+            sorted(want_nodes) or sorted(by_node) != sorted(want_nodes):
+        raise AssertionError(f"phase 23 tracez?cluster=1 from "
+                             f"n{tracez_from.nid}: partial "
+                             f"{body['partial']}, nodes {body['nodes']}, "
+                             f"entries {by_node}, dead {dead}")
+    out["tracez"] = {"from": tracez_from.nid, "partial": body["partial"],
+                     "nodes": body["nodes"], "entries": by_node}
+    text = _nc_cli(["node", "status", "--url", tracez_from.http])
+    if not text.startswith(f"node {tracez_from.nid}  v") or (
+            dead and "SUSPECT" not in text):
+        raise AssertionError(f"phase 23 node status: {text}")
+    text = _nc_cli(["debug", "ranges", "--url", tracez_from.http])
+    if not text.startswith("r1: ") or "leaseholder=" not in text:
+        raise AssertionError(f"phase 23 debug ranges: {text}")
+    out["debug_ranges"] = text.strip()
+    return out
+
+
+class NetClusterRun:
+    """Phase 23: raft over TCP, in two halves. ``first()``: three `python
+    -m cockroach_tpu_torch start --device <device> --kv-addr` processes
+    on the one card. Node 1 (`--bootstrap`) alone takes the sf 0.01
+    generator's first NC_ROWS lineitem rows through its pgwire in INSERTs
+    of NC_BATCH (rows/s printed), into one range; nodes 2 and 3 then
+    start with `--join 1@<node 1's kv address>`, one after the other, and
+    are up-replicated onto (seconds printed). NC_INSERT_ROWS more rows go
+    in through node 2 and an UPDATE of about NC_UPDATE_ROWS rows through
+    node 3, each replicated three ways. Q1 through each node's pgwire
+    (first and best of NC_REPS) equals the numpy oracle over the final
+    rows, and every node's rows are equal; kernel 1 launches once a run
+    in each node's process, read from its /_status/vars. ``first()``
+    touches nothing of this process's engines or kernel counts, so the
+    whole run drives it from a thread beside other phases
+    (``start_thread``/``join``). ``second()``, in the main thread: this
+    process joins as node 4 (NetCluster(4, join=...), Engine(cluster=n4)
+    on the card: a gateway with no replica); its Q1 runs equal the
+    oracle, each launch held against the plain version at its own slots,
+    with busy ms and idle share. The status plane is read (_nc_status).
+    Then the leaseholder's process is killed with SIGKILL: Q1 on both
+    survivors equals the oracle (kill to the first correct answer: the
+    failover seconds), NC_SURVIVOR_ROWS rows go in through a survivor,
+    the status plane shows the dead node, and the killed node restarts
+    with `--join <a survivor>` on its old kv address and answers Q1 with
+    that write (spawn to that answer: the rejoin seconds). ``second()``
+    returns the `netcluster` line's numbers, with "launches" and
+    "path_checks"; ``stop()`` ends every process and node it started."""
+
+    def __init__(self, device: str = "cuda"):
+        import socket
+        import tempfile
+        self.t_start = time.perf_counter()
+        self.device = device
+        self.on_card = device == "cuda"
+        total = NC_ROWS + NC_INSERT_ROWS + NC_SURVIVOR_ROWS
+        li, _part, self.li_sql = range_tables(total)
+        # the oracle's arrays; li_sql keeps the rows as inserted
+        self.li = {k: v.copy() for k, v in li.items()}
+        self.last = int(self.li["l_orderkey"][NC_UPDATE_ROWS - 1])
+        upd = self.li["l_orderkey"][:NC_ROWS + NC_INSERT_ROWS] <= self.last
+        self.li["l_quantity"][:NC_ROWS + NC_INSERT_ROWS][upd] += 1
+        self.out: dict = {
+            "card": _smi() if self.on_card else "cpu", "rows": NC_ROWS,
+            "batch": NC_BATCH, "insert_rows": NC_INSERT_ROWS,
+            "update_rows": int(upd.sum()),
+            "survivor_rows": NC_SURVIVOR_ROWS}
+        self.kv_ports = {}
+        for nid in (1, 2, 3):
+            with socket.socket() as sk:
+                sk.bind(("127.0.0.1", 0))
+                self.kv_ports[nid] = sk.getsockname()[1]
+        self.logdir = tempfile.mkdtemp(prefix="phase23-")
+        self.procs: list = []
+        self.nodes: dict = {}
+        self.q1: dict = {}
+        self.n4 = self.eng4 = None
+        self._thread = None
+        self._error = None
+
+    def oracle(self, n: int) -> list:
+        from cockroach_tpu_torch.models import tpch
+        return tpch.ref_q1({k: v[:n] for k, v in self.li.items()})
+
+    def _start(self, nid: int, extra: list) -> "_StartProc":
+        p = _StartProc(nid, ["--device", self.device, "--kv-addr",
+                             f"127.0.0.1:{self.kv_ports[nid]}", *extra],
+                       self.logdir)
+        self.procs.append(p)
+        self.nodes[nid] = p
+        return p
+
+    def _failed(self) -> None:
+        for p in self.procs:
+            print(f"phase 23 node {p.nid} stderr (exit {p.proc.poll()}):\n"
+                  f"{p.tail()}", file=sys.stderr, flush=True)
+
+    def first(self) -> None:
+        from cockroach_tpu_torch.models import tpch
+        out, nodes = self.out, self.nodes
+        try:
+            # 1-2. node 1 alone, the load through its pgwire
+            self._start(1, ["--bootstrap"]).serving()
+            out["spawn_to_serving_s"] = {
+                "n1": nodes[1].lines["spawn_to_serving_s"]}
+            stmts = [tpch.DDL["lineitem"]]
+            stmts += [_insert_sql("lineitem", self.li_sql, lo,
+                                  min(NC_ROWS, lo + NC_BATCH))
+                      for lo in range(0, NC_ROWS, NC_BATCH)]
+            t0 = time.perf_counter()
+            _nc_sql(nodes[1].sql, stmts)
+            load_s = time.perf_counter() - t0
+            out.update(load_s=load_s, load_rows_per_s=NC_ROWS / load_s)
+            print(f"phase 23 load: {NC_ROWS} rows through node 1's raft "
+                  f"in {load_s:.1f} s ({NC_ROWS / load_s:.1f} rows/s)",
+                  flush=True)
+
+            # 3. nodes 2 and 3 join and are replicated onto, one after
+            # the other (two joins served at once race in the seed's
+            # replicate_queue_scan); a joiner's reads may meet
+            # NotLeaseholder until its replica has caught up, so each
+            # must first answer count(*) with every row (its refresh
+            # from ranges, too)
+            t0 = time.perf_counter()
+            for nid in (2, 3):
+                self._start(nid, ["--join", f"1@127.0.0.1:"
+                                  f"{self.kv_ports[1]}"]).serving()
+                out["spawn_to_serving_s"][f"n{nid}"] = nodes[nid].lines[
+                    "spawn_to_serving_s"]
+            r1 = _nc_get(nodes[1].http, "/_debug/ranges")["ranges"]
+            if len(r1) != 1 or sorted(r1[0]["replicas"]) != [1, 2, 3]:
+                raise AssertionError(f"phase 23: ranges after the joins: "
+                                     f"{r1}")
+            out["up_replication_s"] = time.perf_counter() - t0
+            for nid in (2, 3):
+                n = _nc_retry(lambda nid=nid: _nc_sql(
+                    nodes[nid].sql, ["SELECT count(*) FROM lineitem"]),
+                    f"count(*) on node {nid} after its join")[0][0][0]
+                if n != NC_ROWS:
+                    raise AssertionError(f"phase 23: node {nid} counts {n} "
+                                         f"rows, not {NC_ROWS}")
+            out["joined_to_reading_s"] = time.perf_counter() - t0
+            print(f"phase 23: nodes 2 and 3 joined and were replicated "
+                  f"onto in {out['up_replication_s']:.1f} s, and read every "
+                  f"row {out['joined_to_reading_s']:.1f} s after node 2's "
+                  "spawn", flush=True)
+
+            # 5. writes replicated three ways
+            t0 = time.perf_counter()
+            _nc_sql(nodes[2].sql, [_insert_sql(
+                "lineitem", self.li_sql, NC_ROWS, NC_ROWS + NC_INSERT_ROWS)])
+            out["insert_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            _nc_sql(nodes[3].sql, ["UPDATE lineitem SET l_quantity = "
+                                   "l_quantity + 1 WHERE l_orderkey <= "
+                                   f"{self.last}"])
+            out["update_s"] = time.perf_counter() - t0
+            print(f"phase 23: {NC_INSERT_ROWS} rows through node 2 in "
+                  f"{out['insert_s']:.2f} s, UPDATE of "
+                  f"{out['update_rows']} rows through node 3 in "
+                  f"{out['update_s']:.2f} s", flush=True)
+
+            # 6-7. Q1 on every node, kernel 1 in each process
+            want = self.oracle(NC_ROWS + NC_INSERT_ROWS)
+            for nid in (1, 2, 3):
+                _nc_sql(nodes[nid].sql, [
+                    "SET CLUSTER SETTING sql.trace.slow_statement."
+                    "threshold = 0.000001"])
+                self.q1[f"n{nid}"] = _nc_q1(nodes[nid], want, self.on_card)
+            if len({repr(r["rows"]) for r in self.q1.values()}) != 1:
+                raise AssertionError(f"phase 23: Q1 rows differ between "
+                                     f"nodes: {self.q1}")
+            out["first_half_s"] = time.perf_counter() - self.t_start
+        except BaseException:
+            self._failed()
+            raise
+
+    def start_thread(self) -> None:
+        """``first()`` in a thread of its own (its error kept for
+        ``join``)."""
+        import threading
+
+        def run():
+            try:
+                self.first()
+            except BaseException as e:   # re-raised by join()
+                self._error = e
+        self._thread = threading.Thread(target=run, name="phase23",
+                                        daemon=True)
+        self._thread.start()
+
+    def join(self) -> float:
+        """Wait for ``first()``'s thread and raise its error; returns the
+        seconds waited."""
+        t0 = time.perf_counter()
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        return time.perf_counter() - t0
+
+    def second(self) -> dict:
+        from cockroach_tpu_torch.exec.engine import Engine
+        from cockroach_tpu_torch.kvserver.netcluster import NetCluster
+        from cockroach_tpu_torch.models import tpch
+        from cockroach_tpu_torch.server.node import register_status_sources
+        out, nodes, q1, on_card = self.out, self.nodes, self.q1, self.on_card
+        want = self.oracle(NC_ROWS + NC_INSERT_ROWS)
+        checks: dict = {}
+        try:
+            # 8. this process joins as node 4, a gateway with no replica
+            t_second = time.perf_counter()
+            self.n4 = n4 = NetCluster(
+                4, join={1: ("127.0.0.1", self.kv_ports[1])})
+            n4.join()
+            self.eng4 = eng4 = Engine(
+                cluster=n4, device=None if on_card else self.device)
+            eng4.settings.set("sql.trace.slow_statement.threshold", 1e-6)
+            register_status_sources(n4, eng4)
+            s4 = eng4.session()
+            runs4 = []
+            for i in range(1 + NC_REPS):
+                got: dict = {}
+
+                def q1_4():
+                    got["res"] = eng4.execute(tpch.Q1, s4)
+                prof, dt, k1, _k2 = _ranges_q(
+                    lambda: (_profiled if on_card else _walled)(q1_4),
+                    f"n4 q1 run {i + 1}", on_card, (1, 0), phase=23)
+                if k1:
+                    checks[f"sf0.01 netcluster n4 q1 run {i + 1} "
+                           "phase 23"] = k1
+                check_q1(got["res"].rows, want)
+                runs4.append(dict(prof, wall_s=dt))
+            if n4.store.replicas:
+                raise AssertionError(f"phase 23: node 4 holds replicas "
+                                     f"{sorted(n4.store.replicas)}")
+            warm = runs4[1:]
+            q1["n4"] = {
+                "first_s": runs4[0]["wall_s"],
+                "best_s": min(r["wall_ms"] for r in warm) / 1e3,
+                "launches": len(runs4),
+                "busy_ms": statistics.median(r["busy_ms"] for r in warm)
+                if on_card else None,
+                "idle_share": statistics.median(
+                    r["idle_share"] for r in warm) if on_card else None}
+            out["q1"] = {k: {kk: vv for kk, vv in v.items() if kk != "rows"}
+                         for k, v in q1.items()}
+            print("phase 23 Q1: " + json.dumps(out["q1"]), flush=True)
+
+            # 10. the status plane, every node live (a renewal of a
+            # replicated liveness record can miss NetCluster.LIVE_TTL_NS
+            # under load: the view is read again until it holds)
+            out["status_before"] = _nc_retry(lambda: _nc_status(
+                nodes, set(), nodes[2], [1, 2, 3, 4]),
+                "the status plane before the kill", timeout=30.0)
+
+            # 9. SIGKILL the leaseholder's process
+            lh = _nc_get(nodes[2].http, "/_debug/ranges")["ranges"][0][
+                "leaseholder"]
+            if lh not in nodes:
+                raise AssertionError(f"phase 23: leaseholder {lh}")
+            out["killed"] = lh
+            launches = {f"n{nid}": _nc_launches(nodes[nid].http, on_card)
+                        for nid in nodes}
+            survivors = [n for n in (1, 2, 3) if n != lh]
+            t_kill = time.perf_counter()
+            nodes[lh].kill()
+            after = {}
+            after[f"n{survivors[0]}"] = _nc_retry(
+                lambda: _nc_q1(nodes[survivors[0]], want, on_card, reps=0),
+                f"Q1 on node {survivors[0]} after the kill")
+            out["failover_s"] = time.perf_counter() - t_kill
+            after[f"n{survivors[1]}"] = _nc_q1(nodes[survivors[1]], want,
+                                               on_card, reps=0)
+            t0 = time.perf_counter()
+            _nc_retry(lambda: _nc_sql(nodes[survivors[0]].sql, [_insert_sql(
+                "lineitem", self.li_sql, NC_ROWS + NC_INSERT_ROWS,
+                NC_ROWS + NC_INSERT_ROWS + NC_SURVIVOR_ROWS)]),
+                f"the write through node {survivors[0]}")
+            out["survivor_write_s"] = time.perf_counter() - t0
+            want = self.oracle(NC_ROWS + NC_INSERT_ROWS + NC_SURVIVOR_ROWS)
+            for nid in survivors:
+                after[f"n{nid}"] = _nc_q1(nodes[nid], want, on_card, reps=0)
+            print(f"phase 23: node {lh} killed; Q1 on node {survivors[0]} "
+                  f"correct {out['failover_s']:.2f} s after the kill; "
+                  f"{NC_SURVIVOR_ROWS} rows through it in "
+                  f"{out['survivor_write_s']:.2f} s", flush=True)
+            # the dead node's replicated liveness record lapses within
+            # NetCluster.LIVE_TTL_NS
+            out["status_after_kill"] = _nc_retry(lambda: _nc_status(
+                nodes, {lh}, nodes[survivors[0]], [*survivors, 4]),
+                "the status plane after the kill", timeout=30.0)
+
+            # the killed node rejoins through a survivor
+            killed = nodes[lh]
+            t0 = time.perf_counter()
+            self._start(lh, ["--join", f"{survivors[0]}@127.0.0.1:"
+                             f"{self.kv_ports[survivors[0]]}"]).serving()
+            # its first reads may meet NotLeaseholder while it catches up
+            after[f"n{lh} rejoined"] = _nc_retry(
+                lambda: _nc_q1(nodes[lh], want, on_card, reps=0),
+                f"Q1 on the rejoined node {lh}")
+            out["rejoin_s"] = time.perf_counter() - t0
+            out["rejoin_spawn_to_serving_s"] = nodes[lh].lines[
+                "spawn_to_serving_s"]
+            killed.stop()
+            out["after_kill_q1"] = {k: {kk: vv for kk, vv in v.items()
+                                        if kk != "rows"}
+                                    for k, v in after.items()}
+            res, _dt, k1, _ = _ranges_q(lambda: eng4.execute(tpch.Q1, s4),
+                                        "n4 q1 after the rejoin", on_card,
+                                        (1, 0), phase=23)
+            check_q1(res.rows, want)
+            if k1:
+                checks["sf0.01 netcluster n4 q1 after the rejoin "
+                       "phase 23"] = k1
+            for nid in nodes:
+                key = f"n{nid}" + (" rejoined" if nid == lh else "")
+                launches[key] = _nc_launches(nodes[nid].http, on_card)
+            launches["n4"] = len(runs4) + 1
+            out["kernel1_launches"] = launches
+            print(f"phase 23: node {lh} rejoined and answered Q1 with the "
+                  f"survivor's write {out['rejoin_s']:.1f} s after its "
+                  f"spawn; kernel 1 launches by process: {launches}",
+                  flush=True)
+        except BaseException:
+            self._failed()
+            raise
+        finally:
+            self.stop()
+        out["second_half_s"] = time.perf_counter() - t_second
+        out["launches"] = {"groupagg_large": sum(launches.values()),
+                           "groupagg": 0}
+        out["seconds"] = out["first_half_s"] + out["second_half_s"]
+        out["path_checks"] = checks
+        print("phase 23: " + json.dumps({k: v for k, v in out.items()
+                                         if k != "path_checks"}), flush=True)
+        return out
+
+    def stop(self) -> None:
+        if self.eng4 is not None:
+            self.eng4.close()
+            self.eng4 = None
+        if self.n4 is not None:
+            self.n4.stop()
+            self.n4 = None
+        for p in self.procs:
+            p.stop()
+
+
+def netcluster_phase(device: str = "cuda") -> dict:
+    """Phase 23 in one go (NetClusterRun's two halves, one after the
+    other)."""
+    run = NetClusterRun(device)
+    try:
+        run.first()
+        return run.second()
+    finally:
+        run.stop()
+
+
+def netcluster_phase_alone(device: str = "cuda") -> dict:
+    """Phase 23 by itself: builds the kernels, resolves the gate and the
+    launch point under a fresh cache root, and runs it (``device="cpu"``
+    rehearses it on the CPU: plain-version calls stand for launches, no
+    kernel checks)."""
+    from cockroach_tpu_torch.ops.cuda import build
+    with cache_root():
+        if device == "cuda":
+            build.compile_all(["groupagg_large", "groupagg"])
+        kernel_infra(device)
+        out = netcluster_phase(device)
+    out["path_checks"] = len(out["path_checks"])
+    print(json.dumps({"netcluster": out}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7705,6 +8326,7 @@ def _main(opts) -> int:
     pod = dml.pop("pod")
     elastic = dml.pop("elastic")
     ranges = dml.pop("ranges")
+    netc = dml.pop("netcluster")
     obs["node"] = front["entry_points"].pop("observability")
     print(json.dumps({"dml": dict(dml, card=smi)}), flush=True)
     print(json.dumps({"oltp": dict(oltp, card=smi)}), flush=True)
@@ -7718,6 +8340,7 @@ def _main(opts) -> int:
     print(json.dumps({"pod": dict(pod, card=smi)}), flush=True)
     print(json.dumps({"elastic": dict(elastic, card=smi)}), flush=True)
     print(json.dumps({"ranges": dict(ranges, card=smi)}), flush=True)
+    print(json.dumps({"netcluster": dict(netc, card=smi)}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -7728,12 +8351,14 @@ def _main(opts) -> int:
 
 
 def sf1_phases(opts) -> tuple:
-    """Phases 1-9 and 11-22 (phase 22 at its own scale); returns
+    """Phases 1-9 and 11-23 (phases 22 and 23 at their own scale; 23's
+    first half beside 22, 14 and 11); returns
     (kernels, nvidia-smi line, card name, phase 11's numbers with phase
     12's under "oltp", phase 13's under "frontdoor", 14's under
     "observability", 15's under "history", 16's under "jobs", 17's under
     "coldstart", 18's under "distributed", 19's under "flows", 20's
-    under "pod", 21's under "elastic" and 22's under "ranges"). Every
+    under "pod", 21's under "elastic", 22's under "ranges" and 23's
+    under "netcluster"). Every
     engine and table of these
     phases lives in this frame only, so they are freed when it
     returns."""
@@ -8115,6 +8740,13 @@ def sf1_phases(opts) -> tuple:
     large["path_checks"].update(elastic.pop("path_checks"))
     print(f"phase 21: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # -- 23, first half: three start processes, beside phases 22, 14 and 11
+    # (it uses no engine or kernel count of this process: its nodes are
+    # processes of their own, on cores of their own)
+    netc_run = NetClusterRun()
+    atexit.register(netc_run.stop)
+    netc_run.start_thread()
+
     # -- 22. SQL on raft-replicated ranges -----------------------------------
     t0 = time.perf_counter()
     ranges = ranges_phase()
@@ -8124,6 +8756,7 @@ def sf1_phases(opts) -> tuple:
     large["path_checks"].update(ranges.pop("path_checks"))
     small_checks22 = ranges.pop("small_checks")
     print(f"phase 22: {time.perf_counter() - t0:.1f} s", flush=True)
+
 
     # -- 14. set operations, composed CTEs, EXPLAIN ANALYZE, tracing -------
     # (on phase 7's tables, before phase 11's writes)
@@ -8141,9 +8774,10 @@ def sf1_phases(opts) -> tuple:
 
     # -- 11. windows, the write path and YCSB-E (it changes the tables) ------
     t0 = time.perf_counter()
-    # YCSB-E at 25,000 records in the whole run (phase 16's room)
-    dml = dml_phase(eng, li, part, SF, ycsb_records=25_000,
-                    ycsb_ops=5_000, reps=2)
+    # YCSB-E at 10,000 records and 2,000 operations, and one timed run a
+    # query, in the whole run (phase 23's room)
+    dml = dml_phase(eng, li, part, SF, ycsb_records=10_000,
+                    ycsb_ops=2_000, reps=1)
     routes11 = dml["refresh"]["routes"]
     large["launches"] += sum(r["groupagg_large"] for r in routes11.values())
     large["phase11_launches"] = {q: r["groupagg_large"]
@@ -8152,6 +8786,17 @@ def sf1_phases(opts) -> tuple:
         (f"sf1 {q} phase 11", r["kernel_checks"])
         for q, r in routes11.items() if r.get("kernel_checks"))
     print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- 23, second half: this process as node 4, the kill, the rejoin ------
+    t0 = time.perf_counter()
+    waited = netc_run.join()
+    netc = netc_run.second()
+    netc["first_half_waited_s"] = waited
+    large["launches"] += netc["launches"]["groupagg_large"]
+    large["phase23_launches"] = netc["kernel1_launches"]
+    large["path_checks"].update(netc.pop("path_checks"))
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s after phase 11 "
+          f"({waited:.1f} s of it waiting for the first half)", flush=True)
 
     # -- 12. the OLTP lane beside the card ---------------------------------
     t0 = time.perf_counter()
@@ -8181,7 +8826,7 @@ def sf1_phases(opts) -> tuple:
         kernels[i]["phase13_timed_launches"] = \
             front["kernel_launches_timed"][k]
     large["path_checks"].update(front.pop("path_checks"))
-    large["path_checks"]["sf0.1 node q1 phase 13"] = entry.pop(
+    large["path_checks"][f"sf{FRONT_SF} node q1 phase 13"] = entry.pop(
         "node_checks")
     kernels[1]["path_checks"] = {"phase 13": front.pop("small_checks"),
                                  "phase 14": small_checks14,
@@ -8222,6 +8867,7 @@ def sf1_phases(opts) -> tuple:
     dml["pod"] = pod
     dml["elastic"] = elastic
     dml["ranges"] = ranges
+    dml["netcluster"] = netc
     if opts.profile:
         from cockroach_tpu_torch.profile_tpch import profile_queries
         profile_queries(eng, {"q3": (tpch.Q3, None), "q5": (tpch.Q5, None),

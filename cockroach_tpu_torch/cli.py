@@ -1,4 +1,5 @@
-"""Command-line interface: start / sql / demo / workload / cert / version.
+"""Command-line interface: start / sql / demo / workload / node / debug /
+cert / version.
 
 The port of cockroach_tpu/cli.py (the reference's cobra CLI,
 pkg/cli/start.go:395 runStart; pkg/cli/clisqlshell for the shell;
@@ -6,8 +7,10 @@ pkg/cli/demo.go). Run as ``python -m cockroach_tpu_torch <command>``.
 ``start``, ``demo`` and ``workload`` run their engine on the CUDA card
 (``--device cuda``, the default; without a card they raise) unless
 ``--device`` names another, such as ``cpu``. Cluster mode (``start
---kv-addr/--join/--bootstrap``), ``node`` and ``debug`` need the
-cluster fabric, which is not ported yet: they raise.
+--kv-addr`` with ``--bootstrap`` or ``--join NID@HOST:PORT``) gives the
+node a NetCluster: raft, proposals and reads ride TCP between ``start``
+processes. ``node status`` and ``debug ranges|tables`` read a node's
+status endpoint.
 
 The embedded ``PgClient`` is a from-scratch minimal pgwire v3 frontend
 (startup, simple query, text results, COPY, extended protocol), so the
@@ -310,14 +313,6 @@ class PgClient:
 
 # -- commands ----------------------------------------------------------------
 
-class NotPortedError(RuntimeError):
-    pass
-
-
-def _not_ported(what: str):
-    raise NotPortedError(f"{what}: cluster mode is not yet ported")
-
-
 def _device(args):
     """The engine's device: None for the card (Engine raises when there
     is none), else what ``--device`` names."""
@@ -331,27 +326,72 @@ def _parse_addr(addr: str) -> tuple[str, int]:
     return addr, DEFAULT_PORT
 
 
+def _start_cluster(args):
+    """The node's NetCluster in cluster mode (kvserver/netcluster.py):
+    this process owns one Store and raft, proposals and reads ride TCP. ``--bootstrap`` creates the initial range; ``--join
+    NID@HOST:PORT`` dials a seed and asks it to replicate onto us."""
+    from .kvserver.netcluster import NetCluster
+    kv_host, kv_port = ("127.0.0.1", 0)
+    if args.kv_addr:
+        kv_host, kv_port = _parse_addr(args.kv_addr)
+    seeds = {}
+    for j in (args.join or []):
+        nid, addr = j.split("@", 1)
+        seeds[int(nid)] = _parse_addr(addr)
+    cluster = NetCluster(node_id=args.node_id, host=kv_host, port=kv_port,
+                         join=seeds)
+    if args.bootstrap:
+        cluster.bootstrap()
+    else:
+        cluster.join()
+        try:
+            # ask the seed to replicate existing ranges onto us; the
+            # reference starts serving without it if the seed refuses
+            cluster.call(next(iter(seeds)), "replicate_me", {})
+        except RuntimeError:
+            pass
+    return cluster
+
+
 def cmd_start(args) -> int:
     from .server import Node, NodeConfig
 
+    cluster = None
     if args.kv_addr or args.join or args.bootstrap:
-        _not_ported("start --kv-addr/--join/--bootstrap")
+        if not args.bootstrap and not args.join:
+            print("error: cluster mode (--kv-addr) requires either "
+                  "--bootstrap (first node) or --join NID@HOST:PORT",
+                  file=sys.stderr)
+            return 1
+        cluster = _start_cluster(args)
     host, port = _parse_addr(args.listen_addr)
-    node = Node(NodeConfig(listen_host=host, listen_port=port,
-                           node_id=args.node_id, device=_device(args)))
-    node.start()
+    try:
+        node = Node(NodeConfig(listen_host=host, listen_port=port,
+                               node_id=args.node_id, cluster=cluster,
+                               device=_device(args)))
+        node.start()
+    except BaseException:
+        if cluster is not None:
+            cluster.stop()
+        raise
     h, p = node.sql_addr
+    hh, hp = node.http_addr
     print(f"cockroach-tpu node starting\n"
           f"version:     {__version__}\n"
           f"device:      {node.engine.device}\n"
           f"sql:         postgresql://root@{h}:{p}/defaultdb\n"
-          f"status:      serving", flush=True)
+          f"http:        {hh}:{hp}\n"
+          + (f"kv:          {cluster.addr[0]}:{cluster.addr[1]}\n"
+             if cluster is not None else "")
+          + "status:      serving", flush=True)
     try:
         import threading
         threading.Event().wait()  # serve until interrupted
     except KeyboardInterrupt:
         print("\ninterrupt: shutting down", flush=True)
     node.stop()
+    if cluster is not None:
+        cluster.stop()
     return 0
 
 
@@ -493,6 +533,50 @@ def cmd_cert(args) -> int:
     return 0
 
 
+def _http_json(url_base: str, path: str):
+    import json
+    import urllib.request
+    with urllib.request.urlopen(f"http://{url_base}{path}",
+                                timeout=10) as r:
+        return json.loads(r.read())
+
+
+def cmd_node(args) -> int:
+    """`node status` — the reference's `cockroach node status`
+    (pkg/cli/node.go) against the status endpoint."""
+    o = _http_json(args.url, "/_status/nodes")
+    print(f"node {o['node_id']}  v{o['version']}  "
+          f"sql={o['sql_addr'][0]}:{o['sql_addr'][1]}  "
+          f"tables={len(o['tables'])}")
+    for pid, p in sorted(o.get("peers", {}).items()):
+        rtt = (f"{p['rtt_ns'] / 1e6:.1f}ms"
+               if p.get("rtt_ns") is not None else "?")
+        off = (f"{p['clock_offset_ns'] / 1e6:+.1f}ms"
+               if p.get("clock_offset_ns") is not None else "?")
+        state = "live" if p["healthy"] else "SUSPECT"
+        print(f"  peer n{pid}: {state}  rtt={rtt}  clock-offset={off}")
+    return 0
+
+
+def cmd_debug(args) -> int:
+    """`debug ranges` / `debug tables` — pkg/cli/debug.go's read-only
+    introspection, over the status endpoint instead of a store dir."""
+    if args.what == "ranges":
+        o = _http_json(args.url, "/_debug/ranges")
+        if not o["ranges"]:
+            print("(no ranges: node is not cluster-backed)")
+            return 0
+        for r in o["ranges"]:
+            print(f"r{r['range_id']}: [{r['start']!r}, {r['end']!r}) "
+                  f"replicas={r['replicas']} "
+                  f"leaseholder={r['leaseholder']}")
+        return 0
+    o = _http_json(args.url, "/_status/nodes")
+    for t in o["tables"]:
+        print(t)
+    return 0
+
+
 def main(argv=None) -> int:
     from .workload import WORKLOADS
 
@@ -510,12 +594,14 @@ def main(argv=None) -> int:
     p_start.add_argument("--listen-addr", default=f"127.0.0.1:{DEFAULT_PORT}")
     p_start.add_argument("--node-id", type=int, default=1)
     p_start.add_argument("--kv-addr", default=None,
-                         help="cluster mode (not yet ported)")
+                         help="host:port for the replicated KV plane "
+                         "(raft over TCP); enables cluster mode")
     p_start.add_argument("--bootstrap", action="store_true",
-                         help="cluster mode (not yet ported)")
+                         help="initialize a new cluster (first node)")
     p_start.add_argument("--join", action="append", default=None,
                          metavar="NID@HOST:PORT",
-                         help="cluster mode (not yet ported)")
+                         help="join an existing cluster via this "
+                         "seed's kv address (repeatable)")
     device_arg(p_start)
     p_start.set_defaults(fn=cmd_start)
 
@@ -538,12 +624,19 @@ def main(argv=None) -> int:
     device_arg(p_wl)
     p_wl.set_defaults(fn=cmd_workload)
 
-    for name in ("node", "debug"):
-        p = sub.add_parser(name, help="cluster introspection (not yet "
-                                      "ported)")
-        p.add_argument("what", nargs="*")
-        p.add_argument("--url", default=None)
-        p.set_defaults(fn=lambda a, _n=name: _not_ported(_n))
+    p_node = sub.add_parser("node", help="node status (fabric health, "
+                                         "clock offsets)")
+    p_node.add_argument("action", choices=["status"])
+    p_node.add_argument("--url", required=True,
+                        help="host:port of a node's HTTP endpoint")
+    p_node.set_defaults(fn=cmd_node)
+
+    p_dbg = sub.add_parser("debug", help="read-only introspection "
+                                         "(ranges, tables)")
+    p_dbg.add_argument("what", choices=["ranges", "tables"])
+    p_dbg.add_argument("--url", required=True,
+                       help="host:port of a node's HTTP endpoint")
+    p_dbg.set_defaults(fn=cmd_debug)
 
     p_cert = sub.add_parser("cert", help="create self-signed CA + "
                                          "node TLS certificates")

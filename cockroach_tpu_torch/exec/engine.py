@@ -498,6 +498,7 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         autotune.register_metrics(self.metrics)
         paritygate.register_metrics(self.metrics)
         self._mesh_metrics()
+        self._kernel_metrics()
 
     # -- public API ----------------------------------------------------------
     def session(self) -> Session:
@@ -536,6 +537,24 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
         # this process (back-to-back tests, hostd restarts) inherits a
         # stale coordinator
         multihost.shutdown_distributed()
+
+    def _kernel_metrics(self) -> None:
+        """The hand-written kernels' launch counts and their plain
+        versions' call counts in this process (each wrapper's own
+        LAUNCHES and PLAIN_CALLS, read live), so a node's kernel work is
+        read off its /_status/vars from outside the process."""
+        from ..ops.cuda import groupagg, groupagg_large
+        m = self.metrics
+        for name, mod in (("groupagg_large", groupagg_large),
+                          ("groupagg", groupagg)):
+            m.func_counter(f"kernel.{name}.launches",
+                           lambda mod=mod: mod.LAUNCHES,
+                           f"launches of the {name} CUDA kernel in this "
+                           "process")
+            m.func_counter(f"kernel.{name}.plain_calls",
+                           lambda mod=mod: mod.PLAIN_CALLS,
+                           f"calls of the {name} kernel's plain PyTorch "
+                           "version (CPU tensors) in this process")
 
     # -- the mesh ------------------------------------------------------------
     def _mesh_metrics(self) -> None:

@@ -507,6 +507,11 @@ class RaftNode:
             return
         self._become_follower(m.term, m.frm)
         self.log.restore(snap)
+        # this log now starts at the snapshot: keep its state, so that
+        # as a leader this node can send it to a follower that needs the
+        # compacted prefix (an empty snapshot would leave that follower
+        # without every key written before it)
+        self._snapshot_data = snap.data
         self.commit = snap.index
         self.applied = snap.index
         self._unstable_from = snap.index + 1

@@ -169,6 +169,7 @@ class MetricRegistry:
     def __init__(self):
         self._metrics: dict[str, object] = {}
         self._lock = threading.Lock()
+        self._collectors: list[Callable[[], None]] = []
 
     def counter(self, name: str, help_: str = "") -> Counter:
         return self._get_or_add(name, lambda: Counter(name, help_))
@@ -197,14 +198,29 @@ class MetricRegistry:
                 self._metrics[name] = m
             return m
 
+    def add_collector(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` before every snapshot and export; collectors
+        refresh dynamic metric families (per-peer gauges) in place."""
+        with self._lock:
+            self._collectors.append(fn)
+
+    def _collect(self) -> None:
+        for fn in list(self._collectors):
+            try:
+                fn()
+            except Exception:
+                pass
+
     def get(self, name: str) -> Optional[object]:
         return self._metrics.get(name)
 
     def snapshot(self) -> dict:
+        self._collect()
         return {name: m.value() for name, m in sorted(self._metrics.items())}
 
     def to_prometheus(self) -> str:
         """Text exposition format (prometheus_exporter.go)."""
+        self._collect()
         out = []
         for name, m in sorted(self._metrics.items()):
             pname = name.replace(".", "_").replace("-", "_")

@@ -100,8 +100,8 @@ def test_port_scan_covers_parallel():
 def test_port_scan_covers_distsql():
     """The import scan reaches every module of distsql/, kvserver/ and
     kv/ (serde, flow, physical, shuffle, node, the shard leases; the
-    transport, raft, stores, the range cluster, liveness, rangefeeds;
-    the txn plane, DistSender, the range cache, rangekv, disttxn,
+    transport, raft, stores, the range cluster, liveness, rangefeeds,
+    the cluster over TCP and its versions; the txn plane, DistSender, the range cache, rangekv, disttxn,
     rowfetch), and none of them imports jax or the JAX package, directly
     or through a module of the port they load."""
     import importlib
@@ -112,7 +112,9 @@ def test_port_scan_covers_distsql():
                                     "node.py", "leases.py"}),
                        ("kvserver", {"__init__.py", "transport.py",
                                      "raft.py", "store.py", "cluster.py",
-                                     "liveness.py", "rangefeed.py"}),
+                                     "liveness.py", "rangefeed.py",
+                                     "netcluster.py",
+                                     "clusterversion.py"}),
                        ("kv", {"__init__.py", "concurrency.py", "txn.py",
                                "intentresolver.py", "protectedts.py",
                                "rangecache.py", "distsender.py",
@@ -287,6 +289,21 @@ def test_server_and_cli_without_card_raise():
                  ["workload", "kv", "--device", "cuda"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(argv)
+
+
+def test_cluster_start_without_card_raises():
+    """``start`` in cluster mode keeps the device policy too, and leaves
+    no pump thread of its NetCluster behind when the engine raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import threading
+
+    from cockroach_tpu_torch import cli
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["start", "--listen-addr", "127.0.0.1:0", "--bootstrap",
+                  "--kv-addr", "127.0.0.1:0"])
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("nc-pump-")]
 
 
 def test_wrapper_uses_plain_version_only_for_cpu_tensors():

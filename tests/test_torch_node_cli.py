@@ -4,13 +4,22 @@
   TPC-H Q1 and Q6 over the wire equal to the numpy oracles, and stops.
 - Each status endpoint returns the reference Node's keys; the
   ``/_status/statements`` page holds Q1's fingerprint and count; the
-  Prometheus page serves the admission metrics; the endpoints the port
-  does not have yet answer 404 "not yet ported".
+  Prometheus page serves the admission metrics; ``/_status/nodes``
+  describes the node, and ``/debug/tracez?cluster=1`` on a node without
+  a NetCluster serves its own ring, as the reference's does.
 - ``cli.main`` runs ``version``, ``sql -e`` (and its errors), ``demo``
   over piped statements, and ``workload`` for every registered workload
   on the CPU at small steps and scale; ``python -m cockroach_tpu_torch
   start`` runs as a process and serves ``sql -e``.
-- Cluster flags, ``node`` and ``debug`` raise "not yet ported".
+- Cluster mode and the introspection commands, at the argv shapes that
+  raised before they were ported: ``start --kv-addr`` with neither
+  ``--bootstrap`` nor ``--join`` returns 1 with the reference's message;
+  ``start --bootstrap`` serves SQL over its own range as a process;
+  ``start --join`` joins a seed NetCluster and is replicated onto;
+  ``node status`` and ``debug ranges`` read a node's status endpoint.
+  The reference's tests/test_observability.py::TestStatusAndDebugEndpoints
+  runs on the port's Node and CLI (``debug ranges`` over a
+  cluster-backed node).
 - Without a card, ``Node()`` and ``start``/``demo``/``workload`` without
   ``--device`` raise: nothing falls back to the CPU by itself.
 """
@@ -32,6 +41,7 @@ from cockroach_tpu_torch import cli
 from cockroach_tpu_torch.models import tpch
 from cockroach_tpu_torch.server import Node, NodeConfig
 from tests.test_torch_groupagg_large import reference_modules
+from tests.test_torch_ranges import reference_cases
 
 ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT = 5.0
@@ -151,13 +161,22 @@ def test_prometheus_page_and_not_ported_endpoints(node):
     text = _get(node, "/_status/vars").decode()
     assert text == _get(node, "/metrics").decode()
     for name in ("admission_admitted", "admission_tenant_slot_waits",
-                 "exec_device_hbm_bytes", "sql_exec_latency_bucket"):
+                 "exec_device_hbm_bytes", "sql_exec_latency_bucket",
+                 "kernel_groupagg_large_launches"):
         assert name in text
-    for path in ("/_status/nodes", "/debug/tracez?cluster=1"):
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            _get(node, path)
-        assert ei.value.code == 404
-        assert b"not yet ported" in ei.value.read()
+    # the fixture's Q1 ran kernel 1's plain version (CPU tensors)
+    plain = [ln for ln in text.splitlines()
+             if ln.startswith("kernel_groupagg_large_plain_calls ")]
+    assert len(plain) == 1 and float(plain[0].split()[1]) >= 1
+    # served since the cluster fabric came: the node and its fabric
+    # view (no fabric, no peers); without a NetCluster, ?cluster=1 is the
+    # node's own ring
+    nodes = json.loads(_get(node, "/_status/nodes"))
+    assert nodes["node_id"] == 1 and nodes["peers"] == {}
+    assert nodes["sql_addr"] == list(node.sql_addr)
+    assert "lineitem" in nodes["tables"]
+    assert json.loads(_get(node, "/debug/tracez?cluster=1")) == \
+        json.loads(_get(node, "/debug/tracez"))
     # served since the range plane and the elastic pod came: a node
     # with no cluster lists no ranges, outside a pod no membership
     assert json.loads(_get(node, "/_debug/ranges")) == {"ranges": []}
@@ -227,6 +246,84 @@ def test_workload_runs_on_the_cpu(name, capsys):
         assert out
 
 
+def _start_proc(argv):
+    """``python -m cockroach_tpu_torch`` with ``argv`` as a process; its
+    printed lines up to "status:" by their key."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cockroach_tpu_torch", *argv], cwd=str(ROOT),
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+        text=True)
+    lines = {}
+    for line in proc.stdout:
+        key, _, val = line.partition(":")
+        lines[key.strip()] = val.strip()
+        if key == "status":
+            break
+    return proc, lines
+
+
+def _stop_proc(proc):
+    proc.terminate()
+    proc.wait(timeout=30)
+
+
+def _cluster_start_alone(argv, capsys):
+    assert cli.main(argv) == 1
+    assert ("cluster mode (--kv-addr) requires either --bootstrap "
+            "(first node) or --join NID@HOST:PORT") in capsys.readouterr().err
+
+
+def _cluster_bootstrap(argv, capsys):
+    proc, lines = _start_proc(argv + ["--listen-addr", "127.0.0.1:0",
+                                      "--kv-addr", "127.0.0.1:0"])
+    try:
+        assert lines.get("status") == "serving", lines
+        assert lines["device"] == "cpu" and lines["kv"]
+        sql = lines["sql"].split("@", 1)[1].split("/", 1)[0]
+        assert cli.main(["sql", "--url", sql, "-e",
+                         "CREATE TABLE z (k INT PRIMARY KEY, v INT)", "-e",
+                         "INSERT INTO z VALUES (1, 10), (2, 20)", "-e",
+                         "SELECT sum(v) FROM z"]) == 0
+        assert "30" in capsys.readouterr().out
+        assert cli.main(["debug", "ranges", "--url", lines["http"]]) == 0
+        assert "r1: " in capsys.readouterr().out
+    finally:
+        _stop_proc(proc)
+
+
+def _cluster_join(argv, capsys):
+    from cockroach_tpu_torch.kvserver.netcluster import NetCluster
+    seed = NetCluster(2)
+    seed.bootstrap()
+    host, port = seed.addr
+    argv = [a.replace("127.0.0.1:1", f"{host}:{port}") for a in argv]
+    proc, lines = _start_proc(argv + ["--listen-addr", "127.0.0.1:0"])
+    try:
+        assert lines.get("status") == "serving", lines
+        # the seed replicated its range onto the joiner (replicate_me)
+        assert sorted(seed.descriptors[1].replicas) == [1, 2]
+        seed.put(b"\x01joined", b"yes")
+        assert cli.main(["debug", "ranges", "--url", lines["http"]]) == 0
+        assert "replicas=[2, 1]" in capsys.readouterr().out
+    finally:
+        _stop_proc(proc)
+        seed.stop()
+
+
+def _introspect(node):
+    def run(argv, capsys):
+        h, p = node.http_addr
+        argv = [a.replace("127.0.0.1:1", f"{h}:{p}") for a in argv]
+        assert cli.main(argv) == 0
+        out = capsys.readouterr().out
+        if argv[0] == "node":
+            assert out.startswith("node 1  v")
+        else:
+            assert out == "(no ranges: node is not cluster-backed)\n"
+    return run
+
+
 @pytest.mark.parametrize("argv,what", [
     (["start", "--kv-addr", "127.0.0.1:0", "--device", "cpu"], "start"),
     (["start", "--bootstrap", "--device", "cpu"], "start"),
@@ -234,9 +331,23 @@ def test_workload_runs_on_the_cpu(name, capsys):
     (["node", "status", "--url", "127.0.0.1:1"], "node"),
     (["debug", "ranges", "--url", "127.0.0.1:1"], "debug"),
 ])
-def test_cluster_commands_are_not_ported(argv, what):
-    with pytest.raises(cli.NotPortedError, match=f"{what}.*not yet ported"):
-        cli.main(argv)
+def test_cluster_commands_are_not_ported(argv, what, node, capsys):
+    """The argv shapes that raised before cluster mode was ported now run
+    as the reference's do (the name is kept from then)."""
+    if what == "start":
+        run = (_cluster_bootstrap if "--bootstrap" in argv else
+               _cluster_join if "--join" in argv else _cluster_start_alone)
+    else:
+        run = _introspect(node)
+    run(argv, capsys)
+
+
+reference_cases("test_observability.py", globals(),
+                only=("TestStatusAndDebugEndpoints",), replace=(
+    ("Node(NodeConfig())", "Node(NodeConfig(device='cpu'))"),
+    ("Node(NodeConfig(cluster=c))",
+     "Node(NodeConfig(cluster=c, device='cpu'))"),
+))
 
 
 def test_no_card_no_device_raises():

@@ -24,6 +24,7 @@ from cockroach_tpu_torch.exec.oltpbatch import BatchReq
 from cockroach_tpu_torch.exec.session import EngineError, Session
 from cockroach_tpu_torch.sql.parser import parse
 from tests.test_torch_groupagg_large import reference_modules
+from tests.test_torch_ranges import reference_cases
 
 JOIN_TIMEOUT = 60.0
 
@@ -544,3 +545,17 @@ def test_chip_smoke_phase12_on_the_cpu():
     assert all(r["lane_hits"] == r["statements"]
                for r in out["single"].values())
     assert out["sequence"]["first"] == out["sequence"]["rolled_back"] + 1
+
+
+# -- raft's group entries ------------------------------------------------------
+# The reference's own cases, tests/test_oltp_batch.py's
+# TestRaftGroupEntries and TestLeaseholderTsCache (6: pack/unpack, a single
+# command as a plain entry, propose_group as one log entry of many
+# commands, Replica.propose_batch acking every waiter on a 3-node Cluster,
+# a follower's batch falling back to single proposals, and a read through
+# one gateway pushing a txn write through another above it), run on the
+# port's kvserver/raft.py, store.py, cluster.py and kv/rangekv.py
+# (``reference_cases`` of test_torch_ranges.py).
+
+reference_cases("test_oltp_batch.py", globals(),
+                only=("TestRaftGroupEntries", "TestLeaseholderTsCache"))

@@ -27,7 +27,7 @@ _REF_IMPORT = re.compile(r"\bcockroach_tpu\.")
 
 
 def reference_cases(ref_file: str, namespace: dict, replace=(),
-                    bind=None) -> None:
+                    bind=None, only=None) -> None:
     """Compile tests/<ref_file> with every ``cockroach_tpu.`` module path
     rewritten to ``cockroach_tpu_torch.`` (and each (old, new) pair of
     ``replace`` applied to its text), run it as a module of its own, and
@@ -35,7 +35,8 @@ def reference_cases(ref_file: str, namespace: dict, replace=(),
     ``namespace`` (the calling test module's globals), so pytest collects
     the reference's cases against the port. ``bind`` maps names of that
     module to replacements installed after it ran (e.g. an Engine class
-    bound to the CPU)."""
+    bound to the CPU). ``only``, when given, names the test classes and
+    functions to copy; the file's other cases are left out."""
     src = (ROOT / "tests" / ref_file).read_text()
     src = _REF_IMPORT.sub("cockroach_tpu_torch.", src)
     for old, new in replace:
@@ -45,10 +46,15 @@ def reference_cases(ref_file: str, namespace: dict, replace=(),
            "__file__": str(ROOT / "tests" / ref_file)}
     exec(compile(src, f"{ref_file} (on the port)", "exec"), mod)
     mod.update(bind or {})
+    if only is not None:
+        missing = set(only) - set(mod)
+        assert not missing, (ref_file, missing)
     for name, obj in mod.items():
         if name.startswith("__"):
             continue
         if name.startswith(("Test", "test_")):
+            if only is not None and name not in only:
+                continue
             # a case of two reference files under one name would hide one
             assert name not in namespace, (ref_file, name)
         elif name in namespace:
@@ -127,3 +133,47 @@ def test_seeded_clusters_agree_step_by_step():
     # the script moved something: splits, a transferred lease, writes
     assert len(port[-1]["ranges"]) == 3
     assert len(port[-1]["scan"]) == 40
+
+
+# -- a reference fault the port repairs: a leader's empty snapshot -----------
+
+def _snapshot_join(pkg: str) -> dict:
+    """Range r1 on node 1 alone takes 200 values of 8,000 bytes (past the
+    1 MiB raft log, so node 1 compacts it), nodes 2 and 3 join by
+    snapshot, node 1 stops, and node 4 joins through the new leader,
+    whose own log starts at the snapshot it restored. Which keys each
+    new replica holds."""
+    Cluster = _cluster_mod(pkg).Cluster
+    c = Cluster(n_nodes=4, seed=5)
+    c.create_range(b"a", b"z", replicas=[1])
+    assert c.pump_until(lambda: c.ensure_lease(1) is not None)
+    for i in range(200):
+        c.put(b"k%04d" % i, b"x" * 8000)
+    assert c.stores[1].replicas[1].raft.log.snapshot_index > 0
+    for n in (2, 3):
+        c.change_replicas(1, add=n)
+        c.pump(50)
+    c.stop_node(1)
+    c.pump(c.liveness.ttl + 30)
+    c.put(b"after", b"1")
+    c.change_replicas(1, add=4)
+    c.pump(80)
+    ts = c.clock.now()
+    return {n: [k for k in (b"k0000", b"k0199", b"after")
+                if c.stores[n].replicas[1].mvcc.get(
+                    k, ts, inconsistent=True) is not None]
+            for n in (2, 3, 4)}
+
+
+def test_leader_restored_from_a_snapshot_sends_its_state():
+    """The reference's raft keeps a snapshot's state only on the node
+    that compacted its log: a node whose log starts at a snapshot it
+    restored sends, once it leads, an empty snapshot to a follower that
+    needs the compacted prefix, and that follower silently holds none of
+    the keys written before it. The port's raft keeps the restored
+    snapshot's state (kvserver/raft.py ``_handle_snapshot``)."""
+    every = [b"k0000", b"k0199", b"after"]
+    assert _snapshot_join("cockroach_tpu_torch") == {
+        2: every, 3: every, 4: every}
+    lost = _snapshot_join("cockroach_tpu")[4]
+    assert b"k0000" not in lost and b"after" in lost

@@ -52,6 +52,7 @@ from tests.test_torch_distsql_flows import (TPCH_DDL, assert_rows_close,
                                             build_fabric, oracle_engine,
                                             port_engine, reference)
 from tests.test_torch_groupagg_large import reference_modules
+from tests.test_torch_ranges import reference_cases
 
 ROWS = 3000
 FLOAT_REL = 1e-9
@@ -1147,3 +1148,21 @@ class TestFlowsThroughTheCodec:
             if transport.deliver_all() == 0:
                 break
         assert node.flows_cancelled == 1 and node.flows_run == 0
+
+
+# -- the node's fabric --------------------------------------------------------
+# The reference's Node cases (test_rpc_fabric.py::TestMultiNodeServer,
+# test_heartbeat.py::TestNodeFabricLiveness) on the port's Node, each Node
+# on the CPU: cluster settings set over pgwire on one node converge on the
+# other through gossip, node addresses are gossiped, and each node's
+# PeerMonitor sees the other healthy, then not once its fabric stops.
+
+_NODE_ON_THE_CPU = tuple(
+    (f"Node(NodeConfig(node_id={i}, rpc_port=0,",
+     f"Node(NodeConfig(node_id={i}, rpc_port=0, device='cpu',")
+    for i in (1, 2))
+reference_cases("test_rpc_fabric.py", globals(),
+                only=("TestMultiNodeServer",), replace=_NODE_ON_THE_CPU)
+reference_cases("test_heartbeat.py", globals(),
+                only=("TestNodeFabricLiveness",),
+                replace=_NODE_ON_THE_CPU)
