@@ -494,7 +494,8 @@ Phases (any failure exits non-zero before the final line):
    with `--join` node 1, one after the other, and are up-replicated
    onto by snapshot (seconds printed); 200 more rows go in through node
    2 and an UPDATE of 100 rows through node 3, replicated three ways.
-   Q1 through each node's pgwire (first and best of 5) equals the numpy
+   Then, with nothing else running in this process, Q1 through each
+   node's pgwire (first and best of 5) equals the numpy
    oracle over the final rows, the same rows on every node, and kernel
    1 launches once a run in each node's process, read from its
    /_status/vars (`kernel.groupagg_large.launches`). This process joins
@@ -504,16 +505,21 @@ Phases (any failure exits non-zero before the final line):
    /_status/nodes on each node lists every other node healthy;
    /debug/tracez?cluster=1 from node 2 merges the rings of nodes 1-4,
    not partial; `node status` and `debug ranges` read node 2's URL.
-   Then the leaseholder's process is killed (SIGKILL): Q1 on both
-   survivors equals the oracle (kill to the first correct answer: the
-   failover seconds), 10 rows go in through a survivor, the status plane
-   shows the dead node unhealthy and the fan-out partial, and the killed
-   node restarts with `--join` a survivor and answers Q1 with that
-   write (the rejoin seconds), as does node 4. In the whole run, the
-   first half (through the Q1 runs of nodes 1-3) runs in a thread beside
-   phases 22, 14 and 11: it touches no engine or kernel count of this
-   process, and its three processes have cores of their own; the second
-   half runs after phase 11. One JSON `netcluster` line.
+   Then the leaseholder's process is killed (SIGKILL): the first answer
+   to Q1 on a survivor equals the oracle (kill to that answer: the
+   failover seconds; only the errors of a moving lease or a refused
+   connection are retried, each counted under "retried", and a wrong
+   answer ends the run), so does Q1 on the other survivor, 10 rows go
+   in through a survivor, the status plane shows the dead node
+   unhealthy and the fan-out partial, and the killed node restarts with
+   `--join` a survivor and its first answer to Q1 holds that write (the
+   rejoin seconds), as does node 4's. In the whole run, the first half
+   (the load, the joins and the three-way writes) runs in a thread
+   beside phases 22, 14 and 11: it touches no engine or kernel count of
+   this process, but it shares the host's cores and the card with them,
+   so those phases' lines carry "beside_phase23_first_half" and phase
+   23's "first_half_beside" names them; the second half runs after
+   phase 11, alone. One JSON `netcluster` line.
 Each phase's seconds are printed. After phase 10, one JSON `dml` line
 holds phase 11's numbers, one JSON `oltp` line phase 12's, one JSON
 `frontdoor` line phase 13's, one JSON `observability` line phase
@@ -1585,11 +1591,17 @@ NEW_CUSTOMER = {"c_custkey": 999_999_999, "c_name": "Customer#999999999",
 PLANE_AB_RUNS = 5               # warm runs a way, profile plane on/off
 
 
-def _profiled(fn) -> dict:
+def _profiled(fn, on_card: bool = True) -> dict:
     """Wall, device-busy and HtoD ms of one run of `fn` from
-    torch.profiler, as profile_tpch measures them."""
+    torch.profiler, as profile_tpch measures them (off the card: the
+    wall ms alone)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    if not on_card:
+        t0 = time.perf_counter()
+        fn()
+        return {"wall_ms": (time.perf_counter() - t0) * 1e3, "busy_ms": None,
+                "htod_ms": None, "idle_share": None}
     _sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -7644,15 +7656,8 @@ def ranges_phase(device: str = "cuda", rows: int = RANGE_ROWS) -> dict:
     pairs = {"A": [], "local": []}
     for _ in range(RANGE_REPS):
         for k, e, s in (("A", a, sa), ("local", local, sl)):
-            def q1(e=e, s=s):
-                e.execute(tpch.Q1, s)
-            if on_card:
-                pairs[k].append(_profiled(q1))
-            else:
-                t0 = time.perf_counter()
-                q1()
-                pairs[k].append({"wall_ms": (time.perf_counter() - t0)
-                                 * 1e3, "busy_ms": None})
+            pairs[k].append(_profiled(lambda e=e, s=s: e.execute(tpch.Q1, s),
+                                      on_card))
     warm = {}
     for k, runs in pairs.items():
         med = statistics.median(r["wall_ms"] for r in runs)
@@ -7843,28 +7848,47 @@ def _nc_q1(node, want, on_card: bool, reps: int = NC_REPS) -> dict:
             "best_s": min(times[1:]) if reps else None, "launches": n}
 
 
-def _nc_retry(fn, what: str, timeout: float = NC_WAIT_S):
-    """``fn()`` until it returns, for a failover: a statement right after
-    a node's death meets the old lease until a survivor takes it. Past
-    ``timeout`` the last error is raised."""
+# what a statement meets while a lease moves or a replica catches up
+# (the range plane's own messages): nothing of it was applied
+NC_TRANSIENT = ("not leaseholder", "no leaseholder",
+                "no reachable leaseholder", "breaker tripped")
+# a read may also time out at a peer that just died; a write may not be
+# retried on that (its proposal's fate is unknown)
+NC_TRANSIENT_READ = NC_TRANSIENT + ("timed out",)
+
+
+class _NotYet(Exception):
+    """A cluster view that converges within its limit has not yet: a
+    liveness record lapsed under load, a dead node not yet marked."""
+
+
+def _nc_retry(fn, what: str, transient: tuple = NC_TRANSIENT_READ,
+              timeout: float = NC_WAIT_S) -> tuple:
+    """``fn()`` until it returns, retrying only what a moving lease or a
+    catching-up replica raises: a refused or reset connection, a PgError
+    whose message holds one of ``transient``, or _NotYet. Anything else,
+    a wrong answer's AssertionError first, ends the run at once, and so
+    does a retried error past ``timeout``. Returns (``fn()``'s result,
+    the errors retried: a count by kind)."""
+    from cockroach_tpu_torch.server.miniclient import PgError
     deadline = time.perf_counter() + timeout
+    retried: dict = {}
     while True:
         try:
-            return fn()
-        except Exception as e:   # noqa: BLE001 — retried until the deadline
+            return fn(), retried
+        except (PgError, OSError, _NotYet) as e:
+            kind = type(e).__name__
+            if isinstance(e, _NotYet):
+                kind = str(e).split(":")[0]      # which view
+            elif isinstance(e, PgError):
+                kind = next((t for t in transient if t in str(e)), None)
+                if kind is None:
+                    raise
             if time.perf_counter() > deadline:
                 raise AssertionError(f"phase 23: {what} failed past "
-                                     f"{timeout} s") from e
+                                     f"{timeout} s: {e}") from e
+            retried[kind] = retried.get(kind, 0) + 1
             time.sleep(0.1)
-
-
-def _walled(fn) -> dict:
-    """_profiled's record off the card: the wall ms of one run of `fn`,
-    no device time."""
-    t0 = time.perf_counter()
-    fn()
-    return {"wall_ms": (time.perf_counter() - t0) * 1e3, "busy_ms": None,
-            "idle_share": None}
 
 
 def _nc_cli(argv: list) -> str:
@@ -7885,7 +7909,10 @@ def _nc_status(nodes: dict, dead: set, tracez_from, want_nodes) -> dict:
     other node healthy and the dead ones not; /debug/tracez?cluster=1
     from ``tracez_from`` merges the rings of ``want_nodes`` (each with a
     lineitem entry), partial exactly when a node is dead; `node status`
-    and `debug ranges` read a node's status URL."""
+    and `debug ranges` read a node's status URL. A peer's health, the
+    fan-out's answering nodes and the dead node's SUSPECT line converge
+    within the liveness TTL and the fan-out's timeout: short of them it
+    raises _NotYet; any other fault, AssertionError."""
     out = {}
     for nid, node in nodes.items():
         if nid in dead:
@@ -7896,26 +7923,30 @@ def _nc_status(nodes: dict, dead: set, tracez_from, want_nodes) -> dict:
         health = {int(p): v["healthy"] for p, v in o["peers"].items()}
         for p in set(nodes) - {nid}:
             if health.get(p) is not (p not in dead):
-                raise AssertionError(f"phase 23 n{nid} /_status/nodes: "
-                                     f"peer {p} {health}, dead {dead}")
+                raise _NotYet(f"phase 23 n{nid} /_status/nodes: peer {p} "
+                              f"{health}, dead {dead}")
         out[f"n{nid}_peers"] = health
     body = _nc_get(tracez_from.http, "/debug/tracez?cluster=1&timeout=2")
     by_node: dict = {}
     for t in body["traces"]:
         if "lineitem" in t.get("sql", ""):
             by_node[t["node"]] = by_node.get(t["node"], 0) + 1
-    if body["partial"] is not bool(dead) or sorted(body["nodes"]) != \
-            sorted(want_nodes) or sorted(by_node) != sorted(want_nodes):
+    if sorted(by_node) != sorted(body["nodes"]):
         raise AssertionError(f"phase 23 tracez?cluster=1 from "
-                             f"n{tracez_from.nid}: partial "
-                             f"{body['partial']}, nodes {body['nodes']}, "
-                             f"entries {by_node}, dead {dead}")
+                             f"n{tracez_from.nid}: nodes {body['nodes']}, "
+                             f"entries {by_node}")
+    if body["partial"] is not bool(dead) or sorted(body["nodes"]) != \
+            sorted(want_nodes):
+        raise _NotYet(f"phase 23 tracez?cluster=1 from n{tracez_from.nid}: "
+                      f"partial {body['partial']}, nodes {body['nodes']}, "
+                      f"dead {dead}")
     out["tracez"] = {"from": tracez_from.nid, "partial": body["partial"],
                      "nodes": body["nodes"], "entries": by_node}
     text = _nc_cli(["node", "status", "--url", tracez_from.http])
-    if not text.startswith(f"node {tracez_from.nid}  v") or (
-            dead and "SUSPECT" not in text):
+    if not text.startswith(f"node {tracez_from.nid}  v"):
         raise AssertionError(f"phase 23 node status: {text}")
+    if dead and "SUSPECT" not in text:
+        raise _NotYet(f"phase 23 node status: {text}")
     text = _nc_cli(["debug", "ranges", "--url", tracez_from.http])
     if not text.startswith("r1: ") or "leaseholder=" not in text:
         raise AssertionError(f"phase 23 debug ranges: {text}")
@@ -7932,25 +7963,29 @@ class NetClusterRun:
     start with `--join 1@<node 1's kv address>`, one after the other, and
     are up-replicated onto (seconds printed). NC_INSERT_ROWS more rows go
     in through node 2 and an UPDATE of about NC_UPDATE_ROWS rows through
-    node 3, each replicated three ways. Q1 through each node's pgwire
-    (first and best of NC_REPS) equals the numpy oracle over the final
-    rows, and every node's rows are equal; kernel 1 launches once a run
-    in each node's process, read from its /_status/vars. ``first()``
-    touches nothing of this process's engines or kernel counts, so the
-    whole run drives it from a thread beside other phases
-    (``start_thread``/``join``). ``second()``, in the main thread: this
-    process joins as node 4 (NetCluster(4, join=...), Engine(cluster=n4)
-    on the card: a gateway with no replica); its Q1 runs equal the
-    oracle, each launch held against the plain version at its own slots,
-    with busy ms and idle share. The status plane is read (_nc_status).
-    Then the leaseholder's process is killed with SIGKILL: Q1 on both
-    survivors equals the oracle (kill to the first correct answer: the
-    failover seconds), NC_SURVIVOR_ROWS rows go in through a survivor,
-    the status plane shows the dead node, and the killed node restarts
-    with `--join <a survivor>` on its old kv address and answers Q1 with
-    that write (spawn to that answer: the rejoin seconds). ``second()``
-    returns the `netcluster` line's numbers, with "launches" and
-    "path_checks"; ``stop()`` ends every process and node it started."""
+    node 3, each replicated three ways. ``first()`` touches nothing of
+    this process's engines or kernel counts, so the whole run drives it
+    from a thread beside other phases (``start_thread``/``join``; its
+    timings are then not taken alone, and ``first_half_beside`` names
+    those phases). ``second()``, with nothing else running in this
+    process: Q1 through each node's pgwire (first and best of NC_REPS)
+    equals the numpy oracle over the final rows, and every node's rows
+    are equal; kernel 1 launches once a run in each node's process, read
+    from its /_status/vars. This process joins as node 4 (NetCluster(4,
+    join=...), Engine(cluster=n4) on the card: a gateway with no
+    replica); its Q1 runs equal the oracle, each launch held against the
+    plain version at its own slots, with busy ms and idle share. The
+    status plane is read (_nc_status). Then the leaseholder's process is
+    killed with SIGKILL: the first answer to Q1 on a survivor must equal
+    the oracle (kill to that answer: the failover seconds; only a moving
+    lease's errors are retried, _nc_retry), Q1 on the other survivor
+    too, NC_SURVIVOR_ROWS rows go in through a survivor, the status
+    plane shows the dead node, and the killed node restarts with `--join
+    <a survivor>` on its old kv address and answers Q1 with that write
+    (spawn to that answer: the rejoin seconds). ``second()`` returns the
+    `netcluster` line's numbers, with "launches", "path_checks" and
+    "retried" (each retried error, by step and kind); ``stop()`` ends
+    every process and node it started."""
 
     def __init__(self, device: str = "cuda"):
         import socket
@@ -7969,7 +8004,8 @@ class NetClusterRun:
             "card": _smi() if self.on_card else "cpu", "rows": NC_ROWS,
             "batch": NC_BATCH, "insert_rows": NC_INSERT_ROWS,
             "update_rows": int(upd.sum()),
-            "survivor_rows": NC_SURVIVOR_ROWS}
+            "survivor_rows": NC_SURVIVOR_ROWS, "first_half_beside": [],
+            "retried": {}}
         self.kv_ports = {}
         for nid in (1, 2, 3):
             with socket.socket() as sk:
@@ -7978,7 +8014,6 @@ class NetClusterRun:
         self.logdir = tempfile.mkdtemp(prefix="phase23-")
         self.procs: list = []
         self.nodes: dict = {}
-        self.q1: dict = {}
         self.n4 = self.eng4 = None
         self._thread = None
         self._error = None
@@ -7994,6 +8029,13 @@ class NetClusterRun:
         self.procs.append(p)
         self.nodes[nid] = p
         return p
+
+    def _retry(self, fn, what: str, **kw):
+        """_nc_retry, its retried errors kept under "retried"."""
+        res, retried = _nc_retry(fn, what, **kw)
+        if retried:
+            self.out["retried"][what] = retried
+        return res
 
     def _failed(self) -> None:
         for p in self.procs:
@@ -8038,7 +8080,7 @@ class NetClusterRun:
                                      f"{r1}")
             out["up_replication_s"] = time.perf_counter() - t0
             for nid in (2, 3):
-                n = _nc_retry(lambda nid=nid: _nc_sql(
+                n = self._retry(lambda nid=nid: _nc_sql(
                     nodes[nid].sql, ["SELECT count(*) FROM lineitem"]),
                     f"count(*) on node {nid} after its join")[0][0][0]
                 if n != NC_ROWS:
@@ -8064,17 +8106,6 @@ class NetClusterRun:
                   f"{out['insert_s']:.2f} s, UPDATE of "
                   f"{out['update_rows']} rows through node 3 in "
                   f"{out['update_s']:.2f} s", flush=True)
-
-            # 6-7. Q1 on every node, kernel 1 in each process
-            want = self.oracle(NC_ROWS + NC_INSERT_ROWS)
-            for nid in (1, 2, 3):
-                _nc_sql(nodes[nid].sql, [
-                    "SET CLUSTER SETTING sql.trace.slow_statement."
-                    "threshold = 0.000001"])
-                self.q1[f"n{nid}"] = _nc_q1(nodes[nid], want, self.on_card)
-            if len({repr(r["rows"]) for r in self.q1.values()}) != 1:
-                raise AssertionError(f"phase 23: Q1 rows differ between "
-                                     f"nodes: {self.q1}")
             out["first_half_s"] = time.perf_counter() - self.t_start
         except BaseException:
             self._failed()
@@ -8094,6 +8125,14 @@ class NetClusterRun:
                                         daemon=True)
         self._thread.start()
 
+    def beside(self, phase: str) -> bool:
+        """Whether ``first()``'s thread is running as ``phase`` starts
+        (then named in "first_half_beside")."""
+        running = self._thread is not None and self._thread.is_alive()
+        if running:
+            self.out["first_half_beside"].append(phase)
+        return running
+
     def join(self) -> float:
         """Wait for ``first()``'s thread and raise its error; returns the
         seconds waited."""
@@ -8108,12 +8147,23 @@ class NetClusterRun:
         from cockroach_tpu_torch.kvserver.netcluster import NetCluster
         from cockroach_tpu_torch.models import tpch
         from cockroach_tpu_torch.server.node import register_status_sources
-        out, nodes, q1, on_card = self.out, self.nodes, self.q1, self.on_card
+        out, nodes, on_card = self.out, self.nodes, self.on_card
         want = self.oracle(NC_ROWS + NC_INSERT_ROWS)
         checks: dict = {}
+        q1: dict = {}
         try:
-            # 8. this process joins as node 4, a gateway with no replica
+            # 6-7. Q1 on every node, kernel 1 in each process
             t_second = time.perf_counter()
+            for nid in (1, 2, 3):
+                _nc_sql(nodes[nid].sql, [
+                    "SET CLUSTER SETTING sql.trace.slow_statement."
+                    "threshold = 0.000001"])
+                q1[f"n{nid}"] = _nc_q1(nodes[nid], want, on_card)
+            if len({repr(r["rows"]) for r in q1.values()}) != 1:
+                raise AssertionError(f"phase 23: Q1 rows differ between "
+                                     f"nodes: {q1}")
+
+            # 8. this process joins as node 4, a gateway with no replica
             self.n4 = n4 = NetCluster(
                 4, join={1: ("127.0.0.1", self.kv_ports[1])})
             n4.join()
@@ -8129,7 +8179,7 @@ class NetClusterRun:
                 def q1_4():
                     got["res"] = eng4.execute(tpch.Q1, s4)
                 prof, dt, k1, _k2 = _ranges_q(
-                    lambda: (_profiled if on_card else _walled)(q1_4),
+                    lambda: _profiled(q1_4, on_card),
                     f"n4 q1 run {i + 1}", on_card, (1, 0), phase=23)
                 if k1:
                     checks[f"sf0.01 netcluster n4 q1 run {i + 1} "
@@ -8155,7 +8205,7 @@ class NetClusterRun:
             # 10. the status plane, every node live (a renewal of a
             # replicated liveness record can miss NetCluster.LIVE_TTL_NS
             # under load: the view is read again until it holds)
-            out["status_before"] = _nc_retry(lambda: _nc_status(
+            out["status_before"] = self._retry(lambda: _nc_status(
                 nodes, set(), nodes[2], [1, 2, 3, 4]),
                 "the status plane before the kill", timeout=30.0)
 
@@ -8170,29 +8220,32 @@ class NetClusterRun:
             survivors = [n for n in (1, 2, 3) if n != lh]
             t_kill = time.perf_counter()
             nodes[lh].kill()
+            # the first answer must be right: a wrong one is not retried
             after = {}
-            after[f"n{survivors[0]}"] = _nc_retry(
+            after[f"n{survivors[0]}"] = self._retry(
                 lambda: _nc_q1(nodes[survivors[0]], want, on_card, reps=0),
                 f"Q1 on node {survivors[0]} after the kill")
             out["failover_s"] = time.perf_counter() - t_kill
-            after[f"n{survivors[1]}"] = _nc_q1(nodes[survivors[1]], want,
-                                               on_card, reps=0)
+            after[f"n{survivors[1]}"] = self._retry(
+                lambda: _nc_q1(nodes[survivors[1]], want, on_card, reps=0),
+                f"Q1 on node {survivors[1]} after the kill")
             t0 = time.perf_counter()
-            _nc_retry(lambda: _nc_sql(nodes[survivors[0]].sql, [_insert_sql(
+            self._retry(lambda: _nc_sql(nodes[survivors[0]].sql, [_insert_sql(
                 "lineitem", self.li_sql, NC_ROWS + NC_INSERT_ROWS,
                 NC_ROWS + NC_INSERT_ROWS + NC_SURVIVOR_ROWS)]),
-                f"the write through node {survivors[0]}")
+                f"the write through node {survivors[0]}",
+                transient=NC_TRANSIENT)
             out["survivor_write_s"] = time.perf_counter() - t0
             want = self.oracle(NC_ROWS + NC_INSERT_ROWS + NC_SURVIVOR_ROWS)
             for nid in survivors:
                 after[f"n{nid}"] = _nc_q1(nodes[nid], want, on_card, reps=0)
             print(f"phase 23: node {lh} killed; Q1 on node {survivors[0]} "
-                  f"correct {out['failover_s']:.2f} s after the kill; "
-                  f"{NC_SURVIVOR_ROWS} rows through it in "
+                  f"answered, correct, {out['failover_s']:.2f} s after the "
+                  f"kill; {NC_SURVIVOR_ROWS} rows through it in "
                   f"{out['survivor_write_s']:.2f} s", flush=True)
             # the dead node's replicated liveness record lapses within
             # NetCluster.LIVE_TTL_NS
-            out["status_after_kill"] = _nc_retry(lambda: _nc_status(
+            out["status_after_kill"] = self._retry(lambda: _nc_status(
                 nodes, {lh}, nodes[survivors[0]], [*survivors, 4]),
                 "the status plane after the kill", timeout=30.0)
 
@@ -8201,8 +8254,9 @@ class NetClusterRun:
             t0 = time.perf_counter()
             self._start(lh, ["--join", f"{survivors[0]}@127.0.0.1:"
                              f"{self.kv_ports[survivors[0]]}"]).serving()
-            # its first reads may meet NotLeaseholder while it catches up
-            after[f"n{lh} rejoined"] = _nc_retry(
+            # its first reads may meet NotLeaseholder while it catches up;
+            # its first answer must hold the survivor's write
+            after[f"n{lh} rejoined"] = self._retry(
                 lambda: _nc_q1(nodes[lh], want, on_card, reps=0),
                 f"Q1 on the rejoined node {lh}")
             out["rejoin_s"] = time.perf_counter() - t0
@@ -8226,8 +8280,8 @@ class NetClusterRun:
             out["kernel1_launches"] = launches
             print(f"phase 23: node {lh} rejoined and answered Q1 with the "
                   f"survivor's write {out['rejoin_s']:.1f} s after its "
-                  f"spawn; kernel 1 launches by process: {launches}",
-                  flush=True)
+                  f"spawn; kernel 1 launches by process: {launches}; "
+                  f"errors retried: {out['retried']}", flush=True)
         except BaseException:
             self._failed()
             raise
@@ -8352,7 +8406,8 @@ def _main(opts) -> int:
 
 def sf1_phases(opts) -> tuple:
     """Phases 1-9 and 11-23 (phases 22 and 23 at their own scale; 23's
-    first half beside 22, 14 and 11); returns
+    first half in a thread beside 22, 14 and 11, each line saying
+    whether it overlapped); returns
     (kernels, nvidia-smi line, card name, phase 11's numbers with phase
     12's under "oltp", phase 13's under "frontdoor", 14's under
     "observability", 15's under "history", 16's under "jobs", 17's under
@@ -8740,16 +8795,19 @@ def sf1_phases(opts) -> tuple:
     large["path_checks"].update(elastic.pop("path_checks"))
     print(f"phase 21: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # -- 23, first half: three start processes, beside phases 22, 14 and 11
-    # (it uses no engine or kernel count of this process: its nodes are
-    # processes of their own, on cores of their own)
+    # -- 23, first half: three start processes, in a thread beside phases
+    # 22, 14 and 11 (it uses no engine or kernel count of this process; it
+    # shares the host's cores and the card with them, so each of those
+    # phases and phase 23 say in their lines whether they overlapped)
     netc_run = NetClusterRun()
     atexit.register(netc_run.stop)
     netc_run.start_thread()
 
     # -- 22. SQL on raft-replicated ranges -----------------------------------
     t0 = time.perf_counter()
+    beside22 = netc_run.beside("phase 22")
     ranges = ranges_phase()
+    ranges["beside_phase23_first_half"] = beside22
     for i, k in enumerate(("groupagg_large", "groupagg")):
         kernels[i]["launches"] += ranges["launches"][k]
         kernels[i]["phase22_launches"] = ranges["launches"][k]
@@ -8761,7 +8819,9 @@ def sf1_phases(opts) -> tuple:
     # -- 14. set operations, composed CTEs, EXPLAIN ANALYZE, tracing -------
     # (on phase 7's tables, before phase 11's writes)
     t0 = time.perf_counter()
+    beside14 = netc_run.beside("phase 14")
     obs = observability_phase(eng, kept)
+    obs["beside_phase23_first_half"] = beside14
     del kept
     for i, k in enumerate(("groupagg_large", "groupagg")):
         kernels[i]["launches"] += obs["launches"][k]
@@ -8776,8 +8836,10 @@ def sf1_phases(opts) -> tuple:
     t0 = time.perf_counter()
     # YCSB-E at 10,000 records and 2,000 operations, and one timed run a
     # query, in the whole run (phase 23's room)
+    beside11 = netc_run.beside("phase 11")
     dml = dml_phase(eng, li, part, SF, ycsb_records=10_000,
                     ycsb_ops=2_000, reps=1)
+    dml["beside_phase23_first_half"] = beside11
     routes11 = dml["refresh"]["routes"]
     large["launches"] += sum(r["groupagg_large"] for r in routes11.values())
     large["phase11_launches"] = {q: r["groupagg_large"]

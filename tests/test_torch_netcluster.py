@@ -203,3 +203,45 @@ def test_port_node_joins_a_reference_cluster(ref):
     finally:
         p2.stop()
         r1.stop()
+
+
+# -- chip_smoke.py phase 23's failover retry ---------------------------------
+
+@pytest.mark.parametrize("error, transient, retried", [
+    ("pg:r1: not leaseholder (try n2)", "read", True),
+    ("pg:r1: no reachable leaseholder for read", "read", True),
+    ("refused", "read", True),
+    ("pg:r1: propose timed out (tried [2]); fate unknown", "read", True),
+    ("pg:r1: propose timed out (tried [2]); fate unknown", "write", False),
+    ("pg:relation \"lineitem\" does not exist", "read", False),
+    ("wrong", "read", False),
+])
+def test_phase23_retries_only_a_moving_lease(error, transient, retried):
+    """Phase 23 asks a statement again only for a moving lease's errors
+    and a refused connection; a wrong answer (the AssertionError of its
+    check) and any other error end the run on the first attempt."""
+    import chip_smoke
+    from cockroach_tpu_torch.server.miniclient import PgError
+    calls = []
+
+    def fn():
+        calls.append(1)
+        if len(calls) > 1:
+            return "rows"
+        if error.startswith("pg:"):
+            raise PgError({"M": error[3:]})
+        if error == "refused":
+            raise ConnectionRefusedError("connection refused")
+        raise AssertionError("Q1 differs from the oracle")
+
+    kinds = {"read": chip_smoke.NC_TRANSIENT_READ,
+             "write": chip_smoke.NC_TRANSIENT}
+    if retried:
+        res, seen = chip_smoke._nc_retry(fn, "q1", transient=kinds[transient],
+                                         timeout=5.0)
+        assert res == "rows" and sum(seen.values()) == 1
+    else:
+        with pytest.raises((PgError, AssertionError)):
+            chip_smoke._nc_retry(fn, "q1", transient=kinds[transient],
+                                 timeout=5.0)
+    assert len(calls) == (2 if retried else 1)
