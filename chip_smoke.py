@@ -520,6 +520,15 @@ Phases (any failure exits non-zero before the final line):
    so those phases' lines carry "beside_phase23_first_half" and phase
    23's "first_half_beside" names them; the second half runs after
    phase 11, alone. One JSON `netcluster` line.
+24. graftlint (`analysis_phase()`), first and alone, before phase 1:
+   `python -m cockroach_tpu_torch.analysis --json` in a process of its
+   own over this checkout, under the card host's Python and torch. Its
+   exit code must be 0 (no unwaived finding of any of the eight rules,
+   no malformed waiver); nothing catches a failure. One JSON `analysis`
+   line (printed after phase 23's): files, functions, findings and
+   waived per rule, the analyzer's own seconds and the process's, the
+   Python, torch and CUDA versions, and the card's name and power
+   limit.
 Each phase's seconds are printed. After phase 10, one JSON `dml` line
 holds phase 11's numbers, one JSON `oltp` line phase 12's, one JSON
 `frontdoor` line phase 13's, one JSON `observability` line phase
@@ -527,10 +536,10 @@ holds phase 11's numbers, one JSON `oltp` line phase 12's, one JSON
 phase 15's, one JSON `jobs` line phase 16's, one JSON `coldstart`
 line phase 17's, one JSON `distributed` line phase 18's, one JSON
 `flows` line phase 19's, one JSON `pod` line phase 20's, one JSON
-`elastic` line phase 21's, one JSON `ranges` line phase 22's and one
-JSON `netcluster` line phase 23's, each with the card's name and power
-limit; then one JSON line of per-kernel
-numbers (the
+`elastic` line phase 21's, one JSON `ranges` line phase 22's, one
+JSON `netcluster` line phase 23's and one JSON `analysis` line phase
+24's, each with the card's name and power limit; then one JSON line of
+per-kernel numbers (the
 large-G kernel's launches count Q1, Q5, Q10, Q12 and the path runs of
 phases 7, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20 (both pod
 hosts'), 21 (every elastic host's and the kill's), 22 and 23 (every
@@ -595,6 +604,43 @@ def _smi() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def analysis_phase() -> dict:
+    """Phase 24: graftlint over this checkout in a process of its own,
+    under this host's Python and torch. A nonzero exit (an unwaived
+    finding, a malformed waiver, or no package to scan) raises."""
+    import platform
+    from pathlib import Path
+
+    import torch
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cockroach_tpu_torch.analysis", "--json"],
+        cwd=str(Path(__file__).resolve().parent), capture_output=True,
+        text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"phase 24: graftlint exited {proc.returncode}:\n"
+            f"{proc.stdout[-6000:]}\n{proc.stderr[-3000:]}")
+    rep = json.loads(proc.stdout)
+    timings = rep["timings"]
+    rules = [k for k in timings if k not in ("index_seconds",
+                                             "total_seconds")]
+    if len(rules) != 8:
+        raise AssertionError(f"phase 24: rules that ran: {rules}")
+    out = {"files": rep["files"], "functions": rep["functions"],
+           "exit_code": rep["exit_code"],
+           "rules": {r: rep["counts"].get(r, {"findings": 0, "waived": 0})
+                     for r in rules},
+           "analyzer_s": timings["total_seconds"],
+           "index_s": timings["index_seconds"], "process_s": wall,
+           "python": platform.python_version(), "torch": torch.__version__,
+           "cuda": torch.version.cuda, "card": _smi()}
+    print(f"phase 24 (graftlint): exit 0, {rep['files']} files, "
+          f"{wall:.1f} s", flush=True)
+    return out
 
 
 def _cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
@@ -8353,6 +8399,8 @@ def main() -> int:
 
 def _main(opts) -> int:
     import torch
+    # -- 24. graftlint, alone, before the first card phase ------------------
+    lint = analysis_phase()
     t_start = time.perf_counter()
     kernels, smi, name, dml = sf1_phases(opts)
     # the SF1 engines and tables went with sf1_phases' frame: free what
@@ -8395,6 +8443,7 @@ def _main(opts) -> int:
     print(json.dumps({"elastic": dict(elastic, card=smi)}), flush=True)
     print(json.dumps({"ranges": dict(ranges, card=smi)}), flush=True)
     print(json.dumps({"netcluster": dict(netc, card=smi)}), flush=True)
+    print(json.dumps({"analysis": lint}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -8424,7 +8473,7 @@ def sf1_phases(opts) -> tuple:
     from cockroach_tpu_torch.exec.engine import Engine
     from cockroach_tpu_torch.models import tpch
     from cockroach_tpu_torch.ops import agg as aggops
-    from cockroach_tpu_torch.ops import hashtable, join, sortkey
+    from cockroach_tpu_torch.ops import join, sortkey
     from cockroach_tpu_torch.ops.cuda import build
     from cockroach_tpu_torch.ops.cuda import groupagg as tg
     from cockroach_tpu_torch.ops.cuda import groupagg_large as tgl
@@ -8658,7 +8707,8 @@ def sf1_phases(opts) -> tuple:
     probe, bside = jargs[0], jargs[1]
     direct = join.hash_join(*jargs, **jkw)
     hkw = dict(jkw, direct=None)
-    hashed = join.hash_join(*jargs, **hkw)
+    rounds = {}
+    hashed = join.hash_join(*jargs, rounds=rounds, **hkw)
     torch.cuda.synchronize()
     if not torch.equal(direct.sel, hashed.sel):
         raise AssertionError("Q14 hash-table join selection != direct")
@@ -8667,7 +8717,6 @@ def sf1_phases(opts) -> tuple:
         if not torch.equal(v, hashed.col_valid(col)) or not torch.equal(
                 direct.col(col)[v], hashed.col(col)[v]):
             raise AssertionError(f"Q14 hash-table payload {col} != direct")
-    rounds = dict(hashtable.ROUNDS)
     hash_ms = _median_ms(lambda: join.hash_join(*jargs, **hkw), reps=3)
     direct_ms = _median_ms(lambda: join.hash_join(*jargs, **jkw), reps=3)
     print("Q14 join, hash-table path equals direct: " + json.dumps({

@@ -858,9 +858,10 @@ def _compile_aggregate(node: P.Aggregate, params: ExecParams) -> CompiledNode:
             cap = params.hash_group_capacity
             # an overflow ends the build at once: the engine re-runs
             # the plan partitioned
-            gid, ng, rep = hashtable.group_ids(tuple(keycols), b.sel, cap)
+            gid, ng, rep, rounds = hashtable.group_ids(tuple(keycols),
+                                                       b.sel, cap)
             rc.route["group_ids"] += 1
-            rc.route["group_ids_rounds"] = hashtable.ROUNDS["build"]
+            rc.route["group_ids_rounds"] = rounds
             num_groups = cap  # static bound; ng is the dynamic count
             rep = rep.to(torch.int64)
             for name, d, v in gvals:
@@ -1014,9 +1015,10 @@ def _compile_hash_dist_aggregate(node: P.Aggregate, params: ExecParams,
         if rc.nparts > 1:
             b = b.and_sel(hashtable.partition_mask(
                 tuple(keycols), rc.nparts, rc.pid))
-        gid, ng, rep = hashtable.group_ids(tuple(keycols), b.sel, cap)
+        gid, ng, rep, rounds = hashtable.group_ids(tuple(keycols), b.sel,
+                                                   cap)
         rc.route["group_ids"] += 1
-        rc.route["group_ids_rounds"] = hashtable.ROUNDS["build"]
+        rc.route["group_ids_rounds"] = rounds
         slot_live = torch.arange(cap, dtype=torch.int32, device=dev) < ng
         flat_state = []
         for a, argf in aggfs:
@@ -1044,7 +1046,8 @@ def _compile_hash_dist_aggregate(node: P.Aggregate, params: ExecParams,
             r_keys.extend(_key_encode(gd, gv))
 
         # merge: each shard groups only its own 1/D of the groups again
-        gid2, ng2, rep2 = hashtable.group_ids(tuple(r_keys), rvalid, cap)
+        gid2, ng2, rep2, _ = hashtable.group_ids(tuple(r_keys), rvalid,
+                                                 cap)
         rc.route["group_ids"] += 1
         merged = []
         for gs, op in zip(r_state, flat_ops):

@@ -76,6 +76,9 @@ class ConstraintMixin:
         for ck, f in compiled:
             d, v = f(ctx)
             # SQL: CHECK fails only on FALSE (NULL passes)
+            # graftlint: waive[no-aliasing-upload] d and v are the
+            # compiled CHECK's result (a tensor, or a Python scalar for
+            # a constant), only read into a fresh mask
             viol = torch.logical_and(torch.logical_not(
                 torch.as_tensor(d)), torch.as_tensor(v))
             if bool(viol.any()):

@@ -474,7 +474,13 @@ class DMLMixin:
         """A chunk's columns as CPU tensors for host-side evaluation
         (the reference pins its DML expressions to the CPU backend so
         point-op predicates and assignments never pay a device round
-        trip)."""
+        trip).
+
+        The tensors share the chunk's arrays: host evaluation only reads
+        its inputs, and every caller copies what it keeps out by
+        indexing (``[idx]``) or into a fresh mask."""
+        # graftlint: waive[no-aliasing-upload] read-only views of the
+        # chunk's sealed arrays; results are copied out (see above)
         return ExprContext(
             {f"{table}.{k}": (torch.from_numpy(chunk.data[k]),
                               torch.from_numpy(chunk.valid[k]))
@@ -495,7 +501,11 @@ class DMLMixin:
 
         def f(chunk):
             d, v = predf(self._host_ctx(table, chunk))
+            # graftlint: waive[no-aliasing-upload] the predicate's result
+            # (a tensor, or a Python scalar for a constant), read into
+            # the fresh mask d & v
             d = torch.as_tensor(d).expand(chunk.n)
+            # graftlint: waive[no-aliasing-upload] as for d above
             v = torch.as_tensor(v).expand(chunk.n)
             return (d & v).numpy()
         return f
@@ -606,7 +616,11 @@ class DMLMixin:
                     valid[cn] = np.full(len(idx), v is not None)
                     continue
                 dd, vv = v(ctx)
+                # graftlint: waive[no-aliasing-upload] the assignment's
+                # result (a tensor, or a Python scalar for a constant);
+                # what is kept is copied out by [idx] below
                 dd = torch.as_tensor(dd).expand(chunk.n).numpy()
+                # graftlint: waive[no-aliasing-upload] as for dd above
                 vv = torch.as_tensor(vv).expand(chunk.n).numpy()
                 if not c.nullable and not vv[idx].all():
                     raise EngineError(f"null in non-null column {cn}")

@@ -1957,7 +1957,11 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
                                   None)
                     if not isinstance(b.value, str) else b.value)
         d, v = compile_expr(b)(ExprContext({}, 1, self.device))
+        # graftlint: waive[no-aliasing-upload] the compiled expression's
+        # result over no columns (a tensor, or a Python scalar for a
+        # constant), only read
         d = torch.as_tensor(d).reshape(-1)[:1]
+        # graftlint: waive[no-aliasing-upload] as for d above
         v = torch.as_tensor(v).reshape(-1)[:1]
         return decode_scalar(d.cpu().numpy()[0], bool(v.cpu().numpy()[0]),
                              b.type, None)

@@ -50,6 +50,8 @@ CompiledExpr = Callable[[ExprContext], tuple]
 def torch_dtype(np_dtype) -> torch.dtype:
     """The torch dtype of a numpy dtype (explicit: float64 stays
     float64, never the default float32)."""
+    # graftlint: waive[no-aliasing-upload] a dtype probe of an empty
+    # array made here: no buffer is shared
     return torch.from_numpy(np.empty(0, dtype=np_dtype)).dtype
 
 

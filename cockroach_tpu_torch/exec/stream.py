@@ -51,6 +51,7 @@ from .. import resolve_device
 from ..ops.batch import ColumnBatch
 from ..sql import bound as B
 from ..sql import plan as P
+from .expr import torch_dtype
 
 # padding rows are never visible: created at +inf, deleted at 0
 NEVER_TS = np.int64(2 ** 62)
@@ -247,9 +248,6 @@ def _find_chain(node, alias):
 # uploads
 # ---------------------------------------------------------------------------
 
-def _torch_dtype(dt: np.dtype) -> torch.dtype:
-    return torch.from_numpy(np.empty(0, dtype=dt)).dtype
-
 
 class Upload:
     """One batch on its way to the device: its tensors, and on the card
@@ -286,7 +284,7 @@ class _BufferSet:
         for name, dt in dtypes.items():
             if pinned:
                 # raises when the host cannot pin: no pageable fallback
-                t = torch.empty(rows, dtype=_torch_dtype(dt),
+                t = torch.empty(rows, dtype=torch_dtype(dt),
                                 pin_memory=True)
                 self.tensors[name] = t
                 self.arrays[name] = t.numpy()
@@ -513,9 +511,8 @@ class PageSource:
         if not self._cuda:
             arr = bufs.arrays
             return Upload(
-                {cn: torch.from_numpy(arr[cn][:n_pad].copy())
-                 for cn in names},
-                {cn: torch.from_numpy(arr[f"__valid_{cn}"][:n_pad].copy())
+                {cn: torch.tensor(arr[cn][:n_pad]) for cn in names},
+                {cn: torch.tensor(arr[f"__valid_{cn}"][:n_pad])
                  for cn in vnames}, None, nbytes)
         ts = bufs.tensors
         with torch.cuda.stream(self._stream):
@@ -575,7 +572,7 @@ class PageSource:
         real page was skipped (an aggregate still yields its empty
         result)."""
         dev = self.device
-        cols = {cn: torch.zeros(self.page_rows, dtype=_torch_dtype(dt),
+        cols = {cn: torch.zeros(self.page_rows, dtype=torch_dtype(dt),
                                 device=dev)
                 for cn, dt in self.dtypes.items()}
         cols["_mvcc_ts"] = torch.full((self.page_rows,), int(NEVER_TS),

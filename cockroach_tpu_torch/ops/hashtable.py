@@ -14,7 +14,10 @@ with linear probing keeps all state in flat tensors:
 
 Each of the reference's ``lax.while_loop``s is a Python loop here that
 ends when every row is done: one host sync per round (``done.all()``).
-``ROUNDS`` holds the round counts of the last build and probe.
+The build, the probe and ``group_ids`` return their round counts (the
+host syncs paid) to their caller: concurrent sessions and the shard
+threads of a mesh build tables at once, so no count is kept in the
+module.
 
 The hash is bit-identical to the reference's uint32 arithmetic. torch
 has no ``>>`` for uint32 on the CPU, so it runs in int64 on values kept
@@ -34,8 +37,6 @@ _M32 = 0xFFFFFFFF
 _MUL_LO = 2654435761
 _MUL_HI = 2246822519
 
-# round counts of the last build and probe (host syncs paid)
-ROUNDS = {"build": 0, "probe": 0}
 # the share of its slots past which a build with rows left overflows
 MAX_LOAD = 0.5
 
@@ -72,7 +73,8 @@ def _keys_equal(key_cols: tuple, rows_a: torch.Tensor,
 
 
 def build(key_cols: tuple, mask: torch.Tensor, capacity: int):
-    """Insert all live rows; returns (claim, slot_of_row, converged).
+    """Insert all live rows; returns (claim, slot_of_row, converged,
+    rounds).
 
     slot_of_row[i] = the slot whose owner has row i's key (the owner may
     be an earlier duplicate). capacity must be a power of two, >= 2N to
@@ -93,9 +95,8 @@ def build(key_cols: tuple, mask: torch.Tensor, capacity: int):
     rowid = torch.arange(n, dtype=torch.int32, device=dev)
     slot = _hash_columns(key_cols, capacity)
     claim = torch.full((capacity + 1,), n, dtype=torch.int32, device=dev)
-    ROUNDS["build"] = 0
     if n == 0:
-        return claim, slot, True
+        return claim, slot, True, 0
     done = torch.logical_not(mask)
     rounds = 0
     while rounds < capacity + 2:
@@ -106,8 +107,7 @@ def build(key_cols: tuple, mask: torch.Tensor, capacity: int):
         if all_done:
             break
         if occupied > MAX_LOAD * capacity:
-            ROUNDS["build"] = rounds
-            return claim, slot, False
+            return claim, slot, False, rounds
         active = torch.logical_not(done)
         empty = claim[slot] == n
         attempt = torch.logical_and(active, empty)
@@ -124,13 +124,12 @@ def build(key_cols: tuple, mask: torch.Tensor, capacity: int):
         advance = active & occupied & torch.logical_not(key_eq)
         slot = torch.where(advance, (slot + 1) & (capacity - 1), slot)
         rounds += 1
-    ROUNDS["build"] = rounds
-    return claim, slot, bool(done.all())
+    return claim, slot, bool(done.all()), rounds
 
 
 def group_ids(key_cols: tuple, mask: torch.Tensor, capacity: int):
     """Dense group ids for GROUP BY: (gid[int32 per row], num_groups
-    [0-d int32 tensor], rep_row[int32, capacity]).
+    [0-d int32 tensor], rep_row[int32, capacity], build rounds).
 
     gid is dense in [0, num_groups) in hash-slot order; dead rows get
     0. rep_row[g] is a representative row of group g (to gather the
@@ -139,7 +138,7 @@ def group_ids(key_cols: tuple, mask: torch.Tensor, capacity: int):
     rows left to place): callers must check. num_groups stays on the device; the build's
     rounds are the only host syncs."""
     n = key_cols[0].shape[0]
-    claim, slot, converged = build(key_cols, mask, capacity)
+    claim, slot, converged, rounds = build(key_cols, mask, capacity)
     occupied = claim[:capacity] < n
     dense = torch.cumsum(occupied.to(torch.int32), 0, dtype=torch.int32) - 1
     gid = torch.where(mask, dense[slot.to(torch.int64)], 0) \
@@ -151,24 +150,23 @@ def group_ids(key_cols: tuple, mask: torch.Tensor, capacity: int):
     tgt = torch.where(occupied, dense, capacity).to(torch.int64)
     rep = torch.zeros(capacity + 1, dtype=torch.int32, device=mask.device)
     rep[tgt] = torch.clamp(claim[:capacity], max=max(n - 1, 0))
-    return gid, num_groups, rep[:capacity]
+    return gid, num_groups, rep[:capacity], rounds
 
 
 def probe(table_claim: torch.Tensor, build_keys: tuple, probe_keys: tuple,
           probe_mask: torch.Tensor, capacity: int, n_build: int):
     """For each probe row, find the build slot owning its key.
 
-    Returns (matched[bool], build_row[int32]): build_row is the row id
-    of the *first* build row with that key (exact for unique build
-    keys, i.e. PK-FK joins). ``n_build`` is the build side's row count
-    (the empty sentinel)."""
+    Returns (matched[bool], build_row[int32], rounds): build_row is the
+    row id of the *first* build row with that key (exact for unique
+    build keys, i.e. PK-FK joins). ``n_build`` is the build side's row
+    count (the empty sentinel)."""
     n = probe_keys[0].shape[0]
     dev = probe_mask.device
     matched = torch.zeros(n, dtype=torch.bool, device=dev)
     build_row = torch.zeros(n, dtype=torch.int32, device=dev)
-    ROUNDS["probe"] = 0
     if n == 0:
-        return matched, build_row
+        return matched, build_row, 0
     slot = _hash_columns(probe_keys, capacity)
     done = torch.logical_not(probe_mask)
     rounds = 0
@@ -190,8 +188,7 @@ def probe(table_claim: torch.Tensor, build_keys: tuple, probe_keys: tuple,
         advance = active & occupied & torch.logical_not(key_eq)
         slot = torch.where(advance, (slot + 1) & (capacity - 1), slot)
         rounds += 1
-    ROUNDS["probe"] = rounds
-    return matched, build_row
+    return matched, build_row, rounds
 
 
 # level-1 fan-out ceiling of the two-level partition encoding below

@@ -90,13 +90,16 @@ def hash_join(probe: ColumnBatch, build: ColumnBatch,
               build_payload: list[str], join_type: str = "inner",
               suffix: str = "", expand: int = 1,
               direct=None, pack_payload=(),
-              sort_normalized: str = "off") -> ColumnBatch:
+              sort_normalized: str = "off",
+              rounds: dict | None = None) -> ColumnBatch:
     """Join `probe` against `build` and return the probe batch extended
     with `build_payload` columns gathered from matches. `direct` is
     None (hash table), (base, size) for a direct-addressed single key,
     or ("packed", los, spans) for a mixed-radix packed composite key.
     expand=K>1: duplicate build keys, probe.n * K output rows;
-    `sort_normalized` picks how the duplicate chains are sorted."""
+    `sort_normalized` picks how the duplicate chains are sorted.
+    `rounds`, when given, receives the hash table's "build" and "probe"
+    round counts (the host syncs paid) where the hash-table path runs."""
     if expand > MAX_EXPAND:
         raise ValueError(f"join expansion {expand} is past the limit "
                          f"{MAX_EXPAND}")
@@ -163,9 +166,11 @@ def hash_join(probe: ColumnBatch, build: ColumnBatch,
         matched = pmask & in_range & (owner < nb)
     else:
         cap = next_pow2(max(2 * nb, 16))
-        claim, _, _ = hashtable.build(bkeys, bmask, cap)
-        matched, build_row = hashtable.probe(claim, bkeys, pkeys, pmask,
-                                             cap, nb)
+        claim, _, _, b_rounds = hashtable.build(bkeys, bmask, cap)
+        matched, build_row, p_rounds = hashtable.probe(
+            claim, bkeys, pkeys, pmask, cap, nb)
+        if rounds is not None:
+            rounds.update(build=b_rounds, probe=p_rounds)
 
     if join_type == "semi":
         return probe.and_sel(matched)

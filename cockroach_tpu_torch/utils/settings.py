@@ -247,6 +247,19 @@ class SessionVars:
         "optimizer": "on",           # on | off
         "optimizer_rules": "on",     # on | off
         "optimizer_sketch_stats": "on",   # on | off
+        # secondary-index locator plane (exec/fastpath.py,
+        # exec/oltplane.py): off sends point and range lookups through
+        # the compiled scan
+        "index_scan": "on",          # on | off
+        # rows a key may match before a warm locator declines in favor
+        # of the scan
+        "index_lookup_limit": 4096,
+        # cross-session batch windows on the OLTP lane
+        # (exec/oltpbatch.py): auto fuses concurrent point statements
+        # into one multi-key probe or one group commit; off takes the
+        # per-statement lane path. Engine.execute rejects any other
+        # value
+        "oltp_batch": "auto",        # auto | off
         # beyond-memory paging (exec/stream.py): auto streams an
         # aggregate-rooted plan's fact table page by page when its
         # upload would not fit sql.exec.hbm_budget_bytes; off uploads

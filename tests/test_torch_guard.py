@@ -168,6 +168,36 @@ def test_port_scan_covers_the_fabric_and_the_pod():
             assert not set(_imported_roots(path)) & set(FORBIDDEN), name
 
 
+def test_port_scan_covers_analysis():
+    """The import scan reaches every module of analysis/ (graftlint's
+    core, runner, CLI and its eight rules), and none of them imports jax
+    or anything of the JAX package, not even the reference's own
+    analysis/ (which holds no JAX): directly or through a module of the
+    port they load."""
+    import importlib
+    import sys
+    pkg = ROOT / "cockroach_tpu_torch" / "analysis"
+    names = {"__init__.py", "__main__.py", "core.py", "runner.py",
+             "rules_device.py", "rules_concurrency.py", "rules_plan.py",
+             "rules_registration.py", "rules_lease.py", "rules_reactor.py"}
+    assert {p.name for p in pkg.glob("*.py")} == names
+    assert {pkg / n for n in names} <= set(_port_files())
+    for n in sorted(names):
+        path = pkg / n
+        assert not set(_imported_roots(path)) & set(FORBIDDEN), n
+        mod = ("cockroach_tpu_torch.analysis" if n == "__init__.py"
+               else f"cockroach_tpu_torch.analysis.{n[:-3]}")
+        assert Path(importlib.import_module(mod).__file__) == path
+    loaded = [name for name, m in list(sys.modules.items())
+              if name.startswith("cockroach_tpu_torch.analysis")
+              and getattr(m, "__file__", None)]
+    assert len(loaded) == len(names)
+    for name in loaded:
+        path = Path(sys.modules[name].__file__)
+        assert path.parent == pkg
+        assert not set(_imported_roots(path)) & set(FORBIDDEN), name
+
+
 def test_native_sources_are_the_ports_own():
     """The lane's C++ and the gate's lock live in the port: nothing of
     them is loaded from the JAX package."""

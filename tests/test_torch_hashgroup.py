@@ -48,8 +48,9 @@ def test_group_ids_equal(n, ndistinct, capacity):
     cols, mask = _group_keys(n + ndistinct, n, ndistinct)
     jg, jng, jrep = jht.group_ids(tuple(jnp.asarray(c) for c in cols),
                                   jnp.asarray(mask), capacity)
-    tg, tng, trep = tht.group_ids(tuple(torch.from_numpy(c) for c in cols),
-                                  torch.from_numpy(mask), capacity)
+    tg, tng, trep, _ = tht.group_ids(
+        tuple(torch.from_numpy(c) for c in cols), torch.from_numpy(mask),
+        capacity)
     assert int(tng) == int(jng)
     if ndistinct > capacity:
         # both overflow; the port stops at half load, the reference at

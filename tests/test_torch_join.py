@@ -72,11 +72,12 @@ def test_build_and_probe_equal(dup, ncols):
     jclaim, jslot, jconv = jht.build(tuple(jnp.asarray(c) for c in bk),
                                      jnp.asarray(mask), cap)
     tbk = tuple(torch.from_numpy(c) for c in bk)
-    tclaim, tslot, tconv = tht.build(tbk, torch.from_numpy(mask), cap)
+    tclaim, tslot, tconv, trounds = tht.build(tbk, torch.from_numpy(mask),
+                                              cap)
     np.testing.assert_array_equal(tclaim.numpy(), np.asarray(jclaim))
     np.testing.assert_array_equal(tslot.numpy(), np.asarray(jslot))
     assert tconv == bool(jconv) is True
-    assert tht.ROUNDS["build"] >= 1
+    assert trounds >= 1
 
     rng = np.random.default_rng(40 + ncols)
     m = 3000
@@ -87,11 +88,13 @@ def test_build_and_probe_equal(dup, ncols):
     jm, jrow = jht.probe(jclaim, tuple(jnp.asarray(c) for c in bk),
                          tuple(jnp.asarray(c) for c in pk),
                          jnp.asarray(pmask), cap, n)
-    tm, trow = tht.probe(tclaim, tbk, tuple(torch.from_numpy(c) for c in pk),
-                         torch.from_numpy(pmask), cap, n)
+    tm, trow, prounds = tht.probe(tclaim, tbk,
+                                  tuple(torch.from_numpy(c) for c in pk),
+                                  torch.from_numpy(pmask), cap, n)
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     np.testing.assert_array_equal(trow.numpy(), np.asarray(jrow))
     assert tm.numpy().any() and not tm.numpy().all()
+    assert prounds >= 1
 
 
 def _batches(cols: dict, valid: dict, sel: np.ndarray):
