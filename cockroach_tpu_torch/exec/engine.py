@@ -157,7 +157,8 @@ from .session import (SENTINEL_COLUMNS, CompactOverflow, EngineError,
                       TopKInexact)
 from .spill import compile_spill_sort
 from .stream import extract_zone_preds
-from .stmtutil import (RerunPrepared, decode_scalar, host_sort,
+from .stmtutil import (RerunPrepared, decode_scalar,
+                       decode_storage_value, host_sort,
                        propagate_as_of, rewrite_table_names, sort_rows)
 from .tenantcache import TenantLRU
 
@@ -1953,9 +1954,8 @@ class Engine(OltpLaneMixin, DMLMixin, ConstraintMixin, DDLMixin,
     def _table_free_value(self, b):
         """The client value of a bound expression over the one row."""
         if isinstance(b, BConst):
-            return (decode_scalar(b.value, b.value is not None, b.type,
-                                  None)
-                    if not isinstance(b.value, str) else b.value)
+            # folded strings are text; ARRAY and JSONB text decodes
+            return decode_storage_value(b.value, b.type)
         d, v = compile_expr(b)(ExprContext({}, 1, self.device))
         # graftlint: waive[no-aliasing-upload] the compiled expression's
         # result over no columns (a tensor, or a Python scalar for a

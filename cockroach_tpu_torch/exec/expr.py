@@ -326,6 +326,18 @@ _BINARY_KERNELS = {
 }
 
 
+def div_trunc(a: torch.Tensor, b: torch.Tensor):
+    """SQL ``div``: the quotient truncated toward zero, and where it is
+    defined (b != 0). INT8 operands (``date_bin``'s) divide exactly in
+    int64: a Python ``1.0`` in the mask, or ``/``, would make them
+    float32, where JAX under x64 gives float64. FLOAT8 stays float64."""
+    ok = b != 0
+    denom = torch.where(ok, b, torch.ones_like(b))
+    if a.is_floating_point() or b.is_floating_point():
+        return torch.trunc(a / denom), ok
+    return torch.div(a, denom, rounding_mode="trunc"), ok
+
+
 def _compile_func(e: BFunc) -> CompiledExpr:
     name = e.name
     fs = [compile_expr(a) for a in e.args]
@@ -368,8 +380,7 @@ def _compile_func(e: BFunc) -> CompiledExpr:
     if name == "div":
         def f_div(ctx):
             (a, va), (b, vb) = fs[0](ctx), fs[1](ctx)
-            ok = b != 0
-            q = torch.trunc(a / torch.where(ok, b, 1.0))
+            q, ok = div_trunc(a, b)
             return q, torch.logical_and(torch.logical_and(va, vb), ok)
         return f_div
     if name in ("greatest", "least"):

@@ -258,6 +258,11 @@ def decode_scalar(v, valid: bool, ty, dictionary):
         if dictionary is not None:
             return dictionary.values[int(v)]
         return int(v)
+    if f in (Family.ARRAY, Family.JSON):
+        if dictionary is not None:
+            from ..sql import datum as dtm
+            return dtm.decode_text(dictionary.values[int(v)], ty)
+        return int(v)
     if f == Family.BOOL:
         return bool(v)
     if f == Family.INT:
@@ -270,7 +275,13 @@ def decode_scalar(v, valid: bool, ty, dictionary):
 def decode_storage_value(v, ty):
     """Storage-logical value (extract_row form: strings decoded,
     numerics physical) -> client value, as the compiled path decodes."""
-    if v is None or isinstance(v, str):
+    if v is None:
+        return None
+    if isinstance(v, str):
+        if ty.family in (Family.ARRAY, Family.JSON):
+            # datum columns extract as their canonical text
+            from ..sql import datum as dtm
+            return dtm.decode_text(v, ty)
         return v
     return decode_scalar(v, True, ty, None)
 

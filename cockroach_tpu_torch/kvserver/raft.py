@@ -483,8 +483,9 @@ class RaftNode:
         if self.state != LEADER or m.term != self.term:
             return
         if m.success:
-            if m.match_index > self.match_index.get(m.frm, 0):
-                self.match_index[m.frm] = m.match_index
+            if m.match_index <= self.match_index.get(m.frm, 0):
+                return
+            self.match_index[m.frm] = m.match_index
             self.next_index[m.frm] = max(self.next_index.get(m.frm, 1),
                                          m.match_index + 1)
             self._maybe_commit()
@@ -548,6 +549,8 @@ class RaftNode:
                                   log_index=prev, log_term=prev_term,
                                   entries=list(entries),
                                   commit=self.commit))
+        if entries:
+            self.next_index[to] = entries[-1].index + 1
 
     def _broadcast_append(self, heartbeat_only: bool = False) -> None:
         for p in self.peers:

@@ -49,6 +49,9 @@ import torch
 KV_PREFIX = "cockroach_tpu"
 DEFAULT_FANOUT = 2
 _KV_TIMEOUT_S = 60.0
+# how long host 0 keeps serving the TCPStore at shutdown for the hosts
+# that have not yet left (one that crashed never does)
+_SHUTDOWN_WAIT_S = 30.0
 
 
 @dataclass(frozen=True)
@@ -174,11 +177,29 @@ def init_distributed(coordinator: str = "", num_processes: int = 1,
         return topo
 
 
+def _leave_store(s, topo: HostTopology) -> None:
+    """The shutdown barrier of a pod on a TCPStore (jax.distributed's
+    shutdown holds one too): every host counts itself out, and host 0,
+    which serves the store, waits up to _SHUTDOWN_WAIT_S for the last
+    one. Without it host 0 could leave a barrier it arrived at last and
+    take the store down while another host has yet to read that
+    barrier's release."""
+    try:
+        n = int(s.add(_full("shutdown/left"), 1))
+        if n == topo.num_processes:
+            s.set(_full("shutdown/all"), "1")
+        if topo.is_gateway:
+            s.wait([_full("shutdown/all")], _timeout(_SHUTDOWN_WAIT_S))
+    except Exception:
+        pass  # a host that crashed never leaves; the store goes anyway
+
+
 def shutdown_distributed() -> None:
     """Tear down the pod runtime: run registered cross-host teardowns
-    (dispatcher pumps, transports), release the store client (host 0's
-    also stops serving it), and clear the topology. Idempotent and safe
-    when never initialized, so Engine.close can always call it."""
+    (dispatcher pumps, transports), count this host out of the store
+    (host 0 waits for every host to, then stops serving it), release
+    the store client, and clear the topology. Idempotent and safe when
+    never initialized, so Engine.close can always call it."""
     global _TOPOLOGY, _STORE, _MEMBERSHIP, _ELASTIC_CLIENT
     global _ELASTIC_SERVER
     with _LOCK:
@@ -201,9 +222,14 @@ def shutdown_distributed() -> None:
                 except Exception:
                     pass
         _ELASTIC_CLIENT = _ELASTIC_SERVER = None
+        store, topo = _STORE, _TOPOLOGY
         _STORE = None
         _TOPOLOGY = None
         _LOCAL_KV.clear()
+    # outside the lock: host 0 may wait there for the other hosts; the
+    # store is released when this frame lets go of it
+    if store is not None and topo is not None:
+        _leave_store(store, topo)
 
 
 def register_teardown(fn: Callable[[], None]) -> None:

@@ -542,9 +542,8 @@ def main(argv=None) -> int:
             _serve(transport)
         multihost.kv_set(f"hostmetrics/{topo.process_id}",
                          json.dumps(_metric_slice(eng)))
-        # give the gateway a beat to read our metrics before the
-        # coordinator (process 0) tears the KV store down
-        time.sleep(0.2)
+    # the coordinator (process 0) serves the KV store until every host
+    # has closed (multihost's shutdown barrier)
     eng.close()
     return 0
 

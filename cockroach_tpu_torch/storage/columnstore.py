@@ -129,6 +129,11 @@ class Chunk:
         st = self._stats
         return st.blooms.get(col) if st is not None else None
 
+    def distinct_sketch(self, col: str):
+        """Seal-time distinct-count sketch of ``col``, or None."""
+        st = self._stats
+        return st.distinct.get(col) if st is not None else None
+
     def mvcc_window(self) -> tuple[int, int]:
         """(ts_min, del_max): nothing in this chunk is visible at
         read_ts when ts_min > read_ts or del_max <= read_ts. ts_min is
@@ -365,6 +370,60 @@ class ColumnStore:
             td.pk_index = None  # rebuilt lazily if DML touches this table
             self._bump(td)
 
+    def seal(self, name: str) -> None:
+        """Seal the table's open chunk. The port has none: every publish
+        and ingest seals its own chunks, so there is nothing buffered,
+        the data is unchanged and the caches stay (the reference's seal
+        of a table with no open rows)."""
+        self.table(name)
+
+    # -- mutation (tombstones + new versions) -------------------------------
+    def delete_where(self, name: str, pred, ts: Timestamp) -> int:
+        """Tombstone the rows visible at ``ts`` that ``pred(chunk)`` (a
+        bool mask) selects: their deletion timestamp becomes ``ts``, so
+        older readers still see them. Returns how many."""
+        td = self.table(name)
+        tsi = ts.to_int()
+        deleted = 0
+        with self._lock:
+            for chunk in td.chunks:
+                mask = chunk.live_mask(tsi) & pred(chunk)
+                chunk.mvcc_del[mask] = tsi
+                deleted += int(mask.sum())
+            td.pk_index = None
+            self._bump(td)
+        return deleted
+
+    def update_where(self, name: str, pred, assign, ts: Timestamp) -> int:
+        """MVCC update: tombstone the rows visible at ``ts`` that
+        ``pred(chunk)`` selects and append their new versions, which
+        ``assign(chunk, mask) -> (data_cols, valid_cols)`` gives, one
+        sealed chunk per source chunk (``append_chunk``). Returns how
+        many rows changed."""
+        td = self.table(name)
+        tsi = ts.to_int()
+        updated = 0
+        with self._lock:
+            new_rows = []
+            for chunk in td.chunks:
+                mask = chunk.live_mask(tsi) & pred(chunk)
+                cnt = int(mask.sum())
+                if cnt == 0:
+                    continue
+                chunk.mvcc_del[mask] = tsi
+                new_rows.append(assign(chunk, mask))
+                updated += cnt
+            for data, vmap in new_rows:
+                n = len(next(iter(data.values())))
+                self.append_chunk(
+                    name, {k: np.asarray(v) for k, v in data.items()},
+                    {k: np.asarray(v, dtype=bool) for k, v in vmap.items()},
+                    np.full(n, tsi, dtype=np.int64),
+                    np.full(n, MAX_TS_INT, dtype=np.int64))
+            td.pk_index = None
+            self._bump(td)
+        return updated
+
     # -- schema changes (ALTER TABLE; the backfill of pkg/sql/backfill) -----
     def add_column(self, name: str, col, default=None,
                    hidden: bool = True) -> None:
@@ -532,15 +591,25 @@ class ColumnStore:
 
     def _batch_row_keys(self, td: TableData, chunk: Chunk,
                         ris: np.ndarray):
-        """Bulk pk-key encode for keys of int-family columns (synthetic
-        rowids, INT/DATE/TIMESTAMP/DECIMAL/BOOL/INTERVAL pks, any
-        count), by storage/keys.py encode_int_keys: the keys equal the
-        row_key loop's byte for byte. None = a string or float pk
-        column: the caller takes the row_key loop."""
+        """Bulk pk-key encode; the keys equal the row_key loop's byte for
+        byte. Keys of int-family columns (synthetic rowids,
+        INT/DATE/TIMESTAMP/DECIMAL/BOOL/INTERVAL pks, any count) go
+        through storage/keys.py encode_int_keys, a numpy pass; a single
+        STRING pk column through the native encoder (native/keyenc.cpp),
+        whose failed build raises. None = another shape (a float pk
+        column, or a string among several): the caller takes the row_key
+        loop."""
         from . import keys as K
         codec = td.codec
         if codec.synthetic_pk:
             cols = [chunk.rowid[ris]]
+        elif len(codec.pk_cols) == 1 and td.schema.column(
+                codec.pk_cols[0]).type.family == Family.STRING:
+            from .. import native
+            cn = codec.pk_cols[0]
+            strs = td.dictionaries[cn].decode_array(chunk.data[cn][ris])
+            return native.batch_encode_str_keys(
+                K.table_prefix(codec.table_id), strs)
         else:
             cols = []
             for cn in codec.pk_cols:

@@ -54,6 +54,10 @@ class Timestamp:
             return Timestamp(self.wall, self.logical - 1)
         return Timestamp(self.wall - 0x1000, 0xFFF)
 
+    @property
+    def is_empty(self) -> bool:
+        return self.wall == 0 and self.logical == 0
+
     def to_int(self) -> int:
         """Pack into int64 for device-side MVCC columns. The clock
         quantizes wall nanos to 4096ns, so the low 12 bits of wall are
@@ -103,3 +107,7 @@ class Clock:
                      remote.next()]
             self._last = max(cands)
             return self._last
+
+    def now_int(self) -> int:
+        """``now()`` packed as ``Timestamp.to_int``."""
+        return self.now().to_int()

@@ -22,7 +22,7 @@ import json
 import uuid
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import Optional
+from typing import Iterator, Optional
 
 from .hlc import Timestamp
 from .keys import EngineKey, next_key
@@ -100,6 +100,10 @@ class WriteTooOldError(Exception):
         e.key = key
         e.actual_ts = actual_ts
         return e
+
+
+class KeyCollisionError(Exception):
+    """A conditional put found another value than it expected."""
 
 
 @dataclass
@@ -287,6 +291,38 @@ class MVCC:
                txn: Optional[TxnMeta] = None) -> None:
         self.put(key, write_ts, None, txn)
 
+    def delete_range(self, start: bytes, end: bytes, write_ts: Timestamp,
+                     txn: Optional[TxnMeta] = None) -> int:
+        """MVCCDeleteRange: point tombstones over the keys visible in
+        [start, end) (the pre-rangekey strategy,
+        batcheval/cmd_delete_range.go); returns how many."""
+        read_ts = txn.read_ts if txn is not None else write_ts
+        vis = self.scan(start, end, read_ts, txn=txn)
+        for mv in vis:
+            self.put(mv.key, write_ts, None, txn)
+        return len(vis)
+
+    def increment(self, key: bytes, write_ts: Timestamp, inc: int,
+                  txn: Optional[TxnMeta] = None) -> int:
+        """Add ``inc`` to the decimal integer at ``key`` (0 when absent)
+        and return the new value."""
+        mv = self.get(key, txn.read_ts if txn else write_ts, txn=txn)
+        new = (int(mv.value) if mv is not None else 0) + inc
+        self.put(key, write_ts, str(new).encode(), txn)
+        return new
+
+    def conditional_put(self, key: bytes, write_ts: Timestamp,
+                        value: Optional[bytes], expected: Optional[bytes],
+                        txn: Optional[TxnMeta] = None) -> None:
+        """CPut (batcheval/cmd_conditional_put.go): write ``value`` only
+        if the visible value is ``expected`` (None: absent)."""
+        mv = self.get(key, txn.read_ts if txn else write_ts, txn=txn)
+        actual = mv.value if mv is not None else None
+        if actual != expected:
+            raise KeyCollisionError(
+                f"unexpected value for {key!r}: {actual!r} != {expected!r}")
+        self.put(key, write_ts, value, txn)
+
     def resolve_intent(self, key: bytes, txn: TxnMeta,
                        status: TxnStatus,
                        commit_ts: Optional[Timestamp] = None) -> bool:
@@ -319,6 +355,20 @@ class MVCC:
                 ops.append((prov_key, None))
             self.engine.write_batch(ops)
         return True
+
+    def resolve_intent_range(self, start: bytes, end: bytes, txn: TxnMeta,
+                             status: TxnStatus,
+                             commit_ts: Optional[Timestamp] = None) -> int:
+        """Resolve every intent of ``txn`` in [start, end); returns how
+        many."""
+        n = 0
+        for ek, raw in list(self.engine.scan(EngineKey.meta(start),
+                                             EngineKey.meta(end))):
+            if ek.is_meta and raw is not None \
+                    and TxnMeta.from_json(raw).id == txn.id \
+                    and self.resolve_intent(ek.key, txn, status, commit_ts):
+                n += 1
+        return n
 
     def has_writes_between(self, start: bytes, end: bytes,
                            t0: Timestamp, t1: Timestamp,
@@ -450,3 +500,12 @@ class MVCC:
                 out.append(MVCCValue(ek.key, ek.ts, _dec_value(raw)))
         out.sort(key=lambda mv: (mv.ts.wall, mv.ts.logical, mv.key))
         return out
+
+    def iter_versions(self, key: bytes) -> Iterator[MVCCValue]:
+        """Every version of ``key``, newest first, tombstones and the
+        provisional one included."""
+        for ek, raw in self.engine.scan(EngineKey(key, 0),
+                                        EngineKey(next_key(key), -1),
+                                        include_tombstones=True):
+            if ek.key == key and not ek.is_meta and raw is not None:
+                yield MVCCValue(key, ek.ts, _dec_value(raw))

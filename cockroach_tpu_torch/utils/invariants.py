@@ -4,9 +4,8 @@ buildutil.CrdbTestBuild-gated assertion infrastructure, distilled).
 `expensive_enabled()` gates O(n) structural checks — on under pytest
 (tests/conftest.py sets COCKROACH_TPU_INVARIANTS=1) and off in
 production. Cheap O(1) assertions stay unconditional at their call
-sites. `validate_table` is the deep checker tests call directly at
-interesting points (the replicated plane's `validate_replica` and
-`validate_cluster` wait for that plane)."""
+sites. `validate_table` / `validate_replica` / `validate_cluster` are
+the deep checkers tests call directly at interesting points."""
 
 from __future__ import annotations
 
@@ -54,3 +53,24 @@ def validate_table(store, name: str) -> None:
         if col.type.uses_dictionary:
             assert col.name in td.dictionaries, \
                 f"{name}: dict-encoded column {col.name} has no dictionary"
+
+
+def validate_replica(rep) -> None:
+    """Raft and replica invariants: applied never exceeds committed; the
+    commit index never exceeds the last log index; the lease epoch is
+    non-negative."""
+    r = rep.raft
+    assert rep.applied_index <= r.commit, \
+        f"applied {rep.applied_index} > commit {r.commit}"
+    assert r.commit <= r.log.last_index(), \
+        f"commit {r.commit} > last log index {r.log.last_index()}"
+    assert rep.lease.epoch >= 0
+
+
+def validate_cluster(cluster) -> None:
+    """``validate_replica`` over every replica of every live node."""
+    for nid, store in cluster.stores.items():
+        if nid in cluster.down:
+            continue
+        for rep in store.replicas.values():
+            validate_replica(rep)

@@ -52,3 +52,13 @@ def metamorphic_pow2(name: str, default: int, lo_bits: int,
         if name not in chosen:
             chosen[name] = 1 << _rng.randint(lo_bits, hi_bits)
         return chosen[name]
+
+
+def metamorphic_bool(name: str, default: bool) -> bool:
+    """A coin flip; ``default`` in production."""
+    if _rng is None:
+        return default
+    with _CHOSEN_LOCK:
+        if name not in chosen:
+            chosen[name] = _rng.random() < 0.5
+        return chosen[name]

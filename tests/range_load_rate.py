@@ -17,13 +17,16 @@ fresh one:
 - ``split_first``: lineitem's span split in 4 before SPLIT_ROWS rows go
   in.
 
-Raft sends each leader's append stream again on every success response
-that leaves entries unsent, stale ones included, so a stale heartbeat
-response that arrives after the next proposal starts a stream that
-lives as long as writes follow each other in that range; each write
-then adds one. A statement's cost grows with the square of its writes
-to one range once that happens (see ``raft_messages``). Both packages
-share it: the port makes the reference's draws.
+The reference's raft sends each leader's append stream again on every
+success response that leaves entries unsent, stale ones included, so a
+stale heartbeat response that arrives after the next proposal starts a
+stream that lives as long as writes follow each other in that range;
+each write then adds one. A statement's cost grows with the square of
+its writes to one range once that happens (see ``raft_messages``). The
+port ignores a success that does not advance the follower's match and
+moves the follower's next index past what it sent (etcd's rules), so
+its messages grow linearly with the writes
+(tests/test_torch_raft_appends.py).
 
 Run from the root of the repository:
 

@@ -8,7 +8,11 @@
   plain version only for CPU tensors.
 - The OLTP lane's native row mirror (native/oltp.cpp) builds into
   ``_build/``, never beside its source, and a failed build raises: the
-  lane is never turned off in silence.
+  lane is never turned off in silence. The key encoder
+  (native/keyenc.cpp) is the port's own source too; native/, storage/,
+  utils/invariants.py, utils/metamorphic.py and the logic corpus's
+  runner that chip_smoke.py loads (tests/test_torch_logic.py) are in
+  the scan.
 """
 
 import ast
@@ -365,3 +369,41 @@ def test_small_wrapper_uses_plain_version_only_for_cpu_tensors():
     meta = torch.zeros(n, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tg.dense_group_aggregate(meta, sel, (col,), (sel,), 1, (tg.COUNT,))
+
+
+def test_port_scan_covers_native_storage_and_checks():
+    """The import scan reaches every module of native/ and storage/ and
+    utils/invariants.py, utils/metamorphic.py; none of them imports jax
+    or the JAX package, directly or through a module of the port they
+    load. Both native sources (the OLTP mirror and the key encoder) are
+    the port's own, and so is the logic corpus's runner that chip_smoke
+    loads (tests/test_torch_logic.py)."""
+    import importlib
+    import sys
+    from cockroach_tpu_torch import native
+    pkg = ROOT / "cockroach_tpu_torch"
+    assert {p.name for p in (pkg / "native").iterdir()
+            if p.suffix in (".py", ".cpp")} == {"__init__.py", "oltp.cpp",
+                                                 "keyenc.cpp"}
+    assert native.KEYENC_SRC == pkg / "native" / "keyenc.cpp"
+    paths = sorted((pkg / "storage").glob("*.py")) + [
+        pkg / "native" / "__init__.py", pkg / "utils" / "invariants.py",
+        pkg / "utils" / "metamorphic.py"]
+    assert {p.name for p in paths} >= {"mvcc.py", "columnstore.py",
+                                        "hlc.py", "keys.py", "lsm.py"}
+    assert set(paths) <= set(_port_files())
+    for path in paths:
+        assert not set(_imported_roots(path)) & set(FORBIDDEN), path
+        rel = path.relative_to(ROOT).with_suffix("")
+        mod = ".".join(rel.parts[:-1] if rel.name == "__init__"
+                       else rel.parts)
+        assert Path(importlib.import_module(mod).__file__) == path
+    runner = ROOT / "tests" / "test_torch_logic.py"
+    assert not set(_imported_roots(runner)) & set(FORBIDDEN)
+    loaded = [name for name, m in list(sys.modules.items())
+              if name.startswith("cockroach_tpu_torch.")
+              and getattr(m, "__file__", None)]
+    for name in loaded:
+        path = Path(sys.modules[name].__file__)
+        if path.suffix == ".py":
+            assert not set(_imported_roots(path)) & set(FORBIDDEN), name

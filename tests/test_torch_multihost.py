@@ -304,6 +304,56 @@ def test_tcpstore_control_plane():
         assert o["timeout"] == "KeyError"
 
 
+_LATE_CHILD = r"""
+import sys, time
+from cockroach_tpu_torch.parallel import multihost as mh
+pid, port = int(sys.argv[1]), int(sys.argv[2])
+mh.init_distributed(f"127.0.0.1:{port}", 2, pid)
+
+
+class _Late:
+    # host 1 reads the last barrier's release only after host 0 passed it
+    def __init__(self, store):
+        self.store = store
+
+    def __getattr__(self, name):
+        return getattr(self.store, name)
+
+    def wait(self, keys, *args):
+        if any("barrier/bye/release" in k for k in keys):
+            time.sleep(2.0)
+        return self.store.wait(keys, *args)
+
+
+if pid == 1:
+    mh._STORE = _Late(mh._STORE)
+mh.barrier("bye")
+mh.shutdown_distributed()
+print("left", flush=True)
+"""
+
+
+def test_host0_serves_the_store_until_every_host_left():
+    """Host 0 arrives last at the last barrier and shuts down at once:
+    the store it serves must outlive host 1's read of that barrier's
+    release (the shutdown barrier), or host 1 fails on a closed
+    connection."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _LATE_CHILD, str(pid), str(port)],
+        env=_child_env(), cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for pid in (1, 0)]
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=120)
+            assert p.returncode == 0, err[-3000:]
+            assert out.strip().splitlines()[-1] == "left"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+
+
 # ---------------------------------------------------------------------------
 # real multi-process pods
 # ---------------------------------------------------------------------------

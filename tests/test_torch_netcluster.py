@@ -245,3 +245,37 @@ def test_phase23_retries_only_a_moving_lease(error, transient, retried):
             chip_smoke._nc_retry(fn, "q1", transient=kinds[transient],
                                  timeout=5.0)
     assert len(calls) == (2 if retried else 1)
+
+
+@pytest.mark.parametrize("error, retried", [
+    ("r1: no reachable leaseholder for read", True),
+    ("lease", True),
+    ("CUDA error: an illegal memory access", False),
+])
+def test_phase23_retries_an_in_process_moving_lease(error, retried):
+    """Node 4's Q1 runs in this process: the range plane's own
+    RuntimeError (or NotLeaseholderError) of a moving lease is asked
+    again, any other RuntimeError ends the run on the first attempt."""
+    import chip_smoke
+    from cockroach_tpu_torch.kvserver.cluster import NotLeaseholderError
+    calls = []
+
+    def fn():
+        calls.append(1)
+        if len(calls) > 1:
+            return "rows"
+        if error == "lease":
+            raise NotLeaseholderError(1, 2)
+        raise RuntimeError(error)
+
+    if retried:
+        res, seen = chip_smoke._nc_retry(
+            fn, "q1", transient=chip_smoke.NC_TRANSIENT_READ, timeout=5.0)
+        assert res == "rows" and sum(seen.values()) == 1
+    else:
+        with pytest.raises(RuntimeError, match="illegal memory"):
+            chip_smoke._nc_retry(fn, "q1",
+                                 transient=chip_smoke.NC_TRANSIENT_READ,
+                                 timeout=5.0)
+    assert len(calls) == (2 if retried else 1)
+
